@@ -1,0 +1,246 @@
+"""Llama-3 model family on the paged serving path, in PyTorch.
+
+The counterpart of ``swarmdb_tpu/models/llama.py`` for the functions the
+paged single-lane engine runs: parameter init, the paged pool, the packed
+ragged prefill forward, and the two-segment chunked decode forward with its
+once-per-chunk page merge.
+
+Parameters are a plain dict with the JAX package's keys and layouts:
+per-layer weights stacked ``[L, ...]``, projections stored ``[in, out]``
+(``x @ w``). The JAX package's ``lax.scan`` over layers is a Python loop
+over ``L`` that indexes the stacked tensors. The pool is read through its
+per-layer view ``pool[l]`` (``[P, ps, Hkv, D]``, contiguous), so the page
+tables need no per-layer offset.
+
+Matmuls run in the parameter dtype; normalisation, RoPE and attention
+softmax run in fp32; logits are fp32 (bf16 products summed in fp32, as the
+JAX package's ``preferred_element_type=float32``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..ops.layers import (
+    paged_attention_dispatch_chunked,
+    qkv_proj,
+    ragged_prefill_dispatch,
+    rms_norm,
+    rope_cos_sin,
+    swiglu,
+)
+from ..ops.paged_kv import init_paged_kv_cache, paged_write_chunk
+from ..utils.device import DeviceLike, resolve_device
+from .configs import ModelConfig
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------- init
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: DeviceLike = None,
+                dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Random init from ``seed`` with a ``torch.Generator`` on the target
+    device: normal / sqrt(fan_in), norms at one. Same shapes and keys as
+    the JAX package (its values differ: the two frameworks' generators
+    differ; tests carry JAX weights over with ``utils.convert``). Stacked
+    weights are filled one layer at a time, so the fp32 draw never needs
+    more than one layer of scratch."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name!r} is a MoE config; Mixtral is not ported yet "
+            "(ROADMAP.md, queue 1)")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    L, D, F = cfg.n_layers, cfg.dim, cfg.ffn_dim
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def dense(shape, fan_in, stacked=True):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        scale = 1.0 / (fan_in ** 0.5)
+        for part in (out if stacked else [out]):
+            draw = torch.randn(part.shape, generator=gen, device=dev,
+                               dtype=torch.float32)
+            part.copy_(draw.mul_(scale))
+        return out
+
+    params: Params = {
+        "embed": dense((cfg.vocab_size, D), D, stacked=False),
+        "layers": {
+            "attn_norm": torch.ones((L, D), dtype=dtype, device=dev),
+            "wq": dense((L, D, Hq * hd), D),
+            "wk": dense((L, D, Hkv * hd), D),
+            "wv": dense((L, D, Hkv * hd), D),
+            "wo": dense((L, Hq * hd, D), Hq * hd),
+            "mlp_norm": torch.ones((L, D), dtype=dtype, device=dev),
+            "w_gate": dense((L, D, F), D),
+            "w_up": dense((L, D, F), D),
+            "w_down": dense((L, F, D), F),
+        },
+        "final_norm": torch.ones((D,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((D, cfg.vocab_size), D, stacked=False)
+    return params
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     num_pages: int, page_size: int,
+                     dtype: Optional[torch.dtype] = None,
+                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Block-paged KV pool {"k", "v", "page_table"} (ops/paged_kv.py);
+    ``dtype=None`` resolves SWARMDB_KV_DTYPE (bf16 default)."""
+    return init_paged_kv_cache(
+        cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
+        batch, max_seq, dtype, resolve_device(device))
+
+
+def init_chunk_kv(cfg: ModelConfig, batch: int, chunk: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: DeviceLike = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-chunk K/V buffer of the two-segment decode: zeros
+    [L, B, Kc, Hkv, D] each, bf16 by default as in the JAX package (an f32
+    pool then sees this chunk's K/V rounded to bf16 until the merge)."""
+    shape = (cfg.n_layers, batch, chunk, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
+
+
+# ------------------------------------------------------------------- forward
+
+
+_MM_OUT_DTYPE: Dict[torch.device, bool] = {}
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of ``x @ head``. bf16 operands are multiplied exactly
+    and summed in fp32: ``torch.mm(..., out_dtype=float32)`` where the
+    installed PyTorch has it for the device, else an fp32 product of the
+    widened operands (the same sums, one widened copy of the head)."""
+    if x.dtype == torch.float32 and head.dtype == torch.float32:
+        return torch.matmul(x, head)
+    if _MM_OUT_DTYPE.get(x.device, True):
+        try:
+            out = torch.mm(x, head, out_dtype=torch.float32)
+            _MM_OUT_DTYPE[x.device] = True
+            return out
+        except (TypeError, RuntimeError, NotImplementedError):
+            _MM_OUT_DTYPE[x.device] = False
+    return torch.matmul(x.float(), head.float())
+
+
+def _head(params: Params) -> torch.Tensor:
+    head = params.get("lm_head")
+    return params["embed"].T if head is None else head
+
+
+def forward_ragged_prefill(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,      # [W] packed token stream (rows concatenated)
+    tok_row: torch.Tensor,     # [W] owning wave row (>= R = padding)
+    tok_pos: torch.Tensor,     # [W] absolute position within the row
+    row_tables: torch.Tensor,  # [R, maxp] int32 page ids per row
+    starts: torch.Tensor,      # [R] int32 row offset in the stream
+    lens: torch.Tensor,        # [R] int32 row token count (0 = dead row)
+    prefix_lens: torch.Tensor,  # [R] int32 tokens already in the row's pages
+    pool_k: torch.Tensor,      # [L, P, ps, Hkv, D] main page pool
+    pool_v: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Packed ragged prefill forward: one token stream per admission wave,
+    each token attending its own row's prefix pages in place plus the
+    row's suffix causally (``layers.ragged_prefill_dispatch``). Returns
+    (fp32 logits [R, V] at each row's last live token, sfx_k, sfx_v
+    [L, W, Hkv, D] in the pool dtype, stream order, for
+    ``paged_kv.paged_write_ragged``). The pool is only read."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    W = tokens.shape[0]
+    L = pool_k.shape[0]
+    x = params["embed"][tokens.long()][None]             # [1, W, dim]
+    cos, sin = rope_cos_sin(tok_pos[None], cfg.head_dim, cfg.rope_theta)
+    lp = params["layers"]
+    sfx_k, sfx_v = [], []
+    for l in range(L):
+        h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
+        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cos, sin)
+        # suffix K/V in the pool dtype BEFORE attention: what this wave
+        # attends equals what later waves and decodes read back
+        ks = k[0].to(pool_k.dtype).contiguous()
+        vs = v[0].to(pool_v.dtype).contiguous()
+        attn = ragged_prefill_dispatch(
+            q[0].to(pool_k.dtype).contiguous(), ks, vs, pool_k[l],
+            pool_v[l], row_tables, starts, lens, prefix_lens,
+            window=cfg.sliding_window).to(x.dtype)
+        x = x + torch.matmul(attn.reshape(W, -1), lp["wo"][l])[None]
+        h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
+        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+        sfx_k.append(ks)
+        sfx_v.append(vs)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last_w = starts.long() + torch.clamp(lens.long() - 1, min=0)  # dead -> 0
+    logits = _logits(x[0, last_w], _head(params))
+    return logits, torch.stack(sfx_k), torch.stack(sfx_v)
+
+
+def forward_paged_chunked(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,      # [B, 1]
+    positions: torch.Tensor,   # [B, 1]
+    cache: Dict[str, torch.Tensor],  # {"k","v","page_table"}: FROZEN
+    chunk_kv: Tuple[torch.Tensor, torch.Tensor],  # [L, B, Kc, Hkv, D]
+    step: int,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One decode step of the two-segment chunked decode: the pool stays
+    frozen for the chunk's K steps, this step's K/V lands in the chunk
+    buffer at index ``step`` (written in place), and attention spans the
+    live pages + the chunk buffer under one softmax
+    (``layers.paged_attention_dispatch_chunked``, in the pool dtype).
+    Returns (fp32 logits [B, 1, V], chunk_kv)."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    x = params["embed"][tokens.long()]                   # [B, 1, dim]
+    B = x.shape[0]
+    table = cache["page_table"]
+    hk, hv = chunk_kv
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    starts = (positions[:, 0] - step).to(torch.int32)
+    lp = params["layers"]
+    for l in range(cache["k"].shape[0]):
+        h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
+        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cos, sin)
+        hk[l][:, step] = k[:, 0].to(hk.dtype)
+        hv[l][:, step] = v[:, 0].to(hv.dtype)
+        kvt = cache["k"].dtype
+        attn = paged_attention_dispatch_chunked(
+            q.to(kvt).contiguous(), cache["k"][l], cache["v"][l], table,
+            hk[l].to(kvt), hv[l].to(kvt), starts, step,
+            window=cfg.sliding_window).to(x.dtype)
+        x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
+        h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
+        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(x[:, 0], _head(params))[:, None]
+    return logits, (hk, hv)
+
+
+def merge_paged_chunk(cache: Dict[str, torch.Tensor],
+                      chunk_kv: Tuple[torch.Tensor, torch.Tensor],
+                      start_positions: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+    """Fold a finished chunk's K/V into the page pool, in place: one bulk
+    write per chunk (``paged_kv.paged_write_chunk``)."""
+    hk, hv = chunk_kv
+    paged_write_chunk(cache["k"], cache["v"], hk, hv, start_positions,
+                      cache["page_table"])
+    return cache

@@ -1,0 +1,244 @@
+"""Transformer building blocks in PyTorch.
+
+The counterpart of ``swarmdb_tpu/ops/layers.py`` for the paged serving
+path: RMSNorm, rotary embeddings (split-half convention, math in fp32),
+the Q/K/V projection, SwiGLU, the two-segment decode attention over a
+dense view (the plain decode version), the dense ragged-prefill
+reference (the plain prefill version), and the two dispatchers the Llama
+forwards call.
+
+Precision follows the JAX package: matmuls stay in the parameter dtype,
+normalisation statistics and softmax run in fp32, attention scores and
+probabilities are fp32 and masked with -1e30.
+
+The dispatchers route to ``ops.attention_cuda``: on CUDA tensors its
+wrappers launch the hand-written kernels, on CPU tensors they run the
+plain versions below. The JAX package's TPU pad-to-8 of tiny ragged waves
+is gone: the CUDA kernel tiles queries within each row, so no sublane
+quantum applies.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_NEG = -1e30
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """RMSNorm with fp32 statistics, output in x.dtype."""
+    x32 = x.float()
+    inv = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (x32 * inv).to(x.dtype) * weight
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    """Inverse frequencies [head_dim/2], fp32."""
+    exponent = (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim)
+    return 1.0 / (theta ** exponent)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each [B, T, 1, D/2] fp32, for positions [B, T].
+    Computed once per forward and reused by every layer."""
+    inv_freq = rope_frequencies(head_dim, theta, positions.device)
+    angles = positions.float()[..., None] * inv_freq      # [B, T, D/2]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """Rotary embedding on x [B, T, H, D]: the pairs (x[..., :D/2],
+    x[..., D/2:]) rotate (split-half, as HF Llama)."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def qkv_proj(h: torch.Tensor, lp: Dict[str, torch.Tensor], l: int,
+             n_heads: int, n_kv_heads: int, head_dim: int,
+             cos: torch.Tensor, sin: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Q/K/V projections of layer ``l`` (stacked weights ``lp[...][l]``),
+    head split and RoPE. h [B, T, dim] -> q [B, T, Hq, D], k/v [B, T, Hkv,
+    D]."""
+    B, T = h.shape[0], h.shape[1]
+    q = torch.matmul(h, lp["wq"][l]).reshape(B, T, n_heads, head_dim)
+    k = torch.matmul(h, lp["wk"][l]).reshape(B, T, n_kv_heads, head_dim)
+    v = torch.matmul(h, lp["wv"][l]).reshape(B, T, n_kv_heads, head_dim)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: silu(x @ gate) * (x @ up) @ down."""
+    g = F.silu(torch.matmul(x, w_gate))
+    u = torch.matmul(x, w_up)
+    return torch.matmul(g * u, w_down)
+
+
+def gqa_attention_chunked(
+    q: torch.Tensor,           # [B, 1, Hq, D] decode query
+    cache_k: torch.Tensor,     # [B, S, Hkv, D] FROZEN prefix (dense view)
+    cache_v: torch.Tensor,
+    chunk_k: torch.Tensor,     # [B, Kc, Hkv, D] this chunk's K so far
+    chunk_v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, 1] absolute position of the query
+    step: int,                 # index of this step in the chunk
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Two-segment decode attention: frozen cache + in-chunk buffer under
+    one fp32 softmax. The frozen segment is valid strictly below the
+    chunk's start (``q_position - step``), the chunk segment up to and
+    including ``step``. Returns [B, 1, Hq, D] in q.dtype."""
+    B, S = cache_k.shape[0], cache_k.shape[1]
+    Kc = chunk_k.shape[1]
+    Hq, Hkv = q.shape[2], cache_k.shape[2]
+    G = Hq // Hkv
+    D = q.shape[-1]
+    dev = q.device
+
+    qg = q.reshape(B, 1, Hkv, G, D).float()
+    s_f = torch.einsum("btkgd,bskd->bkgts", qg, cache_k.float())
+    s_c = torch.einsum("btkgd,bskd->bkgts", qg, chunk_k.float())
+    scale = 1.0 / (D ** 0.5)
+
+    qpos = q_positions.long()
+    start = qpos - step                                  # [B, 1]
+    kv_pos = torch.arange(S, device=dev)[None, None, :]
+    valid_f = kv_pos < start[:, :, None]                 # [B, 1, S]
+    if window is not None:
+        valid_f = valid_f & (kv_pos > (qpos[:, :, None] - window))
+    j = torch.arange(Kc, device=dev)[None, None, :]
+    valid_c = (j <= step).expand(B, 1, Kc)
+    if window is not None:
+        valid_c = valid_c & ((start[:, :, None] + j)
+                             > (qpos[:, :, None] - window))
+
+    s_f = torch.where(valid_f[:, None, None], s_f * scale, _NEG)
+    s_c = torch.where(valid_c[:, None, None], s_c * scale, _NEG)
+    p = torch.softmax(torch.cat([s_f, s_c], dim=-1), dim=-1)
+    p_f = p[..., :S].to(cache_v.dtype).float()
+    p_c = p[..., S:].to(chunk_v.dtype).float()
+    out = torch.einsum("bkgts,bskd->btkgd", p_f, cache_v.float())
+    out = out + torch.einsum("bkgts,bskd->btkgd", p_c, chunk_v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def ragged_prefill_attention_reference(
+    q: torch.Tensor,           # [W, Hq, D] packed query stream
+    sfx_k: torch.Tensor,       # [W, Hkv, D] packed suffix K
+    sfx_v: torch.Tensor,
+    k_pages: torch.Tensor,     # [P, ps, Hkv, D] page pool (single layer)
+    v_pages: torch.Tensor,
+    row_tables: torch.Tensor,  # [R, maxp] int32
+    starts: torch.Tensor,      # [R] stream offset per row
+    lens: torch.Tensor,        # [R] suffix length per row (0 = dead)
+    prefix_lens: torch.Tensor,  # [R] tokens already in the pages
+    tok_row: torch.Tensor,     # [W] owning row per token (>= R = pad)
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Dense reference for ragged paged prefill (port of the JAX
+    package's ``ragged_prefill_attention_reference``). Every packed token
+    attends its own row's prefix pages (gathered dense, positions
+    ``0..prefix_lens[r]``) plus the row's suffix tokens causally; one fp32
+    softmax spans both segments. Padding tokens (row id >= R) produce
+    garbage the caller discards. Returns [W, Hq, D]."""
+    W, Hq, D = q.shape
+    Hkv = sfx_k.shape[1]
+    G = Hq // Hkv
+    R, maxp = row_tables.shape
+    ps = k_pages.shape[1]
+    Pt = maxp * ps
+    dev = q.device
+
+    tok_row = tok_row.long()
+    starts = starts.long()
+    prefix_lens = prefix_lens.long()
+    row = torch.clamp(tok_row, 0, R - 1)
+    tables = row_tables.long()
+    kp = k_pages[tables].reshape(R, Pt, Hkv, D)
+    vp = v_pages[tables].reshape(R, Pt, Hkv, D)
+    kp_t = kp[row].float()                               # [W, Pt, Hkv, D]
+    vp_t = vp[row]
+
+    qg = q.reshape(W, Hkv, G, D).float()
+    s_p = torch.einsum("wkgd,wpkd->wkgp", qg, kp_t)
+    s_s = torch.einsum("wkgd,xkd->wkgx", qg, sfx_k.float())
+    scale = 1.0 / (D ** 0.5)
+
+    x = torch.arange(W, device=dev)
+    q_abs = prefix_lens[row] + x - starts[row]           # [W]
+    p_pos = torch.arange(Pt, device=dev)
+    valid_p = p_pos[None, :] < prefix_lens[row][:, None]  # [W, Pt]
+    if window is not None:
+        valid_p = valid_p & (p_pos[None, :] > (q_abs[:, None] - window))
+    same = tok_row[:, None] == tok_row[None, :]          # [W, W]
+    valid_s = same & (x[None, :] <= x[:, None])          # packed causal
+    if window is not None:
+        valid_s = valid_s & (x[None, :] > (x[:, None] - window))
+
+    s_p = torch.where(valid_p[:, None, None, :], s_p * scale, _NEG)
+    s_s = torch.where(valid_s[:, None, None, :], s_s * scale, _NEG)
+    p = torch.softmax(torch.cat([s_p, s_s], dim=-1), dim=-1)
+    out = torch.einsum("wkgp,wpkd->wkgd",
+                       p[..., :Pt].to(vp_t.dtype).float(), vp_t.float())
+    out = out + torch.einsum("wkgx,xkd->wkgd",
+                             p[..., Pt:].to(sfx_v.dtype).float(),
+                             sfx_v.float())
+    return out.reshape(W, Hq, D).to(q.dtype)
+
+
+def paged_attention_dispatch_chunked(
+    q: torch.Tensor,           # [B, 1, Hq, D] decode query
+    k_pages: torch.Tensor,     # [P, ps, Hkv, D] single-layer pool (FROZEN)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, maxp] int32
+    chunk_k: torch.Tensor,     # [B, Kc, Hkv, D]
+    chunk_v: torch.Tensor,
+    starts: torch.Tensor,      # [B] int32 chunk start (= position - step)
+    step: int,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Two-segment decode attention over the paged pool + chunk buffer:
+    the paged-decode kernel on CUDA, its plain version (page gather +
+    ``gqa_attention_chunked``) on CPU. Returns [B, 1, Hq, D]."""
+    from .attention_cuda import paged_decode_gqa_attention_chunked
+
+    out = paged_decode_gqa_attention_chunked(
+        q[:, 0], k_pages, v_pages, page_table, chunk_k, chunk_v, starts,
+        step, window=window)
+    return out[:, None]
+
+
+def ragged_prefill_dispatch(
+    q: torch.Tensor,           # [W, Hq, D] packed query stream
+    sfx_k: torch.Tensor,       # [W, Hkv, D]
+    sfx_v: torch.Tensor,
+    k_pages: torch.Tensor,     # [P, ps, Hkv, D]
+    v_pages: torch.Tensor,
+    row_tables: torch.Tensor,  # [R, maxp] int32
+    starts: torch.Tensor,      # [R] int32
+    lens: torch.Tensor,
+    prefix_lens: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Packed ragged prefill attention over the paged pool: the ragged
+    prefill kernel on CUDA (prefix pages read in place), its plain version
+    on CPU. Returns [W, Hq, D]; positions no row owns are zero."""
+    from .attention_cuda import ragged_paged_prefill_attention
+
+    return ragged_paged_prefill_attention(
+        q, sfx_k, sfx_v, k_pages, v_pages, row_tables, starts, lens,
+        prefix_lens, window=window)
