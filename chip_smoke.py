@@ -9,34 +9,50 @@ It drives the port on the card in phases, prints one JSON line per phase
 and exits non-zero at the first failure:
 
 1. device   -- the card's name and power limit (``nvidia-smi``).
-2. build    -- compiles both CUDA kernels from ``swarmdb_tpu_torch/csrc``
+2. build    -- compiles the six CUDA kernels from ``swarmdb_tpu_torch/csrc``
                (one ``nvcc`` per source, started together).
 3. kernels  -- each kernel at the serving path's shapes (Llama-3-8B heads:
-               Hq 32, Hkv 8, D 128, page 16) against its plain PyTorch
-               version, in bf16 (tolerance 2e-2 absolute) and f32 (1e-4),
-               with a windowed case; then timed with CUDA events (median of
-               30 after warm-up): the kernel, its plain version, and one
-               PyTorch ``scaled_dot_product_attention`` call over the
-               gathered dense view (``library_ms``, gather excluded).
+               Hq 32, Hkv 8, D 128, page 16, 8 slots of 64 pages) against
+               its plain PyTorch version on the same inputs (the same int8
+               payload and scales for the int8 kernels): bf16 query / chunk
+               / suffix within 2e-2 absolute, f32 within 1e-4, an f32
+               query over bf16 pages within 2e-2, each with a windowed
+               case; then timed with CUDA events (median of 30 after
+               warm-up): the kernel, its plain version, and one PyTorch
+               ``scaled_dot_product_attention`` call over the gathered
+               (for int8: already dequantized) dense view (``library_ms``,
+               gather and dequantization excluded).
 4. parity   -- tiny-debug in f32 with the same weights, served on the card
-               (kernels) and on the CPU (plain versions): greedy tokens
-               equal, prefill and decode logits within 1e-4.
-5. serve    -- Llama-3-8B at full width (32 layers, bf16, random weights
-               from a seed) through SwarmDB + LocalBroker +
-               ServingService.from_model_name(..., paged=True): 4 users x 2
-               turns, 32 new tokens each, one request sampled (temperature
-               0.8, top-p 0.9, seed 7). Checks every reply, prefix reuse
-               on turn 2, and that the kernels' launch counts advanced by
-               32 per prefill wave and 32 per decode step.
+               (kernels) and on the CPU (plain versions): chunked and
+               single-step decode over an f32 pool (logits within 1e-4), a
+               bf16 pool single-step and an int8 pool both ways (logits
+               within the bounds in ``PARITY_CASES``); greedy tokens equal
+               in every case.
+5. serve    -- Llama-3-8B at full width (32 layers, bf16 weights from seed
+               0, built once) through SwarmDB + LocalBroker +
+               ServingService, four times: bf16 pool chunked (4 users x 2
+               turns), int8 pool chunked (4 x 2: turn 2 reads int8 prefix
+               pages), bf16 pool single-step and int8 pool single-step
+               (4 x 1); 32 new tokens each, one request sampled
+               (temperature 0.8, top-p 0.9, seed 7). Checks every reply,
+               prefix reuse on turn 2, and that the path's kernels (and no
+               other) advanced by 32 launches per prefill wave and per
+               decode step; prints TTFT, decode tokens/s, KV bytes per
+               token and peak device memory per serve. Each serve then
+               runs one more turn under ``torch.profiler`` (device time by
+               kernel, the device's idle share).
 
-Then one ``{"kernels": [...]}`` line (launches are the serve phase's) and,
-last, ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
-checkout, it exits non-zero and prints no result.
+Then one ``{"kernels": [...]}`` line (launches summed over the four serves,
+each counted from zero just before it and read just after) and, last,
+``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -117,31 +133,71 @@ def bound(nbytes: float, flops: float) -> tuple:
 
 
 HQ, HKV, D, PS, MAXP, NPAGES = 32, 8, 128, 16, 64, 769
+STARTS = [37, 300, 1000, 5, 513, 128, 777, 250]   # the decode slots
 
 
-def decode_case(dtype, dev, window=None):
-    """The decode step's inputs at the serving shape: 8 slots with mixed
-    chunk starts, pages drawn from the 769-page pool, chunk of 8 at step
-    5."""
+def page_args(pdt, dev, g):
+    """K/V pages of the 769-page pool as the wrappers take them: plain
+    pages in ``pdt``, or for ``torch.int8`` the port's quantization of
+    the same draws (``k_pages``/``k_scale``/``v_pages``/``v_scale``)."""
+    import torch
+
+    from swarmdb_tpu_torch.ops.paged_kv import _quantize_pages
+
+    kp = torch.randn(NPAGES, PS, HKV, D, generator=g)
+    vp = torch.randn(NPAGES, PS, HKV, D, generator=g)
+    if pdt == torch.int8:
+        (kq, ks), (vq, vs) = _quantize_pages(kp), _quantize_pages(vp)
+        return dict(k_pages=kq.to(dev), k_scale=ks.to(dev),
+                    v_pages=vq.to(dev), v_scale=vs.to(dev))
+    return dict(k_pages=kp.to(pdt).to(dev), v_pages=vp.to(pdt).to(dev))
+
+
+def side_dtype(qdt, pdt):
+    """The chunk buffer / packed suffix dtype of a case: the pages' for
+    plain pages, the query's for int8 pages (their logical dtype is bf16;
+    an f32 case keeps the whole check in f32)."""
+    import torch
+
+    return qdt if pdt == torch.int8 else pdt
+
+
+def decode_case(qdt, pdt, dev, window=None):
+    """The chunked decode step's inputs at the serving shape: 8 slots with
+    mixed chunk starts, pages drawn from the 769-page pool, chunk of 8 at
+    step 5."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(1)
     B, Kc, step = 8, 8, 5
-    starts = torch.tensor([37, 300, 1000, 5, 513, 128, 777, 250],
-                          dtype=torch.int32)
     perm = torch.randperm(NPAGES - 1, generator=g)[:B * MAXP] + 1
     table = perm.reshape(B, MAXP).to(torch.int32)
-    r = lambda *s: torch.randn(*s, generator=g).to(dtype)
-    q = r(B, HQ, D)
-    kp, vp = r(NPAGES, PS, HKV, D), r(NPAGES, PS, HKV, D)
-    ck, cv = r(B, Kc, HKV, D), r(B, Kc, HKV, D)
-    to = lambda t: t.to(dev)
-    return dict(q=to(q), k_pages=to(kp), v_pages=to(vp),
-                page_table=to(table), chunk_k=to(ck), chunk_v=to(cv),
-                starts=to(starts), step=step, window=window)
+    cdt = side_dtype(qdt, pdt)
+    r = lambda dt, *s: torch.randn(*s, generator=g).to(dt).to(dev)
+    return dict(q=r(qdt, B, HQ, D), **page_args(pdt, dev, g),
+                page_table=table.to(dev), chunk_k=r(cdt, B, Kc, HKV, D),
+                chunk_v=r(cdt, B, Kc, HKV, D),
+                starts=torch.tensor(STARTS, dtype=torch.int32).to(dev),
+                step=step, window=window)
 
 
-def prefill_case(dtype, dev, window=None):
+def single_case(qdt, pdt, dev, window=None):
+    """The single-step decode's inputs: the same slots, each attending its
+    pages up to its position (lengths = start + 6, as after step 5)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    B = 8
+    perm = torch.randperm(NPAGES - 1, generator=g)[:B * MAXP] + 1
+    table = perm.reshape(B, MAXP).to(torch.int32)
+    q = torch.randn(B, HQ, D, generator=g).to(qdt).to(dev)
+    return dict(q=q, **page_args(pdt, dev, g), page_table=table.to(dev),
+                lengths=torch.tensor([s + 6 for s in STARTS],
+                                     dtype=torch.int32).to(dev),
+                window=window)
+
+
+def prefill_case(qdt, pdt, dev, window=None):
     """A 512-token ragged wave over 8 rows: prefix rows (96 and 512 cached
     tokens), a fresh row, a split row (its head already written, 250
     tokens), dead rows."""
@@ -155,35 +211,71 @@ def prefill_case(dtype, dev, window=None):
     starts[1:] = torch.cumsum(lens, 0)[:-1].to(torch.int32)
     perm = torch.randperm(NPAGES - 1, generator=g)[:R * MAXP] + 1
     tables = perm.reshape(R, MAXP).to(torch.int32)
-    r = lambda *s: torch.randn(*s, generator=g).to(dtype)
+    sdt = side_dtype(qdt, pdt)
+    r = lambda dt, *s: torch.randn(*s, generator=g).to(dt).to(dev)
     to = lambda t: t.to(dev)
-    return dict(q=to(r(W, HQ, D)), sfx_k=to(r(W, HKV, D)),
-                sfx_v=to(r(W, HKV, D)), k_pages=to(r(NPAGES, PS, HKV, D)),
-                v_pages=to(r(NPAGES, PS, HKV, D)), row_tables=to(tables),
-                starts=to(starts), lens=to(lens), prefix_lens=to(plens),
-                window=window)
+    q, sk, sv = r(qdt, W, HQ, D), r(sdt, W, HKV, D), r(sdt, W, HKV, D)
+    return dict(q=q, sfx_k=sk, sfx_v=sv, **page_args(pdt, dev, g),
+                row_tables=to(tables), starts=to(starts), lens=to(lens),
+                prefix_lens=to(plens), window=window)
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def _page_rows_bytes(c, positions):
+    """Bytes of ``positions`` K and V rows of the case's pages, plus the
+    scale rows of the pages they lie in (int8 pools)."""
+    kp = c["k_pages"]
+    rows = sum(positions) * HKV * D * kp.element_size() * 2
+    if "k_scale" in c:
+        pages = sum(-(-p // PS) for p in positions)
+        rows += pages * HKV * c["k_scale"].element_size() * 2
+    return rows
 
 
 def decode_work(c):
     B = c["q"].shape[0]
-    keys = int(c["starts"].sum()) + B * (c["step"] + 1)
-    es = c["q"].element_size()
-    nbytes = (c["q"].numel() * es * 2            # q in, out
-              + keys * HKV * D * es * 2          # live K and V rows
-              + c["page_table"].numel() * 4 + B * 4)
+    keys = sum(c["starts"].tolist()) + B * (c["step"] + 1)
+    chunk_rows = B * (c["step"] + 1) * HKV * D * c["chunk_k"].element_size()
+    nbytes = (2 * _nbytes(c["q"])                       # q in, out
+              + _page_rows_bytes(c, c["starts"].tolist())
+              + 2 * chunk_rows
+              + _nbytes(c["page_table"]) + _nbytes(c["starts"]))
     return nbytes, 4.0 * HQ * D * keys
+
+
+def single_work(c):
+    lengths = c["lengths"].tolist()
+    nbytes = (2 * _nbytes(c["q"]) + _page_rows_bytes(c, lengths)
+              + _nbytes(c["page_table"]) + _nbytes(c["lengths"]))
+    return nbytes, 4.0 * HQ * D * sum(lengths)
 
 
 def prefill_work(c):
     lens = c["lens"].tolist()
     plens = c["prefix_lens"].tolist()
-    es = c["q"].element_size()
-    W = c["q"].shape[0]
     keys = sum(n * p + n * (n + 1) // 2 for n, p in zip(lens, plens))
-    nbytes = (W * (2 * HQ + 2 * HKV) * D * es    # q, out, suffix K/V
-              + sum(p for p, n in zip(plens, lens) if n) * HKV * D * es * 2
-              + c["row_tables"].numel() * 4 + 3 * len(lens) * 4)
+    nbytes = (2 * _nbytes(c["q"]) + _nbytes(c["sfx_k"]) + _nbytes(c["sfx_v"])
+              + _page_rows_bytes(c, [p for p, n in zip(plens, lens) if n])
+              + _nbytes(c["row_tables"]) + 3 * len(lens) * 4)
     return nbytes, 4.0 * HQ * D * keys
+
+
+def dense_pages(c):
+    """The case with int8 pages replaced by their dequantized values in
+    the query's dtype (what one library call would read); plain pages as
+    they are."""
+    from swarmdb_tpu_torch.ops.paged_kv import _dequantize_pages
+
+    if "k_scale" not in c:
+        return c
+    out = {k: v for k, v in c.items() if k not in ("k_scale", "v_scale")}
+    for x in "kv":
+        out[f"{x}_pages"] = _dequantize_pages(
+            c[f"{x}_pages"], c[f"{x}_scale"]).to(c["q"].dtype)
+    return out
 
 
 def decode_library(c):
@@ -191,19 +283,39 @@ def decode_library(c):
     a boolean mask for the live positions (the gather is done here, once,
     outside the timed call)."""
     import torch
-    import torch.nn.functional as F
 
     from swarmdb_tpu_torch.ops.paged_kv import paged_gather_kv
 
+    c = dense_pages(c)
     kg, vg = paged_gather_kv(c["k_pages"], c["v_pages"], c["page_table"])
-    k = torch.cat([kg, c["chunk_k"]], 1)          # [B, S+Kc, Hkv, D]
-    v = torch.cat([vg, c["chunk_v"]], 1)
-    S, Kc = kg.shape[1], c["chunk_k"].shape[1]
+    k = torch.cat([kg, c["chunk_k"].to(kg.dtype)], 1)   # [B, S+Kc, Hkv, D]
+    v = torch.cat([vg, c["chunk_v"].to(vg.dtype)], 1)
+    S = kg.shape[1]
+    Kc = c["chunk_k"].shape[1]
     pos = torch.arange(S + Kc, device=k.device)
     st = c["starts"].long()[:, None]
     live = torch.where(pos < S, pos[None] < st, pos[None] - S <= c["step"])
+    return _sdpa_decode(c["q"], k, v, live)
+
+
+def single_library(c):
+    """SDPA over the gathered dense pages, masked to each slot's length."""
+    import torch
+
+    from swarmdb_tpu_torch.ops.paged_kv import paged_gather_kv
+
+    c = dense_pages(c)
+    k, v = paged_gather_kv(c["k_pages"], c["v_pages"], c["page_table"])
+    pos = torch.arange(k.shape[1], device=k.device)
+    return _sdpa_decode(c["q"], k, v,
+                        pos[None] < c["lengths"].long()[:, None])
+
+
+def _sdpa_decode(q, k, v, live):
+    import torch.nn.functional as F
+
     G = HQ // HKV
-    q = c["q"][:, :, None]                         # [B, Hq, 1, D]
+    q = q[:, :, None]                                   # [B, Hq, 1, D]
     k = k.transpose(1, 2).repeat_interleave(G, 1).contiguous()
     v = v.transpose(1, 2).repeat_interleave(G, 1).contiguous()
     mask = live[:, None, None]
@@ -216,6 +328,7 @@ def prefill_library(c):
     import torch
     import torch.nn.functional as F
 
+    c = dense_pages(c)
     lens = c["lens"].tolist()
     plens = c["prefix_lens"].tolist()
     starts = c["starts"].tolist()
@@ -231,10 +344,10 @@ def prefill_library(c):
     for i, r in enumerate(rows):
         n, p, s = lens[r], plens[r], starts[r]
         pages = c["row_tables"][r, :(p + PS - 1) // PS].long()
-        pk = c["k_pages"][pages].reshape(-1, HKV, D)[:p]
-        pv = c["v_pages"][pages].reshape(-1, HKV, D)[:p]
-        kk = torch.cat([pk, c["sfx_k"][s:s + n]]).transpose(0, 1)
-        vv = torch.cat([pv, c["sfx_v"][s:s + n]]).transpose(0, 1)
+        pk = c["k_pages"][pages].reshape(-1, HKV, D)[:p].to(dt)
+        pv = c["v_pages"][pages].reshape(-1, HKV, D)[:p].to(dt)
+        kk = torch.cat([pk, c["sfx_k"][s:s + n].to(dt)]).transpose(0, 1)
+        vv = torch.cat([pv, c["sfx_v"][s:s + n].to(dt)]).transpose(0, 1)
         q[i, :, :n] = c["q"][s:s + n].transpose(0, 1)
         k[i, :, :p + n] = kk.repeat_interleave(G, 0)
         v[i, :, :p + n] = vv.repeat_interleave(G, 0)
@@ -245,40 +358,75 @@ def prefill_library(c):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def run_kernels(dev):
-    import torch
-
+def kernel_specs():
+    """The six kernels: wrapper, plain version, case, work, library call,
+    source and the TPU kernel each replaces."""
     from swarmdb_tpu_torch.ops import attention_cuda as ac
 
-    specs = {
+    pallas = "swarmdb_tpu/ops/attention_pallas.py"
+    csrc = "swarmdb_tpu_torch/csrc"
+    pre = dict(case=prefill_case, work=prefill_work, library=prefill_library)
+    chk = dict(case=decode_case, work=decode_work, library=decode_library)
+    one = dict(case=single_case, work=single_work, library=single_library)
+    return {
         "ragged_prefill": dict(
-            case=prefill_case, work=prefill_work, library=prefill_library,
-            kernel=ac.ragged_paged_prefill_attention,
+            pre, quant=False, kernel=ac.ragged_paged_prefill_attention,
             plain=ac.ragged_prefill_plain,
-            source="swarmdb_tpu_torch/csrc/ragged_prefill.cu",
-            replaces="swarmdb_tpu/ops/attention_pallas.py:356"),
+            source=f"{csrc}/ragged_prefill.cu", replaces=f"{pallas}:356"),
         "paged_decode_chunked": dict(
-            case=decode_case, work=decode_work, library=decode_library,
-            kernel=ac.paged_decode_gqa_attention_chunked,
+            chk, quant=False, kernel=ac.paged_decode_gqa_attention_chunked,
             plain=ac.paged_decode_chunked_plain,
-            source="swarmdb_tpu_torch/csrc/paged_decode_chunked.cu",
-            replaces="swarmdb_tpu/ops/attention_pallas.py:211"),
+            source=f"{csrc}/paged_decode_chunked.cu",
+            replaces=f"{pallas}:211"),
+        "paged_decode": dict(
+            one, quant=False, kernel=ac.paged_decode_gqa_attention,
+            plain=ac.paged_decode_plain, source=f"{csrc}/paged_decode.cu",
+            replaces=f"{pallas}:180"),
+        "ragged_prefill_quant": dict(
+            pre, quant=True, kernel=ac.ragged_paged_prefill_attention_quant,
+            plain=ac.ragged_prefill_quant_plain,
+            source=f"{csrc}/ragged_prefill_quant.cu",
+            replaces=f"{pallas}:909"),
+        "paged_decode_chunked_quant": dict(
+            chk, quant=True,
+            kernel=ac.paged_decode_gqa_attention_chunked_quant,
+            plain=ac.paged_decode_chunked_quant_plain,
+            source=f"{csrc}/paged_decode_chunked_quant.cu",
+            replaces=f"{pallas}:791"),
+        "paged_decode_quant": dict(
+            one, quant=True, kernel=ac.paged_decode_gqa_attention_quant,
+            plain=ac.paged_decode_quant_plain,
+            source=f"{csrc}/paged_decode_quant.cu",
+            replaces=f"{pallas}:696"),
     }
+
+
+def run_kernels(dev):
+    """Each kernel against its plain version (every dtype case, with and
+    without a window), then timed in bf16 beside its plain version, one
+    library call and its bound."""
+    import torch
+
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     rows = {}
-    for name, sp in specs.items():
+    for name, sp in kernel_specs().items():
+        checks = ([(bf, i8, 2e-2), (f32, i8, 1e-4)] if sp["quant"] else
+                  [(bf, bf, 2e-2), (f32, f32, 1e-4), (f32, bf, 2e-2)])
         errs = {}
-        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for qdt, pdt, tol in checks:
             for window in (None, 96):
-                c = sp["case"](dtype, dev, window)
+                c = sp["case"](qdt, pdt, dev, window)
                 got = sp["kernel"](**c)
                 want = sp["plain"](**c)
                 torch.cuda.synchronize()
+                if got.dtype != qdt:
+                    fail(f"{name}: output {got.dtype}, query {qdt}")
                 err = (got.float() - want.float()).abs().max().item()
-                errs[f"{str(dtype)[6:]}_w{window or 0}"] = err
+                key = f"q{str(qdt)[6:]}_p{str(pdt)[6:]}_w{window or 0}"
+                errs[key] = err
                 if not err <= tol:
-                    fail(f"{name} {dtype} window={window}: max abs err "
-                         f"{err} > {tol}")
-        c = sp["case"](torch.bfloat16, dev)
+                    fail(f"{name} {key}: max abs err {err} > {tol}")
+        c = sp["case"](bf, i8 if sp["quant"] else bf, dev)
         nbytes, flops = sp["work"](c)
         b_ms, b_by = bound(nbytes, flops)
         ms = time_graph(lambda: sp["kernel"](**c))
@@ -287,7 +435,7 @@ def run_kernels(dev):
         rows[name] = {
             "name": name, "route": "cuda", "source": sp["source"],
             "replaces": sp["replaces"], "launches": 0,
-            "max_abs_err": errs["bfloat16_w0"], "ms": ms,
+            "max_abs_err": errs[next(iter(errs))], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms}
         emit("kernels", kernel=name, errors=errs, ms=ms, plain_ms=plain_ms,
@@ -299,8 +447,100 @@ def run_kernels(dev):
 # ------------------------------------------------------------------ parity
 
 
+#: (name, pool dtype, chunked, logits bound). An f32 pool holds PR 1's
+#: 1e-4 (float32 sums in another order). A bf16 pool: the plain version
+#: rounds the softmax weights to the pages' bf16 before the value product,
+#: the kernels keep them in fp32 (the Pallas kernels' way); emulated on the
+#: CPU this moves tiny-debug's logits by up to 1.4e-2. An int8 pool dequan-
+#: tizes to f32 on both sides, but the packed suffix and the chunk buffer
+#: are bf16, whose weights the plain version rounds (up to 3.5e-3 emulated),
+#: and a K/V value that differs by float32 rounding between the card's and
+#: the CPU's matmuls can flip one int8 code (amax / 127 of its page) where a
+#: write requantizes a page.
+PARITY_CASES = (("f32_chunked", "float32", True, 1e-4),
+                ("f32_single_step", "float32", False, 1e-4),
+                ("bf16_single_step", "bfloat16", False, 3e-2),
+                ("int8_chunked", "int8", True, 2e-2),
+                ("int8_single_step", "int8", False, 2e-2))
+
+
+@contextlib.contextmanager
+def chunked_env(chunked: bool):
+    """SWARMDB_CHUNKED set while an engine is built (it is read there)."""
+    old = os.environ.get("SWARMDB_CHUNKED")
+    os.environ["SWARMDB_CHUNKED"] = "1" if chunked else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("SWARMDB_CHUNKED", None)
+        else:
+            os.environ["SWARMDB_CHUNKED"] = old
+
+
+def parity_logits(p, cfg, d, kind, chunked):
+    """Logits of one prefill wave and of decode steps (one chunked step
+    with an f32 chunk buffer, or three single steps that write the pool)
+    from the same seeded pool, on device ``d``."""
+    import numpy as np
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.ops.paged_kv import QuantPool, _quantize_pages
+
+    rng = np.random.default_rng(6)
+    W, ps, maxp = 96, 16, 16
+    toks = torch.from_numpy(rng.integers(3, 259, W).astype(np.int32))
+    tok_row = torch.zeros(W, dtype=torch.int32)
+    tok_row[60:] = 1
+    tok_pos = torch.cat([torch.arange(60), torch.arange(36) + 20]).int()
+    tables = torch.arange(1, 2 * maxp + 1, dtype=torch.int32).reshape(2, -1)
+    starts = torch.tensor([0, 60], dtype=torch.int32)
+    lens = torch.tensor([60, 36], dtype=torch.int32)
+    plens = torch.tensor([0, 20], dtype=torch.int32)
+    shape = (cfg.n_layers, 2 * maxp + 1, ps, cfg.n_kv_heads, cfg.head_dim)
+    t = lambda x: x.to(d)
+
+    def pools():
+        kf, vf = (torch.randn(shape, generator=torch.Generator().manual_seed(
+            s)) for s in (3, 13))
+        if kind == "int8":
+            return tuple(QuantPool(*map(t, _quantize_pages(x)))
+                         for x in (kf, vf))
+        return tuple(t(x.to(getattr(torch, kind))) for x in (kf, vf))
+
+    kp, vp = pools()
+    out = [llama.forward_ragged_prefill(
+        p, cfg, t(toks), t(tok_row), t(tok_pos), t(tables), t(starts),
+        t(lens), t(plens), kp, vp)[0]]
+    kp, vp = pools()
+    cache = {"k": kp, "v": vp, "page_table": t(tables)}
+    if chunked:
+        hk = torch.randn((cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.head_dim),
+                         generator=torch.Generator().manual_seed(4))
+        out.append(llama.forward_paged_chunked(
+            p, cfg, t(toks[:2, None].long()), t(torch.tensor([[70], [90]])),
+            cache, (t(hk), t(hk.clone())), 3)[0])
+    else:
+        for s in range(3):
+            logits, cache = llama.forward_paged(
+                p, cfg, t(toks[s:s + 2, None].long()),
+                t(torch.tensor([[70 + s], [90 + s]])), cache)
+            out.append(logits)
+    return [x.cpu() for x in out]
+
+
+def path_kernels(kind: str, chunked: bool) -> tuple:
+    """(prefill kernel, decode kernel) an engine over a ``kind`` pool
+    runs: ragged prefill at admission, chunked or single-step decode."""
+    quant = "_quant" if kind == "int8" else ""
+    decode = "paged_decode_chunked" if chunked else "paged_decode"
+    return "ragged_prefill" + quant, decode + quant
+
+
 def run_parity(dev):
-    """tiny-debug f32: the same weights served on the card and on the CPU."""
+    """tiny-debug f32: the same weights served on the card and on the CPU,
+    over each pool kind and decode mode of ``PARITY_CASES``."""
     import numpy as np
     import torch
 
@@ -317,62 +557,46 @@ def run_parity(dev):
     p_gpu = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
                  if isinstance(v, dict) else v.to(dev))
              for k, v in p_cpu.items()}
-    engines = {}
-    for name, d, p in (("gpu", dev, p_gpu), ("cpu", "cpu", p_cpu)):
-        engines[name], tok = build_backend_engine(
-            "tiny-debug", max_batch=4, max_seq=256, device=d, params=p,
-            kv_dtype=torch.float32)
-        engines[name].start()
     rng = np.random.default_rng(5)
     prompts = [rng.integers(3, 259, n).tolist() for n in (40, 9, 200, 77)]
-    ac.reset_launches()
-    try:
-        for p in prompts:
-            a = engines["gpu"].generate_sync(p, SamplingParams(
-                max_new_tokens=16))
-            b = engines["cpu"].generate_sync(p, SamplingParams(
-                max_new_tokens=16))
-            if a != b:
-                fail(f"tiny-debug greedy tokens differ card vs cpu: {a} {b}")
-    finally:
-        for e in engines.values():
-            e.stop()
-    if not all(ac.LAUNCHES.values()):
-        fail(f"the card engine did not launch both kernels: {ac.LAUNCHES}")
-    # logits of one prefill wave and one decode step, card vs cpu
-    W, ps, maxp = 96, 16, 16
-    toks = torch.from_numpy(rng.integers(3, 259, W).astype(np.int32))
-    tok_row = torch.zeros(W, dtype=torch.int32)
-    tok_row[60:] = 1
-    tok_pos = torch.cat([torch.arange(60), torch.arange(36) + 20]).int()
-    tables = torch.arange(1, 2 * maxp + 1, dtype=torch.int32).reshape(2, -1)
-    starts = torch.tensor([0, 60], dtype=torch.int32)
-    lens = torch.tensor([60, 36], dtype=torch.int32)
-    plens = torch.tensor([0, 20], dtype=torch.int32)
-    g = torch.Generator().manual_seed(3)
-    shape = (cfg.n_layers, 2 * maxp + 1, ps, cfg.n_kv_heads, cfg.head_dim)
-    kpool, vpool = torch.randn(shape, generator=g), torch.randn(shape,
-                                                               generator=g)
-    outs = {}
-    for name, d, p in (("gpu", dev, p_gpu), ("cpu", "cpu", p_cpu)):
-        t = lambda x: x.to(d)
-        logits, _, _ = llama.forward_ragged_prefill(
-            p, cfg, t(toks), t(tok_row), t(tok_pos), t(tables), t(starts),
-            t(lens), t(plens), t(kpool), t(vpool))
-        cache = {"k": t(kpool), "v": t(vpool), "page_table": t(tables)}
-        hk = torch.randn((cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.head_dim),
-                         generator=torch.Generator().manual_seed(4))
-        step_logits, _ = llama.forward_paged_chunked(
-            p, cfg, t(toks[:2, None].long()), t(torch.tensor([[70], [90]])),
-            cache, (t(hk), t(hk.clone())), 3)
-        outs[name] = (logits.cpu(), step_logits.cpu())
-    errs = [float((a - b).abs().max()) for a, b in zip(outs["gpu"],
-                                                        outs["cpu"])]
-    if max(errs) > 1e-4:
-        fail(f"tiny-debug logits card vs cpu differ by {errs} > 1e-4")
-    emit("parity", prompts=len(prompts), greedy_equal=True,
-         prefill_logits_max_abs_err=errs[0],
-         decode_logits_max_abs_err=errs[1], launches=dict(ac.LAUNCHES))
+    for name, kind, chunked, tol in PARITY_CASES:
+        kv = getattr(torch, kind)
+        engines = {}
+        with chunked_env(chunked):
+            for where, d, p in (("gpu", dev, p_gpu), ("cpu", "cpu", p_cpu)):
+                engines[where], _ = build_backend_engine(
+                    "tiny-debug", max_batch=4, max_seq=256, device=d,
+                    params=p, kv_dtype=kv)
+                engines[where].start()
+        ac.reset_launches()
+        try:
+            for pr in prompts:
+                a = engines["gpu"].generate_sync(pr, SamplingParams(
+                    max_new_tokens=16))
+                b = engines["cpu"].generate_sync(pr, SamplingParams(
+                    max_new_tokens=16))
+                if a != b:
+                    fail(f"parity {name}: greedy tokens differ card vs "
+                         f"cpu: {a} {b}")
+        finally:
+            for e in engines.values():
+                e.stop()
+        launches = {k: n for k, n in ac.LAUNCHES.items() if n}
+        if set(launches) != set(path_kernels(kind, chunked)):
+            fail(f"parity {name}: the card engine launched {launches}")
+        outs = {where: parity_logits(p, cfg, d, kind, chunked)
+                for where, d, p in (("gpu", dev, p_gpu),
+                                    ("cpu", "cpu", p_cpu))}
+        errs = [float((a - b).abs().max())
+                for a, b in zip(outs["gpu"], outs["cpu"])]
+        if max(errs) > tol:
+            fail(f"parity {name}: logits card vs cpu differ by {errs} > "
+                 f"{tol}")
+        emit("parity", case=name, pool=kind, chunked=chunked,
+             prompts=len(prompts), greedy_equal=True,
+             prefill_logits_max_abs_err=errs[0],
+             decode_logits_max_abs_err=max(errs[1:]), bound=tol,
+             launches=launches)
 
 
 # ------------------------------------------------------------------- serve
@@ -387,24 +611,60 @@ USER_TEXT = (
 FOLLOW_UP = ("Thanks. Now shorten the second day to a half day and add "
              "one place for coffee, {u} speaking again.")
 
+#: (name, pool dtype, chunked, turns): the four serves, in order.
+SERVES = (("bf16_chunked", "bfloat16", True, 2),
+          ("int8_chunked", "int8", True, 2),
+          ("bf16_single_step", "bfloat16", False, 1),
+          ("int8_single_step", "int8", False, 1))
 
-def run_serve(card: str):
+
+def run_serves(card: str):
+    """Llama-3-8B at full width, weights built once, served four times
+    (``SERVES``); each engine is freed before the next. Returns the
+    launches summed over the serves."""
     import torch
 
-    from swarmdb_tpu_torch.backend.service import ServingService
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    params = llama.init_params(get_config("llama3-8b"), seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    total = {}
+    for spec in SERVES:
+        launches = run_serve(card, params, init_s, *spec)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def run_serve(card, params, init_s, name, kind, chunked, turns):
+    import gc
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import (ServingService,
+                                                   build_backend_engine)
     from swarmdb_tpu_torch.broker.local import LocalBroker
     from swarmdb_tpu_torch.core.runtime import SwarmDB
     from swarmdb_tpu_torch.models import llama
     from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.ops.paged_kv import (is_quantized, pool_data,
+                                                pool_page_bytes)
 
+    quant = kind == "int8"
+    prefill_k, decode_k = path_kernels(kind, chunked)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     db = SwarmDB(broker=LocalBroker())
     backend = "h100-0"
-    t0 = time.perf_counter()
-    svc = ServingService.from_model_name(db, "llama3-8b", backend_id=backend,
-                                         paged=True, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    eng = svc.engine
+    with chunked_env(chunked):
+        eng, tok = build_backend_engine(
+            "llama3-8b", seed=0, device="cuda", params=params,
+            kv_dtype=getattr(torch, kind), metrics=db.metrics)
+    svc = ServingService(db, eng, tok, backend_id=backend)
     users = [f"user{i}" for i in range(4)]
     try:
         for a in users + ["assistant"]:
@@ -419,7 +679,7 @@ def run_serve(card: str):
         ac.reset_launches()
         replies = []
         t_serve = time.perf_counter()
-        for turn, text in enumerate((USER_TEXT, FOLLOW_UP)):
+        for turn, text in enumerate((USER_TEXT, FOLLOW_UP)[:turns]):
             for i, u in enumerate(users):
                 gen = {"max_new_tokens": 32}
                 if turn == 0 and i == 3:
@@ -428,56 +688,72 @@ def run_serve(card: str):
                                 metadata={"generation": gen})
             got = await_replies(db, users)
             if len(got) < len(users):
-                fail(f"turn {turn + 1}: {len(got)} of {len(users)} replies")
+                fail(f"serve {name} turn {turn + 1}: {len(got)} of "
+                     f"{len(users)} replies")
             replies.extend(got.values())
         serve_s = time.perf_counter() - t_serve
         launches = dict(ac.LAUNCHES)
         waves = c["prefill_waves"].value - base["prefill_waves"]
         chunks = c["engine_decode_chunks"].value - base["engine_decode_chunks"]
         steps = chunks * eng.decode_chunk
-        L = eng.cache["k"].shape[0]
+        L = pool_data(eng.cache["k"]).shape[0]
         reasons = [m.metadata.get("finish_reason") for m in replies]
         reused = eng.metrics.counters["prefix_reused_tokens"].value
         checks = {
-            "8 replies, length/eos": len(replies) == 8 and all(
-                r in ("length", "eos") for r in reasons),
-            "prefix reuse on turn 2": reused > 0,
-            "prefill launches == 32 per wave": waves > 0 and launches[
-                "ragged_prefill"] >= L * waves,
-            "decode launches == 32 per step": chunks > 0 and launches[
-                "paged_decode_chunked"] >= L * steps,
-            "pool on cuda": eng.cache["k"].is_cuda,
+            f"{len(users) * turns} replies, length/eos":
+                len(replies) == len(users) * turns
+                and all(r in ("length", "eos") for r in reasons),
+            "prefix reuse on turn 2": turns < 2 or reused > 0,
+            f"{prefill_k} launches == 32 per wave":
+                waves > 0 and launches[prefill_k] >= L * waves,
+            f"{decode_k} launches == 32 per step":
+                chunks > 0 and launches[decode_k] >= L * steps,
+            "only this path's kernels": all(
+                n == 0 for k, n in launches.items()
+                if k not in (prefill_k, decode_k)),
+            "pool kind": is_quantized(eng.cache["k"]) == quant,
+            "pool on cuda": pool_data(eng.cache["k"]).is_cuda,
             "params on cuda": eng.params["layers"]["wq"].is_cuda,
         }
         bad = [k for k, ok in checks.items() if not ok]
         if bad:
-            fail(f"serve checks failed: {bad}; reasons={reasons} "
+            fail(f"serve {name} checks failed: {bad}; reasons={reasons} "
                  f"reused={reused} waves={waves} chunks={chunks} "
                  f"launches={launches}")
         ttft = sorted(db.metrics.latencies["send_to_first_token_s"].values())
         dec_s = (c["phase_us_decode"].value - base["phase_us_decode"]) / 1e6
         gen_tok = c["tokens_generated"].value - base["tokens_generated"]
+        record = dict(
+            serve=name, model="llama3-8b", layers=L, weights="bfloat16",
+            pool=kind, chunked=chunked, turns=turns, replies=len(replies),
+            finish_reasons=reasons, prefix_reused_tokens=reused,
+            prefill_waves=waves, decode_chunks=chunks, launches={
+                k: n for k, n in launches.items() if n},
+            ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
+            decode_tokens_per_s=gen_tok / dec_s if dec_s else None,
+            generated_tokens=gen_tok, serve_wall_s=serve_s,
+            kv_bytes_per_token=pool_page_bytes(eng.cache["k"]) * 2
+            // eng.paged.page_size,
+            pool_gib=2 * pool_page_bytes(eng.cache["k"])
+            * eng.paged.num_pages / 2**30,
+            weight_init_s=init_s, card=card,
+            logits_mm_out_dtype=llama._MM_OUT_DTYPE.get(eng.device),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        emit("serve", **record)
         prof = profile_turn(db, users, text=FOLLOW_UP)
         # tracing slows the profiled turn; its device time against the
         # untraced turns' mean wall time gives the idle share of serving
-        prof["untraced_turn_wall_ms"] = serve_s / 2 * 1e3
+        prof["untraced_turn_wall_ms"] = serve_s / turns * 1e3
         prof["device_idle_share_vs_untraced"] = 1.0 - prof[
             "device_busy_ms"] / prof["untraced_turn_wall_ms"]
-        emit("serve", model="llama3-8b", layers=L, dtype="bfloat16",
-             replies=len(replies), finish_reasons=reasons,
-             prefix_reused_tokens=reused, prefill_waves=waves,
-             decode_chunks=chunks, launches=launches,
-             ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
-             decode_tokens_per_s=gen_tok / dec_s if dec_s else None,
-             generated_tokens=gen_tok, serve_wall_s=serve_s,
-             weight_init_s=init_s, card=card,
-             logits_mm_out_dtype=llama._MM_OUT_DTYPE.get(eng.device),
-             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
-        emit("profile", **prof)
+        emit("profile", serve=name, **prof)
         return launches
     finally:
         svc.stop()
         db.close()
+        del svc, eng
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def await_replies(db, users, timeout=300.0):
@@ -517,8 +793,9 @@ def profile_turn(db, users, text):
                for e in prof.key_averages() if dev_us(e) > 0]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    attn = {"ragged_prefill": "ragged_prefill_kernel",
-            "paged_decode_chunked": "paged_decode_chunked_kernel"}
+    attn = {"ragged_prefill": "ragged_prefill_kernel<",
+            "paged_decode_chunked": "paged_decode_chunked_kernel<",
+            "paged_decode": "paged_decode_kernel<"}
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
@@ -575,9 +852,12 @@ def main() -> int:
     with torch.no_grad():
         rows = run_kernels(dev)
         run_parity(dev)
-        launches = run_serve(card)
+        launches = run_serves(card)
     for k, n in launches.items():
         rows[k]["launches"] = n
+    idle = [k for k, row in rows.items() if not row["launches"]]
+    if idle:
+        fail(f"kernels never launched by the serves: {idle}")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,9 +17,12 @@ and chunked decode):
 - Decode is a host loop over chunks: ``decode_chunk`` steps of
   ``forward_paged_chunked`` + sampling with the pool frozen, then one
   ``merge_paged_chunk`` into the pool, then ONE host read of the
-  [K+1, B] token block. The JAX package's device-resident while-loop with
-  its emission ring, CUDA graphs, lanes and the dense / bucketed paths are
-  later slices of the port (ROADMAP.md).
+  [K+1, B] token block. Without ``chunked_fns`` (``SWARMDB_CHUNKED=0``)
+  a chunk is K single steps of ``PagedKV.decode_forward``, each writing
+  its token into the pool before attending, and still one host read. The
+  JAX package's device-resident while-loop with its emission ring, CUDA
+  graphs, lanes and the dense / bucketed paths are later slices of the
+  port (ROADMAP.md).
 
 All tensors live on the engine's explicit ``device``; the worker thread
 sets it as its current CUDA device.
@@ -81,18 +84,22 @@ class _Slot:
 @dataclass
 class PagedKV:
     """Paged-pool wiring: ``init_pool`` builds the {"k","v","page_table"}
-    dict, the host-side ``allocator`` hands out pages (admission stalls
-    while the pool cannot cover a request's worst-case footprint), and
-    ``prefill_ragged`` is the packed ragged prefill forward: (params,
-    tokens[W], tok_row[W], tok_pos[W], row_tables[R, maxp], starts[R],
-    lens[R], prefix_lens[R], k_pool, v_pool) -> ([R, V] last-token
-    logits, sfx_k, sfx_v [L, W, Hkv, D])."""
+    dict (plain or int8 pools), the host-side ``allocator`` hands out
+    pages (admission stalls while the pool cannot cover a request's
+    worst-case footprint), ``prefill_ragged`` is the packed ragged prefill
+    forward: (params, tokens[W], tok_row[W], tok_pos[W], row_tables[R,
+    maxp], starts[R], lens[R], prefix_lens[R], k_pool, v_pool) -> ([R, V]
+    last-token logits, sfx_k, sfx_v [L, W, Hkv, D]), and
+    ``decode_forward`` the single-step decode used when the engine has no
+    ``chunked_fns``: (params, tokens[B,1], positions[B,1], cache) ->
+    (logits [B, 1, V], cache)."""
 
-    init_pool: Callable[[], Dict[str, torch.Tensor]]
+    init_pool: Callable[[], Dict[str, Any]]
     page_size: int
     num_pages: int
     allocator: PageAllocator
     prefill_ragged: Callable
+    decode_forward: Optional[Callable] = None
 
 
 class Engine:
@@ -103,7 +110,7 @@ class Engine:
         params: Any,
         *,
         paged: PagedKV,
-        chunked_fns: Tuple[Callable, Callable, Callable],
+        chunked_fns: Optional[Tuple[Callable, Callable, Callable]],
         max_batch: int = 8,
         max_seq: int = 1024,
         eos_id: int = 2,
@@ -118,7 +125,11 @@ class Engine:
         """``chunked_fns`` = (chunk_forward(params, tokens[B,1],
         positions[B,1], cache, chunk_kv, step) -> (logits, chunk_kv),
         init_chunk(batch, K) -> chunk_kv, merge_chunk(cache, chunk_kv,
-        start_positions) -> cache)."""
+        start_positions) -> cache), or None: decode then runs
+        ``paged.decode_forward`` one step at a time."""
+        if chunked_fns is None and paged.decode_forward is None:
+            raise ValueError("an engine without chunked_fns needs "
+                             "paged.decode_forward")
         self.device = resolve_device(device)
         self.params = params
         self.max_batch = max_batch
@@ -131,7 +142,8 @@ class Engine:
         self.paged = paged
         self._chunked_fns = chunked_fns
         self.cache = paged.init_pool()
-        self._chunk_kv = chunked_fns[1](max_batch, self.decode_chunk)
+        self._chunk_kv = (chunked_fns[1](max_batch, self.decode_chunk)
+                          if chunked_fns is not None else None)
         self._aging_s = _env_float("SWARMDB_AGING_S", 5.0)
 
         # random keys: [B, 2] uint32 words per slot, host-side; a request
@@ -663,10 +675,11 @@ class Engine:
     # --------------------------------------------------------------- decode
 
     def _decode_chunk(self):
-        """One chunk: K decode steps with the pool frozen, then the merge;
-        returns the host copy of the [K+1, B] token and logprob blocks
-        (row 0 = the fed tokens) and the (slot, request, start position)
-        snapshot."""
+        """One chunk of K decode steps: with ``chunked_fns``, K steps with
+        the pool frozen and then the merge; without, K single steps that
+        each write the pool. Returns the host copy of the [K+1, B] token
+        and logprob blocks (row 0 = the fed tokens) and the (slot,
+        request, start position) snapshot."""
         t0 = time.perf_counter()
         B, K = self.max_batch, self.decode_chunk
         positions = np.zeros(B, np.int32)
@@ -679,10 +692,6 @@ class Engine:
         use_filters = bool(np.any((self._topk[live] > 0)
                                   | (self._topp[live] < 1.0)))
         greedy = not use_filters and not np.any(self._temp[live] > 0)
-        chunk_fwd, _init_chunk, merge_chunk = self._chunked_fns
-        hk, hv = self._chunk_kv
-        hk.zero_()
-        hv.zero_()
         keys = self._tensor(self._base_keys_np.astype(np.int64))
         temp = self._tensor(self._temp)
         topk = self._tensor(self._topk)
@@ -691,16 +700,28 @@ class Engine:
         pos = pos0
         tok = self._last_tokens[:B].clone()
         toks, lps = [tok], [self._last_lps[:B].clone()]
+        chunked = self._chunked_fns is not None
+        if chunked:
+            chunk_fwd, _init_chunk, merge_chunk = self._chunked_fns
+            hk, hv = self._chunk_kv
+            hk.zero_()
+            hv.zero_()
         for step in range(K):
-            logits, _ = chunk_fwd(self.params, tok[:, None], pos[:, None],
-                                  self.cache, (hk, hv), step)
+            if chunked:
+                logits, _ = chunk_fwd(self.params, tok[:, None],
+                                      pos[:, None], self.cache, (hk, hv),
+                                      step)
+            else:
+                logits, self.cache = self.paged.decode_forward(
+                    self.params, tok[:, None], pos[:, None], self.cache)
             tok = sample_tokens(logits[:, -1], keys, pos, temp, topk, topp,
                                 use_filters=use_filters,
                                 assume_greedy=greedy)
             toks.append(tok)
             lps.append(token_logprob(logits[:, -1], tok))
             pos = pos + 1
-        merge_chunk(self.cache, (hk, hv), pos0)
+        if chunked:
+            merge_chunk(self.cache, (hk, hv), pos0)
         self._last_tokens[:B] = tok
         self._last_lps[:B] = lps[-1]
         # the one host sync per chunk

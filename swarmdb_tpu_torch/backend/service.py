@@ -11,9 +11,11 @@ single-lane engine:
 - Replies are emitted through ``SwarmDB.send_message`` as first-class
   messages on a reply worker, off the engine thread.
 
-Not ported yet (ROADMAP.md, queue 1): rolling KV and the tiered state
-hierarchy, ``n > 1`` fan-out, the lane supervisor, partition locality,
-SSE streaming and the dense engine.
+The engine decodes in chunks (``SWARMDB_CHUNKED=1``, default) or one step
+at a time (``SWARMDB_CHUNKED=0``), over a bf16 / f32 or int8 pool
+(``SWARMDB_KV_DTYPE``). Not ported yet (ROADMAP.md, queue 1): rolling KV
+and the tiered state hierarchy, ``n > 1`` fan-out, the lane supervisor,
+partition locality, SSE streaming and the dense engine.
 """
 
 from __future__ import annotations
@@ -119,10 +121,12 @@ def build_backend_engine(
     """One paged Engine for a registry config, on ``device`` (the card by
     default). Weights are random bf16 from ``seed`` unless
     ``params`` (the port's dict layout, on ``device``) are given; the pool
-    is ``kv_dtype`` (None resolves SWARMDB_KV_DTYPE, bf16 by default). The
-    pool covers every slot's full window plus the prefix-cache budget
+    is ``kv_dtype`` (None resolves SWARMDB_KV_DTYPE, bf16 by default;
+    ``torch.int8`` gives a quantized pool). The pool covers
+    every slot's full window plus the prefix-cache budget
     (``SWARMDB_PREFIX_TOKENS``, default max_batch * max_seq / 2) unless
-    ``kv_pool_tokens`` bounds it."""
+    ``kv_pool_tokens`` bounds it. Decode is chunked unless
+    ``SWARMDB_CHUNKED=0``."""
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
            else get_config(model_name_or_cfg))
     if cfg.is_moe:
@@ -136,10 +140,6 @@ def build_backend_engine(
             "paged=False: the dense-cache engine is the dense-engine slice "
             "of the port (ROADMAP.md, queue 1); only the paged pool is "
             "ported")
-    if os.environ.get("SWARMDB_CHUNKED", "1") == "0":
-        raise NotImplementedError(
-            "SWARMDB_CHUNKED=0: the single-step paged decode is the "
-            "single-step slice of the port (ROADMAP.md, queue 1)")
     dev = resolve_device(device)
     seq = max_seq or min(cfg.max_seq_len, 1024)
     prefix_enabled = (os.environ.get("SWARMDB_PREFIX", "1") != "0"
@@ -163,13 +163,20 @@ def build_backend_engine(
         prefill_ragged=lambda p, toks, trow, tpos, tables, st, ln, pl, pk, pv:
             llama.forward_ragged_prefill(p, cfg, toks, trow, tpos, tables,
                                          st, ln, pl, pk, pv),
+        decode_forward=lambda p, t, pos, c: llama.forward_paged(
+            p, cfg, t, pos, c),
     )
-    chunked_fns = (
-        lambda p, t, pos, c, hkv, s: llama.forward_paged_chunked(
-            p, cfg, t, pos, c, hkv, s),
-        lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev),
-        llama.merge_paged_chunk,
-    )
+    # two-segment chunked decode (the pool frozen per chunk, one merge);
+    # SWARMDB_CHUNKED=0 decodes one step at a time through decode_forward
+    # (admission stays on the ragged prefill either way)
+    chunked_fns = None
+    if os.environ.get("SWARMDB_CHUNKED", "1") != "0":
+        chunked_fns = (
+            lambda p, t, pos, c, hkv, s: llama.forward_paged_chunked(
+                p, cfg, t, pos, c, hkv, s),
+            lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev),
+            llama.merge_paged_chunk,
+        )
     tokenizer = default_tokenizer(cfg.vocab_size, tokenizer_path)
     engine = Engine(
         params, paged=paged_spec, chunked_fns=chunked_fns,

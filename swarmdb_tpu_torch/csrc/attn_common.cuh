@@ -1,6 +1,15 @@
-// Shared pieces of the two paged-attention kernels (ragged_prefill.cu,
-// paged_decode_chunked.cu): 16-byte tile loads into shared memory and the
-// fp32 online-softmax fold of one key tile into a query row's state.
+// Shared pieces of the paged-attention kernels (ragged prefill, chunked
+// and single-step paged decode, each over plain or int8 pages): 16-byte
+// tile loads into shared memory, the page-table walk and the fp32
+// online-softmax fold of one key tile into a query row's state.
+//
+// Operand types. Pages are a compile-time type TP: float, bf16, or int8
+// with one f32 scale per (page, KV head), applied to each widened value as
+// the Pallas kernels' `_attend_tile` does (k = k_i8 * scale in f32, then
+// the dot). The query, the output, the chunk buffer and the packed suffix
+// each come in their own float type, named at run time by a FloatCode
+// (block-uniform branches around whole loads). Everything is computed in
+// fp32.
 //
 // Layout of the work: a query row (one query token x one query head) is
 // owned by TPR consecutive lanes of a warp. Lane `sub` of the row holds the
@@ -21,9 +30,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace swarm {
 
 constexpr float kNeg = -1e30f;
+
+// Float operand types named at run time (the wrappers' dtype codes).
+enum FloatCode : int { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -61,14 +75,30 @@ template <> struct Vec16<__nv_bfloat16> {
     }
   }
 };
+template <> struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void widen(const uint4& u, float* f) {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(c[i]);
+  }
+};
 
-// Copy `nrows` rows of D elements into the fp32 tile dst[row * D + d].
-// Row r starts at src(r) (16-byte aligned: D * sizeof(T) % 16 == 0).
-// Each thread moves whole 16-byte vectors; neighbouring threads take
-// neighbouring vectors of a row, so the global reads coalesce.
-template <typename T, int D, class RowPtr>
+// Row scale of a plain tile: none.
+struct Unit {
+  __device__ __forceinline__ float operator()(int) const { return 1.f; }
+};
+
+// Copy `nrows` rows of D elements into the fp32 tile dst[row * D + d],
+// each widened value times scale(row) (1 for plain tiles; the page's
+// per-head scale for int8 pages). Row r starts at src(r) (16-byte aligned:
+// D * sizeof(T) % 16 == 0). Each thread moves whole 16-byte vectors;
+// neighbouring threads take neighbouring vectors of a row, so the global
+// reads coalesce.
+template <typename T, int D, class RowPtr, class RowScale = Unit>
 __device__ __forceinline__ void load_tile(float* dst, int nrows, RowPtr src,
-                                          int tid, int nthreads) {
+                                          int tid, int nthreads,
+                                          RowScale scale = RowScale()) {
   constexpr int EPV = Vec16<T>::N;
   constexpr int VPR = D / EPV;
   static_assert(D % EPV == 0, "row must be a whole number of 16-byte vectors");
@@ -77,12 +107,61 @@ __device__ __forceinline__ void load_tile(float* dst, int nrows, RowPtr src,
     const uint4 u = __ldg(reinterpret_cast<const uint4*>(src(r)) + c);
     float f[EPV];
     Vec16<T>::widen(u, f);
+    if constexpr (!std::is_same<RowScale, Unit>::value) {
+      const float sc = scale(r);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) f[e] *= sc;
+    }
     float4* d = reinterpret_cast<float4*>(dst + r * D + c * EPV);
 #pragma unroll
     for (int e = 0; e < EPV / 4; ++e)
       d[e] = make_float4(f[4 * e], f[4 * e + 1], f[4 * e + 2], f[4 * e + 3]);
   }
 }
+
+// load_tile over a float operand whose type is a run-time FloatCode; row r
+// starts `off(r)` elements past `base`.
+template <int D, class RowOff>
+__device__ __forceinline__ void load_rows(int code, float* dst, int nrows,
+                                          const void* base, RowOff off,
+                                          int tid, int nthreads) {
+  if (code == kBF16) {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(base);
+    load_tile<__nv_bfloat16, D>(dst, nrows, [&](int r) { return p + off(r); },
+                                tid, nthreads);
+  } else {
+    const float* p = static_cast<const float*>(base);
+    load_tile<float, D>(dst, nrows, [&](int r) { return p + off(r); }, tid,
+                        nthreads);
+  }
+}
+
+// The rows of one KV head of a paged pool seen through one page-table row:
+// position -> page id (clamped into the pool, so a bad table entry cannot
+// read outside it) -> row pointer, and for int8 pages the page's scale.
+template <typename TP, int D> struct PagedRows {
+  const TP* pool;       // [P, ps, Hkv, D]
+  const float* scales;  // [P, Hkv] for int8 pages, unused otherwise
+  const int* trow;      // [maxp] page ids
+  int P, ps, Hkv, maxp, h;
+
+  __device__ __forceinline__ int page(int pos) const {
+    int col = pos / ps;
+    col = col < maxp ? col : maxp - 1;
+    const int pg = trow[col];
+    return pg < 0 ? 0 : (pg >= P ? P - 1 : pg);
+  }
+  __device__ __forceinline__ const TP* row(int pos) const {
+    return pool + ((int64_t)page(pos) * ps + pos % ps) * Hkv * D +
+           (int64_t)h * D;
+  }
+  __device__ __forceinline__ float scale(int pos) const {
+    if constexpr (std::is_same<TP, int8_t>::value)
+      return __ldg(scales + (int64_t)page(pos) * Hkv + h);
+    else
+      return 1.f;
+  }
+};
 
 // Running state of one query row, split over TPR lanes.
 template <int D, int TPR> struct RowState {
@@ -113,6 +192,23 @@ template <int D, int TPR> struct RowState {
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int j = 0; j < NPT; ++j) orow[dim(sub, j)] = from_f<T>(acc[j] / denom);
+  }
+
+  // The same for a query / output whose type is a run-time FloatCode; the
+  // row starts `off` elements past the base pointer.
+  __device__ __forceinline__ void init(int code, const void* q, int64_t off,
+                                       bool live, int sub) {
+    if (code == kBF16)
+      init(static_cast<const __nv_bfloat16*>(q) + off, live, sub);
+    else
+      init(static_cast<const float*>(q) + off, live, sub);
+  }
+  __device__ __forceinline__ void store(int code, void* out, int64_t off,
+                                        int sub) const {
+    if (code == kBF16)
+      store(static_cast<__nv_bfloat16*>(out) + off, sub);
+    else
+      store(static_cast<float*>(out) + off, sub);
   }
 };
 
@@ -178,6 +274,36 @@ __device__ __forceinline__ void fold_tile(RowState<D, TPR>& st,
         st.acc[j + 3] = fmaf(s[t], v4.w, st.acc[j + 3]);
       }
     }
+  }
+}
+
+// Fold the positions [tile0 * KT, end) of a paged pool into `st`, KT
+// positions per tile through the shared tiles Ks / Vs [KT][D]; valid(pos)
+// says whether a position is visible to this row. Block-wide: every thread
+// of the block calls it.
+template <typename TP, int D, int TPR, int KT, class Valid>
+__device__ __forceinline__ void fold_pages(RowState<D, TPR>& st, float* Ks,
+                                           float* Vs,
+                                           const PagedRows<TP, D>& kr,
+                                           const PagedRows<TP, D>& vr,
+                                           int tile0, int end, int sub,
+                                           Valid valid, float scale, int tid,
+                                           int nthreads) {
+  const int n_tiles = (end + KT - 1) / KT;
+  for (int tile = tile0; tile < n_tiles; ++tile) {
+    const int pos0 = tile * KT;
+    const int nrows = min(KT, end - pos0);
+    __syncthreads();
+    load_tile<TP, D>(
+        Ks, nrows, [&](int r) { return kr.row(pos0 + r); }, tid, nthreads,
+        [&](int r) { return kr.scale(pos0 + r); });
+    load_tile<TP, D>(
+        Vs, nrows, [&](int r) { return vr.row(pos0 + r); }, tid, nthreads,
+        [&](int r) { return vr.scale(pos0 + r); });
+    __syncthreads();
+    fold_tile<D, TPR, KT>(
+        st, Ks, Vs, nrows, sub, [&](int t) { return valid(pos0 + t); },
+        scale);
   }
 }
 

@@ -1,20 +1,24 @@
 """Llama-3 model family on the paged serving path, in PyTorch.
 
 The counterpart of ``swarmdb_tpu/models/llama.py`` for the functions the
-paged single-lane engine runs: parameter init, the paged pool, the packed
-ragged prefill forward, and the two-segment chunked decode forward with its
-once-per-chunk page merge.
+paged single-lane engine runs: parameter init, the paged pool (plain or
+int8), the packed ragged prefill forward, the two-segment chunked decode
+forward with its once-per-chunk page merge, and the single-step paged
+decode forward (``SWARMDB_CHUNKED=0``).
 
 Parameters are a plain dict with the JAX package's keys and layouts:
 per-layer weights stacked ``[L, ...]``, projections stored ``[in, out]``
 (``x @ w``). The JAX package's ``lax.scan`` over layers is a Python loop
 over ``L`` that indexes the stacked tensors. The pool is read through its
-per-layer view ``pool[l]`` (``[P, ps, Hkv, D]``, contiguous), so the page
-tables need no per-layer offset.
+per-layer view ``pool_layer(pool, l)`` (``[P, ps, Hkv, D]``, contiguous,
+with its ``[P, Hkv]`` scales for an int8 pool), so the page tables need no
+per-layer offset.
 
 Matmuls run in the parameter dtype; normalisation, RoPE and attention
 softmax run in fp32; logits are fp32 (bf16 products summed in fp32, as the
-JAX package's ``preferred_element_type=float32``).
+JAX package's ``preferred_element_type=float32``). The attention query and
+the chunk buffer enter the attention in their own dtype, whatever the
+pool's: the kernels read each operand in its own type and compute in fp32.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..ops.layers import (
+    paged_attention_dispatch,
     paged_attention_dispatch_chunked,
     qkv_proj,
     ragged_prefill_dispatch,
@@ -31,7 +36,9 @@ from ..ops.layers import (
     rope_cos_sin,
     swiglu,
 )
-from ..ops.paged_kv import init_paged_kv_cache, paged_write_chunk
+from ..ops.paged_kv import (init_paged_kv_cache, paged_write_chunk,
+                            paged_write_decode, pool_data, pool_dtype,
+                            pool_layer)
 from ..utils.device import DeviceLike, resolve_device
 from .configs import ModelConfig
 
@@ -92,9 +99,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
                      num_pages: int, page_size: int,
                      dtype: Optional[torch.dtype] = None,
-                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                     device: DeviceLike = None) -> Dict[str, Any]:
     """Block-paged KV pool {"k", "v", "page_table"} (ops/paged_kv.py);
-    ``dtype=None`` resolves SWARMDB_KV_DTYPE (bf16 default)."""
+    ``dtype=None`` resolves SWARMDB_KV_DTYPE (bf16 default);
+    ``torch.int8`` gives ``QuantPool`` entries."""
     return init_paged_kv_cache(
         cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
         batch, max_seq, dtype, resolve_device(device))
@@ -151,19 +159,20 @@ def forward_ragged_prefill(
     starts: torch.Tensor,      # [R] int32 row offset in the stream
     lens: torch.Tensor,        # [R] int32 row token count (0 = dead row)
     prefix_lens: torch.Tensor,  # [R] int32 tokens already in the row's pages
-    pool_k: torch.Tensor,      # [L, P, ps, Hkv, D] main page pool
-    pool_v: torch.Tensor,
+    pool_k: Any,               # [L, P, ps, Hkv, D] main page pool, or int8
+    pool_v: Any,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed ragged prefill forward: one token stream per admission wave,
     each token attending its own row's prefix pages in place plus the
     row's suffix causally (``layers.ragged_prefill_dispatch``). Returns
     (fp32 logits [R, V] at each row's last live token, sfx_k, sfx_v
-    [L, W, Hkv, D] in the pool dtype, stream order, for
+    [L, W, Hkv, D] in the pool's logical dtype, stream order, for
     ``paged_kv.paged_write_ragged``). The pool is only read."""
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
     W = tokens.shape[0]
-    L = pool_k.shape[0]
+    L = pool_data(pool_k).shape[0]
+    kdt, vdt = pool_dtype(pool_k), pool_dtype(pool_v)
     x = params["embed"][tokens.long()][None]             # [1, W, dim]
     cos, sin = rope_cos_sin(tok_pos[None], cfg.head_dim, cfg.rope_theta)
     lp = params["layers"]
@@ -172,14 +181,15 @@ def forward_ragged_prefill(
         h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
         q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
                            cfg.head_dim, cos, sin)
-        # suffix K/V in the pool dtype BEFORE attention: what this wave
-        # attends equals what later waves and decodes read back
-        ks = k[0].to(pool_k.dtype).contiguous()
-        vs = v[0].to(pool_v.dtype).contiguous()
+        # suffix K/V in the pool's logical dtype BEFORE attention: what
+        # this wave attends equals what later waves and decodes read back
+        # (up to quantization, for an int8 pool)
+        ks = k[0].to(kdt).contiguous()
+        vs = v[0].to(vdt).contiguous()
         attn = ragged_prefill_dispatch(
-            q[0].to(pool_k.dtype).contiguous(), ks, vs, pool_k[l],
-            pool_v[l], row_tables, starts, lens, prefix_lens,
-            window=cfg.sliding_window).to(x.dtype)
+            q[0].contiguous(), ks, vs, pool_layer(pool_k, l),
+            pool_layer(pool_v, l), row_tables, starts, lens, prefix_lens,
+            window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(W, -1), lp["wo"][l])[None]
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
         x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
@@ -196,7 +206,7 @@ def forward_paged_chunked(
     cfg: ModelConfig,
     tokens: torch.Tensor,      # [B, 1]
     positions: torch.Tensor,   # [B, 1]
-    cache: Dict[str, torch.Tensor],  # {"k","v","page_table"}: FROZEN
+    cache: Dict[str, Any],     # {"k","v","page_table"}: FROZEN
     chunk_kv: Tuple[torch.Tensor, torch.Tensor],  # [L, B, Kc, Hkv, D]
     step: int,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -204,8 +214,8 @@ def forward_paged_chunked(
     frozen for the chunk's K steps, this step's K/V lands in the chunk
     buffer at index ``step`` (written in place), and attention spans the
     live pages + the chunk buffer under one softmax
-    (``layers.paged_attention_dispatch_chunked``, in the pool dtype).
-    Returns (fp32 logits [B, 1, V], chunk_kv)."""
+    (``layers.paged_attention_dispatch_chunked``). Returns (fp32 logits
+    [B, 1, V], chunk_kv)."""
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
     x = params["embed"][tokens.long()]                   # [B, 1, dim]
@@ -215,17 +225,16 @@ def forward_paged_chunked(
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     starts = (positions[:, 0] - step).to(torch.int32)
     lp = params["layers"]
-    for l in range(cache["k"].shape[0]):
+    for l in range(pool_data(cache["k"]).shape[0]):
         h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
         q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
                            cfg.head_dim, cos, sin)
         hk[l][:, step] = k[:, 0].to(hk.dtype)
         hv[l][:, step] = v[:, 0].to(hv.dtype)
-        kvt = cache["k"].dtype
         attn = paged_attention_dispatch_chunked(
-            q.to(kvt).contiguous(), cache["k"][l], cache["v"][l], table,
-            hk[l].to(kvt), hv[l].to(kvt), starts, step,
-            window=cfg.sliding_window).to(x.dtype)
+            q.contiguous(), pool_layer(cache["k"], l),
+            pool_layer(cache["v"], l), table, hk[l], hv[l], starts, step,
+            window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
         x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
@@ -234,10 +243,45 @@ def forward_paged_chunked(
     return logits, (hk, hv)
 
 
-def merge_paged_chunk(cache: Dict[str, torch.Tensor],
+def forward_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,      # [B, 1] one decode step
+    positions: torch.Tensor,   # [B, 1] absolute position per slot
+    cache: Dict[str, Any],     # {"k","v","page_table"}: written in place
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Single-step paged decode forward (``SWARMDB_CHUNKED=0``): in every
+    layer the step's K/V is written into its page first
+    (``paged_kv.paged_write_decode``; a requant window for an int8 pool),
+    then each slot attends its pages up to and including its position
+    (``layers.paged_attention_dispatch``). Returns (fp32 logits [B, 1, V],
+    the cache)."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    x = params["embed"][tokens.long()]                   # [B, 1, dim]
+    B = x.shape[0]
+    table = cache["page_table"]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    lp = params["layers"]
+    for l in range(pool_data(cache["k"]).shape[0]):
+        h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
+        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cos, sin)
+        kp, vp = pool_layer(cache["k"], l), pool_layer(cache["v"], l)
+        paged_write_decode(kp, vp, k, v, positions, table)
+        attn = paged_attention_dispatch(q.contiguous(), kp, vp, table,
+                                        positions, window=cfg.sliding_window)
+        x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
+        h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
+        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(x[:, 0], _head(params))[:, None]
+    return logits, cache
+
+
+def merge_paged_chunk(cache: Dict[str, Any],
                       chunk_kv: Tuple[torch.Tensor, torch.Tensor],
-                      start_positions: torch.Tensor
-                      ) -> Dict[str, torch.Tensor]:
+                      start_positions: torch.Tensor) -> Dict[str, Any]:
     """Fold a finished chunk's K/V into the page pool, in place: one bulk
     write per chunk (``paged_kv.paged_write_chunk``)."""
     hk, hv = chunk_kv

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded with ``ctypes``:
+Each ``csrc/<name>.cu`` (an entry point over a kernel template in a
+``csrc/*.cuh``) compiles with ``nvcc`` into its own shared library with a
+plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
@@ -28,7 +29,9 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("ragged_prefill", "paged_decode_chunked")
+KERNELS = ("ragged_prefill", "paged_decode_chunked", "paged_decode",
+           "ragged_prefill_quant", "paged_decode_chunked_quant",
+           "paged_decode_quant")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

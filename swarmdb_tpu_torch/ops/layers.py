@@ -2,10 +2,11 @@
 
 The counterpart of ``swarmdb_tpu/ops/layers.py`` for the paged serving
 path: RMSNorm, rotary embeddings (split-half convention, math in fp32),
-the Q/K/V projection, SwiGLU, the two-segment decode attention over a
-dense view (the plain decode version), the dense ragged-prefill
-reference (the plain prefill version), and the two dispatchers the Llama
-forwards call.
+the Q/K/V projection, SwiGLU, the single-step and two-segment decode
+attentions over a dense view (the plain decode versions), the dense
+ragged-prefill reference (the plain prefill version), and the three
+dispatchers the Llama forwards call, each taking a plain pool or an int8
+``QuantPool``.
 
 Precision follows the JAX package: matmuls stay in the parameter dtype,
 normalisation statistics and softmax run in fp32, attention scores and
@@ -20,10 +21,13 @@ quantum applies.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .paged_kv import _dequantize_pages, is_quantized, pool_data
 
 _NEG = -1e30
 
@@ -84,6 +88,38 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return torch.matmul(g * u, w_down)
 
 
+def gqa_attention(
+    q: torch.Tensor,           # [B, T, Hq, D]
+    cache_k: torch.Tensor,     # [B, S, Hkv, D] dense view
+    cache_v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, T] absolute position of each query
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Grouped-query attention over a dense cache view, causal by absolute
+    position (entries at positions <= the query's are live); with a
+    window, entries at or below position - window are masked. Scores and
+    softmax in fp32, the probabilities rounded to the value dtype before
+    the value product (as the JAX package). Returns [B, T, Hq, D] in
+    q.dtype."""
+    B, S = cache_k.shape[0], cache_k.shape[1]
+    T, Hq, D = q.shape[1], q.shape[2], q.shape[3]
+    Hkv = cache_k.shape[2]
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, D).float()
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, cache_k.float())
+    scores = scores / math.sqrt(D)
+    qpos = q_positions.long()[:, :, None]                # [B, T, 1]
+    kv_pos = torch.arange(S, device=q.device)[None, None, :]
+    mask = kv_pos <= qpos
+    if window is not None:
+        mask = mask & (kv_pos > qpos - window)
+    scores = torch.where(mask[:, None, None], scores, _NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd",
+                       probs.to(cache_v.dtype).float(), cache_v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
 def gqa_attention_chunked(
     q: torch.Tensor,           # [B, 1, Hq, D] decode query
     cache_k: torch.Tensor,     # [B, S, Hkv, D] FROZEN prefix (dense view)
@@ -137,8 +173,8 @@ def ragged_prefill_attention_reference(
     q: torch.Tensor,           # [W, Hq, D] packed query stream
     sfx_k: torch.Tensor,       # [W, Hkv, D] packed suffix K
     sfx_v: torch.Tensor,
-    k_pages: torch.Tensor,     # [P, ps, Hkv, D] page pool (single layer)
-    v_pages: torch.Tensor,
+    k_pages: Any,              # [P, ps, Hkv, D] single layer, either kind
+    v_pages: Any,
     row_tables: torch.Tensor,  # [R, maxp] int32
     starts: torch.Tensor,      # [R] stream offset per row
     lens: torch.Tensor,        # [R] suffix length per row (0 = dead)
@@ -151,13 +187,14 @@ def ragged_prefill_attention_reference(
     package's ``ragged_prefill_attention_reference``). Every packed token
     attends its own row's prefix pages (gathered dense, positions
     ``0..prefix_lens[r]``) plus the row's suffix tokens causally; one fp32
-    softmax spans both segments. Padding tokens (row id >= R) produce
-    garbage the caller discards. Returns [W, Hq, D]."""
+    softmax spans both segments. A quantized pool is dequantized to f32
+    after the table gather. Padding tokens (row id >= R) produce garbage
+    the caller discards. Returns [W, Hq, D]."""
     W, Hq, D = q.shape
     Hkv = sfx_k.shape[1]
     G = Hq // Hkv
     R, maxp = row_tables.shape
-    ps = k_pages.shape[1]
+    ps = pool_data(k_pages).shape[1]
     Pt = maxp * ps
     dev = q.device
 
@@ -166,8 +203,13 @@ def ragged_prefill_attention_reference(
     prefix_lens = prefix_lens.long()
     row = torch.clamp(tok_row, 0, R - 1)
     tables = row_tables.long()
-    kp = k_pages[tables].reshape(R, Pt, Hkv, D)
-    vp = v_pages[tables].reshape(R, Pt, Hkv, D)
+    if is_quantized(k_pages):
+        kp = _dequantize_pages(k_pages.data[tables], k_pages.scale[tables])
+        vp = _dequantize_pages(v_pages.data[tables], v_pages.scale[tables])
+    else:
+        kp, vp = k_pages[tables], v_pages[tables]
+    kp = kp.reshape(R, Pt, Hkv, D)
+    vp = vp.reshape(R, Pt, Hkv, D)
     kp_t = kp[row].float()                               # [W, Pt, Hkv, D]
     vp_t = vp[row]
 
@@ -198,10 +240,38 @@ def ragged_prefill_attention_reference(
     return out.reshape(W, Hq, D).to(q.dtype)
 
 
+def paged_attention_dispatch(
+    q: torch.Tensor,           # [B, 1, Hq, D] decode query
+    k_pages: Any,              # [P, ps, Hkv, D] single layer, either kind
+    v_pages: Any,
+    page_table: torch.Tensor,  # [B, maxp] int32
+    q_positions: torch.Tensor,  # [B, 1] position of the query
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-step decode attention over the paged pool, whose pages
+    already hold this step's token: each slot attends its positions
+    ``< q_position + 1``. The single-step decode kernels on CUDA (the
+    int8 one for a ``QuantPool``), their plain versions (page gather +
+    ``gqa_attention``) on CPU. Returns [B, 1, Hq, D]."""
+    from .attention_cuda import (paged_decode_gqa_attention,
+                                 paged_decode_gqa_attention_quant)
+
+    lengths = (q_positions[:, 0] + 1).to(torch.int32)
+    if is_quantized(k_pages):
+        out = paged_decode_gqa_attention_quant(
+            q[:, 0], k_pages.data, k_pages.scale, v_pages.data,
+            v_pages.scale, page_table, lengths, window=window)
+    else:
+        out = paged_decode_gqa_attention(q[:, 0], k_pages, v_pages,
+                                         page_table, lengths, window=window)
+    return out[:, None]
+
+
 def paged_attention_dispatch_chunked(
     q: torch.Tensor,           # [B, 1, Hq, D] decode query
-    k_pages: torch.Tensor,     # [P, ps, Hkv, D] single-layer pool (FROZEN)
-    v_pages: torch.Tensor,
+    k_pages: Any,              # [P, ps, Hkv, D] single layer (FROZEN)
+    v_pages: Any,
     page_table: torch.Tensor,  # [B, maxp] int32
     chunk_k: torch.Tensor,     # [B, Kc, Hkv, D]
     chunk_v: torch.Tensor,
@@ -211,13 +281,21 @@ def paged_attention_dispatch_chunked(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Two-segment decode attention over the paged pool + chunk buffer:
-    the paged-decode kernel on CUDA, its plain version (page gather +
-    ``gqa_attention_chunked``) on CPU. Returns [B, 1, Hq, D]."""
-    from .attention_cuda import paged_decode_gqa_attention_chunked
+    the paged-decode kernels on CUDA (the int8 one for a ``QuantPool``),
+    their plain version (page gather + ``gqa_attention_chunked``) on CPU.
+    Returns [B, 1, Hq, D]."""
+    from .attention_cuda import (paged_decode_gqa_attention_chunked,
+                                 paged_decode_gqa_attention_chunked_quant)
 
-    out = paged_decode_gqa_attention_chunked(
-        q[:, 0], k_pages, v_pages, page_table, chunk_k, chunk_v, starts,
-        step, window=window)
+    if is_quantized(k_pages):
+        out = paged_decode_gqa_attention_chunked_quant(
+            q[:, 0], k_pages.data, k_pages.scale, v_pages.data,
+            v_pages.scale, page_table, chunk_k, chunk_v, starts, step,
+            window=window)
+    else:
+        out = paged_decode_gqa_attention_chunked(
+            q[:, 0], k_pages, v_pages, page_table, chunk_k, chunk_v, starts,
+            step, window=window)
     return out[:, None]
 
 
@@ -225,8 +303,8 @@ def ragged_prefill_dispatch(
     q: torch.Tensor,           # [W, Hq, D] packed query stream
     sfx_k: torch.Tensor,       # [W, Hkv, D]
     sfx_v: torch.Tensor,
-    k_pages: torch.Tensor,     # [P, ps, Hkv, D]
-    v_pages: torch.Tensor,
+    k_pages: Any,              # [P, ps, Hkv, D] single layer, either kind
+    v_pages: Any,
     row_tables: torch.Tensor,  # [R, maxp] int32
     starts: torch.Tensor,      # [R] int32
     lens: torch.Tensor,
@@ -235,10 +313,17 @@ def ragged_prefill_dispatch(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Packed ragged prefill attention over the paged pool: the ragged
-    prefill kernel on CUDA (prefix pages read in place), its plain version
-    on CPU. Returns [W, Hq, D]; positions no row owns are zero."""
-    from .attention_cuda import ragged_paged_prefill_attention
+    prefill kernels on CUDA (prefix pages read in place; the int8 one for
+    a ``QuantPool``), their plain version on CPU. Returns [W, Hq, D];
+    positions no row owns are zero."""
+    from .attention_cuda import (ragged_paged_prefill_attention,
+                                 ragged_paged_prefill_attention_quant)
 
+    if is_quantized(k_pages):
+        return ragged_paged_prefill_attention_quant(
+            q, sfx_k, sfx_v, k_pages.data, k_pages.scale, v_pages.data,
+            v_pages.scale, row_tables, starts, lens, prefix_lens,
+            window=window)
     return ragged_paged_prefill_attention(
         q, sfx_k, sfx_v, k_pages, v_pages, row_tables, starts, lens,
         prefix_lens, window=window)

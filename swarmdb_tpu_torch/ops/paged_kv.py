@@ -1,10 +1,17 @@
 """Block-paged KV cache: the page pool, its writes and the host allocator.
 
-The counterpart of ``swarmdb_tpu/ops/paged_kv.py`` for plain (bf16 / f32)
-pools. K and V live in a shared pool of fixed-size pages:
+The counterpart of ``swarmdb_tpu/ops/paged_kv.py``. K and V live in a
+shared pool of fixed-size pages:
 
-    k, v:        [L, num_pages, page_size, Hkv, D]
+    k, v:        [L, num_pages, page_size, Hkv, D]   (plain f32 / bf16 pool)
+                 QuantPool(data int8 [L, P, ps, Hkv, D], scale f32 [L, P, Hkv])
     page_table:  [B, pages_per_slot] int32   (page ids per slot)
+
+``SWARMDB_KV_DTYPE`` picks the storage: ``bf16`` (default) and ``f32`` keep
+pages verbatim; ``int8`` keeps symmetric per-page-per-head quantized pages
+with f32 scales beside them (a :class:`QuantPool` under the same ``"k"`` /
+``"v"`` keys), half the bytes of bf16 per token. Reads dequantize to f32
+(``paged_gather_kv``) or, in the kernels, per tile.
 
 Pool invariants (the same as the JAX package's):
 
@@ -16,39 +23,125 @@ Pool invariants (the same as the JAX package's):
 JAX arrays are immutable, so the JAX package's writes return new pools.
 Here the writes update the pool IN PLACE (tensor index assignment): the
 pool is the largest buffer of the serving path and a copy per write would
-double its traffic. The functions still return the pools, so call sites
-read like the JAX ones.
+double its traffic. A quantized write is a requant window: the touched
+pages are gathered, recomputed and scattered back whole; only trash page 0
+may appear twice in one scatter. The functions still return the pools, so
+call sites read like the JAX ones.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.sync import make_lock
 
-KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}
+
+#: logical dtype a quantized pool stands for: suffix K/V are cast to it
+#: before attending, as in the JAX package
+DEQUANT_DTYPE = torch.bfloat16
+
+#: symmetric range [-127, 127]: int8's -128 stays free for the canary of
+#: the page sanitizer (never produced by the quantizer)
+_QMAX = 127.0
+
+
+class QuantPool(NamedTuple):
+    """A quantized page pool: int8 payload + f32 symmetric scales.
+
+    ``data``  [..., P, ps, Hkv, D] int8; ``scale`` [..., P, Hkv] f32, one
+    per page and KV head: the value is ``data * scale``. ``pool[l]`` is
+    tuple FIELD indexing; the layer slice is :func:`pool_layer`."""
+
+    data: torch.Tensor
+    scale: torch.Tensor
 
 
 def kv_dtype_name() -> str:
-    """Resolve SWARMDB_KV_DTYPE (default ``bf16``). ``int8`` pools are a
-    later slice of the port and raise here."""
+    """Resolve SWARMDB_KV_DTYPE (default ``bf16``)."""
     name = os.environ.get("SWARMDB_KV_DTYPE", "bf16").strip().lower()
     if name in ("", "auto"):
         return "bf16"
-    if name == "int8":
-        raise NotImplementedError(
-            "SWARMDB_KV_DTYPE=int8 (quantized pages and their kernels) is "
-            "not ported yet: it is the int8-pool slice in ROADMAP.md "
-            "queue 1")
     if name not in KV_DTYPES:
         raise ValueError(f"SWARMDB_KV_DTYPE={name!r}: expected one of "
-                         f"{sorted(KV_DTYPES) + ['int8']}")
+                         f"{sorted(KV_DTYPES)}")
     return name
+
+
+def is_quantized(pool: Any) -> bool:
+    return isinstance(pool, QuantPool)
+
+
+def pool_data(pool: Any) -> torch.Tensor:
+    """Storage tensor of a pool (the int8 payload of a quantized one)."""
+    return pool.data if isinstance(pool, QuantPool) else pool
+
+
+def pool_dtype(pool: Any) -> torch.dtype:
+    """LOGICAL dtype of a pool: what suffix K/V are cast to before they
+    are attended (``DEQUANT_DTYPE`` for a quantized pool)."""
+    return DEQUANT_DTYPE if isinstance(pool, QuantPool) else pool.dtype
+
+
+def pool_layer(pool: Any, l: int) -> Any:
+    """Layer ``l`` of an [L, ...] pool, either kind (views, no copy)."""
+    if isinstance(pool, QuantPool):
+        return QuantPool(pool.data[l], pool.scale[l])
+    return pool[l]
+
+
+def pool_page_bytes(pool: Any) -> int:
+    """Device bytes ONE page id takes across layers, scale rows included
+    ([L, P, ...] or single-layer [P, ...] pools)."""
+    data = pool_data(pool)
+    pages = max(1, int(data.shape[-4]))
+    nbytes = data.numel() * data.element_size()
+    if isinstance(pool, QuantPool):
+        nbytes += pool.scale.numel() * pool.scale.element_size()
+    return nbytes // pages
+
+
+def _quantize_pages(vals: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-page-per-head quantization of whole pages: ``vals``
+    [..., ps, Hkv, D] (any float dtype) -> (int8 [..., ps, Hkv, D], f32
+    scale [..., Hkv]); scale = amax over (token slot, D) / 127, rounding
+    half to even. An all-zero page gets a tiny positive scale (its payload
+    is zero either way)."""
+    v = vals.float()
+    amax = v.abs().amax(dim=(-3, -1))                    # [..., Hkv]
+    scale = torch.clamp(amax, min=1e-30) / _QMAX
+    q = torch.clamp(torch.round(v / scale[..., None, :, None]),
+                    -_QMAX, _QMAX)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_pages(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """f32 view of quantized pages: data [..., ps, Hkv, D] * scale
+    [..., Hkv] (per head)."""
+    return q.float() * scale[..., None, :, None]
+
+
+def _requant_window(old_q: torch.Tensor, old_s: torch.Tensor,
+                    new_v: torch.Tensor, is_new: torch.Tensor,
+                    is_keep: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Requantize whole pages after an incremental write: survivors
+    (``is_keep``, slots before the write) are dequantized, new tokens
+    (``is_new``) spliced in, every other slot zeroed (stale values must not
+    raise the amax), and the page quantized again. ``old_q`` [..., ps, Hkv,
+    D] int8, ``old_s`` [..., Hkv], ``new_v`` broadcastable to the pages,
+    ``is_new`` / ``is_keep`` [..., ps] bool."""
+    old_f = _dequantize_pages(old_q, old_s)
+    vals = torch.where(is_new[..., None, None], new_v.float(),
+                       torch.where(is_keep[..., None, None], old_f, 0.0))
+    return _quantize_pages(vals)
 
 
 def pages_per_slot(max_seq: int, page_size: int) -> int:
@@ -65,54 +158,130 @@ def init_paged_kv_cache(
     max_seq: int,
     dtype: Optional[torch.dtype] = None,
     device: Optional[torch.device] = None,
-) -> Dict[str, torch.Tensor]:
+) -> Dict[str, Any]:
     """Zeroed page pool + all-trash page table. ``num_pages`` INCLUDES the
-    trash page 0. ``dtype=None`` resolves SWARMDB_KV_DTYPE."""
+    trash page 0. ``dtype=None`` resolves SWARMDB_KV_DTYPE; ``torch.int8``
+    gives :class:`QuantPool` entries (zero payload, zero scales: every
+    page reads as zeros, like a plain pool)."""
     if dtype is None:
         dtype = KV_DTYPES[kv_dtype_name()]
     shape = (n_layers, num_pages, page_size, n_kv_heads, head_dim)
-    maxp = pages_per_slot(max_seq, page_size)
+
+    def pool():
+        if dtype == torch.int8:
+            return QuantPool(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros((n_layers, num_pages, n_kv_heads),
+                            dtype=torch.float32, device=device))
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "page_table": torch.zeros((batch, maxp), dtype=torch.int32,
-                                  device=device),
+        "k": pool(),
+        "v": pool(),
+        "page_table": torch.zeros((batch, pages_per_slot(max_seq, page_size)),
+                                  dtype=torch.int32, device=device),
     }
 
 
 def paged_gather_kv(
-    k_pages: torch.Tensor,     # [P, ps, Hkv, D] (single layer)
-    v_pages: torch.Tensor,
+    k_pages: Any,              # [P, ps, Hkv, D] (single layer), either kind
+    v_pages: Any,
     page_table: torch.Tensor,  # [B, maxp]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense [B, maxp*ps, Hkv, D] view of each slot's pages — the input of
-    the plain decode attention."""
+    """Dense [B, maxp*ps, Hkv, D] view of each slot's pages -- the input of
+    the plain decode attention. A quantized pool gathers payload and
+    scales and dequantizes to f32."""
     B, maxp = page_table.shape
-    ps = k_pages.shape[1]
     idx = page_table.long()
-    shape = (B, maxp * ps) + tuple(k_pages.shape[2:])
+    data = pool_data(k_pages)
+    shape = (B, maxp * data.shape[1]) + tuple(data.shape[2:])
+    if isinstance(k_pages, QuantPool):
+        kg = _dequantize_pages(k_pages.data[idx], k_pages.scale[idx])
+        vg = _dequantize_pages(v_pages.data[idx], v_pages.scale[idx])
+        return kg.reshape(shape), vg.reshape(shape)
     return k_pages[idx].reshape(shape), v_pages[idx].reshape(shape)
 
 
+def paged_write_decode(
+    k_pages: Any,              # [P, ps, Hkv, D] (single layer), either kind
+    v_pages: Any,
+    k: torch.Tensor,           # [B, 1, Hkv, D]
+    v: torch.Tensor,
+    positions: torch.Tensor,   # [B, 1] absolute write positions
+    page_table: torch.Tensor,  # [B, maxp]
+) -> Tuple[Any, Any]:
+    """Write one decode token per slot into its page, in place. Writes at
+    positions past the table's coverage and from inactive slots (zeroed
+    table rows) land in trash page 0. On a quantized pool the token's page
+    is requantized: slots before the position survive, later slots are
+    zeroed."""
+    ps = pool_data(k_pages).shape[1]
+    maxp = page_table.shape[1]
+    pos = positions[:, 0].long()                         # [B]
+    col = torch.clamp(pos // ps, max=maxp - 1)
+    page = torch.gather(page_table.long(), 1, col[:, None])[:, 0]
+    page = torch.where(pos < maxp * ps, page, torch.zeros_like(page))
+    off = pos % ps
+    if isinstance(k_pages, QuantPool):
+        slots = torch.arange(ps, device=pos.device)[None, :]   # [1, ps]
+        slot_pos = (col * ps)[:, None] + slots                  # [B, ps]
+        is_new = slots == off[:, None]
+        is_keep = slot_pos < pos[:, None]
+        for pool, tok in ((k_pages, k), (v_pages, v)):
+            q, s = _requant_window(pool.data[page], pool.scale[page],
+                                   tok[:, 0][:, None], is_new, is_keep)
+            pool.data[page] = q
+            pool.scale[page] = s
+        return k_pages, v_pages
+    k_pages[page, off] = k[:, 0].to(k_pages.dtype)
+    v_pages[page, off] = v[:, 0].to(v_pages.dtype)
+    return k_pages, v_pages
+
+
 def paged_write_chunk(
-    k_pages: torch.Tensor,     # [L, P, ps, Hkv, D]
-    v_pages: torch.Tensor,
+    k_pages: Any,              # [L, P, ps, Hkv, D], either kind
+    v_pages: Any,
     chunk_k: torch.Tensor,     # [L, B, Kc, Hkv, D] a finished decode chunk
     chunk_v: torch.Tensor,
     start_positions: torch.Tensor,  # [B] absolute position of chunk step 0
     page_table: torch.Tensor,       # [B, maxp]
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold a finished decode chunk's K/V into the pool — one bulk write
+) -> Tuple[Any, Any]:
+    """Fold a finished decode chunk's K/V into the pool -- one bulk write
     per chunk. Positions past the table's coverage and rows with zeroed
-    table entries land in trash page 0."""
-    L = k_pages.shape[0]
-    ps = k_pages.shape[2]
+    table entries land in trash page 0. On a quantized pool the chunk's
+    page columns (at most ceil((ps - 1 + Kc) / ps) from start // ps) are
+    requantized: slots before the chunk start survive, slots past its end
+    are zeroed."""
+    L, _, ps = pool_data(k_pages).shape[:3]
     B, maxp = page_table.shape
     Kc = chunk_k.shape[2]
-    pos = (start_positions.long()[:, None]
-           + torch.arange(Kc, device=start_positions.device)[None, :])
+    dev = start_positions.device
+    start = start_positions.long()
+    table = page_table.long()
+    if isinstance(k_pages, QuantPool):
+        npc = min(maxp, (Kc + 2 * ps - 2) // ps)
+        c0 = torch.clamp(start // ps, 0, maxp - 1)                 # [B]
+        cols = c0[:, None] + torch.arange(npc, device=dev)[None]   # [B, npc]
+        page = torch.gather(table, 1, torch.clamp(cols, 0, maxp - 1))
+        touched = (cols < maxp) & (cols * ps < (start + Kc)[:, None])
+        page = torch.where(touched, page, torch.zeros_like(page))
+        slot_pos = cols[..., None] * ps + torch.arange(ps, device=dev)
+        t = slot_pos - start[:, None, None]                        # chunk idx
+        is_new = (t >= 0) & (t < Kc) & (slot_pos < maxp * ps)
+        is_keep = slot_pos < start[:, None, None]
+        tc = torch.clamp(t, 0, Kc - 1)
+        bidx = torch.arange(B, device=dev)[:, None, None]
+        pf = page.reshape(-1)                                      # [B*npc]
+        for pool, chunk in ((k_pages, chunk_k), (v_pages, chunk_v)):
+            new_v = chunk[:, bidx, tc]             # [L, B, npc, ps, Hkv, D]
+            q, s = _requant_window(pool.data[:, page], pool.scale[:, page],
+                                   new_v, is_new, is_keep)
+            pool.data[:, pf] = q.reshape((L, B * npc) + tuple(q.shape[3:]))
+            pool.scale[:, pf] = s.reshape((L, B * npc) + tuple(s.shape[3:]))
+        return k_pages, v_pages
+    pos = start[:, None] + torch.arange(Kc, device=dev)[None, :]
     col = torch.clamp(pos // ps, max=maxp - 1)
-    page = torch.gather(page_table.long(), 1, col)       # [B, Kc]
+    page = torch.gather(table, 1, col)                   # [B, Kc]
     page = torch.where(pos < maxp * ps, page, torch.zeros_like(page))
     off = pos % ps
     pf, of = page.reshape(-1), off.reshape(-1)           # [B*Kc]
@@ -123,18 +292,21 @@ def paged_write_chunk(
 
 
 def paged_write_ragged(
-    k_pages: torch.Tensor,     # [L, P, ps, Hkv, D]
-    v_pages: torch.Tensor,
+    k_pages: Any,              # [L, P, ps, Hkv, D], either kind
+    v_pages: Any,
     sfx_k: torch.Tensor,       # [L, W, Hkv, D] packed wave K (stream order)
     sfx_v: torch.Tensor,
     tok_row: torch.Tensor,     # [W] owning wave row (>= R = padding)
     tok_pos: torch.Tensor,     # [W] absolute position within the row
     row_tables: torch.Tensor,  # [R, maxp] page ids per wave row
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[Any, Any]:
     """Per-token scatter of a packed ragged wave's K/V into the pool:
     stream token t lands at page ``row_tables[tok_row[t], tok_pos[t] //
     ps]`` offset ``tok_pos[t] % ps``. Padding tokens land in trash page 0
     (duplicate trash writes are harmless: page 0 is never read as live)."""
+    if isinstance(k_pages, QuantPool):
+        return _paged_write_ragged_quant(k_pages, v_pages, sfx_k, sfx_v,
+                                         tok_row, tok_pos, row_tables)
     ps = k_pages.shape[2]
     R, maxp = row_tables.shape
     tok_row = tok_row.long()
@@ -148,6 +320,70 @@ def paged_write_ragged(
     off = torch.where(dead, zero, tok_pos % ps)
     k_pages[:, page, off] = sfx_k.to(k_pages.dtype)
     v_pages[:, page, off] = sfx_v.to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def _paged_write_ragged_quant(
+    k_pages: QuantPool, v_pages: QuantPool,
+    sfx_k: torch.Tensor, sfx_v: torch.Tensor,
+    tok_row: torch.Tensor, tok_pos: torch.Tensor,
+    row_tables: torch.Tensor,
+) -> Tuple[QuantPool, QuantPool]:
+    """Quantized ragged wave write: a requant window per wave row. A row's
+    tokens are contiguous positions, so it touches at most ceil(W / ps) + 1
+    page columns from its first token's column (first and last position
+    found with a segment min / max over ``tok_pos``). Survivors are the
+    slots before the row's first wave token (an earlier chunk of a split
+    prompt in a partly filled page); slots past its last token are zeroed.
+    Prefix-cache hit pages are whole pages before every window, so shared
+    pages are never rewritten. Untouched columns and dead rows go to trash
+    page 0."""
+    L, _, ps = k_pages.data.shape[:3]
+    tail = tuple(k_pages.data.shape[3:])                 # (Hkv, D)
+    R, maxp = row_tables.shape
+    W = tok_pos.shape[0]
+    dev = tok_pos.device
+    big = maxp * ps
+    tok_row = tok_row.long()
+    tok_pos = tok_pos.long()
+    live = (tok_row >= 0) & (tok_row < R) & (tok_pos >= 0) & (tok_pos < big)
+    rowc = torch.clamp(tok_row, 0, R - 1)
+    init = torch.empty((R,), dtype=torch.long, device=dev)
+    row_min = init.fill_(big).scatter_reduce(
+        0, rowc, torch.where(live, tok_pos, big), reduce="amin")
+    row_max = init.new_full((R,), -1).scatter_reduce(
+        0, rowc, torch.where(live, tok_pos, -1), reduce="amax")
+    npc = min(maxp, -(-W // ps) + 1)
+    c0 = torch.clamp(row_min // ps, 0, maxp - 1)                   # [R]
+    cols = c0[:, None] + torch.arange(npc, device=dev)[None]       # [R, npc]
+    page = torch.gather(row_tables.long(), 1, torch.clamp(cols, 0, maxp - 1))
+    touched = (cols < maxp) & (cols * ps <= row_max[:, None])
+    page = torch.where(touched, page, torch.zeros_like(page))
+    # stage the packed wave into per-row dense windows; padding and strays
+    # go to the spare row R, which is dropped
+    rel = tok_pos - c0[rowc] * ps
+    okw = live & (rel >= 0) & (rel < npc * ps)
+    sr = torch.where(okw, rowc, torch.full_like(rowc, R))
+    srel = torch.where(okw, rel, torch.zeros_like(rel))
+    is_new = torch.zeros((R + 1, npc * ps), dtype=torch.bool, device=dev)
+    is_new[sr, srel] = True
+    is_new = is_new[:R].reshape(R, npc, ps)
+    slot_pos = cols[..., None] * ps + torch.arange(ps, device=dev)
+    is_keep = slot_pos < row_min[:, None, None]
+    pf = page.reshape(-1)                                          # [R*npc]
+    # one layer at a time: the f32 windows of a wide wave over all layers
+    # would take several GiB at Llama-3-8B's shape
+    for pool, sfx in ((k_pages, sfx_k), (v_pages, sfx_v)):
+        for l in range(L):
+            data, scale = pool.data[l], pool.scale[l]
+            stage = torch.zeros((R + 1, npc * ps) + tail,
+                                dtype=torch.float32, device=dev)
+            stage[sr, srel] = sfx[l].float()
+            new_v = stage[:R].reshape((R, npc, ps) + tail)
+            q, s = _requant_window(data[page], scale[page], new_v, is_new,
+                                   is_keep)
+            data[pf] = q.reshape((R * npc, ps) + tail)
+            scale[pf] = s.reshape(R * npc, -1)
     return k_pages, v_pages
 
 

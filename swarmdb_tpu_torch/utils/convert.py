@@ -1,20 +1,24 @@
-"""Carry a parameter tree given as numpy arrays into the port's layout.
+"""Carry a parameter tree, or a KV page pool, given as numpy arrays into
+the port's layout, and a pool back out.
 
 The JAX package keeps Llama parameters as a nested dict of arrays with
 per-layer weights stacked ``[L, ...]``; the port keeps the same keys, the
-same shapes and the same layouts as torch tensors. With this function both
-packages can compute the same thing from the same weights: the caller
-turns the JAX tree into numpy (``jax.tree.map(np.asarray, params)``) and
-hands it here.
+same shapes and the same layouts as torch tensors. Its page pools are
+arrays ``[L, P, ps, Hkv, D]`` or, quantized, an int8 payload plus f32
+scales ``[L, P, Hkv]`` -- the port's ``QuantPool`` has the same two fields.
+With these functions both packages can compute the same thing from the
+same weights and the same pool: the caller turns the JAX tree or pool
+into numpy (``jax.tree.map(np.asarray, x)``) and hands it here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..ops.paged_kv import QuantPool
 from .device import DeviceLike, resolve_device
 
 
@@ -40,3 +44,30 @@ def params_from_numpy(tree: Dict[str, Any],
         return _to_tensor(node, dev)
 
     return conv(tree)
+
+
+def pool_from_numpy(pool: Any, device: DeviceLike = None
+                    ) -> Union[torch.Tensor, QuantPool]:
+    """A page pool as numpy -> the port's pool on ``device``: an array
+    stays a tensor of its dtype; anything with ``data`` and ``scale``
+    fields (the JAX package's ``QuantPool``), or a ``(data, scale)`` pair,
+    becomes a ``QuantPool`` (int8 payload, f32 scales)."""
+    dev = resolve_device(device)
+    if hasattr(pool, "data") and hasattr(pool, "scale"):
+        pool = (pool.data, pool.scale)
+    if isinstance(pool, tuple):
+        data, scale = pool
+        return QuantPool(_to_tensor(np.asarray(data, np.int8), dev),
+                         _to_tensor(np.asarray(scale, np.float32), dev))
+    return _to_tensor(pool, dev)
+
+
+def pool_to_numpy(pool: Union[torch.Tensor, QuantPool]
+                  ) -> Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]:
+    """The port's pool -> numpy: an f32 array (a bf16 pool widens
+    exactly), or the ``(data, scale)`` pair of a quantized one."""
+    if isinstance(pool, QuantPool):
+        return pool.data.cpu().numpy(), pool.scale.cpu().numpy()
+    if pool.dtype == torch.bfloat16:
+        pool = pool.float()
+    return pool.cpu().numpy()

@@ -1,6 +1,8 @@
-"""The two attention kernels' plain versions vs the JAX package's Pallas
-kernels (interpret mode, as tests/test_pallas_attention.py runs them) and
-its dense references; the wrappers' CPU dispatch and argument checks.
+"""The ragged-prefill and chunked-decode kernels' plain versions vs the
+JAX package's Pallas kernels (interpret mode, as
+tests/test_pallas_attention.py runs them) and its dense references; the
+wrappers' CPU dispatch and argument checks. (The int8 and single-step
+kernels: tests/test_torch_kv_quant.py, tests/test_torch_single_step.py.)
 
 float32 throughout; tolerance 1e-5 (absolute and relative): the Pallas
 kernels sum an online softmax tile by tile, the plain versions in one
@@ -133,7 +135,11 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
         *map(torch.from_numpy, d), 2)
     plain = ac.paged_decode_chunked_plain(*map(torch.from_numpy, d), 2)
     assert torch.equal(out, plain)
-    assert ac.LAUNCHES == {"ragged_prefill": 0, "paged_decode_chunked": 0}
+    assert set(ac.LAUNCHES) == {
+        "ragged_prefill", "paged_decode_chunked", "paged_decode",
+        "ragged_prefill_quant", "paged_decode_chunked_quant",
+        "paged_decode_quant"}
+    assert not any(ac.LAUNCHES.values())
 
 
 def test_wrappers_check_arguments():
@@ -167,29 +173,36 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-def test_kernels_match_plain_on_card(cuda_device, dtype, tol):
-    """Each kernel against its plain version on the same card tensors:
-    f32 within 1e-4, bf16 within 2e-2 (the plain version rounds the
-    softmax weights to bf16 before the value product, the kernel keeps
-    them in fp32)."""
+@pytest.mark.parametrize("qdt,pdt,tol", [
+    (torch.float32, torch.float32, 1e-4),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 2e-2)])
+def test_kernels_match_plain_on_card(cuda_device, qdt, pdt, tol):
+    """Each kernel against its plain version on the same card tensors, the
+    query in ``qdt`` and the pages, suffix and chunk buffer in ``pdt``:
+    f32 within 1e-4, else 2e-2 (the plain version rounds the softmax
+    weights to bf16 before the value product, the kernel keeps them in
+    fp32). The output comes back in the query's dtype."""
     for case in ("prefix", "dead", "split"):
         for window in (None, 7):
             args = [torch.from_numpy(a).to(cuda_device)
                     for a in _prefill_case(6, case)]
-            args[:5] = [a.to(dtype) for a in args[:5]]
+            args[0] = args[0].to(qdt)
+            args[1:5] = [a.to(pdt) for a in args[1:5]]
             got = ac.ragged_paged_prefill_attention(*args, window=window)
             want = ac.ragged_prefill_plain(*args, window=window)
             torch.cuda.synchronize()
+            assert got.dtype == qdt
             assert (got.float() - want.float()).abs().max().item() <= tol
     d = [torch.from_numpy(a).to(cuda_device) for a in _decode_case(7)]
-    for i in (0, 1, 2, 4, 5):
-        d[i] = d[i].to(dtype)
+    d[0] = d[0].to(qdt)
+    for i in (1, 2, 4, 5):
+        d[i] = d[i].to(pdt)
     for step in (0, 3):
         for window in (None, 6):
             got = ac.paged_decode_gqa_attention_chunked(*d, step,
                                                         window=window)
             want = ac.paged_decode_chunked_plain(*d, step, window=window)
             torch.cuda.synchronize()
+            assert got.dtype == qdt
             assert (got.float() - want.float()).abs().max().item() <= tol

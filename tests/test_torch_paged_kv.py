@@ -116,14 +116,35 @@ def test_allocator_sequence_matches():
     assert {k: js[k] for k in keys} == {k: ts[k] for k in keys}
 
 
-def test_pool_init_and_int8_refusal(monkeypatch):
+def test_pool_init_and_int8_structure(monkeypatch):
     pool = tp.init_paged_kv_cache(2, 5, 4, 2, 8, batch=3, max_seq=16,
                                   dtype=torch.float32, device="cpu")
     assert pool["k"].shape == (2, 5, 4, 2, 8)
     assert pool["page_table"].shape == (3, 4)
     assert pool["page_table"].dtype == torch.int32
     assert tp.pages_per_slot(17, 4) == jp.pages_per_slot(17, 4) == 5
+    # SWARMDB_KV_DTYPE=int8: the JAX package's QuantPool layout, field for
+    # field (int8 payload, f32 scales per page and KV head, all zero)
     monkeypatch.setenv("SWARMDB_KV_DTYPE", "int8")
-    with pytest.raises(NotImplementedError, match="int8"):
+    jpool = jp.init_paged_kv_cache(2, 5, 4, 2, 8, batch=3, max_seq=16)
+    qpool = tp.init_paged_kv_cache(2, 5, 4, 2, 8, batch=3, max_seq=16,
+                                   device="cpu")
+    for key in ("k", "v"):
+        assert tp.is_quantized(qpool[key]) and jp.is_quantized(jpool[key])
+        for field in ("data", "scale"):
+            j, t = getattr(jpool[key], field), getattr(qpool[key], field)
+            assert tuple(t.shape) == j.shape
+            assert str(t.dtype).split(".")[-1] == str(j.dtype)
+            assert not t.any()
+    assert tp.pool_dtype(qpool["k"]) == torch.bfloat16
+    assert tp.pool_data(qpool["k"]) is qpool["k"].data
+    layer = tp.pool_layer(qpool["k"], 1)
+    assert layer.data.shape == (5, 4, 2, 8) and layer.scale.shape == (5, 2)
+    assert layer.data.data_ptr() == qpool["k"].data[1].data_ptr()  # a view
+    assert tp.pool_page_bytes(qpool["k"]) == jp.pool_page_bytes(
+        jpool["k"]) == 2 * (4 * 2 * 8 + 2 * 4)
+    assert tp.pool_page_bytes(pool["k"]) == 2 * 4 * 2 * 8 * 4
+    monkeypatch.setenv("SWARMDB_KV_DTYPE", "fp4")
+    with pytest.raises(ValueError, match="SWARMDB_KV_DTYPE"):
         tp.init_paged_kv_cache(2, 5, 4, 2, 8, batch=3, max_seq=16,
                                device="cpu")
