@@ -9,40 +9,50 @@ It drives the port on the card in phases, prints one JSON line per phase
 and exits non-zero at the first failure:
 
 1. device   -- the card's name and power limit (``nvidia-smi``).
-2. build    -- compiles the six CUDA kernels from ``swarmdb_tpu_torch/csrc``
-               (one ``nvcc`` per source, started together).
+2. build    -- compiles the eight CUDA kernels from
+               ``swarmdb_tpu_torch/csrc`` (one ``nvcc`` per source, started
+               together).
 3. kernels  -- each kernel at the serving path's shapes (Llama-3-8B heads:
-               Hq 32, Hkv 8, D 128, page 16, 8 slots of 64 pages) against
-               its plain PyTorch version on the same inputs (the same int8
-               payload and scales for the int8 kernels): bf16 query / chunk
-               / suffix within 2e-2 absolute, f32 within 1e-4, an f32
-               query over bf16 pages within 2e-2, each with a windowed
-               case; then timed with CUDA events (median of 30 after
-               warm-up): the kernel, its plain version, and one PyTorch
+               Hq 32, Hkv 8, D 128; 8 slots of 64 pages of 16, or a dense
+               slot cache of 8 x 1024 positions) against its plain PyTorch
+               version on the same inputs (the same int8 payload and
+               scales for the int8 kernels): bf16 query / chunk / suffix
+               within 2e-2 absolute, f32 within 1e-4, an f32 query over
+               bf16 pages or lanes within 2e-2, each with a windowed case;
+               then timed with CUDA events (median of 30 after warm-up):
+               the kernel, its plain version, and one PyTorch
                ``scaled_dot_product_attention`` call over the gathered
-               (for int8: already dequantized) dense view (``library_ms``,
-               gather and dequantization excluded).
+               (for int8: already dequantized) dense view, or straight
+               over the dense lanes (``library_ms``, gather and
+               dequantization excluded).
 4. parity   -- tiny-debug in f32 with the same weights, served on the card
-               (kernels) and on the CPU (plain versions): chunked and
-               single-step decode over an f32 pool (logits within 1e-4), a
-               bf16 pool single-step and an int8 pool both ways (logits
-               within the bounds in ``PARITY_CASES``); greedy tokens equal
-               in every case.
+               (kernels) and on the CPU (plain versions): the paged engine
+               chunked and single-step over an f32 pool (logits within
+               1e-4), a bf16 pool single-step and an int8 pool both ways
+               (logits within the bounds in ``PARITY_CASES``), and the
+               dense engine chunked and single-step over an f32 slot cache
+               (1e-4); greedy tokens equal in every case.
 5. serve    -- Llama-3-8B at full width (32 layers, bf16 weights from seed
                0, built once) through SwarmDB + LocalBroker +
-               ServingService, four times: bf16 pool chunked (4 users x 2
-               turns), int8 pool chunked (4 x 2: turn 2 reads int8 prefix
-               pages), bf16 pool single-step and int8 pool single-step
-               (4 x 1); 32 new tokens each, one request sampled
-               (temperature 0.8, top-p 0.9, seed 7). Checks every reply,
-               prefix reuse on turn 2, and that the path's kernels (and no
-               other) advanced by 32 launches per prefill wave and per
+               ServingService, six times: the paged engine (``paged=True``)
+               over a bf16 pool chunked (4 users x 2 turns), an int8 pool
+               chunked (4 x 2: turn 2 reads int8 prefix pages), a bf16
+               pool single-step and an int8 pool single-step (4 x 1); then
+               the dense engine, built with ``paged=None`` and
+               ``SWARMDB_PAGED`` unset (the default), chunked (4 x 2: turn
+               2 reads the side prefix pool) and single-step (4 x 1); 32
+               new tokens each, one request sampled (temperature 0.8,
+               top-p 0.9, seed 7). Checks every reply, prefix reuse on
+               turn 2, and that the path's kernels (and no other) advanced
+               by 32 launches per prefill wave (paged; dense prefill
+               attention is plain PyTorch, as in the JAX package) and per
                decode step; prints TTFT, decode tokens/s, KV bytes per
-               token and peak device memory per serve. Each serve then
-               runs one more turn under ``torch.profiler`` (device time by
-               kernel, the device's idle share).
+               token, the cache's (and side pool's) size and peak device
+               memory per serve. Each serve then runs one more turn under
+               ``torch.profiler`` (device time by kernel, the device's
+               idle share).
 
-Then one ``{"kernels": [...]}`` line (launches summed over the four serves,
+Then one ``{"kernels": [...]}`` line (launches summed over the six serves,
 each counted from zero just before it and read just after) and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
@@ -133,6 +143,7 @@ def bound(nbytes: float, flops: float) -> tuple:
 
 
 HQ, HKV, D, PS, MAXP, NPAGES = 32, 8, 128, 16, 64, 769
+LANE = MAXP * PS                                   # dense slot length
 STARTS = [37, 300, 1000, 5, 513, 128, 777, 250]   # the decode slots
 
 
@@ -220,8 +231,45 @@ def prefill_case(qdt, pdt, dev, window=None):
                 prefix_lens=to(plens), window=window)
 
 
+def dense_chunked_case(qdt, cdt, dev, window=None):
+    """The dense chunked decode step at the serving shape: 8 slots of a
+    [8, 1024, 8, 128] slot cache with the same chunk starts (each lane
+    full of draws past its start: a prefill's padding garbage), chunk of
+    8 at step 5."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    B, Kc, step = 8, 8, 5
+    r = lambda dt, *s: torch.randn(*s, generator=g).to(dt).to(dev)
+    return dict(q=r(qdt, B, HQ, D), cache_k=r(cdt, B, LANE, HKV, D),
+                cache_v=r(cdt, B, LANE, HKV, D),
+                chunk_k=r(cdt, B, Kc, HKV, D), chunk_v=r(cdt, B, Kc, HKV, D),
+                starts=torch.tensor(STARTS, dtype=torch.int32).to(dev),
+                step=step, window=window)
+
+
+def dense_single_case(qdt, cdt, dev, window=None):
+    """The dense single-step decode: the same slots, each attending its
+    lane up to its position (lengths = start + 6, as after step 5)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    B = 8
+    r = lambda dt, *s: torch.randn(*s, generator=g).to(dt).to(dev)
+    return dict(q=r(qdt, B, HQ, D), cache_k=r(cdt, B, LANE, HKV, D),
+                cache_v=r(cdt, B, LANE, HKV, D),
+                lengths=torch.tensor([s + 6 for s in STARTS],
+                                     dtype=torch.int32).to(dev),
+                window=window)
+
+
 def _nbytes(t):
     return t.numel() * t.element_size()
+
+
+def _lane_rows_bytes(c, positions):
+    """Bytes of ``positions`` K and V rows of the case's dense lanes."""
+    return sum(positions) * HKV * D * c["cache_k"].element_size() * 2
 
 
 def _page_rows_bytes(c, positions):
@@ -250,6 +298,22 @@ def single_work(c):
     lengths = c["lengths"].tolist()
     nbytes = (2 * _nbytes(c["q"]) + _page_rows_bytes(c, lengths)
               + _nbytes(c["page_table"]) + _nbytes(c["lengths"]))
+    return nbytes, 4.0 * HQ * D * sum(lengths)
+
+
+def dense_chunked_work(c):
+    B = c["q"].shape[0]
+    keys = sum(c["starts"].tolist()) + B * (c["step"] + 1)
+    chunk_rows = B * (c["step"] + 1) * HKV * D * c["chunk_k"].element_size()
+    nbytes = (2 * _nbytes(c["q"]) + _lane_rows_bytes(c, c["starts"].tolist())
+              + 2 * chunk_rows + _nbytes(c["starts"]))
+    return nbytes, 4.0 * HQ * D * keys
+
+
+def dense_single_work(c):
+    lengths = c["lengths"].tolist()
+    nbytes = (2 * _nbytes(c["q"]) + _lane_rows_bytes(c, lengths)
+              + _nbytes(c["lengths"]))
     return nbytes, 4.0 * HQ * D * sum(lengths)
 
 
@@ -311,6 +375,32 @@ def single_library(c):
                         pos[None] < c["lengths"].long()[:, None])
 
 
+def dense_chunked_library(c):
+    """SDPA straight over each slot's lane plus its chunk buffer (the
+    concatenation is done here, once, outside the timed call), masked to
+    positions < start and chunk entries <= step."""
+    import torch
+
+    k = torch.cat([c["cache_k"], c["chunk_k"].to(c["cache_k"].dtype)], 1)
+    v = torch.cat([c["cache_v"], c["chunk_v"].to(c["cache_v"].dtype)], 1)
+    Kc = c["chunk_k"].shape[1]
+    pos = torch.arange(LANE + Kc, device=k.device)
+    st = c["starts"].long()[:, None]
+    live = torch.where(pos < LANE, pos[None] < st,
+                       pos[None] - LANE <= c["step"])
+    return _sdpa_decode(c["q"], k, v, live)
+
+
+def dense_single_library(c):
+    """SDPA straight over the lanes (no gather), masked to each slot's
+    length."""
+    import torch
+
+    pos = torch.arange(LANE, device=c["q"].device)
+    return _sdpa_decode(c["q"], c["cache_k"], c["cache_v"],
+                        pos[None] < c["lengths"].long()[:, None])
+
+
 def _sdpa_decode(q, k, v, live):
     import torch.nn.functional as F
 
@@ -359,8 +449,8 @@ def prefill_library(c):
 
 
 def kernel_specs():
-    """The six kernels: wrapper, plain version, case, work, library call,
-    source and the TPU kernel each replaces."""
+    """The eight kernels: wrapper, plain version, case, work, library
+    call, source and the TPU kernel each replaces."""
     from swarmdb_tpu_torch.ops import attention_cuda as ac
 
     pallas = "swarmdb_tpu/ops/attention_pallas.py"
@@ -368,6 +458,10 @@ def kernel_specs():
     pre = dict(case=prefill_case, work=prefill_work, library=prefill_library)
     chk = dict(case=decode_case, work=decode_work, library=decode_library)
     one = dict(case=single_case, work=single_work, library=single_library)
+    dchk = dict(case=dense_chunked_case, work=dense_chunked_work,
+                library=dense_chunked_library)
+    done = dict(case=dense_single_case, work=dense_single_work,
+                library=dense_single_library)
     return {
         "ragged_prefill": dict(
             pre, quant=False, kernel=ac.ragged_paged_prefill_attention,
@@ -398,6 +492,15 @@ def kernel_specs():
             plain=ac.paged_decode_quant_plain,
             source=f"{csrc}/paged_decode_quant.cu",
             replaces=f"{pallas}:696"),
+        "dense_decode_chunked": dict(
+            dchk, quant=False, kernel=ac.decode_gqa_attention_chunked,
+            plain=ac.decode_chunked_plain,
+            source=f"{csrc}/dense_decode_chunked.cu",
+            replaces=f"{pallas}:513"),
+        "dense_decode": dict(
+            done, quant=False, kernel=ac.decode_gqa_attention,
+            plain=ac.decode_plain, source=f"{csrc}/dense_decode.cu",
+            replaces=f"{pallas}:43"),
     }
 
 
@@ -447,8 +550,9 @@ def run_kernels(dev):
 # ------------------------------------------------------------------ parity
 
 
-#: (name, pool dtype, chunked, logits bound). An f32 pool holds PR 1's
-#: 1e-4 (float32 sums in another order). A bf16 pool: the plain version
+#: (name, cache dtype, chunked, logits bound, paged). An f32 pool or slot
+#: cache holds 1e-4 (float32 sums in another order; the chunked step
+#: there uses an f32 chunk buffer). A bf16 pool: the plain version
 #: rounds the softmax weights to the pages' bf16 before the value product,
 #: the kernels keep them in fp32 (the Pallas kernels' way); emulated on the
 #: CPU this moves tiny-debug's logits by up to 1.4e-2. An int8 pool dequan-
@@ -457,25 +561,30 @@ def run_kernels(dev):
 #: and a K/V value that differs by float32 rounding between the card's and
 #: the CPU's matmuls can flip one int8 code (amax / 127 of its page) where a
 #: write requantizes a page.
-PARITY_CASES = (("f32_chunked", "float32", True, 1e-4),
-                ("f32_single_step", "float32", False, 1e-4),
-                ("bf16_single_step", "bfloat16", False, 3e-2),
-                ("int8_chunked", "int8", True, 2e-2),
-                ("int8_single_step", "int8", False, 2e-2))
+PARITY_CASES = (("f32_chunked", "float32", True, 1e-4, True),
+                ("f32_single_step", "float32", False, 1e-4, True),
+                ("bf16_single_step", "bfloat16", False, 3e-2, True),
+                ("int8_chunked", "int8", True, 2e-2, True),
+                ("int8_single_step", "int8", False, 2e-2, True),
+                ("dense_f32_chunked", "float32", True, 1e-4, False),
+                ("dense_f32_single_step", "float32", False, 1e-4, False))
 
 
 @contextlib.contextmanager
-def chunked_env(chunked: bool):
-    """SWARMDB_CHUNKED set while an engine is built (it is read there)."""
-    old = os.environ.get("SWARMDB_CHUNKED")
+def engine_env(chunked: bool):
+    """SWARMDB_CHUNKED set, and SWARMDB_PAGED unset, while an engine is
+    built (both are read there)."""
+    old = {k: os.environ.get(k) for k in ("SWARMDB_CHUNKED", "SWARMDB_PAGED")}
     os.environ["SWARMDB_CHUNKED"] = "1" if chunked else "0"
+    os.environ.pop("SWARMDB_PAGED", None)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("SWARMDB_CHUNKED", None)
-        else:
-            os.environ["SWARMDB_CHUNKED"] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def parity_logits(p, cfg, d, kind, chunked):
@@ -530,9 +639,49 @@ def parity_logits(p, cfg, d, kind, chunked):
     return [x.cpu() for x in out]
 
 
-def path_kernels(kind: str, chunked: bool) -> tuple:
-    """(prefill kernel, decode kernel) an engine over a ``kind`` pool
-    runs: ragged prefill at admission, chunked or single-step decode."""
+def dense_parity_logits(p, cfg, d, chunked):
+    """Logits of one bucketed dense prefill (two rows, the head at each
+    row's last token) and of decode steps over a seeded f32 slot cache
+    (one chunked step with an f32 chunk buffer, or three single steps that
+    write the cache), on device ``d``."""
+    import numpy as np
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+
+    rng = np.random.default_rng(7)
+    T, S = 64, 128
+    toks = torch.from_numpy(rng.integers(3, 259, (2, T)).astype(np.int32))
+    pos = torch.arange(T, dtype=torch.int32).expand(2, T)
+    t = lambda x: x.to(d)
+    temp = llama.init_kv_cache(cfg, 2, T, torch.float32, device=d)
+    out = [llama.forward(p, cfg, t(toks), t(pos), temp,
+                         logits_at=t(torch.tensor([T - 1, 40])))[0]]
+    shape = (cfg.n_layers, 2, S, cfg.n_kv_heads, cfg.head_dim)
+    cache = tuple(t(torch.randn(shape, generator=torch.Generator()
+                                .manual_seed(s))) for s in (3, 13))
+    if chunked:
+        hk = torch.randn((cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.head_dim),
+                         generator=torch.Generator().manual_seed(4))
+        out.append(llama.forward_chunked(
+            p, cfg, t(toks[:, :1]), t(torch.tensor([[70], [90]])), cache,
+            (t(hk), t(hk.clone())), 3)[0])
+    else:
+        for s in range(3):
+            logits, cache = llama.forward(
+                p, cfg, t(toks[:, s:s + 1]),
+                t(torch.tensor([[70 + s], [90 + s]])), cache)
+            out.append(logits)
+    return [x.cpu() for x in out]
+
+
+def path_kernels(kind: str, chunked: bool, paged: bool) -> tuple:
+    """The kernels an engine runs. Paged, over a ``kind`` pool: ragged
+    prefill at admission, then chunked or single-step decode. Dense: the
+    dense decode kernel only (its prefill attention is plain PyTorch, as
+    in the JAX package)."""
+    if not paged:
+        return ("dense_decode_chunked" if chunked else "dense_decode",)
     quant = "_quant" if kind == "int8" else ""
     decode = "paged_decode_chunked" if chunked else "paged_decode"
     return "ragged_prefill" + quant, decode + quant
@@ -540,7 +689,7 @@ def path_kernels(kind: str, chunked: bool) -> tuple:
 
 def run_parity(dev):
     """tiny-debug f32: the same weights served on the card and on the CPU,
-    over each pool kind and decode mode of ``PARITY_CASES``."""
+    over each engine, cache kind and decode mode of ``PARITY_CASES``."""
     import numpy as np
     import torch
 
@@ -559,14 +708,14 @@ def run_parity(dev):
              for k, v in p_cpu.items()}
     rng = np.random.default_rng(5)
     prompts = [rng.integers(3, 259, n).tolist() for n in (40, 9, 200, 77)]
-    for name, kind, chunked, tol in PARITY_CASES:
+    for name, kind, chunked, tol, paged in PARITY_CASES:
         kv = getattr(torch, kind)
         engines = {}
-        with chunked_env(chunked):
+        with engine_env(chunked):
             for where, d, p in (("gpu", dev, p_gpu), ("cpu", "cpu", p_cpu)):
                 engines[where], _ = build_backend_engine(
                     "tiny-debug", max_batch=4, max_seq=256, device=d,
-                    params=p, kv_dtype=kv)
+                    params=p, kv_dtype=kv, paged=paged)
                 engines[where].start()
         ac.reset_launches()
         try:
@@ -582,9 +731,10 @@ def run_parity(dev):
             for e in engines.values():
                 e.stop()
         launches = {k: n for k, n in ac.LAUNCHES.items() if n}
-        if set(launches) != set(path_kernels(kind, chunked)):
+        if set(launches) != set(path_kernels(kind, chunked, paged)):
             fail(f"parity {name}: the card engine launched {launches}")
-        outs = {where: parity_logits(p, cfg, d, kind, chunked)
+        outs = {where: (parity_logits(p, cfg, d, kind, chunked) if paged
+                        else dense_parity_logits(p, cfg, d, chunked))
                 for where, d, p in (("gpu", dev, p_gpu),
                                     ("cpu", "cpu", p_cpu))}
         errs = [float((a - b).abs().max())
@@ -592,7 +742,7 @@ def run_parity(dev):
         if max(errs) > tol:
             fail(f"parity {name}: logits card vs cpu differ by {errs} > "
                  f"{tol}")
-        emit("parity", case=name, pool=kind, chunked=chunked,
+        emit("parity", case=name, cache=kind, paged=paged, chunked=chunked,
              prompts=len(prompts), greedy_equal=True,
              prefill_logits_max_abs_err=errs[0],
              decode_logits_max_abs_err=max(errs[1:]), bound=tol,
@@ -611,15 +761,19 @@ USER_TEXT = (
 FOLLOW_UP = ("Thanks. Now shorten the second day to a half day and add "
              "one place for coffee, {u} speaking again.")
 
-#: (name, pool dtype, chunked, turns): the four serves, in order.
-SERVES = (("bf16_chunked", "bfloat16", True, 2),
-          ("int8_chunked", "int8", True, 2),
-          ("bf16_single_step", "bfloat16", False, 1),
-          ("int8_single_step", "int8", False, 1))
+#: (name, cache dtype, chunked, turns, paged): the six serves, in order.
+#: ``paged=None`` builds the default engine (``SWARMDB_PAGED`` unset):
+#: the dense one, with its bf16 slot cache.
+SERVES = (("bf16_chunked", "bfloat16", True, 2, True),
+          ("int8_chunked", "int8", True, 2, True),
+          ("bf16_single_step", "bfloat16", False, 1, True),
+          ("int8_single_step", "int8", False, 1, True),
+          ("dense_chunked", "bfloat16", True, 2, None),
+          ("dense_single_step", "bfloat16", False, 1, None))
 
 
 def run_serves(card: str):
-    """Llama-3-8B at full width, weights built once, served four times
+    """Llama-3-8B at full width, weights built once, served six times
     (``SERVES``); each engine is freed before the next. Returns the
     launches summed over the serves."""
     import torch
@@ -640,7 +794,7 @@ def run_serves(card: str):
     return total
 
 
-def run_serve(card, params, init_s, name, kind, chunked, turns):
+def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
     import gc
 
     import torch
@@ -655,15 +809,17 @@ def run_serve(card, params, init_s, name, kind, chunked, turns):
                                                 pool_page_bytes)
 
     quant = kind == "int8"
-    prefill_k, decode_k = path_kernels(kind, chunked)
+    kernels = path_kernels(kind, chunked, bool(paged))
+    prefill_k, decode_k = kernels[0] if paged else None, kernels[-1]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     db = SwarmDB(broker=LocalBroker())
     backend = "h100-0"
-    with chunked_env(chunked):
+    with engine_env(chunked):
         eng, tok = build_backend_engine(
-            "llama3-8b", seed=0, device="cuda", params=params,
-            kv_dtype=getattr(torch, kind), metrics=db.metrics)
+            "llama3-8b", seed=0, device="cuda", params=params, paged=paged,
+            kv_dtype=getattr(torch, kind) if paged else None,
+            metrics=db.metrics)
     svc = ServingService(db, eng, tok, backend_id=backend)
     users = [f"user{i}" for i in range(4)]
     try:
@@ -696,7 +852,7 @@ def run_serve(card, params, init_s, name, kind, chunked, turns):
         waves = c["prefill_waves"].value - base["prefill_waves"]
         chunks = c["engine_decode_chunks"].value - base["engine_decode_chunks"]
         steps = chunks * eng.decode_chunk
-        L = pool_data(eng.cache["k"]).shape[0]
+        L = eng.params["layers"]["wq"].shape[0]
         reasons = [m.metadata.get("finish_reason") for m in replies]
         reused = eng.metrics.counters["prefix_reused_tokens"].value
         checks = {
@@ -704,17 +860,23 @@ def run_serve(card, params, init_s, name, kind, chunked, turns):
                 len(replies) == len(users) * turns
                 and all(r in ("length", "eos") for r in reasons),
             "prefix reuse on turn 2": turns < 2 or reused > 0,
-            f"{prefill_k} launches == 32 per wave":
-                waves > 0 and launches[prefill_k] >= L * waves,
             f"{decode_k} launches == 32 per step":
                 chunks > 0 and launches[decode_k] >= L * steps,
             "only this path's kernels": all(
-                n == 0 for k, n in launches.items()
-                if k not in (prefill_k, decode_k)),
-            "pool kind": is_quantized(eng.cache["k"]) == quant,
-            "pool on cuda": pool_data(eng.cache["k"]).is_cuda,
+                n == 0 for k, n in launches.items() if k not in kernels),
             "params on cuda": eng.params["layers"]["wq"].is_cuda,
         }
+        if paged:
+            checks.update({
+                f"{prefill_k} launches == 32 per wave":
+                    waves > 0 and launches[prefill_k] >= L * waves,
+                "pool kind": is_quantized(eng.cache["k"]) == quant,
+                "pool on cuda": pool_data(eng.cache["k"]).is_cuda})
+        else:
+            checks["the default builds the dense engine, bf16 on cuda"] = (
+                eng.paged is None and waves > 0 and all(
+                    t.is_cuda and t.dtype == torch.bfloat16
+                    for t in (*eng.cache, *eng._prefix_pool)))
         bad = [k for k, ok in checks.items() if not ok]
         if bad:
             fail(f"serve {name} checks failed: {bad}; reasons={reasons} "
@@ -723,19 +885,29 @@ def run_serve(card, params, init_s, name, kind, chunked, turns):
         ttft = sorted(db.metrics.latencies["send_to_first_token_s"].values())
         dec_s = (c["phase_us_decode"].value - base["phase_us_decode"]) / 1e6
         gen_tok = c["tokens_generated"].value - base["tokens_generated"]
+        if paged:
+            sizes = dict(
+                kv_bytes_per_token=pool_page_bytes(eng.cache["k"]) * 2
+                // eng.paged.page_size,
+                pool_gib=2 * pool_page_bytes(eng.cache["k"])
+                * eng.paged.num_pages / 2**30)
+        else:
+            ck = eng.cache[0]
+            sizes = dict(
+                kv_bytes_per_token=2 * ck[:, 0, 0].numel()
+                * ck.element_size(),
+                slot_cache_gib=sum(map(_nbytes, eng.cache)) / 2**30,
+                side_pool_gib=sum(map(_nbytes, eng._prefix_pool)) / 2**30)
         record = dict(
             serve=name, model="llama3-8b", layers=L, weights="bfloat16",
-            pool=kind, chunked=chunked, turns=turns, replies=len(replies),
+            engine="paged" if paged else "dense (default)", cache=kind,
+            chunked=chunked, turns=turns, replies=len(replies),
             finish_reasons=reasons, prefix_reused_tokens=reused,
             prefill_waves=waves, decode_chunks=chunks, launches={
                 k: n for k, n in launches.items() if n},
             ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
             decode_tokens_per_s=gen_tok / dec_s if dec_s else None,
-            generated_tokens=gen_tok, serve_wall_s=serve_s,
-            kv_bytes_per_token=pool_page_bytes(eng.cache["k"]) * 2
-            // eng.paged.page_size,
-            pool_gib=2 * pool_page_bytes(eng.cache["k"])
-            * eng.paged.num_pages / 2**30,
+            generated_tokens=gen_tok, serve_wall_s=serve_s, **sizes,
             weight_init_s=init_s, card=card,
             logits_mm_out_dtype=llama._MM_OUT_DTYPE.get(eng.device),
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -795,7 +967,9 @@ def profile_turn(db, users, text):
     busy_ms = sum(k[1] for k in kernels)
     attn = {"ragged_prefill": "ragged_prefill_kernel<",
             "paged_decode_chunked": "paged_decode_chunked_kernel<",
-            "paged_decode": "paged_decode_kernel<"}
+            "paged_decode": "paged_decode_kernel<",
+            "dense_decode_chunked": "dense_decode_chunked_kernel<",
+            "dense_decode": "dense_decode_kernel<"}
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,

@@ -1,28 +1,37 @@
-"""Continuous-batching generation engine: the paged single-lane path.
+"""Continuous-batching generation engine: the single-lane paged and
+dense paths.
 
-The counterpart of ``swarmdb_tpu/backend/engine.py`` for its main serving
-path (a single-shard paged pool, packed ragged prefill, the prefix cache
-and chunked decode):
+The counterpart of ``swarmdb_tpu/backend/engine.py`` for its two
+single-lane serving paths, the paged pool (``paged=PagedKV(...)``) and the
+dense slot cache (``paged=None``, the JAX package's default):
 
 - ``max_batch`` slots, each holding one in-flight sequence with its own
   absolute position, sampling params and random key. Inactive slots run
-  masked garbage the host ignores (their table rows are all trash page 0).
-- Admission is priority-ordered. Each round allocates pages for the
-  admitted requests (reusing prefix-cache pages in place), then packs
+  masked garbage the host ignores (their table rows are all trash page 0;
+  a dense slot's lane is rewritten by its next prefill).
+- Admission is priority-ordered. Paged: each round allocates pages for
+  the admitted requests (reusing prefix-cache pages in place), then packs
   their prompts into ragged waves: one token stream per wave, rows back to
   back, widths off a power-of-two ladder (``SWARMDB_RAGGED_MIN_WIDTH``,
-  default 8), a row longer than the wave's room split across waves. The
-  sampled first token lands in the device-resident fed-token vector and
-  reaches the host as row 0 of the next decode block.
-- Decode is a host loop over chunks: ``decode_chunk`` steps of
-  ``forward_paged_chunked`` + sampling with the pool frozen, then one
-  ``merge_paged_chunk`` into the pool, then ONE host read of the
+  default 8), a row longer than the wave's room split across waves.
+  Dense: prompts of at least one page go through the prefix path (a side
+  page pool, ``PrefixLRU`` with its own free list) even on a full miss,
+  so that their pages are registered: one fused suffix prefill per round
+  over the reused pages, padded to the round's (suffix bucket, prefix
+  width), its lanes inserted into the slots; shorter prompts prefill in
+  one bucketed wave per bucket (``Engine.prefill_buckets``), padded to
+  ``prefill_batch`` rows, inserted at ``cache[:, slot, :bucket]``. Either
+  way the sampled first token lands in the device-resident fed-token
+  vector and reaches the host as row 0 of the next decode block.
+- Decode is a host loop over chunks: ``decode_chunk`` steps of the chunk
+  forward + sampling with the cache frozen, then one merge into the cache
+  (``merge_paged_chunk`` / ``merge_chunk``), then ONE host read of the
   [K+1, B] token block. Without ``chunked_fns`` (``SWARMDB_CHUNKED=0``)
-  a chunk is K single steps of ``PagedKV.decode_forward``, each writing
-  its token into the pool before attending, and still one host read. The
-  JAX package's device-resident while-loop with its emission ring, CUDA
-  graphs, lanes and the dense / bucketed paths are later slices of the
-  port (ROADMAP.md).
+  a chunk is K single steps (``PagedKV.decode_forward``, or the dense
+  ``forward_fn`` at T == 1), each writing its token into the cache before
+  attending, and still one host read. The JAX package's device-resident
+  while-loop with its emission ring, CUDA graphs, lanes, rolling KV and
+  the paged bucketed prefills are later slices of the port (ROADMAP.md).
 
 All tensors live on the engine's explicit ``device``; the worker thread
 sets it as its current CUDA device.
@@ -103,14 +112,20 @@ class PagedKV:
 
 
 class Engine:
-    """Slot-based continuous batching over the paged pool."""
+    """Slot-based continuous batching over the paged pool or the dense
+    slot cache."""
 
     def __init__(
         self,
         params: Any,
         *,
-        paged: PagedKV,
-        chunked_fns: Optional[Tuple[Callable, Callable, Callable]],
+        paged: Optional[PagedKV] = None,
+        chunked_fns: Optional[Tuple[Callable, Callable, Callable]] = None,
+        forward_fn: Optional[Callable] = None,
+        init_cache_fn: Optional[Callable] = None,
+        prefix_fns: Optional[Tuple[Callable, Callable]] = None,
+        prefix_pages: int = 0,
+        prefix_page_size: int = 16,
         max_batch: int = 8,
         max_seq: int = 1024,
         eos_id: int = 2,
@@ -122,12 +137,32 @@ class Engine:
         prefix_cache: bool = True,
         device: DeviceLike = None,
     ) -> None:
-        """``chunked_fns`` = (chunk_forward(params, tokens[B,1],
+        """``paged`` selects the paged pool (``prefix_cache`` then turns
+        its prefix cache on); None the dense slot cache, which needs
+        ``forward_fn(params, tokens[B,T], positions[B,T], cache,
+        logits_at=None) -> (logits, cache)`` (its single-step decode, and
+        with ``logits_at=last_idx[B]`` the prefill, whose head runs at each
+        row's last token only: [B, V] logits) and ``init_cache_fn(batch,
+        max_seq) -> cache`` (also the prefill's temp cache at (rows,
+        bucket)), and takes ``prefix_fns`` = (lane_forward(params, tokens,
+        table, prefix_lens, pool_k, pool_v, lane_pages, logits_at=) ->
+        (logits, lane_k, lane_v), init_pool(num_pages, page_size) ->
+        (pool_k, pool_v)) for a prefix cache over a side pool of
+        ``prefix_pages`` pages. Its prefill buckets are a x4 ladder from 64
+        at max_seq >= 512, else 16..256, topped by max_seq.
+
+        ``chunked_fns`` = (chunk_forward(params, tokens[B,1],
         positions[B,1], cache, chunk_kv, step) -> (logits, chunk_kv),
         init_chunk(batch, K) -> chunk_kv, merge_chunk(cache, chunk_kv,
         start_positions) -> cache), or None: decode then runs
-        ``paged.decode_forward`` one step at a time."""
-        if chunked_fns is None and paged.decode_forward is None:
+        ``paged.decode_forward`` (dense: ``forward_fn``) one step at a
+        time."""
+        if paged is None and None in (forward_fn, init_cache_fn):
+            raise ValueError("a dense engine needs forward_fn and "
+                             "init_cache_fn")
+        self._decode_forward = (paged.decode_forward if paged is not None
+                                else forward_fn)
+        if chunked_fns is None and self._decode_forward is None:
             raise ValueError("an engine without chunked_fns needs "
                              "paged.decode_forward")
         self.device = resolve_device(device)
@@ -141,7 +176,8 @@ class Engine:
         self.prefill_batch = max(1, min(prefill_batch or 8, max_batch))
         self.paged = paged
         self._chunked_fns = chunked_fns
-        self.cache = paged.init_pool()
+        self._init_cache_fn = init_cache_fn
+        self.cache = self._new_cache()
         self._chunk_kv = (chunked_fns[1](max_batch, self.decode_chunk)
                           if chunked_fns is not None else None)
         self._aging_s = _env_float("SWARMDB_AGING_S", 5.0)
@@ -178,13 +214,28 @@ class Engine:
                             self._bp_high)
         self._bp_paused = False
 
-        # prefix cache: hit pages are pinned and referenced in place by
-        # the slot's table row; a prompt's freshly written full pages move
-        # into cache custody at registration
+        # dense prefill buckets: one wave shape per bucket (x4 growth in
+        # long context, where padding is bounded by the prefix cache)
+        self._long_context = max_seq >= 512
+        ladder = ((64, 256, 1024, 4096) if self._long_context
+                  else (16, 32, 64, 128, 256))
+        self.prefill_buckets = [b for b in ladder if b <= max_seq]
+        # the top bucket holds the longest admissible prompt (max_seq - 1)
+        if (not self.prefill_buckets
+                or self.prefill_buckets[-1] < max_seq - 1):
+            self.prefill_buckets.append(max_seq)
+
+        # prefix cache. Paged: hit pages are pinned and referenced in
+        # place by the slot's table row; a prompt's freshly written full
+        # pages move into cache custody at registration. Dense: a side
+        # pool with its own free list; hits are matched without pinning
+        # (their content is copied into the slot's lane by the same
+        # prefill that reads them) and a prompt's full pages are copied
+        # out of its lane into acquired pages
         self._prefix: Optional[PrefixLRU] = None
         self._slot_prefix_pins: Dict[int, List[int]] = {}
-        self._prefix_ps = paged.page_size
-        if prefix_cache:
+        self._prefix_ps = paged.page_size if paged else prefix_page_size
+        if paged is not None and prefix_cache:
             if max_seq % paged.page_size:
                 raise ValueError("max_seq must be a page-size multiple for "
                                  "prefix caching")
@@ -192,6 +243,19 @@ class Engine:
                                      manage_free=False)
             maxp = paged.allocator.maxp
             self._prefix_max_pages = max(1, maxp - 1)
+        elif paged is None and prefix_fns is not None:
+            if max_seq % prefix_page_size:
+                raise ValueError("max_seq must be a page-size multiple for "
+                                 "prefix caching")
+            self._prefix_lane_fwd, self._prefix_init_pool = prefix_fns
+            self._prefix_num_pages = max(2, prefix_pages)
+            self._prefix = PrefixLRU(self._prefix_num_pages,
+                                     prefix_page_size)
+            self._prefix_pool = self._prefix_init_pool(
+                self._prefix_num_pages, prefix_page_size)
+            self._prefix_pp_buckets = self._pp_widths(
+                max_seq // prefix_page_size)
+            self._prefix_max_pages = self._prefix_pp_buckets[-1]
 
         self._queue: List[Tuple[int, float, int, GenRequest]] = []  # heap
         self._admitting: set = set()
@@ -239,11 +303,20 @@ class Engine:
         self.metrics.counters["engine_restarts"].inc()
         self.start()
 
+    def _new_cache(self):
+        if self.paged is not None:
+            return self.paged.init_pool()
+        return self._init_cache_fn(self.max_batch, self.max_seq)
+
     def _reset_state(self) -> None:
-        self.cache = self.paged.init_pool()
-        self.paged.allocator.reset()
+        self.cache = self._new_cache()
+        if self.paged is not None:
+            self.paged.allocator.reset()
         if self._prefix is not None:
             self._prefix.reset()
+            if self.paged is None:
+                self._prefix_pool = self._prefix_init_pool(
+                    self._prefix_num_pages, self._prefix_ps)
         self._slot_prefix_pins.clear()
         self._last_tokens.zero_()
         self._last_lps.zero_()
@@ -257,13 +330,14 @@ class Engine:
                              f"max_seq {self.max_seq}")
         if not request.prompt:
             raise ValueError("empty prompt")
-        alloc = self.paged.allocator
-        need = alloc.pages_needed(len(request.prompt),
-                                  request.sampling.max_new_tokens,
-                                  self.decode_chunk)
-        if need > alloc.slot_capacity():
-            raise ValueError(f"request needs {need} KV pages but a slot can "
-                             f"hold at most {alloc.slot_capacity()}")
+        if self.paged is not None:
+            alloc = self.paged.allocator
+            need = alloc.pages_needed(len(request.prompt),
+                                      request.sampling.max_new_tokens,
+                                      self.decode_chunk)
+            if need > alloc.slot_capacity():
+                raise ValueError(f"request needs {need} KV pages but a slot "
+                                 f"can hold at most {alloc.slot_capacity()}")
         with self._cv:
             heapq.heappush(self._queue, (-request.priority,
                                          request.submitted_at,
@@ -417,10 +491,17 @@ class Engine:
 
     def _admit(self) -> None:
         """Move queued requests into free slots (highest priority first),
-        up to ``prefill_batch`` per round, and prefill them in ragged
-        waves. A request whose pages the pool cannot cover stops the round
-        (no skip-ahead: long prompts do not starve behind short ones)."""
+        up to ``prefill_batch`` per round, and prefill them."""
         self._age_queue()
+        if self.paged is None:
+            self._admit_dense()
+        else:
+            self._admit_paged()
+
+    def _admit_paged(self) -> None:
+        """Paged admission rounds, prefilled in ragged waves. A request
+        whose pages the pool cannot cover stops the round (no skip-ahead:
+        long prompts do not starve behind short ones)."""
         alloc = self.paged.allocator
         # reclaim retired slots' pages: zero their table rows on device
         # first, then return the pages (a stale row never sees reuse)
@@ -455,7 +536,8 @@ class Engine:
                     chains: Optional[List[bytes]] = None
                     if (self._prefix is not None
                             and len(req.prompt) >= self._prefix_ps):
-                        hits, chains = self._prefix_plan(req.prompt)
+                        hits, chains = self._prefix_plan(req.prompt,
+                                                         pin=True)
                     row = self._paged_allocate(slot_id, hits,
                                                max(0, need - len(hits)))
                     if row is None:
@@ -492,12 +574,16 @@ class Engine:
                         self._prefix.unpin(pins)
                     _call(req.on_done, req.request_id, [], "engine_error")
 
-    def _prefix_plan(self, prompt: List[int]
+    def _prefix_plan(self, prompt: List[int], pin: bool
                      ) -> Tuple[List[int], List[bytes]]:
-        """Longest cached prefix of ``prompt`` -> (hit page ids, pinned;
-        chain hashes of every full prompt page). Hits stop one page short
-        of a page-aligned prompt so at least one token is prefilled (the
-        first sample needs logits)."""
+        """Longest cached prefix of ``prompt`` -> (hit page ids; chain
+        hashes of every full prompt page). Hits stop one page short of a
+        page-aligned prompt so at least one token is prefilled (the first
+        sample needs logits), and at the widest prefix the path takes
+        (paged: maxp - 1 pages; dense: the top gather-width bucket).
+        ``pin`` (paged) pins the hits until the slot retires: its table
+        row reads them in place. The dense path copies them into the lane
+        in the same prefill, so it must not pin: nothing would unpin."""
         ps = self._prefix_ps
         n_full = len(prompt) // ps
         chains = page_chains(prompt, ps, max_pages=n_full)
@@ -505,7 +591,9 @@ class Engine:
         cap = min(cap, self._prefix_max_pages)
         if cap <= 0:
             return [], chains
-        return self._prefix.match_and_pin(chains[:cap], prompt), chains
+        if pin:
+            return self._prefix.match_and_pin(chains[:cap], prompt), chains
+        return self._prefix.match(chains[:cap], prompt), chains
 
     def _paged_allocate(self, slot_id: int, hits: List[int],
                         n_fresh: int) -> Optional[np.ndarray]:
@@ -533,6 +621,228 @@ class Engine:
         self._base_keys_np[slot_id] = (self._default_keys_np[slot_id]
                                        if seed is None else key_from_seed(seed))
 
+    def _set_slot_sampling(self, slot_id: int, s: SamplingParams) -> None:
+        """A slot's sampling params, set before its prefill samples the
+        first token (or it would inherit the previous occupant's)."""
+        self._temp[slot_id] = s.temperature
+        self._topk[slot_id] = s.top_k
+        self._topp[slot_id] = s.top_p
+        self._set_slot_key(slot_id, s.seed)
+
+    def _sample_into_slots(self, logits: torch.Tensor, gather: np.ndarray,
+                           fold_pos: torch.Tensor, scatter: np.ndarray
+                           ) -> None:
+        """Sample each wave row's first token from its [R, V] logits with
+        its slot's (``gather``) params and key folded at ``fold_pos`` (the
+        absolute position of its last prompt token, so a cached prefix
+        samples as a full prefill would), then scatter token and logprob
+        into the fed-token vectors at ``scatter`` (``max_batch`` = the
+        sink: rows that do not sample, padding)."""
+        nxt = sample_tokens(
+            logits, self._tensor(self._base_keys_np[gather].astype(np.int64)),
+            fold_pos, self._tensor(self._temp[gather]),
+            self._tensor(self._topk[gather]),
+            self._tensor(self._topp[gather]))
+        lp = token_logprob(logits, nxt)
+        scatter_t = self._tensor(scatter.astype(np.int64))
+        self._last_tokens.index_copy_(0, scatter_t, nxt)
+        self._last_lps.index_copy_(0, scatter_t, lp)
+
+    # ------------------------------------------------------ dense admission
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        return self.prefill_buckets[-1]
+
+    def _pp_widths(self, maxp: int) -> List[int]:
+        """Prefix gather-width buckets (pages): {maxp/4, maxp/2, maxp-1},
+        the quarter width dropped in long context."""
+        widths = ({maxp // 2, maxp - 1} if self._long_context
+                  else {maxp // 4, maxp // 2, maxp - 1})
+        return sorted({max(1, w) for w in widths})
+
+    def _pp_bucket_for(self, n: int) -> int:
+        """Smallest prefix gather-width bucket covering ``n`` hit pages."""
+        for b in self._prefix_pp_buckets:
+            if n <= b:
+                return b
+        return self._prefix_pp_buckets[-1]
+
+    def _admit_dense(self) -> None:
+        """Dense admission rounds of up to ``prefill_batch`` requests into
+        free slots. Prompts of at least one page take the prefix path even
+        on a full miss, so that their pages are registered for the next
+        turn: ONE fused suffix prefill per round, padded to the round's
+        largest (suffix bucket, prefix width); shorter prompts prefill in
+        one bucketed wave per bucket."""
+        ps = self._prefix_ps
+        while True:
+            with self._cv:
+                free = [i for i, s in enumerate(self.slots) if not s.active]
+                take = min(len(free), len(self._queue), self.prefill_batch)
+                if take == 0:
+                    return
+                popped = [heapq.heappop(self._queue)[3] for _ in range(take)]
+                self._admitting.update(r.request_id for r in popped)
+            groups: Dict[Any, List[Tuple]] = {}
+            prefix_batch: List[Tuple] = []
+            max_suffix = max_hits = 0
+            for slot_id, req in zip(free, popped):
+                if self._prefix is not None and len(req.prompt) >= ps:
+                    hits, chains = self._prefix_plan(req.prompt, pin=False)
+                    prefix_batch.append((slot_id, req, hits, chains))
+                    max_suffix = max(max_suffix,
+                                     len(req.prompt) - len(hits) * ps)
+                    max_hits = max(max_hits, len(hits))
+                else:
+                    groups.setdefault(self._bucket_for(len(req.prompt)),
+                                      []).append((slot_id, req))
+            if prefix_batch:
+                groups[("prefix", self._bucket_for(max(1, max_suffix)),
+                        self._pp_bucket_for(max(1, max_hits)))] = prefix_batch
+            for key, batch in groups.items():
+                try:
+                    if isinstance(key, tuple):
+                        self._prefill_prefix_batch(batch, key[1], key[2])
+                    else:
+                        self._prefill_batch(batch)
+                except Exception:
+                    # off the queue and not in slots: fail them here or
+                    # their on_done never fires
+                    logger.exception("prefill failed for %s",
+                                     [b[1].request_id for b in batch])
+                    for item in batch:
+                        req = item[1]
+                        with self._cv:
+                            self._admitting.discard(req.request_id)
+                            self._cancel_pending.discard(req.request_id)
+                        _call(req.on_done, req.request_id, [], "engine_error")
+
+    def _prefill_batch(self, batch: List[Tuple[int, GenRequest]]) -> None:
+        """One bucketed dense prefill for up to ``prefill_batch`` short
+        prompts: forward at [prefill_batch, bucket] into a temp cache, the
+        head at each row's last token, the first samples into the fed-token
+        vector, and each real row's K/V into ``cache[:, slot, :bucket]``
+        (padding rows are dropped). Stale entries a previous occupant left
+        past the bucket are never read: decode attends only positions it
+        has written."""
+        t0 = time.time()
+        n, Bp = len(batch), self.prefill_batch
+        bucket = self._bucket_for(max(len(req.prompt) for _, req in batch))
+        padded = np.full((Bp, bucket), self.pad_id, np.int32)
+        lengths = np.ones(Bp, np.int32)
+        gather = np.zeros(Bp, np.int64)
+        scatter = np.full(Bp, self.max_batch, np.int64)
+        for row, (slot_id, req) in enumerate(batch):
+            padded[row, :len(req.prompt)] = req.prompt
+            lengths[row] = len(req.prompt)
+            gather[row] = scatter[row] = slot_id
+            self._set_slot_sampling(slot_id, req.sampling)
+        positions = torch.arange(bucket, dtype=torch.int32,
+                                 device=self.device).expand(Bp, bucket)
+        last_idx = self._tensor(lengths - 1)
+        last, temp = self._decode_forward(
+            self.params, self._tensor(padded), positions,
+            self._init_cache_fn(Bp, bucket), logits_at=last_idx)
+        slots = self._tensor(gather[:n])
+        for full, fresh in zip(self.cache, temp):
+            full[:, slots, :bucket] = fresh[:, :n]
+        self._sample_into_slots(last, gather, last_idx, scatter)
+        self._count_wave(lengths[:n], padded.size)
+        self._activate(batch, t0)
+
+    def _prefill_prefix_batch(self, batch: List[Tuple], bucket: int,
+                              ppb: int) -> None:
+        """One fused dense prefix prefill for the round's prefix-path
+        rows (slot_id, req, hits, chains): each row's fresh full pages get
+        pool pages (``acquire`` evicts LRU entries; fewer pages register
+        less), the suffix forward reads the hits, and after the dispatch
+        the new pages' chains are registered."""
+        t0 = time.time()
+        ps = self._prefix_ps
+        rows: List[Tuple] = []
+        records: List[Tuple] = []
+        acquired: List[int] = []
+        for slot_id, req, hits, chains in batch:
+            prompt = req.prompt
+            new_idx = list(range(len(hits), len(prompt) // ps))
+            ids = self._prefix.acquire(len(new_idx)) if new_idx else []
+            acquired.extend(ids)
+            reg = list(zip(new_idx, ids))
+            records.extend((chains[i], tuple(prompt[i * ps:(i + 1) * ps]), p)
+                           for i, p in reg)
+            p0 = len(hits) * ps
+            rows.append((slot_id, req, prompt[p0:], p0, hits, reg))
+        try:
+            self._prefix_fused_dispatch(rows, bucket, ppb, t0)
+        except Exception:
+            for pid in acquired:
+                self._prefix.release(pid)
+            raise
+        for rec in records:
+            self._prefix.register(*rec)
+
+    def _prefix_fused_dispatch(self, rows: List[Tuple], bucket: int,
+                               ppb: int, t0: float) -> None:
+        """The dense prefix prefill of ``rows`` (slot_id, req,
+        suffix_tokens, prefix_len, hit_pages, [(lane_page, pool_page)] to
+        register): the suffix forward over the gathered hits at [Bp,
+        bucket] with a ``ppb``-page prefix table, the first samples, each
+        real row's composed lane into ``cache[:, slot, :lane]``, and the
+        registered pages copied out of the lanes into the side pool --
+        after the forward read the pool, so a hit page evicted and
+        re-acquired in this round is read before it is rewritten."""
+        ps, Bp, n = self._prefix_ps, self.prefill_batch, len(rows)
+        lane_pages = min(ppb + -(-bucket // ps), self.max_seq // ps)
+        padded = np.full((Bp, bucket), self.pad_id, np.int32)
+        lengths = np.ones(Bp, np.int32)
+        plens = np.zeros(Bp, np.int32)
+        table = np.zeros((Bp, ppb), np.int32)
+        gather = np.zeros(Bp, np.int64)
+        scatter = np.full(Bp, self.max_batch, np.int64)
+        reg_rows, reg_cols, reg_pages = [], [], []
+        for r, (slot_id, req, suffix, plen, hits, reg) in enumerate(rows):
+            padded[r, :len(suffix)] = suffix
+            lengths[r], plens[r] = len(suffix), plen
+            table[r, :len(hits)] = hits
+            gather[r] = scatter[r] = slot_id
+            self._set_slot_sampling(slot_id, req.sampling)
+            for lane_page, pid in reg:
+                reg_rows.append(r)
+                reg_cols.append(lane_page)
+                reg_pages.append(pid)
+        pool_k, pool_v = self._prefix_pool
+        lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
+        logits, lane_k, lane_v = self._prefix_lane_fwd(
+            self.params, self._tensor(padded), self._tensor(table), plens_t,
+            pool_k, pool_v, lane_pages, logits_at=lengths_t - 1)
+        slots = self._tensor(gather[:n])
+        lane_t = lane_pages * ps
+        for full, lane in zip(self.cache, (lane_k, lane_v)):
+            full[:, slots, :lane_t] = lane[:, :n]
+        if reg_pages:
+            idx = [self._tensor(np.asarray(a, np.int64))
+                   for a in (reg_rows, reg_cols, reg_pages)]
+            for pool, lane in ((pool_k, lane_k), (pool_v, lane_v)):
+                pages = lane.reshape((lane.shape[0], Bp, lane_pages, ps)
+                                     + tuple(lane.shape[3:]))
+                pool[:, idx[2]] = pages[:, idx[0], idx[1]].to(pool.dtype)
+        self._sample_into_slots(logits, gather, plens_t + lengths_t - 1,
+                                scatter)
+        self.metrics.counters["prefix_reused_tokens"].inc(int(plens.sum()))
+        self._count_wave(lengths[:n], padded.size)
+        self._activate([(r[0], r[1]) for r in rows], t0)
+
+    def _count_wave(self, lengths: np.ndarray, size: int) -> None:
+        """Counters of one bucketed wave: real and padding tokens."""
+        packed = int(lengths.sum())
+        c = self.metrics.counters
+        c["prefill_waves"].inc()
+        c["prefill_packed_tokens"].inc(packed)
+        c["prefill_padding_tokens"].inc(int(size) - packed)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
@@ -553,11 +863,7 @@ class Engine:
         for slot_id, req, hits, _chains, row in batch:
             p0 = len(hits) * ps
             pend.append([slot_id, req.prompt[p0:], p0, 0, row])
-            s = req.sampling
-            self._temp[slot_id] = s.temperature
-            self._topk[slot_id] = s.top_k
-            self._topp[slot_id] = s.top_p
-            self._set_slot_key(slot_id, s.seed)
+            self._set_slot_sampling(slot_id, req.sampling)
         packed_n = padding_n = 0
         k_pool, v_pool = self.cache["k"], self.cache["v"]
         while pend:
@@ -599,19 +905,11 @@ class Engine:
                 self.params, self._tensor(tokens), tok_row_t, tok_pos_t,
                 tables_t, self._tensor(starts), lens_t, plens_t,
                 k_pool, v_pool)
-            nxt = sample_tokens(
-                logits, self._tensor(self._base_keys_np[gather]
-                                     .astype(np.int64)),
-                torch.clamp(plens_t + lens_t - 1, min=0),
-                self._tensor(self._temp[gather]),
-                self._tensor(self._topk[gather]),
-                self._tensor(self._topp[gather]))
-            lp = token_logprob(logits, nxt)
+            self._sample_into_slots(
+                logits, gather, torch.clamp(plens_t + lens_t - 1, min=0),
+                scatter)
             paged_write_ragged(k_pool, v_pool, sk, sv, tok_row_t, tok_pos_t,
                                tables_t)
-            scatter_t = self._tensor(scatter)
-            self._last_tokens.index_copy_(0, scatter_t, nxt)
-            self._last_lps.index_copy_(0, scatter_t, lp)
             packed_n += filled
             padding_n += wd - filled
             self.metrics.counters["prefill_waves"].inc()
@@ -676,8 +974,8 @@ class Engine:
 
     def _decode_chunk(self):
         """One chunk of K decode steps: with ``chunked_fns``, K steps with
-        the pool frozen and then the merge; without, K single steps that
-        each write the pool. Returns the host copy of the [K+1, B] token
+        the cache frozen and then the merge; without, K single steps that
+        each write the cache. Returns the host copy of the [K+1, B] token
         and logprob blocks (row 0 = the fed tokens) and the (slot,
         request, start position) snapshot."""
         t0 = time.perf_counter()
@@ -712,7 +1010,7 @@ class Engine:
                                       pos[:, None], self.cache, (hk, hv),
                                       step)
             else:
-                logits, self.cache = self.paged.decode_forward(
+                logits, self.cache = self._decode_forward(
                     self.params, tok[:, None], pos[:, None], self.cache)
             tok = sample_tokens(logits[:, -1], keys, pos, temp, topk, topp,
                                 use_filters=use_filters,
@@ -795,12 +1093,13 @@ class Engine:
         req = slot.request
         slot.active = False
         slot.request = None
-        # pages stay owned until the next admission round zeroes the
-        # table row and frees them
-        self.paged.allocator.mark_retired(slot_id)
-        pins = self._slot_prefix_pins.pop(slot_id, None)
-        if pins:
-            self._prefix.unpin(pins)
+        if self.paged is not None:
+            # pages stay owned until the next admission round zeroes the
+            # table row and frees them (a dense lane has none to free)
+            self.paged.allocator.mark_retired(slot_id)
+            pins = self._slot_prefix_pins.pop(slot_id, None)
+            if pins:
+                self._prefix.unpin(pins)
         self.metrics.counters["engine_completed"].inc()
         self.metrics.rates["requests_completed"].mark()
         if req is not None:
@@ -837,10 +1136,12 @@ class Engine:
                 k: self.metrics.latencies[k].summary()
                 for k in ("queue_wait_s", "prefill_s", "first_token_s")
                 if k in self.metrics.latencies},
-            "pool": self.paged.allocator.stats(),
-            "pool_headroom": round(self._pool_headroom(), 4),
-            "admission_paused": self._bp_paused,
+            "cache": "paged" if self.paged is not None else "dense",
         }
+        if self.paged is not None:
+            out.update(pool=self.paged.allocator.stats(),
+                       pool_headroom=round(self._pool_headroom(), 4),
+                       admission_paused=self._bp_paused)
         if self._prefix is not None:
             out["prefix_cache"] = self._prefix.stats()
         return out

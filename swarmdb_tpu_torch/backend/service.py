@@ -1,8 +1,9 @@
 """ServingService: chat messages routed to an LLM backend become engine
 requests, and replies come back as messages.
 
-The counterpart of ``swarmdb_tpu/backend/service.py`` for the paged
-single-lane engine:
+The counterpart of ``swarmdb_tpu/backend/service.py`` for the
+single-lane engines, dense (the default, as in the JAX package) and paged
+(``paged=True`` or ``SWARMDB_PAGED=1``):
 
 - A consumer thread drains the inboxes of the agents assigned to this
   backend (``SwarmDB.assign_llm_backend``) and turns chat / function_call
@@ -12,10 +13,11 @@ single-lane engine:
   messages on a reply worker, off the engine thread.
 
 The engine decodes in chunks (``SWARMDB_CHUNKED=1``, default) or one step
-at a time (``SWARMDB_CHUNKED=0``), over a bf16 / f32 or int8 pool
+at a time (``SWARMDB_CHUNKED=0``): the dense engine over a bf16 slot cache
+with a side prefix pool, the paged one over a bf16 / f32 or int8 pool
 (``SWARMDB_KV_DTYPE``). Not ported yet (ROADMAP.md, queue 1): rolling KV
 and the tiered state hierarchy, ``n > 1`` fan-out, the lane supervisor,
-partition locality, SSE streaming and the dense engine.
+partition locality and SSE streaming.
 """
 
 from __future__ import annotations
@@ -118,15 +120,26 @@ def build_backend_engine(
     kv_dtype: Optional[torch.dtype] = None,
     params: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Engine, Tokenizer]:
-    """One paged Engine for a registry config, on ``device`` (the card by
-    default). Weights are random bf16 from ``seed`` unless
-    ``params`` (the port's dict layout, on ``device``) are given; the pool
-    is ``kv_dtype`` (None resolves SWARMDB_KV_DTYPE, bf16 by default;
-    ``torch.int8`` gives a quantized pool). The pool covers
-    every slot's full window plus the prefix-cache budget
-    (``SWARMDB_PREFIX_TOKENS``, default max_batch * max_seq / 2) unless
-    ``kv_pool_tokens`` bounds it. Decode is chunked unless
-    ``SWARMDB_CHUNKED=0``."""
+    """One Engine for a registry config, on ``device`` (the card by
+    default). Weights are random bf16 from ``seed`` unless ``params`` (the
+    port's dict layout, on ``device``) are given. Decode is chunked
+    unless ``SWARMDB_CHUNKED=0``.
+
+    ``paged=None`` resolves ``SWARMDB_PAGED`` as the JAX package does:
+    "1" builds the paged engine, anything else (unset included) the dense
+    one.
+
+    - Dense: a [L, max_batch, max_seq, Hkv, D] slot cache, bf16 as in the
+      JAX package (``SWARMDB_KV_DTYPE`` does not apply; ``kv_dtype``
+      may set float32, for tests), bucketed prefill, and a side page pool
+      for the prefix cache of ``1 + ceil(SWARMDB_PREFIX_TOKENS /
+      page_size)`` pages (default max_batch * max_seq / 2 tokens) in the
+      cache's dtype. The port has one chunk merge, so ``SWARMDB_MERGE``
+      (the JAX package's einsum or scatter form) is not read.
+    - Paged: the pool is ``kv_dtype`` (None resolves SWARMDB_KV_DTYPE,
+      bf16 by default; ``torch.int8`` gives a quantized pool) and covers
+      every slot's full window plus the prefix-cache budget
+      (``SWARMDB_PREFIX_TOKENS``) unless ``kv_pool_tokens`` bounds it."""
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
            else get_config(model_name_or_cfg))
     if cfg.is_moe:
@@ -134,18 +147,22 @@ def build_backend_engine(
             f"{cfg.name!r} is a MoE config: Mixtral serving is the Mixtral "
             "slice of the port (ROADMAP.md, queue 1)")
     if paged is None:
-        paged = os.environ.get("SWARMDB_PAGED", "1") != "0"
-    if not paged:
-        raise NotImplementedError(
-            "paged=False: the dense-cache engine is the dense-engine slice "
-            "of the port (ROADMAP.md, queue 1); only the paged pool is "
-            "ported")
+        paged = os.environ.get("SWARMDB_PAGED", "0") == "1"
     dev = resolve_device(device)
     seq = max_seq or min(cfg.max_seq_len, 1024)
     prefix_enabled = (os.environ.get("SWARMDB_PREFIX", "1") != "0"
                       and seq % page_size == 0)
     if params is None:
         params = llama.init_params(cfg, seed=seed, device=dev)
+    tokenizer = default_tokenizer(cfg.vocab_size, tokenizer_path)
+    if not paged:
+        engine = _dense_engine(cfg, params, dev, tokenizer, kv_dtype,
+                               prefix_enabled, max_batch=max_batch,
+                               max_seq=seq, seed=seed, metrics=metrics,
+                               decode_chunk=decode_chunk,
+                               prefill_batch=prefill_batch,
+                               page_size=page_size)
+        return engine, tokenizer
     maxp = pages_per_slot(seq, page_size)
     if kv_pool_tokens is None and "SWARMDB_KV_POOL_TOKENS" in os.environ:
         kv_pool_tokens = int(os.environ["SWARMDB_KV_POOL_TOKENS"])
@@ -177,7 +194,6 @@ def build_backend_engine(
             lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev),
             llama.merge_paged_chunk,
         )
-    tokenizer = default_tokenizer(cfg.vocab_size, tokenizer_path)
     engine = Engine(
         params, paged=paged_spec, chunked_fns=chunked_fns,
         max_batch=max_batch, max_seq=seq, eos_id=tokenizer.eos_id,
@@ -185,6 +201,52 @@ def build_backend_engine(
         decode_chunk=decode_chunk, prefill_batch=prefill_batch,
         prefix_cache=prefix_enabled, device=dev)
     return engine, tokenizer
+
+
+def _dense_engine(cfg: ModelConfig, params: Dict[str, Any],
+                  dev: torch.device, tokenizer: Tokenizer,
+                  kv_dtype: Optional[torch.dtype], prefix_enabled: bool, *,
+                  max_batch: int, max_seq: int, seed: int, metrics,
+                  decode_chunk: int, prefill_batch: Optional[int],
+                  page_size: int) -> Engine:
+    """The dense engine's wiring (``swarmdb_tpu/backend/service.py``'s
+    dense branch of ``build_backend_engine``)."""
+    dtype = kv_dtype or torch.bfloat16
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the dense slot cache is bfloat16 or float32, "
+                         f"not {dtype} (int8 KV is paged-only)")
+    chunked_fns = None
+    if os.environ.get("SWARMDB_CHUNKED", "1") != "0":
+        chunked_fns = (
+            lambda p, t, pos, c, hkv, s: llama.forward_chunked(
+                p, cfg, t, pos, c, hkv, s),
+            lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev),
+            llama.merge_chunk,
+        )
+    prefix_fns, prefix_pages = None, 0
+    if prefix_enabled:
+        prefix_tokens = _env_int("SWARMDB_PREFIX_TOKENS",
+                                 max_batch * max_seq // 2)
+        prefix_pages = 1 + -(-prefix_tokens // page_size)  # +1 trash page
+        prefix_fns = (
+            lambda p, t, tab, pl, pk, pv, lp, logits_at=None:
+                llama.forward_prefix_lane(p, cfg, t, tab, pl, pk, pv, lp,
+                                          logits_at=logits_at),
+            lambda n, ps: llama.init_prefix_pool(cfg, n, ps, dtype=dtype,
+                                                 device=dev),
+        )
+    return Engine(
+        params,
+        forward_fn=lambda p, t, pos, c, logits_at=None: llama.forward(
+            p, cfg, t, pos, c, logits_at=logits_at),
+        init_cache_fn=lambda b, s: llama.init_kv_cache(cfg, b, s,
+                                                       dtype=dtype,
+                                                       device=dev),
+        chunked_fns=chunked_fns, prefix_fns=prefix_fns,
+        prefix_pages=prefix_pages, prefix_page_size=page_size,
+        max_batch=max_batch, max_seq=max_seq, eos_id=tokenizer.eos_id,
+        pad_id=tokenizer.pad_id, seed=seed, metrics=metrics,
+        decode_chunk=decode_chunk, prefill_batch=prefill_batch, device=dev)
 
 
 class ServingService:

@@ -1,7 +1,8 @@
-// Shared pieces of the paged-attention kernels (ragged prefill, chunked
-// and single-step paged decode, each over plain or int8 pages): 16-byte
-// tile loads into shared memory, the page-table walk and the fp32
-// online-softmax fold of one key tile into a query row's state.
+// Shared pieces of the attention kernels (ragged prefill, chunked and
+// single-step decode, over plain or int8 pages or over a dense slot
+// cache): 16-byte tile loads into shared memory, the page-table walk, the
+// dense lane walk and the fp32 online-softmax fold of one key tile into a
+// query row's state.
 //
 // Operand types. Pages are a compile-time type TP: float, bf16, or int8
 // with one f32 scale per (page, KV head), applied to each widened value as
@@ -163,6 +164,45 @@ template <typename TP, int D> struct PagedRows {
   }
 };
 
+// The rows of one KV head of one slot's lane in a dense slot cache
+// [B, S, Hkv, D]: position pos of slot b is row (b * S + pos) * Hkv + h,
+// contiguous in pos, unscaled. Callers keep pos < S.
+template <typename T, int D> struct DenseRows {
+  const T* cache;  // [B, S, Hkv, D]
+  int S, Hkv, b, h;
+
+  __device__ __forceinline__ const T* row(int pos) const {
+    return cache + (((int64_t)b * S + pos) * Hkv + h) * D;
+  }
+  __device__ __forceinline__ float scale(int) const { return 1.f; }
+};
+
+// A whole K or V cache as a decode kernel sees it: rows(b, h) walks slot
+// b's positions of KV head h, coverage() is how many positions a slot can
+// hold (the page table's reach, or the lane length S).
+template <typename TP, int D> struct PagedCache {
+  const TP* pool;       // [P, ps, Hkv, D]
+  const float* scales;  // [P, Hkv] for int8 pages, unused otherwise
+  const int* table;     // [B, maxp]
+  int P, ps, Hkv, maxp;
+
+  __device__ __forceinline__ PagedRows<TP, D> rows(int b, int h) const {
+    return PagedRows<TP, D>{pool, scales, table + (int64_t)b * maxp,
+                            P, ps, Hkv, maxp, h};
+  }
+  __device__ __forceinline__ int coverage() const { return maxp * ps; }
+};
+
+template <typename T, int D> struct DenseCache {
+  const T* lanes;  // [B, S, Hkv, D]
+  int S, Hkv;
+
+  __device__ __forceinline__ DenseRows<T, D> rows(int b, int h) const {
+    return DenseRows<T, D>{lanes, S, Hkv, b, h};
+  }
+  __device__ __forceinline__ int coverage() const { return S; }
+};
+
 // Running state of one query row, split over TPR lanes.
 template <int D, int TPR> struct RowState {
   static constexpr int NPT = D / TPR;  // dims per lane
@@ -277,18 +317,16 @@ __device__ __forceinline__ void fold_tile(RowState<D, TPR>& st,
   }
 }
 
-// Fold the positions [tile0 * KT, end) of a paged pool into `st`, KT
-// positions per tile through the shared tiles Ks / Vs [KT][D]; valid(pos)
-// says whether a position is visible to this row. Block-wide: every thread
-// of the block calls it.
-template <typename TP, int D, int TPR, int KT, class Valid>
+// Fold the positions [tile0 * KT, end) of one slot's K / V rows (PagedRows
+// or DenseRows, element type TP) into `st`, KT positions per tile through
+// the shared tiles Ks / Vs [KT][D]; valid(pos) says whether a position is
+// visible to this row. Block-wide: every thread of the block calls it.
+template <typename TP, int D, int TPR, int KT, class Rows, class Valid>
 __device__ __forceinline__ void fold_pages(RowState<D, TPR>& st, float* Ks,
-                                           float* Vs,
-                                           const PagedRows<TP, D>& kr,
-                                           const PagedRows<TP, D>& vr,
-                                           int tile0, int end, int sub,
-                                           Valid valid, float scale, int tid,
-                                           int nthreads) {
+                                           float* Vs, const Rows& kr,
+                                           const Rows& vr, int tile0, int end,
+                                           int sub, Valid valid, float scale,
+                                           int tid, int nthreads) {
   const int n_tiles = (end + KT - 1) / KT;
   for (int tile = tile0; tile < n_tiles; ++tile) {
     const int pos0 = tile * KT;

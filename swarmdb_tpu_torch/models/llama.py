@@ -1,10 +1,14 @@
-"""Llama-3 model family on the paged serving path, in PyTorch.
+"""Llama-3 model family on the serving paths, in PyTorch.
 
 The counterpart of ``swarmdb_tpu/models/llama.py`` for the functions the
-paged single-lane engine runs: parameter init, the paged pool (plain or
-int8), the packed ragged prefill forward, the two-segment chunked decode
-forward with its once-per-chunk page merge, and the single-step paged
-decode forward (``SWARMDB_CHUNKED=0``).
+single-lane engines run: parameter init; for the paged engine the pool
+(plain or int8), the packed ragged prefill forward, the two-segment
+chunked decode forward with its once-per-chunk page merge and the
+single-step paged decode forward (``SWARMDB_CHUNKED=0``); for the dense
+engine the ``[L, B, S, Hkv, D]`` slot cache, the bucketed ``forward``
+(prefill, and single-step decode), the prefix-cache suffix forwards over a
+side page pool (``forward_prefix_pages`` / ``forward_prefix_lane``) and
+the chunked decode ``forward_chunked`` with its once-per-chunk merge.
 
 Parameters are a plain dict with the JAX package's keys and layouts:
 per-layer weights stacked ``[L, ...]``, projections stored ``[in, out]``
@@ -28,6 +32,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..ops.layers import (
+    compose_prefix_lane,
+    gqa_attention,
+    gqa_attention_chunked,
+    gqa_attention_prefix,
+    merge_chunk_kv,
     paged_attention_dispatch,
     paged_attention_dispatch_chunked,
     qkv_proj,
@@ -35,14 +44,16 @@ from ..ops.layers import (
     rms_norm,
     rope_cos_sin,
     swiglu,
+    write_kv_cache,
 )
-from ..ops.paged_kv import (init_paged_kv_cache, paged_write_chunk,
-                            paged_write_decode, pool_data, pool_dtype,
-                            pool_layer)
+from ..ops.paged_kv import (init_paged_kv_cache, paged_gather_kv,
+                            paged_write_chunk, paged_write_decode, pool_data,
+                            pool_dtype, pool_layer)
 from ..utils.device import DeviceLike, resolve_device
 from .configs import ModelConfig
 
 Params = Dict[str, Any]
+KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 
 # ---------------------------------------------------------------------- init
@@ -94,6 +105,29 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((D, cfg.vocab_size), D, stacked=False)
     return params
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: DeviceLike = None) -> KVCache:
+    """The dense engine's slot cache: zeros (k, v), each [L, batch,
+    max_seq, Hkv, D], bf16 by default as in the JAX package."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def init_prefix_pool(cfg: ModelConfig, num_pages: int, page_size: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: DeviceLike = None) -> KVCache:
+    """The dense engine's side page pool for the prefix cache: zeros (k,
+    v), each [L, num_pages, page_size, Hkv, D] (page 0 = trash)."""
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    dev = resolve_device(device)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -288,3 +322,181 @@ def merge_paged_chunk(cache: Dict[str, Any],
     paged_write_chunk(cache["k"], cache["v"], hk, hv, start_positions,
                       cache["page_table"])
     return cache
+
+
+# -------------------------------------------------------------- dense engine
+
+
+def _final_logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                  logits_at: Optional[torch.Tensor]) -> torch.Tensor:
+    """fp32 logits [B, T, V] of the final hidden states, or [B, V] at each
+    row's ``logits_at`` index (the LM head only where it is sampled)."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if logits_at is not None:
+        rows = torch.arange(x.shape[0], device=x.device)
+        return _logits(x[rows, logits_at.long()], _head(params))
+    B, T = x.shape[0], x.shape[1]
+    return _logits(x.reshape(B * T, -1), _head(params)).reshape(B, T, -1)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,      # [B, T]
+    positions: torch.Tensor,   # [B, T] absolute positions per row
+    cache: KVCache,            # ([L, B, S, Hkv, D], ...): written in place
+    logits_at: Optional[torch.Tensor] = None,  # [B] row indices into T
+) -> Tuple[torch.Tensor, KVCache]:
+    """One forward pass over the dense slot cache, for mixed prefill and
+    decode rows: each row's positions are its own absolute offsets and
+    attention masks by position (``layers.gqa_attention``; a decode step,
+    T == 1, goes to the dense single-step decode kernel). Every layer's
+    K/V go into the cache first, in place (with T == S, a prefill over
+    its whole temp cache, the cache simply takes them). Returns (fp32
+    logits [B, T, V], or [B, V] at each row's ``logits_at`` index, the
+    cache)."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    ck, cv = cache
+    B, T = tokens.shape
+    full = T == ck.shape[2]
+    x = params["embed"][tokens.long()]                   # [B, T, dim]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    lp = params["layers"]
+    for l in range(ck.shape[0]):
+        h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
+        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cos, sin)
+        kl, vl = write_kv_cache(ck[l], cv[l], k, v, positions)
+        if full:  # the write handed back the fresh K/V: keep them
+            ck[l].copy_(kl)
+            cv[l].copy_(vl)
+        attn = gqa_attention(q, kl, vl, positions, window=cfg.sliding_window)
+        x = x + torch.matmul(attn.reshape(B, T, -1), lp["wo"][l])
+        h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
+        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+    return _final_logits(params, cfg, x, logits_at), cache
+
+
+def forward_chunked(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,      # [B, 1] one decode step
+    positions: torch.Tensor,   # [B, 1] absolute positions
+    cache: KVCache,            # FROZEN during the chunk
+    chunk_kv: Tuple[torch.Tensor, torch.Tensor],  # [L, B, Kc, Hkv, D]
+    step: int,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One decode step of the dense engine's chunked decode: the slot
+    cache stays frozen for the chunk's K steps, this step's K/V goes into
+    the chunk buffer at index ``step`` (in place), and attention spans
+    each slot's lane below its chunk start plus the chunk buffer under
+    one softmax (``layers.gqa_attention_chunked``, the dense two-segment
+    kernel on the card). Returns (fp32 logits [B, 1, V], chunk_kv)."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    ck, cv = cache
+    hk, hv = chunk_kv
+    x = params["embed"][tokens.long()]                   # [B, 1, dim]
+    B = x.shape[0]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    lp = params["layers"]
+    for l in range(ck.shape[0]):
+        h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
+        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cos, sin)
+        hk[l][:, step] = k[:, 0].to(hk.dtype)
+        hv[l][:, step] = v[:, 0].to(hv.dtype)
+        attn = gqa_attention_chunked(q, ck[l], cv[l], hk[l], hv[l],
+                                     positions, step,
+                                     window=cfg.sliding_window)
+        x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
+        h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
+        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(x[:, 0], _head(params))[:, None]
+    return logits, (hk, hv)
+
+
+def merge_chunk(cache: KVCache, chunk_kv: Tuple[torch.Tensor, torch.Tensor],
+                start_positions: torch.Tensor) -> KVCache:
+    """Fold a finished chunk's K/V into the slot cache, in place, once per
+    chunk (``layers.merge_chunk_kv``; columns past the lane dropped)."""
+    ck, cv = cache
+    hk, hv = chunk_kv
+    merge_chunk_kv(ck, cv, hk, hv, start_positions)
+    return cache
+
+
+#: The JAX package's scatter-form merge, numerically identical to its
+#: einsum form; the port has one merge under both names.
+merge_chunk_scatter = merge_chunk
+
+
+def forward_prefix_pages(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [Bp, T] suffix tokens (padded)
+    prefix_table: torch.Tensor,  # [Bp, PP] int32 prefix-pool page ids
+    prefix_lens: torch.Tensor,   # [Bp] int32 reused prefix length (tokens)
+    pool_k: Any,                 # [L, P, ps, Hkv, D] page pool, or int8
+    pool_v: Any,
+    logits_at: Optional[torch.Tensor] = None,  # [Bp] row indices into T
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefix-cache suffix prefill core: compute only the suffix tokens,
+    each row attending its reused prefix pages (gathered per layer;
+    dequantized for an int8 pool) plus the suffix causally
+    (``layers.gqa_attention_prefix``). The pool is only read. Returns
+    (fp32 logits [Bp, T, V], or [Bp, V] with ``logits_at``, sfx_k, sfx_v
+    [L, Bp, T, Hkv, D] in the gathered pages' dtype)."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    Bp, T = tokens.shape
+    L = pool_data(pool_k).shape[0]
+    x = params["embed"][tokens.long()]
+    positions = (prefix_lens.long()[:, None]
+                 + torch.arange(T, device=x.device)[None])
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    lp = params["layers"]
+    sfx_k, sfx_v = [], []
+    for l in range(L):
+        kp, vp = paged_gather_kv(pool_layer(pool_k, l), pool_layer(pool_v, l),
+                                 prefix_table)
+        h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
+        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cos, sin)
+        ks, vs = k.to(kp.dtype), v.to(vp.dtype)
+        attn = gqa_attention_prefix(q, kp, vp, ks, vs, prefix_lens,
+                                    window=cfg.sliding_window)
+        x = x + torch.matmul(attn.reshape(Bp, T, -1), lp["wo"][l])
+        h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
+        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+        sfx_k.append(ks)
+        sfx_v.append(vs)
+    logits = _final_logits(params, cfg, x, logits_at)
+    return logits, torch.stack(sfx_k), torch.stack(sfx_v)
+
+
+def forward_prefix_lane(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [Bp, T] suffix tokens (padded)
+    prefix_table: torch.Tensor,  # [Bp, PP] int32 prefix-pool page ids
+    prefix_lens: torch.Tensor,   # [Bp] int32 reused prefix length (tokens)
+    pool_k: torch.Tensor,        # [L, P, ps, Hkv, D] side page pool
+    pool_v: torch.Tensor,
+    lane_pages: int,             # output lane length in pages
+    logits_at: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense-cache prefix prefill: ``forward_prefix_pages`` plus each
+    row's lane image (``layers.compose_prefix_lane``: prefix pages, then
+    the suffix at its positions), ready for one slot-cache insert.
+    Returns (fp32 logits, lane_k, lane_v [L, Bp, lane_pages * ps, Hkv,
+    D])."""
+    logits, sfx_k, sfx_v = forward_prefix_pages(
+        params, cfg, tokens, prefix_table, prefix_lens, pool_k, pool_v,
+        logits_at=logits_at)
+    lane_k, lane_v = compose_prefix_lane(pool_k, pool_v, prefix_table,
+                                         prefix_lens, sfx_k, sfx_v,
+                                         lane_pages)
+    return logits, lane_k, lane_v

@@ -1,9 +1,10 @@
-"""The serving path's paged attention kernels: wrappers, plain versions and
+"""The serving paths' attention kernels: wrappers, plain versions and
 launch counts.
 
-Counterparts of six Pallas kernels of ``swarmdb_tpu/ops/attention_pallas.py``,
-three over plain (f32 / bf16) pages and three over int8 pages with f32
-scales per (page, KV head):
+Counterparts of the eight Pallas kernels of
+``swarmdb_tpu/ops/attention_pallas.py``: three over plain (f32 / bf16)
+pages, three over int8 pages with f32 scales per (page, KV head), and two
+over a dense slot cache:
 
 - ``ragged_paged_prefill_attention`` / ``..._quant``: packed ragged
   prefill over a wave (``csrc/ragged_prefill.cu`` /
@@ -16,10 +17,16 @@ scales per (page, KV head):
 - ``paged_decode_gqa_attention`` / ``..._quant``: single-step paged decode
   over the live pages (``csrc/paged_decode.cu`` / ``paged_decode_quant.cu``;
   ``_paged_attn_kernel`` / ``..._quant``).
+- ``decode_gqa_attention_chunked`` / ``decode_gqa_attention``: the dense
+  engine's two-segment and single-step decode over a ``[B, S, Hkv, D]``
+  slot cache (``csrc/dense_decode_chunked.cu`` / ``dense_decode.cu``;
+  ``_dense_chunk_attn_kernel`` / ``_decode_attn_kernel``), the same loops
+  over each slot's contiguous lane instead of its page-table row.
 
 Each operand keeps its own type: the query (and so the output), the chunk
-buffer and the packed suffix are float32 or bfloat16 each; the pages are
-float32 / bfloat16, or int8 with float32 scales. Everything is computed in
+buffer and the packed suffix are float32 or bfloat16 each; the pages and
+the dense cache are float32 / bfloat16, or (pages only) int8 with float32
+scales. Everything is computed in
 float32, as the Pallas kernels do. Each wrapper checks device, dtype, shape
 and contiguity, then runs the plain PyTorch version when the tensors lie on
 the CPU, and launches its CUDA kernel when they lie on a CUDA device --
@@ -37,7 +44,8 @@ from typing import Dict, Optional
 import torch
 
 from . import build
-from .layers import (gqa_attention, gqa_attention_chunked,
+from .layers import (gqa_attention_chunked_reference,
+                     gqa_attention_reference,
                      ragged_prefill_attention_reference)
 from .paged_kv import QuantPool, paged_gather_kv
 
@@ -287,12 +295,10 @@ def paged_decode_chunked_plain(
 ) -> torch.Tensor:
     """Plain version of the two-segment decode kernels: gather each slot's
     pages into a dense view (dequantized for a quantized pool), then the
-    two-segment attention (``layers.gqa_attention_chunked``)."""
+    two-segment attention (``layers.gqa_attention_chunked_reference``)."""
     kg, vg = paged_gather_kv(k_pages, v_pages, page_table)
-    q_pos = (starts.long() + step)[:, None]
-    out = gqa_attention_chunked(q[:, None], kg, vg, chunk_k, chunk_v, q_pos,
-                                step, window=window)
-    return out[:, 0]
+    return decode_chunked_plain(q, kg, vg, chunk_k, chunk_v, starts, step,
+                                window=window)
 
 
 def paged_decode_chunked_quant_plain(q, k_pages, k_scale, v_pages, v_scale,
@@ -403,13 +409,10 @@ def paged_decode_plain(
 ) -> torch.Tensor:
     """Plain version of the single-step decode kernels: gather each slot's
     pages into a dense view (dequantized for a quantized pool), then the
-    dense decode attention (``layers.gqa_attention``) at position
-    ``length - 1``. A slot of length 0 gives zeros, as the kernels do."""
+    dense decode attention (``decode_plain``) at position ``length - 1``.
+    A slot of length 0 gives zeros, as the kernels do."""
     kg, vg = paged_gather_kv(k_pages, v_pages, page_table)
-    out = gqa_attention(q[:, None], kg, vg, (lengths.long() - 1)[:, None],
-                        window=window)[:, 0]
-    return torch.where((lengths > 0)[:, None, None], out,
-                       torch.zeros_like(out))
+    return decode_plain(q, kg, vg, lengths, window=window)
 
 
 def paged_decode_quant_plain(q, k_pages, k_scale, v_pages, v_scale,
@@ -489,3 +492,129 @@ def paged_decode_gqa_attention_quant(
     ``paged_decode_gqa_attention`` otherwise."""
     return _paged_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,
                          lengths, window)
+
+
+# ---------------------------------------------------- dense slot cache
+
+
+def decode_chunked_plain(
+    q: torch.Tensor,           # [B, Hq, D]
+    cache_k: torch.Tensor,     # [B, S, Hkv, D] dense view (FROZEN)
+    cache_v: torch.Tensor,
+    chunk_k: torch.Tensor,     # [B, Kc, Hkv, D]
+    chunk_v: torch.Tensor,
+    starts: torch.Tensor,      # [B] int32 chunk start (= position - step)
+    step: int,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain version of the dense two-segment decode kernel: the JAX
+    package's einsum form (``layers.gqa_attention_chunked_reference``) at
+    position ``start + step``. Also the paged plain versions' core, after
+    their page gather."""
+    q_pos = (starts.long() + step)[:, None]
+    out = gqa_attention_chunked_reference(q[:, None], cache_k, cache_v,
+                                          chunk_k, chunk_v, q_pos, step,
+                                          window=window)
+    return out[:, 0]
+
+
+def decode_plain(
+    q: torch.Tensor,           # [B, Hq, D]
+    cache_k: torch.Tensor,     # [B, S, Hkv, D] dense view
+    cache_v: torch.Tensor,
+    lengths: torch.Tensor,     # [B] int32 live positions (position + 1)
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain version of the dense single-step decode kernel: the JAX
+    package's einsum form (``layers.gqa_attention_reference``) at position
+    ``length - 1``. A slot of length 0 gives zeros, as the kernels do (the
+    Pallas kernel returns the lane's mean value row there). Also the paged
+    plain versions' core, after their page gather."""
+    out = gqa_attention_reference(q[:, None], cache_k, cache_v,
+                                  (lengths.long() - 1)[:, None],
+                                  window=window)[:, 0]
+    return torch.where((lengths > 0)[:, None, None], out,
+                       torch.zeros_like(out))
+
+
+def _check_lanes(cache_k, cache_v, B: int, Hq: int, D: int) -> None:
+    _check(cache_k.dim() == 4 and cache_v.shape == cache_k.shape
+           and cache_k.shape[0] == B and cache_k.shape[3] == D,
+           f"K/V caches must be [{B}, S, Hkv, {D}] alike")
+    _check(cache_k.shape[1] > 0, "the cache lanes are empty")
+    _check(Hq % cache_k.shape[2] == 0,
+           f"Hq={Hq} is not a multiple of Hkv={cache_k.shape[2]}")
+
+
+def decode_gqa_attention_chunked(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    chunk_k: torch.Tensor,
+    chunk_v: torch.Tensor,
+    starts: torch.Tensor,
+    step: int,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Two-segment decode attention over a dense slot cache: each slot
+    attends its lane at positions < ``starts`` (never past S) plus its
+    chunk entries <= ``step`` (a host int); [B, Hq, D] in q.dtype. The
+    kernel on CUDA tensors, ``decode_chunked_plain`` on CPU tensors."""
+    dev = _check_args({"q": q, "chunk_k": chunk_k, "chunk_v": chunk_v},
+                      {"cache_k": cache_k, "cache_v": cache_v},
+                      {"starts": starts})
+    B, Hq, D = q.shape
+    _check_lanes(cache_k, cache_v, B, Hq, D)
+    S, Hkv = cache_k.shape[1], cache_k.shape[2]
+    Kc = chunk_k.shape[1]
+    _check(chunk_k.shape == (B, Kc, Hkv, D) and chunk_v.shape == chunk_k.shape,
+           f"chunk buffers must be [{B}, Kc, {Hkv}, {D}]")
+    _check(chunk_k.dtype == chunk_v.dtype, "chunk K and V differ in dtype")
+    _check(starts.shape == (B,), f"starts must cover {B} slots")
+    step = int(step)
+    _check(0 <= step < Kc, f"step {step} outside the chunk of {Kc}")
+    if dev.type == "cpu":
+        return decode_chunked_plain(q, cache_k, cache_v, chunk_k, chunk_v,
+                                    starts, step, window=window)
+    _cuda_ready(D, q, chunk_k, cache_k)
+    out = torch.empty_like(q)
+    _launch("dense_decode_chunked", "iii" + "p" * 6 + "iifp" + "i" * 6, dev,
+            _FLOAT_CODE[cache_k.dtype], _FLOAT_CODE[q.dtype],
+            _FLOAT_CODE[chunk_k.dtype], q.data_ptr(), cache_k.data_ptr(),
+            cache_v.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
+            starts.data_ptr(), step, int(window or 0), _scale(D),
+            out.data_ptr(), B, Hq, Hkv, D, S, Kc)
+    return out
+
+
+def decode_gqa_attention(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-step decode attention over a dense slot cache: each slot's
+    query attends its positions < ``lengths`` (never past S); with a
+    window, positions at or below length - 1 - window are masked. [B, Hq,
+    D] in q.dtype, zeros for a slot of length 0. The kernel on CUDA
+    tensors, ``decode_plain`` on CPU tensors."""
+    dev = _check_args({"q": q}, {"cache_k": cache_k, "cache_v": cache_v},
+                      {"lengths": lengths})
+    B, Hq, D = q.shape
+    _check_lanes(cache_k, cache_v, B, Hq, D)
+    S, Hkv = cache_k.shape[1], cache_k.shape[2]
+    _check(lengths.shape == (B,), f"lengths must cover {B} slots")
+    if dev.type == "cpu":
+        return decode_plain(q, cache_k, cache_v, lengths, window=window)
+    _cuda_ready(D, q, cache_k)
+    out = torch.empty_like(q)
+    _launch("dense_decode", "ii" + "p" * 4 + "ifp" + "i" * 5, dev,
+            _FLOAT_CODE[cache_k.dtype], _FLOAT_CODE[q.dtype], q.data_ptr(),
+            cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
+            int(window or 0), _scale(D), out.data_ptr(), B, Hq, Hkv, D, S)
+    return out

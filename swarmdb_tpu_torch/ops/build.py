@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("ragged_prefill", "paged_decode_chunked", "paged_decode",
            "ragged_prefill_quant", "paged_decode_chunked_quant",
-           "paged_decode_quant")
+           "paged_decode_quant", "dense_decode_chunked", "dense_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

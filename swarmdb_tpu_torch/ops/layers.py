@@ -1,12 +1,14 @@
 """Transformer building blocks in PyTorch.
 
-The counterpart of ``swarmdb_tpu/ops/layers.py`` for the paged serving
-path: RMSNorm, rotary embeddings (split-half convention, math in fp32),
-the Q/K/V projection, SwiGLU, the single-step and two-segment decode
-attentions over a dense view (the plain decode versions), the dense
-ragged-prefill reference (the plain prefill version), and the three
-dispatchers the Llama forwards call, each taking a plain pool or an int8
-``QuantPool``.
+The counterpart of ``swarmdb_tpu/ops/layers.py`` for the serving paths:
+RMSNorm, rotary embeddings (split-half convention, math in fp32), the
+Q/K/V projection, SwiGLU; the dense slot cache's write, chunk merge,
+prefix-lane composition and prefix attention; the single-step and
+two-segment decode attentions over a dense view (the einsum references,
+which are also the plain decode versions), the dense ragged-prefill
+reference (the plain prefill version), and the dispatchers the Llama
+forwards call: the two dense decode attentions and three paged ones, each
+of the paged ones taking a plain pool or an int8 ``QuantPool``.
 
 Precision follows the JAX package: matmuls stay in the parameter dtype,
 normalisation statistics and softmax run in fp32, attention scores and
@@ -14,9 +16,11 @@ probabilities are fp32 and masked with -1e30.
 
 The dispatchers route to ``ops.attention_cuda``: on CUDA tensors its
 wrappers launch the hand-written kernels, on CPU tensors they run the
-plain versions below. The JAX package's TPU pad-to-8 of tiny ragged waves
-is gone: the CUDA kernel tiles queries within each row, so no sublane
-quantum applies.
+plain versions. Dense prefill attention (T > 1 queries) is the einsum
+form on both devices, as in the JAX package. Where the JAX package
+returns a new cache array, the port writes the given tensor in place and
+says so. The JAX package's TPU pad-to-8 of tiny ragged waves is gone: the
+CUDA kernel tiles queries within each row, so no sublane quantum applies.
 """
 
 from __future__ import annotations
@@ -88,7 +92,43 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return torch.matmul(g * u, w_down)
 
 
-def gqa_attention(
+def write_kv_cache(
+    cache_k: torch.Tensor,     # [B, S, Hkv, D] one layer of the slot cache
+    cache_v: torch.Tensor,
+    k: torch.Tensor,           # [B, T, Hkv, D]
+    v: torch.Tensor,
+    positions: torch.Tensor,   # [B, T] absolute positions per row
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write new K/V into per-slot cache rows at absolute positions (each
+    row at its own offset: continuous batching).
+
+    - T == S (a prefill filling its whole temp cache): returns the fresh
+      K/V in the cache dtype; the caches are not touched.
+    - Otherwise the caches are written IN PLACE (the JAX package returns
+      new arrays) and returned. T == 1 (decode) is one gather + select +
+      scatter with one column per row, so no host sync; the general T a
+      masked scatter. Positions outside [0, S) write nothing, as the JAX
+      package's positional mask and dropping scatter.
+    """
+    B, S = cache_k.shape[0], cache_k.shape[1]
+    T = k.shape[1]
+    if T == S:
+        return k.to(cache_k.dtype), v.to(cache_v.dtype)
+    pos = positions.to(cache_k.device).long()
+    ok = (pos >= 0) & (pos < S)
+    rows = torch.arange(B, device=pos.device)[:, None].expand(B, T)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        if T == 1:
+            col = pos.clamp(0, S - 1)
+            cache[rows, col] = torch.where(ok[..., None, None],
+                                           new.to(cache.dtype),
+                                           cache[rows, col])
+        else:
+            cache[rows[ok], pos[ok]] = new[ok].to(cache.dtype)
+    return cache_k, cache_v
+
+
+def gqa_attention_reference(
     q: torch.Tensor,           # [B, T, Hq, D]
     cache_k: torch.Tensor,     # [B, S, Hkv, D] dense view
     cache_v: torch.Tensor,
@@ -100,8 +140,8 @@ def gqa_attention(
     position (entries at positions <= the query's are live); with a
     window, entries at or below position - window are masked. Scores and
     softmax in fp32, the probabilities rounded to the value dtype before
-    the value product (as the JAX package). Returns [B, T, Hq, D] in
-    q.dtype."""
+    the value product (the JAX package's einsum form). Returns [B, T, Hq,
+    D] in q.dtype."""
     B, S = cache_k.shape[0], cache_k.shape[1]
     T, Hq, D = q.shape[1], q.shape[2], q.shape[3]
     Hkv = cache_k.shape[2]
@@ -120,7 +160,7 @@ def gqa_attention(
     return out.reshape(q.shape).to(q.dtype)
 
 
-def gqa_attention_chunked(
+def gqa_attention_chunked_reference(
     q: torch.Tensor,           # [B, 1, Hq, D] decode query
     cache_k: torch.Tensor,     # [B, S, Hkv, D] FROZEN prefix (dense view)
     cache_v: torch.Tensor,
@@ -131,10 +171,11 @@ def gqa_attention_chunked(
     *,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Two-segment decode attention: frozen cache + in-chunk buffer under
-    one fp32 softmax. The frozen segment is valid strictly below the
-    chunk's start (``q_position - step``), the chunk segment up to and
-    including ``step``. Returns [B, 1, Hq, D] in q.dtype."""
+    """Two-segment decode attention (the JAX package's einsum form):
+    frozen cache + in-chunk buffer under one fp32 softmax. The frozen
+    segment is valid strictly below the chunk's start (``q_position -
+    step``), the chunk segment up to and including ``step``. Returns [B, 1,
+    Hq, D] in q.dtype."""
     B, S = cache_k.shape[0], cache_k.shape[1]
     Kc = chunk_k.shape[1]
     Hq, Hkv = q.shape[2], cache_k.shape[2]
@@ -166,6 +207,140 @@ def gqa_attention_chunked(
     p_c = p[..., S:].to(chunk_v.dtype).float()
     out = torch.einsum("bkgts,bskd->btkgd", p_f, cache_v.float())
     out = out + torch.einsum("bkgts,bskd->btkgd", p_c, chunk_v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def merge_chunk_kv(
+    cache_k: torch.Tensor,     # [L, B, S, Hkv, D] slot cache
+    cache_v: torch.Tensor,
+    chunk_k: torch.Tensor,     # [L, B, Kc, Hkv, D] the finished chunk
+    chunk_v: torch.Tensor,
+    start_positions: torch.Tensor,  # [B] position of chunk step 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold a finished chunk's K/V into the slot cache IN PLACE, once per
+    chunk: row b's entry j lands at column ``start_b + j``; columns >= S
+    are dropped (the engine dispatches whole chunks and retires on
+    max_seq when it reads the block, so a chunk may overshoot its lane).
+
+    The JAX package has two numerically identical forms (a one-hot
+    einsum + select, and a dropping scatter, ``merge_chunk_kv_scatter``);
+    the port has one, under both names: a collision-free scatter in which
+    each row writes the Kc columns of its window clamped inside the lane,
+    taking the chunk entry where a column is one and its own frozen value
+    elsewhere. Returns the caches."""
+    L, B, S = cache_k.shape[0], cache_k.shape[1], cache_k.shape[2]
+    Kc = chunk_k.shape[2]
+    if Kc > S:  # entries past S never land
+        chunk_k, chunk_v, Kc = chunk_k[:, :, :S], chunk_v[:, :, :S], S
+    dev = cache_k.device
+    st = start_positions.to(dev).long()
+    lo = torch.clamp(st, min=0, max=S - Kc)                 # [B]
+    cols = lo[:, None] + torch.arange(Kc, device=dev)       # [B, Kc] in lane
+    src = cols - st[:, None]                                # chunk entry
+    take = ((src >= 0) & (src < Kc))[None, :, :, None, None]
+    idx = src.clamp(0, Kc - 1)
+    rows = torch.arange(B, device=dev)[:, None]
+    for cache, chunk in ((cache_k, chunk_k), (cache_v, chunk_v)):
+        fresh = chunk[:, rows, idx].to(cache.dtype)         # [L, B, Kc, ...]
+        cache[:, rows, cols] = torch.where(take, fresh, cache[:, rows, cols])
+    return cache_k, cache_v
+
+
+#: The JAX package's scatter form of the merge; the same function here.
+merge_chunk_kv_scatter = merge_chunk_kv
+
+
+def compose_prefix_lane(
+    pool_k: torch.Tensor,      # [L, P, ps, Hkv, D] prefix page pool
+    pool_v: torch.Tensor,
+    prefix_table: torch.Tensor,  # [Bp, PP] int32 page ids per row
+    prefix_lens: torch.Tensor,   # [Bp] int32 reused tokens per row
+    sfx_k: torch.Tensor,       # [L, Bp, T, Hkv, D] suffix K (stacked)
+    sfx_v: torch.Tensor,
+    lane_pages: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row KV lane images for the dense prefix path: lane[b, j] is the
+    reused prefix page content for j < prefix_lens[b], the suffix K/V
+    placed at absolute position prefix_lens[b] + t, and zeros past the
+    prompt (unreachable under the engine's write-before-read invariant).
+    A gather where the JAX package uses a one-hot einsum; both are exact.
+    Returns lane_k, lane_v [L, Bp, lane_pages * ps, Hkv, D] in the pool's
+    dtype."""
+    L, ps = pool_k.shape[0], pool_k.shape[2]
+    Bp, PP = prefix_table.shape
+    T = sfx_k.shape[2]
+    Pt, lane_t = PP * ps, lane_pages * ps
+    dev = pool_k.device
+    tab = prefix_table.to(dev).long()
+    j = torch.arange(lane_t, device=dev)[None, :]           # [1, lane_t]
+    plen = prefix_lens.to(dev).long()[:, None]              # [Bp, 1]
+    t = j - plen                                            # suffix index
+    in_prefix = (j < plen)[None, :, :, None, None]
+    in_sfx = ((t >= 0) & (t < T))[None, :, :, None, None]
+    tidx = t.clamp(0, T - 1)
+    rows = torch.arange(Bp, device=dev)[:, None]
+
+    def lane(pool, fresh):
+        pre = pool[:, tab].reshape((L, Bp, Pt) + tuple(pool.shape[3:]))
+        if lane_t > Pt:
+            pad = pre.new_zeros((L, Bp, lane_t - Pt) + tuple(pre.shape[3:]))
+            pre = torch.cat([pre, pad], dim=2)
+        else:
+            pre = pre[:, :, :lane_t]
+        suf = fresh[:, rows, tidx].to(pool.dtype)           # [L, Bp, lane_t]
+        suf = torch.where(in_sfx, suf, torch.zeros((), dtype=pool.dtype,
+                                                   device=dev))
+        return torch.where(in_prefix, pre, suf)
+
+    return lane(pool_k, sfx_k), lane(pool_v, sfx_v)
+
+
+def gqa_attention_prefix(
+    q: torch.Tensor,           # [B, T, Hq, D] suffix queries
+    prefix_k: torch.Tensor,    # [B, Pt, Hkv, D] gathered prefix K
+    prefix_v: torch.Tensor,
+    suffix_k: torch.Tensor,    # [B, T, Hkv, D] this call's K
+    suffix_v: torch.Tensor,
+    prefix_lens: torch.Tensor,  # [B] int32 valid prefix length per row
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Two-segment prefill attention for prefix-cache reuse: row b's
+    suffix token t (absolute position prefix_lens[b] + t) attends the
+    reused prefix (positions < prefix_lens[b]; gather padding beyond is
+    masked) plus the suffix causally, under one fp32 softmax. Plain
+    PyTorch, as the JAX package computes it outside any Pallas kernel.
+    Returns [B, T, Hq, D] in q.dtype."""
+    B, T = q.shape[0], q.shape[1]
+    Pt = prefix_k.shape[1]
+    Hq, Hkv = q.shape[2], prefix_k.shape[2]
+    D = q.shape[-1]
+    dev = q.device
+
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, D).float()
+    s_p = torch.einsum("btkgd,bskd->bkgts", qg, prefix_k.float())
+    s_s = torch.einsum("btkgd,bskd->bkgts", qg, suffix_k.float())
+    scale = 1.0 / (D ** 0.5)
+
+    plen = prefix_lens.to(dev).long()[:, None, None]        # [B, 1, 1]
+    ar = torch.arange(T, device=dev)
+    kv_pos = torch.arange(Pt, device=dev)[None, None, :]
+    valid_p = (kv_pos < plen).expand(B, T, Pt)
+    j = ar[None, None, :]
+    valid_s = (j <= ar[None, :, None]).expand(B, T, T)      # causal
+    if window is not None:
+        lo = plen + ar[None, :, None] - window              # [B, T, 1]
+        valid_p = valid_p & (kv_pos > lo)
+        valid_s = valid_s & ((plen + j) > lo)
+    s_p = torch.where(valid_p[:, None, None], s_p * scale, _NEG)
+    s_s = torch.where(valid_s[:, None, None], s_s * scale, _NEG)
+    p = torch.softmax(torch.cat([s_p, s_s], dim=-1), dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd",
+                       p[..., :Pt].to(prefix_v.dtype).float(),
+                       prefix_v.float())
+    out = out + torch.einsum("bkgts,bskd->btkgd",
+                             p[..., Pt:].to(suffix_v.dtype).float(),
+                             suffix_v.float())
     return out.reshape(q.shape).to(q.dtype)
 
 
@@ -240,6 +415,55 @@ def ragged_prefill_attention_reference(
     return out.reshape(W, Hq, D).to(q.dtype)
 
 
+def gqa_attention(
+    q: torch.Tensor,           # [B, T, Hq, D]
+    cache_k: torch.Tensor,     # [B, S, Hkv, D] one layer of the slot cache
+    cache_v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, T] absolute position of each query
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Grouped-query attention over the dense slot cache, causal by
+    absolute position; the cache already holds this call's K/V. A decode
+    step (T == 1) goes to the dense single-step decode kernel (each slot
+    attends its positions < q_position + 1) on CUDA, its plain version on
+    CPU; a prefill (T > 1) is the einsum form on both devices, as in the
+    JAX package. Returns [B, T, Hq, D] in q.dtype."""
+    if q.shape[1] != 1:
+        return gqa_attention_reference(q, cache_k, cache_v, q_positions,
+                                       window=window)
+    from .attention_cuda import decode_gqa_attention
+
+    lengths = (q_positions[:, 0] + 1).to(torch.int32)
+    out = decode_gqa_attention(q[:, 0].contiguous(), cache_k, cache_v,
+                               lengths, window=window)
+    return out[:, None]
+
+
+def gqa_attention_chunked(
+    q: torch.Tensor,           # [B, 1, Hq, D] decode query
+    cache_k: torch.Tensor,     # [B, S, Hkv, D] FROZEN slot cache layer
+    cache_v: torch.Tensor,
+    chunk_k: torch.Tensor,     # [B, Kc, Hkv, D] this chunk's K so far
+    chunk_v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, 1] absolute position of the query
+    step: int,                 # index of this step in the chunk
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Two-segment decode attention over the dense slot cache + chunk
+    buffer: the dense two-segment decode kernel on CUDA, its plain version
+    (``gqa_attention_chunked_reference``) on CPU. The frozen segment ends
+    at the chunk's start (``q_position - step``). Returns [B, 1, Hq, D]."""
+    from .attention_cuda import decode_gqa_attention_chunked
+
+    starts = (q_positions[:, 0] - step).to(torch.int32)
+    out = decode_gqa_attention_chunked(q[:, 0].contiguous(), cache_k,
+                                       cache_v, chunk_k, chunk_v, starts,
+                                       step, window=window)
+    return out[:, None]
+
+
 def paged_attention_dispatch(
     q: torch.Tensor,           # [B, 1, Hq, D] decode query
     k_pages: Any,              # [P, ps, Hkv, D] single layer, either kind
@@ -253,7 +477,7 @@ def paged_attention_dispatch(
     already hold this step's token: each slot attends its positions
     ``< q_position + 1``. The single-step decode kernels on CUDA (the
     int8 one for a ``QuantPool``), their plain versions (page gather +
-    ``gqa_attention``) on CPU. Returns [B, 1, Hq, D]."""
+    ``gqa_attention_reference``) on CPU. Returns [B, 1, Hq, D]."""
     from .attention_cuda import (paged_decode_gqa_attention,
                                  paged_decode_gqa_attention_quant)
 
@@ -282,7 +506,8 @@ def paged_attention_dispatch_chunked(
 ) -> torch.Tensor:
     """Two-segment decode attention over the paged pool + chunk buffer:
     the paged-decode kernels on CUDA (the int8 one for a ``QuantPool``),
-    their plain version (page gather + ``gqa_attention_chunked``) on CPU.
+    their plain version (page gather + ``gqa_attention_chunked_reference``)
+    on CPU.
     Returns [B, 1, Hq, D]."""
     from .attention_cuda import (paged_decode_gqa_attention_chunked,
                                  paged_decode_gqa_attention_chunked_quant)

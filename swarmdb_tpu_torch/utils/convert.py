@@ -1,14 +1,16 @@
-"""Carry a parameter tree, or a KV page pool, given as numpy arrays into
-the port's layout, and a pool back out.
+"""Carry a parameter tree, a KV page pool or a dense slot cache, given as
+numpy arrays, into the port's layout, and a pool back out.
 
 The JAX package keeps Llama parameters as a nested dict of arrays with
 per-layer weights stacked ``[L, ...]``; the port keeps the same keys, the
 same shapes and the same layouts as torch tensors. Its page pools are
 arrays ``[L, P, ps, Hkv, D]`` or, quantized, an int8 payload plus f32
 scales ``[L, P, Hkv]`` -- the port's ``QuantPool`` has the same two fields.
-With these functions both packages can compute the same thing from the
-same weights and the same pool: the caller turns the JAX tree or pool
-into numpy (``jax.tree.map(np.asarray, x)``) and hands it here.
+Its dense engine's slot cache is a ``(k, v)`` pair of ``[L, B, S, Hkv,
+D]`` arrays, and so is the port's. With these functions both packages can
+compute the same thing from the same weights and the same KV: the caller
+turns the JAX tree, pool or cache into numpy (``jax.tree.map(np.asarray,
+x)``) and hands it here.
 """
 
 from __future__ import annotations
@@ -51,7 +53,12 @@ def pool_from_numpy(pool: Any, device: DeviceLike = None
     """A page pool as numpy -> the port's pool on ``device``: an array
     stays a tensor of its dtype; anything with ``data`` and ``scale``
     fields (the JAX package's ``QuantPool``), or a ``(data, scale)`` pair,
-    becomes a ``QuantPool`` (int8 payload, f32 scales)."""
+    becomes a ``QuantPool`` (int8 payload, f32 scales).
+
+    Any 2-tuple is read as ``(data, scale)``: a dense slot cache, which is
+    a ``(k, v)`` pair, would silently become a ``QuantPool`` here (its K
+    cast to int8, its V taken for scales). Carry a dense cache over with
+    ``kv_cache_from_numpy``."""
     dev = resolve_device(device)
     if hasattr(pool, "data") and hasattr(pool, "scale"):
         pool = (pool.data, pool.scale)
@@ -60,6 +67,15 @@ def pool_from_numpy(pool: Any, device: DeviceLike = None
         return QuantPool(_to_tensor(np.asarray(data, np.int8), dev),
                          _to_tensor(np.asarray(scale, np.float32), dev))
     return _to_tensor(pool, dev)
+
+
+def kv_cache_from_numpy(cache: Tuple[Any, Any], device: DeviceLike = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A dense slot cache ``(k, v)`` as numpy (each ``[L, B, S, Hkv, D]``)
+    -> the port's pair of tensors on ``device``, each at its own dtype."""
+    dev = resolve_device(device)
+    k, v = cache
+    return _to_tensor(k, dev), _to_tensor(v, dev)
 
 
 def pool_to_numpy(pool: Union[torch.Tensor, QuantPool]

@@ -138,7 +138,7 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     assert set(ac.LAUNCHES) == {
         "ragged_prefill", "paged_decode_chunked", "paged_decode",
         "ragged_prefill_quant", "paged_decode_chunked_quant",
-        "paged_decode_quant"}
+        "paged_decode_quant", "dense_decode_chunked", "dense_decode"}
     assert not any(ac.LAUNCHES.values())
 
 

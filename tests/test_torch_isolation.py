@@ -51,13 +51,14 @@ def test_serving_a_request_loads_no_jax():
         "import sys\n"
         "from swarmdb_tpu_torch.backend.service import build_backend_engine\n"
         "from swarmdb_tpu_torch.backend.sampling import SamplingParams\n"
-        "eng, tok = build_backend_engine('tiny-debug', max_seq=64,"
-        " device='cpu')\n"
-        "eng.start()\n"
-        "toks, why = eng.generate_sync(tok.encode('hi there'),"
+        "for paged in (None, True):\n"
+        "    eng, tok = build_backend_engine('tiny-debug', max_seq=64,"
+        " paged=paged, device='cpu')\n"
+        "    eng.start()\n"
+        "    toks, why = eng.generate_sync(tok.encode('hi there'),"
         " SamplingParams(max_new_tokens=3))\n"
-        "eng.stop()\n"
-        "assert why in ('length', 'eos'), why\n"
+        "    eng.stop()\n"
+        "    assert why in ('length', 'eos'), why\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'swarmdb_tpu')]\n"
         "assert not bad, bad\n"
@@ -92,6 +93,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     params = llama.init_params(cfg, device="cpu")
     assert params["embed"].device.type == "cpu"
     eng, _ = build_backend_engine("tiny-debug", max_seq=64, device="cpu")
+    assert eng.device.type == "cpu" and eng.paged is None
+    assert all(t.device.type == "cpu" for t in eng.cache)      # dense
+    eng, _ = build_backend_engine("tiny-debug", max_seq=64, paged=True,
+                                  device="cpu")
     assert eng.device.type == "cpu"
     assert eng.cache["k"].device.type == "cpu"
 
@@ -99,7 +104,5 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 def test_unported_paths_say_so():
     from swarmdb_tpu_torch.backend.service import build_backend_engine
 
-    with pytest.raises(NotImplementedError, match="dense"):
-        build_backend_engine("tiny-debug", paged=False, device="cpu")
     with pytest.raises(NotImplementedError, match="Mixtral"):
         build_backend_engine("tiny-moe", device="cpu")

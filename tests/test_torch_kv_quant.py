@@ -451,8 +451,8 @@ def test_int8_engine_tokens_equal_jax_engine(monkeypatch, chunked):
     je, _ = jax_build(CFG, max_batch=4, max_seq=96, paged=True, page_size=16)
     je.params = jax.tree.map(lambda a: a.astype(jnp.float32), je.params)
     te, _ = build_backend_engine(
-        "tiny-debug", max_batch=4, max_seq=96, page_size=16, device="cpu",
-        params=params_from_numpy(jax.tree.map(np.asarray, je.params),
+        "tiny-debug", max_batch=4, max_seq=96, paged=True, page_size=16,
+        device="cpu", params=params_from_numpy(jax.tree.map(np.asarray, je.params),
                                  device="cpu"))
     assert tp.is_quantized(te.cache["k"]) and jp.is_quantized(je.cache["k"])
     assert (te._chunked_fns is None) == (chunked == "0")

@@ -1,5 +1,6 @@
 """PyTorch port vs JAX reference: the paged engine end to end, and one chat
-message through the port's SwarmDB + ServingService, on the CPU.
+message through the port's SwarmDB + ServingService with the paged engine,
+on the CPU (the dense engine: tests/test_torch_dense_engine.py).
 
 Both engines run tiny-debug with the same float32 weights (carried over by
 ``params_from_numpy``) and float32 pools (``SWARMDB_KV_DTYPE=f32``): the
@@ -47,8 +48,8 @@ def engines(monkeypatch):
     je, _ = jax_build(CFG, max_batch=4, max_seq=96, paged=True, page_size=16)
     je.params = jax.tree.map(lambda a: a.astype(jnp.float32), je.params)
     te, _ = build_backend_engine(
-        "tiny-debug", max_batch=4, max_seq=96, page_size=16, device="cpu",
-        params=params_from_numpy(jax.tree.map(np.asarray, je.params),
+        "tiny-debug", max_batch=4, max_seq=96, paged=True, page_size=16,
+        device="cpu", params=params_from_numpy(jax.tree.map(np.asarray, je.params),
                                  device="cpu"))
     je.start()
     te.start()
@@ -78,7 +79,7 @@ def test_message_round_trip_through_serving_service():
     db = SwarmDB(broker=LocalBroker())
     svc = ServingService.from_model_name(db, "tiny-debug", backend_id="b0",
                                          max_batch=2, max_seq=128,
-                                         device="cpu")
+                                         paged=True, device="cpu")
     try:
         db.register_agent("user")
         db.register_agent("bot")
@@ -104,7 +105,7 @@ def test_message_round_trip_through_serving_service():
 
 def test_cancel_queued_and_unknown_requests():
     eng, _ = build_backend_engine("tiny-debug", max_batch=2, max_seq=64,
-                                  device="cpu")
+                                  paged=True, device="cpu")
     done = []
     rid = eng.submit(GenRequest(prompt=[1, 5, 9], sampling=TSP(),
                                 on_done=lambda r, t, why: done.append(why)))

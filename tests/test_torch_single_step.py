@@ -194,8 +194,8 @@ def test_single_step_engine_tokens_equal_jax_engine(monkeypatch):
     je, _ = jax_build(CFG, max_batch=4, max_seq=96, paged=True, page_size=16)
     je.params = jax.tree.map(lambda a: a.astype(jnp.float32), je.params)
     te, _ = build_backend_engine(
-        "tiny-debug", max_batch=4, max_seq=96, page_size=16, device="cpu",
-        params=params_from_numpy(jax.tree.map(np.asarray, je.params),
+        "tiny-debug", max_batch=4, max_seq=96, paged=True, page_size=16,
+        device="cpu", params=params_from_numpy(jax.tree.map(np.asarray, je.params),
                                  device="cpu"))
     assert te._chunked_fns is None and te.cache["k"].dtype == torch.float32
     rng = np.random.default_rng(0)
@@ -226,7 +226,7 @@ def test_message_round_trip_int8_single_step(monkeypatch):
     db = SwarmDB(broker=LocalBroker())
     svc = ServingService.from_model_name(db, "tiny-debug", backend_id="b0",
                                          max_batch=2, max_seq=128,
-                                         device="cpu")
+                                         paged=True, device="cpu")
     try:
         assert tp.is_quantized(svc.engine.cache["k"])
         assert svc.engine._chunked_fns is None
