@@ -19,12 +19,18 @@ and exits non-zero at the first failure:
                scales for the int8 kernels): bf16 query / chunk / suffix
                within 2e-2 absolute, f32 within 1e-4, an f32 query over
                bf16 pages or lanes within 2e-2, each with a windowed case;
-               then timed with CUDA events (median of 30 after warm-up):
-               the kernel, its plain version, and one PyTorch
+               the two prefill kernels (whose bf16 calls run the tensor-
+               core body) also on a seeded sweep of 16 waves over their
+               edges (``prefill_sweep``), within 2e-2; then timed with
+               CUDA events (median of 30 after warm-up): the kernel, its
+               plain version, and one PyTorch
                ``scaled_dot_product_attention`` call over the gathered
                (for int8: already dequantized) dense view, or straight
                over the dense lanes (``library_ms``, gather and
-               dequantization excluded).
+               dequantization excluded); the prefill kernels once more on
+               a 1024-token turn-1 wave, held against their plain
+               versions within 2e-2 and timed (its own ``kernels``
+               line).
 4. parity   -- tiny-debug in f32 with the same weights, served on the card
                (kernels) and on the CPU (plain versions): the paged engine
                chunked and single-step over an f32 pool (logits within
@@ -50,7 +56,8 @@ and exits non-zero at the first failure:
                token, the cache's (and side pool's) size and peak device
                memory per serve. Each serve then runs one more turn under
                ``torch.profiler`` (device time by kernel, the device's
-               idle share).
+               idle share, the prefill's time in each of its two bodies);
+               a paged serve fails if its prefill ran in the fp32 body.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six serves,
 each counted from zero just before it and read just after) and, last,
@@ -229,6 +236,151 @@ def prefill_case(qdt, pdt, dev, window=None):
     return dict(q=q, sfx_k=sk, sfx_v=sv, **page_args(pdt, dev, g),
                 row_tables=to(tables), starts=to(starts), lens=to(lens),
                 prefix_lens=to(plens), window=window)
+
+
+def wide_prefill_case(qdt, pdt, dev, window=None):
+    """A turn-1 wave of width 1024: four fresh rows of ~250 tokens, no
+    prefix, four dead rows (the compute-heavy end of the prefill)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    R, W = 8, 1024
+    lens = torch.tensor([250, 262, 241, 255, 0, 0, 0, 0], dtype=torch.int32)
+    starts = torch.zeros(R, dtype=torch.int32)
+    starts[1:] = torch.cumsum(lens, 0)[:-1].to(torch.int32)
+    perm = torch.randperm(NPAGES - 1, generator=g)[:R * MAXP] + 1
+    sdt = side_dtype(qdt, pdt)
+    r = lambda dt, *s: torch.randn(*s, generator=g).to(dt).to(dev)
+    return dict(q=r(qdt, W, HQ, D), sfx_k=r(sdt, W, HKV, D),
+                sfx_v=r(sdt, W, HKV, D), **page_args(pdt, dev, g),
+                row_tables=perm.reshape(R, MAXP).to(torch.int32).to(dev),
+                starts=starts.to(dev), lens=lens.to(dev),
+                prefix_lens=torch.zeros(R, dtype=torch.int32).to(dev),
+                window=window)
+
+
+#: Rows of query heads x tokens per block of the tensor-core prefill body
+#: (csrc/ragged_prefill_mma.cuh): a query tile holds 64 // G tokens.
+MMA_ROWS = 64
+
+
+def prefill_sweep():
+    """Sixteen waves that walk the prefill's edges, as (label, spec)
+    pairs; ``sweep_case`` turns a spec into wrapper arguments. Specs name
+    the GQA group G, the head dim, the KV heads, the table width (maxp
+    pages of 16), the rows' lengths and prefix lengths, the stream width W
+    and the window. Covered: row lengths 1, QT - 1, QT, QT + 1 (QT = 64 //
+    G tokens per query tile) and a row filling the stream; prefixes ending
+    mid-page, mid-tile and past the table's coverage; dead rows; W not a
+    multiple of QT; windows of 1, below the 64-key tile and above the
+    prefix; G 1 / 2 / 4 / 8; every head dim the body is built for (16, 32,
+    64, 128), each in a wave the launch runs with one warp group per block
+    and in one it runs with two."""
+    import random
+
+    def spec(G, Dh, Hkv, maxp, lens, plens, window, pad=3):
+        return dict(G=G, D=Dh, Hkv=Hkv, maxp=maxp, lens=list(lens),
+                    plens=list(plens), W=sum(lens) + pad, window=window)
+
+    edges = lambda QT: [1, QT - 1, QT, QT + 1]
+    waves = [
+        ("g4_d128_edges", spec(4, 128, 8, 32, edges(16) + [0, 37],
+                               [0, 24, 64, 100, 0, 1000], None)),
+        ("g4_d128_edges_w1", spec(4, 128, 8, 32, edges(16) + [0, 37],
+                                  [0, 24, 64, 100, 0, 1000], 1)),
+        ("g1_d64_w40", spec(1, 64, 4, 32, edges(64) + [200],
+                            [130, 0, 31, 512, 700], 40)),
+        ("g8_d128_w700", spec(8, 128, 2, 40, edges(8) + [0, 0, 50],
+                              [80, 5, 0, 640, 0, 0, 333], 700)),
+        ("g4_d128_full_row", spec(4, 128, 8, 32, [300, 0, 0], [77, 0, 0],
+                                  None, pad=0)),
+        ("g8_d64_full_row_w1", spec(8, 64, 4, 16, [0, 203], [0, 256], 1,
+                                    pad=0)),
+        ("g2_d16_edges", spec(2, 16, 2, 16, edges(32) + [0, 45],
+                              [0, 15, 16, 33, 0, 300], None)),
+        ("g2_d16_full_row_w40", spec(2, 16, 8, 16, [0, 700], [0, 100], 40,
+                                     pad=0)),
+        ("g2_d32_w1", spec(2, 32, 4, 24, edges(32) + [150],
+                           [17, 0, 200, 64, 500], 1)),
+        ("g8_d32_full_row", spec(8, 32, 8, 16, [0, 700], [0, 100], None,
+                                 pad=0)),
+    ]
+    rnd = random.Random(20)
+    while len(waves) < 16:
+        G, Dh = rnd.choice((1, 4, 8)), rnd.choice((64, 128))
+        R, maxp = 8, rnd.choice((16, 32, 48))
+        lens = [rnd.choice((0, 1, rnd.randint(2, 160))) for _ in range(R)]
+        lens[rnd.randrange(R)] = rnd.randint(64 // G + 1, 200)
+        plens = [rnd.choice((0, rnd.randint(1, maxp * 16),
+                             maxp * 16 + rnd.randint(1, 300)))
+                 for _ in range(R)]
+        window = rnd.choice((None, 1, 40, 700))
+        waves.append((f"random{len(waves)}_g{G}_d{Dh}",
+                      spec(G, Dh, 32 // max(G, 4), maxp, lens, plens, window,
+                           pad=rnd.randint(0, 20))))
+    return waves
+
+
+def sweep_case(sp, quant, dev, seed):
+    """Wrapper arguments of one sweep wave: bf16 query and suffix over bf16
+    pages, or over int8 pages (the port's quantization of the same draws)
+    for ``quant``; each row's table a fresh draw of the pool's pages."""
+    import torch
+
+    from swarmdb_tpu_torch.ops.paged_kv import _quantize_pages
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G, Dh, Hkv, maxp = sp["G"], sp["D"], sp["Hkv"], sp["maxp"]
+    R, W = len(sp["lens"]), sp["W"]
+    lens = torch.tensor(sp["lens"], dtype=torch.int32)
+    starts = torch.zeros(R, dtype=torch.int32)
+    starts[1:] = torch.cumsum(lens, 0)[:-1].to(torch.int32)
+    n_pages = R * maxp + 1
+    tables = (torch.randperm(n_pages - 1, generator=g) + 1).reshape(R, maxp)
+    r = lambda *s: torch.randn(*s, generator=g)
+    bf = torch.bfloat16
+    kp, vp = r(n_pages, PS, Hkv, Dh), r(n_pages, PS, Hkv, Dh)
+    if quant:
+        (kq, ks), (vq, vs) = _quantize_pages(kp), _quantize_pages(vp)
+        pages = dict(k_pages=kq.to(dev), k_scale=ks.to(dev),
+                     v_pages=vq.to(dev), v_scale=vs.to(dev))
+    else:
+        pages = dict(k_pages=kp.to(bf).to(dev), v_pages=vp.to(bf).to(dev))
+    return dict(q=r(W, G * Hkv, Dh).to(bf).to(dev),
+                sfx_k=r(W, Hkv, Dh).to(bf).to(dev),
+                sfx_v=r(W, Hkv, Dh).to(bf).to(dev), **pages,
+                row_tables=tables.to(torch.int32).to(dev),
+                starts=starts.to(dev), lens=lens.to(dev),
+                prefix_lens=torch.tensor(sp["plens"],
+                                         dtype=torch.int32).to(dev),
+                window=sp["window"])
+
+
+def run_prefill_sweep(dev, name, sp_kernel, tol=2e-2):
+    """The prefill kernel ``name`` against its plain version on every
+    sweep wave; fails on an error above ``tol``. Returns the errors."""
+    return {label: check_kernel(
+                name, sp_kernel, sweep_case(sp, sp_kernel["quant"], dev,
+                                            seed=100 + i), tol,
+                f"sweep {label}")
+            for i, (label, sp) in enumerate(prefill_sweep())}
+
+
+def check_kernel(name, sp, c, tol, key):
+    """Kernel ``name`` against its plain version on case ``c``: fails if
+    the output's dtype is not the query's or the largest absolute error is
+    above ``tol``; returns the error."""
+    import torch
+
+    got = sp["kernel"](**c)
+    want = sp["plain"](**c)
+    torch.cuda.synchronize()
+    if got.dtype != c["q"].dtype:
+        fail(f"{name} {key}: output {got.dtype}, query {c['q'].dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol:
+        fail(f"{name} {key}: max abs err {err} > {tol}")
+    return err
 
 
 def dense_chunked_case(qdt, cdt, dev, window=None):
@@ -518,33 +670,40 @@ def run_kernels(dev):
         errs = {}
         for qdt, pdt, tol in checks:
             for window in (None, 96):
-                c = sp["case"](qdt, pdt, dev, window)
-                got = sp["kernel"](**c)
-                want = sp["plain"](**c)
-                torch.cuda.synchronize()
-                if got.dtype != qdt:
-                    fail(f"{name}: output {got.dtype}, query {qdt}")
-                err = (got.float() - want.float()).abs().max().item()
                 key = f"q{str(qdt)[6:]}_p{str(pdt)[6:]}_w{window or 0}"
-                errs[key] = err
-                if not err <= tol:
-                    fail(f"{name} {key}: max abs err {err} > {tol}")
-        c = sp["case"](bf, i8 if sp["quant"] else bf, dev)
-        nbytes, flops = sp["work"](c)
-        b_ms, b_by = bound(nbytes, flops)
-        ms = time_graph(lambda: sp["kernel"](**c))
-        plain_ms = time_events(lambda: sp["plain"](**c), iters=20)
-        library_ms = time_graph(sp["library"](c))
-        rows[name] = {
-            "name": name, "route": "cuda", "source": sp["source"],
-            "replaces": sp["replaces"], "launches": 0,
-            "max_abs_err": errs[next(iter(errs))], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
-        emit("kernels", kernel=name, errors=errs, ms=ms, plain_ms=plain_ms,
-             library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-             bytes=nbytes, flops=flops)
+                errs[key] = check_kernel(
+                    name, sp, sp["case"](qdt, pdt, dev, window), tol, key)
+        prefill = sp["case"] is prefill_case
+        if prefill:
+            errs["sweep"] = run_prefill_sweep(dev, name, sp)
+        pdt = i8 if sp["quant"] else bf
+        rows[name] = time_kernel(name, sp, sp["case"](bf, pdt, dev), errs)
+        if prefill:
+            c = wide_prefill_case(bf, pdt, dev)
+            key = f"qbfloat16_p{str(pdt)[6:]}_w0"
+            wide = {key: check_kernel(name, sp, c, 2e-2, f"w1024 {key}")}
+            time_kernel(name, sp, c, wide, shape="w1024_turn1")
     return rows
+
+
+def time_kernel(name, sp, c, errs, shape="serving"):
+    """One kernel timed on case ``c`` beside its plain version, one library
+    call and its bound; emits a ``kernels`` line and returns the kernel's
+    row of the final ``{"kernels": [...]}`` line."""
+    nbytes, flops = sp["work"](c)
+    b_ms, b_by = bound(nbytes, flops)
+    ms = time_graph(lambda: sp["kernel"](**c))
+    plain_ms = time_events(lambda: sp["plain"](**c), iters=20)
+    library_ms = time_graph(sp["library"](c))
+    emit("kernels", kernel=name, shape=shape, errors=errs, ms=ms,
+         plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+         bound_by=b_by, bytes=nbytes, flops=flops)
+    return {
+        "name": name, "route": "cuda", "source": sp["source"],
+        "replaces": sp["replaces"], "launches": 0,
+        "max_abs_err": errs[next(iter(errs))] if errs else None, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms}
 
 
 # ------------------------------------------------------------------ parity
@@ -919,6 +1078,11 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
         prof["device_idle_share_vs_untraced"] = 1.0 - prof[
             "device_busy_ms"] / prof["untraced_turn_wall_ms"]
         emit("profile", serve=name, **prof)
+        attn = prof["attention_ms"]
+        if paged and not (attn["ragged_prefill_fp32"] == 0
+                          and attn["ragged_prefill_mma"] > 0):
+            fail(f"serve {name}: the profiled turn's prefill ran outside "
+                 f"the tensor-core body: {attn}")
         return launches
     finally:
         svc.stop()
@@ -936,6 +1100,11 @@ def await_replies(db, users, timeout=300.0):
             for m in db.receive_messages(u, timeout=0.05):
                 got[u] = m
     return got
+
+
+#: Profiler names of the two ragged-prefill bodies: the fp32 one (any
+#: float32 operand) and the tensor-core one (bf16 query and suffix).
+PREFILL_BODIES = ("ragged_prefill_kernel<", "ragged_prefill_mma_kernel<")
 
 
 def profile_turn(db, users, text):
@@ -965,15 +1134,18 @@ def profile_turn(db, users, text):
                for e in prof.key_averages() if dev_us(e) > 0]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    attn = {"ragged_prefill": "ragged_prefill_kernel<",
-            "paged_decode_chunked": "paged_decode_chunked_kernel<",
-            "paged_decode": "paged_decode_kernel<",
-            "dense_decode_chunked": "dense_decode_chunked_kernel<",
-            "dense_decode": "dense_decode_kernel<"}
+    attn = {"ragged_prefill": PREFILL_BODIES,
+            "paged_decode_chunked": ("paged_decode_chunked_kernel<",),
+            "paged_decode": ("paged_decode_kernel<",),
+            "dense_decode_chunked": ("dense_decode_chunked_kernel<",),
+            "dense_decode": ("dense_decode_kernel<",)}
+    attn.update({f"ragged_prefill_{body}": (pat,)
+                 for body, pat in zip(("fp32", "mma"), PREFILL_BODIES)})
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-        "attention_ms": {k: sum(t for n, t, _ in kernels if v in n)
+        "attention_ms": {k: sum(t for n, t, _ in kernels
+                                if any(p in n for p in v))
                          for k, v in attn.items()},
         "top": [{"kernel": n[:90], "ms": t, "calls": c}
                 for n, t, c in kernels[:12]],
@@ -981,6 +1153,27 @@ def profile_turn(db, users, text):
 
 
 # -------------------------------------------------------------------- main
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel entry of an ``nvcc -Xptxas -v`` log: the
+    entry's mangled name without the ``swarm`` namespace and argument
+    list, its registers and its spill bytes (stores / loads)."""
+    import re
+
+    out, name, spills = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5swarm\d+(\w+?EE)v", ln)
+        if m:
+            name = m.group(1).rstrip("E")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, spills {spills}")
+            name = None
+    return out
 
 
 def main() -> int:
@@ -1019,9 +1212,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: [ln.strip() for ln in v.splitlines()
-                    if "registers" in ln or "spill" in ln][:8]
-                for k, v in logs.items()})
+         ptxas={k: ptxas_summary(v) for k, v in logs.items()})
 
     with torch.no_grad():
         rows = run_kernels(dev)

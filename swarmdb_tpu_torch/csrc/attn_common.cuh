@@ -2,7 +2,8 @@
 // single-step decode, over plain or int8 pages or over a dense slot
 // cache): 16-byte tile loads into shared memory, the page-table walk, the
 // dense lane walk and the fp32 online-softmax fold of one key tile into a
-// query row's state.
+// query row's state; and the tensor-core helpers of the bf16 prefill body
+// (cp.async, ldmatrix, mma.sync, the int8-to-bf16 widen).
 //
 // Operand types. Pages are a compile-time type TP: float, bf16, or int8
 // with one f32 scale per (page, KV head), applied to each widened value as
@@ -343,6 +344,96 @@ __device__ __forceinline__ void fold_pages(RowState<D, TPR>& st, float* Ks,
         st, Ks, Vs, nrows, sub, [&](int t) { return valid(pos0 + t); },
         scale);
   }
+}
+
+// ---------------------------------------------------------------------
+// Tensor-core pieces (sm_80+ warp-level instructions, all on sm_90a):
+// 16-byte cp.async copies into shared memory, ldmatrix fragment loads and
+// the bf16 m16n8k16 MMA with fp32 accumulators.
+//
+// Fragment layouts of mma.m16n8k16 (lane = threadIdx.x % 32, quad row
+// qr = lane / 4, quad column qc = lane % 4): an A fragment (16 x 16,
+// row-major) is four bf16 pairs a0..a3 at (row qr, cols 2qc..2qc+1),
+// (qr + 8, same), (qr, 8 + same), (qr + 8, 8 + same); a B fragment (16 x 8,
+// k x n) is b0 at (k 2qc..2qc+1, n qr) and b1 at (k 8 + same, n qr); the
+// fp32 accumulator c0..c3 is (row qr, cols 2qc, 2qc+1) then (row qr + 8,
+// same cols).
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-fills dst when !pred (the
+// source is then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four 8 x 8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, whose fragment lands in r[i]. `trans` delivers
+// each matrix transposed (rows become the fragment's k index).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a * b on the tensor cores: bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to a bf16 pair (lo in the low half, as the fragment
+// layouts want the lower column there).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 int8 values widened to 16 bf16, exactly (|v| <= 128 fits bf16's 8
+// significant bits), without the quarter-rate int-to-float converters:
+// byte b, offset to b + 128, becomes the low byte of the float 2^23 + b +
+// 128, one subtraction leaves v in fp32 with zero low 16 bits, and the
+// high halves of two such floats are the bf16 pair.
+__device__ __forceinline__ uint32_t widen_i8x2_bf16(uint32_t u, int b0) {
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u,
+                                               0x7540 + b0)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u,
+                                               0x7541 + b0)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+__device__ __forceinline__ void widen_i8_bf16(const uint4& u, uint4& lo,
+                                              uint4& hi) {
+  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                         u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+  lo = make_uint4(widen_i8x2_bf16(w[0], 0), widen_i8x2_bf16(w[0], 2),
+                  widen_i8x2_bf16(w[1], 0), widen_i8x2_bf16(w[1], 2));
+  hi = make_uint4(widen_i8x2_bf16(w[2], 0), widen_i8x2_bf16(w[2], 2),
+                  widen_i8x2_bf16(w[3], 0), widen_i8x2_bf16(w[3], 2));
 }
 
 }  // namespace swarm

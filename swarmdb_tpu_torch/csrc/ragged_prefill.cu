@@ -1,11 +1,14 @@
 // Packed ragged paged prefill over a plain (f32 / bf16) page pool: the
 // entry point of `ragged_paged_prefill_attention` (ops/attention_cuda.py).
-// The kernel and its design notes are in ragged_prefill.cuh.
+// Two bodies, chosen by the operand types: all-bf16 operands go to the
+// tensor-core body (ragged_prefill_mma.cuh), any float32 operand to the
+// fp32 body (ragged_prefill.cuh), which keeps f32 results exact to 1e-4.
 #include "ragged_prefill.cuh"
+#include "ragged_prefill_mma.cuh"
 
 // Codes: 0 = float32, 1 = bfloat16, for the pages, the query / output and
-// the packed suffix K/V separately. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// the packed suffix K/V separately. Returns the launch's error (0 =
+// launched), never retrying on the other body.
 extern "C" int swarm_ragged_prefill(int page_code, int q_code, int s_code,
                                     const void* q, const void* sk,
                                     const void* sv, const void* kp,
@@ -16,6 +19,11 @@ extern "C" int swarm_ragged_prefill(int page_code, int q_code, int s_code,
                                     int maxp, int window, float scale,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (page_code == swarm::kBF16 && q_code == swarm::kBF16 &&
+      s_code == swarm::kBF16)
+    return swarm::ragged_prefill_mma_d<__nv_bfloat16>(
+        D, q, sk, sv, kp, nullptr, vp, nullptr, tables, starts, lens, plens,
+        out, W, R, Hq, Hkv, P, ps, maxp, window, scale, s);
   if (page_code == swarm::kF32)
     return swarm::ragged_prefill_d<float>(
         D, q_code, s_code, q, sk, sv, kp, nullptr, vp, nullptr, tables,

@@ -1,6 +1,8 @@
 // Packed ragged paged prefill attention for Hopper (sm_90a), over plain
-// (f32 / bf16) or int8 prefix pages: the kernel template behind
-// ragged_prefill.cu and ragged_prefill_quant.cu.
+// (f32 / bf16) or int8 prefix pages: the fp32 body behind ragged_prefill.cu
+// and ragged_prefill_quant.cu, which route every call with a float32
+// operand here (f32 results held to 1e-4) and a bf16 query and suffix to
+// the tensor-core body (ragged_prefill_mma.cuh).
 //
 // Replaces the Pallas kernels `_ragged_prefill_kernel` behind
 // `ragged_paged_prefill_attention` and `_ragged_prefill_kernel_quant`
@@ -33,8 +35,8 @@
 // (P_r + len_r / 2) FLOP in fp32 FMAs while reading each prefix page and
 // suffix row once per query tile; at serving waves (hundreds of tokens,
 // hundreds of prefix tokens) that is far above the card's bytes-per-FLOP
-// line. This first version keeps the products on the fp32 pipes; feeding
-// them to the tensor cores (mma / wgmma on bf16 tiles) is the next step.
+// line. The products stay on the fp32 pipes, which keeps an f32 query's
+// result exact; bf16 serving takes the tensor-core body.
 #pragma once
 
 #include "attn_common.cuh"

@@ -9,7 +9,11 @@ over a dense slot cache:
 - ``ragged_paged_prefill_attention`` / ``..._quant``: packed ragged
   prefill over a wave (``csrc/ragged_prefill.cu`` /
   ``ragged_prefill_quant.cu``; the TPU kernels are
-  ``_ragged_prefill_kernel`` / ``..._quant``).
+  ``_ragged_prefill_kernel`` / ``..._quant``). Each entry point has two
+  bodies, chosen by the operand types: a bf16 query and suffix (over bf16
+  or int8 pages) run the tensor-core body (``ragged_prefill_mma.cuh``,
+  profiler name ``ragged_prefill_mma_kernel``), any float32 operand the
+  fp32 body (``ragged_prefill.cuh``, ``ragged_prefill_kernel``).
 - ``paged_decode_gqa_attention_chunked`` / ``..._quant``: two-segment paged
   decode, frozen pool + chunk buffer (``csrc/paged_decode_chunked.cu`` /
   ``paged_decode_chunked_quant.cu``; ``_paged_chunk_attn_kernel`` /
@@ -27,7 +31,9 @@ Each operand keeps its own type: the query (and so the output), the chunk
 buffer and the packed suffix are float32 or bfloat16 each; the pages and
 the dense cache are float32 / bfloat16, or (pages only) int8 with float32
 scales. Everything is computed in
-float32, as the Pallas kernels do. Each wrapper checks device, dtype, shape
+float32, as the Pallas kernels do, except the prefill's tensor-core body:
+bf16 products with float32 sums, the softmax weights rounded to bf16 for
+the value product. Each wrapper checks device, dtype, shape
 and contiguity, then runs the plain PyTorch version when the tensors lie on
 the CPU, and launches its CUDA kernel when they lie on a CUDA device --
 there is no fallback from one to the other. ``LAUNCHES`` counts kernel

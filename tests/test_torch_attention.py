@@ -41,24 +41,35 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+#: Rows per wave of _prefill_case: (starts, lens, prefix_lens, width).
+PREFILL_ROWS = {
+    # rows with and without prefix pages
+    "prefix": ([0, 7, 20, 0], [7, 13, 12, 0], [16, 0, 8, 0], 32),
+    # a dead row between live ones
+    "dead": ([0, 10, 10, 0], [10, 0, 22, 0], [5, 0, 0, 0], 32),
+    # the tail of a prompt whose head an earlier wave wrote: prefix_len not
+    # page-aligned, the row runs to the end of the stream
+    "split": ([0, 3, 0, 0], [3, 29, 0, 0], [0, 21, 0, 0], 32),
+    # single-token rows, with and without prefix, most positions unowned
+    "single": ([0, 1, 2, 3], [1, 1, 1, 1], [0, 5, 8, 19], 32),
+    # a row one token past a query tile of the tensor-core body (64 // G =
+    # 32 tokens at G 2), then a short row; W not a multiple of the tile
+    "tile_plus_one": ([0, 33, 0, 0], [33, 6, 0, 0], [12, 0, 0, 0], 40),
+    # prefixes ending mid-page (page size 8)
+    "mid_page": ([0, 9, 0, 0], [9, 20, 0, 0], [13, 29, 0, 0], 32),
+}
+
+
 def _prefill_case(seed, case):
-    """A wave of width 32 over 4 rows. ``case``: "prefix" (rows with and
-    without prefix pages), "dead" (a dead row between live ones), "split"
-    (the tail of a prompt whose head an earlier wave wrote: prefix_len not
-    page-aligned, the row runs to the end of the stream)."""
+    """A wave over 4 rows of the pool's 13 pages (``PREFILL_ROWS``)."""
     rng = np.random.default_rng(seed)
-    W, P, maxp = 32, 13, 4
+    starts, lens, plens, W = PREFILL_ROWS[case]
+    P = 13
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
     q, sk, sv = f(W, HQ, D), f(W, HKV, D), f(W, HKV, D)
     kp, vp = f(P, PS, HKV, D), f(P, PS, HKV, D)
     tables = np.array([[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12],
                        [0, 0, 0, 0]], np.int32)
-    if case == "prefix":
-        starts, lens, plens = [0, 7, 20, 0], [7, 13, 12, 0], [16, 0, 8, 0]
-    elif case == "dead":
-        starts, lens, plens = [0, 10, 10, 0], [10, 0, 22, 0], [5, 0, 0, 0]
-    else:
-        starts, lens, plens = [0, 3, 0, 0], [3, 29, 0, 0], [0, 21, 0, 0]
     return (q, sk, sv, kp, vp, tables, np.array(starts, np.int32),
             np.array(lens, np.int32), np.array(plens, np.int32))
 
@@ -72,8 +83,8 @@ def _owned(W, starts, lens):
     return own, row
 
 
-@pytest.mark.parametrize("case", ["prefix", "dead", "split"])
-@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("case", list(PREFILL_ROWS))
+@pytest.mark.parametrize("window", [None, 7, 1])
 def test_prefill_plain_matches_pallas_and_reference(case, window):
     args = _prefill_case(0, case)
     q, starts, lens = args[0], args[6], args[7]
