@@ -21,7 +21,13 @@ and exits non-zero at the first failure:
                bf16 pages or lanes within 2e-2, each with a windowed case;
                the two prefill kernels (whose bf16 calls run the tensor-
                core body) also on a seeded sweep of 16 waves over their
-               edges (``prefill_sweep``), within 2e-2; then timed with
+               edges (``prefill_sweep``), within 2e-2, and the six decode
+               kernels (one cluster-split body) on a seeded sweep of 14
+               waves over theirs (``decode_sweep``), bf16 within 2e-2 and
+               f32 within 1e-4 (and the single-step paged decode once
+               more with all slots at lengths 0, 32, 256 and 1024: its
+               fixed cost and its cost per tile, ``decode_lengths``);
+               then timed with
                CUDA events (median of 30 after warm-up): the kernel, its
                plain version, and one PyTorch
                ``scaled_dot_product_attention`` call over the gathered
@@ -56,8 +62,10 @@ and exits non-zero at the first failure:
                token, the cache's (and side pool's) size and peak device
                memory per serve. Each serve then runs one more turn under
                ``torch.profiler`` (device time by kernel, the device's
-               idle share, the prefill's time in each of its two bodies);
-               a paged serve fails if its prefill ran in the fp32 body.
+               idle share, the prefill's time in each of its two bodies,
+               the decode kernels' time by name); a paged serve fails if
+               its prefill ran in the fp32 body, and any serve fails if
+               its decode kernel shows no device time.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six serves,
 each counted from zero just before it and read just after) and, last,
@@ -364,6 +372,144 @@ def run_prefill_sweep(dev, name, sp_kernel, tol=2e-2):
                                             seed=100 + i), tol,
                 f"sweep {label}")
             for i, (label, sp) in enumerate(prefill_sweep())}
+
+
+#: Positions per key tile and cluster ranks per (slot, KV head) of the
+#: decode body (csrc/decode.cuh): a slot's tiles go to the ranks in turn.
+DECODE_KT, DECODE_SPLIT = 32, 8
+
+
+def decode_sweep():
+    """Waves that walk the decode body's edges, as (label, spec) pairs;
+    ``decode_sweep_case`` turns a spec into the arguments of any of the six
+    decode entry points. A spec names the GQA group G, the head dim, the
+    KV heads, the table width (maxp pages of 16: the coverage, also the
+    dense lanes' length), the slots' lengths (a single step's lengths, a
+    chunked step's starts), the chunk (Kc entries, this step's index), the
+    window and the page table's kind (``perm``: a permutation of the pool;
+    ``repeat``: ids repeated within and across rows; ``wild``: ids below 0
+    and past the pool, which the kernels clamp). Covered: lengths 0, 1, <
+    KT, NS * KT, NS * KT + 1, at and past the coverage; slots shorter than
+    NS tiles (empty ranks); windows of 1, below a tile and spanning several
+    ranks; step 0 and Kc - 1; G 1 / 2 / 4 / 8; D 16 / 32 / 64 / 128; one
+    slot, and a batch whose grid has more clusters than the H100 has SMs;
+    repeated and out-of-range page ids."""
+    import random
+
+    def spec(G, Dh, Hkv, maxp, lens, Kc=8, step=5, window=None,
+             table="perm"):
+        return dict(G=G, D=Dh, Hkv=Hkv, maxp=maxp, lens=list(lens), Kc=Kc,
+                    step=step, window=window, table=table)
+
+    edges = [1, 17, 256, 257, 384, 400, 40, 0]   # coverage 24 * 16 = 384
+    rnd = random.Random(21)
+    waves = [
+        ("g4_d128_lengths", spec(4, 128, 2, 24, edges, step=0)),
+        ("g4_d128_w1_last_step", spec(4, 128, 2, 24, edges, step=7,
+                                      window=1)),
+        ("g1_d64_w20", spec(1, 64, 4, 20, [300, 33, 257, 320, 5], Kc=4,
+                            step=3, window=20)),
+        ("g8_d32_w200", spec(8, 32, 2, 24, [384, 256, 100, 500, 1], step=2,
+                             window=200)),
+        ("g2_d16_repeat", spec(2, 16, 4, 16, [256, 257, 31, 32, 200],
+                               Kc=16, step=15, table="repeat")),
+        ("g4_d64_wild", spec(4, 64, 2, 16, [256, 100, 3, 257], step=0,
+                             table="wild")),
+        ("b1_g4_d128_w96", spec(4, 128, 8, 64, [1006], window=96)),
+        ("b20_g4_d64", spec(4, 64, 8, 20, [rnd.randint(1, 320)
+                                           for _ in range(20)], step=3)),
+        ("g8_d128_w1", spec(8, 128, 1, 32, [512, 7, 258], step=7,
+                            window=1)),
+        ("g2_d32_w33", spec(2, 32, 8, 8, [128, 129, 64, 0], Kc=4, step=0,
+                            window=33)),
+    ]
+    while len(waves) < 14:
+        G, Dh = rnd.choice((1, 2, 4, 8)), rnd.choice((16, 32, 64, 128))
+        maxp, Kc = rnd.choice((8, 16, 40)), rnd.choice((4, 8, 16))
+        cov = maxp * PS
+        lens = [rnd.choice((0, 1, rnd.randint(2, cov), cov + 7,
+                            DECODE_KT * rnd.randint(1, 9)))
+                for _ in range(rnd.randint(1, 9))]
+        waves.append((f"random{len(waves)}_g{G}_d{Dh}", spec(
+            G, Dh, rnd.choice((1, 2, 4)), maxp, lens, Kc=Kc,
+            step=rnd.randrange(Kc), window=rnd.choice((None, 1, 20, 300)),
+            table=rnd.choice(("perm", "repeat", "wild")))))
+    return waves
+
+
+#: The six decode entry points: (paged, int8 pages, chunked).
+DECODE_KINDS = {
+    "paged_decode_chunked": (True, False, True),
+    "paged_decode": (True, False, False),
+    "paged_decode_chunked_quant": (True, True, True),
+    "paged_decode_quant": (True, True, False),
+    "dense_decode_chunked": (False, False, True),
+    "dense_decode": (False, False, False),
+}
+
+
+def decode_sweep_case(sp, name, dt, dev, seed):
+    """Arguments of decode entry point ``name`` on sweep wave ``sp``: query,
+    chunk buffer and plain pages or lanes in ``dt`` (torch.bfloat16 or
+    torch.float32), or int8 pages (the port's quantization of the same
+    draws) for the ``_quant`` entry points."""
+    import torch
+
+    from swarmdb_tpu_torch.ops.paged_kv import _quantize_pages
+
+    paged, quant, chunked = DECODE_KINDS[name]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G, Dh, Hkv, maxp = sp["G"], sp["D"], sp["Hkv"], sp["maxp"]
+    B, cov = len(sp["lens"]), maxp * PS
+    r = lambda *s: torch.randn(*s, generator=g)
+    to = lambda t, d=dt: t.to(d).to(dev)
+    c = dict(q=to(r(B, G * Hkv, Dh)), window=sp["window"])
+    if paged:
+        n_pages = B * maxp + 1
+        if sp["table"] == "repeat":
+            table = torch.randint(1, 4, (B, maxp), generator=g)
+        else:
+            table = torch.randperm(n_pages - 1, generator=g) + 1
+            table = table.reshape(B, maxp)
+            if sp["table"] == "wild":
+                table[:, ::3] = -5
+                table[:, 1::4] = n_pages + 7
+        kp, vp = r(n_pages, PS, Hkv, Dh), r(n_pages, PS, Hkv, Dh)
+        if quant:
+            (kq, ks), (vq, vs) = _quantize_pages(kp), _quantize_pages(vp)
+            c.update(k_pages=kq.to(dev), k_scale=ks.to(dev),
+                     v_pages=vq.to(dev), v_scale=vs.to(dev))
+        else:
+            c.update(k_pages=to(kp), v_pages=to(vp))
+        c["page_table"] = to(table, torch.int32)
+    else:
+        c.update(cache_k=to(r(B, cov, Hkv, Dh)),
+                 cache_v=to(r(B, cov, Hkv, Dh)))
+    lens = to(torch.tensor(sp["lens"]), torch.int32)
+    if chunked:
+        Kc = sp["Kc"]
+        c.update(chunk_k=to(r(B, Kc, Hkv, Dh)), chunk_v=to(r(B, Kc, Hkv, Dh)),
+                 starts=lens, step=sp["step"])
+    else:
+        c["lengths"] = lens
+    return c
+
+
+def run_decode_sweep(dev, name, sp_kernel):
+    """Decode entry point ``name`` against its plain version on every sweep
+    wave, bf16 within 2e-2 and f32 within 1e-4 (int8 pages under a bf16
+    or an f32 query); fails on a larger error. Returns the errors."""
+    import torch
+
+    errs = {}
+    for i, (label, sp) in enumerate(decode_sweep()):
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            key = f"{label}_{str(dt)[6:]}"
+            errs[key] = check_kernel(
+                name, sp_kernel, decode_sweep_case(sp, name, dt, dev,
+                                                   seed=200 + i),
+                tol, f"sweep {key}")
+    return errs
 
 
 def check_kernel(name, sp, c, tol, key):
@@ -676,6 +822,8 @@ def run_kernels(dev):
         prefill = sp["case"] is prefill_case
         if prefill:
             errs["sweep"] = run_prefill_sweep(dev, name, sp)
+        else:
+            errs["sweep"] = run_decode_sweep(dev, name, sp)
         pdt = i8 if sp["quant"] else bf
         rows[name] = time_kernel(name, sp, sp["case"](bf, pdt, dev), errs)
         if prefill:
@@ -683,7 +831,30 @@ def run_kernels(dev):
             key = f"qbfloat16_p{str(pdt)[6:]}_w0"
             wide = {key: check_kernel(name, sp, c, 2e-2, f"w1024 {key}")}
             time_kernel(name, sp, c, wide, shape="w1024_turn1")
+        if name == "paged_decode":
+            time_decode_lengths(dev, sp)
     return rows
+
+
+def time_decode_lengths(dev, sp):
+    """The bf16 single-step paged decode with all 8 slots at one length: 0
+    (no live key: launch, cluster and merge alone), one key tile, one tile
+    per cluster rank, four per rank (the table's whole coverage); each
+    checked against the plain version, timed and emitted beside its bound
+    in one ``decode_lengths`` line -- a call's fixed cost and its cost per
+    tile."""
+    import torch
+
+    bf = torch.bfloat16
+    out = {}
+    for n in (0, DECODE_KT, DECODE_SPLIT * DECODE_KT, LANE):
+        c = single_case(bf, bf, dev)
+        c["lengths"] = torch.full_like(c["lengths"], n)
+        err = check_kernel("paged_decode", sp, c, 2e-2, f"length {n}")
+        out[f"L{n}"] = dict(ms=time_graph(lambda: sp["kernel"](**c)),
+                            bound_ms=bound(*single_work(c))[0],
+                            max_abs_err=err)
+    emit("decode_lengths", kernel="paged_decode", **out)
 
 
 def time_kernel(name, sp, c, errs, shape="serving"):
@@ -1083,6 +1254,9 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
                           and attn["ragged_prefill_mma"] > 0):
             fail(f"serve {name}: the profiled turn's prefill ran outside "
                  f"the tensor-core body: {attn}")
+        if not attn[decode_k.replace("_quant", "")] > 0:
+            fail(f"serve {name}: no device time under the decode kernel "
+                 f"{decode_k} in the profiled turn: {attn}")
         return launches
     finally:
         svc.stop()
@@ -1105,6 +1279,14 @@ def await_replies(db, users, timeout=300.0):
 #: Profiler names of the two ragged-prefill bodies: the fp32 one (any
 #: float32 operand) and the tensor-core one (bf16 query and suffix).
 PREFILL_BODIES = ("ragged_prefill_kernel<", "ragged_prefill_mma_kernel<")
+#: Profiler names of the decode body's four kernels (csrc/decode.cuh),
+#: by the profile key their device time is summed under; the int8 entry
+#: points run the paged kernels.
+DECODE_BODIES = {
+    "paged_decode_chunked": ("paged_decode_chunked_cluster_kernel<",),
+    "paged_decode": ("paged_decode_cluster_kernel<",),
+    "dense_decode_chunked": ("dense_decode_chunked_cluster_kernel<",),
+    "dense_decode": ("dense_decode_cluster_kernel<",)}
 
 
 def profile_turn(db, users, text):
@@ -1134,11 +1316,7 @@ def profile_turn(db, users, text):
                for e in prof.key_averages() if dev_us(e) > 0]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    attn = {"ragged_prefill": PREFILL_BODIES,
-            "paged_decode_chunked": ("paged_decode_chunked_kernel<",),
-            "paged_decode": ("paged_decode_kernel<",),
-            "dense_decode_chunked": ("dense_decode_chunked_kernel<",),
-            "dense_decode": ("dense_decode_kernel<",)}
+    attn = {"ragged_prefill": PREFILL_BODIES, **DECODE_BODIES}
     attn.update({f"ragged_prefill_{body}": (pat,)
                  for body, pat in zip(("fp32", "mma"), PREFILL_BODIES)})
     return {

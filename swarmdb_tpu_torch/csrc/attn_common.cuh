@@ -1,9 +1,9 @@
-// Shared pieces of the attention kernels (ragged prefill, chunked and
-// single-step decode, over plain or int8 pages or over a dense slot
-// cache): 16-byte tile loads into shared memory, the page-table walk, the
-// dense lane walk and the fp32 online-softmax fold of one key tile into a
-// query row's state; and the tensor-core helpers of the bf16 prefill body
-// (cp.async, ldmatrix, mma.sync, the int8-to-bf16 widen).
+// Shared pieces of the attention kernels (ragged prefill, and the decode
+// body of decode.cuh): 16-byte tile loads into shared memory, the page-
+// table walk, the int8 widen, the fp32 online-softmax fold of one key tile
+// into a query row's state (the fp32 prefill body); and the tensor-core
+// helpers of the bf16 prefill body (cp.async, ldmatrix, mma.sync, the
+// int8-to-bf16 widen).
 //
 // Operand types. Pages are a compile-time type TP: float, bf16, or int8
 // with one f32 scale per (page, KV head), applied to each widened value as
@@ -13,12 +13,13 @@
 // (block-uniform branches around whole loads). Everything is computed in
 // fp32.
 //
-// Layout of the work: a query row (one query token x one query head) is
-// owned by TPR consecutive lanes of a warp. Lane `sub` of the row holds the
-// head dims d = 4*sub + 4*TPR*i + e (i < D/(4*TPR), e < 4) of the query and
-// of the running output, so a row reads its K/V tile rows from shared
-// memory as float4s at neighbouring addresses (no bank conflicts), and the
-// per-key dot product is reduced over the TPR lanes with xor shuffles.
+// Layout of the fp32 prefill's work: a query row (one query token x one
+// query head) is owned by TPR consecutive lanes of a warp. Lane `sub` of
+// the row holds the head dims d = 4*sub + 4*TPR*i + e (i < D/(4*TPR), e <
+// 4) of the query and of the running output, so a row reads its K/V tile
+// rows from shared memory as float4s at neighbouring addresses (no bank
+// conflicts), and the per-key dot product is reduced over the TPR lanes
+// with xor shuffles.
 //
 // Masking follows the Pallas kernels' contract with one difference that
 // keeps the result exact: a masked key contributes p = 0 (not exp(-1e30 -
@@ -77,12 +78,24 @@ template <> struct Vec16<__nv_bfloat16> {
     }
   }
 };
+// Four int8 values (one 32-bit word) widened to floats, exactly and
+// without the quarter-rate int-to-float converters: byte i, offset by 128,
+// becomes the low byte of the float 2^23 + v + 128, and one subtraction
+// leaves v.
+__device__ __forceinline__ void widen_i8x4(uint32_t u, float* f) {
+  const uint32_t w = u ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + i)) -
+           8388736.f;
+}
 template <> struct Vec16<int8_t> {
   static constexpr int N = 16;
   __device__ __forceinline__ static void widen(const uint4& u, float* f) {
-    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(c[i]);
+    widen_i8x4(u.x, f);
+    widen_i8x4(u.y, f + 4);
+    widen_i8x4(u.z, f + 8);
+    widen_i8x4(u.w, f + 12);
   }
 };
 
@@ -163,45 +176,6 @@ template <typename TP, int D> struct PagedRows {
     else
       return 1.f;
   }
-};
-
-// The rows of one KV head of one slot's lane in a dense slot cache
-// [B, S, Hkv, D]: position pos of slot b is row (b * S + pos) * Hkv + h,
-// contiguous in pos, unscaled. Callers keep pos < S.
-template <typename T, int D> struct DenseRows {
-  const T* cache;  // [B, S, Hkv, D]
-  int S, Hkv, b, h;
-
-  __device__ __forceinline__ const T* row(int pos) const {
-    return cache + (((int64_t)b * S + pos) * Hkv + h) * D;
-  }
-  __device__ __forceinline__ float scale(int) const { return 1.f; }
-};
-
-// A whole K or V cache as a decode kernel sees it: rows(b, h) walks slot
-// b's positions of KV head h, coverage() is how many positions a slot can
-// hold (the page table's reach, or the lane length S).
-template <typename TP, int D> struct PagedCache {
-  const TP* pool;       // [P, ps, Hkv, D]
-  const float* scales;  // [P, Hkv] for int8 pages, unused otherwise
-  const int* table;     // [B, maxp]
-  int P, ps, Hkv, maxp;
-
-  __device__ __forceinline__ PagedRows<TP, D> rows(int b, int h) const {
-    return PagedRows<TP, D>{pool, scales, table + (int64_t)b * maxp,
-                            P, ps, Hkv, maxp, h};
-  }
-  __device__ __forceinline__ int coverage() const { return maxp * ps; }
-};
-
-template <typename T, int D> struct DenseCache {
-  const T* lanes;  // [B, S, Hkv, D]
-  int S, Hkv;
-
-  __device__ __forceinline__ DenseRows<T, D> rows(int b, int h) const {
-    return DenseRows<T, D>{lanes, S, Hkv, b, h};
-  }
-  __device__ __forceinline__ int coverage() const { return S; }
 };
 
 // Running state of one query row, split over TPR lanes.
@@ -318,38 +292,11 @@ __device__ __forceinline__ void fold_tile(RowState<D, TPR>& st,
   }
 }
 
-// Fold the positions [tile0 * KT, end) of one slot's K / V rows (PagedRows
-// or DenseRows, element type TP) into `st`, KT positions per tile through
-// the shared tiles Ks / Vs [KT][D]; valid(pos) says whether a position is
-// visible to this row. Block-wide: every thread of the block calls it.
-template <typename TP, int D, int TPR, int KT, class Rows, class Valid>
-__device__ __forceinline__ void fold_pages(RowState<D, TPR>& st, float* Ks,
-                                           float* Vs, const Rows& kr,
-                                           const Rows& vr, int tile0, int end,
-                                           int sub, Valid valid, float scale,
-                                           int tid, int nthreads) {
-  const int n_tiles = (end + KT - 1) / KT;
-  for (int tile = tile0; tile < n_tiles; ++tile) {
-    const int pos0 = tile * KT;
-    const int nrows = min(KT, end - pos0);
-    __syncthreads();
-    load_tile<TP, D>(
-        Ks, nrows, [&](int r) { return kr.row(pos0 + r); }, tid, nthreads,
-        [&](int r) { return kr.scale(pos0 + r); });
-    load_tile<TP, D>(
-        Vs, nrows, [&](int r) { return vr.row(pos0 + r); }, tid, nthreads,
-        [&](int r) { return vr.scale(pos0 + r); });
-    __syncthreads();
-    fold_tile<D, TPR, KT>(
-        st, Ks, Vs, nrows, sub, [&](int t) { return valid(pos0 + t); },
-        scale);
-  }
-}
-
 // ---------------------------------------------------------------------
 // Tensor-core pieces (sm_80+ warp-level instructions, all on sm_90a):
-// 16-byte cp.async copies into shared memory, ldmatrix fragment loads and
-// the bf16 m16n8k16 MMA with fp32 accumulators.
+// 16-byte cp.async copies into shared memory (also the decode body's ring),
+// ldmatrix fragment loads and the bf16 m16n8k16 MMA with fp32
+// accumulators.
 //
 // Fragment layouts of mma.m16n8k16 (lane = threadIdx.x % 32, quad row
 // qr = lane / 4, quad column qc = lane % 4): an A fragment (16 x 16,
@@ -376,6 +323,10 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8 x 8 b16 matrices from shared memory; lanes 8i..8i+7 give the row

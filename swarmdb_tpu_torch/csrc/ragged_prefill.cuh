@@ -43,6 +43,35 @@
 
 namespace swarm {
 
+// Fold the prefix positions [tile0 * KT, end) of one row's K / V pages
+// (PagedRows, element type TP) into `st`, KT positions per tile through
+// the shared tiles Ks / Vs [KT][D]; valid(pos) says whether a position is
+// visible to this query row. Block-wide: every thread of the block calls
+// it.
+template <typename TP, int D, int TPR, int KT, class Rows, class Valid>
+__device__ __forceinline__ void fold_prefix(RowState<D, TPR>& st, float* Ks,
+                                           float* Vs, const Rows& kr,
+                                           const Rows& vr, int tile0, int end,
+                                           int sub, Valid valid, float scale,
+                                           int tid, int nthreads) {
+  const int n_tiles = (end + KT - 1) / KT;
+  for (int tile = tile0; tile < n_tiles; ++tile) {
+    const int pos0 = tile * KT;
+    const int nrows = min(KT, end - pos0);
+    __syncthreads();
+    load_tile<TP, D>(
+        Ks, nrows, [&](int r) { return kr.row(pos0 + r); }, tid, nthreads,
+        [&](int r) { return kr.scale(pos0 + r); });
+    load_tile<TP, D>(
+        Vs, nrows, [&](int r) { return vr.row(pos0 + r); }, tid, nthreads,
+        [&](int r) { return vr.scale(pos0 + r); });
+    __syncthreads();
+    fold_tile<D, TPR, KT>(
+        st, Ks, Vs, nrows, sub, [&](int t) { return valid(pos0 + t); },
+        scale);
+  }
+}
+
 constexpr int kPrefillTPR = 4;     // lanes per query row
 constexpr int kPrefillKT = 32;     // keys per tile
 constexpr int kPrefillQRows = 64;  // query rows (token x head) per block
@@ -105,7 +134,7 @@ ragged_prefill_kernel(int q_code, int s_code,
     const int lo = plen + q_first - window + 1;  // lowest key any query sees
     if (lo > 0) tile0 = lo / KT;
   }
-  fold_pages<TP, D, TPR, KT>(
+  fold_prefix<TP, D, TPR, KT>(
       st, Ks, Vs, kr, vr, tile0, min(plen, maxp * ps), sub,
       [&](int pos) { return live && (window <= 0 || pos > q_abs - window); },
       scale, tid, nthreads);

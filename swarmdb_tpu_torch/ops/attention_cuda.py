@@ -24,8 +24,15 @@ over a dense slot cache:
 - ``decode_gqa_attention_chunked`` / ``decode_gqa_attention``: the dense
   engine's two-segment and single-step decode over a ``[B, S, Hkv, D]``
   slot cache (``csrc/dense_decode_chunked.cu`` / ``dense_decode.cu``;
-  ``_dense_chunk_attn_kernel`` / ``_decode_attn_kernel``), the same loops
+  ``_dense_chunk_attn_kernel`` / ``_decode_attn_kernel``), the same walk
   over each slot's contiguous lane instead of its page-table row.
+
+The six decode entry points run one body (``csrc/decode.cuh``): each
+(slot, KV head)'s live range is split over a cluster of 8 blocks whose
+states merge through distributed shared memory. Its profiler names are
+``paged_decode_cluster_kernel``, ``paged_decode_chunked_cluster_kernel``,
+``dense_decode_cluster_kernel`` and ``dense_decode_chunked_cluster_kernel``
+(the int8 entry points are the paged kernels over int8 pages).
 
 Each operand keeps its own type: the query (and so the output), the chunk
 buffer and the packed suffix are float32 or bfloat16 each; the pages and
@@ -53,7 +60,7 @@ from . import build
 from .layers import (gqa_attention_chunked_reference,
                      gqa_attention_reference,
                      ragged_prefill_attention_reference)
-from .paged_kv import QuantPool, paged_gather_kv
+from .paged_kv import QuantPool, paged_gather_kv, pool_data
 
 #: Kernel launches per kernel since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -154,6 +161,12 @@ def _scale(D: int) -> float:
 
 def _pool(pages: torch.Tensor, scale: Optional[torch.Tensor]):
     return pages if scale is None else QuantPool(pages, scale)
+
+
+def _clamp_pages(page_table: torch.Tensor, pages) -> torch.Tensor:
+    """Page ids clamped into ``[0, P)``: the decode kernels' reading of a
+    table entry outside the pool."""
+    return page_table.clamp(0, pool_data(pages).shape[0] - 1)
 
 
 # --------------------------------------------------------------- prefill
@@ -300,9 +313,11 @@ def paged_decode_chunked_plain(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of the two-segment decode kernels: gather each slot's
-    pages into a dense view (dequantized for a quantized pool), then the
-    two-segment attention (``layers.gqa_attention_chunked_reference``)."""
-    kg, vg = paged_gather_kv(k_pages, v_pages, page_table)
+    pages into a dense view (dequantized for a quantized pool; page ids
+    clamped into the pool, as the kernels read them), then the two-segment
+    attention (``layers.gqa_attention_chunked_reference``)."""
+    kg, vg = paged_gather_kv(k_pages, v_pages,
+                             _clamp_pages(page_table, k_pages))
     return decode_chunked_plain(q, kg, vg, chunk_k, chunk_v, starts, step,
                                 window=window)
 
@@ -416,8 +431,10 @@ def paged_decode_plain(
     """Plain version of the single-step decode kernels: gather each slot's
     pages into a dense view (dequantized for a quantized pool), then the
     dense decode attention (``decode_plain``) at position ``length - 1``.
-    A slot of length 0 gives zeros, as the kernels do."""
-    kg, vg = paged_gather_kv(k_pages, v_pages, page_table)
+    A slot of length 0 gives zeros, as the kernels do; page ids are
+    clamped into the pool, as the kernels read them."""
+    kg, vg = paged_gather_kv(k_pages, v_pages,
+                             _clamp_pages(page_table, k_pages))
     return decode_plain(q, kg, vg, lengths, window=window)
 
 
@@ -535,14 +552,18 @@ def decode_plain(
 ) -> torch.Tensor:
     """Plain version of the dense single-step decode kernel: the JAX
     package's einsum form (``layers.gqa_attention_reference``) at position
-    ``length - 1``. A slot of length 0 gives zeros, as the kernels do (the
-    Pallas kernel returns the lane's mean value row there). Also the paged
-    plain versions' core, after their page gather."""
+    ``length - 1``. A slot with no live key -- length 0, or a length past
+    the S positions the cache covers with a window that masks all of them
+    -- gives zeros, as the kernels do (the Pallas kernel returns the lane's
+    mean value row there). Also the paged plain versions' core, after
+    their page gather."""
+    L = lengths.long()
     out = gqa_attention_reference(q[:, None], cache_k, cache_v,
-                                  (lengths.long() - 1)[:, None],
-                                  window=window)[:, 0]
-    return torch.where((lengths > 0)[:, None, None], out,
-                       torch.zeros_like(out))
+                                  (L - 1)[:, None], window=window)[:, 0]
+    live = L > 0
+    if window:
+        live &= L.clamp(max=cache_k.shape[1]) > L - window
+    return torch.where(live[:, None, None], out, torch.zeros_like(out))
 
 
 def _check_lanes(cache_k, cache_v, B: int, Hq: int, D: int) -> None:
