@@ -66,15 +66,42 @@ and exits non-zero at the first failure:
                the decode kernels' time by name); a paged serve fails if
                its prefill ran in the fp32 body, and any serve fails if
                its decode kernel shows no device time.
+6. api      -- the wire API and supervised serving on the same weights:
+               (a) ``create_app`` served on 127.0.0.1:0 (aiohttp
+               ``AppRunner``) over the default dense engine (its
+               tokenizer renders ids outside the byte range as ``<id>``,
+               or random weights would stream empty text): four users
+               each stream one ``POST /messages`` at once, 32 new tokens;
+               every stream's text must equal its reply's body (client
+               TTFT printed beside the service's ``send_to_first_token_s``);
+               (b) a seeded message with ``n = 2`` must come back with one
+               alternative of 32 tokens that differs from the body; (c) a
+               group of two LLM-backed members streams through
+               ``/groups/message``; (d) ``ServingChaos.kill_lane(0)`` at
+               the 8th token of a decode: the service's supervisor must
+               finish it "length" with 32 tokens, the streamed tokens equal
+               to the final ones and at least one retry; then, on the paged
+               bf16 engine, ``squeeze_pool(1.0)`` must shed the
+               low-priority request and, after ``heal_pool()``, a
+               supervisor built with a wider retry budget and backoff
+               (printed) must serve it before its deadline; (e)
+               ``python -m swarmdb_tpu_torch.api.server`` with
+               ``SERVE_MODEL=tiny-debug`` as a subprocess: ``/health`` must
+               name the card and one message is answered, then SIGTERM.
+               Kernels 7 (dense chunked decode), 1 and 2 must launch in
+               the phase (its in-process steps; the subprocess's launches
+               are its own).
 
-Then one ``{"kernels": [...]}`` line (launches summed over the six serves,
-each counted from zero just before it and read just after) and, last,
+Then one ``{"kernels": [...]}`` line (launches summed over the six serves
+and the api phase, each counted from zero just before it and read just
+after) and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
 import os
@@ -1105,7 +1132,7 @@ SERVES = (("bf16_chunked", "bfloat16", True, 2, True),
 def run_serves(card: str):
     """Llama-3-8B at full width, weights built once, served six times
     (``SERVES``); each engine is freed before the next. Returns the
-    launches summed over the serves."""
+    launches summed over the serves, and the weights."""
     import torch
 
     from swarmdb_tpu_torch.models import llama
@@ -1121,11 +1148,12 @@ def run_serves(card: str):
         launches = run_serve(card, params, init_s, *spec)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
-    return total
+    return total, params
 
 
 def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
     import gc
+    import tempfile
 
     import torch
 
@@ -1143,7 +1171,8 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
     prefill_k, decode_k = kernels[0] if paged else None, kernels[-1]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    db = SwarmDB(broker=LocalBroker())
+    db = SwarmDB(broker=LocalBroker(),
+                 save_dir=tempfile.mkdtemp(prefix="swarm_serve_"))
     backend = "h100-0"
     with engine_env(chunked):
         eng, tok = build_backend_engine(
@@ -1238,7 +1267,7 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
             ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
             decode_tokens_per_s=gen_tok / dec_s if dec_s else None,
             generated_tokens=gen_tok, serve_wall_s=serve_s, **sizes,
-            weight_init_s=init_s, card=card,
+            weight_init_s=init_s, card=card, max_step_s=eng.max_step_s,
             logits_mm_out_dtype=llama._MM_OUT_DTYPE.get(eng.device),
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
         emit("serve", **record)
@@ -1330,6 +1359,489 @@ def profile_turn(db, users, text):
     }
 
 
+# --------------------------------------------------------------------- api
+
+
+API_GEN = {"max_new_tokens": 32}
+
+
+def visible_tokenizer(vocab_size: int):
+    """The byte tokenizer, except that an id outside the byte range
+    decodes to ``<id>`` instead of nothing. Random Llama-3-8B weights
+    sample from 128256 ids, 256 of them bytes: with the plain byte
+    tokenizer a reply is nearly always empty text, and a stream carries
+    no token event to compare or to time."""
+    from swarmdb_tpu_torch.backend.tokenizer import ByteTokenizer
+
+    class VisibleIds(ByteTokenizer):
+        def decode(self, ids):
+            out, run = [], []
+            for i in ids:
+                if self._OFFSET <= i < 256 + self._OFFSET:
+                    run.append(i)
+                    continue
+                if run:
+                    out.append(super().decode(run))
+                    run = []
+                if i >= 256 + self._OFFSET:
+                    out.append(f"<{i}>")
+            if run:
+                out.append(super().decode(run))
+            return "".join(out)
+
+    return VisibleIds(vocab_size)
+
+
+def _sse_events(lines):
+    """(event, JSON data) pairs from an SSE body's lines."""
+    out, event = [], None
+    for ln in lines:
+        if ln.startswith("event: "):
+            event = ln[7:]
+        elif ln.startswith("data: ") and event is not None:
+            out.append((event, json.loads(ln[6:])))
+            event = None
+    return out
+
+
+async def _stream_post(session, url, path, headers, body):
+    """POST one streamed request; returns (events, seconds from the send
+    to the first token event, or None)."""
+    t0 = time.perf_counter()
+    first = None
+    lines = []
+    async with session.post(url + path, json=body, headers=headers) as r:
+        if r.status != 200:
+            fail(f"api: POST {path} gave {r.status}: {await r.text()}")
+        async for raw in r.content:
+            ln = raw.decode().rstrip("\r\n")
+            if first is None and ln == "event: token":
+                first = time.perf_counter() - t0
+            lines.append(ln)
+    return _sse_events(lines), first
+
+
+async def _api_http(db, svc, backend, then):
+    """Steps (a)-(c) over HTTP: create_app served on 127.0.0.1:0 with
+    aiohttp's AppRunner, driven by an aiohttp client; then ``then()`` off
+    the loop, before the app's shutdown stops the service and closes the
+    runtime."""
+    import aiohttp
+    from aiohttp import web
+
+    from swarmdb_tpu_torch.api.app import ApiConfig, create_app
+
+    app = create_app(db, ApiConfig(jwt_secret_key="chip-smoke",
+                                   rate_limit_per_minute=100_000),
+                     serving=svc)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    port = site._server.sockets[0].getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    out = {}
+    try:
+        async with aiohttp.ClientSession() as s:
+            async def token(user):
+                async with s.post(url + "/auth/token", json={
+                        "username": user, "password": "pw"}) as r:
+                    return {"Authorization":
+                            f"Bearer {(await r.json())['access_token']}"}
+
+            admin = await token("admin")
+            users = [f"user{i}" for i in range(4)]
+            hdr = {u: await token(u) for u in users}
+            for a in users + ["assistant", "helper"]:
+                async with s.post(url + "/agents/register",
+                                  json={"agent_id": a}, headers=admin) as r:
+                    assert r.status == 200
+            for a in ("assistant", "helper"):
+                async with s.post(url + "/admin/llm_backend", json={
+                        "agent_id": a, "backend_id": backend},
+                        headers=admin) as r:
+                    if r.status != 200:
+                        fail(f"api: llm_backend gave {r.status}")
+            # (a) one streamed message per user, all at once
+            runs = await asyncio.gather(*[
+                _stream_post(s, url, "/messages", hdr[u], {
+                    "receiver_id": "assistant", "stream": True,
+                    "content": USER_TEXT.format(u=u),
+                    "metadata": {"generation": API_GEN}})
+                for u in users])
+            streams = []
+            for u, (events, ttft) in zip(users, runs):
+                text = "".join(d for e, d in events if e == "token")
+                reply = [d for e, d in events if e == "reply"]
+                sent = [d for e, d in events if e == "message"][0]
+                stages = db.get_message(sent["id"]).metadata["stages"]
+                streams.append(dict(
+                    user=u, client_ttft_s=ttft,
+                    service_send_to_first_token_s=(
+                        stages["first_token"] - stages["enqueued"]),
+                    tokens_streamed=sum(e == "token" for e, _ in events),
+                    reply_tokens=(reply[0]["metadata"]["completion_tokens"]
+                                  if reply else None),
+                    finish_reason=(reply[0]["metadata"]["finish_reason"]
+                                   if reply else None),
+                    streamed_equals_reply=bool(reply)
+                    and text == reply[0]["content"]))
+            out["a"] = streams
+            # (b) n = 2, seeded and sampled
+            events, _ = await _stream_post(s, url, "/messages", hdr["user0"], {
+                "receiver_id": "assistant", "stream": True,
+                "content": FOLLOW_UP.format(u="user0"),
+                "metadata": {"generation": dict(
+                    API_GEN, n=2, temperature=0.8, top_p=0.9, seed=11)}})
+            reply = [d for e, d in events if e == "reply"][0]
+            out["b"] = dict(body=reply["content"],
+                            body_tokens=reply["metadata"]["completion_tokens"],
+                            alternatives=reply["metadata"].get(
+                                "alternatives"))
+            # (c) a group of two LLM-backed members, streamed
+            async with s.post(url + "/groups", json={
+                    "group_name": "crew",
+                    "agent_ids": ["user1", "assistant", "helper"]},
+                    headers=hdr["user1"]) as r:
+                assert r.status == 200
+            events, ttft = await _stream_post(
+                s, url, "/groups/message", hdr["user1"], {
+                    "group_name": "crew", "stream": True,
+                    "content": FOLLOW_UP.format(u="user1"),
+                    "metadata": {"generation": API_GEN}})
+            done = [d for e, d in events if e == "reply_done"]
+            stored = {}
+            for d in done:
+                rid = db.get_message(d["message_id"]).metadata.get(
+                    "reply_id")
+                stored[d["message_id"]] = db.get_message(rid).content
+            out["c"] = dict(
+                members=len([e for e, _ in events if e == "message"]),
+                token_events=sum(e == "token" for e, _ in events),
+                client_ttft_s=ttft,
+                replies=[dict(finish_reason=d["finish_reason"],
+                              text_equals_stored=d["text"]
+                              == stored[d["message_id"]])
+                         for d in done])
+            async with s.get(url + "/metrics") as r:
+                out["metrics_lane_state"] = [
+                    ln for ln in (await r.text()).splitlines()
+                    if ln.startswith("swarmdb_lane_state")]
+        report_http(out)
+        await asyncio.get_running_loop().run_in_executor(None, then)
+    finally:
+        await runner.cleanup()
+
+
+def _served_once(svc, msg, on_token=None, timeout=300.0):
+    """serve_message through the service; returns (tokens, reason,
+    streamed)."""
+    import threading
+
+    done = threading.Event()
+    got, streamed = {}, []
+
+    def tok(rid, t):
+        streamed.append(t)
+        if on_token is not None:
+            on_token(streamed)
+
+    def fin(rid, toks, reason):
+        got.update(toks=toks, reason=reason)
+        done.set()
+
+    svc.serve_message(msg, on_token=tok, on_done=fin)
+    if not done.wait(timeout):
+        fail("api: a supervised request never finished")
+    return got["toks"], got["reason"], streamed
+
+
+def report_http(out):
+    """Print and check steps (a)-(c)."""
+    emit("api", step="a_http_streams", streams=out["a"])
+    b = out["b"]
+    emit("api", step="b_n2", body_tokens=b["body_tokens"],
+         alternatives=[dict(finish_reason=a["finish_reason"],
+                            completion_tokens=a["completion_tokens"],
+                            differs=a["text"] != b["body"])
+                       for a in (b["alternatives"] or [])])
+    emit("api", step="c_group_stream", **out["c"],
+         metrics_lane_state=out["metrics_lane_state"])
+    checks = {
+        "(a) 4 of 4 streams equal their reply, 32 tokens": all(
+            s["streamed_equals_reply"] and s["reply_tokens"] == 32
+            and s["client_ttft_s"] is not None for s in out["a"])
+        and len(out["a"]) == 4,
+        "(b) one alternative of 32 tokens, not the body": (
+            len(b["alternatives"] or []) == 1
+            and b["alternatives"][0]["completion_tokens"] == 32
+            and b["alternatives"][0]["text"] != b["body"]),
+        "(c) two members streamed, replies stored": (
+            out["c"]["members"] == 2 and out["c"]["token_events"] > 0
+            and len(out["c"]["replies"]) == 2
+            and all(r["text_equals_stored"] for r in out["c"]["replies"])),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"api: {bad}")
+
+
+def kill_replay(svc, eng):
+    """(d), dense: a decode killed mid-stream, replayed by the service's
+    supervisor."""
+    from swarmdb_tpu_torch.backend.chaos import ServingChaos, wait_until
+    from swarmdb_tpu_torch.core.messages import Message
+
+    chaos = ServingChaos(eng)
+    try:
+        killed = []
+
+        def kill_at_8(streamed):
+            if len(streamed) == 8 and not killed:
+                killed.append(True)
+                chaos.kill_lane(0)
+
+        msg = Message(sender_id="user2", receiver_id="assistant",
+                      content=FOLLOW_UP.format(u="user2"),
+                      metadata={"generation": dict(API_GEN)})
+        t0 = time.perf_counter()
+        toks, reason, streamed = _served_once(svc, msg, kill_at_8)
+        took = time.perf_counter() - t0
+        st = svc.supervisor.status()
+        wait_until(lambda: svc.supervisor.status()["state"]
+                   == "alive", 120.0, what="the engine re-admitted")
+        after = svc.supervisor.status()
+        emit("api", step="d_kill_replay", killed=bool(killed),
+             reason=reason, tokens=len(toks),
+             streamed_equals_final=streamed == toks, seconds=took,
+             requests_retried=st["requests_retried"],
+             requests_migrated=st["requests_migrated"],
+             restarts=after["restarts"],
+             readmissions=after["lane_readmissions"],
+             dense_max_step_s=eng.max_step_s)
+        if not (killed and reason == "length" and len(toks) == 32
+                and streamed == toks and st["requests_retried"] >= 1):
+            fail(f"api (d): kill/replay failed: reason={reason} "
+                 f"tokens={len(toks)} streamed={len(streamed)} "
+                 f"status={st}")
+    finally:
+        chaos.stop()
+
+
+def shed_heal(params):
+    """(d), paged bf16: a squeezed pool sheds the low-priority request;
+    the supervisor's retries (budget and backoff from its constructor,
+    covering the squeeze) serve it after heal_pool."""
+    import threading
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.chaos import ServingChaos, wait_until
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.backend.supervisor import LaneSupervisor
+
+    eng, tok = build_backend_engine("llama3-8b", seed=0, device="cuda",
+                                    params=params, paged=True,
+                                    kv_dtype=torch.bfloat16)
+    retries, backoff_s = 8, 0.25
+    sup = LaneSupervisor(eng, retries=retries, backoff_s=backoff_s,
+                         deadline_s=120.0)
+    chaos = ServingChaos(eng)
+    try:
+        eng.start()
+        sup.start()
+        results = {}
+        events = {k: threading.Event() for k in ("low", "high")}
+
+        def mk(name):
+            def fin(rid, toks, reason):
+                results[name] = (toks, reason, time.time())
+                events[name].set()
+            return fin
+
+        prompt = tok.encode(USER_TEXT.format(u="user3"))
+        squeezed = chaos.squeeze_pool(1.0)
+        low = GenRequest(prompt=list(prompt), priority=0,
+                         sampling=SamplingParams(max_new_tokens=32),
+                         on_done=mk("low"))
+        sup.submit(low)
+        sup.submit(GenRequest(prompt=list(prompt), priority=3,
+                              sampling=SamplingParams(max_new_tokens=32),
+                              on_done=mk("high")))
+        wait_until(lambda: eng.metrics.counters["requests_shed"].value >= 1,
+                   30.0, what="a shed request")
+        time.sleep(0.5)
+        t_heal = time.time()
+        chaos.heal_pool()
+        for k, e in events.items():
+            if not e.wait(120):
+                fail(f"api (d): the {k}-priority request never finished")
+        st = sup.status()
+        low_toks, low_reason, low_t = results["low"]
+        emit("api", step="d_shed_heal", squeezed_pages=squeezed,
+             supervisor_retries=retries, supervisor_backoff_s=backoff_s,
+             requests_shed=st["requests_shed"],
+             requests_retried=st["requests_retried"],
+             low=dict(reason=low_reason, tokens=len(low_toks),
+                      served_s_after_heal=low_t - t_heal,
+                      within_deadline=low_t < low.deadline),
+             high=dict(reason=results["high"][1],
+                       tokens=len(results["high"][0])),
+             paged_max_step_s=eng.max_step_s)
+        if not (st["requests_shed"] >= 1 and st["requests_retried"] >= 1
+                and low_reason == "length" and len(low_toks) == 32
+                and low_t < low.deadline
+                and results["high"][1] == "length"):
+            fail(f"api (d): shed/heal failed: {results} status={st}")
+    finally:
+        chaos.stop()
+        sup.stop()
+        eng.stop()
+
+
+def run_api(card, params):
+    """The api phase: the wire API and supervised serving on Llama-3-8B
+    (the serves' weights), then the server entry point as a subprocess.
+    Returns the launches of the in-process steps (counted from zero)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import (ServingService,
+                                                   build_backend_engine)
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    try:
+        import aiohttp  # noqa: F401
+        import yaml  # noqa: F401
+        have_http = True
+    except ImportError as exc:
+        emit("api", step="imports", missing=str(exc))
+        have_http = False
+    emit("api", step="start", card=card)
+    backend = "h100-0"
+    save_dir = tempfile.mkdtemp(prefix="swarm_api_")
+    launches_before = dict(ac.LAUNCHES)
+    ac.reset_launches()
+    # the default (dense) engine, supervised by the service
+    db = SwarmDB(broker=LocalBroker(), save_dir=save_dir)
+    with engine_env(chunked=True):
+        eng, tok = build_backend_engine(
+            "llama3-8b", seed=0, device="cuda", params=params,
+            metrics=db.metrics)
+    svc = ServingService(db, eng, visible_tokenizer(tok.vocab_size),
+                         backend_id=backend)
+    try:
+        if eng.paged is not None or svc.supervisor is None:
+            fail("api: expected the dense engine under a supervisor")
+        svc.start()
+        db.register_agent("assistant")
+        if have_http:
+            asyncio.run(_api_http(db, svc, backend,
+                                  lambda: kill_replay(svc, eng)))
+        else:
+            kill_replay(svc, eng)
+    finally:
+        svc.stop()
+        db.close()
+        del svc, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    shed_heal(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(ac.LAUNCHES)
+    emit("api", step="kernels", launches_before_phase={
+        k: n for k, n in launches_before.items() if n},
+        launches_in_phase={k: n for k, n in launches.items() if n})
+    need = ("dense_decode_chunked", "ragged_prefill", "paged_decode_chunked")
+    if not all(launches[k] > 0 for k in need):
+        fail(f"api: kernels {need} must launch in the phase: {launches}")
+    if have_http:
+        run_server_process(save_dir)
+    return launches
+
+
+def run_server_process(save_dir):
+    """(e) ``python -m swarmdb_tpu_torch.api.server`` with SERVE_MODEL =
+    tiny-debug on the card: /health names it, one message is answered,
+    then the server stops on SIGTERM."""
+    import socket
+    import urllib.request
+
+    import torch
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, SERVE_MODEL="tiny-debug", API_HOST="127.0.0.1",
+               API_PORT=str(port), SAVE_DIR=os.path.join(save_dir, "srv"),
+               JWT_SECRET_KEY="chip-smoke", SERVE_MAX_SEQ="256",
+               PYTHONPATH=str(ROOT))
+    env.pop("SWARMDB_PAGED", None)
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "swarmdb_tpu_torch.api.server"], cwd=str(ROOT),
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+
+    def call(path, body=None, headers=None):
+        req = urllib.request.Request(
+            url + path, data=None if body is None else
+            json.dumps(body).encode(), headers={
+                "Content-Type": "application/json", **(headers or {})},
+            method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read().decode()
+
+    try:
+        health = None
+        while time.perf_counter() - t0 < 180:
+            if proc.poll() is not None:
+                fail(f"api (e): the server exited with {proc.returncode}: "
+                     f"{proc.stderr.read().decode()[-2000:]}")
+            try:
+                health = json.loads(call("/health"))
+                break
+            except OSError:
+                time.sleep(0.5)
+        if health is None:
+            fail("api (e): the server never answered /health")
+        up_s = time.perf_counter() - t0
+        device = (health.get("tpu") or {}).get("device", "")
+        tokn = json.loads(call("/auth/token", {"username": "admin",
+                                               "password": "pw"}))
+        hdr = {"Authorization": f"Bearer {tokn['access_token']}"}
+        call("/agents/register", {"agent_id": "assistant"}, hdr)
+        call("/admin/llm_backend", {"agent_id": "assistant",
+                                    "backend_id": "gpu-0"}, hdr)
+        body = call("/messages", {
+            "receiver_id": "assistant", "content": "hello from the smoke",
+            "stream": True,
+            "metadata": {"generation": {"max_new_tokens": 8}}}, hdr)
+        events = _sse_events(body.splitlines())
+        reply = [d for e, d in events if e == "reply"]
+        emit("api", step="e_server_process", seconds_to_health=up_s,
+             health_device=device, engine=health["tpu"]["engine"]["cache"],
+             reply_finish_reason=(reply[0]["metadata"]["finish_reason"]
+                                  if reply else None),
+             token_events=sum(e == "token" for e, _ in events))
+        if torch.cuda.get_device_name(0) not in device or not reply:
+            fail(f"api (e): /health device {device!r}, reply {reply}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1395,7 +1907,10 @@ def main() -> int:
     with torch.no_grad():
         rows = run_kernels(dev)
         run_parity(dev)
-        launches = run_serves(card)
+        launches, params = run_serves(card)
+        for k, n in run_api(card, params).items():
+            launches[k] = launches.get(k, 0) + n
+        del params
     for k, n in launches.items():
         rows[k]["launches"] = n
     idle = [k for k, row in rows.items() if not row["launches"]]

@@ -33,6 +33,17 @@ dense slot cache (``paged=None``, the JAX package's default):
   while-loop with its emission ring, CUDA graphs, lanes, rolling KV and
   the paged bucketed prefills are later slices of the port (ROADMAP.md).
 
+The lane supervisor's hooks (``backend/supervisor.py``) are the JAX
+engine's: the loop stamps a liveness beat every iteration (idle waits
+included) and flags when it is inside a step, ``chaos_step`` is the
+fault-injection seam at the top of each iteration
+(``backend/chaos.py``), queued requests past their ``deadline`` fail with
+"deadline", and finish reasons in ``RETRYABLE_REASONS`` name a request
+the engine lost (or returned) through no fault of its own. ``flight``
+holds discrete events (backpressure, shedding, chaos, restarts); the
+engine's step and request rings and spans are not fed yet (ROADMAP.md,
+queue 1 item 10).
+
 All tensors live on the engine's explicit ``device``; the worker thread
 sets it as its current CUDA device.
 """
@@ -52,16 +63,32 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.flight import FlightRecorder
 from ..ops.paged_kv import (PageAllocator, paged_write_ragged,
                              set_page_table_rows)
 from ..ops.prefix_cache import PrefixLRU, page_chains
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
-from ..utils.sync import make_condition
+from ..utils.sync import make_condition, make_rlock
 from .sampling import (SamplingParams, key_from_seed, make_slot_keys,
                        sample_tokens, token_logprob)
 
 logger = logging.getLogger("swarmdb_tpu_torch.engine")
+
+#: Finish reasons a client (or the lane supervisor) may retry: the request
+#: was fine, the engine lost it (loop death, restart, a failed dispatch)
+#: or returned it (pool-pressure shedding). "eos", "length", "cancelled",
+#: "deadline" and "max_seq" are final. The JAX engine's set, whose
+#: "lane_quarantined" and "stale_resume" come from lanes and rolling KV.
+RETRYABLE_REASONS = frozenset({
+    "engine_error", "engine_restart", "lane_quarantined", "shed",
+    "stale_resume",
+})
+
+
+def is_retryable_reason(reason: str) -> bool:
+    """True when a finish reason is safe to requeue."""
+    return reason in RETRYABLE_REASONS
 
 
 @dataclass
@@ -76,6 +103,12 @@ class GenRequest:
     on_done: Optional[Callable[[str, List[int], str], None]] = None
     submitted_at: float = field(default_factory=time.time)
     metadata: Dict[str, Any] = field(default_factory=dict)
+    # absolute wall-clock time past which the request must not be served:
+    # a queued request past it fails with "deadline" at admission; the
+    # supervisor enforces it end to end. None = no deadline
+    deadline: Optional[float] = None
+    # how many times the supervisor may requeue a retryable finish
+    retries_left: int = 0
 
 
 @dataclass
@@ -136,6 +169,7 @@ class Engine:
         prefill_batch: Optional[int] = None,
         prefix_cache: bool = True,
         device: DeviceLike = None,
+        flight_dir: Optional[str] = None,
     ) -> None:
         """``paged`` selects the paged pool (``prefix_cache`` then turns
         its prefix cache on); None the dense slot cache, which needs
@@ -257,6 +291,23 @@ class Engine:
                 max_seq // prefix_page_size)
             self._prefix_max_pages = self._prefix_pp_buckets[-1]
 
+        # lane supervision signals (backend/supervisor.py): a monotonic
+        # beat stamped by the loop every iteration, idle waits included,
+        # and whether the loop is inside a step. A wedged dispatch stops
+        # the beat while the thread stays alive. Single-writer slots,
+        # read lock-free
+        self._beat_mono = time.monotonic()
+        self._in_step = False
+        # fault-injection seam (backend/chaos.py): called once per loop
+        # iteration on the engine thread, before admission. None in
+        # production
+        self.chaos_step: Optional[Callable[["Engine"], None]] = None
+        self.flight = FlightRecorder()
+        self._flight_dir = flight_dir
+        # the longest step so far (admission + one decode chunk): what the
+        # supervisor's in-step grace must outlast
+        self.max_step_s = 0.0
+
         self._queue: List[Tuple[int, float, int, GenRequest]] = []  # heap
         self._admitting: set = set()
         self._cancel_pending: set = set()
@@ -264,44 +315,63 @@ class Engine:
         self._cv = make_condition("backend.engine.Engine._cv")
         self._stop = False
         self._thread: Optional[threading.Thread] = None
+        # start / stop / restart, one at a time (a supervisor's restart
+        # may race a caller's stop)
+        self._lifecycle = make_rlock("backend.engine.Engine._lifecycle")
         self.total_generated = 0
         self.total_requests = 0
 
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> None:
-        if self._thread is not None:
-            return
-        with self._cv:
-            self._stop = False
-        # the CPU intra-op thread count is per thread: the worker takes the
-        # starting thread's (torch.set_num_threads there) instead of one
-        # thread per core
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        args=(torch.get_num_threads(),),
-                                        name="swarmdb-torch-engine")
-        self._thread.start()
+        """Start the loop thread. On the card the kernels are built (or
+        found built) first, so that no step spends a kernel build under
+        the supervisor's in-step grace."""
+        with self._lifecycle:
+            if self._thread is not None:
+                return
+            if self.device.type == "cuda":
+                from ..ops import build
+
+                build.build_all()
+            with self._cv:
+                self._stop = False
+            # the CPU intra-op thread count is per thread: the worker takes
+            # the starting thread's (torch.set_num_threads there) instead
+            # of one thread per core
+            thread = threading.Thread(target=self._run, daemon=True,
+                                      args=(torch.get_num_threads(),),
+                                      name="swarmdb-torch-engine")
+            thread.start()
+            self._thread = thread
 
     def stop(self) -> None:
-        with self._cv:
-            self._stop = True
-            self._cv.notify_all()
-        if self._thread is not None:
-            self._thread.join(timeout=60)
-            self._thread = None
+        with self._lifecycle:
+            with self._cv:
+                self._stop = True
+                self._cv.notify_all()
+            if self._thread is not None:
+                self._thread.join(timeout=60)
+                self._thread = None
 
     def alive(self) -> bool:
         """True while the decode loop thread is running."""
         return self._thread is not None and self._thread.is_alive()
 
     def restart(self) -> None:
-        """Stop the loop, fail every request, rebuild the pool and slot
-        state, start again (the serving layer's watchdog)."""
-        self.stop()
-        self._fail_all("engine_restart")
-        self._reset_state()
-        self.metrics.counters["engine_restarts"].inc()
-        self.start()
+        """Recover a dead or failing loop: stop it, fail every request
+        (active, admitting and queued) with retryable "engine_restart",
+        rebuild the cache or pool, the page tables, the prefix cache, the
+        fed tokens and the backpressure state, and start again. A replayed
+        request then starts from nothing a lost one left behind."""
+        with self._lifecycle:
+            self.stop()
+            self.metrics.counters["engine_restarts"].inc()
+            self.flight.record_event({"kind": "engine.restart"})
+            self.flight.auto_dump("engine_restart", self._flight_dir)
+            self._fail_all("engine_restart")
+            self._reset_state()
+            self.start()
 
     def _new_cache(self):
         if self.paged is not None:
@@ -320,6 +390,10 @@ class Engine:
         self._slot_prefix_pins.clear()
         self._last_tokens.zero_()
         self._last_lps.zero_()
+        self._bp_paused = False
+        if self._chunk_kv is not None:
+            for t in self._chunk_kv:
+                t.zero_()
 
     # ------------------------------------------------------------ requests
 
@@ -398,19 +472,43 @@ class Engine:
             torch.cuda.set_device(self.device)
         with torch.no_grad():
             while True:
+                self._in_step = False
+                self._beat()
                 with self._cv:
                     while (not self._stop and not self._queue
-                           and not self._any_active()):
+                           and not self._any_active()
+                           and not self._chaos_pending()):
+                        # idle engines beat too, or the supervisor would
+                        # read "no work" as "wedged"; an armed chaos fault
+                        # leaves the wait to land at the seam below
+                        self._beat()
                         self._cv.wait(timeout=0.25)
                     if self._stop:
                         return
+                cs = self.chaos_step
+                if cs is not None:
+                    # a kill raises a BaseException the handler below
+                    # does not catch (the thread dies); a wedge blocks
+                    # here, starving the beat
+                    cs(self)
+                self._in_step = True
+                t_step = time.perf_counter()
                 try:
                     self._admit()
                     if self._any_active():
                         self._process_block(*self._decode_chunk())
+                    self.max_step_s = max(self.max_step_s,
+                                          time.perf_counter() - t_step)
+                    if self._bp_paused and not self._any_active():
+                        # paused admission with nothing decoding: wait for
+                        # a retirement, a heal or a submit instead of
+                        # spinning through the gate
+                        with self._cv:
+                            self._cv.wait(timeout=0.01)
                 except Exception:
                     logger.exception("engine step failed; failing active "
                                      "requests")
+                    self.flight.record_event({"kind": "engine.error"})
                     self._fail_all("engine_error")
                     try:
                         self._reset_state()
@@ -421,6 +519,21 @@ class Engine:
 
     def _any_active(self) -> bool:
         return any(s.active for s in self.slots)
+
+    # ------------------------------------------------- supervision signals
+
+    def _beat(self) -> None:
+        """Liveness proof: one monotonic read into a single-writer slot."""
+        self._beat_mono = time.monotonic()
+
+    def beat_age_s(self, now: float = 0.0) -> float:
+        """Seconds since the loop last proved progress; only a dead or
+        wedged loop lets it grow."""
+        return (now or time.monotonic()) - self._beat_mono
+
+    def _chaos_pending(self) -> bool:
+        cs = self.chaos_step
+        return cs is not None and getattr(cs, "pending", lambda: False)()
 
     # ------------------------------------------------------------- admission
 
@@ -443,6 +556,24 @@ class Engine:
                 heapq.heapify(self._queue)
                 self.metrics.counters["engine_priority_aged"].inc()
 
+    def _expire_deadlines(self) -> None:
+        """Fail queued requests whose deadline has passed with the final
+        reason "deadline"; an active request is never cut mid-stream (the
+        supervisor cancels those)."""
+        now = time.time()
+        with self._cv:
+            expired = [item[3] for item in self._queue
+                       if item[3].deadline is not None
+                       and now > item[3].deadline]
+            if expired:
+                gone = {r.request_id for r in expired}
+                self._queue[:] = [it for it in self._queue
+                                  if it[3].request_id not in gone]
+                heapq.heapify(self._queue)
+        for req in expired:
+            self.metrics.counters["requests_deadline_expired"].inc()
+            _call(req.on_done, req.request_id, [], "deadline")
+
     def _pool_headroom(self) -> float:
         """Fraction of the pool still claimable: free pages plus unpinned
         prefix-cache pages."""
@@ -462,10 +593,16 @@ class Engine:
             if util <= self._bp_low:
                 self._bp_paused = False
                 self.metrics.counters["engine_admission_resumed"].inc()
+                self.flight.record_event(
+                    {"kind": "pool.backpressure_resumed",
+                     "util": round(util, 3)})
                 return True
         elif util >= self._bp_high:
             self._bp_paused = True
             self.metrics.counters["engine_admission_paused"].inc()
+            self.flight.record_event(
+                {"kind": "pool.backpressure_paused",
+                 "util": round(util, 3)})
         if not self._bp_paused:
             return True
         if util >= self._bp_shed:
@@ -487,12 +624,16 @@ class Engine:
             heapq.heapify(self._queue)
         for req in shed:
             self.metrics.counters["requests_shed"].inc()
+            self.flight.record_event(
+                {"kind": "pool.request_shed", "rid": req.request_id,
+                 "priority": req.priority})
             _call(req.on_done, req.request_id, [], "shed")
 
     def _admit(self) -> None:
         """Move queued requests into free slots (highest priority first),
         up to ``prefill_batch`` per round, and prefill them."""
         self._age_queue()
+        self._expire_deadlines()
         if self.paged is None:
             self._admit_dense()
         else:
@@ -1137,6 +1278,8 @@ class Engine:
                 for k in ("queue_wait_s", "prefill_s", "first_token_s")
                 if k in self.metrics.latencies},
             "cache": "paged" if self.paged is not None else "dense",
+            "max_step_s": round(self.max_step_s, 4),
+            "beat_age_s": round(self.beat_age_s(), 4),
         }
         if self.paged is not None:
             out.update(pool=self.paged.allocator.stats(),

@@ -488,6 +488,14 @@ class PageAllocator:
             self.pages_freed_total += len(page_ids)
             self._free.extend(page_ids)
 
+    def reserve(self, n: int) -> List[int]:
+        """Withdraw up to ``n`` free pages from circulation (the serving
+        chaos harness's pool squeeze). No table row references them;
+        ``add_free`` returns them, and a reset() reclaims them with the
+        generation."""
+        with self._lock:
+            return [self._free.pop() for _ in range(min(n, len(self._free)))]
+
     def free_count(self, slot_id: Optional[int] = None) -> int:
         with self._lock:
             return len(self._free)

@@ -149,11 +149,11 @@ def test_dense_engine_serves_a_batch_with_long_and_short_prompts(
     assert eng.stats()["cache"] == "dense"
 
 
-def test_message_round_trip_through_dense_service(monkeypatch):
+def test_message_round_trip_through_dense_service(monkeypatch, tmp_path):
     """One chat message through the port's SwarmDB + ServingService with
     ``SWARMDB_PAGED`` unset: the dense engine."""
     monkeypatch.delenv("SWARMDB_PAGED", raising=False)
-    db = SwarmDB(broker=LocalBroker())
+    db = SwarmDB(broker=LocalBroker(), save_dir=str(tmp_path))
     svc = tsvc.ServingService.from_model_name(db, "tiny-debug",
                                               backend_id="b0", max_batch=2,
                                               max_seq=128, device="cpu")

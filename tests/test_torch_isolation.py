@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of
 the JAX package, and its entry points run on the card unless the caller
 asks for the CPU -- without CUDA they raise instead of falling back.
+What is not ported yet says so: it raises, or (an HTTP route) answers 501
+naming its ROADMAP.md item.
 """
 
 import ast
@@ -46,9 +48,20 @@ def test_no_jax_imports(path):
         assert top not in FORBIDDEN, f"{path} imports {name}"
 
 
+def test_scan_covers_every_port_folder():
+    """The AST scan above walks every folder of the port, the wire API and
+    observability included."""
+    folders = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")
+               if len(p.relative_to(PORT).parts) > 1}
+    assert {"api", "obs", "backend", "core", "broker", "ops", "models",
+            "utils"} <= folders
+
+
 def test_serving_a_request_loads_no_jax():
     code = (
         "import sys\n"
+        "import swarmdb_tpu_torch.api.server\n"
+        "import swarmdb_tpu_torch.__main__\n"
         "from swarmdb_tpu_torch.backend.service import build_backend_engine\n"
         "from swarmdb_tpu_torch.backend.sampling import SamplingParams\n"
         "for paged in (None, True):\n"
@@ -71,7 +84,8 @@ def test_serving_a_request_loads_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from swarmdb_tpu_torch.api.server import build_serving
     from swarmdb_tpu_torch.backend.service import (ServingService,
                                                    build_backend_engine)
     from swarmdb_tpu_torch.core.runtime import SwarmDB
@@ -84,10 +98,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         llama.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_backend_engine("tiny-debug", max_seq=64)
-    db = SwarmDB()
+    db = SwarmDB(save_dir=str(tmp_path))
     try:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ServingService.from_model_name(db, "tiny-debug", max_seq=64)
+        monkeypatch.setenv("SERVE_MODEL", "tiny-debug")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_serving(db)   # the server's backend: the card by default
     finally:
         db.close()
     params = llama.init_params(cfg, device="cpu")
@@ -101,8 +118,87 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert eng.cache["k"].device.type == "cpu"
 
 
-def test_unported_paths_say_so():
+def test_unported_paths_say_so(monkeypatch, tmp_path):
+    from types import SimpleNamespace
+
+    from swarmdb_tpu_torch.api.app import create_app
+    from swarmdb_tpu_torch.api.server import refuse_unported
+    from swarmdb_tpu_torch.backend.chaos import ServingChaos
     from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.backend.supervisor import LaneSupervisor
+    from swarmdb_tpu_torch.core.messages import BrokerConfig
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
 
     with pytest.raises(NotImplementedError, match="Mixtral"):
         build_backend_engine("tiny-moe", device="cpu")
+    group = SimpleNamespace(lanes=[], metrics=None, flight=None)
+    for cls in (LaneSupervisor, ServingChaos):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            cls(group)
+    chaos = ServingChaos(build_backend_engine("tiny-debug", max_seq=64,
+                                              device="cpu")[0])
+    for fault in (chaos.kill_lane, chaos.wedge, chaos.heal,
+                  chaos.heal_pool):
+        with pytest.raises(ValueError, match="item 9"):
+            fault(1)   # one engine: lane 0 only
+    chaos.stop()
+    for env, item in ((("SWARMDB_HA_NODE_ID", "n1"), 12),
+                      (("SWARMDB_HA_CLUSTER", "/x.json"), 12),
+                      (("BROKER_IMPL", "native"), 12),
+                      (("SWARMDB_NUM_PROCESSES", "2"), 11),
+                      (("SWARMDB_COORDINATOR", "h:1"), 11)):
+        with monkeypatch.context() as m:
+            m.setenv(*env)
+            with pytest.raises(NotImplementedError, match=f"item {item}"):
+                refuse_unported()
+    refuse_unported()   # a single node over LocalBroker: nothing to refuse
+    for cfg in (BrokerConfig(implementation="native"),
+                BrokerConfig(replication_factor=2)):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            SwarmDB(config=cfg, save_dir=str(tmp_path))
+    db = SwarmDB(save_dir=str(tmp_path))
+    try:
+        with pytest.raises(NotImplementedError, match="item 12"):
+            create_app(db, ha_node=object())
+    finally:
+        db.close()
+
+
+@pytest.mark.parametrize("path", [
+    "/admin/cluster/trace", "/admin/slo", "/admin/ha", "/admin/lanes",
+    "/admin/lockcheck", "/admin/pagecheck", "/admin/kerncheck",
+    "/admin/profile", "/admin/mem", "/admin/tiers"])
+def test_unported_routes_answer_501(path, tmp_path):
+    """Every route of the JAX package's server exists in the port's; one
+    whose subsystem is not ported answers 501 (admin only) with a body
+    that names its ROADMAP.md item."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from swarmdb_tpu_torch.api.app import (UNPORTED_ROUTES, ApiConfig,
+                                           create_app)
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    async def drive():
+        db = SwarmDB(save_dir=str(tmp_path))
+        client = TestClient(TestServer(create_app(db, ApiConfig(
+            jwt_secret_key="s", rate_limit_per_minute=10_000))))
+        await client.start_server()
+        try:
+            out = []
+            for user in ("tester", "admin"):
+                r = await client.post("/auth/token", json={
+                    "username": user, "password": "pw"})
+                tok = (await r.json())["access_token"]
+                r = await client.get(path, headers={
+                    "Authorization": f"Bearer {tok}"})
+                out.append((r.status, (await r.json())["detail"]))
+            return out
+        finally:
+            await client.close()
+
+    (user_st, _), (admin_st, detail) = asyncio.run(drive())
+    assert user_st == 403
+    assert admin_st == 501
+    assert f"queue 1 item {UNPORTED_ROUTES[path][1]}" in detail

@@ -9,6 +9,7 @@ drawn from a seed; one is long enough to split across ragged waves, and
 repeats hit the prefix cache.
 """
 
+import threading
 import time
 
 import numpy as np
@@ -75,8 +76,8 @@ def test_engine_tokens_equal_jax_engine(engines):
     assert c["prefill_packed_tokens"].value > 0
 
 
-def test_message_round_trip_through_serving_service():
-    db = SwarmDB(broker=LocalBroker())
+def test_message_round_trip_through_serving_service(tmp_path):
+    db = SwarmDB(broker=LocalBroker(), save_dir=str(tmp_path))
     svc = ServingService.from_model_name(db, "tiny-debug", backend_id="b0",
                                          max_batch=2, max_seq=128,
                                          paged=True, device="cpu")
@@ -99,6 +100,56 @@ def test_message_round_trip_through_serving_service():
         assert svc.engine.cache["k"].device.type == "cpu"
         assert svc.health()["status"] == "healthy"
     finally:
+        svc.stop()
+        db.close()
+
+
+def test_a_failed_submit_finishes_callers_that_attached(tmp_path):
+    """A second ``serve_message`` of one message attaches to the first's
+    generation while it is being submitted. If that submit raises, the
+    first caller gets the error and every attached caller its ``on_done``
+    with "engine_error", under the request id it was given."""
+    db = SwarmDB(broker=LocalBroker(), save_dir=str(tmp_path))
+    svc = ServingService.from_model_name(db, "tiny-debug", backend_id="b0",
+                                         max_batch=2, max_seq=128,
+                                         device="cpu")
+    entered, release = threading.Event(), threading.Event()
+
+    def failing_submit(req):
+        entered.set()
+        release.wait(10)
+        raise RuntimeError("submit failed")
+
+    svc._submit = failing_submit
+    try:
+        db.register_agent("user")
+        db.register_agent("bot")
+        msg = db.get_message(db.send_message("user", "bot", "hello bot"))
+        first = []
+
+        def serve_first():
+            try:
+                svc.serve_message(msg)
+            except RuntimeError as exc:
+                first.append(str(exc))
+
+        t = threading.Thread(target=serve_first)
+        t.start()
+        assert entered.wait(10)
+        done = []
+        rid = svc.serve_message(
+            msg, on_done=lambda r, toks, why: done.append((r, toks, why)))
+        assert isinstance(rid, str) and done == []
+        release.set()
+        t.join(10)
+        assert first == ["submit failed"]
+        assert done == [(rid, [], "engine_error")]
+        # the failed claim is gone: the next caller starts anew
+        entered.clear()
+        with pytest.raises(RuntimeError):
+            svc.serve_message(msg)
+    finally:
+        release.set()
         svc.stop()
         db.close()
 

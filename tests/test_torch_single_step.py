@@ -218,12 +218,12 @@ def test_single_step_engine_tokens_equal_jax_engine(monkeypatch):
     assert c["engine_decode_chunks"].value > 0
 
 
-def test_message_round_trip_int8_single_step(monkeypatch):
+def test_message_round_trip_int8_single_step(monkeypatch, tmp_path):
     """One chat message through the port's SwarmDB + ServingService with
     both switches set (int8 pool, single-step decode)."""
     monkeypatch.setenv("SWARMDB_KV_DTYPE", "int8")
     monkeypatch.setenv("SWARMDB_CHUNKED", "0")
-    db = SwarmDB(broker=LocalBroker())
+    db = SwarmDB(broker=LocalBroker(), save_dir=str(tmp_path))
     svc = ServingService.from_model_name(db, "tiny-debug", backend_id="b0",
                                          max_batch=2, max_seq=128,
                                          paged=True, device="cpu")
