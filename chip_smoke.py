@@ -43,7 +43,13 @@ and exits non-zero at the first failure:
                1e-4), a bf16 pool single-step and an int8 pool both ways
                (logits within the bounds in ``PARITY_CASES``), and the
                dense engine chunked and single-step over an f32 slot cache
-               (1e-4); greedy tokens equal in every case.
+               (1e-4); greedy tokens equal in every case. Then tiny-moe
+               (Mixtral's family) in f32 the same way (``MOE_PARITY_CASES``):
+               both engines, chunked and single-step, one paged case with
+               ``SWARMDB_MOE_DISPATCH=einsum``; the paged engine prefills it
+               in row-bucketed and prefix waves, so only the decode kernel
+               launches; logits of the bucketed prefill, the prefix wave
+               and the decode steps within 1e-4.
 5. serve    -- Llama-3-8B at full width (32 layers, bf16 weights from seed
                0, built once) through SwarmDB + LocalBroker +
                ServingService, six times: the paged engine (``paged=True``)
@@ -92,9 +98,35 @@ and exits non-zero at the first failure:
                the phase (its in-process steps; the subprocess's launches
                are its own).
 
-Then one ``{"kernels": [...]}`` line (launches summed over the six serves
-and the api phase, each counted from zero just before it and read just
-after) and, last,
+7. mixtral -- Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128,
+               8 experts of FFN 14336, top-2, vocab 32000, rope theta 1e6)
+               and 16 of its 32 layers (``reduced``: all 32 do not fit one
+               80 GB card), bf16 weights from seed 0, after Llama-3-8B's
+               are freed. Layer 0's MoE block timed at a decode step and
+               an 8 x 256 prefill wave, whole and its expert products alone,
+               with the kernels each launches. Then six serves through
+               SwarmDB + LocalBroker + ServingService (max_batch 8,
+               max_seq 1024, decode_chunk 8, page 16, prefix cache on) of
+               ``function_call`` messages (``bench.py``'s tool-use payload),
+               4 users, 32 new tokens: the default dense engine chunked
+               (3 turns) and single-step (1), the paged engine over bf16
+               and int8 pools, chunked (3 turns) and single-step (1). A
+               tool call renders differently in its own turn and in later
+               history, so turn 2 shares no full page with turn 1 and turn
+               3 reuses turn 2's pages. Checks every reply is a
+               ``function_result`` ending length/eos, prefix reuse by turn
+               3, the path's decode kernel (7, 8, 2, 5, 3, 6) and no other
+               launched 16 times per decode step, kernels 1 and 4 never
+               (Mixtral prefills in row-bucketed waves); prints TTFT,
+               decode tokens/s, weight, KV and cache sizes, peak memory and
+               the decode step (engine wall, and one step timed alone)
+               beside its byte bound. The dense and paged bf16 chunked
+               serves profile one more turn (device time by kernel, GEMMs,
+               indexing, the decode kernel, idle share).
+
+Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
+serves, the api phase and the six Mixtral serves, each counted from zero
+just before it and read just after) and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
 """
@@ -1032,16 +1064,94 @@ def dense_parity_logits(p, cfg, d, chunked):
     return [x.cpu() for x in out]
 
 
-def path_kernels(kind: str, chunked: bool, paged: bool) -> tuple:
+def path_kernels(kind: str, chunked: bool, paged: bool,
+                 ragged: bool = True) -> tuple:
     """The kernels an engine runs. Paged, over a ``kind`` pool: ragged
-    prefill at admission, then chunked or single-step decode. Dense: the
-    dense decode kernel only (its prefill attention is plain PyTorch, as
-    in the JAX package)."""
+    prefill at admission (Llama; Mixtral's row-bucketed and prefix waves
+    attend in plain PyTorch, as in the JAX package), then chunked or
+    single-step decode. Dense: the dense decode kernel only (its prefill
+    attention is plain PyTorch, as in the JAX package)."""
     if not paged:
         return ("dense_decode_chunked" if chunked else "dense_decode",)
     quant = "_quant" if kind == "int8" else ""
     decode = "paged_decode_chunked" if chunked else "paged_decode"
-    return "ragged_prefill" + quant, decode + quant
+    return (("ragged_prefill" + quant,) if ragged else ()) + (decode + quant,)
+
+
+#: (name, paged, chunked, SWARMDB_MOE_DISPATCH): tiny-moe in f32 served on
+#: the card and on the CPU through both engines (logits within 1e-4, like
+#: the f32 Llama cases), the last case with the einsum dispatch form.
+MOE_PARITY_CASES = (("moe_dense_f32_chunked", False, True, "scatter"),
+                    ("moe_dense_f32_single_step", False, False, "scatter"),
+                    ("moe_paged_f32_chunked", True, True, "scatter"),
+                    ("moe_paged_f32_single_step", True, False, "scatter"),
+                    ("moe_paged_f32_chunked_einsum", True, True, "einsum"))
+
+
+def moe_parity_logits(p, cfg, d, paged, chunked, dispatch):
+    """tiny-moe logits on device ``d``: a bucketed prefill (two rows, the
+    head at each row's last token; a padded row whose padding takes
+    capacity), then, paged, a prefix wave over a seeded f32 pool and
+    decode steps over it (one chunked step with an f32 chunk buffer, or
+    three single steps that write the pool); dense, decode steps over a
+    seeded f32 slot cache."""
+    import numpy as np
+    import torch
+
+    from swarmdb_tpu_torch.models import mixtral
+
+    rng = np.random.default_rng(9)
+    T, ps, maxp = 64, 16, 16
+    toks = torch.from_numpy(rng.integers(3, 259, (2, T)).astype(np.int32))
+    toks[1, 41:] = 0
+    pos = torch.arange(T, dtype=torch.int32).expand(2, T)
+    t = lambda x: x.to(d)
+    temp = mixtral.init_kv_cache(cfg, 2, T, torch.float32, device=d)
+    out = [mixtral.forward(p, cfg, t(toks), t(pos), temp,
+                           logits_at=t(torch.tensor([T - 1, 40])),
+                           moe_dispatch=dispatch)[0]]
+    hk = torch.randn((cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.head_dim),
+                     generator=torch.Generator().manual_seed(4))
+    chunk = (t(hk), t(hk.clone()))
+    if paged:
+        shape = (cfg.n_layers, 2 * maxp + 1, ps, cfg.n_kv_heads,
+                 cfg.head_dim)
+        kp, vp = (t(torch.randn(shape, generator=torch.Generator()
+                                .manual_seed(s))) for s in (3, 13))
+        tables = t(torch.arange(1, 2 * maxp + 1, dtype=torch.int32)
+                   .reshape(2, -1))
+        out.append(mixtral.forward_prefix_pages(
+            p, cfg, t(toks[:, :24]), tables[:, :4],
+            t(torch.tensor([32, 48], dtype=torch.int32)), kp, vp,
+            logits_at=t(torch.tensor([23, 10])), moe_dispatch=dispatch)[0])
+        cache = {"k": kp, "v": vp, "page_table": tables}
+        if chunked:
+            out.append(mixtral.forward_paged_chunked(
+                p, cfg, t(toks[:, :1].long()), t(torch.tensor([[70], [90]])),
+                cache, chunk, 3, moe_dispatch=dispatch)[0])
+        else:
+            for s in range(3):
+                logits, cache = mixtral.forward_paged(
+                    p, cfg, t(toks[:, s:s + 1].long()),
+                    t(torch.tensor([[70 + s], [90 + s]])), cache,
+                    moe_dispatch=dispatch)
+                out.append(logits)
+        return [x.cpu() for x in out]
+    shape = (cfg.n_layers, 2, 128, cfg.n_kv_heads, cfg.head_dim)
+    cache = tuple(t(torch.randn(shape, generator=torch.Generator()
+                                .manual_seed(s))) for s in (3, 13))
+    if chunked:
+        out.append(mixtral.forward_chunked(
+            p, cfg, t(toks[:, :1]), t(torch.tensor([[70], [90]])), cache,
+            chunk, 3, moe_dispatch=dispatch)[0])
+    else:
+        for s in range(3):
+            logits, cache = mixtral.forward(
+                p, cfg, t(toks[:, s:s + 1]),
+                t(torch.tensor([[70 + s], [90 + s]])), cache,
+                moe_dispatch=dispatch)
+            out.append(logits)
+    return [x.cpu() for x in out]
 
 
 def run_parity(dev):
@@ -1104,6 +1214,74 @@ def run_parity(dev):
              prefill_logits_max_abs_err=errs[0],
              decode_logits_max_abs_err=max(errs[1:]), bound=tol,
              launches=launches)
+    run_moe_parity(dev, prompts)
+
+
+def run_moe_parity(dev, prompts):
+    """tiny-moe f32 (``MOE_PARITY_CASES``): the same weights served on the
+    card and on the CPU, greedy tokens equal, only the decode kernel of
+    the path launched (tiny-moe has no ragged prefill), logits within
+    1e-4."""
+    import torch
+
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.models import mixtral
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    cfg, tol = get_config("tiny-moe"), 1e-4
+    p_cpu = mixtral.init_params(cfg, seed=11, device="cpu",
+                                dtype=torch.float32)
+    p_gpu = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in p_cpu.items()}
+    old = os.environ.get("SWARMDB_MOE_DISPATCH")
+    for name, paged, chunked, dispatch in MOE_PARITY_CASES:
+        os.environ["SWARMDB_MOE_DISPATCH"] = dispatch
+        engines = {}
+        with engine_env(chunked):
+            for where, d, p in (("gpu", dev, p_gpu), ("cpu", "cpu", p_cpu)):
+                engines[where], _ = build_backend_engine(
+                    "tiny-moe", max_batch=4, max_seq=256, device=d,
+                    params=p, kv_dtype=torch.float32, paged=paged)
+                engines[where].start()
+        ac.reset_launches()
+        try:
+            for pr in prompts:
+                a = engines["gpu"].generate_sync(pr, SamplingParams(
+                    max_new_tokens=16))
+                b = engines["cpu"].generate_sync(pr, SamplingParams(
+                    max_new_tokens=16))
+                if a != b:
+                    fail(f"parity {name}: greedy tokens differ card vs "
+                         f"cpu: {a} {b}")
+        finally:
+            for e in engines.values():
+                e.stop()
+        launches = {k: n for k, n in ac.LAUNCHES.items() if n}
+        want = path_kernels("float32", chunked, paged, ragged=False)
+        if set(launches) != set(want):
+            fail(f"parity {name}: the card engine launched {launches}")
+        outs = {where: moe_parity_logits(p, cfg, d, paged, chunked, dispatch)
+                for where, d, p in (("gpu", dev, p_gpu),
+                                    ("cpu", "cpu", p_cpu))}
+        errs = [float((a - b).abs().max())
+                for a, b in zip(outs["gpu"], outs["cpu"])]
+        if max(errs) > tol:
+            fail(f"parity {name}: logits card vs cpu differ by {errs} > "
+                 f"{tol}")
+        emit("parity", case=name, model="tiny-moe", cache="float32",
+             paged=paged, chunked=chunked, moe_dispatch=dispatch,
+             prompts=len(prompts), greedy_equal=True,
+             prefill_logits_max_abs_err=errs[0],
+             prefix_logits_max_abs_err=errs[1] if paged else None,
+             decode_logits_max_abs_err=max(errs[2 if paged else 1:]),
+             bound=tol, launches=launches)
+    if old is None:
+        os.environ.pop("SWARMDB_MOE_DISPATCH", None)
+    else:
+        os.environ["SWARMDB_MOE_DISPATCH"] = old
 
 
 # ------------------------------------------------------------------- serve
@@ -1842,6 +2020,395 @@ def run_server_process(save_dir):
             proc.wait()
 
 
+# ----------------------------------------------------------------- mixtral
+
+
+#: Mixtral-8x7B at full width, 16 of its 32 layers: all 32 (~87 GiB of
+#: bf16 layers by their shapes) do not fit one 80 GB card (ROADMAP.md
+#: queue 1 item 11).
+MIXTRAL_LAYERS = 16
+
+#: (name, cache dtype, chunked, turns, paged, profiled): the six Mixtral
+#: serves, in order. ``paged=None`` builds the default (dense) engine.
+MIXTRAL_SERVES = (
+    ("dense_chunked", "bfloat16", True, 3, None, True),
+    ("dense_single_step", "bfloat16", False, 1, None, False),
+    ("paged_bf16_chunked", "bfloat16", True, 3, True, True),
+    ("paged_int8_chunked", "int8", True, 3, True, False),
+    ("paged_bf16_single_step", "bfloat16", False, 1, True, False),
+    ("paged_int8_single_step", "int8", False, 1, True, False))
+
+
+def send_tool_call(db, user, turn, i, **gen):
+    """One ``function_call`` message of the tool-use workload (the payload
+    shape of ``bench.py``'s tool-use mode) to the assistant."""
+    from swarmdb_tpu_torch.core.messages import MessageType
+
+    k = turn * 4 + i
+    db.send_message(
+        user, "assistant",
+        {"name": "lookup_weather",
+         "arguments": {"city": f"city_{k % 7}", "unit": "C"}},
+        message_type=MessageType.FUNCTION_CALL,
+        metadata={"generation": {"max_new_tokens": 32, **gen}})
+
+
+def free_weights(params) -> None:
+    """Release a weight tree's device memory now: every tensor's storage
+    shrinks to nothing, whoever still holds the tensors (the stopped
+    engines of earlier phases may), then the allocator's cache is
+    emptied. Emits the device memory still allocated."""
+    import gc
+
+    import torch
+
+    before = torch.cuda.memory_allocated()
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        else:
+            node.untyped_storage().resize_(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("mixtral", step="free_llama_weights",
+         allocated_gib_before=before / 2**30,
+         allocated_gib_after=torch.cuda.memory_allocated() / 2**30)
+
+
+def run_mixtral(card: str):
+    """The mixtral phase: Mixtral-8x7B (``MIXTRAL_LAYERS`` layers, bf16
+    weights from seed 0, built once) served six times through SwarmDB +
+    ServingService on ``function_call`` messages. Returns the launches
+    summed over the serves."""
+    import gc
+
+    import torch
+
+    from swarmdb_tpu_torch.models import mixtral
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    dev = torch.device("cuda", 0)
+    full = get_config("mixtral-8x7b")
+    cfg = get_config("mixtral-8x7b", n_layers=MIXTRAL_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layer_bytes = sum(_nbytes(t) for t in params["layers"].values())
+    weights_gib = (layer_bytes + _nbytes(params["embed"])
+                   + _nbytes(params["lm_head"])
+                   + _nbytes(params["final_norm"])) / 2**30
+    emit("mixtral", step="weights", model=full.name, layers=cfg.n_layers,
+         reduced=f"depth {cfg.n_layers} of {full.n_layers} layers",
+         full_depth_layer_gib=layer_bytes / cfg.n_layers * full.n_layers
+         / 2**30,
+         dim=cfg.dim, heads=[cfg.n_heads, cfg.n_kv_heads],
+         experts=[cfg.n_experts, cfg.experts_per_token],
+         ffn=cfg.ffn_dim, vocab=cfg.vocab_size, rope_theta=cfg.rope_theta,
+         weights_gib=weights_gib, weight_init_s=init_s, card=card)
+    expert_gemms = moe_layer_breakdown(params, cfg, card)
+    total = {}
+    try:
+        for spec in MIXTRAL_SERVES:
+            launches = run_moe_serve(card, cfg, params, weights_gib,
+                                     expert_gemms, *spec)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
+                  chunked, turns, paged, profiled):
+    import gc
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import (ServingService,
+                                                   build_backend_engine)
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.messages import MessageType
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.ops.paged_kv import (is_quantized, pool_data,
+                                                pool_page_bytes)
+
+    quant = kind == "int8"
+    decode_k = path_kernels(kind, chunked, bool(paged), ragged=False)[-1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    db = SwarmDB(broker=LocalBroker(),
+                 save_dir=tempfile.mkdtemp(prefix="swarm_moe_"))
+    backend = "h100-0"
+    with engine_env(chunked):
+        eng, tok = build_backend_engine(
+            cfg, seed=0, device="cuda", params=params, paged=paged,
+            kv_dtype=getattr(torch, kind) if paged else None,
+            metrics=db.metrics)
+    svc = ServingService(db, eng, tok, backend_id=backend)
+    users = [f"user{i}" for i in range(4)]
+    try:
+        for a in users + ["assistant"]:
+            db.register_agent(a)
+        db.assign_llm_backend("assistant", backend)
+        svc.start()
+        c = db.metrics.counters
+        keys = ("prefill_waves", "engine_decode_chunks", "tokens_generated",
+                "phase_us_decode", "prompt_tokens", "engine_admitted")
+        base = {k: c[k].value for k in keys}
+        ac.reset_launches()
+        replies = []
+        t_serve = time.perf_counter()
+        for turn in range(turns):
+            for i, u in enumerate(users):
+                gen = ({"temperature": 0.8, "top_p": 0.9, "seed": 7}
+                       if turn == 0 and i == 3 else {})
+                send_tool_call(db, u, turn, i, **gen)
+            got = await_replies(db, users)
+            if len(got) < len(users):
+                fail(f"mixtral {name} turn {turn + 1}: {len(got)} of "
+                     f"{len(users)} replies")
+            replies.extend(got.values())
+        serve_s = time.perf_counter() - t_serve
+        launches = dict(ac.LAUNCHES)
+        d = {k: c[k].value - base[k] for k in keys}
+        steps = d["engine_decode_chunks"] * eng.decode_chunk
+        L = cfg.n_layers
+        reasons = [m.metadata.get("finish_reason") for m in replies]
+        reused = eng.metrics.counters["prefix_reused_tokens"].value
+        checks = {
+            f"{len(users) * turns} function_result replies, length/eos":
+                len(replies) == len(users) * turns
+                and all(r in ("length", "eos") for r in reasons)
+                and all(m.type == MessageType.FUNCTION_RESULT
+                        for m in replies),
+            "prefix reuse by the last turn": turns < 3 or reused > 0,
+            f"{decode_k} launches == {L} per decode step":
+                steps > 0 and launches[decode_k] == L * steps,
+            "no ragged prefill (row-bucketed waves)": not any(
+                launches[k] for k in ("ragged_prefill",
+                                      "ragged_prefill_quant")),
+            "only the decode kernel": all(
+                n == 0 for k, n in launches.items() if k != decode_k),
+            "params on cuda": eng.params["layers"]["w_gate"].is_cuda,
+        }
+        if paged:
+            checks.update({
+                "paged without a ragged forward":
+                    eng.paged.prefill_ragged is None and not eng._ragged,
+                "pool kind": is_quantized(eng.cache["k"]) == quant,
+                "pool on cuda": pool_data(eng.cache["k"]).is_cuda})
+        else:
+            checks["the default builds the dense engine, bf16 on cuda"] = (
+                eng.paged is None and d["prefill_waves"] > 0 and all(
+                    t.is_cuda and t.dtype == torch.bfloat16
+                    for t in (*eng.cache, *eng._prefix_pool)))
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"mixtral {name} checks failed: {bad}; reasons={reasons} "
+                 f"reused={reused} waves={d['prefill_waves']} "
+                 f"steps={steps} launches={launches}")
+        ttft = sorted(db.metrics.latencies["send_to_first_token_s"].values())
+        dec_s = d["phase_us_decode"] / 1e6
+        if paged:
+            kv_tok = pool_page_bytes(eng.cache["k"]) * 2 // eng.paged.page_size
+            cache_gib = (2 * pool_page_bytes(eng.cache["k"])
+                         * eng.paged.num_pages / 2**30)
+        else:
+            ck = eng.cache[0]
+            kv_tok = 2 * ck[:, 0, 0].numel() * ck.element_size()
+            cache_gib = sum(map(_nbytes, (*eng.cache, *eng._prefix_pool))
+                            ) / 2**30
+        # a decode step reads every layer's weights (each expert computes
+        # its queue) and the head, plus each live slot's KV
+        mean_ctx = d["prompt_tokens"] / max(1, d["engine_admitted"]) + 16
+        step_bytes = (sum(_nbytes(t) for t in eng.params["layers"].values())
+                      + _nbytes(eng.params["lm_head"])
+                      + len(users) * mean_ctx * kv_tok)
+        record = dict(
+            serve=name, model=cfg.name, layers=L, weights="bfloat16",
+            engine="paged" if paged else "dense (default)", cache=kind,
+            chunked=chunked, turns=turns, replies=len(replies),
+            reply_type="function_result", finish_reasons=reasons,
+            prefix_reused_tokens=reused, prefill_waves=d["prefill_waves"],
+            decode_steps=steps, launches={k: n for k, n in launches.items()
+                                          if n},
+            ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
+            decode_tokens_per_s=(d["tokens_generated"] / dec_s
+                                 if dec_s else None),
+            generated_tokens=d["tokens_generated"], serve_wall_s=serve_s,
+            weights_gib=weights_gib, kv_bytes_per_token=kv_tok,
+            cache_gib=cache_gib, mean_prompt_tokens=mean_ctx - 16,
+            decode_step_wall_ms=dec_s * 1e3 / steps if steps else None,
+            decode_step_bytes=step_bytes,
+            decode_step_byte_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+            card=card, max_step_s=eng.max_step_s,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if profiled:
+            prof = profile_moe_turn(
+                db, users, lambda u, i: send_tool_call(db, u, turns, i),
+                decode_k, expert_gemms)
+            prof["untraced_turn_wall_ms"] = serve_s / turns * 1e3
+            prof["device_idle_share_vs_untraced"] = 1.0 - prof[
+                "device_busy_ms"] / prof["untraced_turn_wall_ms"]
+            emit("profile", serve=f"mixtral_{name}", **prof)
+            if not prof["decode_kernel_ms"] > 0:
+                fail(f"mixtral {name}: no device time under the decode "
+                     f"kernel {decode_k} in the profiled turn")
+        record["decode_step_ms"] = time_moe_step(eng, len(users))
+        emit("mixtral", step="serve", **record)
+        return launches
+    finally:
+        svc.stop()
+        db.close()
+        del svc, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def time_moe_step(eng, live: int, ctx: int = 300) -> float:
+    """Median ms (CUDA events, 5 eager calls after 2) of one decode step of
+    the serve's own forward over its cache, the engine idle: ``live``
+    slots at position ``ctx``, the rest at 0, as the engine feeds idle
+    slots. Run after the serve (it writes garbage K/V)."""
+    import torch
+
+    B = eng.max_batch
+    pos = torch.zeros((B, 1), dtype=torch.int32, device=eng.device)
+    pos[:live] = ctx
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=eng.device)
+    if eng._chunked_fns is not None:
+        fwd = eng._chunked_fns[0]
+        step = lambda: fwd(eng.params, tok, pos, eng.cache, eng._chunk_kv, 0)
+    else:
+        step = lambda: eng._decode_forward(eng.params, tok, pos, eng.cache)
+    with torch.no_grad():
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        return _median_events(step, 5)
+
+
+def profile_moe_turn(db, users, send, decode_k, expert_gemms):
+    """One more turn under ``torch.profiler`` (device only; the engine's
+    host ops run on its own thread, which the profiler does not follow):
+    device time by kernel and summed by kind -- the GEMMs (attention
+    projections, the head and the expert products), among them the
+    kernels named ``expert_gemms`` (the GEMM kernels the expert products
+    launched in ``moe_layer_breakdown``; by name, so a projection that
+    picks one of them counts too), the indexing kernels (the MoE scatter
+    and gather, cache and page writes), the router's top-k and scan, the
+    decode attention kernel -- and the device's idle share of the turn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, u in enumerate(users):
+            send(u, i)
+        got = await_replies(db, users)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if len(got) < len(users):
+        fail(f"mixtral profiled turn: {len(got)} of {len(users)} replies")
+    kernels = _kernel_times(prof)
+    busy_ms = sum(k[1] for k in kernels)
+
+    def of(pats):
+        return sum(t for n, t, _ in kernels if any(p in n for p in pats))
+
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+        "gemm_ms": of(GEMM_NAMES),
+        "expert_gemm_ms": sum(t for n, t, _ in kernels if n in expert_gemms),
+        "indexing_ms": of(INDEX_NAMES), "routing_ms": of(ROUTE_NAMES),
+        "decode_kernel": decode_k,
+        "decode_kernel_ms": of(DECODE_BODIES[decode_k.replace("_quant",
+                                                              "")]),
+        "top": [{"kernel": n[:90], "ms": t, "calls": c}
+                for n, t, c in kernels[:12]],
+    }
+
+
+#: Kernel-name fragments of the GEMMs (cuBLAS's nvjet / xmma, CUTLASS),
+#: of the indexing kernels (index_put / index_add / gather: the MoE
+#: dispatch and combine, and cache and page writes) and of the router's
+#: top-k and queue-position scan.
+GEMM_NAMES = ("gemm", "Gemm", "xmma", "cutlass", "nvjet")
+INDEX_NAMES = ("index", "Index", "scatter", "gather")
+ROUTE_NAMES = ("scan", "TopK", "topk", "Sort", "sort")
+
+
+def _kernel_times(prof):
+    """[(kernel name, device ms, calls)] of a profile, longest first."""
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    out = [(e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages()
+           if dev_us(e) > 0]
+    return sorted(out, key=lambda k: -k[1])
+
+
+def moe_layer_breakdown(params, cfg, card):
+    """Layer 0's MoE block on the card at the serves' two shapes -- a
+    decode step of 8 slots and an 8-row prefill wave of 256 -- timed whole
+    and its expert products alone (CUDA events, eager, median of 20), each
+    beside its bound, with the kernels each launches named (one profiled
+    call): the expert GEMMs, and the routing, scatter and gather ops.
+    Returns the names of the GEMM kernels the expert products launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from swarmdb_tpu_torch.models import mixtral
+
+    lp = params["layers"]
+    w = [lp[k][0] for k in ("router", "w_gate", "w_up", "w_down")]
+    E, D, Fd, k = cfg.n_experts, cfg.dim, cfg.ffn_dim, cfg.experts_per_token
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out, gemms = {}, set()
+    for shape, (B, T) in (("decode_8", (8, 1)), ("prefill_8x256", (8, 256))):
+        x = torch.randn((B, T, D), generator=g, device="cuda").bfloat16()
+        C = max(1, int(B * T * k * mixtral.DEFAULT_CAPACITY_FACTOR / E))
+        xe = torch.randn((E, C, D), generator=g, device="cuda").bfloat16()
+        block = lambda: mixtral.moe_block(x, *w, top_k=k)
+        experts = lambda: mixtral._experts(xe, *w[1:])
+        names = {}
+        for part, fn in (("block", block), ("experts", experts)):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            times = _kernel_times(prof)
+            names[part] = [{"kernel": n[:90], "ms": t, "calls": c}
+                           for n, t, c in times]
+            if part == "experts":
+                gemms.update(n for n, _, _ in times
+                             if any(p in n for p in GEMM_NAMES))
+        exp_bytes = 3 * E * D * Fd * 2 + 2 * E * C * D * 2
+        exp_flops = 3 * 2 * E * C * D * Fd
+        block_ms = time_events(block, iters=20)
+        experts_ms = time_events(experts, iters=20)
+        b_ms, b_by = bound(exp_bytes, exp_flops)
+        out[shape] = dict(
+            tokens=B * T, capacity=C, block_ms=block_ms,
+            experts_ms=experts_ms,
+            route_dispatch_combine_ms=block_ms - experts_ms,
+            experts_bound_ms=b_ms, experts_bound_by=b_by,
+            block_kernels=names["block"], expert_kernels=names["experts"])
+    emit("mixtral", step="moe_layer", card=card, **out)
+    return gemms
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1910,7 +2477,10 @@ def main() -> int:
         launches, params = run_serves(card)
         for k, n in run_api(card, params).items():
             launches[k] = launches.get(k, 0) + n
+        free_weights(params)   # Llama-3-8B's weights go before Mixtral's
         del params
+        for k, n in run_mixtral(card).items():
+            launches[k] = launches.get(k, 0) + n
     for k, n in launches.items():
         rows[k]["launches"] = n
     idle = [k for k, row in rows.items() if not row["launches"]]

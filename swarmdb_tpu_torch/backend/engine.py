@@ -13,8 +13,15 @@ dense slot cache (``paged=None``, the JAX package's default):
   the admitted requests (reusing prefix-cache pages in place), then packs
   their prompts into ragged waves: one token stream per wave, rows back to
   back, widths off a power-of-two ladder (``SWARMDB_RAGGED_MIN_WIDTH``,
-  default 8), a row longer than the wave's room split across waves.
-  Dense: prompts of at least one page go through the prefix path (a side
+  default 8), a row longer than the wave's room split across waves. A
+  model without a ragged forward (Mixtral), or ``SWARMDB_RAGGED_PREFILL=0``,
+  prefills in the JAX package's row-bucketed waves instead: prompts with a
+  prefix plan in one prefix wave per round (the suffix forward over the
+  hit pages in place, its whole pages inserted into the slot's fresh
+  pages, which then move into cache custody), the others in one bucketed
+  wave per bucket (a dense temp-cache forward whose whole pages are
+  inserted), each padded to the round's row bucket. Dense: prompts of at
+  least one page go through the prefix path (a side
   page pool, ``PrefixLRU`` with its own free list) even on a full miss,
   so that their pages are registered: one fused suffix prefill per round
   over the reused pages, padded to the round's (suffix bucket, prefix
@@ -30,8 +37,11 @@ dense slot cache (``paged=None``, the JAX package's default):
   a chunk is K single steps (``PagedKV.decode_forward``, or the dense
   ``forward_fn`` at T == 1), each writing its token into the cache before
   attending, and still one host read. The JAX package's device-resident
-  while-loop with its emission ring, CUDA graphs, lanes, rolling KV and
-  the paged bucketed prefills are later slices of the port (ROADMAP.md).
+  while-loop with its emission ring, its chunk pipelining, CUDA graphs,
+  lanes and rolling KV are later slices of the port (ROADMAP.md). Idle
+  slots decode garbage at position 0 each chunk, as the JAX package's
+  per-chunk path without pipelining does: what they feed matters to a MoE
+  model, whose routing counts every row of the step.
 
 The lane supervisor's hooks (``backend/supervisor.py``) are the JAX
 engine's: the loop stamps a liveness beat every iteration (idle waits
@@ -65,7 +75,7 @@ import torch
 
 from ..obs.flight import FlightRecorder
 from ..ops.paged_kv import (PageAllocator, paged_write_ragged,
-                             set_page_table_rows)
+                             pool_insert_pages, set_page_table_rows)
 from ..ops.prefix_cache import PrefixLRU, page_chains
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
@@ -131,7 +141,8 @@ class PagedKV:
     worst-case footprint), ``prefill_ragged`` is the packed ragged prefill
     forward: (params, tokens[W], tok_row[W], tok_pos[W], row_tables[R,
     maxp], starts[R], lens[R], prefix_lens[R], k_pool, v_pool) -> ([R, V]
-    last-token logits, sfx_k, sfx_v [L, W, Hkv, D]), and
+    last-token logits, sfx_k, sfx_v [L, W, Hkv, D]), or None for a model
+    without one (the engine then prefills in row-bucketed waves), and
     ``decode_forward`` the single-step decode used when the engine has no
     ``chunked_fns``: (params, tokens[B,1], positions[B,1], cache) ->
     (logits [B, 1, V], cache)."""
@@ -140,7 +151,7 @@ class PagedKV:
     page_size: int
     num_pages: int
     allocator: PageAllocator
-    prefill_ragged: Callable
+    prefill_ragged: Optional[Callable] = None
     decode_forward: Optional[Callable] = None
 
 
@@ -185,15 +196,31 @@ class Engine:
         ``prefix_pages`` pages. Its prefill buckets are a x4 ladder from 64
         at max_seq >= 512, else 16..256, topped by max_seq.
 
+        A paged engine prefills in ragged waves when ``paged.prefill_ragged``
+        is set and ``SWARMDB_RAGGED_PREFILL`` is not "0" (read here);
+        otherwise in row-bucketed waves, which take ``forward_fn`` and
+        ``init_cache_fn`` as the dense prefill does (the temp cache's whole
+        pages go into the pool) and, with the prefix cache on,
+        ``prefix_fns`` = (pages_forward(params, tokens, table, prefix_lens,
+        k_pool, v_pool, logits_at=) -> (logits, sfx_k, sfx_v), None) for
+        the suffix forward over hit pages in place. Their rows are
+        ``prefill_batch``, or with ``prefill_batch <= 4`` the smallest
+        power of two covering the wave, as the JAX package's paged engine
+        pads them by default.
+
         ``chunked_fns`` = (chunk_forward(params, tokens[B,1],
         positions[B,1], cache, chunk_kv, step) -> (logits, chunk_kv),
         init_chunk(batch, K) -> chunk_kv, merge_chunk(cache, chunk_kv,
         start_positions) -> cache), or None: decode then runs
         ``paged.decode_forward`` (dense: ``forward_fn``) one step at a
         time."""
-        if paged is None and None in (forward_fn, init_cache_fn):
-            raise ValueError("a dense engine needs forward_fn and "
-                             "init_cache_fn")
+        self._ragged = (paged is not None and paged.prefill_ragged is not None
+                        and os.environ.get("SWARMDB_RAGGED_PREFILL",
+                                           "auto") != "0")
+        if not self._ragged and None in (forward_fn, init_cache_fn):
+            raise ValueError("a dense engine, or a paged one without ragged "
+                             "prefill, needs forward_fn and init_cache_fn")
+        self._forward_fn = forward_fn
         self._decode_forward = (paged.decode_forward if paged is not None
                                 else forward_fn)
         if chunked_fns is None and self._decode_forward is None:
@@ -208,6 +235,14 @@ class Engine:
         self.metrics = metrics or MetricsRegistry()
         self.decode_chunk = max(1, int(decode_chunk))
         self.prefill_batch = max(1, min(prefill_batch or 8, max_batch))
+        # rows of a bucketed wave: prefill_batch, or a power-of-two ladder
+        # for small paged waves (the JAX package's row-bucketed default)
+        self._row_buckets = [self.prefill_batch]
+        if paged is not None and self.prefill_batch <= 4:
+            self._row_buckets = [1]
+            while self._row_buckets[-1] < self.prefill_batch:
+                self._row_buckets.append(min(self.prefill_batch,
+                                             2 * self._row_buckets[-1]))
         self.paged = paged
         self._chunked_fns = chunked_fns
         self._init_cache_fn = init_cache_fn
@@ -275,8 +310,13 @@ class Engine:
                                  "prefix caching")
             self._prefix = PrefixLRU(paged.num_pages, paged.page_size,
                                      manage_free=False)
-            maxp = paged.allocator.maxp
-            self._prefix_max_pages = max(1, maxp - 1)
+            self._prefix_pp_buckets = self._pp_widths(paged.allocator.maxp)
+            self._prefix_max_pages = self._prefix_pp_buckets[-1]
+            self._prefix_pages_fwd = prefix_fns[0] if prefix_fns else None
+            if not self._ragged and self._prefix_pages_fwd is None:
+                raise ValueError("a paged prefix cache without ragged "
+                                 "prefill needs prefix_fns[0], the suffix "
+                                 "forward over the pool's pages")
         elif paged is None and prefix_fns is not None:
             if max_seq % prefix_page_size:
                 raise ValueError("max_seq must be a page-size multiple for "
@@ -698,22 +738,57 @@ class Engine:
                                 np.stack([r[1] for r in rows]))
             batch = [(sid, req) + plans[sid] + (row,)
                      for (sid, row), req in zip(rows, popped)]
-            try:
-                self._prefill_ragged_waves(batch)
-            except Exception:
-                # off the queue and not in slots: fail them here or their
-                # on_done never fires
-                logger.exception("prefill failed for %s",
-                                 [b[1].request_id for b in batch])
-                for slot_id, req, hits, _chains, _row in batch:
-                    with self._cv:
-                        self._admitting.discard(req.request_id)
-                        self._cancel_pending.discard(req.request_id)
-                    alloc.mark_retired(slot_id)
-                    pins = self._slot_prefix_pins.pop(slot_id, None) or hits
-                    if pins:
-                        self._prefix.unpin(pins)
-                    _call(req.on_done, req.request_id, [], "engine_error")
+            for key, group in self._paged_groups(batch):
+                try:
+                    if key == "ragged":
+                        self._prefill_ragged_waves(group)
+                    elif isinstance(key, tuple):
+                        self._prefill_paged_prefix_batch(group, *key[1:])
+                    else:
+                        self._prefill_batch(group)
+                except Exception:
+                    # off the queue and not in slots: fail them here or
+                    # their on_done never fires
+                    logger.exception("prefill failed for %s",
+                                     [b[1].request_id for b in group])
+                    for slot_id, req, hits, _chains, _row in group:
+                        with self._cv:
+                            self._admitting.discard(req.request_id)
+                            self._cancel_pending.discard(req.request_id)
+                        alloc.mark_retired(slot_id)
+                        pins = (self._slot_prefix_pins.pop(slot_id, None)
+                                or hits)
+                        if pins:
+                            self._prefix.unpin(pins)
+                        _call(req.on_done, req.request_id, [],
+                              "engine_error")
+
+    def _paged_groups(self, batch: List[Tuple]) -> List[Tuple[Any, List]]:
+        """A paged round's prefill waves, as the JAX engine's ``_admit``
+        groups them: every row into ragged waves; or, without them, the
+        rows with a prefix plan (prompts of a page or more, prefix cache
+        on) into ONE prefix wave padded to the round's largest (suffix
+        bucket, prefix width) and the others into one bucketed wave per
+        bucket. ``batch`` rows: (slot_id, req, hits, chains, table_row)."""
+        if self._ragged:
+            return [("ragged", batch)]
+        groups: Dict[Any, List[Tuple]] = {}
+        prefix: List[Tuple] = []
+        max_suffix = max_hits = 0
+        for item in batch:
+            _sid, req, hits, chains, _row = item
+            if chains is None:
+                groups.setdefault(self._bucket_for(len(req.prompt)),
+                                  []).append(item)
+                continue
+            prefix.append(item)
+            max_suffix = max(max_suffix,
+                             len(req.prompt) - len(hits) * self._prefix_ps)
+            max_hits = max(max_hits, len(hits))
+        if prefix:
+            groups[("prefix", self._bucket_for(max(1, max_suffix)),
+                    self._pp_bucket_for(max(1, max_hits)))] = prefix
+        return list(groups.items())
 
     def _prefix_plan(self, prompt: List[int], pin: bool
                      ) -> Tuple[List[int], List[bytes]]:
@@ -861,22 +936,33 @@ class Engine:
                             self._cancel_pending.discard(req.request_id)
                         _call(req.on_done, req.request_id, [], "engine_error")
 
-    def _prefill_batch(self, batch: List[Tuple[int, GenRequest]]) -> None:
-        """One bucketed dense prefill for up to ``prefill_batch`` short
-        prompts: forward at [prefill_batch, bucket] into a temp cache, the
-        head at each row's last token, the first samples into the fed-token
-        vector, and each real row's K/V into ``cache[:, slot, :bucket]``
-        (padding rows are dropped). Stale entries a previous occupant left
-        past the bucket are never read: decode attends only positions it
-        has written."""
+    def _rows_for(self, n: int) -> int:
+        """Rows of a bucketed wave of ``n`` admissions: the smallest row
+        bucket covering it (``prefill_batch`` unless row-bucketed)."""
+        for rb in self._row_buckets:
+            if n <= rb:
+                return rb
+        return self._row_buckets[-1]
+
+    def _prefill_batch(self, batch: List[Tuple]) -> None:
+        """One bucketed prefill of short prompts (dense), or of the
+        prompts without a prefix plan (paged, row-bucketed): forward at
+        [rows, bucket] into a temp cache, the head at each row's last
+        token, the first samples into the fed-token vector. Dense: each
+        real row's K/V into ``cache[:, slot, :bucket]``; stale entries a
+        previous occupant left past the bucket are never read (decode
+        attends only positions it has written). Paged: the temp cache's
+        whole pages into the slot's pages (``pool_insert_pages``; chunks
+        past a slot's pages, and padding rows, go to trash page 0).
+        ``batch`` rows start (slot_id, req)."""
         t0 = time.time()
-        n, Bp = len(batch), self.prefill_batch
-        bucket = self._bucket_for(max(len(req.prompt) for _, req in batch))
+        n, Bp = len(batch), self._rows_for(len(batch))
+        bucket = self._bucket_for(max(len(it[1].prompt) for it in batch))
         padded = np.full((Bp, bucket), self.pad_id, np.int32)
         lengths = np.ones(Bp, np.int32)
         gather = np.zeros(Bp, np.int64)
         scatter = np.full(Bp, self.max_batch, np.int64)
-        for row, (slot_id, req) in enumerate(batch):
+        for row, (slot_id, req, *_rest) in enumerate(batch):
             padded[row, :len(req.prompt)] = req.prompt
             lengths[row] = len(req.prompt)
             gather[row] = scatter[row] = slot_id
@@ -884,15 +970,82 @@ class Engine:
         positions = torch.arange(bucket, dtype=torch.int32,
                                  device=self.device).expand(Bp, bucket)
         last_idx = self._tensor(lengths - 1)
-        last, temp = self._decode_forward(
+        last, temp = self._forward_fn(
             self.params, self._tensor(padded), positions,
             self._init_cache_fn(Bp, bucket), logits_at=last_idx)
-        slots = self._tensor(gather[:n])
-        for full, fresh in zip(self.cache, temp):
-            full[:, slots, :bucket] = fresh[:, :n]
+        if self.paged is None:
+            slots = self._tensor(gather[:n])
+            for full, fresh in zip(self.cache, temp):
+                full[:, slots, :bucket] = fresh[:, :n]
+        else:
+            alloc = self.paged.allocator
+            self._insert_pages(temp, [alloc.pages_for(it[0]) for it in batch],
+                               Bp)
         self._sample_into_slots(last, gather, last_idx, scatter)
         self._count_wave(lengths[:n], padded.size)
-        self._activate(batch, t0)
+        self._activate([(it[0], it[1]) for it in batch], t0)
+
+    def _insert_pages(self, kv: Tuple[torch.Tensor, torch.Tensor],
+                      pages: List[List[int]], Bp: int) -> None:
+        """Whole-page insert of a bucketed wave's K/V ``kv`` (each [L, Bp,
+        T, Hkv, D]) into the pool: row r's chunk c (positions c * ps ..)
+        goes to ``pages[r][c]``; chunks past a row's pages, and rows past
+        ``len(pages)``, go to trash page 0. T is padded up to whole pages
+        (the pad is prompt padding, never read)."""
+        ps = self.paged.page_size
+        T = kv[0].shape[2]
+        chunks = -(-T // ps)
+        target = np.zeros((Bp, chunks), np.int32)
+        for r, row_pages in enumerate(pages):
+            m = min(len(row_pages), chunks)
+            target[r, :m] = row_pages[:m]
+        flat = self._tensor(target.reshape(-1))
+        for pool, fresh in zip((self.cache["k"], self.cache["v"]), kv):
+            if chunks * ps != T:
+                fresh = torch.nn.functional.pad(
+                    fresh, (0, 0, 0, 0, 0, chunks * ps - T))
+            L = fresh.shape[0]
+            pool_insert_pages(pool, flat, fresh.reshape(
+                (L, Bp * chunks, ps) + tuple(fresh.shape[3:])))
+
+    def _prefill_paged_prefix_batch(self, batch: List[Tuple], bucket: int,
+                                    ppb: int) -> None:
+        """The paged prefix wave: the rows with a prefix plan (slot_id,
+        req, hits, chains, table_row), padded to [rows, bucket] with a
+        ``ppb``-page prefix table. The suffix forward reads the hit pages
+        in place; the suffix's whole pages go into the slot's fresh pages
+        (the reuse boundary is page-aligned, so suffix chunk c is fresh
+        page c); then the prompt's fresh full pages are registered (their
+        custody moves to the cache, pinned while the slot reads them)."""
+        t0 = time.time()
+        ps = self._prefix_ps
+        n, Bp = len(batch), self._rows_for(len(batch))
+        padded = np.full((Bp, bucket), self.pad_id, np.int32)
+        lengths = np.ones(Bp, np.int32)
+        plens = np.zeros(Bp, np.int32)
+        table = np.zeros((Bp, ppb), np.int32)
+        gather = np.zeros(Bp, np.int64)
+        scatter = np.full(Bp, self.max_batch, np.int64)
+        for r, (slot_id, req, hits, _chains, _row) in enumerate(batch):
+            p0 = len(hits) * ps
+            suffix = req.prompt[p0:]
+            padded[r, :len(suffix)] = suffix
+            lengths[r], plens[r] = len(suffix), p0
+            table[r, :len(hits)] = hits
+            gather[r] = scatter[r] = slot_id
+            self._set_slot_sampling(slot_id, req.sampling)
+        lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
+        logits, sk, sv = self._prefix_pages_fwd(
+            self.params, self._tensor(padded), self._tensor(table), plens_t,
+            self.cache["k"], self.cache["v"], logits_at=lengths_t - 1)
+        alloc = self.paged.allocator
+        self._insert_pages((sk, sv), [alloc.pages_for(it[0]) for it in batch],
+                           Bp)
+        self._sample_into_slots(logits, gather, plens_t + lengths_t - 1,
+                                scatter)
+        self._count_wave(lengths[:n], padded.size)
+        self._register_prefix(batch)
+        self._activate([(it[0], it[1]) for it in batch], t0)
 
     def _prefill_prefix_batch(self, batch: List[Tuple], bucket: int,
                               ppb: int) -> None:

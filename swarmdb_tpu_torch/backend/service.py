@@ -29,10 +29,12 @@ single-lane engines, dense (the default, as in the JAX package) and paged
   far and then the live ones, and emits no second reply. (The JAX package
   decodes such a message twice and replies twice.)
 
+The model is Llama or Mixtral (top-k routed MoE, ``models.mixtral``).
 The engine decodes in chunks (``SWARMDB_CHUNKED=1``, default) or one step
 at a time (``SWARMDB_CHUNKED=0``): the dense engine over a bf16 slot cache
 with a side prefix pool, the paged one over a bf16 / f32 or int8 pool
-(``SWARMDB_KV_DTYPE``). Not ported yet (ROADMAP.md, queue 1): rolling KV
+(``SWARMDB_KV_DTYPE``), prefilling Llama in ragged waves and Mixtral in
+row-bucketed and prefix waves. Not ported yet (ROADMAP.md, queue 1): rolling KV
 and the tiered state hierarchy (item 7), lane groups (item 9), the SLO
 sentinel (item 10) and partition locality (item 12).
 """
@@ -55,9 +57,10 @@ import torch
 
 from ..core.messages import Message, MessageType
 from ..core.runtime import SwarmDB
-from ..models import llama
+from ..models import llama, mixtral
 from ..models.configs import ModelConfig, get_config
-from ..ops.paged_kv import PageAllocator, pages_per_slot
+from ..ops.paged_kv import (KV_DTYPES, PageAllocator, kv_dtype_name,
+                            pages_per_slot)
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.sync import make_lock
 from .engine import Engine, GenRequest, PagedKV, _env_float, _env_int
@@ -147,10 +150,10 @@ def build_backend_engine(
     params: Optional[Dict[str, Any]] = None,
     flight_dir: Optional[str] = None,
 ) -> Tuple[Engine, Tokenizer]:
-    """One Engine for a registry config, on ``device`` (the card by
-    default). Weights are random bf16 from ``seed`` unless ``params`` (the
-    port's dict layout, on ``device``) are given. Decode is chunked
-    unless ``SWARMDB_CHUNKED=0``.
+    """One Engine for a registry config (Llama or Mixtral), on ``device``
+    (the card by default). Weights are random bf16 from ``seed`` unless
+    ``params`` (the port's dict layout, on ``device``) are given. Decode
+    is chunked unless ``SWARMDB_CHUNKED=0``.
 
     ``paged=None`` resolves ``SWARMDB_PAGED`` as the JAX package does:
     "1" builds the paged engine, anything else (unset included) the dense
@@ -166,27 +169,35 @@ def build_backend_engine(
     - Paged: the pool is ``kv_dtype`` (None resolves SWARMDB_KV_DTYPE,
       bf16 by default; ``torch.int8`` gives a quantized pool) and covers
       every slot's full window plus the prefix-cache budget
-      (``SWARMDB_PREFIX_TOKENS``) unless ``kv_pool_tokens`` bounds it."""
+      (``SWARMDB_PREFIX_TOKENS``) unless ``kv_pool_tokens`` bounds it.
+      Llama prefills in ragged waves; Mixtral, which has no ragged
+      forward (as in the JAX package), and any model under
+      ``SWARMDB_RAGGED_PREFILL=0`` in row-bucketed waves over a temp
+      cache in the pool's logical dtype (bf16 for int8 pages; the JAX
+      package's temp cache is bf16 whatever the pool) and prefix waves
+      over the pool's pages."""
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
            else get_config(model_name_or_cfg))
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name!r} is a MoE config: Mixtral serving is the Mixtral "
-            "slice of the port (ROADMAP.md, queue 1)")
+    mod = mixtral if cfg.is_moe else llama
     if paged is None:
         paged = os.environ.get("SWARMDB_PAGED", "0") == "1"
     dev = resolve_device(device)
     seq = max_seq or min(cfg.max_seq_len, 1024)
-    prefix_enabled = (os.environ.get("SWARMDB_PREFIX", "1") != "0"
-                      and seq % page_size == 0)
+    prefix_enabled = (
+        hasattr(mod, "forward_prefix_pages" if paged
+                else "forward_prefix_lane")
+        and os.environ.get("SWARMDB_PREFIX", "1") != "0"
+        and seq % page_size == 0)
     if params is None:
-        params = llama.init_params(cfg, seed=seed, device=dev)
+        params = mod.init_params(cfg, seed=seed, device=dev)
     tokenizer = default_tokenizer(cfg.vocab_size, tokenizer_path)
+    forward_fn = lambda p, t, pos, c, logits_at=None: mod.forward(
+        p, cfg, t, pos, c, logits_at=logits_at)
     if not paged:
-        engine = _dense_engine(cfg, params, dev, tokenizer, kv_dtype,
-                               prefix_enabled, max_batch=max_batch,
-                               max_seq=seq, seed=seed, metrics=metrics,
-                               decode_chunk=decode_chunk,
+        engine = _dense_engine(cfg, mod, params, dev, tokenizer, kv_dtype,
+                               prefix_enabled, forward_fn,
+                               max_batch=max_batch, max_seq=seq, seed=seed,
+                               metrics=metrics, decode_chunk=decode_chunk,
                                prefill_batch=prefill_batch,
                                page_size=page_size, flight_dir=flight_dir)
         return engine, tokenizer
@@ -197,32 +208,51 @@ def build_backend_engine(
     if kv_pool_tokens is None and prefix_enabled:
         pool_tokens += _env_int("SWARMDB_PREFIX_TOKENS", max_batch * seq // 2)
     num_pages = 1 + -(-pool_tokens // page_size)  # +1 trash page
+    pool_kind = kv_dtype or KV_DTYPES[kv_dtype_name()]
+    temp_dtype = torch.bfloat16 if pool_kind == torch.int8 else pool_kind
+    prefill_ragged = None
+    if hasattr(mod, "forward_ragged_prefill"):
+        prefill_ragged = (
+            lambda p, toks, trow, tpos, tables, st, ln, pl, pk, pv:
+                mod.forward_ragged_prefill(p, cfg, toks, trow, tpos, tables,
+                                           st, ln, pl, pk, pv))
     paged_spec = PagedKV(
-        init_pool=lambda: llama.init_paged_cache(
-            cfg, max_batch, seq, num_pages, page_size, dtype=kv_dtype,
+        init_pool=lambda: mod.init_paged_cache(
+            cfg, max_batch, seq, num_pages, page_size, dtype=pool_kind,
             device=dev),
         page_size=page_size,
         num_pages=num_pages,
         allocator=PageAllocator(num_pages, page_size, seq, max_batch),
-        prefill_ragged=lambda p, toks, trow, tpos, tables, st, ln, pl, pk, pv:
-            llama.forward_ragged_prefill(p, cfg, toks, trow, tpos, tables,
-                                         st, ln, pl, pk, pv),
-        decode_forward=lambda p, t, pos, c: llama.forward_paged(
+        prefill_ragged=prefill_ragged,
+        decode_forward=lambda p, t, pos, c: mod.forward_paged(
             p, cfg, t, pos, c),
     )
     # two-segment chunked decode (the pool frozen per chunk, one merge);
     # SWARMDB_CHUNKED=0 decodes one step at a time through decode_forward
-    # (admission stays on the ragged prefill either way)
+    # (admission is unchanged either way)
     chunked_fns = None
     if os.environ.get("SWARMDB_CHUNKED", "1") != "0":
         chunked_fns = (
-            lambda p, t, pos, c, hkv, s: llama.forward_paged_chunked(
+            lambda p, t, pos, c, hkv, s: mod.forward_paged_chunked(
                 p, cfg, t, pos, c, hkv, s),
-            lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev),
-            llama.merge_paged_chunk,
+            lambda b, k: mod.init_chunk_kv(cfg, b, k, device=dev),
+            mod.merge_paged_chunk,
         )
+    # the prefix waves' suffix forward over the pool's pages (the ragged
+    # waves read hit pages themselves)
+    prefix_fns = None
+    if prefix_enabled:
+        prefix_fns = (
+            lambda p, t, tab, pl, pk, pv, logits_at=None:
+                mod.forward_prefix_pages(p, cfg, t, tab, pl, pk, pv,
+                                         logits_at=logits_at),
+            None)
     engine = Engine(
         params, paged=paged_spec, chunked_fns=chunked_fns,
+        forward_fn=forward_fn,
+        init_cache_fn=lambda b, s: mod.init_kv_cache(
+            cfg, b, s, dtype=temp_dtype, device=dev),
+        prefix_fns=prefix_fns,
         max_batch=max_batch, max_seq=seq, eos_id=tokenizer.eos_id,
         pad_id=tokenizer.pad_id, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch,
@@ -230,14 +260,14 @@ def build_backend_engine(
     return engine, tokenizer
 
 
-def _dense_engine(cfg: ModelConfig, params: Dict[str, Any],
+def _dense_engine(cfg: ModelConfig, mod, params: Dict[str, Any],
                   dev: torch.device, tokenizer: Tokenizer,
-                  kv_dtype: Optional[torch.dtype], prefix_enabled: bool, *,
-                  max_batch: int, max_seq: int, seed: int, metrics,
-                  decode_chunk: int, prefill_batch: Optional[int],
+                  kv_dtype: Optional[torch.dtype], prefix_enabled: bool,
+                  forward_fn, *, max_batch: int, max_seq: int, seed: int,
+                  metrics, decode_chunk: int, prefill_batch: Optional[int],
                   page_size: int, flight_dir: Optional[str]) -> Engine:
     """The dense engine's wiring (``swarmdb_tpu/backend/service.py``'s
-    dense branch of ``build_backend_engine``)."""
+    dense branch of ``build_backend_engine``) over model module ``mod``."""
     dtype = kv_dtype or torch.bfloat16
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the dense slot cache is bfloat16 or float32, "
@@ -245,10 +275,10 @@ def _dense_engine(cfg: ModelConfig, params: Dict[str, Any],
     chunked_fns = None
     if os.environ.get("SWARMDB_CHUNKED", "1") != "0":
         chunked_fns = (
-            lambda p, t, pos, c, hkv, s: llama.forward_chunked(
+            lambda p, t, pos, c, hkv, s: mod.forward_chunked(
                 p, cfg, t, pos, c, hkv, s),
-            lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev),
-            llama.merge_chunk,
+            lambda b, k: mod.init_chunk_kv(cfg, b, k, device=dev),
+            mod.merge_chunk,
         )
     prefix_fns, prefix_pages = None, 0
     if prefix_enabled:
@@ -257,18 +287,16 @@ def _dense_engine(cfg: ModelConfig, params: Dict[str, Any],
         prefix_pages = 1 + -(-prefix_tokens // page_size)  # +1 trash page
         prefix_fns = (
             lambda p, t, tab, pl, pk, pv, lp, logits_at=None:
-                llama.forward_prefix_lane(p, cfg, t, tab, pl, pk, pv, lp,
-                                          logits_at=logits_at),
-            lambda n, ps: llama.init_prefix_pool(cfg, n, ps, dtype=dtype,
-                                                 device=dev),
+                mod.forward_prefix_lane(p, cfg, t, tab, pl, pk, pv, lp,
+                                        logits_at=logits_at),
+            lambda n, ps: mod.init_prefix_pool(cfg, n, ps, dtype=dtype,
+                                               device=dev),
         )
     return Engine(
         params,
-        forward_fn=lambda p, t, pos, c, logits_at=None: llama.forward(
-            p, cfg, t, pos, c, logits_at=logits_at),
-        init_cache_fn=lambda b, s: llama.init_kv_cache(cfg, b, s,
-                                                       dtype=dtype,
-                                                       device=dev),
+        forward_fn=forward_fn,
+        init_cache_fn=lambda b, s: mod.init_kv_cache(cfg, b, s, dtype=dtype,
+                                                     device=dev),
         chunked_fns=chunked_fns, prefix_fns=prefix_fns,
         prefix_pages=prefix_pages, prefix_page_size=page_size,
         max_batch=max_batch, max_seq=max_seq, eos_id=tokenizer.eos_id,

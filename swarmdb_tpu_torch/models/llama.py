@@ -9,6 +9,14 @@ engine the ``[L, B, S, Hkv, D]`` slot cache, the bucketed ``forward``
 (prefill, and single-step decode), the prefix-cache suffix forwards over a
 side page pool (``forward_prefix_pages`` / ``forward_prefix_lane``) and
 the chunked decode ``forward_chunked`` with its once-per-chunk merge.
+The paged engine's row-bucketed prefill (``SWARMDB_RAGGED_PREFILL=0``, or
+a model without a ragged forward) runs ``forward`` over a temp cache and
+its paged prefix prefill ``forward_prefix_pages`` over the main pool.
+
+Every forward but the ragged one takes the layer's feed-forward as
+``ffn`` (SwiGLU by default): ``models.mixtral`` runs these same layer
+bodies with its routed MoE block, as the JAX package's Mixtral forwards
+repeat Llama's around theirs.
 
 Parameters are a plain dict with the JAX package's keys and layouts:
 per-layer weights stacked ``[L, ...]``, projections stored ``[in, out]``
@@ -27,7 +35,7 @@ pool's: the kernels read each operand in its own type and compute in fp32.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -70,8 +78,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     more than one layer of scratch."""
     if cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name!r} is a MoE config; Mixtral is not ported yet "
-            "(ROADMAP.md, queue 1)")
+            f"{cfg.name!r} is a MoE config: use models.mixtral")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -79,13 +86,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def dense(shape, fan_in, stacked=True):
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        scale = 1.0 / (fan_in ** 0.5)
-        for part in (out if stacked else [out]):
-            draw = torch.randn(part.shape, generator=gen, device=dev,
-                               dtype=torch.float32)
-            part.copy_(draw.mul_(scale))
-        return out
+        return random_weight(gen, shape, fan_in, dtype, dev, stacked)
 
     params: Params = {
         "embed": dense((cfg.vocab_size, D), D, stacked=False),
@@ -105,6 +106,23 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((D, cfg.vocab_size), D, stacked=False)
     return params
+
+
+def random_weight(gen: torch.Generator, shape: Tuple[int, ...],
+                  fan_in: int, dtype: torch.dtype, device: torch.device,
+                  stacked: bool = True) -> torch.Tensor:
+    """normal(0, 1) / sqrt(fan_in) in ``dtype`` on ``device``, drawn from
+    ``gen`` in fp32 one trailing matrix at a time when ``stacked`` (a
+    [L, E, D, F] expert stack draws L * E matrices of [D, F]), so the fp32
+    scratch is one matrix, never the whole stack."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    scale = 1.0 / (fan_in ** 0.5)
+    parts = out.view(-1, *shape[-2:]) if stacked else [out]
+    for part in parts:
+        draw = torch.randn(part.shape, generator=gen, device=device,
+                           dtype=torch.float32)
+        part.copy_(draw.mul_(scale))
+    return out
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -183,6 +201,29 @@ def _head(params: Params) -> torch.Tensor:
     return params["embed"].T if head is None else head
 
 
+#: A layer's feed-forward: (normed hidden [B, T, dim], stacked layer
+#: weights, layer index) -> [B, T, dim]. The forwards below take one as
+#: ``ffn``: SwiGLU by default, the routed MoE block from models.mixtral.
+FFN = Callable[[torch.Tensor, Dict[str, torch.Tensor], int], torch.Tensor]
+
+
+def swiglu_ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor], l: int
+               ) -> torch.Tensor:
+    """Layer ``l``'s dense SwiGLU MLP."""
+    return swiglu(h, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+
+
+def _ffn_of(cfg: ModelConfig, ffn: Optional[FFN]) -> FFN:
+    """The forward's feed-forward: ``ffn`` if given, else SwiGLU. A MoE
+    config has no SwiGLU weights: its forwards are models.mixtral's."""
+    if ffn is not None:
+        return ffn
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name!r} is a MoE config: use models.mixtral")
+    return swiglu_ffn
+
+
 def forward_ragged_prefill(
     params: Params,
     cfg: ModelConfig,
@@ -201,9 +242,13 @@ def forward_ragged_prefill(
     row's suffix causally (``layers.ragged_prefill_dispatch``). Returns
     (fp32 logits [R, V] at each row's last live token, sfx_k, sfx_v
     [L, W, Hkv, D] in the pool's logical dtype, stream order, for
-    ``paged_kv.paged_write_ragged``). The pool is only read."""
+    ``paged_kv.paged_write_ragged``). The pool is only read. Llama only:
+    models.mixtral has no ragged forward, as in the JAX package (its paged
+    engine prefills in row-bucketed waves)."""
     if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+        raise NotImplementedError(
+            f"{cfg.name!r} is a MoE config: models.mixtral has no ragged "
+            "prefill forward")
     W = tokens.shape[0]
     L = pool_data(pool_k).shape[0]
     kdt, vdt = pool_dtype(pool_k), pool_dtype(pool_v)
@@ -226,7 +271,7 @@ def forward_ragged_prefill(
             window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(W, -1), lp["wo"][l])[None]
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+        x = x + swiglu_ffn(h2, lp, l)
         sfx_k.append(ks)
         sfx_v.append(vs)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -243,6 +288,8 @@ def forward_paged_chunked(
     cache: Dict[str, Any],     # {"k","v","page_table"}: FROZEN
     chunk_kv: Tuple[torch.Tensor, torch.Tensor],  # [L, B, Kc, Hkv, D]
     step: int,
+    *,
+    ffn: Optional[FFN] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step of the two-segment chunked decode: the pool stays
     frozen for the chunk's K steps, this step's K/V lands in the chunk
@@ -250,8 +297,7 @@ def forward_paged_chunked(
     live pages + the chunk buffer under one softmax
     (``layers.paged_attention_dispatch_chunked``). Returns (fp32 logits
     [B, 1, V], chunk_kv)."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    ffn = _ffn_of(cfg, ffn)
     x = params["embed"][tokens.long()]                   # [B, 1, dim]
     B = x.shape[0]
     table = cache["page_table"]
@@ -271,7 +317,7 @@ def forward_paged_chunked(
             window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+        x = x + ffn(h2, lp, l)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(x[:, 0], _head(params))[:, None]
     return logits, (hk, hv)
@@ -283,6 +329,8 @@ def forward_paged(
     tokens: torch.Tensor,      # [B, 1] one decode step
     positions: torch.Tensor,   # [B, 1] absolute position per slot
     cache: Dict[str, Any],     # {"k","v","page_table"}: written in place
+    *,
+    ffn: Optional[FFN] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Single-step paged decode forward (``SWARMDB_CHUNKED=0``): in every
     layer the step's K/V is written into its page first
@@ -290,8 +338,7 @@ def forward_paged(
     then each slot attends its pages up to and including its position
     (``layers.paged_attention_dispatch``). Returns (fp32 logits [B, 1, V],
     the cache)."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    ffn = _ffn_of(cfg, ffn)
     x = params["embed"][tokens.long()]                   # [B, 1, dim]
     B = x.shape[0]
     table = cache["page_table"]
@@ -307,7 +354,7 @@ def forward_paged(
                                         positions, window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+        x = x + ffn(h2, lp, l)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(x[:, 0], _head(params))[:, None]
     return logits, cache
@@ -346,6 +393,8 @@ def forward(
     positions: torch.Tensor,   # [B, T] absolute positions per row
     cache: KVCache,            # ([L, B, S, Hkv, D], ...): written in place
     logits_at: Optional[torch.Tensor] = None,  # [B] row indices into T
+    *,
+    ffn: Optional[FFN] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One forward pass over the dense slot cache, for mixed prefill and
     decode rows: each row's positions are its own absolute offsets and
@@ -355,8 +404,7 @@ def forward(
     its whole temp cache, the cache simply takes them). Returns (fp32
     logits [B, T, V], or [B, V] at each row's ``logits_at`` index, the
     cache)."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    ffn = _ffn_of(cfg, ffn)
     ck, cv = cache
     B, T = tokens.shape
     full = T == ck.shape[2]
@@ -374,7 +422,7 @@ def forward(
         attn = gqa_attention(q, kl, vl, positions, window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(B, T, -1), lp["wo"][l])
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+        x = x + ffn(h2, lp, l)
     return _final_logits(params, cfg, x, logits_at), cache
 
 
@@ -386,6 +434,8 @@ def forward_chunked(
     cache: KVCache,            # FROZEN during the chunk
     chunk_kv: Tuple[torch.Tensor, torch.Tensor],  # [L, B, Kc, Hkv, D]
     step: int,
+    *,
+    ffn: Optional[FFN] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step of the dense engine's chunked decode: the slot
     cache stays frozen for the chunk's K steps, this step's K/V goes into
@@ -393,8 +443,7 @@ def forward_chunked(
     each slot's lane below its chunk start plus the chunk buffer under
     one softmax (``layers.gqa_attention_chunked``, the dense two-segment
     kernel on the card). Returns (fp32 logits [B, 1, V], chunk_kv)."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    ffn = _ffn_of(cfg, ffn)
     ck, cv = cache
     hk, hv = chunk_kv
     x = params["embed"][tokens.long()]                   # [B, 1, dim]
@@ -412,7 +461,7 @@ def forward_chunked(
                                      window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+        x = x + ffn(h2, lp, l)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(x[:, 0], _head(params))[:, None]
     return logits, (hk, hv)
@@ -442,6 +491,8 @@ def forward_prefix_pages(
     pool_k: Any,                 # [L, P, ps, Hkv, D] page pool, or int8
     pool_v: Any,
     logits_at: Optional[torch.Tensor] = None,  # [Bp] row indices into T
+    *,
+    ffn: Optional[FFN] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefix-cache suffix prefill core: compute only the suffix tokens,
     each row attending its reused prefix pages (gathered per layer;
@@ -449,8 +500,7 @@ def forward_prefix_pages(
     (``layers.gqa_attention_prefix``). The pool is only read. Returns
     (fp32 logits [Bp, T, V], or [Bp, V] with ``logits_at``, sfx_k, sfx_v
     [L, Bp, T, Hkv, D] in the gathered pages' dtype)."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name!r} is MoE; not ported yet")
+    ffn = _ffn_of(cfg, ffn)
     Bp, T = tokens.shape
     L = pool_data(pool_k).shape[0]
     x = params["embed"][tokens.long()]
@@ -470,7 +520,7 @@ def forward_prefix_pages(
                                     window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(Bp, T, -1), lp["wo"][l])
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + swiglu(h2, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+        x = x + ffn(h2, lp, l)
         sfx_k.append(ks)
         sfx_v.append(vs)
     logits = _final_logits(params, cfg, x, logits_at)
@@ -487,6 +537,8 @@ def forward_prefix_lane(
     pool_v: torch.Tensor,
     lane_pages: int,             # output lane length in pages
     logits_at: Optional[torch.Tensor] = None,
+    *,
+    ffn: Optional[FFN] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense-cache prefix prefill: ``forward_prefix_pages`` plus each
     row's lane image (``layers.compose_prefix_lane``: prefix pages, then
@@ -495,7 +547,7 @@ def forward_prefix_lane(
     D])."""
     logits, sfx_k, sfx_v = forward_prefix_pages(
         params, cfg, tokens, prefix_table, prefix_lens, pool_k, pool_v,
-        logits_at=logits_at)
+        logits_at=logits_at, ffn=ffn)
     lane_k, lane_v = compose_prefix_lane(pool_k, pool_v, prefix_table,
                                          prefix_lens, sfx_k, sfx_v,
                                          lane_pages)

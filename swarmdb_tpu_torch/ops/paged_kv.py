@@ -387,6 +387,26 @@ def _paged_write_ragged_quant(
     return k_pages, v_pages
 
 
+def pool_insert_pages(pool: Any, flat_ids: torch.Tensor,
+                      dense_pages: torch.Tensor) -> Any:
+    """Whole-page insert, in place: ``dense_pages`` [L, n, ps, Hkv, D] at
+    full precision into the pool's pages ``flat_ids`` [n] (the row-
+    bucketed and prefix prefills' page scatter). A quantized pool takes
+    the exact quantization of the fresh values, per page and head from
+    their amax, with no survivor requant (every slot of the page is
+    written), one layer at a time. Only trash page 0 may repeat in
+    ``flat_ids``."""
+    idx = flat_ids.long()
+    if isinstance(pool, QuantPool):
+        for l in range(pool.data.shape[0]):
+            q, s = _quantize_pages(dense_pages[l])
+            pool.data[l, idx] = q
+            pool.scale[l, idx] = s
+        return pool
+    pool[:, idx] = dense_pages.to(pool.dtype)
+    return pool
+
+
 def set_page_table_rows(page_table: torch.Tensor, rows, values
                         ) -> torch.Tensor:
     """Replace whole page-table rows in place (admission assigns,

@@ -55,6 +55,7 @@ def test_scan_covers_every_port_folder():
                if len(p.relative_to(PORT).parts) > 1}
     assert {"api", "obs", "backend", "core", "broker", "ops", "models",
             "utils"} <= folders
+    assert PORT / "models" / "mixtral.py" in set(PORT.rglob("*.py"))
 
 
 def test_serving_a_request_loads_no_jax():
@@ -64,8 +65,9 @@ def test_serving_a_request_loads_no_jax():
         "import swarmdb_tpu_torch.__main__\n"
         "from swarmdb_tpu_torch.backend.service import build_backend_engine\n"
         "from swarmdb_tpu_torch.backend.sampling import SamplingParams\n"
-        "for paged in (None, True):\n"
-        "    eng, tok = build_backend_engine('tiny-debug', max_seq=64,"
+        "for model in ('tiny-debug', 'tiny-moe'):\n"
+        "  for paged in (None, True):\n"
+        "    eng, tok = build_backend_engine(model, max_seq=64,"
         " paged=paged, device='cpu')\n"
         "    eng.start()\n"
         "    toks, why = eng.generate_sync(tok.encode('hi there'),"
@@ -129,8 +131,14 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
     from swarmdb_tpu_torch.core.messages import BrokerConfig
     from swarmdb_tpu_torch.core.runtime import SwarmDB
 
-    with pytest.raises(NotImplementedError, match="Mixtral"):
-        build_backend_engine("tiny-moe", device="cpu")
+    # Mixtral is ported: a tiny-moe engine builds on the CPU, both kinds,
+    # and the paged one prefills in row-bucketed waves (no ragged forward)
+    for paged in (None, True):
+        eng, _ = build_backend_engine("tiny-moe", max_seq=64, paged=paged,
+                                      device="cpu")
+        assert eng.params["layers"]["router"].device.type == "cpu"
+        assert (eng.paged is None) == (paged is None)
+        assert paged is None or eng.paged.prefill_ragged is None
     group = SimpleNamespace(lanes=[], metrics=None, flight=None)
     for cls in (LaneSupervisor, ServingChaos):
         with pytest.raises(NotImplementedError, match="item 9"):
