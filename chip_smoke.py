@@ -49,10 +49,19 @@ and exits non-zero at the first failure:
                ``SWARMDB_MOE_DISPATCH=einsum``; the paged engine prefills it
                in row-bucketed and prefix waves, so only the decode kernel
                launches; logits of the bucketed prefill, the prefix wave
-               and the decode steps within 1e-4.
+               and the decode steps within 1e-4. Last, the binding-
+               capacity case (tiny-moe with 8 experts, where idle and
+               retired rows take capacity) at the default decode loops,
+               both engines chunked and single-step: the card's graph
+               replays and the CPU's eager chunks give equal greedy
+               tokens (``run_binding_parity``).
 5. serve    -- Llama-3-8B at full width (32 layers, bf16 weights from seed
                0, built once) through SwarmDB + LocalBroker +
-               ServingService, six times: the paged engine (``paged=True``)
+               ServingService, six times, each at the default decode
+               loop (paged: resident sessions; dense: two chunks in
+               flight), every chunk a CUDA graph replay, the graphs
+               captured by ``start(warmup=True)`` (SWARMDB_PREWARM's path;
+               the api phase captures at first use): the paged engine (``paged=True``)
                over a bf16 pool chunked (4 users x 2 turns), an int8 pool
                chunked (4 x 2: turn 2 reads int8 prefix pages), a bf16
                pool single-step and an int8 pool single-step (4 x 1); then
@@ -63,10 +72,11 @@ and exits non-zero at the first failure:
                top-p 0.9, seed 7). Checks every reply, prefix reuse on
                turn 2, and that the path's kernels (and no other) advanced
                by 32 launches per prefill wave (paged; dense prefill
-               attention is plain PyTorch, as in the JAX package) and per
-               decode step; prints TTFT, decode tokens/s, KV bytes per
-               token, the cache's (and side pool's) size and peak device
-               memory per serve. Each serve then runs one more turn under
+               attention is plain PyTorch, as in the JAX package) and by
+               exactly 32 per decode step (counted from the replays);
+               prints TTFT, decode tokens/s, KV bytes per token, the
+               cache's (and side pool's) size, peak device memory, the
+               decode loop, its graphs and counters per serve. Each serve then runs one more turn under
                ``torch.profiler`` (device time by kernel, the device's
                idle share, the prefill's time in each of its two bodies,
                the decode kernels' time by name); a paged serve fails if
@@ -92,13 +102,26 @@ and exits non-zero at the first failure:
                supervisor built with a wider retry budget and backoff
                (printed) must serve it before its deadline; (e)
                ``python -m swarmdb_tpu_torch.api.server`` with
-               ``SERVE_MODEL=tiny-debug`` as a subprocess: ``/health`` must
-               name the card and one message is answered, then SIGTERM.
+               ``SERVE_MODEL=tiny-debug`` and ``SWARMDB_PREWARM=1`` as a
+               subprocess: ``/health`` must name the card and show the
+               three variants' graphs captured at start, one message is
+               answered, then SIGTERM.
                Kernels 7 (dense chunked decode), 1 and 2 must launch in
                the phase (its in-process steps; the subprocess's launches
                are its own).
+7. decode_loop -- graph against eager on Llama-3-8B (``LOOP_LLAMA``: paged
+               bf16 and int8 chunked, dense chunked, paged bf16 and dense
+               single-step): per mode one engine whose ``warmup`` (on a
+               fresh thread) captures the three variants, four requests
+               admitted, then one greedy chunk replayed and the same chunk
+               run eagerly from the same saved state: greedy tokens equal,
+               logprobs within 2e-2, the ms per chunk each way (CUDA
+               events, median of 20), launches per replay, the graph
+               pool's bytes; in the paged single-step mode the decode
+               kernel's device time inside a replayed chunk beside its
+               time alone and its fixed cost.
 
-7. mixtral -- Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128,
+8. mixtral -- Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128,
                8 experts of FFN 14336, top-2, vocab 32000, rope theta 1e6)
                and 16 of its 32 layers (``reduced``: all 32 do not fit one
                80 GB card), bf16 weights from seed 0, after Llama-3-8B's
@@ -122,11 +145,14 @@ and exits non-zero at the first failure:
                the decode step (engine wall, and one step timed alone)
                beside its byte bound. The dense and paged bf16 chunked
                serves profile one more turn (device time by kernel, GEMMs,
-               indexing, the decode kernel, idle share).
+               indexing, the decode kernel, idle share). Then the
+               decode_loop comparison on Mixtral (``LOOP_MIXTRAL``: dense
+               and paged bf16 chunked), its step beside the byte bound.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
 serves, the api phase and the six Mixtral serves, each counted from zero
-just before it and read just after) and, last,
+just before it and read just after; a graph replay adds the launches its
+capture recorded) and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
 """
@@ -140,6 +166,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1215,6 +1242,7 @@ def run_parity(dev):
              decode_logits_max_abs_err=max(errs[1:]), bound=tol,
              launches=launches)
     run_moe_parity(dev, prompts)
+    run_binding_parity(dev)
 
 
 def run_moe_parity(dev, prompts):
@@ -1282,6 +1310,83 @@ def run_moe_parity(dev, prompts):
         os.environ.pop("SWARMDB_MOE_DISPATCH", None)
     else:
         os.environ["SWARMDB_MOE_DISPATCH"] = old
+
+
+#: (paged: True / None = the default dense engine, chunked) of the
+#: binding-capacity parity case (``run_binding_parity``).
+BINDING_MODES = ((None, True), (None, False), (True, True), (True, False))
+
+
+def run_together(eng, prompts, news, timeout=120.0) -> list:
+    """Submit greedy requests before the loop starts (one admission
+    round), start, wait for all, stop: [(tokens, reason)] in order."""
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+
+    done = {}
+    ids = [eng.submit(GenRequest(
+        prompt=p, sampling=SamplingParams(max_new_tokens=n),
+        on_done=lambda rid, toks, why: done.__setitem__(rid, (toks, why))))
+        for p, n in zip(prompts, news)]
+    eng.start()
+    try:
+        deadline = time.time() + timeout
+        while len(done) < len(ids) and time.time() < deadline:
+            time.sleep(0.02)
+    finally:
+        eng.stop()
+    return [done.get(i) for i in ids]
+
+
+def run_binding_parity(dev):
+    """The binding-capacity case of ``tests/test_torch_decode_loop_*.py``
+    on the card: tiny-moe with 8 experts (C = N / 2, so idle and retired
+    rows take capacity and tokens drop) in f32, max_batch 4, max_seq 96,
+    page 16, three requests submitted before start (prompt seeds 2, 3
+    and 4; 21, 40 and 33 tokens; 6, 20 and 13 new), both engines chunked
+    and single-step at the default loops (paged: resident sessions; dense:
+    two chunks in flight). The card decodes through graph replays, the
+    CPU eagerly: greedy tokens equal."""
+    import numpy as np
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.models import mixtral
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    cfg = get_config("tiny-moe", n_experts=8)
+    p_cpu = mixtral.init_params(cfg, seed=1, device="cpu",
+                                dtype=torch.float32)
+    p_gpu = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in p_cpu.items()}
+    for paged, chunked in BINDING_MODES:
+        loops, graphs = set(), 0
+        for seed in (2, 3, 4):
+            rng = np.random.default_rng(seed)
+            prompts = [rng.integers(3, 259, n).tolist() for n in (21, 40, 33)]
+            outs = {}
+            for where, d, p in (("gpu", dev, p_gpu), ("cpu", "cpu", p_cpu)):
+                with engine_env(chunked):
+                    eng, _ = build_backend_engine(
+                        cfg, max_batch=4, max_seq=96, page_size=16, device=d,
+                        params=p, kv_dtype=torch.float32, paged=paged)
+                outs[where] = run_together(eng, prompts, (6, 20, 13))
+                st = eng.stats()
+                loops.add(st["decode_loop"])
+                if where == "gpu":
+                    graphs += st["decode_chunks"]["chunks"]
+            if outs["gpu"] != outs["cpu"] or None in outs["gpu"]:
+                fail(f"parity moe8 binding paged={paged} chunked={chunked} "
+                     f"seed={seed}: card {outs['gpu']} cpu {outs['cpu']}")
+        want = {"resident" if paged else "pipeline 2"}
+        if loops != want:
+            fail(f"parity moe8 binding: decode loops {loops}, not {want}")
+        emit("parity", case="moe8_binding_default_loops",
+             model="tiny-moe, 8 experts", cache="float32",
+             paged=bool(paged), chunked=chunked, seeds=[2, 3, 4],
+             decode_loop=want.pop(), greedy_equal=True,
+             card_graph_replays=graphs)
 
 
 # ------------------------------------------------------------------- serve
@@ -1363,7 +1468,9 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
         for a in users + ["assistant"]:
             db.register_agent(a)
         db.assign_llm_backend("assistant", backend)
-        svc.start()
+        t_start = time.perf_counter()
+        svc.start(warmup=True)   # SWARMDB_PREWARM's path: graphs first
+        start_s = time.perf_counter() - t_start
         c = db.metrics.counters
         base = {k: c[k].value for k in ("prefill_waves",
                                         "engine_decode_chunks",
@@ -1386,6 +1493,7 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
             replies.extend(got.values())
         serve_s = time.perf_counter() - t_serve
         launches = dict(ac.LAUNCHES)
+        loop = eng.stats()["decode_chunks"]
         waves = c["prefill_waves"].value - base["prefill_waves"]
         chunks = c["engine_decode_chunks"].value - base["engine_decode_chunks"]
         steps = chunks * eng.decode_chunk
@@ -1398,7 +1506,9 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
                 and all(r in ("length", "eos") for r in reasons),
             "prefix reuse on turn 2": turns < 2 or reused > 0,
             f"{decode_k} launches == 32 per step":
-                chunks > 0 and launches[decode_k] >= L * steps,
+                chunks > 0 and launches[decode_k] == L * steps,
+            "decode through CUDA graph replays": loop["chunks"] > 0
+                and bool(loop["graphs"]),
             "only this path's kernels": all(
                 n == 0 for k, n in launches.items() if k not in kernels),
             "params on cuda": eng.params["layers"]["wq"].is_cuda,
@@ -1446,6 +1556,7 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
             decode_tokens_per_s=gen_tok / dec_s if dec_s else None,
             generated_tokens=gen_tok, serve_wall_s=serve_s, **sizes,
             weight_init_s=init_s, card=card, max_step_s=eng.max_step_s,
+            start_with_warmup_s=start_s, **loop_record(eng),
             logits_mm_out_dtype=llama._MM_OUT_DTYPE.get(eng.device),
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
         emit("serve", **record)
@@ -1471,6 +1582,19 @@ def run_serve(card, params, init_s, name, kind, chunked, turns, paged):
         del svc, eng
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def loop_record(eng) -> dict:
+    """A serve's decode loop: which loop, its chunk graphs (captured
+    variants, launches per replay, pool bytes, chunks run) and its
+    counters (resident sessions and chunks, host waits on the device)."""
+    st = eng.stats()
+    c = eng.metrics.counters
+    return dict(decode_loop=st["decode_loop"],
+                decode_graphs=st["decode_chunks"],
+                resident_sessions=c["engine_resident_sessions"].value,
+                resident_chunks=c["engine_resident_chunks"].value,
+                host_syncs=c["engine_host_syncs"].value)
 
 
 def await_replies(db, users, timeout=300.0):
@@ -1535,6 +1659,184 @@ def profile_turn(db, users, text):
         "top": [{"kernel": n[:90], "ms": t, "calls": c}
                 for n, t, c in kernels[:12]],
     }
+
+
+# ------------------------------------------------------------ decode_loop
+
+
+#: (name, engine: True = paged / None = the default dense one, cache kind,
+#: chunked): the decode_loop phase's modes, run on Llama-3-8B, then the
+#: ``LOOP_MIXTRAL`` ones on Mixtral-8x7B.
+LOOP_LLAMA = (("paged_bf16_chunked", True, "bfloat16", True),
+              ("paged_int8_chunked", True, "int8", True),
+              ("dense_chunked", None, "bfloat16", True),
+              ("paged_bf16_single_step", True, "bfloat16", False),
+              ("dense_single_step", None, "bfloat16", False))
+LOOP_MIXTRAL = (("dense_chunked", None, "bfloat16", True),
+                ("paged_bf16_chunked", True, "bfloat16", True))
+#: Largest |logprob| difference allowed between a chunk replayed as a
+#: graph and the same chunk run eagerly (same kernels, same inputs; bf16
+#: GEMMs may pick other algorithms inside a capture).
+LOOP_LP_TOL = 2e-2
+#: The single-step paged decode kernel alone (kernels phase, PERF.md
+#: section 6): its time at the serving shape and its fixed cost (all
+#: slots at length 0), NVIDIA H100 80GB HBM3 at 700 W.
+PAGED_DECODE_ALONE_MS, PAGED_DECODE_FIXED_MS = 0.0158, 0.0063
+#: Mixtral-8x7B's decode step (16 layers) beside which its graph step is
+#: printed: its byte bound, and the step the eager decode loop took
+#: (engine wall and alone, PERF.md section 6), on the same card.
+MIXTRAL_STEP_BOUND_MS, MIXTRAL_STEP_EAGER_MS = 13.96, (23.0, 87.0)
+
+
+def _state_tensors(eng) -> list:
+    """Every tensor a decode chunk writes: the fed-token vectors, the
+    positions and the cache (pool payload, scales and table, or the dense
+    slot cache)."""
+    from swarmdb_tpu_torch.ops.paged_kv import QuantPool
+
+    out = [eng._last_tokens, eng._last_lps, eng._io.positions]
+    parts = (eng.cache.values() if isinstance(eng.cache, dict)
+             else eng.cache)
+    for t in parts:
+        out.extend((t.data, t.scale) if isinstance(t, QuantPool) else (t,))
+    return out
+
+
+def graph_vs_eager(model, params, paged, kind, chunked, card) -> dict:
+    """One engine (max_batch 8, max_seq 1024, decode_chunk 8) on
+    ``params``: ``warmup`` captures its three variants' chunk graphs
+    before any request (SWARMDB_PREWARM's path), on a fresh thread, four
+    greedy requests
+    (prompts of 300, 180, 420 and 90 tokens) are admitted, and from that
+    saved state one greedy chunk is replayed as a graph and then run
+    eagerly (``Engine._chunk_body``, the function the graph captured).
+    Returns the comparison, the ms per chunk each way (CUDA events,
+    median of 20 after 3; the positions reset before each run) and the
+    graph's launches per replay."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    with engine_env(chunked):
+        eng, _tok = build_backend_engine(
+            model, seed=0, device="cuda", params=params, paged=paged,
+            kv_dtype=getattr(torch, kind) if paged else None)
+    try:
+        # on a thread of its own, as a server's start() may run it: one
+        # that has run no GEMM yet (the capture must create its handles)
+        warm = {}
+        th = threading.Thread(target=lambda: warm.update(s=eng.warmup()))
+        th.start()
+        th.join()
+        if "s" not in warm:
+            fail(f"decode_loop: warmup failed on a fresh thread "
+                 f"({model}, paged={paged}, {kind}, chunked={chunked})")
+        warm_s = warm["s"]
+        runner, io, K = eng._runner, eng._io, eng.decode_chunk
+        rng = np.random.default_rng(3)
+        for n in (300, 180, 420, 90):
+            eng.submit(GenRequest(prompt=rng.integers(3, 30000, n).tolist(),
+                                  sampling=SamplingParams(max_new_tokens=64)))
+        eng._admit()
+        live = [i for i, s in enumerate(eng.slots) if s.active]
+        positions = np.array([s.dispatched_position if s.active else 0
+                              for s in eng.slots], np.int32)
+        inputs = eng._chunk_inputs(positions)
+        saved = [t.clone() for t in _state_tensors(eng)]
+        variant = 2
+        ac.reset_launches()
+        g_tok, g_lp = runner.launch(variant, inputs).host()
+        replay_launches = dict(ac.LAUNCHES)
+        for t, v in zip(_state_tensors(eng), saved):
+            t.copy_(v)
+        for buf, a in zip(io.inputs(), inputs):
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        eng._chunk_body(variant)
+        e_tok = io.block.cpu().numpy()
+        e_lp = io.block_lps.cpu().numpy()
+        equal = bool(np.array_equal(g_tok[:, live], e_tok[:, live]))
+        lp_err = float(np.abs(g_lp[:, live] - e_lp[:, live]).max())
+        pos0 = saved[2]
+        graph = runner.graphs[variant]
+
+        def replay():
+            io.positions.copy_(pos0)
+            graph.replay()
+
+        def eager():
+            io.positions.copy_(pos0)
+            eng._chunk_body(variant)
+
+        graph_ms = time_events(replay, iters=20)
+        eager_ms = time_events(eager, iters=20)
+        rec = dict(
+            live_slots=len(live), variant=variant, greedy_equal=equal,
+            logprob_max_abs_err=lp_err, logprob_bound=LOOP_LP_TOL,
+            graph_ms_per_chunk=graph_ms, eager_ms_per_chunk=eager_ms,
+            graph_ms_per_step=graph_ms / K, eager_ms_per_step=eager_ms / K,
+            eager_over_graph=eager_ms / graph_ms,
+            launches_per_replay=runner.graph_launches[variant],
+            launches_counted_by_one_replay={k: n for k, n in
+                                            replay_launches.items() if n},
+            graphs=sorted(runner.graphs), capture_s=runner.capture_s,
+            warmup_s=warm_s, graph_pool_bytes=runner.pool_bytes, card=card)
+        if paged and not chunked and kind == "bfloat16":
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    replay()
+                torch.cuda.synchronize()
+            hits = [(t, c) for n, t, c in _kernel_times(prof)
+                    if DECODE_BODIES["paged_decode"][0] in n]
+            calls = sum(c for _, c in hits)
+            rec.update(
+                paged_decode_in_graph_ms=(sum(t for t, _ in hits) / calls
+                                          if calls else None),
+                paged_decode_in_graph_calls=calls,
+                paged_decode_alone_ms=PAGED_DECODE_ALONE_MS,
+                paged_decode_fixed_ms=PAGED_DECODE_FIXED_MS)
+        return rec
+    finally:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_decode_loop(card, model, params, modes) -> None:
+    """The decode_loop phase on one model: graph against eager in every
+    mode of ``modes`` (``graph_vs_eager``); fails on unequal greedy
+    tokens, logprobs past ``LOOP_LP_TOL`` or a replay that counted other
+    launches than its capture recorded."""
+    from swarmdb_tpu_torch.models.configs import ModelConfig
+
+    name = model.name if isinstance(model, ModelConfig) else model
+    for mode, paged, kind, chunked in modes:
+        rec = graph_vs_eager(model, params, paged, kind, chunked, card)
+        if name.startswith("mixtral"):
+            rec.update(step_byte_bound_ms=MIXTRAL_STEP_BOUND_MS,
+                       eager_loop_step_ms=MIXTRAL_STEP_EAGER_MS)
+        emit("decode_loop", model=name, mode=mode, **rec)
+        if not rec["greedy_equal"]:
+            fail(f"decode_loop {name} {mode}: greedy tokens differ graph "
+                 f"vs eager")
+        if not rec["logprob_max_abs_err"] <= LOOP_LP_TOL:
+            fail(f"decode_loop {name} {mode}: logprobs differ by "
+                 f"{rec['logprob_max_abs_err']} > {LOOP_LP_TOL}")
+        if rec["launches_counted_by_one_replay"] != rec["launches_per_replay"]:
+            fail(f"decode_loop {name} {mode}: a replay counted "
+                 f"{rec['launches_counted_by_one_replay']}, its capture "
+                 f"recorded {rec['launches_per_replay']}")
+        if "paged_decode_in_graph_calls" in rec and not rec[
+                "paged_decode_in_graph_calls"]:
+            fail(f"decode_loop {name} {mode}: the profiler saw no "
+                 f"paged_decode kernel inside the replays")
 
 
 # --------------------------------------------------------------------- api
@@ -1960,7 +2262,7 @@ def run_server_process(save_dir):
     env = dict(os.environ, SERVE_MODEL="tiny-debug", API_HOST="127.0.0.1",
                API_PORT=str(port), SAVE_DIR=os.path.join(save_dir, "srv"),
                JWT_SECRET_KEY="chip-smoke", SERVE_MAX_SEQ="256",
-               PYTHONPATH=str(ROOT))
+               SWARMDB_PREWARM="1", PYTHONPATH=str(ROOT))
     env.pop("SWARMDB_PAGED", None)
     url = f"http://127.0.0.1:{port}"
     t0 = time.perf_counter()
@@ -1992,6 +2294,9 @@ def run_server_process(save_dir):
             fail("api (e): the server never answered /health")
         up_s = time.perf_counter() - t0
         device = (health.get("tpu") or {}).get("device", "")
+        # SWARMDB_PREWARM=1: start() captured every variant's graph on the
+        # server's main thread, before any request
+        prewarmed = health["tpu"]["engine"]["decode_chunks"]["graphs"]
         tokn = json.loads(call("/auth/token", {"username": "admin",
                                                "password": "pw"}))
         hdr = {"Authorization": f"Bearer {tokn['access_token']}"}
@@ -2008,9 +2313,12 @@ def run_server_process(save_dir):
              health_device=device, engine=health["tpu"]["engine"]["cache"],
              reply_finish_reason=(reply[0]["metadata"]["finish_reason"]
                                   if reply else None),
-             token_events=sum(e == "token" for e, _ in events))
+             token_events=sum(e == "token" for e, _ in events),
+             prewarmed_graphs=prewarmed)
         if torch.cuda.get_device_name(0) not in device or not reply:
             fail(f"api (e): /health device {device!r}, reply {reply}")
+        if prewarmed != [0, 1, 2]:
+            fail(f"api (e): SWARMDB_PREWARM=1 captured graphs {prewarmed}")
     finally:
         proc.terminate()
         try:
@@ -2117,6 +2425,7 @@ def run_mixtral(card: str):
                                      expert_gemms, *spec)
             for k, n in launches.items():
                 total[k] = total.get(k, 0) + n
+        run_decode_loop(card, cfg, params, LOOP_MIXTRAL)
     finally:
         del params
         gc.collect()
@@ -2158,7 +2467,9 @@ def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
         for a in users + ["assistant"]:
             db.register_agent(a)
         db.assign_llm_backend("assistant", backend)
-        svc.start()
+        t_start = time.perf_counter()
+        svc.start(warmup=True)   # SWARMDB_PREWARM's path: graphs first
+        start_s = time.perf_counter() - t_start
         c = db.metrics.counters
         keys = ("prefill_waves", "engine_decode_chunks", "tokens_generated",
                 "phase_us_decode", "prompt_tokens", "engine_admitted")
@@ -2178,6 +2489,7 @@ def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
             replies.extend(got.values())
         serve_s = time.perf_counter() - t_serve
         launches = dict(ac.LAUNCHES)
+        loop = eng.stats()["decode_chunks"]
         d = {k: c[k].value - base[k] for k in keys}
         steps = d["engine_decode_chunks"] * eng.decode_chunk
         L = cfg.n_layers
@@ -2197,6 +2509,8 @@ def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
                                       "ragged_prefill_quant")),
             "only the decode kernel": all(
                 n == 0 for k, n in launches.items() if k != decode_k),
+            "decode through CUDA graph replays": loop["chunks"] > 0
+                and bool(loop["graphs"]),
             "params on cuda": eng.params["layers"]["w_gate"].is_cuda,
         }
         if paged:
@@ -2249,7 +2563,8 @@ def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
             decode_step_wall_ms=dec_s * 1e3 / steps if steps else None,
             decode_step_bytes=step_bytes,
             decode_step_byte_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
-            card=card, max_step_s=eng.max_step_s,
+            card=card, max_step_s=eng.max_step_s, **loop_record(eng),
+            start_with_warmup_s=start_s, eager_loop_step_ms=MIXTRAL_STEP_EAGER_MS,
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
         if profiled:
             prof = profile_moe_turn(
@@ -2477,6 +2792,7 @@ def main() -> int:
         launches, params = run_serves(card)
         for k, n in run_api(card, params).items():
             launches[k] = launches.get(k, 0) + n
+        run_decode_loop(card, "llama3-8b", params, LOOP_LLAMA)
         free_weights(params)   # Llama-3-8B's weights go before Mixtral's
         del params
         for k, n in run_mixtral(card).items():

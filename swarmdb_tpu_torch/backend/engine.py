@@ -30,18 +30,32 @@ dense slot cache (``paged=None``, the JAX package's default):
   ``prefill_batch`` rows, inserted at ``cache[:, slot, :bucket]``. Either
   way the sampled first token lands in the device-resident fed-token
   vector and reaches the host as row 0 of the next decode block.
-- Decode is a host loop over chunks: ``decode_chunk`` steps of the chunk
-  forward + sampling with the cache frozen, then one merge into the cache
-  (``merge_paged_chunk`` / ``merge_chunk``), then ONE host read of the
-  [K+1, B] token block. Without ``chunked_fns`` (``SWARMDB_CHUNKED=0``)
-  a chunk is K single steps (``PagedKV.decode_forward``, or the dense
-  ``forward_fn`` at T == 1), each writing its token into the cache before
-  attending, and still one host read. The JAX package's device-resident
-  while-loop with its emission ring, its chunk pipelining, CUDA graphs,
-  lanes and rolling KV are later slices of the port (ROADMAP.md). Idle
-  slots decode garbage at position 0 each chunk, as the JAX package's
-  per-chunk path without pipelining does: what they feed matters to a MoE
-  model, whose routing counts every row of the step.
+- Decode runs in chunks of ``decode_chunk`` (K) steps
+  (``backend/decode_graphs.py``): with ``chunked_fns``, K steps of the
+  chunk forward + sampling with the cache frozen, then one merge into the
+  cache (``merge_paged_chunk`` / ``merge_chunk``); without
+  (``SWARMDB_CHUNKED=0``), K single steps (``PagedKV.decode_forward``, or
+  the dense ``forward_fn`` at T == 1), each writing its token into the
+  cache before attending. Each chunk writes a [K+1, B] token and logprob
+  block (row 0 = the fed tokens) that the host reads once. On the card a
+  chunk is one CUDA graph replay per sampling variant; on the CPU it runs
+  eagerly.
+- The two loops are the JAX package's defaults. The paged engine runs
+  device-resident decode sessions unless ``SWARMDB_EMIT_RING=0`` (read at
+  build): a session covers the active slots, runs chunks until every lane
+  is done, ``max_chunks`` have run or the host votes to stop after a chunk
+  (stopping, a chaos fault armed, nothing active, or queued work meeting a
+  free slot), and admission happens only between sessions. Every row's
+  position advances by K each chunk, idle rows' (from 0) included. The
+  dense engine, and the paged one with ``SWARMDB_EMIT_RING=0``, keep up to
+  ``pipeline_depth`` chunks in flight (``SWARMDB_PIPELINE``, default 2,
+  read by ``service.build_backend_engine``): a slot's dispatched position
+  advances at dispatch, a slot that retires with a chunk in flight decodes
+  that chunk's garbage at its own positions (the snapshot tells the host
+  to discard it), and idle slots decode at position 0. What idle and
+  retired rows feed matters to a MoE model, whose routing counts every
+  row of the step: the port gives the JAX package's tokens in both loops.
+  Lanes and rolling KV are later slices of the port (ROADMAP.md).
 
 The lane supervisor's hooks (``backend/supervisor.py``) are the JAX
 engine's: the loop stamps a liveness beat every iteration (idle waits
@@ -80,6 +94,8 @@ from ..ops.prefix_cache import PrefixLRU, page_chains
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
 from ..utils.sync import make_condition, make_rlock
+from .decode_graphs import (ChunkIO, ChunkOut, ChunkRunner, decode_chunk,
+                            variant_for)
 from .sampling import (SamplingParams, key_from_seed, make_slot_keys,
                        sample_tokens, token_logprob)
 
@@ -126,6 +142,9 @@ class _Slot:
     active: bool = False
     request: Optional[GenRequest] = None
     position: int = 0           # next absolute position to write
+    # next position to DISPATCH: runs ahead of ``position`` by the chunks
+    # in flight
+    dispatched_position: int = 0
     generated: List[int] = field(default_factory=list)
     logprobs: List[float] = field(default_factory=list)
     pending_first: bool = False  # prefill token not yet surfaced to host
@@ -181,6 +200,7 @@ class Engine:
         prefix_cache: bool = True,
         device: DeviceLike = None,
         flight_dir: Optional[str] = None,
+        pipeline_depth: int = 2,
     ) -> None:
         """``paged`` selects the paged pool (``prefix_cache`` then turns
         its prefix cache on); None the dense slot cache, which needs
@@ -213,7 +233,12 @@ class Engine:
         init_chunk(batch, K) -> chunk_kv, merge_chunk(cache, chunk_kv,
         start_positions) -> cache), or None: decode then runs
         ``paged.decode_forward`` (dense: ``forward_fn``) one step at a
-        time."""
+        time.
+
+        ``pipeline_depth`` chunks may be in flight before the host reads
+        the oldest block (the dense engine, and the paged one under
+        ``SWARMDB_EMIT_RING=0``); a paged engine otherwise decodes in
+        resident sessions (``SWARMDB_EMIT_RING``, read here)."""
         self._ragged = (paged is not None and paged.prefill_ragged is not None
                         and os.environ.get("SWARMDB_RAGGED_PREFILL",
                                            "auto") != "0")
@@ -249,6 +274,9 @@ class Engine:
         self.cache = self._new_cache()
         self._chunk_kv = (chunked_fns[1](max_batch, self.decode_chunk)
                           if chunked_fns is not None else None)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self._resident = (paged is not None and os.environ.get(
+            "SWARMDB_EMIT_RING", "1") != "0")
         self._aging_s = _env_float("SWARMDB_AGING_S", 5.0)
 
         # random keys: [B, 2] uint32 words per slot, host-side; a request
@@ -267,6 +295,12 @@ class Engine:
                                         device=self.device)
         self._last_lps = torch.zeros(max_batch + 1, dtype=torch.float32,
                                      device=self.device)
+        # the decode chunks' static buffers and their runner (the card's
+        # graphs); the monotonic stamp of the last processed chunk
+        self._io = ChunkIO.new(self._last_tokens[:max_batch],
+                               self._last_lps[:max_batch], self.decode_chunk)
+        self._runner = self._new_runner()
+        self._last_chunk_ns = 0
 
         # ragged wave width ladder: largest rung <= the pending tokens
         min_w = _env_int("SWARMDB_RAGGED_MIN_WIDTH", 8)
@@ -344,8 +378,8 @@ class Engine:
         self.chaos_step: Optional[Callable[["Engine"], None]] = None
         self.flight = FlightRecorder()
         self._flight_dir = flight_dir
-        # the longest step so far (admission + one decode chunk): what the
-        # supervisor's in-step grace must outlast
+        # the longest step so far (admission + the iteration's decode: a
+        # chunk, or a resident session, which beats after every chunk)
         self.max_step_s = 0.0
 
         self._queue: List[Tuple[int, float, int, GenRequest]] = []  # heap
@@ -413,13 +447,46 @@ class Engine:
             self._reset_state()
             self.start()
 
+    def warmup(self) -> float:
+        """Prepare every decode variant the loop can hit, before traffic
+        (``ServingService.start`` with ``SWARMDB_PREWARM=1``, as the JAX
+        package's warmup compiles its decode variants): on the card, build
+        the kernels and capture the three sampling variants' chunk graphs;
+        on the CPU, where chunks run eagerly, there is nothing to prepare.
+        Call it on an idle engine, before ``start``. Returns the seconds
+        spent."""
+        if self._thread is not None or self._any_active():
+            raise RuntimeError("warmup needs an idle engine, before start()")
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from ..ops import build
+
+            build.build_all()
+            self._runner.capture_all()
+        return time.perf_counter() - t0
+
     def _new_cache(self):
         if self.paged is not None:
             return self.paged.init_pool()
         return self._init_cache_fn(self.max_batch, self.max_seq)
 
+    def _new_runner(self) -> ChunkRunner:
+        """The decode chunks' runner over the engine's current tensors
+        (its graphs are captured at first use)."""
+        return ChunkRunner(self._chunk_body, self._io,
+                           ring=self.pipeline_depth)
+
+    def _chunk_body(self, variant: int) -> None:
+        """The decode chunk over the engine's state: what every graph
+        captures, and what the CPU runs."""
+        decode_chunk(self.params, self.cache, self._io, variant,
+                     chunked_fns=self._chunked_fns, chunk_kv=self._chunk_kv,
+                     decode_forward=self._decode_forward)
+
     def _reset_state(self) -> None:
         self.cache = self._new_cache()
+        # the graphs read the old cache: capture again at next use
+        self._runner = self._new_runner()
         if self.paged is not None:
             self.paged.allocator.reset()
         if self._prefix is not None:
@@ -510,21 +577,36 @@ class Engine:
         torch.set_num_threads(cpu_threads)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        # (block on its way, snapshot, dispatch stamp) per chunk in
+        # flight, oldest first
+        in_flight: List[Tuple[ChunkOut, List[Tuple[int, GenRequest, int]],
+                              int]] = []
         with torch.no_grad():
             while True:
                 self._in_step = False
                 self._beat()
                 with self._cv:
                     while (not self._stop and not self._queue
-                           and not self._any_active()
+                           and not self._any_active() and not in_flight
                            and not self._chaos_pending()):
                         # idle engines beat too, or the supervisor would
                         # read "no work" as "wedged"; an armed chaos fault
                         # leaves the wait to land at the seam below
                         self._beat()
                         self._cv.wait(timeout=0.25)
-                    if self._stop:
-                        return
+                    stopping = self._stop
+                if stopping:
+                    # drain the chunks in flight so their requests
+                    # complete, outside the lock: processing waits on the
+                    # device and runs user callbacks, which may re-enter
+                    # submit() or stop()
+                    for entry in in_flight:
+                        try:
+                            self._process_block(*entry)
+                        except Exception:
+                            logger.exception("drain on stop failed")
+                    in_flight.clear()
+                    return
                 cs = self.chaos_step
                 if cs is not None:
                     # a kill raises a BaseException the handler below
@@ -535,8 +617,19 @@ class Engine:
                 t_step = time.perf_counter()
                 try:
                     self._admit()
-                    if self._any_active():
-                        self._process_block(*self._decode_chunk())
+                    if self._resident:
+                        # a session runs chunks until its lanes finish or
+                        # the host votes to stop; admission waits for its
+                        # end
+                        if self._any_active():
+                            self._run_resident()
+                    else:
+                        if self._any_active():
+                            in_flight.append(self._dispatch_decode())
+                        while in_flight and (
+                                len(in_flight) >= self.pipeline_depth
+                                or not self._any_active()):
+                            self._process_block(*in_flight.pop(0))
                     self.max_step_s = max(self.max_step_s,
                                           time.perf_counter() - t_step)
                     if self._bp_paused and not self._any_active():
@@ -546,6 +639,7 @@ class Engine:
                         with self._cv:
                             self._cv.wait(timeout=0.01)
                 except Exception:
+                    in_flight.clear()
                     logger.exception("engine step failed; failing active "
                                      "requests")
                     self.flight.record_event({"kind": "engine.error"})
@@ -1246,6 +1340,7 @@ class Engine:
             slot.active = True
             slot.request = req
             slot.position = len(req.prompt)
+            slot.dispatched_position = slot.position
             slot.generated = []
             slot.logprobs = []
             slot.pending_first = True
@@ -1266,76 +1361,67 @@ class Engine:
 
     # --------------------------------------------------------------- decode
 
-    def _decode_chunk(self):
-        """One chunk of K decode steps: with ``chunked_fns``, K steps with
-        the cache frozen and then the merge; without, K single steps that
-        each write the cache. Returns the host copy of the [K+1, B] token
-        and logprob blocks (row 0 = the fed tokens) and the (slot,
-        request, start position) snapshot."""
-        t0 = time.perf_counter()
-        B, K = self.max_batch, self.decode_chunk
-        positions = np.zeros(B, np.int32)
+    def _chunk_inputs(self, positions: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """A chunk's host inputs: positions, then every slot's key words,
+        temperature, top-k and top-p."""
+        return (positions, self._base_keys_np.astype(np.int64), self._temp,
+                self._topk, self._topp)
+
+    def _dispatch_decode(self) -> Tuple[ChunkOut,
+                                        List[Tuple[int, GenRequest, int]],
+                                        int]:
+        """Launch one chunk over the active slots, without waiting for it,
+        and return (its block on the way to the host, the (slot, request,
+        start position) snapshot, the dispatch stamp). Each active slot's
+        dispatched position advances by K here; idle slots decode at 0.
+        With chunks in flight a slot can retire and be re-admitted before
+        this one is processed: the snapshot's request tells the host to
+        discard the old occupant's lane."""
+        K = self.decode_chunk
+        positions = np.zeros(self.max_batch, np.int32)
         snapshot: List[Tuple[int, GenRequest, int]] = []
         for i, s in enumerate(self.slots):
             if s.active:
-                positions[i] = s.position
-                snapshot.append((i, s.request, s.position))
-        live = [i for i, _, _ in snapshot]
-        use_filters = bool(np.any((self._topk[live] > 0)
-                                  | (self._topp[live] < 1.0)))
-        greedy = not use_filters and not np.any(self._temp[live] > 0)
-        keys = self._tensor(self._base_keys_np.astype(np.int64))
-        temp = self._tensor(self._temp)
-        topk = self._tensor(self._topk)
-        topp = self._tensor(self._topp)
-        pos0 = self._tensor(positions)
-        pos = pos0
-        tok = self._last_tokens[:B].clone()
-        toks, lps = [tok], [self._last_lps[:B].clone()]
-        chunked = self._chunked_fns is not None
-        if chunked:
-            chunk_fwd, _init_chunk, merge_chunk = self._chunked_fns
-            hk, hv = self._chunk_kv
-            hk.zero_()
-            hv.zero_()
-        for step in range(K):
-            if chunked:
-                logits, _ = chunk_fwd(self.params, tok[:, None],
-                                      pos[:, None], self.cache, (hk, hv),
-                                      step)
-            else:
-                logits, self.cache = self._decode_forward(
-                    self.params, tok[:, None], pos[:, None], self.cache)
-            tok = sample_tokens(logits[:, -1], keys, pos, temp, topk, topp,
-                                use_filters=use_filters,
-                                assume_greedy=greedy)
-            toks.append(tok)
-            lps.append(token_logprob(logits[:, -1], tok))
-            pos = pos + 1
-        if chunked:
-            merge_chunk(self.cache, (hk, hv), pos0)
-        self._last_tokens[:B] = tok
-        self._last_lps[:B] = lps[-1]
-        # the one host sync per chunk
-        block = torch.stack(toks).cpu().numpy()
-        lp_block = torch.stack(lps).cpu().numpy()
-        c = self.metrics.counters
-        c["engine_host_syncs"].inc()
-        c["engine_decode_chunks"].inc()
-        c["phase_us_decode"].inc(int((time.perf_counter() - t0) * 1e6))
-        return block, lp_block, snapshot
+                positions[i] = s.dispatched_position
+                snapshot.append((i, s.request, s.dispatched_position))
+                s.dispatched_position += K
+        variant = variant_for(self._temp, self._topk, self._topp,
+                              [i for i, _, _ in snapshot])
+        out = self._runner.launch(variant, self._chunk_inputs(positions))
+        self.metrics.counters["engine_decode_chunks"].inc()
+        return out, snapshot, time.monotonic_ns()
 
-    def _process_block(self, block: np.ndarray, lps: np.ndarray,
-                       snapshot: List[Tuple[int, GenRequest, int]]) -> None:
-        """Emit one chunk's tokens: token (s+1, i) was sampled at write
+    def _process_block(self, out: ChunkOut,
+                       snapshot: List[Tuple[int, GenRequest, int]],
+                       t_dispatch_ns: int) -> None:
+        """Wait for one dispatched chunk's block (the host's one wait on
+        it) and emit its tokens."""
+        block, lps = out.host()
+        self.metrics.counters["engine_host_syncs"].inc()
+        self._process_host_block(block, lps, snapshot, t_dispatch_ns)
+
+    def _process_host_block(self, block: np.ndarray, lps: np.ndarray,
+                            snapshot: List[Tuple[int, GenRequest, int]],
+                            t_dispatch_ns: int) -> None:
+        """Host half of block processing, fed by both loops: beat, count
+        the chunk's wall time, emit. Token (s+1, i) was sampled at write
         position pos0_i + s; emission stops at EOS / max_new_tokens /
-        max_seq and the rest of the lane is discarded garbage."""
+        max_seq and the rest of the lane is discarded garbage, as is every
+        lane whose slot no longer holds the snapshot's request."""
+        self._beat()
+        now_ns = time.monotonic_ns()
+        # the chunk's share of wall time: since its dispatch (a session's
+        # start), or since the previous chunk was processed if that came
+        # later (chunks in flight overlap; a session's follow each other)
+        self.metrics.counters["phase_us_decode"].inc(
+            (now_ns - max(t_dispatch_ns, self._last_chunk_ns)) // 1000)
+        self._last_chunk_ns = now_ns
         now = time.time()
         K = self.decode_chunk
         for i, req, pos0 in snapshot:
             s = self.slots[i]
             if not s.active or s.request is not req:
-                continue
+                continue  # retired with the chunk in flight
             if s.cancelled:
                 self._retire(i, "cancelled")
                 continue
@@ -1353,6 +1439,87 @@ class Engine:
                                  float(lps[step + 1, i]))
             if s.active:
                 s.position = pos0 + K
+
+    def _resident_should_continue(self) -> bool:
+        """The host's vote after each chunk of a session: stop when the
+        engine is stopping, a chaos fault is armed (it must land at the
+        loop-top seam), nothing is active, or queued work meets a free
+        slot (end the session, admit, start another). Lock-light as in
+        the JAX package: a stale verdict costs one chunk."""
+        if self._stop or self._chaos_pending():
+            return False
+        if not self._any_active():
+            return False
+        with self._cv:
+            queued = len(self._queue)
+        return not (queued and any(not s.active for s in self.slots))
+
+    def _run_resident(self) -> None:
+        """One device-resident decode session over the active slots: live
+        slots start at their dispatched positions, idle rows at 0, and
+        every row advances by K each chunk on the device. It runs until
+        ``max_chunks`` have run, every lane is done (its stop position
+        reached, or an EOS anywhere in its block) or the host's vote after
+        a chunk says stop; that vote decides whether the next chunk runs.
+        The host waits on each chunk's block (one host sync per chunk)."""
+        B, K = self.max_batch, self.decode_chunk
+        positions = np.zeros(B, np.int32)
+        stop_pos = np.zeros(B, np.int64)
+        live = np.zeros(B, bool)
+        snap: List[Tuple[int, GenRequest, int]] = []
+        max_rem = 0
+        for i, s in enumerate(self.slots):
+            if not s.active:
+                continue
+            pos0 = s.dispatched_position
+            positions[i] = pos0
+            live[i] = True
+            # +1 covers the pending first token (row 0 of the first
+            # block); the host still owns exact retirement
+            rem = s.request.sampling.max_new_tokens - len(s.generated) + 1
+            stop_pos[i] = min(self.max_seq, pos0 + max(1, rem))
+            snap.append((i, s.request, pos0))
+            max_rem = max(max_rem, int(stop_pos[i]) - pos0)
+        if not snap:
+            return
+        max_chunks = -(-max(1, max_rem) // K) + 1
+        variant = variant_for(self._temp, self._topk, self._topp,
+                              [i for i, _, _ in snap])
+        c = self.metrics.counters
+        c["engine_resident_sessions"].inc()
+        done = ~live
+        inputs: Optional[Tuple[np.ndarray, ...]] = self._chunk_inputs(
+            positions)
+        t_session = time.monotonic_ns()
+        n, cont = 0, True
+        try:
+            while n < max_chunks and cont and not done.all():
+                block, lps = self._runner.launch(variant, inputs).host()
+                inputs = None  # later chunks read what this one left
+                c["engine_host_syncs"].inc()
+                c["engine_decode_chunks"].inc()
+                done |= ((positions.astype(np.int64) + (n + 1) * K
+                          >= stop_pos)
+                         | np.any(block == self.eos_id, axis=0))
+                try:
+                    self._process_host_block(
+                        block, lps,
+                        [(i, req, pos0 + n * K) for i, req, pos0 in snap],
+                        t_session)
+                    cont = self._resident_should_continue()
+                except Exception:
+                    logger.exception("resident block processing failed; "
+                                     "ending the session")
+                    cont = False
+                n += 1
+        finally:
+            c["engine_resident_chunks"].inc(n)
+        for i, req, _pos0 in snap:
+            s = self.slots[i]
+            if s.active and s.request is req:
+                # the device's next fed token follows exactly the
+                # processed extent
+                s.dispatched_position = s.position
 
     def _emit_token(self, slot_id: int, token: int, now: float,
                     logprob: float) -> None:
@@ -1431,6 +1598,9 @@ class Engine:
                 for k in ("queue_wait_s", "prefill_s", "first_token_s")
                 if k in self.metrics.latencies},
             "cache": "paged" if self.paged is not None else "dense",
+            "decode_loop": ("resident" if self._resident
+                            else f"pipeline {self.pipeline_depth}"),
+            "decode_chunks": self._runner.stats(),
             "max_step_s": round(self.max_step_s, 4),
             "beat_age_s": round(self.beat_age_s(), 4),
         }

@@ -34,7 +34,12 @@ The engine decodes in chunks (``SWARMDB_CHUNKED=1``, default) or one step
 at a time (``SWARMDB_CHUNKED=0``): the dense engine over a bf16 slot cache
 with a side prefix pool, the paged one over a bf16 / f32 or int8 pool
 (``SWARMDB_KV_DTYPE``), prefilling Llama in ragged waves and Mixtral in
-row-bucketed and prefix waves. Not ported yet (ROADMAP.md, queue 1): rolling KV
+row-bucketed and prefix waves. The paged engine decodes in device-resident
+sessions (``SWARMDB_EMIT_RING``, default "1"), the dense one (and the
+paged one under ``SWARMDB_EMIT_RING=0``) with ``SWARMDB_PIPELINE`` chunks
+in flight (default 2); on the card every chunk is a CUDA graph replay,
+captured at first use or, with ``SWARMDB_PREWARM=1``, at ``start``. Not
+ported yet (ROADMAP.md, queue 1): rolling KV
 and the tiered state hierarchy (item 7), lane groups (item 9), the SLO
 sentinel (item 10) and partition locality (item 12).
 """
@@ -256,8 +261,15 @@ def build_backend_engine(
         max_batch=max_batch, max_seq=seq, eos_id=tokenizer.eos_id,
         pad_id=tokenizer.pad_id, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch,
-        prefix_cache=prefix_enabled, device=dev, flight_dir=flight_dir)
+        prefix_cache=prefix_enabled, device=dev, flight_dir=flight_dir,
+        pipeline_depth=_pipeline_depth())
     return engine, tokenizer
+
+
+def _pipeline_depth() -> int:
+    """Decode chunks in flight, ``SWARMDB_PIPELINE`` (default 2), read as
+    the JAX package's ``build_backend_engine`` reads it."""
+    return int(os.environ.get("SWARMDB_PIPELINE", "2"))
 
 
 def _dense_engine(cfg: ModelConfig, mod, params: Dict[str, Any],
@@ -302,7 +314,7 @@ def _dense_engine(cfg: ModelConfig, mod, params: Dict[str, Any],
         max_batch=max_batch, max_seq=max_seq, eos_id=tokenizer.eos_id,
         pad_id=tokenizer.pad_id, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch, device=dev,
-        flight_dir=flight_dir)
+        flight_dir=flight_dir, pipeline_depth=_pipeline_depth())
 
 
 class _Claim:
@@ -394,9 +406,16 @@ class ServingService:
                                    "model": model_name})
         return cls(db, engine, tokenizer, backend_id=backend_id)
 
-    def start(self) -> None:
-        """Bring up the engine, the reply worker and the broker consumer."""
+    def start(self, warmup: Optional[bool] = None) -> None:
+        """Bring up the engine, the reply worker and the broker consumer.
+        ``warmup`` (default: ``SWARMDB_PREWARM`` is "1") prepares every
+        decode variant first (``Engine.warmup``: on the card, the chunk
+        graphs), before any request can reach the engine."""
+        if warmup is None:
+            warmup = os.environ.get("SWARMDB_PREWARM", "0") == "1"
         self._stop.clear()
+        if warmup:
+            self.engine.warmup()
         self.engine.start()
         if self._reply_thread is None:
             self._reply_thread = threading.Thread(

@@ -158,7 +158,9 @@ def moe_block(
         keep = within.reshape(-1)
         row = torch.where(keep, e_idx * C + pos.reshape(-1),
                           torch.full_like(e_idx, E * C))
-        tok = torch.arange(N, device=x.device).repeat_interleave(top_k)
+        # each choice's token, without repeat_interleave (older PyTorch
+        # builds its repeats tensor on the host: no CUDA graph captures it)
+        tok = torch.arange(N * top_k, device=x.device) // top_k
         queue = x.new_zeros((E * C + 1, D))
         queue[row] = xf[tok]
         xe = queue[:E * C].view(E, C, D)

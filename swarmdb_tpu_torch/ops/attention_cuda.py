@@ -46,13 +46,16 @@ the CPU, and launches its CUDA kernel when they lie on a CUDA device --
 there is no fallback from one to the other. ``LAUNCHES`` counts kernel
 launches (never plain-version calls) under the kernel's name, which is also
 its library's (``ops/build.py``) and, prefixed with ``swarm_``, its entry
-point's.
+point's; ``launches_into`` diverts one thread's counts while it captures a
+CUDA graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Optional
+import threading
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -73,6 +76,22 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_counting = threading.local()
+
+
+@contextlib.contextmanager
+def launches_into(sink: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Count this thread's launches into ``sink`` instead of ``LAUNCHES``
+    while the block runs: a CUDA graph capture, whose kernels run when the
+    graph is replayed (the replay adds them to ``LAUNCHES``)."""
+    prev = getattr(_counting, "sink", None)
+    _counting.sink = sink
+    try:
+        yield sink
+    finally:
+        _counting.sink = prev
 
 
 def _check(cond: bool, what: str) -> None:
@@ -152,7 +171,11 @@ def _launch(kernel: str, sig: str, dev: torch.device, *args) -> None:
         err.restype = ctypes.c_char_p
         raise RuntimeError(f"{entry} launch failed: cuda error {code} "
                            f"({err(code).decode()})")
-    LAUNCHES[kernel] += 1
+    sink = getattr(_counting, "sink", None)
+    if sink is None:
+        LAUNCHES[kernel] += 1
+    else:
+        sink[kernel] = sink.get(kernel, 0) + 1
 
 
 def _scale(D: int) -> float:

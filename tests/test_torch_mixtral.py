@@ -15,10 +15,12 @@ reply. ``MOE8`` (tiny-moe with 8 experts, as Mixtral-8x7B has) makes the
 capacity bind at the default factor (C = N / 2 with top-2 of 8), where
 tiny-moe's 4 experts never drop a token (C = N); the forwards and the
 "binding" engine cases run it. There the idle decode slots' garbage rows
-compete for capacity, so the JAX engine runs its per-chunk path without
-pipelining (``SWARMDB_EMIT_RING=0``, ``SWARMDB_PIPELINE=1``), which the
-port's engine is: its device-resident loop and its second chunk in flight
-decode idle rows at other positions (ROADMAP.md, queue 3).
+compete for capacity, so the loop decides the tokens: the binding case
+here holds both packages at the per-chunk path without pipelining
+(``SWARMDB_EMIT_RING=0``, ``SWARMDB_PIPELINE=1``), and
+``tests/test_torch_decode_loop_{dense,paged}.py`` hold them at both
+packages' defaults too (the resident sessions and two chunks in flight,
+which decode idle and retired rows at other positions).
 """
 
 import time
