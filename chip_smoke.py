@@ -54,7 +54,20 @@ and exits non-zero at the first failure:
                retired rows take capacity) at the default decode loops,
                both engines chunked and single-step: the card's graph
                replays and the CPU's eager chunks give equal greedy
-               tokens (``run_binding_parity``).
+               tokens (``run_binding_parity``). Last, rolling KV
+               (``run_rolling_parity``, ``ROLL_PARITY_CASES``): one
+               tiny-debug f32 conversation of five chat and
+               ``function_call`` turns, on the paged engine (f32 and int8
+               pools, chunked with an f32 and with the engine's bf16
+               chunk buffer, and single-step) with the tier manager --
+               demoted to host memory before turn 3 (a warm promotion)
+               and into a store too small for it before turn 4 (a cold
+               resume) -- and on the dense engine (chunked and single-
+               step, kept pages composed into the lane): origins equal on
+               both sides, greedy tokens equal, every prefill row's
+               logits and the decode logprobs within each case's bound,
+               and the bf16 chunk buffer's cases within 1e-4 of the CPU
+               served the kernels' way (weights unrounded).
 5. serve    -- Llama-3-8B at full width (32 layers, bf16 weights from seed
                0, built once) through SwarmDB + LocalBroker +
                ServingService, six times, each at the default decode
@@ -121,6 +134,29 @@ and exits non-zero at the first failure:
                kernel's device time inside a replayed chunk beside its
                time alone and its fixed cost.
 
+7b. rolling -- rolling KV and the three conversation tiers on Llama-3-8B
+               at full width (the serve phase's weights and settings:
+               max_batch 8, max_seq 1024, chunk 8, pages of 16, graphs
+               captured at start): ``bench.py``'s ``bench_swarm1M`` cut to
+               one card -- 12 users x 4 assistants, one ~600-token context
+               turn each, then three rounds of 48 ~40-token deltas drawn
+               Zipf(1.1) (numpy seed 0), 32 new tokens, at most 10 in
+               flight -- on the paged engine over bf16 and int8 pools (769
+               pages; ``SWARMDB_TIER_WARM_MB=1024``, min idle 0.05 s) and
+               the dense engine (rolling and eviction only). Prints turns
+               and prefill tokens by origin (hot / warm / cold / fresh /
+               keep / plain), TTFT by origin, restarts, evictions, tier
+               counters, pages by tier, ms per page of demotion and of
+               promotion, pinned host bytes, peak device memory and the
+               launches. Fails unless every reply ends length / eos, each
+               paged engine shows a hot, a warm and a cold resume, and page
+               custody balances (free + registry + retired slots + prefix
+               cache = the pool). Each paged engine then runs ``tier_ab``:
+               a conversation demoted to pinned host memory and promoted
+               back must have its pool bytes equal (``torch.equal``) and
+               its next greedy turn equal to the same turn kept hot; the
+               engine otherwise idle, the turn's TTFT kept hot, promoted
+               (warm) and re-prefilled whole (cold) is printed.
 8. mixtral -- Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128,
                8 experts of FFN 14336, top-2, vocab 32000, rope theta 1e6)
                and 16 of its 32 layers (``reduced``: all 32 do not fit one
@@ -147,10 +183,14 @@ and exits non-zero at the first failure:
                serves profile one more turn (device time by kernel, GEMMs,
                indexing, the decode kernel, idle share). Then the
                decode_loop comparison on Mixtral (``LOOP_MIXTRAL``: dense
-               and paged bf16 chunked), its step beside the byte bound.
+               and paged bf16 chunked), its step beside the byte bound. A
+               seventh serve repeats the paged bf16 chunked one with
+               ``SWARMDB_ROLLING_KV=1``; the tokens each turn prefilled are
+               printed beside the non-rolling serve's.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
-serves, the api phase and the six Mixtral serves, each counted from zero
+serves, the api phase, the rolling phase and the seven Mixtral serves,
+each counted from zero
 just before it and read just after; a graph replay adds the launches its
 capture recorded) and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -987,12 +1027,15 @@ PARITY_CASES = (("f32_chunked", "float32", True, 1e-4, True),
 
 
 @contextlib.contextmanager
-def engine_env(chunked: bool):
-    """SWARMDB_CHUNKED set, and SWARMDB_PAGED unset, while an engine is
-    built (both are read there)."""
-    old = {k: os.environ.get(k) for k in ("SWARMDB_CHUNKED", "SWARMDB_PAGED")}
-    os.environ["SWARMDB_CHUNKED"] = "1" if chunked else "0"
-    os.environ.pop("SWARMDB_PAGED", None)
+def env_scope(**values):
+    """Environment variables set (a value of None: unset) for the block,
+    restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
     try:
         yield
     finally:
@@ -1001,6 +1044,13 @@ def engine_env(chunked: bool):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def engine_env(chunked: bool, **values):
+    """SWARMDB_CHUNKED set, and SWARMDB_PAGED unset, while an engine is
+    built (both are read there), with any further ``values``."""
+    return env_scope(SWARMDB_CHUNKED="1" if chunked else "0",
+                     SWARMDB_PAGED=None, **values)
 
 
 def parity_logits(p, cfg, d, kind, chunked):
@@ -1243,6 +1293,7 @@ def run_parity(dev):
              launches=launches)
     run_moe_parity(dev, prompts)
     run_binding_parity(dev)
+    run_rolling_parity(dev)
 
 
 def run_moe_parity(dev, prompts):
@@ -1387,6 +1438,675 @@ def run_binding_parity(dev):
              paged=bool(paged), chunked=chunked, seeds=[2, 3, 4],
              decode_loop=want.pop(), greedy_equal=True,
              card_graph_replays=graphs)
+
+
+# ---------------------------------------------------------------- rolling
+
+
+class RollTrace:
+    """What a rolling service did per message: the plan's mode and tier
+    origin (``_rolling_plan``), the prompt it submitted (its length and
+    resume length), and the request's tokens and logprobs; optionally the
+    first-token logits of every prefill row (``_sample_into_slots``)."""
+
+    def __init__(self, svc, logits: bool = False) -> None:
+        self.plans, self.prompts, self.done = {}, {}, {}
+        self.logits = []
+        self.order = []
+        plan, submit = svc._rolling_plan, svc.engine.submit
+
+        def traced_plan(key, msg, sampling, pre_count=0):
+            out = plan(key, msg, sampling, pre_count)
+            self.plans[msg.id] = (out[0], msg.metadata.get("tier_origin"))
+            return out
+
+        def traced_submit(req):
+            mid = req.metadata.get("message_id")
+            self.prompts[mid] = (len(req.prompt), req.resume_len)
+            self.order.append(mid)
+            user_done = req.on_done
+
+            def on_done(rid, toks, reason, req=req):
+                self.done[mid] = (list(toks), reason,
+                                  list(req.metadata.get("logprobs", [])))
+                if user_done is not None:
+                    user_done(rid, toks, reason)
+
+            req.on_done = on_done
+            return submit(req)
+
+        svc._rolling_plan = traced_plan
+        svc.engine.submit = traced_submit
+        if logits:
+            eng = svc.engine
+            sample = eng._sample_into_slots
+
+            def traced_sample(lg, gather, fold_pos, scatter):
+                rows = [r for r in range(len(scatter))
+                        if scatter[r] < eng.max_batch]
+                if rows:   # a wave of split rows' heads samples nothing
+                    self.logits.append(lg[rows].float().cpu())
+                return sample(lg, gather, fold_pos, scatter)
+
+            eng._sample_into_slots = traced_sample
+
+    def by_origin(self, ids=None) -> dict:
+        """origin (tier origin, else the plan's mode) -> the prefill
+        tokens of each of its turns."""
+        out: dict = {}
+        for mid in ids if ids is not None else self.prompts:
+            if mid not in self.prompts:
+                continue
+            mode, origin = self.plans.get(mid, ("plain", None))
+            key = origin or ("hot" if mode == "resume" else mode)
+            out.setdefault(key, []).append(self.prompts[mid][0])
+        return out
+
+
+def roll_send(db, user, assistant, content, max_new=32, function=False):
+    from swarmdb_tpu_torch.core.messages import MessageType
+
+    kw = ({"message_type": MessageType.FUNCTION_CALL} if function else {})
+    return db.send_message(user, assistant, content, metadata={
+        "generation": {"max_new_tokens": max_new, "temperature": 0.0}}, **kw)
+
+
+def roll_wait(db, completed_target, timeout=300.0) -> None:
+    completed = db.metrics.counters["completed_messages"]
+    deadline = time.time() + timeout
+    while completed.value < completed_target and time.time() < deadline:
+        time.sleep(0.005)
+    if completed.value < completed_target:
+        fail(f"rolling: {completed.value} of {completed_target} replies "
+             f"within {timeout} s")
+
+
+def wait_parked(svc, key, timeout=60.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        with svc._rolling_lock:
+            st = svc._rolling.get(key)
+            if st is not None and st.get("pages") and not st["in_flight"]:
+                return st
+        time.sleep(0.01)
+    fail(f"rolling: {key} never parked its pages")
+
+
+ROLL_PARITY_TURNS = ("chat", "function", "chat", "function", "chat")
+
+#: (name, cache dtype, paged, chunked, f32 chunk buffer, bound): the
+#: rolling parity cases, tiny-debug f32 weights on the card and on the
+#: CPU. Paged cases run the tier manager (a warm promotion before turn 3,
+#: a cold resume before turn 4); dense ones keep and resume through the
+#: side pool (its lane composed from kept pages). Bounds on the first-token
+#: logits and the decode logprobs: 1e-4 where both sides see the same
+#: f32 operands (an f32 pool single-step, or chunked with an f32 chunk
+#: buffer swapped in after the build). The engine's own chunk buffer is
+#: bf16, as in the JAX package: its plain version rounds the chunk's
+#: softmax weights to bf16 before the value product and the kernels keep
+#: them in f32, a relative 2^-9 on each weight (``layers.py``
+#: ``gqa_attention_chunked_reference``). Served on the CPU both ways
+#: (``scripts/rolling_parity_emulation.py``), tiny-debug's rolling
+#: logits and logprobs part by up to ROLL_BF16_GAP; those cases are held
+#: to 4x it, and, against the CPU served the kernels' way
+#: (``kernel_weights``), to 1e-4 with an f32 pool. The int8 cases add a
+#: requantized page's int8 code flipping where the card's and the CPU's
+#: K/V differ by float32 rounding (``PARITY_CASES``); tiny-debug's flat
+#: logits then meet near ties, and their tokens may part once, at a tie
+#: within the bound (``rolling_parity_errors``).
+ROLL_BF16_GAP = 7.5e-4
+ROLL_PARITY_CASES = (
+    ("paged_f32_chunked_f32_buffer", "float32", True, True, True, 1e-4),
+    ("paged_f32_chunked", "float32", True, True, False, 4 * ROLL_BF16_GAP),
+    ("paged_f32_single_step", "float32", True, False, False, 1e-4),
+    ("paged_int8_chunked", "int8", True, True, False, 2e-2),
+    ("paged_int8_single_step", "int8", True, False, False, 2e-2),
+    ("dense_f32_chunked", "float32", False, True, False, 4 * ROLL_BF16_GAP),
+    ("dense_f32_single_step", "float32", False, False, False, 1e-4))
+
+
+@contextlib.contextmanager
+def kernel_weights():
+    """The plain two-segment decode run the kernels' way for the block:
+    its operands upcast to float32 first, so the softmax weights meet the
+    (bf16-valued) chunk and page values unrounded."""
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    plain = ac.gqa_attention_chunked_reference
+
+    def unrounded(q, cache_k, cache_v, chunk_k, chunk_v, *args, **kw):
+        return plain(q, cache_k.float(), cache_v.float(), chunk_k.float(),
+                     chunk_v.float(), *args, **kw)
+
+    ac.gqa_attention_chunked_reference = unrounded
+    try:
+        yield
+    finally:
+        ac.gqa_attention_chunked_reference = plain
+
+
+def rolling_parity_run(d, params, kind, paged, chunked, f32_buffer):
+    """tiny-debug with rolling KV on device ``d`` (one
+    ``ROLL_PARITY_CASES`` case): one 5-turn conversation
+    (``ROLL_PARITY_TURNS``). Paged, with the tier manager: every idle
+    conversation demoted before turn 3 (a warm promotion) and demoted
+    into a store too small to hold it before turn 4 (a cold resume).
+    Returns per turn (tokens, reason, logprobs), the origins, the prefill
+    rows' first-token logits and the tier counters."""
+    import tempfile
+
+    from swarmdb_tpu_torch.backend.service import (ServingService,
+                                                   build_backend_engine)
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    import torch
+
+    db = SwarmDB(broker=LocalBroker(),
+                 save_dir=tempfile.mkdtemp(prefix="swarm_rollpar_"))
+    with engine_env(chunked, SWARMDB_ROLLING_KV="1", SWARMDB_TIER="1"):
+        eng, tok = build_backend_engine(
+            "tiny-debug", max_batch=2, max_seq=256, page_size=8, device=d,
+            params=params, kv_dtype=getattr(torch, kind), paged=paged,
+            metrics=db.metrics)
+        svc = ServingService(db, eng, tok, backend_id="b0")
+    if f32_buffer:
+        # an f32 chunk K/V buffer: the card's kernel and the CPU's plain
+        # version then see the same f32 operands
+        eng._chunk_kv = tuple(t.float() for t in eng._chunk_kv)
+    if svc._rolling is None or paged != (svc._tier is not None):
+        fail("rolling parity: rolling KV or the tier manager did not attach")
+    if paged:
+        svc._tier.min_idle_s = 0.0
+    trace = RollTrace(svc, logits=True)
+    key = ("user", "assistant")
+    try:
+        for a in key:
+            db.register_agent(a)
+        db.assign_llm_backend("assistant", "b0")
+        svc.start(warmup=d != "cpu")
+        for t, turn in enumerate(ROLL_PARITY_TURNS):
+            if paged and t in (2, 3):
+                wait_parked(svc, key)
+                if t == 3:
+                    svc._tier.store.capacity_bytes = 1   # falls to cold
+                with svc._rolling_lock:
+                    svc._tier.demote_now(10 ** 6)
+            content = ({"name": "lookup_weather",
+                        "arguments": {"city": f"city_{t}"}}
+                       if turn == "function" else f"turn {t}: tell me more")
+            roll_send(db, *key, content, max_new=12,
+                      function=turn == "function")
+            roll_wait(db, t + 1)
+        origins = [trace.plans[m][1] or ("hot" if trace.plans[m][0]
+                                         == "resume" else trace.plans[m][0])
+                   for m in trace.order]
+        turns = [trace.done[m] for m in trace.order]
+        return turns, origins, trace.logits, (
+            dict(svc._tier.status()["counters"]) if paged else None)
+    finally:
+        svc.stop()
+        db.close()
+
+
+def rolling_parity_errors(gpu, cpu, tol=None):
+    """Compare two ``rolling_parity_run`` results turn by turn: (first-
+    token logits, decode logprobs) max abs differences and where the
+    greedy tokens part, (turn, token) or None.
+
+    With ``tol`` (the int8 cases) the tokens may part once, at a near
+    tie: a first token whose two choices each sit within ``tol`` of the
+    top of the other side's logits, or a decode token whose two choices'
+    logprobs differ by at most ``tol``. Past that point the conversations
+    differ and nothing more is compared. Without ``tol`` they must not
+    part."""
+    if len(gpu[2]) != len(cpu[2]) or (tol is not None
+                                      and len(gpu[2]) != len(gpu[0])):
+        fail(f"rolling parity: {len(gpu[2])} prefill waves on the card, "
+             f"{len(cpu[2])} on the CPU, {len(gpu[0])} turns")
+
+    def logits_err(waves):
+        return max((float((a - b).abs().max()) for a, b in
+                    zip(gpu[2][:waves], cpu[2][:waves])), default=0.0)
+
+    lp = 0.0
+    for t, (a, b) in enumerate(zip(gpu[0], cpu[0])):
+        i = next((j for j, (x, y) in enumerate(zip(a[0], b[0])) if x != y),
+                 None)
+        upto = len(a[2]) if i is None else i + 1
+        lp = max([lp] + [abs(x - y) for x, y in zip(a[2][:upto],
+                                                     b[2][:upto])])
+        if i is None and a[:2] == b[:2]:
+            continue
+        if i is None or tol is None:
+            fail(f"rolling parity: tokens differ card vs cpu at turn {t}: "
+                 f"{a[:2]} {b[:2]}")
+        if i == 0:
+            ga, gb = gpu[2][t][0], cpu[2][t][0]
+            if not (ga[b[0][0]] >= ga.max() - tol
+                    and gb[a[0][0]] >= gb.max() - tol):
+                fail(f"rolling parity: turn {t}'s first token parts card "
+                     f"{a[0][0]} vs cpu {b[0][0]} with no near tie")
+        # turn t's prefill still saw the same inputs on both sides
+        return logits_err(t + 1), lp, (t, i)
+    return logits_err(len(gpu[2])), lp, None
+
+
+def run_rolling_parity(dev):
+    """The rolling parity cases (``ROLL_PARITY_CASES``): each served on the
+    card and on the CPU with the same f32 weights; greedy tokens equal
+    (int8: until they part at a near tie, if they do), first-token
+    logits and the decode logprobs within the case's bound
+    (and within 1e-4 of the CPU served the kernels' way, for the bf16
+    chunk buffer over an f32 cache), origins fresh, hot, warm, cold, hot
+    (paged) or keep, hot, hot, keep, hot (dense), and the card engine
+    launching its path's kernels."""
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    p_cpu = llama.init_params(get_config("tiny-debug"), seed=11,
+                              device="cpu", dtype=torch.float32)
+    p_gpu = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in p_cpu.items()}
+    for name, kind, paged, chunked, f32_buffer, tol in ROLL_PARITY_CASES:
+        ac.reset_launches()
+        gpu = rolling_parity_run(dev, p_gpu, kind, paged, chunked,
+                                 f32_buffer)
+        launches = {k: n for k, n in ac.LAUNCHES.items() if n}
+        cpu = rolling_parity_run("cpu", p_cpu, kind, paged, chunked,
+                                 f32_buffer)
+        # dense: turn 4 would overflow the 256-token window (211 kept
+        # tokens), so the conversation restarts there
+        want = (["fresh", "hot", "warm", "cold", "hot"] if paged
+                else ["keep", "hot", "hot", "keep", "hot"])
+        if gpu[1] != want or cpu[1] != want:
+            fail(f"rolling parity {name}: origins card {gpu[1]} cpu "
+                 f"{cpu[1]}, not {want}")
+        lg_err, lp_err, parted = rolling_parity_errors(
+            gpu, cpu, tol if kind == "int8" else None)
+        if max(lp_err, lg_err) > tol:
+            fail(f"rolling parity {name}: card vs cpu logits {lg_err}, "
+                 f"logprobs {lp_err} > {tol}")
+        kernel_way = None
+        if chunked and not f32_buffer and kind == "float32":
+            # the gap is the plain version's rounding: served the
+            # kernels' way, the CPU meets the card at float32 rounding
+            with kernel_weights():
+                emul = rolling_parity_run("cpu", p_cpu, kind, paged,
+                                          chunked, f32_buffer)
+            kernel_way = rolling_parity_errors(gpu, emul)[:2]
+            if max(kernel_way) > 1e-4:
+                fail(f"rolling parity {name}: card vs the cpu served the "
+                     f"kernels' way: logits, logprobs {kernel_way} > 1e-4")
+        if set(launches) != set(path_kernels(kind, chunked, paged)):
+            fail(f"rolling parity {name}: the card engine launched "
+                 f"{launches}")
+        emit("parity", case=f"rolling_{name}", model="tiny-debug",
+             cache=kind, paged=paged, chunked=chunked,
+             chunk_buffer=(None if not chunked else "float32"
+                           if f32_buffer else "bfloat16"),
+             turns=list(ROLL_PARITY_TURNS),
+             origins=gpu[1], greedy_equal=parted is None,
+             tokens_part_at_near_tie=parted,
+             prefill_logits_max_abs_err=lg_err,
+             decode_logprobs_max_abs_err=lp_err, bound=tol,
+             kernel_way_max_abs_err=kernel_way, tier_counters=gpu[3],
+             launches=launches)
+
+
+#: the rolling phase's scenario (bench.py's bench_swarm1M cut to one card):
+#: 12 users x 4 assistants, one ~600-token context turn per conversation,
+#: then ROLL_ROUNDS rounds of 48 ~40-token deltas drawn Zipf(1.1) from
+#: numpy seed 0, 32 new tokens each, at most ROLL_OUTSTANDING in flight
+ROLL_USERS, ROLL_ASSISTANTS, ROLL_ROUNDS = 12, 4, 3
+ROLL_OUTSTANDING = 10
+ROLL_WARM_MB = 1024
+#: (name, cache dtype, paged): the three engines of the rolling phase
+ROLL_MODES = (("paged_bf16", "bfloat16", True),
+              ("paged_int8", "int8", True),
+              ("dense", "bfloat16", None))
+
+
+def zipf_indices(k: int, exponent: float, count: int, seed: int):
+    """``bench.py``'s ``_zipf_indices``: ``count`` indices in [0, k) from
+    a bounded Zipf (inverse CDF over rank ** -exponent)."""
+    import numpy as np
+
+    ranks = np.arange(1, k + 1, dtype=np.float64)
+    cdf = np.cumsum(ranks ** -exponent)
+    cdf /= cdf[-1]
+    rng = np.random.default_rng(seed)
+    return np.searchsorted(cdf, rng.random(count)).astype(np.int64)
+
+
+def run_rolling(card: str, params):
+    """The rolling phase on Llama-3-8B at full width (``ROLL_MODES``).
+    Returns the launches summed over its engines."""
+    total = {}
+    for name, kind, paged in ROLL_MODES:
+        for k, n in rolling_serve(card, params, name, kind, paged).items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _summary(xs):
+    xs = sorted(xs)
+    return ({"n": len(xs), "median": statistics.median(xs), "max": xs[-1]}
+            if xs else {"n": 0})
+
+
+def rolling_serve(card, params, name, kind, paged):
+    """One engine of the rolling phase: build it with rolling KV (and,
+    paged, the tier manager with a ``ROLL_WARM_MB`` warm store), capture
+    its graphs, serve the scenario, check and print. Paged: then the
+    demote -> promote A/B (``tier_ab``)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import (ServingService,
+                                                   build_backend_engine)
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    db = SwarmDB(broker=LocalBroker(),
+                 save_dir=tempfile.mkdtemp(prefix="swarm_roll_"))
+    backend = "h100-0"
+    with env_scope(SWARMDB_ROLLING_KV="1", SWARMDB_TIER="1",
+                   SWARMDB_TIER_WARM_MB=ROLL_WARM_MB,
+                   SWARMDB_TIER_MIN_IDLE_S="0.05", SWARMDB_CHUNKED="1",
+                   SWARMDB_PAGED=None):
+        eng, tok = build_backend_engine(
+            "llama3-8b", seed=0, device="cuda", params=params, paged=paged,
+            kv_dtype=getattr(torch, kind) if paged else None,
+            metrics=db.metrics)
+        svc = ServingService(db, eng, tok, backend_id=backend)
+    if svc._rolling is None or (paged and svc._tier is None):
+        fail(f"rolling {name}: rolling KV or the tier manager did not "
+             f"attach")
+    users = [f"user{i}" for i in range(ROLL_USERS)]
+    assistants = [f"assistant{j}" for j in range(ROLL_ASSISTANTS)]
+    convs = [(u, a) for a in assistants for u in users]
+    trace = RollTrace(svc)
+    promote_s = [0.0, 0]
+    insert = eng._promote_insert
+
+    def timed_insert(req):
+        n = len(req.resume_pages or ())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        insert(req)
+        torch.cuda.synchronize()
+        promote_s[0] += time.perf_counter() - t0
+        promote_s[1] += n
+
+    eng._promote_insert = timed_insert
+    ctx = " ".join(f"ctx{j}" for j in range(100))
+    pinned_peak = [0]
+    pinned_before = host_pinned_bytes()
+    try:
+        for a in users + assistants:
+            db.register_agent(a)
+        for a in assistants:
+            db.assign_llm_backend(a, backend)
+        svc.start(warmup=True)
+        ac.reset_launches()
+        sent = 0
+        draws = zipf_indices(len(convs), 1.1, ROLL_ROUNDS * len(convs), 0)
+        plan = [(c, f"Conversation {c} context: {ctx}") for c in
+                range(len(convs))] + [
+            (int(c), f"Continue conversation {int(c)}, step {i}. d0 d1 d2")
+            for i, c in enumerate(draws)]
+        t_serve = time.perf_counter()
+        for c, text in plan:
+            roll_wait(db, sent - ROLL_OUTSTANDING + 1)
+            roll_send(db, *convs[c], text)
+            sent += 1
+            if svc._tier is not None:
+                pinned_peak[0] = max(pinned_peak[0],
+                                     svc._tier.store.stats()["bytes"])
+        roll_wait(db, sent)
+        serve_s = time.perf_counter() - t_serve
+        launches = dict(ac.LAUNCHES)
+        replies = []
+        for u in users:
+            replies.extend(db.receive_messages(u, max_messages=10 ** 4,
+                                               timeout=0.5))
+        reasons = [m.metadata.get("finish_reason") for m in replies]
+        # idle: every claim settled
+        deadline = time.time() + 30
+        while time.time() < deadline and (eng._any_active() or any(
+                st.get("in_flight") for st in list(svc._rolling.values()))):
+            time.sleep(0.01)
+        c = db.metrics.counters
+        lat = db.metrics.latencies
+        by_origin = trace.by_origin()
+        origins = {k: len(v) for k, v in by_origin.items()}
+        custody = rolling_custody(svc)
+        record = dict(
+            serve=name, model="llama3-8b", cache=kind,
+            engine="paged" if paged else "dense (default)",
+            conversations=len(convs), turns=sent, replies=len(replies),
+            finish_reasons={r: reasons.count(r) for r in set(reasons)},
+            turns_by_origin=origins,
+            prefill_tokens_per_turn={k: statistics.mean(v) for k, v in
+                                     by_origin.items()},
+            rolling_resumes=c["rolling_resumes"].value,
+            rolling_restarts=c["rolling_restarts"].value,
+            rolling_evictions=c["rolling_evictions"].value,
+            custody=custody, serve_wall_s=serve_s,
+            ttft_all_s=_summary(lat["send_to_first_token_s"].values()),
+            launches={k: n for k, n in launches.items() if n},
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            card=card)
+        checks = {
+            f"{sent} replies, length/eos": len(replies) == sent and all(
+                r in ("length", "eos") for r in reasons),
+            "custody balances": custody["balanced"],
+            "resumed turns": c["rolling_resumes"].value > 0,
+        }
+        if paged:
+            tier = svc._tier
+            st = tier.status()
+            record.update(
+                tier_counters=st["counters"], pages_by_tier=st["pages"],
+                warm_store=st["warm_store"],
+                ttft_by_origin_s={o: _summary(lat[f"tier_ttft_{o}_s"]
+                                              .values())
+                                  for o in ("hot", "warm", "cold", "fresh")
+                                  if f"tier_ttft_{o}_s" in lat},
+                demote_ms_per_page=(tier.demote_s * 1e3 / tier.demoted_pages
+                                    if tier.demoted_pages else None),
+                promote_ms_per_page=(promote_s[0] * 1e3 / promote_s[1]
+                                     if promote_s[1] else None),
+                pinned_host_bytes_peak=pinned_peak[0],
+                pinned_host_bytes_end=st["warm_store"]["bytes"],
+                warm_slab=tier.store.slab_stats())
+            # PyTorch's page-locked host allocator (pin_memory): what this
+            # engine added is its store's slab, not a block per demotion
+            pinned_after = host_pinned_bytes()
+            record["pinned_host_allocator_bytes"] = [pinned_before,
+                                                     pinned_after]
+            if pinned_after is not None:
+                checks["page-locked growth within the warm slab + 64 MiB"] \
+                    = (pinned_after - pinned_before
+                       <= tier.store.slab_stats()["bytes"] + (64 << 20))
+            for o in ("hot", "warm", "cold"):
+                checks[f"at least one {o} resume"] = origins.get(o, 0) > 0
+        bad = [k for k, ok in checks.items() if not ok]
+        emit("rolling", **record)
+        if bad:
+            fail(f"rolling {name} checks failed: {bad}")
+        if paged:
+            tier_ab(svc, eng, tok, name, card)
+        return launches
+    finally:
+        svc.stop()
+        db.close()
+        del svc, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def host_pinned_bytes():
+    """Bytes PyTorch's page-locked host allocator holds (None where this
+    PyTorch does not report them)."""
+    import torch
+
+    stats = (torch.cuda.host_memory_stats()
+             if hasattr(torch.cuda, "host_memory_stats") else {})
+    return stats.get("allocated_bytes.current")
+
+
+def rolling_custody(svc) -> dict:
+    """Every page of the pool (paged) or side pool (dense) accounted for,
+    the engine idle: free + the registry's device pages + pages still
+    owned by retired slots (paged) + prefix-cache pages == all but the
+    trash page (``tests/test_rolling.py``'s custody equation)."""
+    eng = svc.engine
+    with svc._rolling_lock:
+        held = sum(len(st["pages"]) for st in svc._rolling.values()
+                   if st.get("pages"))
+    cached = eng._prefix.stats()["cached_pages"]
+    if eng.paged is not None:
+        alloc = eng.paged.allocator
+        with alloc._lock:
+            in_slot = sum(len(sp.pages) for sp in alloc._by_slot.values())
+        free, pool = alloc.free_count(), alloc.num_pages - 1
+    else:
+        in_slot = 0
+        free, pool = eng._prefix.free_count(), eng._prefix.num_pages - 1
+    return dict(free=free, registry=held, in_slot=in_slot,
+                prefix_cached=cached, pool=pool,
+                balanced=free + held + in_slot + cached == pool)
+
+
+def tier_ab(svc, eng, tok, name, card):
+    """Demote -> promote against the hot path on one engine, the same
+    inputs: a ~600-token conversation kept, its next greedy turn (a
+    ~40-token delta) resumed hot; the same conversation again, its pages
+    demoted through the tier manager into pinned host memory and promoted
+    back into freshly reserved pages before the same turn. The promoted
+    pages must equal (``torch.equal``) the demoted ones, and the turn's
+    tokens the hot turn's. Times one demotion and one promotion per
+    page (synchronized)."""
+    import threading
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+    from swarmdb_tpu_torch.ops.paged_kv import QuantPool
+
+    prompt = tok.encode("probe: Conversation ab context: " + " ".join(
+        f"ctx{j}" for j in range(100)) + "\nassistant0:")
+    delta = tok.encode("\nprobe: Continue conversation ab. d0 d1 d2"
+                       "\nassistant0:", add_bos=False)
+
+    def keep(p, resume=None, payload=None):
+        done = threading.Event()
+        out = {}
+        req = GenRequest(prompt=list(p), sampling=SamplingParams(
+            max_new_tokens=32), keep_pages=True,
+            on_token=lambda r, t: out.setdefault(
+                "ttft_s", time.perf_counter() - t_submit),
+            on_pages=lambda r, pg, w, t: out.update(pages=pg, written=w,
+                                                    tail=t),
+            on_done=lambda r, t, why: (out.update(toks=t, reason=why),
+                                       done.set()))
+        if resume is not None:
+            req.resume_pages, req.resume_len = list(resume[0]), resume[1]
+            req.promote_payload = payload
+        t_submit = time.perf_counter()
+        eng.submit(req)
+        if not done.wait(300):
+            fail(f"tier A/B {name}: a turn timed out")
+        return out
+
+    def snap(ids):
+        idx = torch.tensor(ids, device=eng.device)
+        out = []
+        for pool in (eng.cache["k"], eng.cache["v"]):
+            if isinstance(pool, QuantPool):
+                out += [pool.data[:, idx].clone(), pool.scale[:, idx].clone()]
+            else:
+                out.append(pool[:, idx].clone())
+        return out
+
+    first = keep(prompt)
+    hot = keep(first["tail"] + delta, (first["pages"], first["written"]))
+    eng.rolling_free(hot["pages"])
+    again = keep(prompt)
+    if (again["written"], again["tail"]) != (first["written"],
+                                             first["tail"]):
+        fail(f"tier A/B {name}: the repeated turn 1 differs")
+    before = snap(again["pages"])
+    key = ("probe", "ab")
+    st = {"pages": list(again["pages"]), "len": again["written"],
+          "tail": list(again["tail"]), "epoch": eng.pool_epoch(),
+          "in_flight": False, "last": time.time()}
+    n = len(st["pages"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with svc._rolling_lock:
+        svc._rolling[key] = st
+        freed = svc._tier._demote_locked(key, st)
+    demote_s = time.perf_counter() - t0
+    if freed != n or not svc._tier.store.has(key):
+        fail(f"tier A/B {name}: the demotion did not land in host memory")
+    with svc._rolling_lock:
+        got = svc._tier.begin_promote(key, st, eng.pool_epoch())
+        svc._rolling.pop(key, None)
+    if got is None:
+        fail(f"tier A/B {name}: the promotion found no pages")
+    ids, payload = got
+    pinned = all(t.is_pinned() for side in payload
+                 for t in (side if isinstance(side, tuple) else (side,)))
+    after, t_promote = [], [0.0]
+    insert = eng._promote_insert
+
+    def watched(req):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        insert(req)
+        torch.cuda.synchronize()
+        t_promote[0] = time.perf_counter() - t1
+        after.extend(snap(req.resume_pages))
+
+    eng._promote_insert = watched
+    try:
+        warm = keep(again["tail"] + delta, (ids, again["written"]), payload)
+    finally:
+        eng._promote_insert = insert
+    eng.rolling_free(warm["pages"])
+    # the same turn as a cold resume: the whole history prefilled fresh
+    cold = keep(prompt + first["toks"] + delta)
+    eng.rolling_free(cold["pages"])
+    equal = len(after) == len(before) and all(
+        torch.equal(a, b) for a, b in zip(after, before))
+    emit("rolling", step="tier_ab", serve=name, pages=n,
+         page_bytes=sum(t.numel() * t.element_size() for t in before) // n,
+         pinned_payload=pinned, promoted_bytes_equal=equal,
+         warm_tokens_equal_hot=warm["toks"] == hot["toks"],
+         demote_ms_per_page=demote_s * 1e3 / n,
+         promote_ms_per_page=t_promote[0] * 1e3 / n,
+         ttft_s={"hot": hot["ttft_s"], "warm": warm["ttft_s"],
+                 "cold": cold["ttft_s"]},
+         prefill_tokens={"hot": len(first["tail"] + delta),
+                         "warm": len(again["tail"] + delta),
+                         "cold": len(prompt) + len(first["toks"])
+                         + len(delta)}, card=card)
+    if not (equal and pinned and warm["toks"] == hot["toks"]):
+        fail(f"tier A/B {name}: promoted bytes equal {equal}, pinned "
+             f"{pinned}, warm {warm['toks']} hot {hot['toks']}")
 
 
 # ------------------------------------------------------------------- serve
@@ -2344,7 +3064,10 @@ MIXTRAL_SERVES = (
     ("paged_bf16_chunked", "bfloat16", True, 3, True, True),
     ("paged_int8_chunked", "int8", True, 3, True, False),
     ("paged_bf16_single_step", "bfloat16", False, 1, True, False),
-    ("paged_int8_single_step", "int8", False, 1, True, False))
+    ("paged_int8_single_step", "int8", False, 1, True, False),
+    # SWARMDB_ROLLING_KV=1: each turn prefills only its delta on top of
+    # the conversation's kept pages (printed beside the serve above)
+    ("paged_bf16_chunked_rolling", "bfloat16", True, 3, True, False))
 
 
 def send_tool_call(db, user, turn, i, **gen):
@@ -2425,6 +3148,10 @@ def run_mixtral(card: str):
                                      expert_gemms, *spec)
             for k, n in launches.items():
                 total[k] = total.get(k, 0) + n
+        emit("mixtral", step="rolling_vs_plain",
+             prefill_tokens_per_turn={
+                 k: MOE_PREFILL_PER_TURN[k] for k in (
+                     "paged_bf16_chunked", "paged_bf16_chunked_rolling")})
         run_decode_loop(card, cfg, params, LOOP_MIXTRAL)
     finally:
         del params
@@ -2433,8 +3160,16 @@ def run_mixtral(card: str):
     return total
 
 
+#: serve name -> tokens prefilled per turn (all users), by run_moe_serve
+MOE_PREFILL_PER_TURN: dict = {}
+
+
 def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
                   chunked, turns, paged, profiled):
+    """One Mixtral serve of ``MIXTRAL_SERVES`` (a name ending in
+    "_rolling" turns on ``SWARMDB_ROLLING_KV``). Records the tokens each
+    turn prefilled (prompt tokens less the reused ones) in
+    ``MOE_PREFILL_PER_TURN``."""
     import gc
     import tempfile
 
@@ -2456,12 +3191,15 @@ def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
     db = SwarmDB(broker=LocalBroker(),
                  save_dir=tempfile.mkdtemp(prefix="swarm_moe_"))
     backend = "h100-0"
-    with engine_env(chunked):
+    rolling = name.endswith("_rolling")
+    with engine_env(chunked, SWARMDB_ROLLING_KV="1" if rolling else "0"):
         eng, tok = build_backend_engine(
             cfg, seed=0, device="cuda", params=params, paged=paged,
             kv_dtype=getattr(torch, kind) if paged else None,
             metrics=db.metrics)
-    svc = ServingService(db, eng, tok, backend_id=backend)
+        svc = ServingService(db, eng, tok, backend_id=backend)
+    if rolling != (svc._rolling is not None):
+        fail(f"mixtral {name}: rolling KV {'off' if rolling else 'on'}")
     users = [f"user{i}" for i in range(4)]
     try:
         for a in users + ["assistant"]:
@@ -2476,17 +3214,24 @@ def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
         base = {k: c[k].value for k in keys}
         ac.reset_launches()
         replies = []
+        per_turn = []
         t_serve = time.perf_counter()
         for turn in range(turns):
+            seen = (c["prompt_tokens"].value
+                    - eng.metrics.counters["prefix_reused_tokens"].value)
             for i, u in enumerate(users):
                 gen = ({"temperature": 0.8, "top_p": 0.9, "seed": 7}
-                       if turn == 0 and i == 3 else {})
+                       if turn == 0 and i == 3 and not rolling else {})
                 send_tool_call(db, u, turn, i, **gen)
             got = await_replies(db, users)
             if len(got) < len(users):
                 fail(f"mixtral {name} turn {turn + 1}: {len(got)} of "
                      f"{len(users)} replies")
             replies.extend(got.values())
+            per_turn.append(c["prompt_tokens"].value
+                            - eng.metrics.counters[
+                                "prefix_reused_tokens"].value - seen)
+        MOE_PREFILL_PER_TURN[name] = per_turn
         serve_s = time.perf_counter() - t_serve
         launches = dict(ac.LAUNCHES)
         loop = eng.stats()["decode_chunks"]
@@ -2552,6 +3297,8 @@ def run_moe_serve(card, cfg, params, weights_gib, expert_gemms, name, kind,
             chunked=chunked, turns=turns, replies=len(replies),
             reply_type="function_result", finish_reasons=reasons,
             prefix_reused_tokens=reused, prefill_waves=d["prefill_waves"],
+            prefill_tokens_per_turn=per_turn,
+            rolling_resumes=c["rolling_resumes"].value,
             decode_steps=steps, launches={k: n for k, n in launches.items()
                                           if n},
             ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
@@ -2793,6 +3540,8 @@ def main() -> int:
         for k, n in run_api(card, params).items():
             launches[k] = launches.get(k, 0) + n
         run_decode_loop(card, "llama3-8b", params, LOOP_LLAMA)
+        for k, n in run_rolling(card, params).items():
+            launches[k] = launches.get(k, 0) + n
         free_weights(params)   # Llama-3-8B's weights go before Mixtral's
         del params
         for k, n in run_mixtral(card).items():

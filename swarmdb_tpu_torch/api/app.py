@@ -67,7 +67,6 @@ UNPORTED_ROUTES = {
     "/admin/kerncheck": ("the kernel sanitizer", 10),
     "/admin/profile": ("the device-time profiler", 10),
     "/admin/mem": ("the memory accountant", 10),
-    "/admin/tiers": ("tiered conversation state", 7),
 }
 
 
@@ -618,6 +617,16 @@ def create_app(
         supervisor = getattr(serving, "supervisor", None)
         if supervisor is not None:
             lines.extend(await _run_sync(supervisor.prometheus_lines))
+        tier = getattr(serving, "_tier", None)
+        if tier is not None:
+            tstatus = await _run_sync(tier.status)
+            lines.append("# TYPE swarmdb_tier_pages gauge")
+            lines += [f'swarmdb_tier_pages{{tier="{name}"}} {n}'
+                      for name, n in tstatus["pages"].items()]
+            for cname in ("demotions", "promotions", "cold_resumes"):
+                lines += [f"# TYPE swarmdb_tier_{cname}_total counter",
+                          f"swarmdb_tier_{cname}_total "
+                          f"{tstatus['counters'][cname]}"]
         return web.Response(text="\n".join(lines) + "\n",
                             content_type="text/plain")
 
@@ -650,6 +659,25 @@ def create_app(
                 raise _error(404, "no automatic dump taken yet")
             return web.json_response(flight.last_dump)
         return web.json_response(await _run_sync(flight.dump))
+
+    async def admin_tiers(request: web.Request) -> web.Response:
+        """GET /admin/tiers: the conversation-state tiers (pages hot on
+        the card, warm in host memory, cold in the log), the warm store,
+        the demote / promote / cold-resume counters, the warm hit rate
+        and the config. Always answers: without a tier manager,
+        ``{"enabled": false}`` and the hot page count."""
+        require_admin(current_agent(request))
+        tier = getattr(serving, "_tier", None)
+        if tier is not None:
+            return web.json_response(await _run_sync(tier.status))
+        out: Dict[str, Any] = {"enabled": False,
+                               "pages": {"hot": 0, "warm": 0, "cold": 0}}
+        paged = getattr(getattr(serving, "engine", None), "paged", None)
+        if paged is not None:
+            pstats = await _run_sync(paged.allocator.stats)
+            out["pages"]["hot"] = max(0, int(pstats["num_pages"]) - 1
+                                      - int(pstats["free_pages"]))
+        return web.json_response(out)
 
     def unported(path: str):
         what, item = UNPORTED_ROUTES[path]
@@ -810,6 +838,7 @@ def create_app(
         web.post("/admin/profile/stop", profile_stop),
         web.get("/admin/trace/export", trace_export),
         web.get("/admin/flight", flight_record),
+        web.get("/admin/tiers", admin_tiers),
     ] + [web.get(path, unported(path)) for path in UNPORTED_ROUTES])
 
     async def on_shutdown(app: web.Application) -> None:

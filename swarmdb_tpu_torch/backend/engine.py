@@ -55,7 +55,20 @@ dense slot cache (``paged=None``, the JAX package's default):
   to discard it), and idle slots decode at position 0. What idle and
   retired rows feed matters to a MoE model, whose routing counts every
   row of the step: the port gives the JAX package's tokens in both loops.
-  Lanes and rolling KV are later slices of the port (ROADMAP.md).
+  Lanes are a later slice of the port (ROADMAP.md).
+- Rolling KV (``GenRequest.keep_pages`` / ``resume_pages``, driven by the
+  service's registry): a keep request hands its pages to ``on_pages`` at
+  retirement (paged: custody moves; dense: the lane is copied into side
+  pool pages) with the host-confirmed written extent and the tail tokens
+  past it; a resume request references the kept pages and prefills only
+  its suffix from ``resume_len`` (mid-page): paged through
+  ``forward_prefix_pages`` and ``paged_write_chunk``, dense through the
+  prefix lane, in one wave per suffix bucket padded to ``prefill_batch``
+  rows. A resume's epoch (``pool_epoch``) is checked at submit and at
+  admission ("stale_resume"). Warm-tier promotions copy their host
+  payload into the reserved pages first (``_promote_insert``). Every such
+  write lands in place, in the tensors the decode graphs read, on the
+  engine thread's stream.
 
 The lane supervisor's hooks (``backend/supervisor.py``) are the JAX
 engine's: the loop stamps a liveness beat every iteration (idle waits
@@ -88,8 +101,10 @@ import numpy as np
 import torch
 
 from ..obs.flight import FlightRecorder
-from ..ops.paged_kv import (PageAllocator, paged_write_ragged,
-                             pool_insert_pages, set_page_table_rows)
+from ..ops.paged_kv import (PageAllocator, QuantPool, paged_write_chunk,
+                             paged_write_ragged, pool_dtype,
+                             pool_insert_pages, pool_insert_raw, pool_layer,
+                             set_page_table_rows)
 from ..ops.prefix_cache import PrefixLRU, page_chains
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
@@ -135,6 +150,30 @@ class GenRequest:
     deadline: Optional[float] = None
     # how many times the supervisor may requeue a retryable finish
     retries_left: int = 0
+    # ---- rolling KV: a conversation continued across turns ----
+    # resume_pages: page ids already holding this conversation's K/V (the
+    # caller, the service's rolling registry, keeps custody; the engine
+    # only references them). resume_len: tokens in those pages; ``prompt``
+    # then carries only the new suffix, decoded on from resume_len +
+    # len(prompt)
+    resume_pages: Optional[List[int]] = None
+    resume_len: int = 0
+    # keep_pages: at retirement the slot's pages leave engine custody and
+    # on_pages(request_id, pages, written_len, tail_tokens) fires instead
+    # of a free. tail_tokens are emitted tokens whose K/V the host has not
+    # confirmed written (the written extent is chunk-granular): the next
+    # resume's prompt starts with them
+    keep_pages: bool = False
+    on_pages: Optional[Callable[[str, List[int], int, List[int]],
+                                None]] = None
+    # resume_epoch: Engine.pool_epoch() when the resume was planned;
+    # submit and admission both check it, since a pool reset in between
+    # hands the page ids to other slots ("stale_resume")
+    resume_epoch: Optional[int] = None
+    # promote_payload: a warm-tier promotion's host payload ((k, v)
+    # ``pool_gather_pages`` outputs), copied into resume_pages (freshly
+    # reserved) on the engine thread before the resume prefill reads them
+    promote_payload: Optional[Any] = None
 
 
 @dataclass
@@ -316,6 +355,14 @@ class Engine:
         self._bp_shed = max(_env_float("SWARMDB_POOL_SHED", 0.98),
                             self._bp_high)
         self._bp_paused = False
+        # the tier manager's demote band, one rung below the pause
+        # watermark with the same hysteresis (on until utilisation falls
+        # back to the low watermark): SWARMDB_TIER_DEMOTE (default 0.85),
+        # clamped into [low, high]; >= 1 turns the early signal off
+        demote = _env_float("SWARMDB_TIER_DEMOTE", 0.85)
+        self._bp_demote = (demote if demote >= 1.0
+                           else max(self._bp_low, min(demote, self._bp_high)))
+        self._tier_demoting = False
 
         # dense prefill buckets: one wave shape per bucket (x4 growth in
         # long context, where padding is bounded by the prefix cache)
@@ -336,6 +383,7 @@ class Engine:
         # prefill that reads them) and a prompt's full pages are copied
         # out of its lane into acquired pages
         self._prefix: Optional[PrefixLRU] = None
+        self._prefix_pages_fwd: Optional[Callable] = None
         self._slot_prefix_pins: Dict[int, List[int]] = {}
         self._prefix_ps = paged.page_size if paged else prefix_page_size
         if paged is not None and prefix_cache:
@@ -376,6 +424,20 @@ class Engine:
         # iteration on the engine thread, before admission. None in
         # production
         self.chaos_step: Optional[Callable[["Engine"], None]] = None
+        # rolling KV's hooks, wired by ServingService (and TierManager):
+        # on_pool_pressure(need) when paged admission cannot allocate (or
+        # a dense keep finds its side pool short): the service evicts
+        # idle conversations; on_tier_pressure(need) from the gate's
+        # demote band: the tier worker plans demotions (no device work);
+        # on_tier_drain() at the start of each paged admission round,
+        # after the pending-free flush: the planned demotions run here,
+        # on the engine thread. All three run on the engine thread
+        self.on_pool_pressure: Optional[Callable[[int], None]] = None
+        self.on_tier_pressure: Optional[Callable[[int], None]] = None
+        self.on_tier_drain: Optional[Callable[[], None]] = None
+        # promotion copies in flight: (event, pinned source) kept alive
+        # until the event has passed
+        self._promote_sources: List[Tuple[Any, Any]] = []
         self.flight = FlightRecorder()
         self._flight_dir = flight_dir
         # the longest step so far (admission + the iteration's decode: a
@@ -484,9 +546,9 @@ class Engine:
                      decode_forward=self._decode_forward)
 
     def _reset_state(self) -> None:
-        self.cache = self._new_cache()
-        # the graphs read the old cache: capture again at next use
-        self._runner = self._new_runner()
+        # the pool generation moves first: a rolling plan racing the
+        # rebuild reads the new epoch and fails closed ("stale_resume"),
+        # never the old epoch over a rebuilt pool
         if self.paged is not None:
             self.paged.allocator.reset()
         if self._prefix is not None:
@@ -494,6 +556,10 @@ class Engine:
             if self.paged is None:
                 self._prefix_pool = self._prefix_init_pool(
                     self._prefix_num_pages, self._prefix_ps)
+        self.cache = self._new_cache()
+        # the graphs read the old cache: capture again at next use
+        self._runner = self._new_runner()
+        self._promote_sources.clear()
         self._slot_prefix_pins.clear()
         self._last_tokens.zero_()
         self._last_lps.zero_()
@@ -502,15 +568,81 @@ class Engine:
             for t in self._chunk_kv:
                 t.zero_()
 
+    # ------------------------------------------------------ rolling KV
+    # The service's rolling registry holds page custody between turns;
+    # these hide which pool the pages come from (the paged engine's pool,
+    # or the dense engine's prefix side pool).
+
+    def pool_epoch(self) -> int:
+        """Epoch of page ids held outside the engine: the pool's own
+        generation, bumped by every reset (restart and error recovery
+        alike). Paged engines stamp the page allocator, dense ones the
+        prefix side pool (where dense rolling custody comes from); an
+        engine with neither has no page ids to hold."""
+        if self.paged is not None:
+            return self.paged.allocator.generation
+        if self._prefix is not None:
+            return self._prefix.generation
+        return self.metrics.counters["engine_restarts"].value
+
+    def supports_rolling(self) -> bool:
+        """A paged engine with the pages forward (its prefix cache on),
+        or a dense one with its prefix side pool."""
+        if self.paged is not None:
+            return self._prefix_pages_fwd is not None
+        return self._prefix is not None
+
+    def rolling_page_size(self) -> int:
+        return self.paged.page_size if self.paged is not None \
+            else self._prefix_ps
+
+    def rolling_free(self, pages) -> None:
+        """Return registry-custody pages to their pool (the caller checks
+        the epoch first)."""
+        if self.paged is not None:
+            self.paged.allocator.add_free(list(pages))
+        else:
+            for p in pages:
+                self._prefix.release(p)
+
+    def rolling_free_count(self) -> int:
+        if self.paged is not None:
+            return self.paged.allocator.free_count()
+        return self._prefix.free_count()
+
     # ------------------------------------------------------------ requests
 
     def submit(self, request: GenRequest) -> str:
         """Thread-safe enqueue; returns the request id."""
-        if len(request.prompt) >= self.max_seq:
-            raise ValueError(f"prompt length {len(request.prompt)} >= "
+        total = request.resume_len + len(request.prompt)
+        if total >= self.max_seq:
+            raise ValueError(f"prompt length {total} (resumed included) >= "
                              f"max_seq {self.max_seq}")
         if not request.prompt:
             raise ValueError("empty prompt")
+        if request.resume_pages is not None:
+            if not self.supports_rolling():
+                raise ValueError("resume_pages needs the rolling-KV "
+                                 "machinery (a paged engine with its pages "
+                                 "forward, or a dense one with the prefix "
+                                 "cache)")
+            if not request.resume_pages or request.resume_len <= 0:
+                raise ValueError("resume needs pages and resume_len > 0")
+            if len(request.resume_pages) > self._prefix_pp_buckets[-1]:
+                raise ValueError(
+                    f"{len(request.resume_pages)} resume pages exceed the "
+                    f"widest prefix-gather bucket "
+                    f"{self._prefix_pp_buckets[-1]}")
+            ps = self.rolling_page_size()
+            if -(-request.resume_len // ps) != len(request.resume_pages):
+                raise ValueError("resume_pages must exactly cover "
+                                 "resume_len")
+            if (request.resume_epoch is not None
+                    and request.resume_epoch != self.pool_epoch()):
+                raise ValueError(
+                    "stale resume epoch: the page pool was rebuilt since "
+                    "these pages were planned (engine restart); the "
+                    "conversation must restart fresh")
         if self.paged is not None:
             alloc = self.paged.allocator
             need = alloc.pages_needed(len(request.prompt),
@@ -718,11 +850,29 @@ class Engine:
 
     def _backpressure_gate(self) -> bool:
         """Watermark hysteresis over pool utilisation; True when admission
-        may proceed. Past the shed watermark the lowest-priority queued
-        class is returned with retryable reason "shed"."""
+        may proceed. Past the demote watermark the tier manager is
+        signalled (until utilisation falls back to the low watermark);
+        paused, the pool-pressure hook may evict idle conversations, and
+        past the shed watermark the lowest-priority queued class is
+        returned with retryable reason "shed"."""
         if self._bp_high >= 1.0:
             return True
         util = 1.0 - self._pool_headroom()
+        cap = max(1, self.paged.num_pages - 1)
+        if self.on_tier_pressure is not None and self._bp_demote < 1.0:
+            if self._tier_demoting:
+                if util <= self._bp_low:
+                    self._tier_demoting = False
+            elif util >= self._bp_demote:
+                self._tier_demoting = True
+                self.flight.record_event({"kind": "tier.pressure",
+                                          "util": round(util, 3)})
+            if self._tier_demoting:
+                try:
+                    self.on_tier_pressure(
+                        max(1, int((util - self._bp_low) * cap)))
+                except Exception:
+                    logger.exception("tier-pressure callback failed")
         if self._bp_paused:
             if util <= self._bp_low:
                 self._bp_paused = False
@@ -739,6 +889,11 @@ class Engine:
                  "util": round(util, 3)})
         if not self._bp_paused:
             return True
+        if self.on_pool_pressure is not None:
+            try:
+                self.on_pool_pressure(max(1, int((util - self._bp_low) * cap)))
+            except Exception:
+                logger.exception("pool-pressure callback failed")
         if util >= self._bp_shed:
             self._shed_lowest()
         return False
@@ -774,9 +929,12 @@ class Engine:
             self._admit_paged()
 
     def _admit_paged(self) -> None:
-        """Paged admission rounds, prefilled in ragged waves. A request
-        whose pages the pool cannot cover stops the round (no skip-ahead:
-        long prompts do not starve behind short ones)."""
+        """Paged admission rounds. A request whose pages the pool cannot
+        cover stops the round (no skip-ahead: long prompts do not starve
+        behind short ones); the pool-pressure hook then gets one call per
+        round to evict idle rolling conversations. A rolling resume
+        references its kept pages and takes fresh pages for the rest; one
+        planned against an older pool epoch fails "stale_resume" here."""
         alloc = self.paged.allocator
         # reclaim retired slots' pages: zero their table rows on device
         # first, then return the pages (a stale row never sees reuse)
@@ -790,12 +948,23 @@ class Engine:
                 alloc.requeue_pending(pending)
                 raise
             alloc.release_taken(pending)
+        self._promote_sources = [(ev, src) for ev, src
+                                 in self._promote_sources if not ev.query()]
+        if self.on_tier_drain is not None:
+            # the tier worker's planned demotions, on this thread
+            try:
+                self.on_tier_drain()
+            except Exception:
+                logger.exception("tier drain failed")
         if not self._backpressure_gate():
             return
+        pressure_called = False
         while True:
             popped: List[GenRequest] = []
             rows: List[Tuple[int, np.ndarray]] = []
             plans: Dict[int, Tuple[List[int], Optional[List[bytes]]]] = {}
+            stale: List[GenRequest] = []
+            pressure_need = 0
             with self._cv:
                 free = [i for i, s in enumerate(self.slots) if not s.active]
                 take = min(len(free), len(self._queue), self.prefill_batch)
@@ -803,39 +972,90 @@ class Engine:
                     return
                 while free and self._queue and len(popped) < take:
                     req = self._queue[0][3]
+                    if (req.resume_pages is not None
+                            and req.resume_epoch is not None
+                            and req.resume_epoch != alloc.generation):
+                        # the pool was reset while it sat queued: its
+                        # page ids belong to others now (no slot used)
+                        heapq.heappop(self._queue)
+                        stale.append(req)
+                        continue
                     slot_id = free[0]
-                    need = alloc.pages_needed(len(req.prompt),
-                                              req.sampling.max_new_tokens,
-                                              self.decode_chunk)
                     hits: List[int] = []
                     chains: Optional[List[bytes]] = None
-                    if (self._prefix is not None
-                            and len(req.prompt) >= self._prefix_ps):
-                        hits, chains = self._prefix_plan(req.prompt,
-                                                         pin=True)
-                    row = self._paged_allocate(slot_id, hits,
-                                               max(0, need - len(hits)))
-                    if row is None:
-                        if hits:
-                            self._prefix.unpin(hits)
-                        break  # pool exhausted; retry after retirements
+                    if req.resume_pages is not None:
+                        # kept pages referenced in place (registry
+                        # custody); fresh pages past resume_len only
+                        worst = min(alloc.max_seq,
+                                    req.resume_len + len(req.prompt)
+                                    + req.sampling.max_new_tokens
+                                    + self.decode_chunk)
+                        n_fresh = max(0, -(-worst // self.paged.page_size)
+                                      - len(req.resume_pages))
+                        row = alloc.allocate_with_prefix(
+                            slot_id, req.resume_pages, n_fresh)
+                        if row is None:
+                            pressure_need = n_fresh
+                            break
+                    else:
+                        need = alloc.pages_needed(len(req.prompt),
+                                                  req.sampling.max_new_tokens,
+                                                  self.decode_chunk)
+                        # a keep_pages (rolling) request bypasses the hash
+                        # prefix cache both ways: a hit would reference
+                        # cache pages retirement cannot hand over, and
+                        # registration would take the slot's own pages
+                        if (self._prefix is not None
+                                and len(req.prompt) >= self._prefix_ps
+                                and not req.keep_pages):
+                            hits, chains = self._prefix_plan(req.prompt,
+                                                             pin=True)
+                        row = self._paged_allocate(slot_id, hits,
+                                                   max(0, need - len(hits)))
+                        if row is None:
+                            if hits:
+                                self._prefix.unpin(hits)
+                            pressure_need = max(0, need - len(hits))
+                            break  # pool exhausted; retry after retirements
                     heapq.heappop(self._queue)
                     free.pop(0)
                     self._admitting.add(req.request_id)
                     popped.append(req)
                     rows.append((slot_id, row))
                     plans[slot_id] = (hits, chains)
+            # outside the lock: the callbacks and the pressure hook may
+            # re-enter submit() or take the service's locks
+            for req in stale:
+                self.metrics.counters["engine_stale_resumes"].inc()
+                _call(req.on_done, req.request_id, [], "stale_resume")
             if not popped:
+                if (pressure_need > 0 and not pressure_called
+                        and self.on_pool_pressure is not None):
+                    # one eviction attempt per round, then wait for
+                    # retirements as before
+                    pressure_called = True
+                    try:
+                        self.on_pool_pressure(pressure_need)
+                    except Exception:
+                        logger.exception("pool-pressure callback failed")
+                    continue
+                if stale:
+                    continue  # the stale pops may have unblocked the head
                 return
             set_page_table_rows(self.cache["page_table"],
                                 [r[0] for r in rows],
                                 np.stack([r[1] for r in rows]))
+            for req in popped:
+                if req.promote_payload is not None:
+                    self._promote_insert(req)
             batch = [(sid, req) + plans[sid] + (row,)
                      for (sid, row), req in zip(rows, popped)]
             for key, group in self._paged_groups(batch):
                 try:
                     if key == "ragged":
                         self._prefill_ragged_waves(group)
+                    elif isinstance(key, tuple) and key[0] == "resume":
+                        self._prefill_paged_resume_batch(group, *key[1:])
                     elif isinstance(key, tuple):
                         self._prefill_paged_prefix_batch(group, *key[1:])
                     else:
@@ -859,29 +1079,44 @@ class Engine:
 
     def _paged_groups(self, batch: List[Tuple]) -> List[Tuple[Any, List]]:
         """A paged round's prefill waves, as the JAX engine's ``_admit``
-        groups them: every row into ragged waves; or, without them, the
-        rows with a prefix plan (prompts of a page or more, prefix cache
-        on) into ONE prefix wave padded to the round's largest (suffix
-        bucket, prefix width) and the others into one bucketed wave per
-        bucket. ``batch`` rows: (slot_id, req, hits, chains, table_row)."""
-        if self._ragged:
-            return [("ragged", batch)]
+        groups them. Rolling resumes go to resume waves, one per suffix
+        bucket (``("resume", bucket, prefix width)``: a one-turn delta is
+        not padded to a long straggler's bucket). The rest go into ragged
+        waves; or, without them, the rows with a prefix plan (prompts of a
+        page or more, prefix cache on, no keep_pages) into ONE prefix wave
+        padded to the round's largest (suffix bucket, prefix width) and
+        the others into one bucketed wave per bucket (keyed by the
+        bucket). ``batch`` rows: (slot_id, req, hits, chains,
+        table_row)."""
         groups: Dict[Any, List[Tuple]] = {}
         prefix: List[Tuple] = []
+        resume: Dict[int, List[Tuple]] = {}
+        rest: List[Tuple] = []
         max_suffix = max_hits = 0
         for item in batch:
             _sid, req, hits, chains, _row = item
-            if chains is None:
+            if req.resume_pages is not None:
+                resume.setdefault(self._bucket_for(max(1, len(req.prompt))),
+                                  []).append(item)
+            elif self._ragged:
+                rest.append(item)
+            elif chains is None:
                 groups.setdefault(self._bucket_for(len(req.prompt)),
                                   []).append(item)
-                continue
-            prefix.append(item)
-            max_suffix = max(max_suffix,
-                             len(req.prompt) - len(hits) * self._prefix_ps)
-            max_hits = max(max_hits, len(hits))
+            else:
+                prefix.append(item)
+                max_suffix = max(max_suffix,
+                                 len(req.prompt) - len(hits) * self._prefix_ps)
+                max_hits = max(max_hits, len(hits))
         if prefix:
             groups[("prefix", self._bucket_for(max(1, max_suffix)),
                     self._pp_bucket_for(max(1, max_hits)))] = prefix
+        for bucket, items in resume.items():
+            width = max(max(1, len(it[1].resume_pages)) for it in items)
+            groups.setdefault(("resume", bucket, self._pp_bucket_for(width)),
+                              []).extend(items)
+        if rest:
+            groups["ragged"] = rest
         return list(groups.items())
 
     def _prefix_plan(self, prompt: List[int], pin: bool
@@ -986,21 +1221,42 @@ class Engine:
         on a full miss, so that their pages are registered for the next
         turn: ONE fused suffix prefill per round, padded to the round's
         largest (suffix bucket, prefix width); shorter prompts prefill in
-        one bucketed wave per bucket."""
+        one bucketed wave per bucket; rolling resumes in one wave per
+        suffix bucket, their kept side-pool pages composed into the lane.
+        A resume planned against an older pool epoch fails
+        "stale_resume"."""
         ps = self._prefix_ps
         while True:
+            stale: List[GenRequest] = []
             with self._cv:
                 free = [i for i, s in enumerate(self.slots) if not s.active]
                 take = min(len(free), len(self._queue), self.prefill_batch)
                 if take == 0:
                     return
-                popped = [heapq.heappop(self._queue)[3] for _ in range(take)]
+                popped = []
+                for _ in range(take):
+                    if not self._queue:
+                        break
+                    req = heapq.heappop(self._queue)[3]
+                    if (req.resume_pages is not None
+                            and req.resume_epoch is not None
+                            and req.resume_epoch != self.pool_epoch()):
+                        stale.append(req)
+                    else:
+                        popped.append(req)
                 self._admitting.update(r.request_id for r in popped)
+            for req in stale:
+                self.metrics.counters["engine_stale_resumes"].inc()
+                _call(req.on_done, req.request_id, [], "stale_resume")
             groups: Dict[Any, List[Tuple]] = {}
             prefix_batch: List[Tuple] = []
+            resume: Dict[int, List[Tuple]] = {}
             max_suffix = max_hits = 0
             for slot_id, req in zip(free, popped):
-                if self._prefix is not None and len(req.prompt) >= ps:
+                if req.resume_pages is not None:
+                    resume.setdefault(self._bucket_for(max(1, len(req.prompt))),
+                                      []).append((slot_id, req))
+                elif self._prefix is not None and len(req.prompt) >= ps:
                     hits, chains = self._prefix_plan(req.prompt, pin=False)
                     prefix_batch.append((slot_id, req, hits, chains))
                     max_suffix = max(max_suffix,
@@ -1012,10 +1268,17 @@ class Engine:
             if prefix_batch:
                 groups[("prefix", self._bucket_for(max(1, max_suffix)),
                         self._pp_bucket_for(max(1, max_hits)))] = prefix_batch
+            for bucket, items in resume.items():
+                width = max(max(1, len(it[1].resume_pages)) for it in items)
+                groups.setdefault(("resume", bucket,
+                                   self._pp_bucket_for(width)),
+                                  []).extend(items)
             for key, batch in groups.items():
                 try:
-                    if isinstance(key, tuple):
-                        self._prefill_prefix_batch(batch, key[1], key[2])
+                    if isinstance(key, tuple) and key[0] == "resume":
+                        self._prefill_dense_resume_batch(batch, *key[1:])
+                    elif isinstance(key, tuple):
+                        self._prefill_prefix_batch(batch, *key[1:])
                     else:
                         self._prefill_batch(batch)
                 except Exception:
@@ -1140,6 +1403,97 @@ class Engine:
         self._count_wave(lengths[:n], padded.size)
         self._register_prefix(batch)
         self._activate([(it[0], it[1]) for it in batch], t0)
+
+    def _promote_insert(self, req: GenRequest) -> None:
+        """A warm-tier promotion: copy the host payload into the request's
+        freshly reserved resume pages, in place, before the resume prefill
+        reads them. The exact storage-width bytes that left the pool come
+        back (``pool_insert_raw``), so the resumed decode is the one that
+        never spilled. One batched copy per pool on the engine's stream;
+        the page-locked source stays referenced until an event recorded
+        after the copy has passed."""
+        payload, req.promote_payload = req.promote_payload, None
+        if payload is None or not req.resume_pages:
+            return
+        t0 = time.perf_counter()
+        ids = self._tensor(np.asarray(req.resume_pages, np.int64))
+        pool_insert_raw(self.cache["k"], ids, payload[0])
+        pool_insert_raw(self.cache["v"], ids, payload[1])
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            self._promote_sources.append((event, payload))
+        self.metrics.counters["engine_tier_promote_inserts"].inc()
+        self.metrics.latencies["tier_promote_s"].observe(
+            time.perf_counter() - t0)
+
+    def _prefill_paged_resume_batch(self, batch: List[Tuple], bucket: int,
+                                    ppb: int) -> None:
+        """One suffix prefill continuing kept conversations (rolling KV,
+        ``GenRequest.resume_pages``), padded to [prefill_batch, bucket]
+        with a ``ppb``-page table of kept pages: the suffix forward
+        attends the kept pages in place plus the suffix causally, its K/V
+        is written positionally from resume_len (mid-page,
+        ``paged_write_chunk``, one layer at a time) through the slot's
+        table row, and the first tokens are sampled. Nothing is registered:
+        the kept pages stay in the registry's custody. ``batch`` rows:
+        (slot_id, req, hits, chains, table_row)."""
+        t0 = time.time()
+        Bp = self.prefill_batch
+        maxp = self.paged.allocator.maxp
+        padded = np.full((Bp, bucket), self.pad_id, np.int32)
+        lengths = np.ones(Bp, np.int32)
+        rlens = np.zeros(Bp, np.int32)
+        table = np.zeros((Bp, ppb), np.int32)
+        row_tables = np.zeros((Bp, maxp), np.int32)
+        gather = np.zeros(Bp, np.int64)
+        scatter = np.full(Bp, self.max_batch, np.int64)
+        for r, (slot_id, req, _hits, _chains, row) in enumerate(batch):
+            padded[r, :len(req.prompt)] = req.prompt
+            lengths[r], rlens[r] = len(req.prompt), req.resume_len
+            table[r, :len(req.resume_pages)] = req.resume_pages
+            row_tables[r] = row
+            gather[r] = scatter[r] = slot_id
+            self._set_slot_sampling(slot_id, req.sampling)
+        lengths_t, rlens_t = self._tensor(lengths), self._tensor(rlens)
+        k_pool, v_pool = self.cache["k"], self.cache["v"]
+        logits, sk, sv = self._prefix_pages_fwd(
+            self.params, self._tensor(padded), self._tensor(table), rlens_t,
+            k_pool, v_pool, logits_at=lengths_t - 1)
+        self._sample_into_slots(logits, gather, rlens_t + lengths_t - 1,
+                                scatter)
+        tables_t = self._tensor(row_tables)
+        dtype = pool_dtype(k_pool)
+        for l in range(sk.shape[0]):
+            # a layer at a time: an int8 pool's requant windows over all
+            # layers of a wide wave would take GiBs at a full-size shape
+            lk = pool_layer(k_pool, l)
+            lv = pool_layer(v_pool, l)
+            paged_write_chunk(
+                QuantPool(lk.data[None], lk.scale[None])
+                if isinstance(lk, QuantPool) else lk[None],
+                QuantPool(lv.data[None], lv.scale[None])
+                if isinstance(lv, QuantPool) else lv[None],
+                sk[l:l + 1].to(dtype), sv[l:l + 1].to(dtype), rlens_t,
+                tables_t)
+        n = len(batch)
+        c = self.metrics.counters
+        c["prefill_packed_tokens"].inc(int(lengths[:n].sum()))
+        c["prefill_padding_tokens"].inc(int(padded.size - lengths[:n].sum()))
+        c["prefix_reused_tokens"].inc(int(rlens.sum()))
+        self._activate([(it[0], it[1]) for it in batch], t0)
+
+    def _prefill_dense_resume_batch(self, batch: List[Tuple], bucket: int,
+                                    ppb: int) -> None:
+        """Dense rolling resume: each row's kept side-pool pages compose
+        into the slot's lane with a mid-page boundary at resume_len
+        (``forward_prefix_lane`` is token-granular in prefix_lens), only
+        the suffix is computed, and nothing is registered (the kept pages
+        stay in the registry's custody). ``batch`` rows: (slot_id,
+        req)."""
+        self._prefix_fused_dispatch(
+            [(slot_id, req, req.prompt, req.resume_len, req.resume_pages, [])
+             for slot_id, req in batch], bucket, ppb, time.time())
 
     def _prefill_prefix_batch(self, batch: List[Tuple], bucket: int,
                               ppb: int) -> None:
@@ -1339,7 +1693,9 @@ class Engine:
             slot = self.slots[slot_id]
             slot.active = True
             slot.request = req
-            slot.position = len(req.prompt)
+            # next write position: a rolling resume continues past the
+            # tokens already in its kept pages
+            slot.position = req.resume_len + len(req.prompt)
             slot.dispatched_position = slot.position
             slot.generated = []
             slot.logprobs = []
@@ -1350,7 +1706,10 @@ class Engine:
                 slot.cancelled = req.request_id in self._cancel_pending
                 self._cancel_pending.discard(req.request_id)
             self.total_requests += 1
-            self.metrics.counters["prompt_tokens"].inc(len(req.prompt))
+            # the logical prompt includes a resume's kept tokens (their
+            # reuse is counted in prefix_reused_tokens)
+            self.metrics.counters["prompt_tokens"].inc(
+                len(req.prompt) + req.resume_len)
             self.metrics.counters["engine_admitted"].inc()
             self.metrics.latencies["queue_wait_s"].observe(
                 t0 - req.submitted_at)
@@ -1555,17 +1914,108 @@ class Engine:
         slot.active = False
         slot.request = None
         if self.paged is not None:
+            if req is not None and req.keep_pages:
+                self._paged_keep(slot_id, slot, req)
             # pages stay owned until the next admission round zeroes the
             # table row and frees them (a dense lane has none to free)
             self.paged.allocator.mark_retired(slot_id)
             pins = self._slot_prefix_pins.pop(slot_id, None)
             if pins:
                 self._prefix.unpin(pins)
+        elif (req is not None and req.keep_pages
+              and reason in ("length", "eos") and self._prefix is not None):
+            # clean finishes only: a failure retirement runs before the
+            # error recovery rebuilds the cache and the side pool
+            try:
+                self._dense_keep_extract(slot_id, slot, req)
+            except Exception:
+                logger.exception("dense keep extraction failed")
         self.metrics.counters["engine_completed"].inc()
         self.metrics.rates["requests_completed"].mark()
         if req is not None:
             req.metadata["logprobs"] = list(slot.logprobs)
             _call(req.on_done, req.request_id, list(slot.generated), reason)
+
+    def _paged_keep(self, slot_id: int, slot: _Slot, req: GenRequest) -> None:
+        """Rolling KV at a paged retirement: the conversation's pages go
+        to the caller instead of the free list. ``written`` is the
+        host-confirmed extent (chunk-granular); emitted tokens past it
+        have no confirmed K/V and go back as the tail, which the next
+        turn's suffix starts with (re-fed, they write the same K/V). Pages
+        past the written extent are freed now: a chunk in flight may still
+        write garbage into them, but every later writer comes after it on
+        the engine's one stream."""
+        alloc = self.paged.allocator
+        fresh = alloc.pages_for(slot_id)
+        alloc.transfer_to_cache(slot_id, fresh)
+        pages = list(req.resume_pages or []) + fresh
+        written = slot.position
+        start = req.resume_len + len(req.prompt)
+        tail = list(slot.generated[max(0, written - start):])
+        covering = -(-written // self.paged.page_size) if written > 0 else 0
+        kept, extras = pages[:covering], pages[covering:]
+        if extras:
+            alloc.add_free(extras)
+        _call(req.on_pages, req.request_id, kept, written, tail)
+
+    def _dense_keep_extract(self, slot_id: int, slot: _Slot,
+                            req: GenRequest) -> None:
+        """Rolling KV at a dense retirement: copy the lane's written K/V
+        (positions < written, page by page) into pages acquired from the
+        prefix side pool, in place, and hand them to ``on_pages``. The
+        last page may be partial; its tail is lane garbage that the resume
+        masks (prefix_lens = written). Short of pages, the ladder is: the
+        conversation's own superseded source pages (their last reader, the
+        resume prefill, came earlier on the stream), then the pool-pressure
+        hook; still short, the turn does not roll (no ``on_pages``, or an
+        empty one when the source pages were already released)."""
+        ps = self._prefix_ps
+        written = slot.position
+        start = req.resume_len + len(req.prompt)
+        tail = list(slot.generated[max(0, written - start):])
+        n = -(-written // ps) if written > 0 else 0
+        if not 0 < n <= self._prefix_pp_buckets[-1]:
+            return
+        released_source = False
+        pages = self._prefix.acquire(n)
+        if len(pages) != n and req.resume_pages:
+            for p in pages + list(req.resume_pages):
+                self._prefix.release(p)
+            released_source = True
+            pages = self._prefix.acquire(n)
+        if len(pages) != n and self.on_pool_pressure is not None:
+            for p in pages:
+                self._prefix.release(p)
+            try:
+                self.on_pool_pressure(n)
+            except Exception:
+                logger.exception("pool-pressure callback failed")
+            pages = self._prefix.acquire(n)
+        if len(pages) != n:
+            for p in pages:
+                self._prefix.release(p)
+            if released_source:
+                # the registry's state names freed pages: hand it an empty
+                # one (restart next turn) instead of dangling ids
+                _call(req.on_pages, req.request_id, [], 0, [])
+            return
+        try:
+            ids = self._tensor(np.asarray(pages, np.int64))
+            for pool, full in zip(self._prefix_pool, self.cache):
+                lane = full[:, slot_id, :n * ps]
+                pool.index_copy_(1, ids, lane.reshape(
+                    (lane.shape[0], n, ps) + tuple(lane.shape[2:])
+                ).to(pool.dtype))
+        except Exception:
+            for p in pages:
+                self._prefix.release(p)
+            if released_source:
+                _call(req.on_pages, req.request_id, [], 0, [])
+            raise
+        if req.resume_pages and not released_source:
+            for p in req.resume_pages:
+                self._prefix.release(p)
+        _call(req.on_pages, req.request_id, pages, written, tail)
 
     def _fail_all(self, reason: str) -> None:
         for i, s in enumerate(self.slots):

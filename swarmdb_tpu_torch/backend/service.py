@@ -38,10 +38,20 @@ row-bucketed and prefix waves. The paged engine decodes in device-resident
 sessions (``SWARMDB_EMIT_RING``, default "1"), the dense one (and the
 paged one under ``SWARMDB_EMIT_RING=0``) with ``SWARMDB_PIPELINE`` chunks
 in flight (default 2); on the card every chunk is a CUDA graph replay,
-captured at first use or, with ``SWARMDB_PREWARM=1``, at ``start``. Not
-ported yet (ROADMAP.md, queue 1): rolling KV
-and the tiered state hierarchy (item 7), lane groups (item 9), the SLO
-sentinel (item 10) and partition locality (item 12).
+captured at first use or, with ``SWARMDB_PREWARM=1``, at ``start``.
+
+``SWARMDB_ROLLING_KV=1`` keeps a conversation's K/V between turns (both
+engines): the rolling registry maps (sender, receiver) to the pages
+holding its history, a turn's prompt is then only the delta since the
+last turn (rendered by the same line renderers) on top of those pages, and
+a conversation that outgrows the window restarts fresh. On the paged
+engine a ``TierManager`` (``SWARMDB_TIER``, default "1";
+``backend/tiering.py``) spills idle conversations to pinned host memory
+under pool pressure and promotes them back on their next turn; a spilled
+conversation evicted from host memory re-prefills from the broker log.
+An engine that cannot roll logs it and serves without. Not ported yet
+(ROADMAP.md, queue 1): lane groups (item 9), the SLO sentinel (item 10)
+and partition locality (item 12).
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ import torch
 from ..core.messages import Message, MessageType
 from ..core.runtime import SwarmDB
 from ..models import llama, mixtral
+from ..obs.memprof import conv_ledger
 from ..models.configs import ModelConfig, get_config
 from ..ops.paged_kv import (KV_DTYPES, PageAllocator, kv_dtype_name,
                             pages_per_slot)
@@ -82,6 +93,12 @@ _CLAIMS_MAX = 4096
 
 def _body(m: Message) -> str:
     return m.content if isinstance(m.content, str) else json.dumps(m.content)
+
+
+def _history_line(m: Message) -> str:
+    """An exchanged message as a prompt line: the window of
+    ``build_prompt`` and a rolling turn's delta render alike."""
+    return f"{m.sender_id}: {_body(m)}"
 
 
 def _current_lines(msg: Message) -> List[str]:
@@ -105,7 +122,7 @@ def build_prompt(db: SwarmDB, msg: Message, tokenizer: Tokenizer,
         for m in db.get_conversation_window(msg.sender_id, msg.receiver_id,
                                             history_limit):
             if m.id != msg.id:
-                lines.append(f"{m.sender_id}: {_body(m)}")
+                lines.append(_history_line(m))
     lines.extend(_current_lines(msg))
     return tokenizer.encode("\n".join(lines))
 
@@ -372,6 +389,41 @@ class ServingService:
             "backend.service.ServingService._anchor_lock")
         self._anchor_cap = _env_int("SWARMDB_ANCHOR_MAX", 4096)
         self._anchor_sep = self.tokenizer.encode("\n[…]\n", add_bos=False)
+        # this service's conversation-temperature ledger (touched per
+        # served message; the tier manager orders its victims by it)
+        self._mem = conv_ledger()
+        # rolling KV (SWARMDB_ROLLING_KV=1): (sender, receiver) -> {pages,
+        # len, tail, msg_count, reply_ids, pending_count, epoch,
+        # in_flight, last, ...}. Between turns the listed pages are in
+        # this registry's custody; the engine only references them while
+        # a resumed request runs. A live conversation keeps its replies'
+        # raw tokens in K/V where a re-prefill renders "bot: <text>"
+        # lines, so its replies drift from a non-rolling serve's by
+        # design (the JAX package's StreamingLLM-style trade)
+        self._rolling: Optional[Dict[Tuple[str, str], Dict[str, Any]]] = None
+        self._rolling_lock = make_lock(
+            "backend.service.ServingService._rolling_lock")
+        # EMA of the per-turn suffix length (tokens), sizing the restart
+        # reserve, seeded relative to the window
+        self._rolling_delta_ema = min(64.0, engine.max_seq / 8.0)
+        self._tier = None
+        if os.environ.get("SWARMDB_ROLLING_KV") == "1":
+            if engine.supports_rolling():
+                self._rolling = {}
+                # idle conversations' kept pages must never starve
+                # other traffic: admission evicts (or demotes) them
+                engine.on_pool_pressure = self._on_pool_pressure
+                if engine.paged is not None:
+                    from .tiering import TierManager, tiering_enabled
+
+                    if tiering_enabled():
+                        self._tier = TierManager(self, engine)
+            else:
+                logger.warning("SWARMDB_ROLLING_KV=1 ignored: this engine "
+                               "cannot roll (a paged engine needs its "
+                               "prefix cache's pages forward, a dense one "
+                               "its prefix side pool; SWARMDB_PREFIX=0 "
+                               "turns both off)")
 
     # ------------------------------------------------------------ lifecycle
 
@@ -433,6 +485,10 @@ class ServingService:
         if self._consumer_thread is not None:
             self._consumer_thread.join(timeout=10)
             self._consumer_thread = None
+        if self._tier is not None:
+            # before the engine: an order queued after its loop stopped
+            # would never drain
+            self._tier.stop()
         if self.supervisor is not None:
             # before the engine: an engine stopping must not read as a
             # loop to restart
@@ -487,6 +543,208 @@ class ServingService:
             if served == 0:
                 self._stop.wait(self.poll_interval)
 
+    # ----------------------------------------------------------- rolling KV
+
+    def _rolling_epoch(self) -> int:
+        """The engine's pool generation: registry entries of an older
+        epoch name page ids a reset reclaimed, and are never resumed or
+        freed."""
+        return self.engine.pool_epoch()
+
+    def _on_pool_pressure(self, need: int) -> None:
+        """Engine thread, the pool could not cover ``need`` pages: spill
+        the coldest idle conversations to host memory first (they come
+        back by promotion), then evict to nothing for any shortfall (the
+        only option with ``SWARMDB_TIER=0`` or a dense engine)."""
+        with self._rolling_lock:
+            if self._tier is not None:
+                need -= self._tier.demote_now(need)
+            if need > 0:
+                self._rolling_evict(need)
+
+    def _rolling_evict(self, need_free: int) -> None:
+        """LRU-evict idle conversations until the pool can cover
+        ``need_free`` pages (caller holds ``_rolling_lock``)."""
+        eng = self.engine
+        epoch = self._rolling_epoch()
+        idle = sorted((k for k, st in self._rolling.items()
+                       if not st.get("in_flight") and st.get("pages")),
+                      key=lambda k: self._rolling[k]["last"])
+        for k in idle:
+            if eng.rolling_free_count() >= need_free:
+                break
+            st = self._rolling.pop(k)
+            if st["epoch"] == epoch:
+                eng.rolling_free(st["pages"])
+            self._mem.drop(k)
+            self.db.metrics.counters["rolling_evictions"].inc()
+            if self._tier is not None:
+                # evicted to nothing: its next turn is a cold resume
+                self._tier.note_cold(k, len(st["pages"]))
+
+    def _rolling_plan(self, key, msg: Message, sampling: SamplingParams,
+                      pre_count: int = 0):
+        """How this turn uses the rolling registry: (mode, resume,
+        prompt_tokens).
+
+        - ("resume", (pages, len, epoch, promote_payload), tokens):
+          continue the kept pages with the delta ``tokens``;
+        - ("keep", None, None): a fresh prefill that claims the
+          conversation (its retirement stores the new state);
+        - ("plain", None, None): a fresh prefill that leaves the registry
+          alone, because a concurrent turn of the conversation holds the
+          claim (a keep here would leak the pages a later store
+          displaces).
+
+        ``pre_count`` is the conversation's length read before the prompt
+        window was fetched: a message that lands in between renders next
+        turn instead of being counted as rendered."""
+        eng = self.engine
+        ps = eng.rolling_page_size()
+        with self._rolling_lock:
+            epoch = self._rolling_epoch()
+            st = self._rolling.get(key)
+            if st is not None and st["epoch"] != epoch and st.get("pages"):
+                # the pool was rebuilt: dangling page ids (a warm entry
+                # holds none and survives resets)
+                self._rolling.pop(key, None)
+                st = None
+            if st is not None and st.get("in_flight"):
+                return "plain", None, None
+            # await_store: cleared by _rolling_store; still set at
+            # finalize, the turn's K/V was never adopted (a dense
+            # extraction came up short) and the state restarts
+            placeholder = {"pages": None, "len": 0, "tail": [],
+                           "msg_count": 0, "reply_ids": [],
+                           "pending_count": pre_count, "epoch": epoch,
+                           "in_flight": True, "await_store": True,
+                           "last": time.time()}
+            warm = (st is not None and not st.get("pages")
+                    and st.get("host") and self._tier is not None)
+            if st is None or (not st.get("pages") and not warm):
+                self._rolling[key] = placeholder
+                if self._tier is not None:
+                    msg.metadata["tier_origin"] = (
+                        "cold" if self._tier.take_cold(key) else "fresh")
+                return "keep", None, None
+
+            def restart() -> Tuple[str, None, None]:
+                if st.get("pages") and st["epoch"] == epoch:
+                    eng.rolling_free(st["pages"])
+                elif warm:
+                    # the restart rebuilds the prompt from the window
+                    self._tier.drop_warm(key)
+                self._rolling[key] = placeholder
+                self.db.metrics.counters["rolling_restarts"].inc()
+                return "keep", None, None
+
+            total, delta = self.db.get_conversation_delta(
+                key[0], key[1], st["msg_count"])
+            if not any(m.id == msg.id for m in delta):
+                # the registry is out of step with the stream (a restore,
+                # say): restart fresh
+                return restart()
+            lines = [_history_line(m) for m in delta
+                     if m.id != msg.id and m.id not in st["reply_ids"]]
+            # the current message renders last; the replies are in K/V
+            # as the model's own tokens
+            lines.extend(_current_lines(msg))
+            ptoks = list(st["tail"]) + self.tokenizer.encode(
+                "".join("\n" + ln for ln in lines), add_bos=False)
+            fits = (st["len"] + len(ptoks) + sampling.max_new_tokens
+                    + eng.decode_chunk < eng.max_seq
+                    and -(-st["len"] // ps) <= eng._prefix_pp_buckets[-1]
+                    and len(ptoks) > 0)
+            # the suffix EMA moves on restarts too, or a restart-locked
+            # conversation could never grow its reserve
+            self._rolling_delta_ema = (0.8 * self._rolling_delta_ema
+                                       + 0.2 * len(ptoks))
+            if not fits:
+                return restart()
+            # pool headroom: paged needs only the fresh pages past the
+            # kept ones (a warm entry's promotion draws them too), dense
+            # the whole new page set at its retirement extraction
+            total_pages = -(-(st["len"] + len(ptoks)
+                              + sampling.max_new_tokens
+                              + eng.decode_chunk) // ps)
+            kept_n = -(-st["len"] // ps)
+            need = (total_pages if warm or eng.paged is None
+                    else total_pages - kept_n)
+            # claim first: an eviction here must not free this very
+            # conversation's pages
+            st["in_flight"] = True
+            if need > 0:
+                self._rolling_evict(need)
+            st["pending_count"] = total
+            st["await_store"] = True
+            st["last"] = time.time()
+            self.db.metrics.counters["rolling_resumes"].inc()
+            payload = None
+            if warm:
+                got = self._tier.begin_promote(key, st, epoch)
+                if got is None:
+                    # the warm copy is gone or the pool cannot host it:
+                    # a cold resume from the broker log
+                    self._rolling[key] = placeholder
+                    msg.metadata["tier_origin"] = (
+                        "cold" if self._tier.take_cold(key) else "fresh")
+                    self.db.metrics.counters["rolling_restarts"].inc()
+                    return "keep", None, None
+                ids, payload = got
+                st["pages"] = list(ids)
+                st["epoch"] = epoch
+                st["host"] = False
+            if self._tier is not None:
+                msg.metadata["tier_origin"] = "warm" if warm else "hot"
+            # the epoch travels with the plan: submit and admission check
+            # it against the live pool
+            return "resume", (st["pages"], st["len"], epoch, payload), ptoks
+
+    def _rolling_store(self, key, pages, written, tail) -> None:
+        """``on_pages`` (engine thread, at retirement): the turn's pages
+        become the conversation's state. A predecessor's pages were freed
+        by the plan (restart) or are a prefix of ``pages`` (resume)."""
+        with self._rolling_lock:
+            prev = self._rolling.get(key, {})
+            self._rolling[key] = {
+                "pages": pages, "len": written, "tail": list(tail),
+                # stream index < msg_count is in K/V (or was trimmed
+                # away by the fresh window); replies are excluded by id
+                "msg_count": prev.get("pending_count",
+                                      self.db.conversation_length(*key)),
+                "reply_ids": list(prev.get("reply_ids", ())),
+                "epoch": self._rolling_epoch(),
+                "in_flight": True, "last": time.time(),
+            }
+        self._mem.resident(key, len(pages))
+
+    def _rolling_finalize(self, key, msg: Message, reason: str) -> None:
+        """After the reply was sent (reply worker): record its id, which
+        later deltas skip (its tokens are in K/V already). A non-clean
+        finish, or a clean one whose K/V was never stored, drops the
+        state."""
+        with self._rolling_lock:
+            st = self._rolling.get(key)
+            if st is None:
+                return
+            if (reason in ("length", "eos") and st.get("pages")
+                    and not st.get("await_store")):
+                rid = (msg.metadata or {}).get("reply_id")
+                if rid:
+                    # only replies at stream index >= msg_count matter
+                    st["reply_ids"] = st["reply_ids"][-3:] + [rid]
+                st["in_flight"] = False
+                st["last"] = time.time()
+                return
+            if st.get("await_store") and reason in ("length", "eos"):
+                self.db.metrics.counters["rolling_restarts"].inc()
+            self._rolling.pop(key, None)
+            self._mem.drop(key)
+            if st.get("pages") and st["epoch"] == self._rolling_epoch():
+                self.engine.rolling_free(st["pages"])
+            elif st.get("host") and self._tier is not None:
+                self._tier.drop_warm(key)
+
     # ------------------------------------------------------------- serving
 
     def _hysteresis_trim(self, prompt: List[int], budget: int,
@@ -525,6 +783,7 @@ class ServingService:
                 while len(self._anchors) >= self._anchor_cap:
                     self._anchors.pop(next(iter(self._anchors)))
                 self._anchors[key] = head
+                self._mem.anchor(key, len(head))
                 self.db.metrics.counters["window_heads_anchored"].inc()
             else:
                 self._anchors[key] = self._anchors.pop(key)  # LRU touch
@@ -615,9 +874,19 @@ class ServingService:
                                          msg.id)
 
         msg.stage_stamp("admitted")
+        # rolling KV reads the stream length before the window fetch (see
+        # _rolling_plan)
+        pre_count = (self.db.conversation_length(msg.sender_id,
+                                                 msg.receiver_id)
+                     if self._rolling is not None and msg.receiver_id
+                     else 0)
         prompt = build_prompt(self.db, msg, self.tokenizer,
                               history_limit=_history_limit_for(
                                   self.engine.max_seq))
+        if msg.receiver_id:
+            # one touch per served message, with the untrimmed length (what
+            # a cold resume re-prefills)
+            self._mem.touch((msg.sender_id, msg.receiver_id), len(prompt))
         sampling = sampling_from_message(msg)
         priority = int(msg.priority.value if hasattr(msg.priority, "value")
                        else msg.priority)
@@ -628,48 +897,113 @@ class ServingService:
         # through the prefix cache; completion 0 is the body (and the
         # streamed one), 1..n-1 ride metadata["alternatives"]
         n = min(4, max(1, int(g.get("n", 1))))
+        # rolling KV: chat and tool-call turns continue the conversation's
+        # kept pages. Not with n > 1 (the completions would fight over the
+        # pages) or stop sequences (the truncated reply would differ from
+        # the K/V)
+        rolling_key = resume = None
+        mode = "plain"
+        if (self._rolling is not None and msg.receiver_id and n == 1
+                and not sampling.stop
+                and msg.type in (MessageType.CHAT,
+                                 MessageType.FUNCTION_CALL)):
+            key = (msg.sender_id, msg.receiver_id)
+            mode, resume, rtoks = self._rolling_plan(key, msg, sampling,
+                                                     pre_count)
+            if mode != "plain":
+                rolling_key = key
+            if resume is not None:
+                prompt = rtoks
+            if rolling_key is not None:
+                claim_done = on_done
+
+                def on_done(rid, toks, reason, _k=rolling_key):
+                    # reply worker, after _emit_reply stamped the reply id
+                    self._rolling_finalize(_k, msg, reason)
+                    claim_done(rid, toks, reason)
+        try:
+            if resume is None:
+                prompt = self._fit_prompt(msg, prompt, sampling,
+                                          restart=mode == "keep")
+
+            def _done(rid: str, tokens: List[int], reason: str) -> None:
+                # engine (or supervisor) thread: hand off to _reply_loop
+                msg.stage_stamp("done")
+                lps = (list(req.metadata.get("logprobs", []))
+                       if want_logprobs else None)
+                self._reply_queue.put((msg, rid, tokens, reason,
+                                       sampling.stop, lps, None, on_done))
+
+            def _tok(rid: str, token: int) -> None:
+                if "first_token" not in msg.metadata.get("stages", {}):
+                    msg.stage_stamp("first_token")
+                    stages = msg.metadata["stages"]
+                    if "enqueued" in stages:
+                        ttft = stages["first_token"] - stages["enqueued"]
+                        lat = self.db.metrics.latencies
+                        lat["send_to_first_token_s"].observe(ttft)
+                        lat[f"send_to_first_token_prio{priority}_s"].observe(
+                            ttft)
+                        # per tier of the conversation's state (hot, warm,
+                        # cold, fresh)
+                        origin = (msg.metadata or {}).get("tier_origin")
+                        if origin:
+                            lat[f"tier_ttft_{origin}_s"].observe(ttft)
+                if on_token is not None:
+                    on_token(rid, token)
+
+            req = GenRequest(prompt=prompt, sampling=sampling,
+                             priority=priority, on_token=_tok, on_done=_done,
+                             metadata={"message_id": msg.id},
+                             request_id=claim.rid)
+            if rolling_key is not None:
+                req.keep_pages = True
+                req.on_pages = (lambda rid, pages, written, tail,
+                                _k=rolling_key:
+                                self._rolling_store(_k, pages, written, tail))
+                if resume is not None:
+                    (req.resume_pages, req.resume_len, req.resume_epoch,
+                     req.promote_payload) = (list(resume[0]), resume[1],
+                                             resume[2], resume[3])
+            if n > 1:
+                return self._serve_n(msg, req, prompt, sampling, priority, n,
+                                     want_logprobs, on_done)
+            watch = self._make_stop_watch(sampling)
+            if watch is not None:
+                def _tok_watched(rid: str, token: int) -> None:
+                    watch(rid, token)
+                    _tok(rid, token)
+
+                req.on_token = _tok_watched
+            return self._submit(req)
+        except Exception:
+            # the plan's claim must not outlive a failed submit, or the
+            # conversation never rolls again
+            if rolling_key is not None:
+                self._rolling_finalize(rolling_key, msg, "submit_error")
+            raise
+
+    def _fit_prompt(self, msg: Message, prompt: List[int],
+                    sampling: SamplingParams, restart: bool) -> List[int]:
+        """A fresh prompt cut to the window. A rolling restart keeps
+        headroom for the next turns: at most ``SWARMDB_ROLL_RESTART``
+        (default 0.5) of the budget and no more than the budget less ~2.5
+        typical turn deltas, with a quarter of the budget as the floor,
+        cut from the front; other prompts take the sink-anchored trim."""
         budget = min(max(16, self.engine.max_seq - 1
                          - sampling.max_new_tokens), self.engine.max_seq - 1)
+        if restart:
+            frac = min(0.9, max(0.1, _env_float("SWARMDB_ROLL_RESTART",
+                                                0.5)))
+            with self._rolling_lock:
+                delta_ema = self._rolling_delta_ema
+            reserve = int(2.5 * delta_ema) + self.engine.decode_chunk
+            budget = max(16, min(int(budget * frac),
+                                 max(budget // 4, budget - reserve)))
+            return prompt[-budget:] if len(prompt) > budget else prompt
         if len(prompt) > budget:
-            prompt = self._trim_prompt(msg, prompt, budget)
-
-        def _done(rid: str, tokens: List[int], reason: str) -> None:
-            # engine (or supervisor) thread: hand off to _reply_loop
-            msg.stage_stamp("done")
-            lps = (list(req.metadata.get("logprobs", []))
-                   if want_logprobs else None)
-            self._reply_queue.put((msg, rid, tokens, reason, sampling.stop,
-                                   lps, None, on_done))
-
-        def _tok(rid: str, token: int) -> None:
-            if "first_token" not in msg.metadata.get("stages", {}):
-                msg.stage_stamp("first_token")
-                stages = msg.metadata["stages"]
-                if "enqueued" in stages:
-                    ttft = stages["first_token"] - stages["enqueued"]
-                    self.db.metrics.latencies[
-                        "send_to_first_token_s"].observe(ttft)
-                    self.db.metrics.latencies[
-                        f"send_to_first_token_prio{priority}_s"].observe(
-                            ttft)
-            if on_token is not None:
-                on_token(rid, token)
-
-        req = GenRequest(prompt=prompt, sampling=sampling, priority=priority,
-                         on_token=_tok, on_done=_done,
-                         metadata={"message_id": msg.id},
-                         request_id=claim.rid)
-        if n > 1:
-            return self._serve_n(msg, req, prompt, sampling, priority, n,
-                                 want_logprobs, on_done)
-        watch = self._make_stop_watch(sampling)
-        if watch is not None:
-            def _tok_watched(rid: str, token: int) -> None:
-                watch(rid, token)
-                _tok(rid, token)
-
-            req.on_token = _tok_watched
-        return self._submit(req)
+            return self._trim_prompt(msg, prompt, budget)
+        return prompt
 
     def _serve_n(self, msg: Message, req0: GenRequest, prompt: List[int],
                  sampling: SamplingParams, priority: int, n: int,
@@ -1020,4 +1354,6 @@ class ServingService:
             "supervisor": (self.supervisor.status()
                            if self.supervisor is not None
                            else {"enabled": False}),
+            "tier": (self._tier.status() if self._tier is not None
+                     else {"enabled": False}),
         }

@@ -19,9 +19,11 @@ States: ``ALIVE`` -> ``SUSPECT`` (beats stale for
 ``SWARMDB_LANE_QUARANTINE_S``, or the thread died). A stall inside a step
 (``Engine._in_step``) is held at SUSPECT for
 ``SWARMDB_LANE_DISPATCH_GRACE_S``: a long legitimate step is not a wedge.
-On quarantine every supervised request is replayed; a dead thread is
-restarted (with backoff), and the engine is re-admitted after
-``SWARMDB_LANE_PROBE_N`` clean probe generations.
+On quarantine every supervised request is replayed, except a rolling-KV
+one, which ends "lane_quarantined" (its context lives in pages a replay
+cannot rebuild); a dead thread is restarted (with backoff), and the
+engine is re-admitted after ``SWARMDB_LANE_PROBE_N`` clean probe
+generations.
 
 A replay is an idempotent re-prefill: its prompt is the original prompt
 plus every token already emitted to the caller, its budget the rest, so
@@ -127,6 +129,14 @@ class _Tracked:
         self.migrated = 0
         self.lock = make_lock("backend.supervisor._Tracked.lock")
         self.retry_timer: Optional[threading.Timer] = None
+
+    @property
+    def migratable(self) -> bool:
+        """False for a rolling-KV request (keep or resume): its context
+        lives in pages of the registry's custody, which a replay cannot
+        rebuild (the registry restarts the conversation next turn)."""
+        return (self.request.resume_pages is None
+                and not self.request.keep_pages)
 
 
 class LaneSupervisor:
@@ -339,7 +349,11 @@ class LaneSupervisor:
             prompt=tr.prompt + emitted,
             sampling=dataclasses.replace(
                 sp, max_new_tokens=max(1, sp.max_new_tokens - len(emitted))),
-            submitted_at=time.time())
+            submitted_at=time.time(),
+            # a replay owns no registry pages: referencing or keeping them
+            # would alias what the registry still holds
+            resume_pages=None, resume_len=0, resume_epoch=None,
+            keep_pages=False, on_pages=None, promote_payload=None)
         replay.on_token, replay.on_done = self._wrap(tr, attempt)
         return replay
 
@@ -419,7 +433,10 @@ class LaneSupervisor:
         engine it queues behind the restart, which fails it with the
         retryable "engine_restart" and so hands it to the retry path. A
         request past its deadline ends "deadline" (in the JAX package the
-        cancel's "cancelled" can win that race)."""
+        cancel's "cancelled" can win that race). A rolling-KV request is
+        not migratable and ends "lane_quarantined", as in the JAX
+        package: a replay of a resume would prompt with its turn's delta
+        alone, without the conversation's history."""
         with self._lock:
             victims = list(self._tracked.values())
         moved = 0
@@ -436,6 +453,8 @@ class LaneSupervisor:
                     # generation finished before the loss: replaying would
                     # decode an extra token
                     final = "length"
+                elif not tr.migratable:
+                    final = "lane_quarantined"
                 elif (tr.deadline is not None
                       and time.time() >= tr.deadline):
                     final = "deadline"

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -404,6 +404,63 @@ def pool_insert_pages(pool: Any, flat_ids: torch.Tensor,
             pool.scale[l, idx] = s
         return pool
     pool[:, idx] = dense_pages.to(pool.dtype)
+    return pool
+
+
+def pool_gather_pages(pool: Any, ids, host: Optional[Callable] = None
+                      ) -> Any:
+    """RAW payload of pages ``ids`` across all layers, in host memory at
+    storage width (the warm tier's spill format): int8 data plus f32
+    scales for a :class:`QuantPool`, the pool's dtype verbatim otherwise,
+    so :func:`pool_insert_raw` of the payload restores the same bytes.
+
+    One batched gather on the pool's device, then one copy into a CPU
+    tensor that ``host(shape, dtype)`` gives (the warm store's slab,
+    :meth:`ops.host_pool.HostPageStore.host_tensor`), or a new pageable
+    one without ``host``. Into page-locked memory the copy from the card
+    is ``non_blocking``, only enqueued on the current stream: the caller
+    records an event after it and waits on the event before anything
+    reads the payload. Returns ``(data [L, n, ps, Hkv, D], scale [L, n,
+    Hkv])`` for a quantized pool, else one ``[L, n, ps, Hkv, D]`` tensor;
+    None when ``host`` has no room."""
+    data = pool_data(pool)
+    idx = torch.as_tensor(list(ids), dtype=torch.long, device=data.device)
+
+    def to_host(t: torch.Tensor) -> Optional[torch.Tensor]:
+        src = t.index_select(1, idx)
+        out = (host(tuple(src.shape), src.dtype) if host is not None
+               else torch.empty(src.shape, dtype=src.dtype))
+        if out is not None:
+            out.copy_(src, non_blocking=src.device.type == "cuda"
+                      and out.is_pinned())
+        return out
+
+    if isinstance(pool, QuantPool):
+        out = to_host(pool.data)
+        scale = to_host(pool.scale) if out is not None else None
+        return None if scale is None else (out, scale)
+    return to_host(pool)
+
+
+def pool_insert_raw(pool: Any, flat_ids: torch.Tensor, payload: Any) -> Any:
+    """Reinsert a :func:`pool_gather_pages` payload at pages ``flat_ids``
+    [n], in place (``index_copy_`` into the pool's own tensors: a captured
+    decode graph keeps reading the same storage). The payload is at
+    storage width, so the exact bytes that left the pool come back (no
+    requantization). A page-locked payload is copied ``non_blocking``:
+    the caller keeps it alive until an event recorded after this call has
+    passed."""
+    idx = flat_ids.long()
+
+    def put(dst: torch.Tensor, src: torch.Tensor) -> None:
+        dst.index_copy_(1, idx, src.to(dst.device, dst.dtype,
+                                       non_blocking=src.is_pinned()))
+
+    if isinstance(pool, QuantPool):
+        put(pool.data, payload[0])
+        put(pool.scale, payload[1])
+    else:
+        put(pool, payload)
     return pool
 
 

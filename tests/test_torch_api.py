@@ -469,6 +469,18 @@ async def case_metrics_scrape_endpoint(C):
                           "swarmdb_agents_registered "))))
 
 
+async def case_admin_tiers_without_a_backend(C):
+    """``/admin/tiers`` always answers (admin only): without a serving
+    backend, tiering is off and no page is hot."""
+    hdrs = await C.token("tester")
+    assert (await C.call("GET", "/admin/tiers", headers=hdrs))[0] == 403
+    admin = await C.token("admin")
+    st, body, _ = await C.call("GET", "/admin/tiers", headers=admin)
+    assert st == 200
+    assert body == {"enabled": False,
+                    "pages": {"hot": 0, "warm": 0, "cold": 0}}
+
+
 CASES = {name[5:]: fn for name, fn in sorted(globals().items())
          if name.startswith("case_")}
 CONFIGS = {
@@ -636,3 +648,90 @@ def test_build_serving_on_the_cpu_answers_a_message(tmp_path, monkeypatch):
     finally:
         svc.stop()
         db.close()
+
+
+def _tiers_over(svc, tmp_path, pkg):
+    """GET /admin/tiers and /metrics of ``pkg``'s app over ``svc``:
+    (status, JSON body, the metrics' tier lines)."""
+    P = PKGS[pkg]
+
+    async def runner():
+        db = P.SwarmDB(broker=P.LocalBroker(), save_dir=str(tmp_path))
+        app = P.app.create_app(db, P.app.ApiConfig(**BASE_CFG), serving=svc)
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            r = await client.post("/auth/token", json={
+                "username": "admin", "password": "pw"})
+            hdrs = {"Authorization":
+                    f"Bearer {(await r.json())['access_token']}"}
+            r = await client.get("/admin/tiers", headers=hdrs)
+            body = await r.json()
+            m = await client.get("/metrics")
+            lines = [ln for ln in (await m.text()).splitlines()
+                     if ln.startswith("swarmdb_tier_pages")
+                     or ln.startswith("swarmdb_tier_demotions_total")]
+            return r.status, body, lines
+        finally:
+            await client.close()
+            db.close()
+
+    return asyncio.run(runner())
+
+
+def _shape(d):
+    return {k: _shape(v) if isinstance(v, dict) else type(v).__name__
+            for k, v in d.items()}
+
+
+def test_admin_tiers_with_a_tier_manager_equals_jax(tmp_path, monkeypatch):
+    """Over a rolling paged backend with its tier manager, after a turn
+    whose conversation was then demoted: both packages' ``/admin/tiers``
+    answer the same keys (the tier manager's ``status()``), warm pages
+    and counters, and ``/metrics`` carries the tier gauges."""
+    from tests.test_torch_tiering import (demote_all, tier_pair, turns,
+                                          wait_parked)
+
+    pair = tier_pair(monkeypatch, tmp_path / "svc")
+    out = []
+    for pkg, svc in zip(("jax", "torch"), pair):
+        svc.start(warmup=False)
+        try:
+            turns(svc, "u", 1)
+            wait_parked(svc, ("u", "bot"))
+            assert demote_all(svc) > 0
+            st, body, lines = _tiers_over(svc, tmp_path / pkg, pkg)
+        finally:
+            svc.stop()
+            svc.db.close()
+        assert st == 200 and body["enabled"] is True
+        assert body["pages"]["warm"] > 0
+        assert any(ln.startswith('swarmdb_tier_pages{tier="warm"}')
+                   for ln in lines), lines
+        body.pop("warm_hit_rate")
+        out.append((_shape(body), body["pages"], body["counters"],
+                    body["warm_store"]["entries"], lines))
+    assert out[1] == out[0]
+
+
+def test_admin_tiers_without_a_tier_manager_counts_hot_pages(tmp_path,
+                                                              monkeypatch):
+    """Rolling KV on but ``SWARMDB_TIER=0``: ``/admin/tiers`` still
+    answers, tiering off, with the pool's hot pages after a kept turn,
+    equal in both packages."""
+    from tests.test_torch_rolling import chat, service_pair
+
+    monkeypatch.setenv("SWARMDB_TIER", "0")
+    pair = service_pair(monkeypatch, tmp_path / "svc", True)
+    out = []
+    for pkg, svc in zip(("jax", "torch"), pair):
+        svc.start(warmup=False)
+        try:
+            chat(svc, "u", "hello there")
+            st, body, _ = _tiers_over(svc, tmp_path / pkg, pkg)
+        finally:
+            svc.stop()
+            svc.db.close()
+        assert st == 200 and body["enabled"] is False
+        out.append(body)
+    assert out[1] == out[0] and out[1]["pages"]["hot"] > 0

@@ -175,7 +175,7 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
 @pytest.mark.parametrize("path", [
     "/admin/cluster/trace", "/admin/slo", "/admin/ha", "/admin/lanes",
     "/admin/lockcheck", "/admin/pagecheck", "/admin/kerncheck",
-    "/admin/profile", "/admin/mem", "/admin/tiers"])
+    "/admin/profile", "/admin/mem"])
 def test_unported_routes_answer_501(path, tmp_path):
     """Every route of the JAX package's server exists in the port's; one
     whose subsystem is not ported answers 501 (admin only) with a body
