@@ -157,6 +157,35 @@ and exits non-zero at the first failure:
                its next greedy turn equal to the same turn kept hot; the
                engine otherwise idle, the turn's TTFT kept hot, promoted
                (warm) and re-prefilled whole (cold) is printed.
+7c. lanes -- lane groups and the fleet on Llama-3-8B at full width, the
+               serve phase's weights shared by two lanes on one card
+               (``build_serving_engine`` over ``["cuda:0", "cuda:0"]``: 2
+               lanes x 4 slots, 513 pages of 16 per lane, each lane its
+               own CUDA stream, graphs captured by ``warmup()``): (1) the
+               supervised group through SwarmDB + LocalBroker +
+               ServingService, 8 users x 2 turns of ~400 tokens, 32 new
+               tokens: every reply length / eos, both lanes serving, each
+               conversation's turns on one lane, turn 2 reusing pages on
+               both, lanes 0 and 1 equal on a greedy prompt; per lane its
+               requests, ragged waves, chunks and waves admitted while the
+               sibling decoded; TTFT, tokens/s, peak memory; one profiled
+               turn (device busy as the union of both streams' kernel
+               intervals, beside their sum). (2) 4 greedy streams on lane
+               1, ``ServingChaos.kill_lane(1)`` at the 8th token: they
+               migrate to lane 0 and end "length" with the undisturbed
+               tokens, lane 1 is restarted, probed and re-admitted,
+               custody balances on both lanes. (3)
+               ``SWARMDB_FLEET=prefill:1,decode:1`` with a 1 GiB transit
+               store over bf16 and int8 pools: 8 requests of ~400 tokens
+               hand off with no fallback, the prefill lane runs no decode
+               chunk and the decode lane no ragged wave, custody balances
+               and the transit store empties; handoff ms, gather and
+               insert ms per page, page-locked bytes before and after,
+               staged against colocated TTFT. Greedy streams that part
+               from their reference (migrated, or handed off) must part
+               where the plain forward's top-2 gap is below the measured
+               max logit difference of the two paths at the first step
+               (``first_step_logit_diff``), a near tie.
 8. mixtral -- Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128,
                8 experts of FFN 14336, top-2, vocab 32000, rope theta 1e6)
                and 16 of its 32 layers (``reduced``: all 32 do not fit one
@@ -189,7 +218,7 @@ and exits non-zero at the first failure:
                printed beside the non-rolling serve's.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
-serves, the api phase, the rolling phase and the seven Mixtral serves,
+serves, the api, rolling and lanes phases and the seven Mixtral serves,
 each counted from zero
 just before it and read just after; a graph replay adds the launches its
 capture recorded) and, last,
@@ -2808,7 +2837,7 @@ def kill_replay(svc, eng):
         toks, reason, streamed = _served_once(svc, msg, kill_at_8)
         took = time.perf_counter() - t0
         st = svc.supervisor.status()
-        wait_until(lambda: svc.supervisor.status()["state"]
+        wait_until(lambda: svc.supervisor.status()["lanes"][0]["state"]
                    == "alive", 120.0, what="the engine re-admitted")
         after = svc.supervisor.status()
         emit("api", step="d_kill_replay", killed=bool(killed),
@@ -2816,7 +2845,7 @@ def kill_replay(svc, eng):
              streamed_equals_final=streamed == toks, seconds=took,
              requests_retried=st["requests_retried"],
              requests_migrated=st["requests_migrated"],
-             restarts=after["restarts"],
+             restarts=after["lanes"][0]["restarts"],
              readmissions=after["lane_readmissions"],
              dense_max_step_s=eng.max_step_s)
         if not (killed and reason == "length" and len(toks) == 32
@@ -3046,6 +3075,607 @@ def run_server_process(save_dir):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+
+
+# ------------------------------------------------------------------- lanes
+
+
+#: The lanes phase's group: ``build_serving_engine``'s lane defaults on
+#: one card, two lanes of four slots sharing the serve phase's weights.
+LANE_MODEL = "llama3-8b"
+LANE_DEVICES = ("cuda:0", "cuda:0")
+LANE_BATCH = 8
+LANE_USERS = 8
+LANE_NEW = 32
+LANE_TRANSIT_MB = 1024
+
+
+def lane_prompt(tok, i: int) -> list:
+    """A ~400-token chat prompt that differs from every other from its
+    first page on (no prefix-cache hit between them)."""
+    return tok.encode(f"Message {i} from lane_user{i}. "
+                      + USER_TEXT.format(u=f"lane_user{i}"))
+
+
+def build_lanes(params, kind: str, metrics, fleet: bool = False):
+    """A 2-lane Llama-3-8B group on ``LANE_DEVICES`` (pools of 512 pages
+    of 16 per lane, the default rule), its graphs captured by
+    ``warmup()``, and per-lane counters the engine does not keep apart
+    (its metrics are the group's): ragged waves (calls of the lane's
+    ragged forward) and waves admitted while the sibling decoded.
+    ``fleet``: ``SWARMDB_FLEET=prefill:1,decode:1`` with a
+    ``LANE_TRANSIT_MB`` transit store."""
+    import torch
+
+    from swarmdb_tpu_torch.parallel import build_serving_engine
+
+    with env_scope(
+            SWARMDB_FLEET="prefill:1,decode:1" if fleet else None,
+            SWARMDB_FLEET_TRANSIT_MB=LANE_TRANSIT_MB if fleet else None,
+            SWARMDB_FLEET_TIERS=None, SWARMDB_CHUNKED="1",
+            SWARMDB_PAGED=None, SWARMDB_PREFIX_TOKENS=None,
+            SWARMDB_EMIT_RING=None):
+        g, info = build_serving_engine(
+            LANE_MODEL, list(LANE_DEVICES), max_batch=LANE_BATCH,
+            max_seq=1024, paged=True, page_size=16, decode_chunk=8,
+            params=params, kv_dtype=getattr(torch, kind), metrics=metrics)
+    if info.data_size != 2 or (g.fleet is not None) != fleet:
+        fail(f"lanes: build gave {info.data_size} lanes, fleet "
+             f"{g.fleet is not None}")
+    waves = [0] * len(g.lanes)
+    overlaps = [0] * len(g.lanes)
+    for j, e in enumerate(g.lanes):
+        fwd, probe = e.paged.prefill_ragged, e.overlap_probe
+
+        def counted_fwd(*a, _f=fwd, _j=j):
+            waves[_j] += 1
+            return _f(*a)
+
+        def counted_probe(_p=probe, _j=j):
+            hit = _p()
+            overlaps[_j] += bool(hit)
+            return hit
+
+        e.paged.prefill_ragged, e.overlap_probe = counted_fwd, counted_probe
+    t0 = time.perf_counter()
+    g.warmup()
+    return g, waves, overlaps, time.perf_counter() - t0
+
+
+def lane_custody(g) -> list:
+    """Per lane, the engine idle: pages not free, in no slot and in no
+    prefix-cache entry (0 when custody balances)."""
+    out = []
+    for e in g.lanes:
+        alloc = e.paged.allocator
+        held = sum(len(alloc.pages_for(s)) for s in range(e.max_batch))
+        cached = e._prefix.stats()["cached_pages"]
+        out.append(e.paged.num_pages - 1 - alloc.free_count() - held
+                   - cached)
+    return out
+
+
+def lane_run(g, prompts, hints=None, on_token=None, timeout=300.0):
+    """Submit greedy requests of ``LANE_NEW`` tokens through the group
+    at once and wait: per request its tokens, reason, streamed tokens,
+    logprobs and TTFT (first streamed token after submit)."""
+    import threading
+
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+
+    n = len(prompts)
+    done = [threading.Event() for _ in range(n)]
+    outs = [{"streamed": []} for _ in range(n)]
+    reqs = []
+    for i, p in enumerate(prompts):
+        def tok(rid, t, _o=outs[i], _i=i):
+            if not _o["streamed"]:
+                _o["ttft_s"] = time.perf_counter() - _o["t0"]
+            _o["streamed"].append(t)
+            if on_token is not None:
+                on_token(_i, _o["streamed"])
+
+        req = GenRequest(prompt=list(p), on_token=tok,
+                         sampling=SamplingParams(max_new_tokens=LANE_NEW),
+                         shard_hint=None if hints is None else hints[i])
+
+        def fin(rid, toks, reason, _o=outs[i], _d=done[i], _r=req):
+            # the finishing attempt's logprobs (a migration's replay, or
+            # the fleet's two stages merged), read before any later
+            # retirement of a killed attempt can overwrite them
+            _o.update(toks=toks, reason=reason, logprobs=list(
+                _r.metadata.get("logprobs") or []))
+            _d.set()
+
+        req.on_done = fin
+        reqs.append(req)
+    for o, r in zip(outs, reqs):
+        o["t0"] = time.perf_counter()
+        g.submit(r)
+    for i, d in enumerate(done):
+        if not d.wait(timeout):
+            fail(f"lanes: request {i} never finished")
+    return outs
+
+
+def path_logprob_diffs(ref, got, start):
+    """|logprob difference| of the chosen token at each step from
+    ``start`` on while the two runs' tokens agree: ``ref`` and ``got`` are
+    ``lane_run`` outputs; ``got``'s logprobs may cover only its last
+    steps (a migration's replay)."""
+    off = LANE_NEW - len(got["logprobs"])
+    out = []
+    for s in range(max(start, off), LANE_NEW):
+        if ref["toks"][:s + 1] != got["toks"][:s + 1]:
+            break
+        out.append(abs(ref["logprobs"][s] - got["logprobs"][s - off]))
+    return out
+
+
+def first_step_logit_diff(eng, prompt) -> float:
+    """Max |logit difference| of the two paths that decode the first
+    token after ``prompt`` on lane ``eng`` (idle), over the same pages:
+    the colocated decode's first step (the chunked paged forward, kernel 2
+    over the pages and the chunk buffer) and the fleet's first stage-2
+    step (the resume prefill, plain attention over the pages). The prompt's
+    K/V comes from one kept admission of it (``keep_pages``); its pages are
+    freed after. Kernel launches here are a measurement's, kept out of
+    ``LAUNCHES``."""
+    import threading
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    done, got = threading.Event(), {}
+    eng.submit(GenRequest(
+        prompt=list(prompt), sampling=SamplingParams(max_new_tokens=1),
+        keep_pages=True,
+        on_pages=lambda rid, pages, written, tail: got.update(
+            pages=pages, written=written),
+        on_done=lambda rid, toks, reason: (got.update(toks=toks),
+                                           done.set())))
+    if not done.wait(120) or "pages" not in got or not got["toks"]:
+        fail(f"lanes: the kept admission for the logit check failed: {got}")
+    cfg, dev = get_config(LANE_MODEL), eng.device
+    pages, P = got["pages"], got["written"]
+    i32 = dict(dtype=torch.int32, device=dev)
+    tok = torch.tensor([[got["toks"][0]]], **i32)
+    table = torch.zeros((1, eng.paged.allocator.maxp), **i32)
+    table[0, :len(pages)] = torch.tensor(pages, **i32)
+    ptab = torch.zeros((1, eng._pp_bucket_for(len(pages))), **i32)
+    ptab[0, :len(pages)] = torch.tensor(pages, **i32)
+    try:
+        with ac.launches_into({}):
+            a, _ = llama.forward_paged_chunked(
+                eng.params, cfg, tok, torch.tensor([[P]], **i32),
+                {"k": eng.cache["k"], "v": eng.cache["v"],
+                 "page_table": table},
+                llama.init_chunk_kv(cfg, 1, eng.decode_chunk, device=dev), 0)
+            b, _, _ = llama.forward_prefix_pages(
+                eng.params, cfg, tok, ptab, torch.tensor([P], **i32),
+                eng.cache["k"], eng.cache["v"],
+                logits_at=torch.zeros(1, dtype=torch.long, device=dev))
+        return float((a[:, 0].float() - b.float()).abs().max())
+    finally:
+        eng.rolling_free(pages)
+
+
+def first_parting(params, prompt, ref, got, tol):
+    """Where ``got`` first parts from the greedy ``ref`` after ``prompt``:
+    None when they are equal; else the step, the top-2 logit gap there
+    (and the two parting tokens' gap) from a plain bf16 forward over the
+    prompt and ``ref``'s tokens before the step, and whether the top-2 gap
+    is below ``tol``, the difference this run measured between the two
+    paths where they agree: then the parting is a near tie."""
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    i = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+    if i is None:
+        return None
+    cfg = get_config(LANE_MODEL)
+    ctx = list(prompt) + list(ref[:i])
+    T, dev = len(ctx), params["embed"].device
+    logits, _ = llama.forward(
+        params, cfg, torch.tensor([ctx], dtype=torch.int32, device=dev),
+        torch.arange(T, dtype=torch.int32, device=dev)[None],
+        llama.init_kv_cache(cfg, 1, T, device=dev),
+        logits_at=torch.tensor([T - 1], device=dev))
+    lg = logits[0].float()
+    top2 = torch.topk(lg, 2).values
+    pair = abs(float(lg[ref[i]] - lg[got[i]]))
+    gap = float(top2[0] - top2[1])
+    return dict(step=i, top2_gap=gap, pair_gap=pair, tol=tol,
+                near_tie=gap < tol)
+
+
+def profile_lanes_turn(db, users, text):
+    """One more turn under ``torch.profiler`` (device only). Two lanes'
+    kernels run on two streams and may overlap, so the device's busy time
+    is the union of the kernels' intervals; the sum of their times is
+    printed beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for u in users:
+            db.send_message(u, "assistant", text.format(u=u),
+                            metadata={"generation": {
+                                "max_new_tokens": LANE_NEW}})
+        got = await_replies(db, users)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if len(got) < len(users):
+        fail(f"lanes: profiled turn: {len(got)} of {len(users)} replies")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    union_us, cur = 0.0, None
+    for s, e in spans:
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                union_us += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        union_us += cur[1] - cur[0]
+    sum_ms = sum(t for t in (
+        (getattr(e, "self_device_time_total", 0)
+         or getattr(e, "self_cuda_time_total", 0)) / 1e3
+        for e in prof.key_averages()) if t > 0)
+    if not spans:
+        fail("lanes: the profiled turn shows no device interval")
+    return dict(wall_ms=wall_ms, device_busy_union_ms=union_us / 1e3,
+                device_kernel_sum_ms=sum_ms, kernel_intervals=len(spans))
+
+
+def lanes_colocated(card, params, tok):
+    """(1) the colocated group, supervised, through SwarmDB + LocalBroker
+    + ServingService; then (2) chaos on the same group. Returns the group,
+    its service and the bf16 reference of (3)."""
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import ServingService
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    torch.cuda.reset_peak_memory_stats()
+    db = SwarmDB(broker=LocalBroker(),
+                 save_dir=tempfile.mkdtemp(prefix="swarm_lanes_"))
+    g, waves, overlaps, warm_s = build_lanes(params, "bfloat16", db.metrics)
+    lanes_of = []   # (message id, lane) of every submission
+    for j, e in enumerate(g.lanes):
+        def recorded(r, _s=e.submit, _j=j):
+            lanes_of.append((r.metadata.get("message_id"), _j))
+            return _s(r)
+        e.submit = recorded
+    svc = ServingService(db, g, tok, backend_id="h100-lanes")
+    if svc.supervisor is None or svc.supervisor is not g.supervisor:
+        fail("lanes: the service did not attach the group's supervisor")
+    users = [f"user{i}" for i in range(LANE_USERS)]
+    for a in users + ["assistant"]:
+        db.register_agent(a)
+    db.assign_llm_backend("assistant", "h100-lanes")
+    svc.start(warmup=False)   # warmup() ran in build_lanes
+    c = db.metrics.counters
+    replies = []
+    t_serve = time.perf_counter()
+    for turn, text in enumerate((USER_TEXT, FOLLOW_UP)):
+        for u in users:
+            db.send_message(u, "assistant", text.format(u=u),
+                            metadata={"generation": {
+                                "max_new_tokens": LANE_NEW}})
+        got = await_replies(db, users)
+        if len(got) < len(users):
+            fail(f"lanes (1) turn {turn + 1}: {len(got)} of {len(users)} "
+                 "replies")
+        replies.extend(got.values())
+    serve_s = time.perf_counter() - t_serve
+    conv = {}
+    for mid, lane in lanes_of:
+        if mid is not None:
+            conv.setdefault(db.get_message(mid).sender_id, set()).add(lane)
+    fixed = lane_prompt(tok, 99)
+    same = lane_run(g, [fixed, fixed], hints=[0, 1])
+    reasons = [m.metadata.get("finish_reason") for m in replies]
+    hits = [e._prefix.stats()["hit_tokens"] for e in g.lanes]
+    checks = {
+        "16 replies, length/eos": len(replies) == 2 * LANE_USERS
+            and all(r in ("length", "eos") for r in reasons),
+        "both lanes serve": all(e.total_requests > 0 for e in g.lanes),
+        "each conversation on one lane": len(conv) == LANE_USERS
+            and all(len(v) == 1 for v in conv.values()),
+        "turn 2 reuses turn 1's pages on both lanes": all(h > 0
+                                                          for h in hits),
+        "lane 0 and lane 1 give equal greedy tokens": same[0]["toks"]
+            == same[1]["toks"] and same[0]["reason"] == "length",
+        "decode through graph replays on both lanes": all(
+            e._runner.chunks > 0 and e._runner.graphs for e in g.lanes),
+    }
+    ttft = sorted(db.metrics.latencies["send_to_first_token_s"].values())
+    gen_tok = c["tokens_generated"].value
+    rec = dict(
+        part="colocated", model=LANE_MODEL, lanes=len(g.lanes),
+        devices=list(LANE_DEVICES), slots_per_lane=g.lanes[0].max_batch,
+        pages_per_lane=[e.paged.num_pages for e in g.lanes],
+        warmup_s=warm_s, users=LANE_USERS, turns=2, replies=len(replies),
+        finish_reasons=sorted(set(reasons)),
+        lane_of_conversation={u: sorted(v)[0] for u, v in conv.items()},
+        per_lane=[dict(requests=e.total_requests, ragged_waves=waves[j],
+                       decode_chunks=e._runner.chunks,
+                       overlap_waves=overlaps[j],
+                       prefix_hit_tokens=hits[j])
+                  for j, e in enumerate(g.lanes)],
+        engine_admission_overlap_steps=c[
+            "engine_admission_overlap_steps"].value,
+        ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
+        decode_tokens_per_s_wall=gen_tok / serve_s,
+        decode_tokens_per_s_chunks=(
+            gen_tok / (c["phase_us_decode"].value / 1e6)
+            if c["phase_us_decode"].value else None),
+        serve_wall_s=serve_s,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        card=card, checks=checks)
+    emit("lanes", **rec)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"lanes (1) checks failed: {bad}")
+    prof = profile_lanes_turn(db, users, FOLLOW_UP)
+    prof["untraced_turn_wall_ms"] = serve_s / 2 * 1e3
+    prof["device_idle_share_vs_untraced"] = 1.0 - prof[
+        "device_busy_union_ms"] / prof["untraced_turn_wall_ms"]
+    emit("lanes", part="profile", card=card, **prof)
+    lanes_chaos(card, params, tok, g, svc)
+    return g, svc, db
+
+
+def lanes_chaos(card, params, tok, g, svc):
+    """(2) four greedy streams hinted to lane 1, lane 1 killed mid-stream:
+    the requests migrate to lane 0 and end "length" with the undisturbed
+    run's tokens (or part at a checked near tie), lane 1 is restarted,
+    probed and re-admitted, and custody balances on both lanes."""
+    from swarmdb_tpu_torch.backend.chaos import ServingChaos, wait_until
+
+    sup = svc.supervisor
+    sup.poll_s = 0.1
+    prompts = [lane_prompt(tok, 10 + i) for i in range(4)]
+    ref = lane_run(g, prompts, hints=[1] * 4)
+    st0 = sup.status()
+    c = g.metrics.counters
+    migrated0 = c["requests_migrated"].value
+    chaos = ServingChaos(g)
+    killed = []
+
+    def kill_at_8(i, streamed):
+        if len(streamed) == 8 and not killed:
+            killed.append(time.perf_counter())
+            chaos.kill_lane(1)
+
+    try:
+        got = lane_run(g, prompts, hints=[1] * 4, on_token=kill_at_8)
+        t_done = time.perf_counter()
+        wait_until(lambda: sup.status()["lanes"][1]["state"] == "alive",
+                   120.0, what="lane 1 re-admitted")
+        readmit_s = time.perf_counter() - killed[0] if killed else None
+    finally:
+        chaos.stop()
+    st = sup.status()
+    moves = [e for e in g.flight.events()
+             if e.get("kind") == "request.migrated"]
+    # a replay re-prefills on lane 0 what the undisturbed run decoded: the
+    # chosen tokens' logprob differences where the runs agree measure the
+    # two paths' rounding
+    diffs = [path_logprob_diffs(r, o, 0) for r, o in zip(ref, got)]
+    wait_until(lambda: all(not any(s.active for s in e.slots)
+                           for e in g.lanes), 60.0, what="idle lanes")
+    logit_diff = max(first_step_logit_diff(g.lanes[0], p)
+                     for p in prompts[:2])
+    tol = max([logit_diff] + [d for ds in diffs for d in ds])
+    partings = [first_parting(params, p, r["toks"], o["toks"], tol)
+                for p, r, o in zip(prompts, ref, got)]
+    custody = lane_custody(g)
+    checks = {
+        "killed mid-stream": bool(killed),
+        "4 replies length, 32 tokens, stream == reply": all(
+            o["reason"] == "length" and len(o["toks"]) == LANE_NEW
+            and o["streamed"] == o["toks"] for o in got),
+        "migrated to lane 0": c["requests_migrated"].value > migrated0
+            and all(m["to_lane"] == 0 for m in moves[-4:]),
+        "tokens equal the undisturbed run's, or part at a near tie": all(
+            p is None or p["near_tie"] for p in partings),
+        "lane 1 restarted, probed, re-admitted":
+            st["lanes"][1]["restarts"] > st0["lanes"][1]["restarts"]
+            and st["lane_readmissions"] > st0["lane_readmissions"]
+            and st["lanes"][1]["state"] == "alive",
+        "custody balances on both lanes": custody == [0, 0],
+    }
+    emit("lanes", part="chaos", card=card,
+         requests_migrated=c["requests_migrated"].value - migrated0,
+         migrations=[(m["from_lane"], m["to_lane"], m["emitted"])
+                     for m in moves[-4:]],
+         equal_to_undisturbed=[o["toks"] == r["toks"]
+                               for r, o in zip(ref, got)],
+         first_step_max_logit_diff=logit_diff,
+         replay_logprob_diff_max=[max(d, default=None) for d in diffs],
+         replay_first_token_logprob_diff=[d[0] if d else None
+                                          for d in diffs],
+         partings=partings,
+         lane_states=[lane["state"] for lane in st["lanes"]],
+         restarts=[lane["restarts"] for lane in st["lanes"]],
+         readmissions=st["lane_readmissions"],
+         kill_to_readmitted_s=readmit_s,
+         kill_to_last_reply_s=(t_done - killed[0]) if killed else None,
+         custody=custody, checks=checks)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"lanes (2) checks failed: {bad}")
+
+
+def lanes_fleet(card, params, tok, kind, colo):
+    """(3) ``SWARMDB_FLEET=prefill:1,decode:1`` over ``kind`` pools: 8
+    greedy requests handed off prefill lane -> pinned transit store ->
+    decode lane, against ``colo`` (the colocated group of the same pool
+    kind) on the same prompts."""
+    import gc
+
+    import torch
+
+    from swarmdb_tpu_torch.ops.paged_kv import (pool_gather_pages,
+                                                pool_insert_raw)
+    from swarmdb_tpu_torch.utils.metrics import MetricsRegistry
+
+    prompts = [lane_prompt(tok, 20 + i) for i in range(8)]
+    ref = lane_run(colo, prompts, hints=[i % 2 for i in range(8)])
+    pinned_before = host_pinned_bytes()
+    metrics = MetricsRegistry()
+    f, waves, _, warm_s = build_lanes(params, kind, metrics, fleet=True)
+    f.start()
+    try:
+        got = lane_run(f, prompts)
+        wait_until_idle(f)
+        waves = list(waves)   # the run's, before the measurements below
+        chunks = [e._runner.chunks for e in f.lanes]
+        fst = f.fleet.stats()
+        pinned_after = host_pinned_bytes()
+        custody = lane_custody(f)
+        pre, dec = f.lanes
+        # the two paths' difference where they agree, from the first
+        # stage-2 step on (the decode lane's resume prefill of the first
+        # token, against the colocated lane's first decode step)
+        diffs = [path_logprob_diffs(r, o, 1) for r, o in zip(ref, got)]
+        logit_diff = max(first_step_logit_diff(dec, p) for p in prompts[:2])
+        tol = max([logit_diff] + [d for ds in diffs for d in ds])
+        partings = [first_parting(params, p, r["toks"], o["toks"], tol)
+                    for p, r, o in zip(prompts, ref, got)]
+        lat = sorted(metrics.latencies["fleet_handoff_s"].values())
+        # the decode lane's promote insert alone: a payload of the first
+        # prompt's pages, copied from page-locked memory into reserved
+        # pages and synchronized (the lanes are idle)
+        n_pages = -(-len(prompts[0]) // dec.paged.page_size)
+        src = dec.paged.allocator.reserve(n_pages)
+        pinned = lambda shape, dt: torch.empty(
+            shape, dtype=dt, pin_memory=dec.device.type == "cuda")
+        payload = [pool_gather_pages(dec.cache[n], src, pinned)
+                   for n in ("k", "v")]
+        ids = torch.tensor(src, device=pre.device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for n, pay in zip(("k", "v"), payload):
+            pool_insert_raw(dec.cache[n], ids, pay)
+        ev[1].record()
+        ev[1].synchronize()
+        dec.paged.allocator.add_free(src)
+        insert_ms_page = ev[0].elapsed_time(ev[1]) / n_pages
+        checks = {
+            "8 handoffs, no fallback": fst["handoffs"] == 8
+                and fst["handoff_fallbacks"] == 0,
+            "8 replies length, 32 tokens, stream == reply": all(
+                o["reason"] == "length" and len(o["toks"]) == LANE_NEW
+                and o["streamed"] == o["toks"] for o in got),
+            "the prefill lane ran no decode chunk": chunks[0] == 0
+                and not pre._runner.graphs,
+            "the decode lane ran no ragged wave": waves[1] == 0
+                and waves[0] > 0,
+            "tokens equal colocated, or part at a near tie": all(
+                p is None or p["near_tie"] for p in partings),
+            "custody balances, transit store empty": custody == [0, 0]
+                and fst["transit_store"]["entries"] == 0
+                and fst["in_flight"] == 0,
+        }
+        emit("lanes", part=f"fleet_{kind}", card=card, warmup_s=warm_s,
+             handoffs=fst["handoffs"], fallbacks=fst["handoff_fallbacks"],
+             handoff_ms_p50=1e3 * statistics.median(lat) if lat else None,
+             handoff_ms_max=1e3 * lat[-1] if lat else None,
+             gather_ms_per_page=fst["gather_ms_per_page"],
+             insert_ms_per_page=insert_ms_page, insert_pages=n_pages,
+             transit_store=fst["transit_store"],
+             transit_slab=fst["transit_slab"],
+             pinned_bytes_before=pinned_before,
+             pinned_bytes_after=pinned_after,
+             prefill_lane=dict(ragged_waves=waves[0],
+                               decode_chunks=chunks[0]),
+             decode_lane=dict(ragged_waves=waves[1],
+                              decode_chunks=chunks[1],
+                              promote_inserts=metrics.counters[
+                                  "engine_tier_promote_inserts"].value),
+             ttft_staged=_summary([o["ttft_s"] for o in got]),
+             ttft_colocated=_summary([r["ttft_s"] for r in ref]),
+             equal_to_colocated=[o["toks"] == r["toks"]
+                                 for r, o in zip(ref, got)],
+             first_stage2_max_logit_diff=logit_diff,
+             first_stage2_logprob_diff=[d[0] if d else None
+                                        for d in diffs],
+             path_logprob_diff_max=[max(d, default=None) for d in diffs],
+             partings=partings,
+             custody=custody, checks=checks)
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"lanes (3) fleet {kind} checks failed: {bad}")
+    finally:
+        f.stop()
+        del f
+        gc.collect()
+
+
+def wait_until_idle(g, timeout=60.0):
+    from swarmdb_tpu_torch.backend.chaos import wait_until
+
+    wait_until(lambda: all(not any(s.active for s in e.slots)
+                           for e in g.lanes), timeout, what="idle lanes")
+
+
+def run_lanes(card, params):
+    """The lanes phase (Llama-3-8B at full width on the serve phase's
+    weights): (1) the colocated group through the service, profiled; (2)
+    a lane killed mid-stream; (3) the fleet over bf16 and int8 pools.
+    Returns the phase's launches."""
+    import gc
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.tokenizer import default_tokenizer
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.utils.metrics import MetricsRegistry
+
+    tok = default_tokenizer(get_config(LANE_MODEL).vocab_size)
+    t0 = time.perf_counter()
+    ac.reset_launches()
+    g, svc, db = lanes_colocated(card, params, tok)
+    try:
+        lanes_fleet(card, params, tok, "bfloat16", g)
+    finally:
+        svc.stop()
+        db.close()
+        del svc, g
+        gc.collect()
+    colo8, _, _, _ = build_lanes(params, "int8", MetricsRegistry())
+    colo8.start()
+    try:
+        lanes_fleet(card, params, tok, "int8", colo8)
+    finally:
+        colo8.stop()
+        del colo8
+        gc.collect()
+    launches = dict(ac.LAUNCHES)
+    torch.cuda.empty_cache()
+    emit("lanes", part="done", seconds=time.perf_counter() - t0,
+         launches={k: n for k, n in launches.items() if n}, card=card)
+    return launches
 
 
 # ----------------------------------------------------------------- mixtral
@@ -3541,6 +4171,8 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         run_decode_loop(card, "llama3-8b", params, LOOP_LLAMA)
         for k, n in run_rolling(card, params).items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in run_lanes(card, params).items():
             launches[k] = launches.get(k, 0) + n
         free_weights(params)   # Llama-3-8B's weights go before Mixtral's
         del params

@@ -19,8 +19,7 @@ its text raw, which a line break inside the text cuts short).
 whose subsystem is not ported yet answer 501 with a body that names its
 ROADMAP.md item (queue 1): ``/admin/cluster/trace``, ``/admin/slo``,
 ``/admin/lockcheck``, ``/admin/pagecheck``, ``/admin/kerncheck``,
-``/admin/profile``, ``/admin/mem`` (item 10), ``/admin/lanes`` (item 9),
-``/admin/tiers`` (item 7) and ``/admin/ha`` (item 12).
+``/admin/profile``, ``/admin/mem`` (item 10) and ``/admin/ha`` (item 12).
 """
 
 from __future__ import annotations
@@ -61,7 +60,6 @@ UNPORTED_ROUTES = {
     "/admin/cluster/trace": ("cluster-wide trace merge", 10),
     "/admin/slo": ("the SLO sentinel", 10),
     "/admin/ha": ("the HA control plane", 12),
-    "/admin/lanes": ("lane groups", 9),
     "/admin/lockcheck": ("the lock sanitizer", 10),
     "/admin/pagecheck": ("the page sanitizer", 10),
     "/admin/kerncheck": ("the kernel sanitizer", 10),
@@ -679,6 +677,17 @@ def create_app(
                                       - int(pstats["free_pages"]))
         return web.json_response(out)
 
+    async def admin_lanes(request: web.Request) -> web.Response:
+        """GET /admin/lanes: the lane supervisor's status (per-lane state,
+        beat age, quarantines and restarts; the migration / retry / shed /
+        deadline counters; the config), for one engine or a lane group;
+        503 without a supervisor."""
+        require_admin(current_agent(request))
+        supervisor = getattr(serving, "supervisor", None)
+        if supervisor is None:
+            raise _error(503, "no lane supervisor attached")
+        return web.json_response(await _run_sync(supervisor.status))
+
     def unported(path: str):
         what, item = UNPORTED_ROUTES[path]
 
@@ -839,6 +848,7 @@ def create_app(
         web.get("/admin/trace/export", trace_export),
         web.get("/admin/flight", flight_record),
         web.get("/admin/tiers", admin_tiers),
+        web.get("/admin/lanes", admin_lanes),
     ] + [web.get(path, unported(path)) for path in UNPORTED_ROUTES])
 
     async def on_shutdown(app: web.Application) -> None:

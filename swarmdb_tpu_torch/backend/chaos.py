@@ -1,20 +1,20 @@
 """Deterministic fault injection for the serving path.
 
-The counterpart of ``swarmdb_tpu/backend/chaos.py`` on one engine (lane
-groups are ROADMAP.md queue 1 item 9; the methods keep the JAX package's
-lane argument, and the one engine is lane 0). Faults land at two seams the engine owns, and each
-injection lands in the engine's flight recorder as an event:
+The counterpart of ``swarmdb_tpu/backend/chaos.py``, over a lane group
+(``parallel/lanes.py``) or one engine (lane 0). Faults land at two seams
+each engine owns, and each injection lands in the flight recorder (the
+group's) as an event naming its lane:
 
-    chaos = ServingChaos(engine)
-    chaos.kill_lane(0)          # the loop thread dies at its next
+    chaos = ServingChaos(group)
+    chaos.kill_lane(1)          # lane 1's loop thread dies at its next
                                 # iteration (LaneKilled escapes its
                                 # recovery handler)
-    chaos.wedge(0)              # the loop blocks at the seam: beats
+    chaos.wedge(0)              # lane 0's loop blocks at the seam: beats
                                 # starve, the thread stays alive
-    chaos.slow(0, 0.05)         # per-step latency
-    chaos.squeeze_pool(0.9)     # withdraw 90% of the free pages
-    chaos.heal(0)               # clear wedge / slow
-    chaos.heal_pool()           # return the squeezed pages
+    chaos.slow(1, 0.05)         # per-step latency on lane 1
+    chaos.squeeze_pool(0.9)     # withdraw 90% of every lane's free pages
+    chaos.heal(0)               # clear wedge / slow on lane 0
+    chaos.heal_pool()           # return every squeezed page
 
 - ``Engine.chaos_step``: called once per loop iteration on the engine
   thread, before admission, so a kill or a wedge lands at a chunk
@@ -86,107 +86,101 @@ class _LaneFault:
 
 
 class ServingChaos:
-    """Scripted fault injection over one engine."""
+    """Scripted fault injection over a lane group (or one engine)."""
 
-    def __init__(self, engine: Engine,
+    def __init__(self, engine_or_group: Any,
                  flight: Optional[FlightRecorder] = None) -> None:
-        if hasattr(engine, "lanes"):
-            raise NotImplementedError(
-                "lane groups are not ported yet (ROADMAP.md, queue 1 item "
-                "9); ServingChaos takes one engine")
-        self.engine = engine
-        self.flight = flight if flight is not None else engine.flight
+        self.lanes: List[Engine] = list(
+            getattr(engine_or_group, "lanes", None) or [engine_or_group])
+        self.flight = (flight if flight is not None
+                       else engine_or_group.flight)
         self.events: List[Dict[str, Any]] = []
         self._events_lock = make_lock(
             "backend.chaos.ServingChaos._events_lock")
         self._timers: List[threading.Timer] = []
         self._t0 = time.monotonic()
-        # (allocator generation, withdrawn pages): a reset in between
-        # reclaimed them already, so heal must not free them twice
-        self._reserved: Optional[Tuple[int, List[int]]] = None
-        self.fault = _LaneFault(lambda what: self._log(what, fired=True))
-        engine.chaos_step = self.fault
+        # lane -> (allocator generation, withdrawn pages): a reset in
+        # between reclaimed them already, so heal must not free them twice
+        self._reserved: Dict[int, Tuple[int, List[int]]] = {}
+        self.faults: List[_LaneFault] = []
+        for idx, eng in enumerate(self.lanes):
+            fault = _LaneFault(
+                lambda what, i=idx: self._log(what, i, fired=True))
+            self.faults.append(fault)
+            eng.chaos_step = fault
 
-    @staticmethod
-    def _one(lane: Optional[int]) -> None:
-        if lane not in (None, 0):
-            raise ValueError(f"lane {lane}: ServingChaos drives one engine, "
-                             "lane 0 (lane groups: ROADMAP.md, queue 1 "
-                             "item 9)")
-
-    def _log(self, action: str, **detail: Any) -> None:
+    def _log(self, action: str, lane: int, **detail: Any) -> None:
         if detail.get("fired") and action == "wedge_holding":
             return
         ev = {"t_mono": round(time.monotonic() - self._t0, 4),
-              "action": action, "lane": 0, **detail}
+              "action": action, "lane": lane, **detail}
         with self._events_lock:
             self.events.append(ev)
         self.flight.record_event(
-            {"kind": f"chaos.{action}",
+            {"kind": f"chaos.{action}", "lane": lane,
              **{k: v for k, v in detail.items() if k != "fired"}})
 
     # --------------------------------------------------------------- faults
 
-    def kill_lane(self, lane: int = 0) -> None:
-        """Arm a one-shot loop death at the engine's next iteration."""
-        self._one(lane)
-        self._log("kill_lane")
-        self.fault._kill.set()
+    def kill_lane(self, lane: int) -> None:
+        """Arm a one-shot loop death at the lane's next iteration."""
+        self._log("kill_lane", lane)
+        self.faults[lane]._kill.set()
 
-    def wedge(self, lane: int = 0) -> None:
-        """Pin the engine thread at the seam until heal()."""
-        self._one(lane)
-        self._log("wedge")
-        self.fault._wedge.set()
+    def wedge(self, lane: int) -> None:
+        """Pin the lane's thread at the seam until heal()."""
+        self._log("wedge", lane)
+        self.faults[lane]._wedge.set()
 
     def slow(self, lane: int, seconds: float) -> None:
-        """Per-step latency (a degraded, not dead, engine)."""
-        self._one(lane)
-        self._log("slow", seconds=seconds)
-        self.fault._delay = float(seconds)
+        """Per-step latency (a degraded, not dead, lane)."""
+        self._log("slow", lane, seconds=seconds)
+        self.faults[lane]._delay = float(seconds)
 
-    def heal(self, lane: int = 0) -> None:
-        """Clear wedge / slow (a kill is one-shot; the supervisor owns the
-        restart)."""
-        self._one(lane)
-        self._log("heal")
-        self.fault._wedge.clear()
-        self.fault._delay = 0.0
+    def heal(self, lane: int) -> None:
+        """Clear wedge / slow on one lane (a kill is one-shot; the
+        supervisor owns the restart)."""
+        self._log("heal", lane)
+        self.faults[lane]._wedge.clear()
+        self.faults[lane]._delay = 0.0
 
     def squeeze_pool(self, fraction: float = 1.0,
                      lane: Optional[int] = None,
                      drain_cache: bool = True) -> int:
-        """Withdraw ``fraction`` of a paged engine's free pages.
-        ``drain_cache`` first evicts the unpinned prefix-cache pages into
-        the free list (a warm cache is headroom admission would evict on
-        demand). Returns the pages withdrawn (0 on a dense engine)."""
-        self._one(lane)
-        eng = self.engine
-        if eng.paged is None:
-            return 0
-        alloc = eng.paged.allocator
-        if drain_cache and eng._prefix is not None:
-            evicted = eng._prefix.evict_lru(eng.paged.num_pages)
-            if evicted:
-                alloc.add_free(evicted)
-        pages = alloc.reserve(max(0, int(fraction * alloc.free_count())))
-        gen, held = self._reserved or (alloc.generation, [])
-        if gen != alloc.generation:
-            held = []
-        self._reserved = (alloc.generation, held + pages)
-        self._log("squeeze_pool", pages=len(pages), fraction=fraction)
-        return len(pages)
+        """Withdraw ``fraction`` of each paged lane's free pages (of
+        ``lane`` only when given). ``drain_cache`` first evicts the
+        unpinned prefix-cache pages into the free list (a warm cache is
+        headroom admission would evict on demand). Returns the pages
+        withdrawn (0 on dense engines)."""
+        taken = 0
+        for i in ([lane] if lane is not None else range(len(self.lanes))):
+            eng = self.lanes[i]
+            if eng.paged is None:
+                continue
+            alloc = eng.paged.allocator
+            if drain_cache and eng._prefix is not None:
+                evicted = eng._prefix.evict_lru(eng.paged.num_pages)
+                if evicted:
+                    alloc.add_free(evicted)
+            pages = alloc.reserve(max(0, int(fraction * alloc.free_count())))
+            gen, held = self._reserved.get(i, (alloc.generation, []))
+            if gen != alloc.generation:
+                held = []
+            self._reserved[i] = (alloc.generation, held + pages)
+            taken += len(pages)
+            self._log("squeeze_pool", i, pages=len(pages),
+                      fraction=fraction)
+        return taken
 
     def heal_pool(self, lane: Optional[int] = None) -> None:
-        """Return every squeezed page to the engine's free list."""
-        self._one(lane)
-        if self._reserved is None:
-            return
-        (gen, pages), self._reserved = self._reserved, None
-        alloc = self.engine.paged.allocator
-        if pages and gen == alloc.generation:
-            alloc.add_free(pages)
-            self._log("heal_pool", pages=len(pages))
+        """Return every squeezed page to its lane's free list (of ``lane``
+        only when given)."""
+        for i in ([lane] if lane is not None else list(self._reserved)):
+            gen, pages = self._reserved.pop(i, (None, []))
+            alloc = self.lanes[i].paged.allocator if pages else None
+            if pages and gen == alloc.generation:
+                alloc.add_free(pages)
+                self._log("heal_pool", i, pages=len(pages))
 
     # ------------------------------------------------------------ scheduling
 
@@ -203,14 +197,15 @@ class ServingChaos:
     # -------------------------------------------------------------- teardown
 
     def stop(self) -> None:
-        """Cancel pending faults, heal everything, uninstall the seam."""
+        """Cancel pending faults, heal everything, uninstall the seams."""
         for t in self._timers:
             t.cancel()
         self.heal_pool()
-        self.fault._kill.clear()
-        self.fault._wedge.clear()
-        self.fault._delay = 0.0
-        self.engine.chaos_step = None
+        for eng, fault in zip(self.lanes, self.faults):
+            fault._kill.clear()
+            fault._wedge.clear()
+            fault._delay = 0.0
+            eng.chaos_step = None
 
     def dump(self) -> Dict[str, Any]:
         with self._events_lock:

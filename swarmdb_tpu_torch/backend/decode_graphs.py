@@ -26,6 +26,11 @@ fed tokens, and every row's position advanced by K.
   cache, the page table, the chunk K/V buffer, the fed-token vectors), so
   whatever rebuilds one of them must drop the runner (``Engine``'s
   ``_reset_state`` does).
+- A capture is device-wide: it synchronizes the device and empties the
+  allocator's cache, and a graph destroyed, or device memory freed, during
+  another thread's capture invalidates that capture. Lanes on one card
+  therefore take turns through ``device_lock``: a capture holds it, and
+  so does an engine's state rebuild, which destroys its graphs.
 
 ``attention_cuda.LAUNCHES`` counts Python calls of the kernel wrappers. A
 capture runs no kernel and a replay calls no Python, so a capture records
@@ -35,11 +40,13 @@ and every replay adds them: the counts stay kernel executions.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, ContextManager, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +58,20 @@ from .sampling import sample_tokens, token_logprob
 #: orders its decode variants (filters, sampling, greedy).
 VARIANTS: Tuple[Tuple[bool, bool], ...] = ((True, False), (False, False),
                                            (False, True))
+
+
+# one per CUDA device index: the device is the process's, so is its lock
+_DEVICE_LOCKS: Dict[int, threading.Lock] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def device_lock(device: torch.device) -> ContextManager:
+    """The lock that graph captures and graph teardown on ``device``
+    take (a no-op context off the card)."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault(device.index, threading.Lock())
 
 
 def variant_for(temp: np.ndarray, topk: np.ndarray, topp: np.ndarray,
@@ -184,8 +205,9 @@ class _RingSlot:
 class ChunkRunner:
     """One engine's decode chunks: ``body(variant)`` (``decode_chunk``
     over the engine's state) run eagerly on CPU tensors, replayed as one
-    CUDA graph per variant on the card. ``ring`` pinned slots hold the
-    chunks in flight (the engine keeps at most its pipeline depth).
+    CUDA graph per variant on the card, captured on ``stream`` (the
+    engine's). ``ring`` pinned slots hold the chunks in flight (the
+    engine keeps at most its pipeline depth).
 
     ``body`` is a bound method of the runner's owner, held weakly: an
     engine and its runner then form no reference cycle, so a dropped
@@ -194,7 +216,8 @@ class ChunkRunner:
     inside a capture invalidates the capture)."""
 
     def __init__(self, body: Callable[[int], None], io: ChunkIO,
-                 ring: int) -> None:
+                 ring: int,
+                 stream: Optional[torch.cuda.Stream] = None) -> None:
         self._body = weakref.WeakMethod(body)
         self.io = io
         self.device = io.tokens.device
@@ -207,20 +230,24 @@ class ChunkRunner:
         self.capture_s = 0.0
         self.chunks = 0
         self._pool = torch.cuda.graph_pool_handle() if self.cuda else None
-        # a stream of the runner's own: engines capturing at once must not
-        # share torch.cuda.graph's class-wide capture stream
-        self._stream = torch.cuda.Stream(self.device) if self.cuda else None
+        # captures run on the owner's stream (the engine's): engines
+        # capturing at once must not share torch.cuda.graph's class-wide
+        # capture stream, and a stream of the runner's own, from PyTorch's
+        # pool of 32 per device, could come back as a sibling lane's
+        self._stream = stream
+        if self.cuda and stream is None:
+            raise ValueError("a runner on the card needs its owner's stream")
         self._ring = [_RingSlot(io, self.cuda) for _ in range(max(2, ring))]
         self._next = 0
 
     def capture(self, variant: int) -> None:
-        """Capture ``variant``'s chunk into a graph in the shared pool. A
-        capture runs nothing on the card; it records which kernels the
-        chunk launches, outside ``LAUNCHES``."""
+        """Capture ``variant``'s chunk into a graph in the shared pool,
+        holding the device's lock. A capture runs nothing on the card; it
+        records which kernels the chunk launches, outside ``LAUNCHES``."""
         if not self.cuda:
             raise RuntimeError("CUDA graphs are captured on the card only")
         t0 = time.perf_counter()
-        with torch.cuda.device(self.device):
+        with device_lock(self.device), torch.cuda.device(self.device):
             torch.cuda.synchronize(self.device)
             # the capturing thread's cuBLAS handle: PyTorch creates one per
             # thread at its first GEMM, and cublasCreate fails inside a
@@ -282,8 +309,7 @@ class ChunkRunner:
             if variant not in self.graphs:
                 self.capture(variant)
             self.graphs[variant].replay()
-            for k, n in self.graph_launches[variant].items():
-                attention_cuda.LAUNCHES[k] += n
+            attention_cuda.count_launches(self.graph_launches[variant])
         else:
             self.body(variant)
         self.chunks += 1

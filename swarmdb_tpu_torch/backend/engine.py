@@ -55,7 +55,6 @@ dense slot cache (``paged=None``, the JAX package's default):
   to discard it), and idle slots decode at position 0. What idle and
   retired rows feed matters to a MoE model, whose routing counts every
   row of the step: the port gives the JAX package's tokens in both loops.
-  Lanes are a later slice of the port (ROADMAP.md).
 - Rolling KV (``GenRequest.keep_pages`` / ``resume_pages``, driven by the
   service's registry): a keep request hands its pages to ``on_pages`` at
   retirement (paged: custody moves; dense: the lane is copied into side
@@ -81,12 +80,28 @@ holds discrete events (backpressure, shedding, chaos, restarts); the
 engine's step and request rings and spans are not fed yet (ROADMAP.md,
 queue 1 item 10).
 
-All tensors live on the engine's explicit ``device``; the worker thread
-sets it as its current CUDA device.
+All tensors live on the engine's explicit ``device``, and on the card
+every operation on them runs on the engine's own stream (``stream``): its
+state is built there, and the loop thread, ``warmup``'s captures,
+restarts and the tier's and the fleet's copies all enqueue there, so
+lanes that share a card (``parallel/lanes.py``) never wait on each
+other's work, and a copy that another lane reads is published only after
+an event on this stream has passed. The worker thread sets the device as
+its current CUDA device.
+
+Lane hooks (``parallel/lanes.py``, ``parallel/fleet.py``), inert on a
+lone engine: ``GenRequest.shard_hint`` routes a request to a lane;
+``flight_shard`` stamps the engine's events with its lane;
+``overlap_probe`` says whether a sibling lane is inside a decode session
+(``_lane_busy``) when this one admits, counted in
+``engine_admission_overlap_steps``; a fleet ``_role`` of "prefill"
+retires admission-only requests straight off the prefill sample
+(``_drain_prefill_only``) and captures no decode graph at warmup.
 """
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import itertools
 import logging
@@ -95,7 +110,8 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, ContextManager, Dict, List, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -110,7 +126,7 @@ from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
 from ..utils.sync import make_condition, make_rlock
 from .decode_graphs import (ChunkIO, ChunkOut, ChunkRunner, decode_chunk,
-                            variant_for)
+                            device_lock, variant_for)
 from .sampling import (SamplingParams, key_from_seed, make_slot_keys,
                        sample_tokens, token_logprob)
 
@@ -174,6 +190,10 @@ class GenRequest:
     # ``pool_gather_pages`` outputs), copied into resume_pages (freshly
     # reserved) on the engine thread before the resume prefill reads them
     promote_payload: Optional[Any] = None
+    # shard_hint: the lane a lane group routes this request to (mod the
+    # lane count), so a conversation's turns meet its prefix-cache pages
+    # in one lane's pool. Advisory: a quarantined lane's requests remap
+    shard_hint: Optional[int] = None
 
 
 @dataclass
@@ -278,184 +298,202 @@ class Engine:
         the oldest block (the dense engine, and the paged one under
         ``SWARMDB_EMIT_RING=0``); a paged engine otherwise decodes in
         resident sessions (``SWARMDB_EMIT_RING``, read here)."""
-        self._ragged = (paged is not None and paged.prefill_ragged is not None
-                        and os.environ.get("SWARMDB_RAGGED_PREFILL",
-                                           "auto") != "0")
-        if not self._ragged and None in (forward_fn, init_cache_fn):
-            raise ValueError("a dense engine, or a paged one without ragged "
-                             "prefill, needs forward_fn and init_cache_fn")
-        self._forward_fn = forward_fn
-        self._decode_forward = (paged.decode_forward if paged is not None
-                                else forward_fn)
-        if chunked_fns is None and self._decode_forward is None:
-            raise ValueError("an engine without chunked_fns needs "
-                             "paged.decode_forward")
         self.device = resolve_device(device)
-        self.params = params
-        self.max_batch = max_batch
-        self.max_seq = max_seq
-        self.eos_id = eos_id
-        self.pad_id = pad_id
-        self.metrics = metrics or MetricsRegistry()
-        self.decode_chunk = max(1, int(decode_chunk))
-        self.prefill_batch = max(1, min(prefill_batch or 8, max_batch))
-        # rows of a bucketed wave: prefill_batch, or a power-of-two ladder
-        # for small paged waves (the JAX package's row-bucketed default)
-        self._row_buckets = [self.prefill_batch]
-        if paged is not None and self.prefill_batch <= 4:
-            self._row_buckets = [1]
-            while self._row_buckets[-1] < self.prefill_batch:
-                self._row_buckets.append(min(self.prefill_batch,
-                                             2 * self._row_buckets[-1]))
-        self.paged = paged
-        self._chunked_fns = chunked_fns
-        self._init_cache_fn = init_cache_fn
-        self.cache = self._new_cache()
-        self._chunk_kv = (chunked_fns[1](max_batch, self.decode_chunk)
-                          if chunked_fns is not None else None)
-        self.pipeline_depth = max(1, int(pipeline_depth))
-        self._resident = (paged is not None and os.environ.get(
-            "SWARMDB_EMIT_RING", "1") != "0")
-        self._aging_s = _env_float("SWARMDB_AGING_S", 5.0)
+        # the engine's stream on the card (module docstring); it first
+        # waits for what the building thread enqueued (the weights)
+        self.stream: Optional[torch.cuda.Stream] = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._on_stream():
+            self._ragged = (paged is not None
+                            and paged.prefill_ragged is not None
+                            and os.environ.get("SWARMDB_RAGGED_PREFILL",
+                                               "auto") != "0")
+            if not self._ragged and None in (forward_fn, init_cache_fn):
+                raise ValueError("a dense engine, or a paged one without "
+                                 "ragged prefill, needs forward_fn and "
+                                 "init_cache_fn")
+            self._forward_fn = forward_fn
+            self._decode_forward = (paged.decode_forward if paged is not None
+                                    else forward_fn)
+            if chunked_fns is None and self._decode_forward is None:
+                raise ValueError("an engine without chunked_fns needs "
+                                 "paged.decode_forward")
+            self.params = params
+            self.max_batch = max_batch
+            self.max_seq = max_seq
+            self.eos_id = eos_id
+            self.pad_id = pad_id
+            self.metrics = metrics or MetricsRegistry()
+            self.decode_chunk = max(1, int(decode_chunk))
+            self.prefill_batch = max(1, min(prefill_batch or 8, max_batch))
+            # rows of a bucketed wave: prefill_batch, or a power-of-two ladder
+            # for small paged waves (the JAX package's row-bucketed default)
+            self._row_buckets = [self.prefill_batch]
+            if paged is not None and self.prefill_batch <= 4:
+                self._row_buckets = [1]
+                while self._row_buckets[-1] < self.prefill_batch:
+                    self._row_buckets.append(min(self.prefill_batch,
+                                                 2 * self._row_buckets[-1]))
+            self.paged = paged
+            self._chunked_fns = chunked_fns
+            self._init_cache_fn = init_cache_fn
+            self.cache = self._new_cache()
+            self._chunk_kv = (chunked_fns[1](max_batch, self.decode_chunk)
+                              if chunked_fns is not None else None)
+            self.pipeline_depth = max(1, int(pipeline_depth))
+            self._resident = (paged is not None and os.environ.get(
+                "SWARMDB_EMIT_RING", "1") != "0")
+            self._aging_s = _env_float("SWARMDB_AGING_S", 5.0)
 
-        # random keys: [B, 2] uint32 words per slot, host-side; a request
-        # with an explicit seed rewrites its slot's row for its lifetime
-        self._default_keys_np = make_slot_keys(seed, max_batch)
-        self._base_keys_np = self._default_keys_np.copy()
-        self._temp = np.zeros(max_batch, np.float32)
-        self._topk = np.zeros(max_batch, np.int32)
-        self._topp = np.ones(max_batch, np.float32)
-        self.slots = [_Slot() for _ in range(max_batch)]
-        # device-resident fed tokens (+ their raw logprobs): slot i's next
-        # input token lives here between chunks. Entry max_batch is a
-        # write sink for prefill rows whose sample is discarded, so the
-        # scatter needs no mask (and no host sync)
-        self._last_tokens = torch.zeros(max_batch + 1, dtype=torch.int32,
-                                        device=self.device)
-        self._last_lps = torch.zeros(max_batch + 1, dtype=torch.float32,
-                                     device=self.device)
-        # the decode chunks' static buffers and their runner (the card's
-        # graphs); the monotonic stamp of the last processed chunk
-        self._io = ChunkIO.new(self._last_tokens[:max_batch],
-                               self._last_lps[:max_batch], self.decode_chunk)
-        self._runner = self._new_runner()
-        self._last_chunk_ns = 0
+            # random keys: [B, 2] uint32 words per slot, host-side; a request
+            # with an explicit seed rewrites its slot's row for its lifetime
+            self._default_keys_np = make_slot_keys(seed, max_batch)
+            self._base_keys_np = self._default_keys_np.copy()
+            self._temp = np.zeros(max_batch, np.float32)
+            self._topk = np.zeros(max_batch, np.int32)
+            self._topp = np.ones(max_batch, np.float32)
+            self.slots = [_Slot() for _ in range(max_batch)]
+            # device-resident fed tokens (+ their raw logprobs): slot i's next
+            # input token lives here between chunks. Entry max_batch is a
+            # write sink for prefill rows whose sample is discarded, so the
+            # scatter needs no mask (and no host sync)
+            self._last_tokens = torch.zeros(max_batch + 1, dtype=torch.int32,
+                                            device=self.device)
+            self._last_lps = torch.zeros(max_batch + 1, dtype=torch.float32,
+                                         device=self.device)
+            # the decode chunks' static buffers and their runner (the card's
+            # graphs); the monotonic stamp of the last processed chunk
+            self._io = ChunkIO.new(self._last_tokens[:max_batch],
+                                   self._last_lps[:max_batch],
+                                   self.decode_chunk)
+            self._runner = self._new_runner()
+            self._last_chunk_ns = 0
 
-        # ragged wave width ladder: largest rung <= the pending tokens
-        min_w = _env_int("SWARMDB_RAGGED_MIN_WIDTH", 8)
-        ladder = [max(1, min(min_w, max_seq))]
-        while ladder[-1] < max_seq:
-            ladder.append(min(max_seq, ladder[-1] * 2))
-        self._ragged_widths = ladder
+            # ragged wave width ladder: largest rung <= the pending tokens
+            min_w = _env_int("SWARMDB_RAGGED_MIN_WIDTH", 8)
+            ladder = [max(1, min(min_w, max_seq))]
+            while ladder[-1] < max_seq:
+                ladder.append(min(max_seq, ladder[-1] * 2))
+            self._ragged_widths = ladder
 
-        # pool-watermark backpressure over non-reclaimable utilisation
-        self._bp_high = _env_float("SWARMDB_POOL_HIGH", 0.92)
-        self._bp_low = min(_env_float("SWARMDB_POOL_LOW", 0.80),
-                           self._bp_high)
-        self._bp_shed = max(_env_float("SWARMDB_POOL_SHED", 0.98),
-                            self._bp_high)
-        self._bp_paused = False
-        # the tier manager's demote band, one rung below the pause
-        # watermark with the same hysteresis (on until utilisation falls
-        # back to the low watermark): SWARMDB_TIER_DEMOTE (default 0.85),
-        # clamped into [low, high]; >= 1 turns the early signal off
-        demote = _env_float("SWARMDB_TIER_DEMOTE", 0.85)
-        self._bp_demote = (demote if demote >= 1.0
-                           else max(self._bp_low, min(demote, self._bp_high)))
-        self._tier_demoting = False
+            # pool-watermark backpressure over non-reclaimable utilisation
+            self._bp_high = _env_float("SWARMDB_POOL_HIGH", 0.92)
+            self._bp_low = min(_env_float("SWARMDB_POOL_LOW", 0.80),
+                               self._bp_high)
+            self._bp_shed = max(_env_float("SWARMDB_POOL_SHED", 0.98),
+                                self._bp_high)
+            self._bp_paused = False
+            # the tier manager's demote band, one rung below the pause
+            # watermark with the same hysteresis (on until utilisation falls
+            # back to the low watermark): SWARMDB_TIER_DEMOTE (default 0.85),
+            # clamped into [low, high]; >= 1 turns the early signal off
+            demote = _env_float("SWARMDB_TIER_DEMOTE", 0.85)
+            self._bp_demote = (demote if demote >= 1.0
+                               else max(self._bp_low,
+                                        min(demote, self._bp_high)))
+            self._tier_demoting = False
 
-        # dense prefill buckets: one wave shape per bucket (x4 growth in
-        # long context, where padding is bounded by the prefix cache)
-        self._long_context = max_seq >= 512
-        ladder = ((64, 256, 1024, 4096) if self._long_context
-                  else (16, 32, 64, 128, 256))
-        self.prefill_buckets = [b for b in ladder if b <= max_seq]
-        # the top bucket holds the longest admissible prompt (max_seq - 1)
-        if (not self.prefill_buckets
-                or self.prefill_buckets[-1] < max_seq - 1):
-            self.prefill_buckets.append(max_seq)
+            # dense prefill buckets: one wave shape per bucket (x4 growth in
+            # long context, where padding is bounded by the prefix cache)
+            self._long_context = max_seq >= 512
+            ladder = ((64, 256, 1024, 4096) if self._long_context
+                      else (16, 32, 64, 128, 256))
+            self.prefill_buckets = [b for b in ladder if b <= max_seq]
+            # the top bucket holds the longest admissible prompt (max_seq - 1)
+            if (not self.prefill_buckets
+                    or self.prefill_buckets[-1] < max_seq - 1):
+                self.prefill_buckets.append(max_seq)
 
-        # prefix cache. Paged: hit pages are pinned and referenced in
-        # place by the slot's table row; a prompt's freshly written full
-        # pages move into cache custody at registration. Dense: a side
-        # pool with its own free list; hits are matched without pinning
-        # (their content is copied into the slot's lane by the same
-        # prefill that reads them) and a prompt's full pages are copied
-        # out of its lane into acquired pages
-        self._prefix: Optional[PrefixLRU] = None
-        self._prefix_pages_fwd: Optional[Callable] = None
-        self._slot_prefix_pins: Dict[int, List[int]] = {}
-        self._prefix_ps = paged.page_size if paged else prefix_page_size
-        if paged is not None and prefix_cache:
-            if max_seq % paged.page_size:
-                raise ValueError("max_seq must be a page-size multiple for "
-                                 "prefix caching")
-            self._prefix = PrefixLRU(paged.num_pages, paged.page_size,
-                                     manage_free=False)
-            self._prefix_pp_buckets = self._pp_widths(paged.allocator.maxp)
-            self._prefix_max_pages = self._prefix_pp_buckets[-1]
-            self._prefix_pages_fwd = prefix_fns[0] if prefix_fns else None
-            if not self._ragged and self._prefix_pages_fwd is None:
-                raise ValueError("a paged prefix cache without ragged "
-                                 "prefill needs prefix_fns[0], the suffix "
-                                 "forward over the pool's pages")
-        elif paged is None and prefix_fns is not None:
-            if max_seq % prefix_page_size:
-                raise ValueError("max_seq must be a page-size multiple for "
-                                 "prefix caching")
-            self._prefix_lane_fwd, self._prefix_init_pool = prefix_fns
-            self._prefix_num_pages = max(2, prefix_pages)
-            self._prefix = PrefixLRU(self._prefix_num_pages,
-                                     prefix_page_size)
-            self._prefix_pool = self._prefix_init_pool(
-                self._prefix_num_pages, prefix_page_size)
-            self._prefix_pp_buckets = self._pp_widths(
-                max_seq // prefix_page_size)
-            self._prefix_max_pages = self._prefix_pp_buckets[-1]
+            # prefix cache. Paged: hit pages are pinned and referenced in
+            # place by the slot's table row; a prompt's freshly written full
+            # pages move into cache custody at registration. Dense: a side
+            # pool with its own free list; hits are matched without pinning
+            # (their content is copied into the slot's lane by the same
+            # prefill that reads them) and a prompt's full pages are copied
+            # out of its lane into acquired pages
+            self._prefix: Optional[PrefixLRU] = None
+            self._prefix_pages_fwd: Optional[Callable] = None
+            self._slot_prefix_pins: Dict[int, List[int]] = {}
+            self._prefix_ps = paged.page_size if paged else prefix_page_size
+            if paged is not None and prefix_cache:
+                if max_seq % paged.page_size:
+                    raise ValueError("max_seq must be a page-size multiple "
+                                     "for prefix caching")
+                self._prefix = PrefixLRU(paged.num_pages, paged.page_size,
+                                         manage_free=False)
+                self._prefix_pp_buckets = self._pp_widths(paged.allocator.maxp)
+                self._prefix_max_pages = self._prefix_pp_buckets[-1]
+                self._prefix_pages_fwd = prefix_fns[0] if prefix_fns else None
+                if not self._ragged and self._prefix_pages_fwd is None:
+                    raise ValueError("a paged prefix cache without ragged "
+                                     "prefill needs prefix_fns[0], the suffix "
+                                     "forward over the pool's pages")
+            elif paged is None and prefix_fns is not None:
+                if max_seq % prefix_page_size:
+                    raise ValueError("max_seq must be a page-size multiple "
+                                     "for prefix caching")
+                self._prefix_lane_fwd, self._prefix_init_pool = prefix_fns
+                self._prefix_num_pages = max(2, prefix_pages)
+                self._prefix = PrefixLRU(self._prefix_num_pages,
+                                         prefix_page_size)
+                self._prefix_pool = self._prefix_init_pool(
+                    self._prefix_num_pages, prefix_page_size)
+                self._prefix_pp_buckets = self._pp_widths(
+                    max_seq // prefix_page_size)
+                self._prefix_max_pages = self._prefix_pp_buckets[-1]
 
-        # lane supervision signals (backend/supervisor.py): a monotonic
-        # beat stamped by the loop every iteration, idle waits included,
-        # and whether the loop is inside a step. A wedged dispatch stops
-        # the beat while the thread stays alive. Single-writer slots,
-        # read lock-free
-        self._beat_mono = time.monotonic()
-        self._in_step = False
-        # fault-injection seam (backend/chaos.py): called once per loop
-        # iteration on the engine thread, before admission. None in
-        # production
-        self.chaos_step: Optional[Callable[["Engine"], None]] = None
-        # rolling KV's hooks, wired by ServingService (and TierManager):
-        # on_pool_pressure(need) when paged admission cannot allocate (or
-        # a dense keep finds its side pool short): the service evicts
-        # idle conversations; on_tier_pressure(need) from the gate's
-        # demote band: the tier worker plans demotions (no device work);
-        # on_tier_drain() at the start of each paged admission round,
-        # after the pending-free flush: the planned demotions run here,
-        # on the engine thread. All three run on the engine thread
-        self.on_pool_pressure: Optional[Callable[[int], None]] = None
-        self.on_tier_pressure: Optional[Callable[[int], None]] = None
-        self.on_tier_drain: Optional[Callable[[], None]] = None
-        # promotion copies in flight: (event, pinned source) kept alive
-        # until the event has passed
-        self._promote_sources: List[Tuple[Any, Any]] = []
-        self.flight = FlightRecorder()
-        self._flight_dir = flight_dir
-        # the longest step so far (admission + the iteration's decode: a
-        # chunk, or a resident session, which beats after every chunk)
-        self.max_step_s = 0.0
+            # lane supervision signals (backend/supervisor.py): a monotonic
+            # beat stamped by the loop every iteration, idle waits included,
+            # and whether the loop is inside a step. A wedged dispatch stops
+            # the beat while the thread stays alive. Single-writer slots,
+            # read lock-free
+            self._beat_mono = time.monotonic()
+            self._in_step = False
+            # fault-injection seam (backend/chaos.py): called once per loop
+            # iteration on the engine thread, before admission. None in
+            # production
+            self.chaos_step: Optional[Callable[["Engine"], None]] = None
+            # rolling KV's hooks, wired by ServingService (and TierManager):
+            # on_pool_pressure(need) when paged admission cannot allocate (or
+            # a dense keep finds its side pool short): the service evicts
+            # idle conversations; on_tier_pressure(need) from the gate's
+            # demote band: the tier worker plans demotions (no device work);
+            # on_tier_drain() at the start of each paged admission round,
+            # after the pending-free flush: the planned demotions run here,
+            # on the engine thread. All three run on the engine thread
+            self.on_pool_pressure: Optional[Callable[[int], None]] = None
+            self.on_tier_pressure: Optional[Callable[[int], None]] = None
+            self.on_tier_drain: Optional[Callable[[], None]] = None
+            # promotion copies in flight: (event, pinned source) kept alive
+            # until the event has passed
+            self._promote_sources: List[Tuple[Any, Any]] = []
+            self.flight = FlightRecorder()
+            self._flight_dir = flight_dir
+            # lane hooks (module docstring), set by a lane group and its
+            # fleet: the lane index stamped on events, the sibling-session
+            # probe, whether a decode session is running, the fleet role
+            self.flight_shard: Optional[int] = None
+            self.overlap_probe: Optional[Callable[[], bool]] = None
+            self._lane_busy = False
+            self._role: Optional[str] = None
+            # the longest step so far (admission + the iteration's decode: a
+            # chunk, or a resident session, which beats after every chunk)
+            self.max_step_s = 0.0
 
-        self._queue: List[Tuple[int, float, int, GenRequest]] = []  # heap
-        self._admitting: set = set()
-        self._cancel_pending: set = set()
-        self._tiebreak = itertools.count()
-        self._cv = make_condition("backend.engine.Engine._cv")
-        self._stop = False
-        self._thread: Optional[threading.Thread] = None
-        # start / stop / restart, one at a time (a supervisor's restart
-        # may race a caller's stop)
-        self._lifecycle = make_rlock("backend.engine.Engine._lifecycle")
-        self.total_generated = 0
-        self.total_requests = 0
+            self._queue: List[Tuple[int, float, int, GenRequest]] = []  # heap
+            self._admitting: set = set()
+            self._cancel_pending: set = set()
+            self._tiebreak = itertools.count()
+            self._cv = make_condition("backend.engine.Engine._cv")
+            self._stop = False
+            self._thread: Optional[threading.Thread] = None
+            # start / stop / restart, one at a time (a supervisor's restart
+            # may race a caller's stop)
+            self._lifecycle = make_rlock("backend.engine.Engine._lifecycle")
+            self.total_generated = 0
+            self.total_requests = 0
 
     # ------------------------------------------------------------ lifecycle
 
@@ -503,9 +541,13 @@ class Engine:
         with self._lifecycle:
             self.stop()
             self.metrics.counters["engine_restarts"].inc()
-            self.flight.record_event({"kind": "engine.restart"})
+            self.flight.record_event({"kind": "engine.restart",
+                                      "shard": self.flight_shard})
             self.flight.auto_dump("engine_restart", self._flight_dir)
-            self._fail_all("engine_restart")
+            with self._on_stream():
+                # retirement callbacks (a kept request's pages) may copy
+                # from the pool: on this engine's stream, as in the loop
+                self._fail_all("engine_restart")
             self._reset_state()
             self.start()
 
@@ -524,8 +566,17 @@ class Engine:
             from ..ops import build
 
             build.build_all()
-            self._runner.capture_all()
+            if self._role_warms_decode():
+                with self._on_stream():
+                    self._runner.capture_all()
         return time.perf_counter() - t0
+
+    def _role_warms_decode(self) -> bool:
+        """Whether warmup captures the decode graphs: not on a fleet
+        prefill lane, which decodes only what a quarantined decode pool
+        leaves it (captured at first use then). The prefill waves are
+        eager, so there is no prefill side to warm."""
+        return self._role != "prefill"
 
     def _new_cache(self):
         if self.paged is not None:
@@ -536,7 +587,7 @@ class Engine:
         """The decode chunks' runner over the engine's current tensors
         (its graphs are captured at first use)."""
         return ChunkRunner(self._chunk_body, self._io,
-                           ring=self.pipeline_depth)
+                           ring=self.pipeline_depth, stream=self.stream)
 
     def _chunk_body(self, variant: int) -> None:
         """The decode chunk over the engine's state: what every graph
@@ -546,6 +597,13 @@ class Engine:
                      decode_forward=self._decode_forward)
 
     def _reset_state(self) -> None:
+        """Rebuild the device state on the engine's stream, holding the
+        device's graph lock: dropping the runner destroys its graphs,
+        which must not happen inside a sibling lane's capture."""
+        with device_lock(self.device), self._on_stream():
+            self._rebuild_state()
+
+    def _rebuild_state(self) -> None:
         # the pool generation moves first: a rolling plan racing the
         # rebuild reads the new epoch and fails closed ("stale_resume"),
         # never the old epoch over a rebuilt pool
@@ -705,10 +763,20 @@ class Engine:
 
     # ------------------------------------------------------------- the loop
 
+    def _on_stream(self) -> ContextManager:
+        """Make the engine's stream current (a no-op off the card)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def _run(self, cpu_threads: int) -> None:
         torch.set_num_threads(cpu_threads)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        with self._on_stream():
+            self._loop()
+
+    def _loop(self) -> None:
         # (block on its way, snapshot, dispatch stamp) per chunk in
         # flight, oldest first
         in_flight: List[Tuple[ChunkOut, List[Tuple[int, GenRequest, int]],
@@ -749,6 +817,10 @@ class Engine:
                 t_step = time.perf_counter()
                 try:
                     self._admit()
+                    if self._role == "prefill":
+                        # a fleet prefill lane retires admission-only work
+                        # off the prefill sample; decode never runs for it
+                        self._drain_prefill_only()
                     if self._resident:
                         # a session runs chunks until its lanes finish or
                         # the host votes to stop; admission waits for its
@@ -866,7 +938,8 @@ class Engine:
             elif util >= self._bp_demote:
                 self._tier_demoting = True
                 self.flight.record_event({"kind": "tier.pressure",
-                                          "util": round(util, 3)})
+                                          "util": round(util, 3),
+                                          "shard": self.flight_shard})
             if self._tier_demoting:
                 try:
                     self.on_tier_pressure(
@@ -879,14 +952,14 @@ class Engine:
                 self.metrics.counters["engine_admission_resumed"].inc()
                 self.flight.record_event(
                     {"kind": "pool.backpressure_resumed",
-                     "util": round(util, 3)})
+                     "util": round(util, 3), "shard": self.flight_shard})
                 return True
         elif util >= self._bp_high:
             self._bp_paused = True
             self.metrics.counters["engine_admission_paused"].inc()
             self.flight.record_event(
                 {"kind": "pool.backpressure_paused",
-                 "util": round(util, 3)})
+                 "util": round(util, 3), "shard": self.flight_shard})
         if not self._bp_paused:
             return True
         if self.on_pool_pressure is not None:
@@ -915,7 +988,7 @@ class Engine:
             self.metrics.counters["requests_shed"].inc()
             self.flight.record_event(
                 {"kind": "pool.request_shed", "rid": req.request_id,
-                 "priority": req.priority})
+                 "priority": req.priority, "shard": self.flight_shard})
             _call(req.on_done, req.request_id, [], "shed")
 
     def _admit(self) -> None:
@@ -1717,6 +1790,10 @@ class Engine:
         self.metrics.latencies["prefill_s"].observe(dt)
         self.metrics.counters["phase_us_prefill"].inc(int(dt * 1e6))
         self.metrics.counters["engine_admission_waves"].inc()
+        if self.overlap_probe is not None and self.overlap_probe():
+            # a lane admitted while a sibling lane was inside a decode
+            # session: the overlap lanes exist for
+            self.metrics.counters["engine_admission_overlap_steps"].inc()
 
     # --------------------------------------------------------------- decode
 
@@ -1851,6 +1928,7 @@ class Engine:
             positions)
         t_session = time.monotonic_ns()
         n, cont = 0, True
+        self._lane_busy = True
         try:
             while n < max_chunks and cont and not done.all():
                 block, lps = self._runner.launch(variant, inputs).host()
@@ -1872,6 +1950,7 @@ class Engine:
                     cont = False
                 n += 1
         finally:
+            self._lane_busy = False
             c["engine_resident_chunks"].inc(n)
         for i, req, _pos0 in snap:
             s = self.slots[i]
@@ -1879,6 +1958,35 @@ class Engine:
                 # the device's next fed token follows exactly the
                 # processed extent
                 s.dispatched_position = s.position
+
+    def _drain_prefill_only(self) -> None:
+        """Fleet prefill lanes: retire admission-only (max_new_tokens <=
+        1) requests straight off the prefill sample. The fed-token vector
+        holds the token the colocated decode would emit as row 0 of its
+        next block, so the handoff emits what colocated serving does. One
+        host wait per admission round, counted as a host sync. Other slots
+        (a quarantined decode pool's work served here) decode as usual."""
+        rows = [i for i, s in enumerate(self.slots)
+                if s.active and s.pending_first and s.request is not None
+                and s.request.sampling.max_new_tokens <= 1]
+        if not rows:
+            return
+        toks = self._last_tokens.cpu().numpy()
+        lps = self._last_lps.cpu().numpy()
+        self.metrics.counters["engine_host_syncs"].inc()
+        now = time.time()
+        for i in rows:
+            s = self.slots[i]
+            if not s.active:
+                continue
+            if s.cancelled:
+                self._retire(i, "cancelled")
+                continue
+            s.pending_first = False
+            self._emit_token(i, int(toks[i]), now, float(lps[i]))
+            if s.active:
+                # only a max_new_tokens 0 request gets here
+                self._retire(i, "length")
 
     def _emit_token(self, slot_id: int, token: int, now: float,
                     logprob: float) -> None:

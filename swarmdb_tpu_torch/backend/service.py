@@ -1,19 +1,24 @@
 """ServingService: chat messages routed to an LLM backend become engine
 requests, and replies come back as messages.
 
-The counterpart of ``swarmdb_tpu/backend/service.py`` for the
-single-lane engines, dense (the default, as in the JAX package) and paged
-(``paged=True`` or ``SWARMDB_PAGED=1``):
+The counterpart of ``swarmdb_tpu/backend/service.py``, over one engine,
+dense (the default, as in the JAX package) or paged (``paged=True`` or
+``SWARMDB_PAGED=1``), or over a lane group of paged engines
+(``parallel.serving.build_serving_engine``, ``parallel/lanes.py``), whose
+requests carry the conversation's lane (``shard_hint``, a stable hash of
+the sender / receiver pair):
 
 - A consumer thread drains the inboxes of the agents assigned to this
   backend (``SwarmDB.assign_llm_backend``) and turns chat / function_call
   messages into engine requests (prompt = the two-way conversation window
   plus the new message, trimmed to the engine's window).
 - Every request goes through a ``LaneSupervisor`` (``SWARMDB_SUPERVISE``,
-  default "1"; ``backend/supervisor.py``): a deadline, a retry budget for
-  retryable finishes ("shed", "engine_error", "engine_restart"), replay
-  of a request cut off mid-stream, restart of a dead engine loop. With
-  ``SWARMDB_SUPERVISE=0`` the consumer's watchdog restarts a dead loop.
+  default "1"; ``backend/supervisor.py``; a group's own through
+  ``attach_supervisor``): a deadline, a retry budget for retryable
+  finishes ("shed", "engine_error", "engine_restart"), replay of a request
+  cut off mid-stream (on a sibling lane in a group), restart of a dead
+  lane. With ``SWARMDB_SUPERVISE=0`` the consumer's watchdog restarts a
+  dead loop (a group's dead lanes).
 - ``metadata["generation"]["n"]`` (clamped to 1-4) fans a message out
   into n completions with seeds ``seed + i``, each with its own
   stop-sequence watch; the reply's body is completion 0 and
@@ -49,9 +54,9 @@ engine a ``TierManager`` (``SWARMDB_TIER``, default "1";
 ``backend/tiering.py``) spills idle conversations to pinned host memory
 under pool pressure and promotes them back on their next turn; a spilled
 conversation evicted from host memory re-prefills from the broker log.
-An engine that cannot roll logs it and serves without. Not ported yet
-(ROADMAP.md, queue 1): lane groups (item 9), the SLO sentinel (item 10)
-and partition locality (item 12).
+An engine that cannot roll logs it and serves without; a lane group
+refuses rolling with the JAX package's warning. Not ported yet (ROADMAP.md,
+queue 1): the SLO sentinel (item 10) and partition locality (item 12).
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from ..models.configs import ModelConfig, get_config
 from ..ops.paged_kv import (KV_DTYPES, PageAllocator, kv_dtype_name,
                             pages_per_slot)
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.hashing import stable_partition
 from ..utils.sync import make_lock
 from .engine import Engine, GenRequest, PagedKV, _env_float, _env_int
 from .sampling import SamplingParams
@@ -362,12 +368,17 @@ class ServingService:
         self.backend_id = backend_id
         self.poll_interval = poll_interval
         # request supervision: deadline + retry budget stamped on every
-        # request, retryable finishes requeued, a dead loop restarted.
+        # request, retryable finishes requeued, a dead loop restarted (a
+        # group's lanes quarantined, migrated and re-admitted).
         # SWARMDB_SUPERVISE=0 leaves the consumer's watchdog restart
         self.supervisor: Optional[LaneSupervisor] = None
         if os.environ.get("SWARMDB_SUPERVISE", "1") != "0":
-            self.supervisor = LaneSupervisor(engine,
-                                             metrics=db.metrics).start()
+            if getattr(engine, "lanes", None) is not None:
+                self.supervisor = engine.attach_supervisor(
+                    metrics=db.metrics)
+            else:
+                self.supervisor = LaneSupervisor(
+                    engine, metrics=db.metrics).start()
         self._stop = threading.Event()
         self._consumer_thread: Optional[threading.Thread] = None
         # reply emission (decode + send_message) runs on its own worker,
@@ -407,7 +418,14 @@ class ServingService:
         # reserve, seeded relative to the window
         self._rolling_delta_ema = min(64.0, engine.max_seq / 8.0)
         self._tier = None
-        if os.environ.get("SWARMDB_ROLLING_KV") == "1":
+        rolling_wanted = os.environ.get("SWARMDB_ROLLING_KV") == "1"
+        if rolling_wanted and self._n_shards() > 1:
+            # a kept conversation's pages pin it to one lane's pool, which
+            # a group's routing does not honour for page custody
+            logger.warning("SWARMDB_ROLLING_KV=1 ignored: rolling resume "
+                           "is not supported on a DP-sharded page pool")
+            rolling_wanted = False
+        if rolling_wanted:
             if engine.supports_rolling():
                 self._rolling = {}
                 # idle conversations' kept pages must never starve
@@ -424,6 +442,11 @@ class ServingService:
                                "prefix cache's pages forward, a dense one "
                                "its prefix side pool; SWARMDB_PREFIX=0 "
                                "turns both off)")
+
+    def _n_shards(self) -> int:
+        """Lanes behind the engine (1 for a lone engine)."""
+        paged = self.engine.paged
+        return getattr(paged.allocator, "n_shards", 1) if paged else 1
 
     # ------------------------------------------------------------ lifecycle
 
@@ -956,6 +979,14 @@ class ServingService:
                              priority=priority, on_token=_tok, on_done=_done,
                              metadata={"message_id": msg.id},
                              request_id=claim.rid)
+            n_shards = self._n_shards()
+            if n_shards > 1:
+                # a lane group: the conversation's turns go to one lane,
+                # whose prefix cache holds its pages (the order-insensitive
+                # pair is get_conversation's identity)
+                pair = "|".join(sorted((msg.sender_id,
+                                        msg.receiver_id or "")))
+                req.shard_hint = stable_partition(pair, n_shards)
             if rolling_key is not None:
                 req.keep_pages = True
                 req.on_pages = (lambda rid, pages, written, tail,

@@ -1,29 +1,35 @@
-"""Request supervision over one engine: liveness verdicts, retries with
-deadlines, replay of a request cut off mid-stream.
+"""Request supervision over a lane group or one engine: liveness verdicts
+per lane, retries with deadlines, migration of a quarantined lane's
+requests, re-admission.
 
-The counterpart of ``swarmdb_tpu/backend/supervisor.py`` for a single
-engine. Lane groups -- quarantine of one lane among siblings, migration
-to them, re-admission -- are ROADMAP.md queue 1 item 9; given a group the
-supervisor raises ``NotImplementedError``.
+The counterpart of ``swarmdb_tpu/backend/supervisor.py``. It supervises
+the lanes of a ``parallel.lanes.ShardLaneGroup``, or one engine as a
+group of one lane.
 
-Two signals feed one verdict:
+Two signals feed one verdict per lane:
 
 - **In-band beats**: the engine loop stamps ``Engine._beat_mono`` every
   iteration, idle waits included. A wedged dispatch stops the beats while
   the thread stays alive.
 - **Out-of-band liveness**: ``Engine.alive()``, and during recovery real
-  probe generations through the engine.
+  probe generations through the lane.
 
 States: ``ALIVE`` -> ``SUSPECT`` (beats stale for
 ``SWARMDB_LANE_SUSPECT_S``) -> ``QUARANTINED`` (stale for
 ``SWARMDB_LANE_QUARANTINE_S``, or the thread died). A stall inside a step
 (``Engine._in_step``) is held at SUSPECT for
 ``SWARMDB_LANE_DISPATCH_GRACE_S``: a long legitimate step is not a wedge.
-On quarantine every supervised request is replayed, except a rolling-KV
-one, which ends "lane_quarantined" (its context lives in pages a replay
-cannot rebuild); a dead thread is restarted (with backoff), and the
-engine is re-admitted after ``SWARMDB_LANE_PROBE_N`` clean probe
-generations.
+A quarantined lane takes no admissions (the group's routing skips it) and
+its supervised requests **migrate**: each is replayed on a sibling lane
+(with one engine, on the same engine, behind its restart, which fails it
+with the retryable "engine_restart" and so hands it to the retry path),
+at most ``SWARMDB_REQ_MIGRATIONS`` times (default 3), except a rolling-KV
+request, which ends "lane_quarantined" (its context lives in pages a
+replay cannot rebuild). A dead lane is restarted (with backoff) and
+re-admitted after ``SWARMDB_LANE_PROBE_N`` clean probe generations. With
+a fleet (``parallel/fleet.py``) placement goes through it, and it reports
+each stage's lane (``note_lane``), so a migration finds a request on the
+lane it occupies.
 
 A replay is an idempotent re-prefill: its prompt is the original prompt
 plus every token already emitted to the caller, its budget the rest, so
@@ -39,8 +45,11 @@ Budgets: every request gets an absolute deadline
 (``engine.RETRYABLE_REASONS``) is requeued after a jittered exponential
 backoff (``SWARMDB_RETRY_BACKOFF_S``, default 0.05 s, doubling per
 retry); anything else, and anything that cannot be retried before its
-deadline, reaches the caller at once. ``SWARMDB_SUPERVISE=0`` leaves the
-serving layer without a supervisor.
+deadline, reaches the caller at once. ``SWARMDB_RETRY_STORM_N`` retries
+(default 8) within one poll mark a retry storm: a "retry.storm" flight
+event and tracer instant (the SLO sentinel's retry-rate objective is
+ROADMAP.md queue 1 item 10). ``SWARMDB_SUPERVISE=0`` leaves the serving
+layer without a supervisor.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ import os
 import random
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..obs import TRACER, FlightRecorder
 from ..utils.metrics import MetricsRegistry
@@ -83,11 +92,6 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
-# quarantine replays per request before it ends "lane_quarantined" (the
-# JAX package's migration budget, SWARMDB_REQ_MIGRATIONS default)
-_QUARANTINE_REPLAYS = 3
-
-
 class LaneState(enum.IntEnum):
     ALIVE = 0
     SUSPECT = 1
@@ -107,23 +111,25 @@ class _LaneHealth:
 
 class _Tracked:
     """One supervised request across its attempts. ``attempt`` is the
-    dedupe key: callbacks of a stale attempt are dropped under ``lock``."""
+    dedupe key: callbacks of a stale attempt are dropped under ``lock``;
+    ``lane`` is where the current attempt lives."""
 
     __slots__ = ("request", "prompt", "user_on_token", "user_on_done",
-                 "emitted", "attempt", "done", "retries_left",
-                 "replays_left", "deadline", "retried", "migrated",
+                 "emitted", "attempt", "lane", "done", "retries_left",
+                 "migrations_left", "deadline", "retried", "migrated",
                  "lock", "retry_timer")
 
-    def __init__(self, request: GenRequest) -> None:
+    def __init__(self, request: GenRequest, migrations: int) -> None:
         self.request = request
         self.prompt = list(request.prompt)
         self.user_on_token = request.on_token
         self.user_on_done = request.on_done
         self.emitted: List[int] = []
         self.attempt = 0
+        self.lane = 0
         self.done = False
         self.retries_left = request.retries_left
-        self.replays_left = _QUARANTINE_REPLAYS
+        self.migrations_left = migrations
         self.deadline = request.deadline
         self.retried = 0
         self.migrated = 0
@@ -133,17 +139,19 @@ class _Tracked:
     @property
     def migratable(self) -> bool:
         """False for a rolling-KV request (keep or resume): its context
-        lives in pages of the registry's custody, which a replay cannot
-        rebuild (the registry restarts the conversation next turn)."""
+        lives in one lane's pages of the registry's custody, which a
+        replay cannot rebuild (the registry restarts the conversation
+        next turn)."""
         return (self.request.resume_pages is None
                 and not self.request.keep_pages)
 
 
 class LaneSupervisor:
-    """Supervises one ``Engine``: health verdicts, replay of cut-off
-    requests, retry and deadline budgets, recovery of a dead loop."""
+    """Supervises the lanes of a ``ShardLaneGroup`` (or one ``Engine``):
+    health verdicts, migration of cut-off requests, retry and deadline
+    budgets, recovery of dead lanes."""
 
-    def __init__(self, engine: Engine, *,
+    def __init__(self, engine: Any, *,
                  metrics: Optional[MetricsRegistry] = None,
                  flight: Optional[FlightRecorder] = None,
                  suspect_s: Optional[float] = None,
@@ -154,13 +162,10 @@ class LaneSupervisor:
                  deadline_s: Optional[float] = None,
                  retries: Optional[int] = None,
                  backoff_s: Optional[float] = None) -> None:
-        if hasattr(engine, "lanes"):
-            raise NotImplementedError(
-                "lane groups (quarantine, migration to sibling lanes, "
-                "re-admission) are not ported yet (ROADMAP.md, queue 1 "
-                "item 9); LaneSupervisor takes one engine")
-        self.engine = engine
-        self.metrics = metrics or engine.metrics
+        self.group = engine if hasattr(engine, "lanes") else None
+        self.lanes: List[Engine] = (list(self.group.lanes) if self.group
+                                    else [engine])
+        self.metrics = metrics or self.lanes[0].metrics
         self.flight = flight if flight is not None else engine.flight
         self.suspect_s = (suspect_s if suspect_s is not None
                           else _env_float("SWARMDB_LANE_SUSPECT_S", 2.0))
@@ -180,6 +185,7 @@ class LaneSupervisor:
                            else _env_float("SWARMDB_REQ_DEADLINE_S", 600.0))
         self.retries = (retries if retries is not None
                         else _env_int("SWARMDB_REQ_RETRIES", 2))
+        self.migrations = _env_int("SWARMDB_REQ_MIGRATIONS", 3)
         self.backoff_s = (backoff_s if backoff_s is not None
                           else _env_float("SWARMDB_RETRY_BACKOFF_S", 0.05))
         self.restart_backoff_s = _env_float(
@@ -190,11 +196,14 @@ class LaneSupervisor:
         # no step holds a build
         self.dispatch_grace_s = _env_float(
             "SWARMDB_LANE_DISPATCH_GRACE_S", 30.0)
-        self.health = _LaneHealth()
+        self.storm_n = _env_int("SWARMDB_RETRY_STORM_N", 8)
+        self.health: List[_LaneHealth] = [_LaneHealth() for _ in self.lanes]
         self._tracked: Dict[str, _Tracked] = {}
         self._lock = make_lock("backend.supervisor.LaneSupervisor._lock")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._prev_retried = self.metrics.counters["requests_retried"].value
+        self._storming = False
 
     # ------------------------------------------------------------ lifecycle
 
@@ -223,9 +232,12 @@ class LaneSupervisor:
     # ----------------------------------------------------------- submission
 
     def submit(self, request: GenRequest) -> str:
-        """Adopt and submit one request. The returned id is stable across
-        retries (replays reuse it), so cancel keeps working."""
+        """Adopt, route and submit one request. The returned id is stable
+        across migrations and retries (replays reuse it), so cancel keeps
+        working."""
         tr = self._adopt(request)
+        # tracked before the dispatch: the fleet reports the request's lane
+        # (note_lane) while the submit is still running
         with self._lock:
             self._tracked[request.request_id] = tr
         try:
@@ -244,7 +256,7 @@ class LaneSupervisor:
             request.retries_left = max(0, self.retries)
         elif request.retries_left < 0:
             request.retries_left = 0
-        tr = _Tracked(request)
+        tr = _Tracked(request, self.migrations)
         request.on_token, request.on_done = self._wrap(tr, 0)
         return tr
 
@@ -264,10 +276,43 @@ class LaneSupervisor:
             self._finalize(tr, "cancelled")
             return True
         # the engine's cancel flows through the wrapped on_done
-        return self.engine.cancel(request_id)
+        return any(eng.cancel(request_id) for eng in self.lanes)
 
-    def _dispatch(self, request: GenRequest) -> None:
-        self.engine.submit(request)
+    # ------------------------------------------------------------- routing
+
+    def lane_admissible(self, idx: int) -> bool:
+        return self.health[idx].state != LaneState.QUARANTINED
+
+    def _route(self, request: GenRequest) -> Tuple[int, Engine]:
+        if self.group is not None:
+            return self.group._route(request)
+        return 0, self.lanes[0]
+
+    def _dispatch(self, request: GenRequest) -> int:
+        """Route and submit one request (or replay): through the group's
+        fleet when it has one (which reports lanes through
+        ``note_lane``), else to the health-aware route. Returns the
+        lane."""
+        fleet = getattr(self.group, "fleet", None)
+        if fleet is not None:
+            idx = fleet.dispatch(request)
+            if idx is not None:
+                return idx
+        idx, eng = self._route(request)
+        self.note_lane(request.request_id, idx)
+        eng.submit(request)
+        return idx
+
+    def note_lane(self, request_id: str, idx: int) -> None:
+        """Record the lane a tracked request now lives on (the fleet calls
+        it at each stage), so a quarantine finds it there."""
+        with self._lock:
+            tr = self._tracked.get(request_id)
+        if tr is None:
+            return
+        with tr.lock:
+            if not tr.done:
+                tr.lane = idx
 
     # ------------------------------------------------------------ wrapping
 
@@ -326,7 +371,7 @@ class LaneSupervisor:
         timer.start()
 
     def _resubmit(self, tr: _Tracked, attempt: int) -> None:
-        """Timer target: requeue the replay."""
+        """Timer target: requeue the replay on a healthy lane."""
         with tr.lock:
             if tr.done or attempt != tr.attempt:
                 return
@@ -396,54 +441,58 @@ class LaneSupervisor:
 
     def _watch_loop(self) -> None:
         while not self._stop.is_set():
-            if self.health.state == LaneState.QUARANTINED:
-                self._try_readmit()
-            else:
-                new = self._evaluate(self.engine, time.monotonic())
-                if new != self.health.state:
-                    self._transition(new)
+            now = time.monotonic()
+            for idx, eng in enumerate(self.lanes):
+                h = self.health[idx]
+                if h.state == LaneState.QUARANTINED:
+                    self._try_readmit(idx, eng, h)
+                    continue
+                new = self._evaluate(eng, now)
+                if new != h.state:
+                    self._transition(idx, eng, h, new)
             self._sweep_deadlines()
+            self._detect_retry_storm()
             self._stop.wait(self.poll_s)
 
-    def _transition(self, new: LaneState) -> None:
-        eng, h = self.engine, self.health
+    def _transition(self, idx: int, eng: Engine, h: _LaneHealth,
+                    new: LaneState) -> None:
         old, h.state = h.state, new
         h.since = time.monotonic()
-        logger.warning("engine: %s -> %s (beat age %.3fs, thread %s)",
-                       old.name, new.name, eng.beat_age_s(),
+        logger.warning("lane %d: %s -> %s (beat age %.3fs, thread %s)",
+                       idx, old.name, new.name, eng.beat_age_s(),
                        "alive" if eng.alive() else "dead")
         self.flight.record_event(
-            {"kind": f"lane.{new.name.lower()}",
+            {"kind": f"lane.{new.name.lower()}", "lane": idx,
              "beat_age_s": round(eng.beat_age_s(), 4),
              "thread_alive": eng.alive()})
-        TRACER.instant(f"lane.{new.name.lower()}", cat="supervisor")
+        TRACER.instant(f"lane.{new.name.lower()}", cat="supervisor",
+                       args={"lane": idx})
         if new == LaneState.QUARANTINED:
             h.quarantines += 1
             h.clean_probes = 0
             self.metrics.counters["lane_quarantines"].inc()
-            self._replay_all()
+            self._migrate_lane(idx)
 
-    # -------------------------------------------------------------- replay
+    # ----------------------------------------------------------- migration
 
-    def _replay_all(self) -> None:
-        """Replay every supervised request of a quarantined engine. The
-        attempt bump comes first (under the tracker lock), so whatever
-        the dying loop still emits for the old attempt is dropped; then
-        the old copy is cancelled; then the replay is queued. With one
-        engine it queues behind the restart, which fails it with the
-        retryable "engine_restart" and so hands it to the retry path. A
-        request past its deadline ends "deadline" (in the JAX package the
-        cancel's "cancelled" can win that race). A rolling-KV request is
-        not migratable and ends "lane_quarantined", as in the JAX
-        package: a replay of a resume would prompt with its turn's delta
-        alone, without the conversation's history."""
+    def _migrate_lane(self, idx: int) -> None:
+        """Replay every supervised request of quarantined lane ``idx`` on
+        a healthy sibling. The attempt bump comes first (under the tracker
+        lock), so whatever the dying lane still emits for the old attempt
+        is dropped; then the old copy is cancelled; then the replay is
+        dispatched. A request past its deadline ends "deadline" (in the
+        JAX package the cancel's "cancelled" can win that race); a
+        rolling-KV request, or one out of migrations, ends
+        "lane_quarantined", as in the JAX package: a replay of a resume
+        would prompt with its turn's delta alone."""
         with self._lock:
-            victims = list(self._tracked.values())
+            victims = [tr for tr in self._tracked.values()
+                       if tr.lane == idx]
         moved = 0
         for tr in victims:
             final = None
             with tr.lock:
-                if tr.done:
+                if tr.done or tr.lane != idx:
                     continue
                 # every branch bumps the attempt first, so the cancel
                 # below (which can fire on_done) reads as stale
@@ -458,16 +507,17 @@ class LaneSupervisor:
                 elif (tr.deadline is not None
                       and time.time() >= tr.deadline):
                     final = "deadline"
-                elif tr.replays_left <= 0:
+                elif tr.migrations_left <= 0:
                     final = "lane_quarantined"
                 else:
-                    tr.replays_left -= 1
+                    tr.migrations_left -= 1
                     tr.migrated += 1
             # outside the tracker lock: cancel can fire the stale on_done
             try:
-                self.engine.cancel(tr.request.request_id)
+                self.lanes[idx].cancel(tr.request.request_id)
             except Exception:
-                logger.exception("cancel on the quarantined engine failed")
+                logger.exception("cancel on quarantined lane %d failed",
+                                 idx)
             if final is not None:
                 if final == "deadline":
                     self.metrics.counters["requests_deadline_expired"].inc()
@@ -478,27 +528,27 @@ class LaneSupervisor:
                     continue
                 replay = self._build_replay(tr, bump)
             try:
-                self._dispatch(replay)
+                new_idx = self._dispatch(replay)
                 moved += 1
                 self.metrics.counters["requests_migrated"].inc()
                 self.flight.record_event(
                     {"kind": "request.migrated",
                      "rid": tr.request.request_id,
+                     "from_lane": idx, "to_lane": new_idx,
                      "emitted": len(replay.prompt) - len(tr.prompt)})
             except Exception:
-                logger.exception("replay submit failed for %s",
+                logger.exception("migration resubmit failed for %s",
                                  tr.request.request_id)
                 self._finalize(tr, "engine_error")
         if moved:
-            logger.warning("engine quarantined: replayed %d request(s)",
-                           moved)
+            logger.warning("lane %d quarantined: migrated %d request(s)",
+                           idx, moved)
 
     # ------------------------------------------------------------ recovery
 
-    def _try_readmit(self) -> None:
-        """Restart a dead loop (with backoff), then require fresh beats
+    def _try_readmit(self, idx: int, eng: Engine, h: _LaneHealth) -> None:
+        """Restart a dead lane (with backoff), then require fresh beats
         and ``probe_clean_n`` clean probe generations."""
-        eng, h = self.engine, self.health
         now = time.monotonic()
         if not eng.alive():
             h.clean_probes = 0
@@ -512,8 +562,8 @@ class LaneSupervisor:
                 h.restart_fails = 0
             except Exception:
                 h.restart_fails += 1
-                logger.exception("engine restart failed (attempt %d)",
-                                 h.restart_fails)
+                logger.exception("lane %d restart failed (attempt %d)",
+                                 idx, h.restart_fails)
             return
         if eng.beat_age_s() >= self.suspect_s:
             h.clean_probes = 0  # alive but not stepping: wedge not healed
@@ -522,11 +572,12 @@ class LaneSupervisor:
             h.state = LaneState.ALIVE
             self.metrics.counters["lane_readmissions"].inc()
             self.flight.record_event(
-                {"kind": "lane.readmitted",
+                {"kind": "lane.readmitted", "lane": idx,
                  "after_s": round(time.monotonic() - h.since, 3),
                  "restarts": h.restarts})
             h.since = time.monotonic()
-            TRACER.instant("lane.readmitted", cat="supervisor")
+            TRACER.instant("lane.readmitted", cat="supervisor",
+                           args={"lane": idx})
 
     def _probe_lane(self, eng: Engine, h: _LaneHealth) -> bool:
         """The probes still owed, bounded per tick, spaced, and under a
@@ -578,27 +629,48 @@ class LaneSupervisor:
                 if tr.done:
                     continue
                 tr.attempt += 1  # stale-proof in-flight callbacks
+                lane = tr.lane
             try:
-                self.engine.cancel(tr.request.request_id)
+                self.lanes[lane].cancel(tr.request.request_id)
             except Exception:
                 logger.exception("deadline cancel failed")
             self.metrics.counters["requests_deadline_expired"].inc()
             self._finalize(tr, "deadline")
 
+    def _detect_retry_storm(self) -> None:
+        """At least ``storm_n`` retries within one poll: one "retry.storm"
+        flight event and tracer instant, until a poll sees none."""
+        cur = self.metrics.counters["requests_retried"].value
+        delta, self._prev_retried = cur - self._prev_retried, cur
+        if delta >= self.storm_n and not self._storming:
+            self._storming = True
+            self.flight.record_event(
+                {"kind": "retry.storm", "retries_in_window": delta,
+                 "window_s": round(self.poll_s, 3)})
+            TRACER.instant("retry.storm", cat="supervisor",
+                           args={"retries": delta})
+        elif delta == 0:
+            self._storming = False
+
     # -------------------------------------------------------------- status
 
     def status(self) -> Dict[str, Any]:
+        """Per-lane state (the JAX package's ``lanes`` list), the request
+        counters and the config."""
         with self._lock:
             tracked = len(self._tracked)
         c = self.metrics.counters
-        eng, h = self.engine, self.health
         return {
-            "state": h.state.name.lower(),
-            "state_code": int(h.state),
-            "beat_age_s": round(eng.beat_age_s(), 4),
-            "thread_alive": eng.alive(),
-            "quarantines": h.quarantines,
-            "restarts": h.restarts,
+            "lanes": [
+                {"lane": i,
+                 "state": h.state.name.lower(),
+                 "state_code": int(h.state),
+                 "beat_age_s": round(eng.beat_age_s(), 4),
+                 "thread_alive": eng.alive(),
+                 "quarantines": h.quarantines,
+                 "restarts": h.restarts}
+                for i, (eng, h) in enumerate(zip(self.lanes, self.health))
+            ],
             "tracked_requests": tracked,
             "requests_migrated": c["requests_migrated"].value,
             "requests_retried": c["requests_retried"].value,
@@ -613,17 +685,22 @@ class LaneSupervisor:
                 "probe_clean_n": self.probe_clean_n,
                 "deadline_s": self.deadline_s,
                 "retries": self.retries,
+                "migrations": self.migrations,
                 "backoff_s": self.backoff_s,
                 "dispatch_grace_s": self.dispatch_grace_s,
             },
         }
 
     def prometheus_lines(self) -> List[str]:
-        """``swarmdb_lane_state`` (0 alive, 1 suspect, 2 quarantined) and
-        ``swarmdb_lane_beat_age_seconds`` gauges for /metrics; the
-        retry / shed counters ride the shared registry."""
-        return ["# TYPE swarmdb_lane_state gauge",
-                f"swarmdb_lane_state {int(self.health.state)}",
-                "# TYPE swarmdb_lane_beat_age_seconds gauge",
-                "swarmdb_lane_beat_age_seconds "
-                f"{round(self.engine.beat_age_s(), 4)}"]
+        """``swarmdb_lane_state{lane=}`` (0 alive, 1 suspect, 2
+        quarantined) and ``swarmdb_lane_beat_age_seconds{lane=}`` gauges
+        for /metrics; the retry / shed counters ride the shared
+        registry."""
+        lines = ["# TYPE swarmdb_lane_state gauge"]
+        lines += [f'swarmdb_lane_state{{lane="{i}"}} {int(h.state)}'
+                  for i, h in enumerate(self.health)]
+        lines.append("# TYPE swarmdb_lane_beat_age_seconds gauge")
+        lines += [f'swarmdb_lane_beat_age_seconds{{lane="{i}"}} '
+                  f"{round(eng.beat_age_s(), 4)}"
+                  for i, eng in enumerate(self.lanes)]
+        return lines

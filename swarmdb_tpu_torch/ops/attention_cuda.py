@@ -47,7 +47,8 @@ there is no fallback from one to the other. ``LAUNCHES`` counts kernel
 launches (never plain-version calls) under the kernel's name, which is also
 its library's (``ops/build.py``) and, prefixed with ``swarm_``, its entry
 point's; ``launches_into`` diverts one thread's counts while it captures a
-CUDA graph.
+CUDA graph. Lanes launch from one thread each, so every count goes through
+``count_launches``, under one lock: the counts stay exact.
 """
 
 from __future__ import annotations
@@ -67,6 +68,8 @@ from .paged_kv import QuantPool, paged_gather_kv, pool_data
 
 #: Kernel launches per kernel since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
+# lane threads add to LAUNCHES at once; a += is a read-modify-write
+_LAUNCH_LOCK = threading.Lock()
 
 _FLOAT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)  # instantiated in csrc/*.cuh
@@ -74,8 +77,17 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel -> launches) to ``LAUNCHES``, exactly,
+    from any thread."""
+    with _LAUNCH_LOCK:
+        for k, n in counts.items():
+            LAUNCHES[k] += n
 
 
 _counting = threading.local()
@@ -173,7 +185,7 @@ def _launch(kernel: str, sig: str, dev: torch.device, *args) -> None:
                            f"({err(code).decode()})")
     sink = getattr(_counting, "sink", None)
     if sink is None:
-        LAUNCHES[kernel] += 1
+        count_launches({kernel: 1})
     else:
         sink[kernel] = sink.get(kernel, 0) + 1
 

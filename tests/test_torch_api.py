@@ -15,7 +15,10 @@ package writes the raw text.
 The last case streams one greedy reply from a tiny-debug backend through
 both servers (the same float32 weights and a float32 page pool, as in
 tests/test_torch_serve.py): the streamed text, the reply's body and its
-finish reason must be equal (exact: greedy tokens).
+finish reason must be equal (exact: greedy tokens). ``/admin/lanes``
+answers the supervisor's per-lane status over one engine and over a
+2-lane group the same way in both packages (beat ages and the port's
+extra config keys aside), and 503 without a supervisor.
 """
 
 import asyncio
@@ -735,3 +738,92 @@ def test_admin_tiers_without_a_tier_manager_counts_hot_pages(tmp_path,
         assert st == 200 and body["enabled"] is False
         out.append(body)
     assert out[1] == out[0] and out[1]["pages"]["hot"] > 0
+
+
+# ------------------------------------------------------------ /admin/lanes
+
+
+def _lanes_backend(pkg, kind, tmp_path, groups):
+    """A ``pkg`` ServingService over one engine ("engine",
+    "unsupervised") or over ``groups[pkg]``, a 2-lane group ("group"),
+    not started."""
+    from swarmdb_tpu.backend import service as jsvc
+    from swarmdb_tpu.backend.tokenizer import default_tokenizer
+    from swarmdb_tpu_torch.backend import service as tsvc
+
+    svc_mod = jsvc if pkg == "jax" else tsvc
+    db = PKGS[pkg].SwarmDB(broker=PKGS[pkg].LocalBroker(),
+                           save_dir=str(tmp_path / pkg / "db"))
+    if kind == "group":
+        return svc_mod.ServingService(db, groups[pkg],
+                                      default_tokenizer(512))
+    extra = {} if pkg == "jax" else {"device": "cpu"}
+    return svc_mod.ServingService.from_model_name(
+        db, "tiny-debug", max_batch=2, max_seq=64, **extra)
+
+
+@pytest.mark.parametrize("kind", ["engine", "group", "unsupervised"])
+def test_admin_lanes_equals_jax(kind, tmp_path, monkeypatch):
+    """``GET /admin/lanes``: the supervisor's per-lane status over one
+    engine (one lane) or a 2-lane group, the same in both packages but for
+    the beat ages and the port's extra config keys; 503 without a
+    supervisor (``SWARMDB_SUPERVISE=0``). ``/metrics`` carries one
+    ``swarmdb_lane_state`` gauge per lane."""
+    from tests.test_torch_lanes import build_pair
+
+    monkeypatch.setenv("SWARMDB_SUPERVISE",
+                       "0" if kind == "unsupervised" else "1")
+    monkeypatch.delenv("SWARMDB_PAGED", raising=False)
+    groups = {}
+    if kind == "group":
+        groups = dict(zip(("jax", "torch"), build_pair(monkeypatch)))
+    out = {}
+    for pkg in ("jax", "torch"):
+        svc = _lanes_backend(pkg, kind, tmp_path, groups)
+        P = PKGS[pkg]
+
+        async def runner():
+            db = P.SwarmDB(broker=P.LocalBroker(),
+                           save_dir=str(tmp_path / pkg / "api"))
+            app = P.app.create_app(db, P.app.ApiConfig(**BASE_CFG),
+                                   serving=svc)
+            client = TestClient(TestServer(app))
+            await client.start_server()
+            try:
+                r = await client.post("/auth/token", json={
+                    "username": "admin", "password": "pw"})
+                hdrs = {"Authorization":
+                        f"Bearer {(await r.json())['access_token']}"}
+                r = await client.get("/admin/lanes", headers=hdrs)
+                body = await r.json()
+                m = await client.get("/metrics")
+                lines = [ln for ln in (await m.text()).splitlines()
+                         if ln.startswith("swarmdb_lane_state{")]
+                return r.status, body, lines
+            finally:
+                await client.close()
+                db.close()
+
+        try:
+            out[pkg] = asyncio.run(runner())
+        finally:
+            svc.stop()
+            svc.db.close()
+    for pkg in ("jax", "torch"):
+        st, body, lines = out[pkg]
+        if kind == "unsupervised":
+            assert st == 503 and "no lane supervisor" in body["detail"]
+            assert lines == []
+            continue
+        assert st == 200
+        for lane in body["lanes"]:
+            assert lane.pop("beat_age_s") >= 0
+        body["config"] = {k: v for k, v in body["config"].items()
+                          if k in ("suspect_s", "quarantine_s",
+                                   "probe_clean_n", "deadline_s", "retries")}
+    assert out["torch"] == out["jax"]
+    if kind != "unsupervised":
+        lanes = 2 if kind == "group" else 1
+        assert len(out["torch"][1]["lanes"]) == lanes
+        assert out["torch"][2] == [f'swarmdb_lane_state{{lane="{i}"}} 0'
+                                   for i in range(lanes)]

@@ -54,7 +54,7 @@ def test_scan_covers_every_port_folder():
     folders = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")
                if len(p.relative_to(PORT).parts) > 1}
     assert {"api", "obs", "backend", "core", "broker", "ops", "models",
-            "utils"} <= folders
+            "parallel", "utils"} <= folders
     assert PORT / "models" / "mixtral.py" in set(PORT.rglob("*.py"))
 
 
@@ -74,6 +74,14 @@ def test_serving_a_request_loads_no_jax():
         " SamplingParams(max_new_tokens=3))\n"
         "    eng.stop()\n"
         "    assert why in ('length', 'eos'), why\n"
+        "from swarmdb_tpu_torch.parallel import build_serving_engine\n"
+        "g, _ = build_serving_engine('tiny-debug', ['cpu', 'cpu'],"
+        " max_seq=64, paged=True)\n"
+        "g.start()\n"
+        "toks, why = g.generate_sync([1, 2, 3],"
+        " SamplingParams(max_new_tokens=3))\n"
+        "g.stop()\n"
+        "assert why in ('length', 'eos'), why\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'swarmdb_tpu')]\n"
         "assert not bad, bad\n"
@@ -93,6 +101,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from swarmdb_tpu_torch.core.runtime import SwarmDB
     from swarmdb_tpu_torch.models import llama
     from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.parallel.serving import build_serving_engine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("tiny-debug")
@@ -100,6 +109,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         llama.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_backend_engine("tiny-debug", max_seq=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_serving_engine("tiny-debug", max_seq=64, paged=True)
     db = SwarmDB(save_dir=str(tmp_path))
     try:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -121,15 +132,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 def test_unported_paths_say_so(monkeypatch, tmp_path):
-    from types import SimpleNamespace
-
     from swarmdb_tpu_torch.api.app import create_app
     from swarmdb_tpu_torch.api.server import refuse_unported
-    from swarmdb_tpu_torch.backend.chaos import ServingChaos
     from swarmdb_tpu_torch.backend.service import build_backend_engine
-    from swarmdb_tpu_torch.backend.supervisor import LaneSupervisor
     from swarmdb_tpu_torch.core.messages import BrokerConfig
     from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.parallel.serving import build_serving_engine
 
     # Mixtral is ported: a tiny-moe engine builds on the CPU, both kinds,
     # and the paged one prefills in row-bucketed waves (no ragged forward)
@@ -139,17 +147,18 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
         assert eng.params["layers"]["router"].device.type == "cpu"
         assert (eng.paged is None) == (paged is None)
         assert paged is None or eng.paged.prefill_ragged is None
-    group = SimpleNamespace(lanes=[], metrics=None, flight=None)
-    for cls in (LaneSupervisor, ServingChaos):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cls(group)
-    chaos = ServingChaos(build_backend_engine("tiny-debug", max_seq=64,
-                                              device="cpu")[0])
-    for fault in (chaos.kill_lane, chaos.wedge, chaos.heal,
-                  chaos.heal_pool):
-        with pytest.raises(ValueError, match="item 9"):
-            fault(1)   # one engine: lane 0 only
-    chaos.stop()
+    # lanes are ported (item 9); the single-program sharded engine, a
+    # model / expert / pipeline axis and the dense engine over several
+    # devices are multi-GPU serving (item 11)
+    for kwargs in ({"admit_overlap": False}, {"model": 2}, {"expert": 2},
+                   {"pipe": 2}, {"paged": False}):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            build_serving_engine("tiny-debug", ["cpu", "cpu"], max_seq=64,
+                                 **{"paged": True, **kwargs})
+    with monkeypatch.context() as m:
+        m.setenv("SWARMDB_ADMIT_OVERLAP", "0")
+        with pytest.raises(NotImplementedError, match="item 11"):
+            build_serving_engine("tiny-debug", ["cpu"], max_seq=64)
     for env, item in ((("SWARMDB_HA_NODE_ID", "n1"), 12),
                       (("SWARMDB_HA_CLUSTER", "/x.json"), 12),
                       (("BROKER_IMPL", "native"), 12),
@@ -173,7 +182,7 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("path", [
-    "/admin/cluster/trace", "/admin/slo", "/admin/ha", "/admin/lanes",
+    "/admin/cluster/trace", "/admin/slo", "/admin/ha",
     "/admin/lockcheck", "/admin/pagecheck", "/admin/kerncheck",
     "/admin/profile", "/admin/mem"])
 def test_unported_routes_answer_501(path, tmp_path):

@@ -1,6 +1,7 @@
 """Request supervision and serving chaos on one engine, against the JAX
 reference: the cases of ``tests/test_serving_chaos.py`` that apply to a
-single engine (lane groups are not ported), on the CPU.
+single engine, supervised as a group of one lane, on the CPU (lane
+groups: ``tests/test_torch_lane_chaos.py``).
 
 - an idle engine beats and reads alive; the retryable-reason contract
   is the JAX package's;
@@ -127,8 +128,15 @@ def stack(request):
     torch.set_num_threads(threads)
 
 
+def _lane0(sup) -> dict:
+    """The one engine's entry of the status's per-lane list."""
+    lanes = sup.status()["lanes"]
+    assert len(lanes) == 1
+    return lanes[0]
+
+
 def _alive(sup) -> bool:
-    return sup.status()["state"] == "alive"
+    return _lane0(sup)["state"] == "alive"
 
 
 def _gen(sup, prompt, max_new, on_token=None, deadline=None, priority=1,
@@ -158,12 +166,12 @@ def _gen(sup, prompt, max_new, on_token=None, deadline=None, priority=1,
 def test_idle_engine_beats_and_reads_alive(stack):
     eng, sup, _, _ = stack
     wait_until(lambda: _alive(sup), 10.0, what="engine alive")
-    st = sup.status()
+    st = _lane0(sup)
     assert st["state_code"] == 0
     assert st["beat_age_s"] < 1.0
     lines = sup.prometheus_lines()
-    assert "swarmdb_lane_state 0" in lines
-    assert any(l.startswith("swarmdb_lane_beat_age_seconds ")
+    assert 'swarmdb_lane_state{lane="0"} 0' in lines
+    assert any(l.startswith('swarmdb_lane_beat_age_seconds{lane="0"} ')
                for l in lines)
 
 
@@ -207,7 +215,7 @@ def test_kill_mid_stream_replays_with_zero_loss(stack):
     wait_until(lambda: _alive(sup), 60.0, what="readmission")
     st = sup.status()
     assert st["lane_quarantines"] >= 1 and st["lane_readmissions"] >= 1
-    assert st["restarts"] >= 1
+    assert st["lanes"][0]["restarts"] >= 1
     again, _, _ = _gen(sup, prompt, 24)
     assert again == ref
 
@@ -260,9 +268,9 @@ def test_wedge_quarantines_and_heals(stack):
     q_before = sup.status()["lane_quarantines"]
     chaos.wedge(0)
     try:
-        wait_until(lambda: sup.status()["state"]
+        wait_until(lambda: _lane0(sup)["state"]
                    == "quarantined", 10.0, what="wedged engine quarantined")
-        assert sup.status()["thread_alive"]
+        assert _lane0(sup)["thread_alive"]
         out = {}
         done = threading.Event()
         sup.submit(GenRequest(prompt=[3, 7, 11],
