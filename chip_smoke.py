@@ -122,6 +122,35 @@ and exits non-zero at the first failure:
                Kernels 7 (dense chunked decode), 1 and 2 must launch in
                the phase (its in-process steps; the subprocess's launches
                are its own).
+6b. obs     -- the observability feeds on the same weights, in process
+               through ``create_app`` as in the api phase: the default
+               dense engine and the paged bf16 engine, both chunked, each
+               with the tracer, histograms and SLO sentinel on
+               (``OBS_SLO_ENV``: 2 s windows, one warm-up window, four
+               completions a window; ``SWARMDB_FLIGHT_DIR`` a temporary
+               directory), 4 users x 2 streamed turns of ~400-token chat
+               messages, 32 new tokens. Fails unless every message's
+               spans are there (``runtime.send``, ``broker.publish``,
+               ``serve.request`` by message id; ``engine.admit``,
+               ``engine.prefill`` and at least two ``engine.decode_chunk``
+               by engine request id; an ``api.request`` per POST and an
+               ``engine.host_sync`` in the process), the decode-chunk
+               spans equal the live snapshot slots of every processed
+               chunk (counted outside the engine), ``/admin/flight`` has
+               both rings and its last step's counters equal the
+               registry's, ``/metrics`` has the six histogram blocks and
+               ``ttft_seconds_count`` equals the requests served,
+               ``phase_us_queue_wait`` and ``phase_us_host_sync`` are
+               positive, ``/admin/cluster/trace`` gives the span count of
+               ``/admin/trace/export``, and, with
+               ``SWARMDB_SLO_TTFT_P95_S=0.001`` for a third round,
+               ``/admin/slo`` reports the breach with an alert whose shares
+               sum to 1 and whose flight and trace dumps land in the
+               directory. The paged engine then prints one profiled
+               turn's idle share beside its phase counters, and
+               ``tracer_overhead_pct`` from three alternating on / off
+               turn pairs (fails above 20%); then an echo-loop A/B on the
+               runtime alone (``bench.py``'s ``_echo_loop``).
 7. decode_loop -- graph against eager on Llama-3-8B (``LOOP_LLAMA``: paged
                bf16 and int8 chunked, dense chunked, paged bf16 and dense
                single-step): per mode one engine whose ``warmup`` (on a
@@ -157,6 +186,9 @@ and exits non-zero at the first failure:
                its next greedy turn equal to the same turn kept hot; the
                engine otherwise idle, the turn's TTFT kept hot, promoted
                (warm) and re-prefilled whole (cold) is printed.
+               PyTorch's page-locked bytes are read before each engine and
+               after it stopped: a stopped engine may leave at most
+               ``ROLL_PINNED_SLACK`` (64 MiB) behind.
 7c. lanes -- lane groups and the fleet on Llama-3-8B at full width, the
                serve phase's weights shared by two lanes on one card
                (``build_serving_engine`` over ``["cuda:0", "cuda:0"]``: 2
@@ -168,7 +200,9 @@ and exits non-zero at the first failure:
                conversation's turns on one lane, turn 2 reusing pages on
                both, lanes 0 and 1 equal on a greedy prompt; per lane its
                requests, ragged waves, chunks and waves admitted while the
-               sibling decoded; TTFT, tokens/s, peak memory; one profiled
+               sibling decoded; flight steps stamped with lanes 0 and 1
+               and the runtime's sentinel on both lane engines; TTFT,
+               tokens/s, peak memory; one profiled
                turn (device busy as the union of both streams' kernel
                intervals, beside their sum). (2) 4 greedy streams on lane
                1, ``ServingChaos.kill_lane(1)`` at the 8th token: they
@@ -218,7 +252,8 @@ and exits non-zero at the first failure:
                printed beside the non-rolling serve's.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
-serves, the api, rolling and lanes phases and the seven Mixtral serves,
+serves, the api, obs, rolling and lanes phases and the seven Mixtral
+serves,
 each counted from zero
 just before it and read just after; a graph replay adds the launches its
 capture recorded) and, last,
@@ -1795,6 +1830,8 @@ ROLL_USERS, ROLL_ASSISTANTS, ROLL_ROUNDS = 12, 4, 3
 ROLL_OUTSTANDING = 10
 ROLL_WARM_MB = 1024
 #: (name, cache dtype, paged): the three engines of the rolling phase
+#: Page-locked bytes a stopped rolling engine may leave behind.
+ROLL_PINNED_SLACK = 64 << 20
 ROLL_MODES = (("paged_bf16", "bfloat16", True),
               ("paged_int8", "int8", True),
               ("dense", "bfloat16", None))
@@ -1817,8 +1854,20 @@ def run_rolling(card: str, params):
     Returns the launches summed over its engines."""
     total = {}
     for name, kind, paged in ROLL_MODES:
+        before = host_pinned_bytes()
         for k, n in rolling_serve(card, params, name, kind, paged).items():
             total[k] = total.get(k, 0) + n
+        # the stopped engine's warm store must not stay page-locked: the
+        # next engine's would sit beside it
+        after = host_pinned_bytes()
+        emit("rolling", serve=name, part="stopped",
+             page_locked_bytes_before_engine=before,
+             page_locked_bytes_after_stop=after, card=card)
+        if (before is not None and after is not None
+                and after - before > ROLL_PINNED_SLACK):
+            fail(f"rolling {name}: {after - before} page-locked bytes "
+                 f"outlived the stopped engine (at most "
+                 f"{ROLL_PINNED_SLACK})")
     return total
 
 
@@ -1980,7 +2029,10 @@ def rolling_serve(card, params, name, kind, paged):
     finally:
         svc.stop()
         db.close()
-        del svc, eng
+        # the trace and the timed insert hold the service and the engine:
+        # drop them before the collection, not after it
+        del eng._promote_insert
+        del svc, eng, trace, insert, timed_insert
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3077,6 +3129,498 @@ def run_server_process(save_dir):
             proc.wait()
 
 
+# --------------------------------------------------------------------- obs
+
+
+#: The obs phase's two engines: (name, paged), the default dense one and
+#: the paged one over a bf16 pool, both chunked.
+OBS_MODES = (("dense_chunked", None), ("paged_bf16_chunked", True))
+#: The SLO sentinel's settings while the obs phase serves.
+OBS_SLO_ENV = dict(SWARMDB_SLO_WINDOW_S="2", SWARMDB_SLO_WARMUP="1",
+                   SWARMDB_SLO_MIN_COMPLETIONS="4")
+OBS_USERS = 4
+#: Spans every served message's trace must hold, by the id they carry:
+#: the message id, and the engine request id (``serve.request`` joins
+#: them); ``api.request`` and ``engine.host_sync`` carry neither.
+OBS_MSG_SPANS = ("runtime.send", "broker.publish", "serve.request")
+OBS_ENGINE_SPANS = ("engine.admit", "engine.prefill")
+#: The six histogram blocks of /metrics, as the JAX package's server has
+#: them.
+OBS_HISTOGRAMS = ("broker_publish_seconds", "dataplane_rtt_seconds",
+                  "decode_chunk_seconds", "queue_wait_seconds",
+                  "replication_commit_seconds", "ttft_seconds")
+#: The overhead A/B: alternating pairs of turns with the tracer, the
+#: histograms and the sentinel on and off; the phase fails above the
+#: bound of the JAX package's own smoke test (its budget is 5%).
+OBS_AB_PAIRS = 3
+OBS_OVERHEAD_FAIL_PCT = 20.0
+OBS_ECHO_SEGMENT_S = 1.0
+#: Turns a round may take to close a window of the sentinel's minimum
+#: completions (a window boundary can fall inside a round's burst).
+OBS_ROUND_TRIES = 3
+OBS_THIRD = ("One more thing from {u}: which of the three days is best "
+             "for a museum pass, and why?")
+OBS_LAST = "Last question from {u}: how long is the walk?"
+
+
+def _obs_set(db, on: bool) -> None:
+    """Tracer, histograms (with exemplars) and sentinel, together."""
+    from swarmdb_tpu_torch.obs import HISTOGRAMS, TRACER
+
+    TRACER.set_enabled(on)
+    HISTOGRAMS.set_enabled(on)
+    HISTOGRAMS.set_exemplars_enabled(on)
+    db.sentinel.set_enabled(on)
+
+
+def _echo_loop(db, seconds: float) -> float:
+    """``bench.py``'s ``_echo_loop``: ping-pong round trips through the
+    runtime alone (no engine); messages per second."""
+    db.register_agent("ping")
+    db.register_agent("pong")
+    for _ in range(50):
+        db.send_message("ping", "pong", "warm")
+        db.receive_messages("pong", max_messages=10, timeout=0.0)
+    t0 = time.time()
+    roundtrips = 0
+    while time.time() - t0 < seconds:
+        db.send_message("ping", "pong", "ping!")
+        got = db.receive_messages("pong", max_messages=1, timeout=1.0)
+        if got:
+            db.send_message("pong", "ping", "pong!")
+            back = db.receive_messages("ping", max_messages=1, timeout=1.0)
+            if back:
+                roundtrips += 1
+    return 2 * roundtrips / (time.time() - t0)
+
+
+def echo_ab() -> dict:
+    """The host-only A/B: the echo loop in segments with the
+    observability on and off (on, off, off, on, on, off) over one
+    runtime, the sentinel's window short enough to close inside each
+    segment; medians."""
+    import tempfile
+
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    db = SwarmDB(broker=LocalBroker(), autosave_interval=1e9,
+                 save_dir=tempfile.mkdtemp(prefix="swarm_echo_"))
+    db.sentinel.config.window_s = 0.25
+    rates = {True: [], False: []}
+    try:
+        for on in (True, False, False, True, True, False):
+            _obs_set(db, on)
+            rates[on].append(_echo_loop(db, OBS_ECHO_SEGMENT_S))
+    finally:
+        _obs_set(db, True)
+        db.close()
+    on, off = (statistics.median(rates[True]),
+               statistics.median(rates[False]))
+    return {"echo_msgs_per_s_on": rates[True],
+            "echo_msgs_per_s_off": rates[False],
+            "echo_overhead_pct": (off - on) / off * 100 if off else None}
+
+
+def run_obs(card, params):
+    """The obs phase (Llama-3-8B at full width on the serve phase's
+    weights): both engines through the wire API with the tracer,
+    histograms and sentinel on, then the echo A/B. Returns the phase's
+    launches."""
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    t0 = time.perf_counter()
+    ac.reset_launches()
+    for name, paged in OBS_MODES:
+        obs_serve(card, params, name, paged)
+    launches = dict(ac.LAUNCHES)
+    echo = echo_ab()
+    emit("obs", part="done", seconds=time.perf_counter() - t0,
+         launches={k: n for k, n in launches.items() if n}, card=card,
+         **echo)
+    need = ("dense_decode_chunked", "ragged_prefill", "paged_decode_chunked")
+    if not all(launches[k] > 0 for k in need):
+        fail(f"obs: kernels {need} must launch in the phase: {launches}")
+    return launches
+
+
+def obs_serve(card, params, name, paged):
+    """One engine of the obs phase, served in process through
+    ``create_app`` on 127.0.0.1:0 (the api phase's way)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import (ServingService,
+                                                   build_backend_engine)
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.obs import HISTOGRAMS, TRACER
+
+    flight_dir = tempfile.mkdtemp(prefix="swarm_obs_flight_")
+    TRACER.reset()
+    HISTOGRAMS.reset()
+    with env_scope(SWARMDB_FLIGHT_DIR=flight_dir, SWARMDB_SENTINEL=None,
+                   SWARMDB_TRACE=None, SWARMDB_HISTOGRAMS=None,
+                   SWARMDB_SLO_TTFT_P95_S=None, **OBS_SLO_ENV):
+        db = SwarmDB(broker=LocalBroker(),
+                     save_dir=tempfile.mkdtemp(prefix="swarm_obs_"))
+        _obs_set(db, True)
+        with engine_env(chunked=True):
+            eng, tok = build_backend_engine(
+                "llama3-8b", seed=0, device="cuda", params=params,
+                paged=paged, kv_dtype=torch.bfloat16 if paged else None,
+                metrics=db.metrics)
+        svc = ServingService(db, eng, visible_tokenizer(tok.vocab_size),
+                             backend_id="h100-obs")
+        # the live snapshot slots of every processed chunk, counted
+        # outside the engine's own span code
+        slots = [0]
+        process = eng._process_host_block
+
+        def counted(block, lps, snapshot, t_dispatch_ns):
+            slots[0] += len(snapshot)
+            return process(block, lps, snapshot, t_dispatch_ns)
+
+        eng._process_host_block = counted
+        try:
+            svc.start(warmup=True)
+            asyncio.run(_obs_http(db, svc, eng, slots, name, bool(paged),
+                                  flight_dir, card))
+        finally:
+            svc.stop()
+            db.close()
+            del eng._process_host_block
+            del svc, eng, process, counted
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+async def _obs_http(db, svc, eng, slots, name, paged, flight_dir, card):
+    import aiohttp
+    from aiohttp import web
+
+    from swarmdb_tpu_torch.api.app import ApiConfig, create_app
+    from swarmdb_tpu_torch.obs.sentinel import SLOConfig
+
+    app = create_app(db, ApiConfig(jwt_secret_key="chip-smoke",
+                                   rate_limit_per_minute=100_000),
+                     serving=svc)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    url = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+    c = db.metrics.counters
+    try:
+        async with aiohttp.ClientSession() as s:
+            async def token(user):
+                async with s.post(url + "/auth/token", json={
+                        "username": user, "password": "pw"}) as r:
+                    return {"Authorization":
+                            f"Bearer {(await r.json())['access_token']}"}
+
+            async def get(path):
+                async with s.get(url + path, headers=admin) as r:
+                    if r.status != 200:
+                        fail(f"obs {name}: GET {path} gave {r.status}")
+                    if path.startswith("/metrics"):
+                        return await r.text()
+                    return await r.json()
+
+            admin = await token("admin")
+            hdr = {}
+
+            async def turn(users, text, one_wave=False):
+                """One message per user at once, streamed; every reply
+                must end length / eos. Returns (message ids, wall s).
+                ``one_wave``: the engine's loop is held at its chaos seam
+                until every message is queued, so the turn admits in one
+                wave (the A/B's turns then differ by the observability,
+                not by how the arrivals met the loop); the wall starts
+                at the release."""
+                for u in users:
+                    if u not in hdr:
+                        hdr[u] = await token(u)
+                        db.register_agent(u)
+                gate = threading.Event()
+                if one_wave:
+                    eng.chaos_step = lambda e: gate.wait(30)
+                t0 = time.perf_counter()
+                runs = [asyncio.ensure_future(_stream_post(
+                    s, url, "/messages", hdr[u], {
+                        "receiver_id": "assistant", "stream": True,
+                        "content": text.format(u=u),
+                        "metadata": {"generation": API_GEN}}))
+                    for u in users]
+                if one_wave:
+                    deadline = time.time() + 30
+                    while time.time() < deadline:
+                        with eng._cv:
+                            if len(eng._queue) >= len(users):
+                                break
+                        await asyncio.sleep(0.002)
+                    eng.chaos_step = None
+                    t0 = time.perf_counter()
+                    gate.set()
+                runs = await asyncio.gather(*runs)
+                wall = time.perf_counter() - t0
+                ids = []
+                for events, _ in runs:
+                    reply = [d for e, d in events if e == "reply"]
+                    if not reply or reply[0]["metadata"].get(
+                            "finish_reason") not in ("length", "eos"):
+                        fail(f"obs {name}: a reply did not end length/eos")
+                    ids.append([d for e, d in events
+                                if e == "message"][0]["id"])
+                return ids, wall
+
+            async def close_window():
+                """Wait out the sentinel's window, then close it
+                (``?tick=1``)."""
+                wait = db.sentinel._deadline - time.monotonic()
+                await asyncio.sleep(max(0.0, wait) + 0.05)
+                return await get("/admin/slo?tick=1")
+
+            async def idle():
+                deadline = time.time() + 60
+                while (eng._any_active() or eng._in_step) and \
+                        time.time() < deadline:
+                    await asyncio.sleep(0.02)
+                await asyncio.sleep(0.3)
+
+            db.register_agent("assistant")
+            db.assign_llm_backend("assistant", "h100-obs")
+            users = [f"user{i}" for i in range(OBS_USERS)]
+            # rounds 1-2: 4 users x 2 turns; a round repeats (at most
+            # OBS_ROUND_TRIES) while no window of the sentinel's minimum
+            # completions has closed to train the baseline
+            ids, tries = [], 0
+            for text in (USER_TEXT, FOLLOW_UP):
+                got, _ = await turn(users, text)
+                ids += got
+                slo = await close_window()
+            while slo["baseline"] is None and tries < OBS_ROUND_TRIES:
+                tries += 1
+                got, _ = await turn(users, FOLLOW_UP)
+                ids += got
+                slo = await close_window()
+            await idle()
+            served = len(ids)
+            # spans, by message id and engine request id
+            trace = await get("/admin/trace/export")
+            spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+            by_rid = {}
+            for e in spans:
+                rid = (e.get("args") or {}).get("rid")
+                by_rid.setdefault(rid, []).append(e)
+            names = [e["name"] for e in spans]
+            missing, engine_rids = [], []
+            for mid in ids:
+                mnames = [e["name"] for e in by_rid.get(mid, [])]
+                serve = [e for e in by_rid.get(mid, [])
+                         if e["name"] == "serve.request"]
+                rid = serve[0]["args"]["engine_rid"] if serve else None
+                engine_rids.append(rid)
+                enames = [e["name"] for e in by_rid.get(rid, [])]
+                if (not all(n in mnames for n in OBS_MSG_SPANS)
+                        or not all(n in enames for n in OBS_ENGINE_SPANS)
+                        or enames.count("engine.decode_chunk") < 2):
+                    missing.append((mid, sorted(set(mnames)),
+                                    sorted(set(enames))))
+            api_posts = sum(1 for e in spans if e["name"] == "api.request"
+                            and e["args"].get("path") == "/messages")
+            # the same trace through the cluster merge, trace by trace
+            cluster_equal = True
+            for tid in ids[:2] + engine_rids[:2]:
+                a = await get(f"/admin/trace/export?trace_id={tid}")
+                b = await get(f"/admin/cluster/trace?trace_id={tid}")
+                cluster_equal &= (
+                    sum(e.get("ph") == "X" for e in a["traceEvents"])
+                    == sum(e.get("ph") == "X" for e in b["traceEvents"])
+                    and b["metadata"]["unreachable"] == [])
+            flight = await get("/admin/flight")
+            last = flight["steps"][-1] if flight["steps"] else {}
+            settled = {k: (last.get(k), c[ctr].value) for k, ctr in (
+                ("tokens_generated", "tokens_generated"),
+                ("prompt_tokens", "prompt_tokens"),
+                ("prefill_packed_tokens", "prefill_packed_tokens"),
+                ("host_syncs", "engine_host_syncs"),
+                ("restarts", "engine_restarts"))}
+            metrics = await get("/metrics")
+            hist_blocks = sorted(
+                ln.split()[2][len("swarmdb_"):] for ln in
+                metrics.splitlines() if ln.startswith("# TYPE swarmdb_")
+                and ln.endswith(" histogram"))
+            ttft_count = next(int(ln.split()[1]) for ln in
+                              metrics.splitlines()
+                              if ln.startswith("swarmdb_ttft_seconds_count"))
+            phase = {k: c[f"phase_us_{k}"].value for k in
+                     ("queue_wait", "prefill", "decode", "host_sync")}
+            checks = {
+                "every message's spans": not missing,
+                f"api.request per POST /messages ({served})":
+                    api_posts >= served,
+                "engine.host_sync in the process":
+                    names.count("engine.host_sync") >= 1,
+                "export not truncated": not trace["metadata"].get(
+                    "truncated"),
+                "decode_chunk spans == live snapshot slots":
+                    names.count("engine.decode_chunk") == slots[0] > 0,
+                "flight step and request rings": bool(
+                    flight["steps"]) and bool(flight["requests"]),
+                "last step's counters == db.metrics": all(
+                    a == b for a, b in settled.values()),
+                "six histogram blocks": hist_blocks == list(OBS_HISTOGRAMS),
+                "ttft_seconds_count == requests served": ttft_count
+                    == served,
+                "phase_us_queue_wait > 0": phase["queue_wait"] > 0,
+                "phase_us_host_sync > 0": phase["host_sync"] > 0,
+                "cluster trace == trace export": cluster_equal,
+                "baseline learned": slo["baseline"] is not None,
+            }
+            emit("obs", serve=name, model="llama3-8b", served=served,
+                 extra_rounds=tries, spans={n: names.count(n) for n in
+                                            sorted(set(names))},
+                 decode_chunk_slots=slots[0], api_message_posts=api_posts,
+                 flight_steps=len(flight["steps"]),
+                 flight_requests=len(flight["requests"]),
+                 last_step=last, settled=settled,
+                 request_record=flight["requests"][-1]
+                 if flight["requests"] else None,
+                 histograms=hist_blocks, ttft_seconds_count=ttft_count,
+                 phase_us=phase, host_syncs=c["engine_host_syncs"].value,
+                 decode_chunks=c["engine_decode_chunks"].value,
+                 sentinel=dict(windows_total=slo["windows_total"],
+                               baseline=slo["baseline"],
+                               last_window=slo["last_window"],
+                               alerts_total=slo["alerts_total"]),
+                 missing=missing[:4], card=card, checks=checks)
+            bad = [k for k, ok in checks.items() if not ok]
+            if bad:
+                fail(f"obs {name} checks failed: {bad}")
+            # a forced breach: TTFT p95 over 1 ms
+            alerts_before = slo["alerts_total"]
+            with env_scope(SWARMDB_SLO_TTFT_P95_S="0.001"):
+                db.sentinel.config.ttft_p95_s = SLOConfig().ttft_p95_s
+            third, tries = 0, 0
+            while tries < OBS_ROUND_TRIES:
+                tries += 1
+                got, _ = await turn(users, OBS_THIRD)
+                third += len(got)
+                slo = await close_window()
+                if slo["alerts_total"] > alerts_before:
+                    break
+            alert = next((a for a in reversed(slo["alerts"]) if any(
+                b["slo"] == "ttft_p95_s" and b["limit"] == 0.001
+                for b in a["breaches"])), None)
+            shares = alert["diagnosis"]["shares"] if alert else {}
+            dumps = sorted(os.listdir(flight_dir))
+            breach = {
+                "/admin/slo breached": slo["breached"] is True,
+                "an alert on ttft_p95_s > 0.001": alert is not None,
+                "shares sum to 1 within 1e-3": bool(shares) and abs(
+                    sum(shares.values()) - 1.0) <= 1e-3,
+                "dominant contributor named": bool(alert) and alert[
+                    "dominant"] in shares,
+                "flight dump with the alert id": bool(alert) and bool(
+                    alert["flight_dump"]) and alert["id"] in
+                    os.path.basename(alert["flight_dump"])
+                    and os.path.exists(alert["flight_dump"]),
+                "trace dump with the alert id": bool(alert) and bool(
+                    alert["trace_dump"]) and alert["id"] in
+                    os.path.basename(alert["trace_dump"])
+                    and os.path.exists(alert["trace_dump"]),
+            }
+            emit("obs", serve=name, part="forced_breach", turns=third,
+                 tries=tries, breached=slo["breached"],
+                 alerts_total=slo["alerts_total"],
+                 alert=None if alert is None else dict(
+                     id=alert["id"], breaches=alert["breaches"],
+                     dominant=alert["dominant"], shares=shares,
+                     explanation=alert["diagnosis"]["explanation"],
+                     flight_dump=alert["flight_dump"],
+                     trace_dump=alert["trace_dump"]),
+                 flight_dir_files=dumps, card=card, checks=breach)
+            bad = [k for k, ok in breach.items() if not ok]
+            if bad:
+                fail(f"obs {name} forced breach failed: {bad}")
+            with env_scope(SWARMDB_SLO_TTFT_P95_S=None):
+                db.sentinel.config.ttft_p95_s = SLOConfig().ttft_p95_s
+            if not paged:
+                return
+            # the idle share split: one untraced turn's wall and phase
+            # counters, then the same turn profiled (on this thread: the
+            # profiler registers with the device here) for the device's
+            # busy time; the streamed turns' replies are read first, so
+            # each turn waits for its own
+            await idle()
+            for u in users:
+                db.receive_messages(u, max_messages=10 ** 4, timeout=0.05)
+            before = {k: c[f"phase_us_{k}"].value for k in phase}
+            syncs0 = c["engine_host_syncs"].value
+            t0 = time.perf_counter()
+            for u in users:
+                db.send_message(u, "assistant", OBS_LAST.format(u=u),
+                                metadata={"generation": API_GEN})
+            if len(await_replies(db, users)) < len(users):
+                fail(f"obs {name}: the untraced turn lost a reply")
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            await idle()
+            split = {k: (c[f"phase_us_{k}"].value - before[k]) / 1e3
+                     for k in phase}
+            syncs = c["engine_host_syncs"].value - syncs0
+            prof = profile_turn(db, users, OBS_LAST)
+            emit("obs", serve=name, part="turn_split",
+                 untraced_turn_wall_ms=wall_ms, phase_ms=split,
+                 host_syncs=syncs,
+                 profiled_turn_wall_ms=prof["wall_ms"],
+                 device_busy_ms=prof["device_busy_ms"],
+                 device_idle_share_vs_untraced=1.0
+                 - prof["device_busy_ms"] / wall_ms,
+                 note="queue_wait sums over the turn's requests; decode "
+                      "holds the host's waits (host_sync)",
+                 card=card)
+            # the overhead A/B: one-wave turns of fresh users (no history)
+            # with the observability on and off, alternating in the order
+            # on-off, off-on, on-off (an order effect cancels)
+            walls, turns_ab = {True: [], False: []}, []
+            order = [(True, False), (False, True), (True, False)]
+            for i, pair in enumerate(order[:OBS_AB_PAIRS]):
+                for on in pair:
+                    await idle()
+                    _obs_set(db, on)
+                    c0 = {k: c[k].value for k in (
+                        "engine_admission_waves", "engine_decode_chunks",
+                        "phase_us_queue_wait", "phase_us_prefill",
+                        "phase_us_decode", "phase_us_host_sync")}
+                    _, wall = await turn(
+                        [f"ab{i}_{int(on)}_{j}" for j in range(OBS_USERS)],
+                        USER_TEXT, one_wave=True)
+                    walls[on].append(wall)
+                    turns_ab.append(dict(on=on, wall_s=wall, **{
+                        k: c[k].value - v for k, v in c0.items()}))
+            _obs_set(db, True)
+            on, off = (statistics.median(walls[True]),
+                       statistics.median(walls[False]))
+            pct = (on - off) / off * 100
+            emit("obs", serve=name, part="overhead_ab",
+                 turn_wall_s_on=walls[True], turn_wall_s_off=walls[False],
+                 tracer_overhead_pct=pct,
+                 spread_pct=[(max(walls[True]) - min(walls[False]))
+                             / min(walls[False]) * 100,
+                             (min(walls[True]) - max(walls[False]))
+                             / max(walls[False]) * 100],
+                 turns=turns_ab, budget_pct=5.0,
+                 fail_above_pct=OBS_OVERHEAD_FAIL_PCT, card=card)
+            if pct > OBS_OVERHEAD_FAIL_PCT:
+                fail(f"obs {name}: tracer_overhead_pct {pct:.2f} above "
+                     f"{OBS_OVERHEAD_FAIL_PCT}")
+    finally:
+        await runner.cleanup()
+
+
 # ------------------------------------------------------------------- lanes
 
 
@@ -3404,6 +3948,11 @@ def lanes_colocated(card, params, tok):
             == same[1]["toks"] and same[0]["reason"] == "length",
         "decode through graph replays on both lanes": all(
             e._runner.chunks > 0 and e._runner.graphs for e in g.lanes),
+        "flight steps carry shard 0 and 1": {0, 1} <= {
+            st.get("shard") for st in g.flight.steps()},
+        "group.sentinel is the runtime's on every lane": g.sentinel
+            is db.sentinel and all(e.sentinel is db.sentinel
+                                   for e in g.lanes),
     }
     ttft = sorted(db.metrics.latencies["send_to_first_token_s"].values())
     gen_tok = c["tokens_generated"].value
@@ -4168,6 +4717,8 @@ def main() -> int:
         run_parity(dev)
         launches, params = run_serves(card)
         for k, n in run_api(card, params).items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in run_obs(card, params).items():
             launches[k] = launches.get(k, 0) + n
         run_decode_loop(card, "llama3-8b", params, LOOP_LLAMA)
         for k, n in run_rolling(card, params).items():

@@ -15,11 +15,16 @@ and reply with SSE: with a serving backend attached
 card; without one, the message's lifecycle. Every event's data is one
 JSON value; a ``token`` event's is a JSON string (the JAX package writes
 its text raw, which a line break inside the text cuts short).
-``/admin/profile/start`` and ``/stop`` drive ``torch.profiler``. Routes
-whose subsystem is not ported yet answer 501 with a body that names its
-ROADMAP.md item (queue 1): ``/admin/cluster/trace``, ``/admin/slo``,
-``/admin/lockcheck``, ``/admin/pagecheck``, ``/admin/kerncheck``,
-``/admin/profile``, ``/admin/mem`` (item 10) and ``/admin/ha`` (item 12).
+``/admin/profile/start`` and ``/stop`` drive ``torch.profiler``.
+``/metrics`` carries the counters, the latency histograms with their
+trace-id exemplars (``obs/metrics.py``) and the SLO sentinel's gauges;
+``/admin/slo`` serves the sentinel and ``/admin/cluster/trace`` the
+local trace through the cluster merge (the fan-out to other nodes rides
+the data plane, ROADMAP.md queue 1 item 12). Routes whose subsystem is
+not ported yet answer 501 with a body that names its ROADMAP.md item
+(queue 1): ``/admin/lockcheck``, ``/admin/pagecheck``,
+``/admin/kerncheck`` (item 10c), ``/admin/profile``, ``/admin/mem``
+(item 10b) and ``/admin/ha`` (item 12).
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from pydantic import ValidationError
 
 from ..core.messages import MessageStatus
 from ..core.runtime import SwarmDB
-from ..obs import TRACER
+from ..obs import HISTOGRAMS, TRACER, propagate
 from ..utils import jwt as jwt_util
 from . import schemas
 
@@ -57,14 +62,12 @@ SERVING_KEY: web.AppKey = web.AppKey("serving", object)
 #: yet: path -> (what it serves, the ROADMAP.md queue 1 item). They
 #: answer 501 naming the item.
 UNPORTED_ROUTES = {
-    "/admin/cluster/trace": ("cluster-wide trace merge", 10),
-    "/admin/slo": ("the SLO sentinel", 10),
-    "/admin/ha": ("the HA control plane", 12),
-    "/admin/lockcheck": ("the lock sanitizer", 10),
-    "/admin/pagecheck": ("the page sanitizer", 10),
-    "/admin/kerncheck": ("the kernel sanitizer", 10),
-    "/admin/profile": ("the device-time profiler", 10),
-    "/admin/mem": ("the memory accountant", 10),
+    "/admin/ha": ("the HA control plane", "12"),
+    "/admin/lockcheck": ("the lock sanitizer", "10c"),
+    "/admin/pagecheck": ("the page sanitizer", "10c"),
+    "/admin/kerncheck": ("the kernel sanitizer", "10c"),
+    "/admin/profile": ("the device-time profiler", "10b"),
+    "/admin/mem": ("the memory accountant", "10b"),
 }
 
 
@@ -612,6 +615,13 @@ def create_app(
                 if s.get(key) is not None:
                     lines.append(f'{n}{{quantile="{q}"}} {s[key]}')
             lines.append(f"{n}_count {int(s.get('count') or 0)}")
+        # fixed-bucket latency histograms, buckets that kept a trace id
+        # carrying it in OpenMetrics exemplar syntax (the id resolves at
+        # /admin/trace/export?trace_id=), then the sentinel's gauges
+        lines.extend(HISTOGRAMS.render_prometheus(exemplars=True))
+        sentinel = getattr(db, "sentinel", None)
+        if sentinel is not None:
+            lines.extend(await _run_sync(sentinel.prometheus_lines))
         supervisor = getattr(serving, "supervisor", None)
         if supervisor is not None:
             lines.extend(await _run_sync(supervisor.prometheus_lines))
@@ -628,11 +638,8 @@ def create_app(
         return web.Response(text="\n".join(lines) + "\n",
                             content_type="text/plain")
 
-    async def trace_export(request: web.Request) -> web.Response:
-        """GET /admin/trace/export: the span tracer's rings as Chrome
-        trace-event JSON, bounded by ``?last_n=`` / ``?trace_id=`` and
-        ``SWARMDB_TRACE_EXPORT_MAX``."""
-        require_admin(current_agent(request))
+    def _trace_query(request: web.Request):
+        """(last_n, trace_id) of a trace route's query."""
         q = request.query
         last_n = None
         if q.get("last_n"):
@@ -640,10 +647,51 @@ def create_app(
                 last_n = max(0, int(q["last_n"]))
             except ValueError:
                 raise _error(422, f"bad last_n: {q['last_n']!r}")
-        trace_id = q.get("trace_id") or None
+        return last_n, q.get("trace_id") or None
+
+    async def trace_export(request: web.Request) -> web.Response:
+        """GET /admin/trace/export: the span tracer's rings as Chrome
+        trace-event JSON, bounded by ``?last_n=`` / ``?trace_id=`` and
+        ``SWARMDB_TRACE_EXPORT_MAX``."""
+        require_admin(current_agent(request))
+        last_n, trace_id = _trace_query(request)
         trace = await _run_sync(
             lambda: TRACER.to_chrome_trace(last_n=last_n, rid=trace_id))
         return web.json_response(trace)
+
+    async def cluster_trace(request: web.Request) -> web.Response:
+        """GET /admin/cluster/trace: one merged, Perfetto-loadable trace
+        of the cluster, with the filters of /admin/trace/export. The port
+        has no cluster map yet, so this is the JAX package's no-cluster
+        answer: the local process's trace through ``merge_chrome_traces``
+        and an empty ``metadata.unreachable`` (the fan-out to other nodes
+        rides the data plane, ROADMAP.md queue 1 item 12)."""
+        require_admin(current_agent(request))
+        last_n, trace_id = _trace_query(request)
+        local = await _run_sync(
+            lambda: TRACER.to_chrome_trace(last_n=last_n, rid=trace_id))
+        merged = propagate.merge_chrome_traces([(propagate.node_id(),
+                                                 local)])
+        merged["metadata"]["unreachable"] = []
+        if trace_id:
+            merged["metadata"]["trace_id"] = trace_id
+        return web.json_response(merged)
+
+    async def admin_slo(request: web.Request) -> web.Response:
+        """GET /admin/slo: the online SLO sentinel -- its config and
+        learned baseline, the last closed window's per-completion cost
+        split and p95s, the attributed alert ring (each alert names its
+        dominant contributor, shares summing to 1, and points at its
+        flight and trace dumps), and the histogram exemplars with
+        ``?trace_id=`` export links. ``?tick=1`` runs a window-close check
+        first. 503 without a sentinel."""
+        require_admin(current_agent(request))
+        sentinel = getattr(db, "sentinel", None)
+        if sentinel is None:
+            raise _error(503, "this runtime has no SLO sentinel")
+        if request.query.get("tick"):
+            await _run_sync(sentinel.maybe_tick)
+        return web.json_response(await _run_sync(sentinel.status))
 
     async def flight_record(request: web.Request) -> web.Response:
         """GET /admin/flight: the engine's flight rings; ``?last=1`` the
@@ -846,6 +894,8 @@ def create_app(
         web.post("/admin/profile/start", profile_start),
         web.post("/admin/profile/stop", profile_stop),
         web.get("/admin/trace/export", trace_export),
+        web.get("/admin/cluster/trace", cluster_trace),
+        web.get("/admin/slo", admin_slo),
         web.get("/admin/flight", flight_record),
         web.get("/admin/tiers", admin_tiers),
         web.get("/admin/lanes", admin_lanes),

@@ -75,10 +75,25 @@ included) and flags when it is inside a step, ``chaos_step`` is the
 fault-injection seam at the top of each iteration
 (``backend/chaos.py``), queued requests past their ``deadline`` fail with
 "deadline", and finish reasons in ``RETRYABLE_REASONS`` name a request
-the engine lost (or returned) through no fault of its own. ``flight``
-holds discrete events (backpressure, shedding, chaos, restarts); the
-engine's step and request rings and spans are not fed yet (ROADMAP.md,
-queue 1 item 10).
+the engine lost (or returned) through no fault of its own.
+
+Observability, at the JAX engine's sites and with its names: the
+process-global tracer gets an ``engine.admit`` retro-span (submit ->
+admission) and one ``engine.prefill`` span per admitted row, an
+``engine.host_sync`` span for every host wait on the device (a chunk's
+block, the fleet prefill lane's fed tokens) and one
+``engine.decode_chunk`` span per snapshot slot of each processed chunk;
+the histograms ``queue_wait_seconds``, ``decode_chunk_seconds`` and
+``ttft_seconds`` (``obs/metrics.py``) take the request id as exemplar;
+the counters ``phase_us_queue_wait``, ``phase_us_prefill``,
+``phase_us_decode`` (a chunk's share of wall time, which holds the
+host's wait for it) and ``phase_us_host_sync`` (the time blocked in
+those waits) feed the SLO sentinel. ``flight`` holds a step record after
+each admission and dispatch round with work (``_flight_step``, which
+also probes the sentinel's window), a request record at each retirement,
+and discrete events (backpressure, shedding, chaos, restarts). Spans,
+observations and counters all run on the host around the decode chunk,
+never inside the callable that a CUDA graph captures.
 
 All tensors live on the engine's explicit ``device``, and on the card
 every operation on them runs on the engine's own stream (``stream``): its
@@ -117,6 +132,9 @@ import numpy as np
 import torch
 
 from ..obs.flight import FlightRecorder
+from ..obs.metrics import HIST_DECODE_CHUNK, HIST_QUEUE_WAIT, HIST_TTFT
+from ..obs.tracer import TRACER
+from ..ops.attention_cuda import decode_kernel_name
 from ..ops.paged_kv import (PageAllocator, QuantPool, paged_write_chunk,
                              paged_write_ragged, pool_dtype,
                              pool_insert_pages, pool_insert_raw, pool_layer,
@@ -209,6 +227,10 @@ class _Slot:
     pending_first: bool = False  # prefill token not yet surfaced to host
     cancelled: bool = False      # retire at the next processed block
     first_token_at: Optional[float] = None
+    admitted_at: Optional[float] = None
+    # the engine's host-sync count at admission (the request record's
+    # host_syncs is the difference at retirement)
+    admit_syncs: int = 0
 
 
 @dataclass
@@ -469,8 +491,28 @@ class Engine:
             # promotion copies in flight: (event, pinned source) kept alive
             # until the event has passed
             self._promote_sources: List[Tuple[Any, Any]] = []
+            # observability: spans go to the process-global tracer; the
+            # flight recorder (last-N steps, last-M requests, events) is
+            # the engine's own, dumped on restart and on an SLO alert
+            self.tracer = TRACER
             self.flight = FlightRecorder()
             self._flight_dir = flight_dir
+            self._flight_last_had_work = False
+            # the SLO sentinel (obs/sentinel.py): the runtime owns it and
+            # ServingService points it here, so the loop drives window
+            # closes; None = an unmonitored engine
+            self.sentinel = None
+            # host syncs of this engine alone (a lane group's lanes share
+            # one registry, so a request's count must not take a
+            # sibling's)
+            self._host_sync_n = 0
+            # the prefill family of the latest wave ("ragged" or
+            # "bucketed") and the decode kernel, stamped on flight steps
+            self._last_wave_kind: Optional[str] = None
+            self._decode_kernel = decode_kernel_name(
+                paged=paged is not None, chunked=chunked_fns is not None,
+                quant=isinstance(self.cache, dict)
+                and isinstance(self.cache.get("k"), QuantPool))
             # lane hooks (module docstring), set by a lane group and its
             # fleet: the lane index stamped on events, the sibling-session
             # probe, whether a decode session is running, the fleet role
@@ -824,9 +866,15 @@ class Engine:
                     if self._resident:
                         # a session runs chunks until its lanes finish or
                         # the host votes to stop; admission waits for its
-                        # end
+                        # end. The flight step is taken after admission,
+                        # before the session, as in the JAX package (a
+                        # session's end is when occupancy is transiently
+                        # low); once the session leaves no work, one more
+                        # step settles the ring's counters
+                        self._flight_step(0)
                         if self._any_active():
                             self._run_resident()
+                            self._flight_step(0, settle=True)
                     else:
                         if self._any_active():
                             in_flight.append(self._dispatch_decode())
@@ -834,6 +882,7 @@ class Engine:
                                 len(in_flight) >= self.pipeline_depth
                                 or not self._any_active()):
                             self._process_block(*in_flight.pop(0))
+                        self._flight_step(len(in_flight))
                     self.max_step_s = max(self.max_step_s,
                                           time.perf_counter() - t_step)
                     if self._bp_paused and not self._any_active():
@@ -857,6 +906,65 @@ class Engine:
 
     def _any_active(self) -> bool:
         return any(s.active for s in self.slots)
+
+    def _flight_step(self, in_flight_n: int, settle: bool = False) -> None:
+        """One flight-recorder step per loop iteration that has work, as
+        in the JAX engine: idle iterations are skipped, and the first one
+        after work drains is recorded once, so the ring's last step holds
+        the settled counters (a dump taken while idle matches the metrics
+        registry). ``settle`` records only that trailing step: the
+        resident loop calls it after a session, where the JAX loop, which
+        records before sessions only, leaves the ring's last step short
+        of the session's counters. Also the sentinel's window probe."""
+        if self.sentinel is not None:
+            self.sentinel.maybe_tick()
+        with self._cv:
+            queued = len(self._queue)
+            by_prio: Dict[int, int] = {}
+            for negp, _, _, _ in self._queue:
+                by_prio[-negp] = by_prio.get(-negp, 0) + 1
+        active = sum(1 for s in self.slots if s.active)
+        has_work = bool(active or queued or in_flight_n)
+        if settle and has_work:
+            return
+        if not has_work and not self._flight_last_had_work:
+            return
+        self._flight_last_had_work = has_work
+        c = self.metrics.counters
+        rec: Dict[str, Any] = {
+            "ts": time.time(),
+            "active": active,
+            "max_batch": self.max_batch,
+            "queued": queued,
+            "queued_by_priority": by_prio,
+            "in_flight_chunks": in_flight_n,
+            # cumulative counters: deltas between steps place tokens,
+            # padding and syncs in time
+            "tokens_generated": c["tokens_generated"].value,
+            "prompt_tokens": c["prompt_tokens"].value,
+            "prefill_padding_tokens": c["prefill_padding_tokens"].value,
+            "prefill_packed_tokens": c["prefill_packed_tokens"].value,
+            "host_syncs": c["engine_host_syncs"].value,
+            "restarts": c["engine_restarts"].value,
+            # the JAX engine counts compiled executables here; the card's
+            # counterpart is the captured decode graphs (a new one
+            # mid-traffic is a capture that warmup did not take)
+            "compiled_variants": len(self._runner.graphs),
+        }
+        if self._last_wave_kind is not None:
+            rec["wave_kind"] = self._last_wave_kind
+        rec["decode_kernel"] = self._decode_kernel
+        if self._resident:
+            # resident-loop steps sample occupancy right after admission:
+            # the analyzer's admission-stall split trusts only these
+            rec["occ_at_admit"] = True
+        if self.flight_shard is not None:
+            rec["shard"] = self.flight_shard
+        if self._prefix is not None:
+            ps = self._prefix.stats()
+            rec["prefix_hit_tokens"] = ps["hit_tokens"]
+            rec["prefix_miss_tokens"] = ps["miss_tokens"]
+        self.flight.record_step(rec)
 
     # ------------------------------------------------- supervision signals
 
@@ -940,6 +1048,8 @@ class Engine:
                 self.flight.record_event({"kind": "tier.pressure",
                                           "util": round(util, 3),
                                           "shard": self.flight_shard})
+                self.tracer.instant("tier.pressure", cat="engine",
+                                    args={"util": round(util, 3)})
             if self._tier_demoting:
                 try:
                     self.on_tier_pressure(
@@ -960,6 +1070,8 @@ class Engine:
             self.flight.record_event(
                 {"kind": "pool.backpressure_paused",
                  "util": round(util, 3), "shard": self.flight_shard})
+            self.tracer.instant("pool.backpressure", cat="engine",
+                                args={"util": round(util, 3)})
         if not self._bp_paused:
             return True
         if self.on_pool_pressure is not None:
@@ -1500,6 +1612,13 @@ class Engine:
         self.metrics.latencies["tier_promote_s"].observe(
             time.perf_counter() - t0)
 
+    def release_promote_sources(self) -> None:
+        """Wait for the promotion copies in flight and drop their host
+        sources (the tier's warm-store views), on a stopped engine."""
+        for event, _ in self._promote_sources:
+            event.synchronize()
+        self._promote_sources.clear()
+
     def _prefill_paged_resume_batch(self, batch: List[Tuple], bucket: int,
                                     ppb: int) -> None:
         """One suffix prefill continuing kept conversations (rolling KV,
@@ -1554,6 +1673,7 @@ class Engine:
         c["prefill_packed_tokens"].inc(int(lengths[:n].sum()))
         c["prefill_padding_tokens"].inc(int(padded.size - lengths[:n].sum()))
         c["prefix_reused_tokens"].inc(int(rlens.sum()))
+        self._last_wave_kind = "bucketed"
         self._activate([(it[0], it[1]) for it in batch], t0)
 
     def _prefill_dense_resume_batch(self, batch: List[Tuple], bucket: int,
@@ -1652,6 +1772,7 @@ class Engine:
 
     def _count_wave(self, lengths: np.ndarray, size: int) -> None:
         """Counters of one bucketed wave: real and padding tokens."""
+        self._last_wave_kind = "bucketed"
         packed = int(lengths.sum())
         c = self.metrics.counters
         c["prefill_waves"].inc()
@@ -1728,6 +1849,7 @@ class Engine:
             packed_n += filled
             padding_n += wd - filled
             self.metrics.counters["prefill_waves"].inc()
+            self._last_wave_kind = "ragged"
             pend = [it for it in pend if it[3] < len(it[1])]
         self.metrics.counters["prefill_packed_tokens"].inc(packed_n)
         self.metrics.counters["prefill_padding_tokens"].inc(padding_n)
@@ -1774,6 +1896,8 @@ class Engine:
             slot.logprobs = []
             slot.pending_first = True
             slot.first_token_at = None
+            slot.admitted_at = t0
+            slot.admit_syncs = self._host_sync_n
             with self._cv:
                 self._admitting.discard(req.request_id)
                 slot.cancelled = req.request_id in self._cancel_pending
@@ -1784,16 +1908,29 @@ class Engine:
             self.metrics.counters["prompt_tokens"].inc(
                 len(req.prompt) + req.resume_len)
             self.metrics.counters["engine_admitted"].inc()
-            self.metrics.latencies["queue_wait_s"].observe(
-                t0 - req.submitted_at)
+            wait = t0 - req.submitted_at
+            self.metrics.latencies["queue_wait_s"].observe(wait)
+            HIST_QUEUE_WAIT.observe(wait, req.request_id)
+            self.metrics.counters["phase_us_queue_wait"].inc(
+                max(0, int(wait * 1e6)))
+            # a retro-span: the wait ended before any call site could
+            # open one, so it is recorded from its wall-clock ends
+            self.tracer.span_at("engine.admit", req.submitted_at, t0,
+                                cat="engine", rid=req.request_id)
         dt = time.time() - t0
         self.metrics.latencies["prefill_s"].observe(dt)
-        self.metrics.counters["phase_us_prefill"].inc(int(dt * 1e6))
+        self.metrics.counters["phase_us_prefill"].inc(max(0, int(dt * 1e6)))
         self.metrics.counters["engine_admission_waves"].inc()
         if self.overlap_probe is not None and self.overlap_probe():
             # a lane admitted while a sibling lane was inside a decode
             # session: the overlap lanes exist for
             self.metrics.counters["engine_admission_overlap_steps"].inc()
+        for slot_id, req in batch:
+            self.tracer.span_at(
+                "engine.prefill", t0, t0 + dt, cat="engine",
+                rid=req.request_id,
+                args={"slot": slot_id,
+                      "mid": req.metadata.get("message_id")})
 
     # --------------------------------------------------------------- decode
 
@@ -1832,9 +1969,22 @@ class Engine:
                        t_dispatch_ns: int) -> None:
         """Wait for one dispatched chunk's block (the host's one wait on
         it) and emit its tokens."""
-        block, lps = out.host()
-        self.metrics.counters["engine_host_syncs"].inc()
+        block, lps = self._host_wait(out.host)
         self._process_host_block(block, lps, snapshot, t_dispatch_ns)
+
+    def _host_wait(self, fetch: Callable[[], Any]) -> Any:
+        """One host wait on the device (``fetch``), counted as a host
+        sync: an ``engine.host_sync`` span, ``engine_host_syncs`` and the
+        time blocked in ``phase_us_host_sync``. The JAX engine's three
+        sync sites do the same around ``jax.device_get``."""
+        t0 = time.monotonic_ns()
+        out = fetch()
+        t1 = time.monotonic_ns()
+        self.tracer.span_end(t0, "engine.host_sync", cat="engine")
+        self.metrics.counters["engine_host_syncs"].inc()
+        self._host_sync_n += 1
+        self.metrics.counters["phase_us_host_sync"].inc((t1 - t0) // 1000)
+        return out
 
     def _process_host_block(self, block: np.ndarray, lps: np.ndarray,
                             snapshot: List[Tuple[int, GenRequest, int]],
@@ -1847,14 +1997,28 @@ class Engine:
         self._beat()
         now_ns = time.monotonic_ns()
         # the chunk's share of wall time: since its dispatch (a session's
-        # start), or since the previous chunk was processed if that came
-        # later (chunks in flight overlap; a session's follow each other)
+        # first chunk: the session's start; a later one: the previous
+        # chunk's processing), or since the previous chunk was processed
+        # if that came later (chunks in flight overlap). The host's wait
+        # for the block lies inside this share, so phase_us_decode and
+        # phase_us_host_sync overlap (as in the JAX package, whose sums
+        # may exceed wall time too)
         self.metrics.counters["phase_us_decode"].inc(
             (now_ns - max(t_dispatch_ns, self._last_chunk_ns)) // 1000)
         self._last_chunk_ns = now_ns
+        # dispatch -> processed (in flight chunks overlap; in a session
+        # this is the chunk's own wall time). The exemplar is the first
+        # snapshot slot's request, a representative trace
+        HIST_DECODE_CHUNK.observe(
+            (now_ns - t_dispatch_ns) / 1e9,
+            snapshot[0][1].request_id if snapshot else None)
         now = time.time()
         K = self.decode_chunk
         for i, req, pos0 in snapshot:
+            # one decode-chunk span per snapshot slot, retired or not:
+            # the leaves of a request's exported timeline
+            self.tracer.span_end(t_dispatch_ns, "engine.decode_chunk",
+                                 cat="engine", rid=req.request_id)
             s = self.slots[i]
             if not s.active or s.request is not req:
                 continue  # retired with the chunk in flight
@@ -1926,14 +2090,16 @@ class Engine:
         done = ~live
         inputs: Optional[Tuple[np.ndarray, ...]] = self._chunk_inputs(
             positions)
-        t_session = time.monotonic_ns()
+        # each chunk's start: the session's for the first, then the
+        # previous chunk's processing (which launches the next)
+        t_chunk = time.monotonic_ns()
         n, cont = 0, True
         self._lane_busy = True
         try:
             while n < max_chunks and cont and not done.all():
-                block, lps = self._runner.launch(variant, inputs).host()
+                block, lps = self._host_wait(
+                    self._runner.launch(variant, inputs).host)
                 inputs = None  # later chunks read what this one left
-                c["engine_host_syncs"].inc()
                 c["engine_decode_chunks"].inc()
                 done |= ((positions.astype(np.int64) + (n + 1) * K
                           >= stop_pos)
@@ -1942,7 +2108,8 @@ class Engine:
                     self._process_host_block(
                         block, lps,
                         [(i, req, pos0 + n * K) for i, req, pos0 in snap],
-                        t_session)
+                        t_chunk)
+                    t_chunk = self._last_chunk_ns
                     cont = self._resident_should_continue()
                 except Exception:
                     logger.exception("resident block processing failed; "
@@ -1971,9 +2138,9 @@ class Engine:
                 and s.request.sampling.max_new_tokens <= 1]
         if not rows:
             return
-        toks = self._last_tokens.cpu().numpy()
-        lps = self._last_lps.cpu().numpy()
-        self.metrics.counters["engine_host_syncs"].inc()
+        toks, lps = self._host_wait(
+            lambda: (self._last_tokens.cpu().numpy(),
+                     self._last_lps.cpu().numpy()))
         now = time.time()
         for i in rows:
             s = self.slots[i]
@@ -1997,6 +2164,7 @@ class Engine:
             slot.first_token_at = now
             self.metrics.latencies["first_token_s"].observe(
                 now - req.submitted_at)
+            HIST_TTFT.observe(now - req.submitted_at, req.request_id)
         reason = None
         if token == self.eos_id:
             reason = "eos"
@@ -2041,6 +2209,24 @@ class Engine:
         self.metrics.counters["engine_completed"].inc()
         self.metrics.rates["requests_completed"].mark()
         if req is not None:
+            # the request's timeline in the flight ring (engine thread)
+            self.flight.record_request({
+                "rid": req.request_id,
+                "priority": req.priority,
+                "prompt_len": len(req.prompt) + req.resume_len,
+                "generated": len(slot.generated),
+                "reason": reason,
+                "submitted_at": req.submitted_at,
+                "admitted_at": slot.admitted_at,
+                "first_token_at": slot.first_token_at,
+                "retired_at": time.time(),
+                # host syncs since admission + 1: the JAX package's
+                # formula, whose +1 is its resident session's one wait,
+                # taken after this record. The port waits once per chunk
+                # in both loops, before the chunk is processed, so here
+                # it reads the request's chunks + 1 (JAX: at most 3)
+                "host_syncs": self._host_sync_n - slot.admit_syncs + 1,
+            })
             req.metadata["logprobs"] = list(slot.logprobs)
             _call(req.on_done, req.request_id, list(slot.generated), reason)
 

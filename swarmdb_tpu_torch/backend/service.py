@@ -55,8 +55,11 @@ engine a ``TierManager`` (``SWARMDB_TIER``, default "1";
 under pool pressure and promotes them back on their next turn; a spilled
 conversation evicted from host memory re-prefills from the broker log.
 An engine that cannot roll logs it and serves without; a lane group
-refuses rolling with the JAX package's warning. Not ported yet (ROADMAP.md,
-queue 1): the SLO sentinel (item 10) and partition locality (item 12).
+refuses rolling with the JAX package's warning. The runtime's SLO
+sentinel is bound to the engine (its flight rings, the tracer and the
+flight directory for an alert's dumps), and the engine's loop drives its
+windows. Not ported yet (ROADMAP.md, queue 1 item 12): partition
+locality.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ import torch
 from ..core.messages import Message, MessageType
 from ..core.runtime import SwarmDB
 from ..models import llama, mixtral
+from ..obs import TRACER
 from ..obs.memprof import conv_ledger
 from ..models.configs import ModelConfig, get_config
 from ..ops.paged_kv import (KV_DTYPES, PageAllocator, kv_dtype_name,
@@ -367,6 +371,13 @@ class ServingService:
         self.tokenizer = tokenizer
         self.backend_id = backend_id
         self.poll_interval = poll_interval
+        # the runtime's SLO sentinel watches this engine: an alert dumps
+        # its flight rings and the process trace, and the engine loop
+        # closes windows while no sends flow (a lane group passes it to
+        # every lane)
+        db.sentinel.bind(flight=engine.flight, tracer=engine.tracer,
+                         flight_dir=engine._flight_dir)
+        engine.sentinel = db.sentinel
         # request supervision: deadline + retry budget stamped on every
         # request, retryable finishes requeued, a dead loop restarted (a
         # group's lanes quarantined, migrated and re-admitted).
@@ -517,6 +528,10 @@ class ServingService:
             # loop to restart
             self.supervisor.stop()
         self.engine.stop()
+        if self._tier is not None:
+            # the engine's loop is done: release the warm store's slab
+            # now, not at a later cyclic collection
+            self._tier.close()
         if self._reply_thread is not None:
             self._reply_queue.put(None)  # after the engine drained
             self._reply_thread.join(timeout=10)
@@ -848,6 +863,7 @@ class ServingService:
             claim = self._claims[msg.id] = _Claim()
             while len(self._claims) > _CLAIMS_MAX:
                 self._claims.popitem(last=False)
+        t_serve = TRACER.span_begin()
         try:
             self._start(msg, claim, on_token, on_done)
         except Exception:
@@ -867,6 +883,11 @@ class ServingService:
                         logger.exception("on_done callback failed for %s",
                                          msg.id)
             raise
+        # the prompt build and the submit; the args join the message id
+        # (the runtime's and the broker's rid) to the engine request id
+        # (the engine's spans), so one export holds the whole request
+        TRACER.span_end(t_serve, "serve.request", cat="serving", rid=msg.id,
+                        args={"engine_rid": claim.rid})
         return claim.rid, True
 
     def _start(self, msg: Message, claim: _Claim, user_on_token,

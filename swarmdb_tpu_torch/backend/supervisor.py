@@ -47,9 +47,9 @@ backoff (``SWARMDB_RETRY_BACKOFF_S``, default 0.05 s, doubling per
 retry); anything else, and anything that cannot be retried before its
 deadline, reaches the caller at once. ``SWARMDB_RETRY_STORM_N`` retries
 (default 8) within one poll mark a retry storm: a "retry.storm" flight
-event and tracer instant (the SLO sentinel's retry-rate objective is
-ROADMAP.md queue 1 item 10). ``SWARMDB_SUPERVISE=0`` leaves the serving
-layer without a supervisor.
+event and tracer instant; the SLO sentinel's retry-rate objective reads
+the ``requests_retried`` counter. ``SWARMDB_SUPERVISE=0`` leaves the
+serving layer without a supervisor.
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ Threading, as in the JAX package:
   held), spilling idle conversations before any is evicted to nothing.
 
 The page sanitizer's custody hooks (``obs/pagecheck`` in the JAX package)
-are not ported yet (ROADMAP.md, queue 1 item 10).
+are not ported yet (ROADMAP.md, queue 1 item 10c).
 """
 
 from __future__ import annotations
@@ -142,6 +142,26 @@ class TierManager:
         if self._thread is not None:
             self._thread.join(timeout=2.0)
             self._thread = None
+
+    def close(self) -> None:
+        """Stop for good (a stopped manager never restarts its worker)
+        and release the warm store's page-locked slab now, to the system
+        (``HostPageStore.close``). The engine's hooks and this manager
+        reference each other, as do the manager and its service, so
+        without this the slab would wait for a cyclic garbage collection
+        after the last outside reference went, and then stay in PyTorch's
+        caching host allocator; a store built meanwhile would be
+        page-locked beside it. Call it once the engine's loop has
+        stopped."""
+        self.stop()
+        if self.engine.on_tier_pressure == self.notify_pressure:
+            self.engine.on_tier_pressure = None
+        if self.engine.on_tier_drain == self.drain_engine:
+            self.engine.on_tier_drain = None
+        self._orders.clear()
+        # promotion copies still in flight read the slab's views
+        self.engine.release_promote_sources()
+        self.store.close()
 
     # ---------------------------------------------------- pressure / worker
 

@@ -7,9 +7,13 @@ search and conversations (the index the serving path's prompt builder
 reads), status transitions and resend of failed messages, JSON / YAML
 persistence with autosave and a final save on ``close``, archive of old
 messages, incremental stats and agent load, the agent -> backend routing
-table and partition autoscaling. Not ported yet (ROADMAP.md, queue 1):
-the SLO sentinel and cross-process trace propagation (item 10), the
-native and replicated brokers and the HA cluster client (item 12).
+table and partition autoscaling, and the online SLO sentinel
+(``self.sentinel``, one per runtime over its metrics registry, which the
+serving engine shares; the send path probes its window). Not ported yet
+(ROADMAP.md, queue 1 item 12): the native and replicated brokers, the HA
+cluster client, and the wire half of trace propagation (the send path
+activates the message's trace context around the publish, as the JAX
+package does, but no broker of the port carries it across processes).
 
 Semantics kept from the JAX package: stable FNV-1a partition routing,
 consumers that read only their own partition, broadcast as a fan-out
@@ -30,7 +34,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from ..broker.base import Broker, Consumer, Producer, Record
 from ..broker.local import LocalBroker
-from ..obs import TRACER
+from ..obs import TRACER, propagate
+from ..obs.metrics import HIST_PUBLISH
+from ..obs.sentinel import SLOSentinel
 from ..utils.hashing import stable_partition
 from ..utils.metrics import MetricsRegistry
 from ..utils.sync import make_rlock
@@ -82,6 +88,11 @@ class SwarmDB:
         self.max_messages_per_file = max_messages_per_file
         self.token_counter = token_counter
         self.metrics = metrics or MetricsRegistry()
+        # the online SLO sentinel (GET /admin/slo): one per runtime,
+        # watching the shared registry the serving engine records into;
+        # the send path and the engine loop drive its window closes.
+        # SWARMDB_SENTINEL=0 turns it off
+        self.sentinel = SLOSentinel(metrics=self.metrics)
         self.broker: Broker = (broker if broker is not None
                                else _default_broker(self.config))
         self.producer = Producer(self.broker)
@@ -305,18 +316,22 @@ class SwarmDB:
         payload = json.dumps(msg.to_dict()).encode("utf-8")
         key = msg.id.encode("utf-8")
         t_pub = TRACER.span_begin()
+        t_pub_mono = time.monotonic()
         try:
-            if receiver_id is not None:
-                self.producer.produce(
-                    self.topic_name, payload, key=key,
-                    partition=self._get_partition(receiver_id),
-                    on_delivery=self._delivery_callback)
-            else:
-                for p in range(self.num_partitions()):
+            # the publish hop's trace context: trace id = message id, the
+            # join key every local span carries as rid
+            with propagate.use(propagate.TraceContext(msg.id)):
+                if receiver_id is not None:
                     self.producer.produce(
-                        self.topic_name, payload, key=key, partition=p,
+                        self.topic_name, payload, key=key,
+                        partition=self._get_partition(receiver_id),
                         on_delivery=self._delivery_callback)
-            self.producer.poll(0)
+                else:
+                    for p in range(self.num_partitions()):
+                        self.producer.produce(
+                            self.topic_name, payload, key=key, partition=p,
+                            on_delivery=self._delivery_callback)
+                self.producer.poll(0)
             self._poller_wake.set()
         except Exception as exc:
             with self._lock:
@@ -329,10 +344,14 @@ class SwarmDB:
                 logger.exception("error-topic produce failed for %s", msg.id)
             raise
         TRACER.span_end(t_pub, "broker.publish", cat="broker", rid=msg.id)
+        HIST_PUBLISH.observe(time.monotonic() - t_pub_mono, msg.id)
         self.metrics.counters["messages_sent"].inc()
         self.metrics.rates["messages_sent"].mark()
         self._maybe_autosave()
         TRACER.span_end(t_send, "runtime.send", cat="runtime", rid=msg.id)
+        # the sentinel's window probe (one compare): a runtime without an
+        # engine loop still closes windows
+        self.sentinel.maybe_tick()
         return msg.id
 
     def broadcast_message(

@@ -2,17 +2,20 @@
 
 A copy of ``swarmdb_tpu/obs/flight.py`` without its hooks into the lock
 sanitizer, the device-time profiler and the memory accountant, which are
-not ported yet (ROADMAP.md, queue 1 item 10). Three fixed-size rings:
+not ported yet (ROADMAP.md, queue 1 items 10b and 10c). Three fixed-size
+rings:
 
 - **step records** and **request records**, written by the engine
-  thread only (no locks on the record path). The port's engine does not
-  feed them yet (item 10); they stay for the same item.
+  thread only (no locks on the record path): ``Engine._flight_step``
+  after each admission and dispatch round that has work, and
+  ``Engine._retire`` for each finished request.
 - **event records**: rare discrete facts from any thread (lane
   supervision transitions, retries, pool backpressure, chaos
   injections), written under a small lock.
 
 Readers snapshot racily, which at worst tears one record. Dumps are
-taken on demand (``GET /admin/flight``) and by ``Engine.restart``.
+taken on demand (``GET /admin/flight``), by ``Engine.restart`` and by
+the SLO sentinel at an alert (tagged with the alert id).
 
 Knobs: ``SWARMDB_FLIGHT_STEPS`` (default 512), ``SWARMDB_FLIGHT_REQUESTS``
 (default 256), ``SWARMDB_FLIGHT_EVENTS`` (default 256),

@@ -7,7 +7,7 @@ ties between demotion victims of equal idle age) and
 page count at every change of a conversation's kept state). The rest of
 the memory accountant (pool residency, reuse sampling, the what-if models,
 the ledger's hot / warm / cold ``report`` and ``/admin/mem``, which reads
-it) is not ported yet (ROADMAP.md, queue 1 item 10).
+it) is not ported yet (ROADMAP.md, queue 1 item 10b).
 
 ``SWARMDB_MEMPROF=0`` hands the service the shared null ledger, as in the
 JAX package.

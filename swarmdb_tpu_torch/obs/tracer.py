@@ -4,9 +4,9 @@
 Closed spans with monotonic clocks go into per-thread ring buffers and
 export as Chrome trace-event JSON (``GET /admin/trace/export``; load it in
 https://ui.perfetto.dev). In this port the API routes, the runtime's
-send / receive / broker publish, the lane supervisor and the serving chaos
-harness record here; the engine's own spans (admission, prefill, decode
-chunks) are not ported yet (ROADMAP.md, queue 1 item 10).
+send / receive / broker publish, the serving service, the engine
+(admission, prefill, decode chunks, host syncs), the lane supervisor and
+the serving chaos harness record here.
 
 - **Zero locks on record.** Each thread owns one ring; the only lock is
   taken once per thread lifetime, at ring registration. Readers take

@@ -76,6 +76,15 @@ _HEAD_DIMS = (16, 32, 64, 128)  # instantiated in csrc/*.cuh
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
+def decode_kernel_name(paged: bool, chunked: bool, quant: bool) -> str:
+    """The decode kernel an engine's chunks launch (a name of
+    ``build.KERNELS``): paged or dense, chunked or single-step, int8
+    pages or not (a dense cache is never int8)."""
+    name = ("paged_decode" if paged else "dense_decode") + (
+        "_chunked" if chunked else "")
+    return name + "_quant" if paged and quant else name
+
+
 def reset_launches() -> None:
     with _LAUNCH_LOCK:
         for k in LAUNCHES:

@@ -344,6 +344,27 @@ class HostPageStore:
         with self._lock:
             return sum(e.n_pages for e in self._entries.values())
 
+    def close(self) -> None:
+        """Drop every entry and the slab, whoever still references this
+        store; a closed store holds nothing (``host_tensor`` then finds no
+        room). A page-locked slab goes back to the system once no carved
+        tensor is left (a payload still being copied holds its own view;
+        the caller waits for those first): PyTorch's caching host
+        allocator would otherwise keep the freed block, counted in
+        ``torch.cuda.host_memory_stats()``, for a later allocation that a
+        store of another size never makes."""
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+        pinned = self._slab.pinned
+        self._slab = _Slab(0, False, self.label)
+        # PyTorch's private call empties its cache of free page-locked
+        # blocks (blocks in use, or whose copies have not passed their
+        # events, stay)
+        empty = getattr(torch._C, "_host_emptyCache", None)
+        if pinned and empty is not None:
+            empty()
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)

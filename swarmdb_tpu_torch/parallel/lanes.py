@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..backend.engine import Engine, GenRequest
-from ..obs import FlightRecorder
+from ..obs import TRACER, FlightRecorder
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
 from ..utils.sync import make_lock
@@ -130,6 +130,8 @@ class ShardLaneGroup:
         # one flight recorder for the group: events carry their lane in
         # "shard" (event writes are locked; lanes write from their threads)
         self.flight = FlightRecorder()
+        self.tracer = TRACER
+        self._sentinel = None
         self.flight.meta.update({
             "devices": [str(d) for d in info.devices],
             "paged_shards": len(lanes),
@@ -312,9 +314,16 @@ class ShardLaneGroup:
     # ------------------------------------------------------------- hooks
 
     @property
-    def sentinel(self) -> None:
-        """The SLO sentinel is not ported (ROADMAP.md, queue 1 item 10)."""
-        return None
+    def sentinel(self):
+        return self._sentinel
+
+    @sentinel.setter
+    def sentinel(self, value) -> None:
+        # every lane's loop drives window closes (maybe_tick elects one
+        # closer without blocking, so concurrent lanes are its design)
+        self._sentinel = value
+        for e in self.lanes:
+            e.sentinel = value
 
     @property
     def on_pool_pressure(self):

@@ -2,7 +2,8 @@
 the JAX package, and its entry points run on the card unless the caller
 asks for the CPU -- without CUDA they raise instead of falling back.
 What is not ported yet says so: it raises, or (an HTTP route) answers 501
-naming its ROADMAP.md item.
+naming its ROADMAP.md item. An installed wheel carries every folder of
+the port.
 """
 
 import ast
@@ -181,8 +182,22 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
         db.close()
 
 
+def test_find_packages_lists_every_port_folder():
+    """An installed wheel carries every folder of the port that holds
+    Python files: setuptools' regular ``packages.find`` (pyproject.toml)
+    skips a folder without an ``__init__.py``."""
+    from setuptools import find_packages
+
+    found = set(find_packages(where=str(ROOT), include=["swarmdb_tpu*"]))
+    folders = {".".join(p.parent.relative_to(ROOT).parts)
+               for p in PORT.rglob("*.py")}
+    assert folders, "no port folder found"
+    assert folders <= found, sorted(folders - found)
+    assert "swarmdb_tpu_torch.api" in found
+
+
 @pytest.mark.parametrize("path", [
-    "/admin/cluster/trace", "/admin/slo", "/admin/ha",
+    "/admin/ha",
     "/admin/lockcheck", "/admin/pagecheck", "/admin/kerncheck",
     "/admin/profile", "/admin/mem"])
 def test_unported_routes_answer_501(path, tmp_path):
@@ -219,3 +234,64 @@ def test_unported_routes_answer_501(path, tmp_path):
     assert user_st == 403
     assert admin_st == 501
     assert f"queue 1 item {UNPORTED_ROUTES[path][1]}" in detail
+
+
+@pytest.mark.parametrize("path", ["/admin/cluster/trace", "/admin/slo"])
+def test_served_admin_routes_answer(path, tmp_path):
+    """Routes that answered 501 until their subsystem was ported now
+    serve the admin (403 for a user), with the JAX package's keys: the
+    SLO sentinel's status, and the local trace through the cluster merge
+    (its span count equal to /admin/trace/export's, nothing
+    unreachable)."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from swarmdb_tpu_torch.api.app import (UNPORTED_ROUTES, ApiConfig,
+                                           create_app)
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    assert path not in UNPORTED_ROUTES
+
+    async def drive():
+        db = SwarmDB(save_dir=str(tmp_path))
+        client = TestClient(TestServer(create_app(db, ApiConfig(
+            jwt_secret_key="s", rate_limit_per_minute=10_000))))
+        await client.start_server()
+        try:
+            hdrs = {}
+            for user in ("tester", "admin"):
+                r = await client.post("/auth/token", json={
+                    "username": user, "password": "pw"})
+                hdrs[user] = {"Authorization":
+                              f"Bearer {(await r.json())['access_token']}"}
+            db.register_agent("a")
+            db.register_agent("b")
+            mid = db.send_message("a", "b", "traced")
+            r = await client.get(path, headers=hdrs["tester"])
+            user_st = r.status
+            r = await client.get(f"{path}?trace_id={mid}",
+                                 headers=hdrs["admin"])
+            body = await r.json()
+            r2 = await client.get(f"/admin/trace/export?trace_id={mid}",
+                                  headers=hdrs["admin"])
+            return user_st, r.status, body, await r2.json(), mid
+        finally:
+            await client.close()
+            db.close()
+
+    user_st, admin_st, body, local, mid = asyncio.run(drive())
+    assert user_st == 403 and admin_st == 200
+    if path == "/admin/slo":
+        assert {"enabled", "config", "baseline", "warmup_windows_seen",
+                "last_window", "breached", "windows_total",
+                "alerts_total", "alerts", "exemplars"} == set(body)
+    else:
+        spans = [e for e in body["traceEvents"] if e.get("ph") == "X"]
+        assert len(spans) == len([e for e in local["traceEvents"]
+                                  if e.get("ph") == "X"]) >= 2
+        assert {"runtime.send", "broker.publish"} <= {
+            e["name"] for e in spans}
+        assert body["metadata"]["unreachable"] == []
+        assert body["metadata"]["trace_id"] == mid
+        assert len(body["metadata"]["nodes"]) == 1

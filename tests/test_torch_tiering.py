@@ -370,3 +370,57 @@ def test_tier_disabled_by_env_or_engine(monkeypatch, tmp_path, paged):
             assert svc.health()["tier"] == {"enabled": False}
         finally:
             svc.db.close()
+
+
+def test_a_stopped_service_releases_its_warm_store(monkeypatch, tmp_path):
+    """A rolling service's warm store (page-locked on the card, plain
+    here: ``pinned=False``) is released when the service stops: its slab
+    is dropped at ``stop()``, and once the service is dropped the store
+    itself is garbage, though the engine, the tier manager and the
+    service reference each other. A second service's store is then never
+    page-locked beside the first's."""
+    import gc
+    import weakref
+
+    from swarmdb_tpu_torch.backend.service import ServingService
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    for k, v in (("SWARMDB_ROLLING_KV", "1"), ("SWARMDB_TIER", "1"),
+                 ("SWARMDB_TIER_WARM_MB", "4"), ("SWARMDB_KV_DTYPE", "f32")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("SWARMDB_PAGED", raising=False)
+    db = SwarmDB(broker=LocalBroker(), save_dir=str(tmp_path))
+    for a in ("u", "bot"):
+        db.register_agent(a)
+    db.assign_llm_backend("bot", "b0")
+    svc = ServingService.from_model_name(db, "tiny-debug", backend_id="b0",
+                                         max_batch=2, max_seq=256,
+                                         paged=True, page_size=8,
+                                         device="cpu")
+    tier = svc._tier
+    assert tier is not None and not tier.store._slab.pinned
+    tier.min_idle_s = 0.0
+    store, slab = weakref.ref(tier.store), weakref.ref(tier.store._slab)
+    svc.start(warmup=False)
+    try:
+        chat(svc, "u", "turn 0 from u")
+        wait_parked(svc, ("u", "bot"))
+        assert demote_all(svc) > 0
+        assert tier.store.stats()["entries"] == 1
+        chat(svc, "u", "turn 1 from u")          # a warm promotion
+        wait_parked(svc, ("u", "bot"))
+        assert demote_all(svc) > 0               # and one left warm
+        assert tier.store.slab_stats()["in_use"] > 0
+        assert tier.status()["counters"]["promotions"] >= 1
+    finally:
+        svc.stop()
+    # released at stop: the store holds no entry and no slab
+    assert tier.store.stats()["entries"] == 0
+    assert tier.store.slab_stats()["bytes"] == 0
+    assert slab() is None
+    assert svc.engine.on_tier_drain is None
+    db.close()
+    del svc, tier
+    gc.collect()
+    assert store() is None
