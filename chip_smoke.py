@@ -150,7 +150,37 @@ and exits non-zero at the first failure:
                turn's idle share beside its phase counters, and
                ``tracer_overhead_pct`` from three alternating on / off
                turn pairs (fails above 20%); then an echo-loop A/B on the
-               runtime alone (``bench.py``'s ``_echo_loop``).
+               runtime alone (``bench.py``'s ``_echo_loop``). The A/B
+               switches the device-time profiler and the memory
+               accountant with the rest.
+6c. prof    -- the device-time profiler and the memory accountant on the
+               same weights, in process through ``create_app``: the
+               default dense engine and the paged bf16 engine, both
+               chunked, ``SWARMDB_PROFILE=1 SWARMDB_MEMPROF=1``, fresh
+               registries, ``start(warmup=True)`` (the harvest), 4 users x
+               2 streamed turns of ~400 tokens (a follow-up round repeats,
+               at most ``OBS_ROUND_TRIES``, until a window closed during
+               the traffic carries ``mfu``, ``min_lane_duty``,
+               ``prefix_hit_rate`` and, paged, ``mem_headroom_frac``),
+               then one one-wave turn of fresh users with the profiler and
+               accountant on and one with them off, then one turn under
+               ``torch.profiler``. Fails unless every variant reads 0
+               device seconds after warmup and ``harvest_calls`` stays flat
+               through the traffic, host syncs per request are equal on
+               and off, every executed variant has device time and a
+               roofline row and ``/admin/profile``'s ``mfu`` lies in
+               (0, 1], the profiler's busy time over the profiled turn's
+               union of kernel intervals lies in [0.9, wall / union],
+               ``/admin/profile`` and ``/admin/mem`` answer their
+               ``kind``, the paged pool's occupancy (free + active +
+               cached-evictable + pinned) equals the engine's custody
+               (free + retired slots + prefix cache = the pool),
+               ``/metrics`` carries the profiler's and accountant's lines,
+               the trace export a ``device:`` track, and ``python -m
+               swarmdb_tpu_torch.obs.analyze --roofline`` / ``--memory``
+               read the phase's dumps. Prints each decode variant's chunk
+               ms, MFU, achieved bytes/s and share of 3.35 TB/s beside its
+               byte bound, the dispatch-shape profile and the lane's duty.
 7. decode_loop -- graph against eager on Llama-3-8B (``LOOP_LLAMA``: paged
                bf16 and int8 chunked, dense chunked, paged bf16 and dense
                single-step): per mode one engine whose ``warmup`` (on a
@@ -180,12 +210,16 @@ and exits non-zero at the first failure:
                launches. Fails unless every reply ends length / eos, each
                paged engine shows a hot, a warm and a cold resume, and page
                custody balances (free + registry + retired slots + prefix
-               cache = the pool). Each paged engine then runs ``tier_ab``:
+               cache = the pool); prints the memory accountant's
+               ``tier_validation`` (its what-if warm share against the
+               measured promotions / cold resumes, every prefix access
+               sampled). Each paged engine then runs ``tier_ab``:
                a conversation demoted to pinned host memory and promoted
                back must have its pool bytes equal (``torch.equal``) and
                its next greedy turn equal to the same turn kept hot; the
                engine otherwise idle, the turn's TTFT kept hot, promoted
-               (warm) and re-prefilled whole (cold) is printed.
+               (warm) and re-prefilled whole (cold) is printed, with the
+               promotion's host-to-device GB/s.
                PyTorch's page-locked bytes are read before each engine and
                after it stopped: a stopped engine may leave at most
                ``ROLL_PINNED_SLACK`` (64 MiB) behind.
@@ -204,7 +238,8 @@ and exits non-zero at the first failure:
                and the runtime's sentinel on both lane engines; TTFT,
                tokens/s, peak memory; one profiled
                turn (device busy as the union of both streams' kernel
-               intervals, beside their sum). (2) 4 greedy streams on lane
+               intervals, beside their sum); each lane's duty cycle from
+               the device-time profiler. (2) 4 greedy streams on lane
                1, ``ServingChaos.kill_lane(1)`` at the 8th token: they
                migrate to lane 0 and end "length" with the undisturbed
                tokens, lane 1 is restarted, probed and re-admitted,
@@ -215,7 +250,8 @@ and exits non-zero at the first failure:
                chunk and the decode lane no ragged wave, custody balances
                and the transit store empties; handoff ms, gather and
                insert ms per page, page-locked bytes before and after,
-               staged against colocated TTFT. Greedy streams that part
+               staged against colocated TTFT, and the profiler's per-pool
+               rows (``pools_report``). Greedy streams that part
                from their reference (migrated, or handed off) must part
                where the plain forward's top-2 gap is below the measured
                max logit difference of the two paths at the first step
@@ -252,8 +288,8 @@ and exits non-zero at the first failure:
                printed beside the non-rolling serve's.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
-serves, the api, obs, rolling and lanes phases and the seven Mixtral
-serves,
+serves, the api, obs, prof, rolling and lanes phases and the seven
+Mixtral serves,
 each counted from zero
 just before it and read just after; a graph replay adds the launches its
 capture recorded) and, last,
@@ -1891,10 +1927,17 @@ def rolling_serve(card, params, name, kind, paged):
                                                    build_backend_engine)
     from swarmdb_tpu_torch.broker.local import LocalBroker
     from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.obs.memprof import ReuseSampler, memprof
     from swarmdb_tpu_torch.ops import attention_cuda as ac
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # the accountant from zero for this engine, every prefix access
+    # sampled (the scenario's few hundred accesses would leave a 1/16
+    # sample nearly empty): its tier_validation reads this serve alone
+    mp = memprof()
+    mp.reset()
+    mp.sampler = ReuseSampler(1, 65536)
     db = SwarmDB(broker=LocalBroker(),
                  save_dir=tempfile.mkdtemp(prefix="swarm_roll_"))
     backend = "h100-0"
@@ -2007,7 +2050,11 @@ def rolling_serve(card, params, name, kind, paged):
                                      if promote_s[1] else None),
                 pinned_host_bytes_peak=pinned_peak[0],
                 pinned_host_bytes_end=st["warm_store"]["bytes"],
-                warm_slab=tier.store.slab_stats())
+                warm_slab=tier.store.slab_stats(),
+                # the accountant's what-if warm tier against the tier's
+                # measured promotions and cold resumes (/admin/tiers)
+                tier_validation=mp.tier_validation(),
+                mem_verdict=mp.verdict())
             # PyTorch's page-locked host allocator (pin_memory): what this
             # engine added is its store's slab, not a block per demotion
             pinned_after = host_pinned_bytes()
@@ -2179,6 +2226,10 @@ def tier_ab(svc, eng, tok, name, card):
          warm_tokens_equal_hot=warm["toks"] == hot["toks"],
          demote_ms_per_page=demote_s * 1e3 / n,
          promote_ms_per_page=t_promote[0] * 1e3 / n,
+         # the host-to-device rate of the promotion: what the memory
+         # accountant's SWARMDB_MEM_H2D_GBPS default stands for
+         promote_h2d_gbps=(sum(t.numel() * t.element_size() for t in before)
+                           / t_promote[0] / 1e9 if t_promote[0] else None),
          ttft_s={"hot": hot["ttft_s"], "warm": warm["ttft_s"],
                  "cold": cold["ttft_s"]},
          prefill_tokens={"hot": len(first["tail"] + delta),
@@ -3164,13 +3215,18 @@ OBS_LAST = "Last question from {u}: how long is the walk?"
 
 
 def _obs_set(db, on: bool) -> None:
-    """Tracer, histograms (with exemplars) and sentinel, together."""
+    """Tracer, histograms (with exemplars), sentinel, device-time
+    profiler and memory accountant, together."""
     from swarmdb_tpu_torch.obs import HISTOGRAMS, TRACER
+    from swarmdb_tpu_torch.obs.memprof import memprof
+    from swarmdb_tpu_torch.obs.profiler import profiler
 
     TRACER.set_enabled(on)
     HISTOGRAMS.set_enabled(on)
     HISTOGRAMS.set_exemplars_enabled(on)
     db.sentinel.set_enabled(on)
+    profiler().set_enabled(on)
+    memprof().set_enabled(on)
 
 
 def _echo_loop(db, seconds: float) -> float:
@@ -3247,7 +3303,6 @@ def run_obs(card, params):
 def obs_serve(card, params, name, paged):
     """One engine of the obs phase, served in process through
     ``create_app`` on 127.0.0.1:0 (the api phase's way)."""
-    import gc
     import tempfile
 
     import torch
@@ -3259,6 +3314,7 @@ def obs_serve(card, params, name, paged):
     from swarmdb_tpu_torch.obs import HISTOGRAMS, TRACER
 
     flight_dir = tempfile.mkdtemp(prefix="swarm_obs_flight_")
+    drop_app_cache()
     TRACER.reset()
     HISTOGRAMS.reset()
     with env_scope(SWARMDB_FLIGHT_DIR=flight_dir, SWARMDB_SENTINEL=None,
@@ -3293,7 +3349,7 @@ def obs_serve(card, params, name, paged):
             db.close()
             del eng._process_host_block
             del svc, eng, process, counted
-            gc.collect()
+            drop_app_cache()
             torch.cuda.empty_cache()
 
 
@@ -3432,12 +3488,15 @@ async def _obs_http(db, svc, eng, slots, name, paged, flight_dir, card):
             api_posts = sum(1 for e in spans if e["name"] == "api.request"
                             and e["args"].get("path") == "/messages")
             # the same trace through the cluster merge, trace by trace
+            # (the export also carries the profiler's device tracks, cat
+            # "device", which the cluster merge of host spans does not)
             cluster_equal = True
             for tid in ids[:2] + engine_rids[:2]:
                 a = await get(f"/admin/trace/export?trace_id={tid}")
                 b = await get(f"/admin/cluster/trace?trace_id={tid}")
                 cluster_equal &= (
-                    sum(e.get("ph") == "X" for e in a["traceEvents"])
+                    sum(e.get("ph") == "X" and e.get("cat") != "device"
+                        for e in a["traceEvents"])
                     == sum(e.get("ph") == "X" for e in b["traceEvents"])
                     and b["metadata"]["unreachable"] == [])
             flight = await get("/admin/flight")
@@ -3617,6 +3676,398 @@ async def _obs_http(db, svc, eng, slots, name, paged, flight_dir, card):
             if pct > OBS_OVERHEAD_FAIL_PCT:
                 fail(f"obs {name}: tracer_overhead_pct {pct:.2f} above "
                      f"{OBS_OVERHEAD_FAIL_PCT}")
+    finally:
+        await runner.cleanup()
+
+
+# -------------------------------------------------------------------- prof
+
+
+#: (name, engine: True = paged / None = the default dense one) of the prof
+#: phase, both chunked over bf16 caches.
+PROF_MODES = (("dense_chunked", None), ("paged_bf16_chunked", True))
+PROF_USERS = 4
+#: The profiler's busy seconds against the torch.profiler union of kernel
+#: intervals of one turn: at least this share (prefill event spans may
+#: exceed the union by launch gaps; the upper bound is the turn's wall
+#: over the union).
+PROF_BUSY_MIN_RATIO = 0.9
+PROF_FIRST = "Profile me, {u}: plan a short walking tour of the old town."
+
+
+def run_prof(card, params):
+    """The prof phase (Llama-3-8B at full width on the serve phase's
+    weights): the device-time profiler and the memory accountant on the
+    dense and paged bf16 chunked engines through the wire API. Returns
+    the phase's launches."""
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    t0 = time.perf_counter()
+    ac.reset_launches()
+    for name, paged in PROF_MODES:
+        prof_serve(card, params, name, paged)
+    launches = dict(ac.LAUNCHES)
+    emit("prof", part="done", seconds=time.perf_counter() - t0,
+         launches={k: n for k, n in launches.items() if n}, card=card)
+    need = ("dense_decode_chunked", "ragged_prefill", "paged_decode_chunked")
+    if not all(launches[k] > 0 for k in need):
+        fail(f"prof: kernels {need} must launch in the phase: {launches}")
+    return launches
+
+
+def prof_serve(card, params, name, paged):
+    """One engine of the prof phase: fresh profiler and accountant
+    registries, the engine warmed (the harvest), then served in process
+    through ``create_app`` on 127.0.0.1:0."""
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import (ServingService,
+                                                   build_backend_engine)
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.obs.memprof import memprof
+    from swarmdb_tpu_torch.obs.profiler import profiler
+
+    dump_dir = tempfile.mkdtemp(prefix="swarm_prof_")
+    drop_app_cache()
+    with env_scope(SWARMDB_PROFILE="1", SWARMDB_MEMPROF="1",
+                   SWARMDB_SENTINEL=None, SWARMDB_FLIGHT_DIR=None,
+                   SWARMDB_SLO_TTFT_P95_S=None, **OBS_SLO_ENV):
+        profiler().reset()
+        memprof().reset()
+        profiler().set_enabled(True)
+        memprof().set_enabled(True)
+        db = SwarmDB(broker=LocalBroker(),
+                     save_dir=tempfile.mkdtemp(prefix="swarm_prof_db_"))
+        with engine_env(chunked=True):
+            eng, tok = build_backend_engine(
+                "llama3-8b", seed=0, device="cuda", params=params,
+                paged=paged, kv_dtype=torch.bfloat16 if paged else None,
+                metrics=db.metrics)
+        svc = ServingService(db, eng, visible_tokenizer(tok.vocab_size),
+                             backend_id="h100-prof")
+        try:
+            svc.start(warmup=True)
+            asyncio.run(_prof_http(db, svc, eng, name, bool(paged),
+                                   dump_dir, card))
+        finally:
+            svc.stop()
+            db.close()
+            del svc, eng
+            drop_app_cache()
+            torch.cuda.empty_cache()
+
+
+def drop_app_cache() -> None:
+    """Let go of the services that earlier in-process servers served:
+    aiohttp caches each handler's middleware chain per application
+    (``web_app._cached_build_middleware``, an ``lru_cache``), which holds
+    the application, and through it its service and engine, after the
+    runner is cleaned up. Then collect, so their profiler lanes and
+    accountant pools leave the process-global registries."""
+    import gc
+
+    from aiohttp import web_app
+
+    cached = getattr(web_app, "_cached_build_middleware", None)
+    if cached is not None and hasattr(cached, "cache_clear"):
+        cached.cache_clear()
+    gc.collect()
+
+
+def prof_turn_union(db, users, text, lane):
+    """One more turn under ``torch.profiler`` (device only): the union of
+    its kernel intervals, and the profiler's busy time of the engine's
+    lane over the same turn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    busy0 = lane.busy_ns
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for u in users:
+            db.send_message(u, "assistant", text.format(u=u),
+                            metadata={"generation": API_GEN})
+        got = await_replies(db, users)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if len(got) < len(users):
+        fail(f"prof: profiled turn: {len(got)} of {len(users)} replies")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    union_us, cur = 0.0, None
+    for s, e in spans:
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                union_us += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        union_us += cur[1] - cur[0]
+    if not spans:
+        fail("prof: the profiled turn shows no device interval")
+    return dict(wall_ms=wall_ms, union_ms=union_us / 1e3,
+                profiler_busy_ms=(lane.busy_ns - busy0) / 1e6,
+                kernel_intervals=len(spans))
+
+
+async def _prof_http(db, svc, eng, name, paged, dump_dir, card):
+    import aiohttp
+    from aiohttp import web
+
+    from swarmdb_tpu_torch.api.app import ApiConfig, create_app
+    from swarmdb_tpu_torch.obs.memprof import memprof
+    from swarmdb_tpu_torch.obs.profiler import profiler
+
+    prof = profiler()
+    variants0 = prof.variants_report()
+    harvest0 = prof.harvest_calls
+    app = create_app(db, ApiConfig(jwt_secret_key="chip-smoke",
+                                   rate_limit_per_minute=100_000),
+                     serving=svc)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    url = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+    c = db.metrics.counters
+    try:
+        async with aiohttp.ClientSession() as s:
+            async def token(user):
+                async with s.post(url + "/auth/token", json={
+                        "username": user, "password": "pw"}) as r:
+                    return {"Authorization":
+                            f"Bearer {(await r.json())['access_token']}"}
+
+            async def get(path):
+                async with s.get(url + path, headers=admin) as r:
+                    if r.status != 200:
+                        fail(f"prof {name}: GET {path} gave {r.status}")
+                    if path.startswith("/metrics"):
+                        return await r.text()
+                    return await r.json()
+
+            admin = await token("admin")
+            hdr = {}
+
+            async def turn(users, text, one_wave=False):
+                """One streamed message per user at once; every reply
+                must end length / eos. ``one_wave``: the loop is held at
+                its chaos seam until every message is queued (the obs
+                phase's way), so the turn admits in one wave."""
+                for u in users:
+                    if u not in hdr:
+                        hdr[u] = await token(u)
+                        db.register_agent(u)
+                gate = threading.Event()
+                if one_wave:
+                    eng.chaos_step = lambda e: gate.wait(30)
+                runs = [asyncio.ensure_future(_stream_post(
+                    s, url, "/messages", hdr[u], {
+                        "receiver_id": "assistant", "stream": True,
+                        "content": text.format(u=u),
+                        "metadata": {"generation": API_GEN}}))
+                    for u in users]
+                if one_wave:
+                    deadline = time.time() + 30
+                    while time.time() < deadline:
+                        with eng._cv:
+                            if len(eng._queue) >= len(users):
+                                break
+                        await asyncio.sleep(0.002)
+                    eng.chaos_step = None
+                    gate.set()
+                runs = await asyncio.gather(*runs)
+                for events, _ in runs:
+                    reply = [d for e, d in events if e == "reply"]
+                    if not reply or reply[0]["metadata"].get(
+                            "finish_reason") not in ("length", "eos"):
+                        fail(f"prof {name}: a reply did not end "
+                             f"length/eos")
+
+            async def close_window():
+                wait = db.sentinel._deadline - time.monotonic()
+                await asyncio.sleep(max(0.0, wait) + 0.05)
+                return await get("/admin/slo?tick=1")
+
+            async def idle():
+                deadline = time.time() + 60
+                while (eng._any_active() or eng._in_step) and \
+                        time.time() < deadline:
+                    await asyncio.sleep(0.02)
+                await asyncio.sleep(0.3)
+
+            db.register_agent("assistant")
+            db.assign_llm_backend("assistant", "h100-prof")
+            users = [f"puser{i}" for i in range(PROF_USERS)]
+            need_w = ["mfu", "min_lane_duty", "prefix_hit_rate"] + (
+                ["mem_headroom_frac"] if paged else [])
+
+            def carries(w):
+                return bool(w) and all(w.get(k) is not None for k in need_w)
+
+            # 2 turns; a follow-up round repeats (at most OBS_ROUND_TRIES)
+            # while no window closed during the traffic carries the four
+            # fields (the first closes only anchor the deltas)
+            windows, tries = [], 0
+            for text in (USER_TEXT, FOLLOW_UP):
+                await turn(users, text)
+                windows.append((await close_window())["last_window"])
+            while not any(carries(w) for w in windows) and \
+                    tries < OBS_ROUND_TRIES:
+                tries += 1
+                await turn(users, FOLLOW_UP)
+                windows.append((await close_window())["last_window"])
+            await idle()
+            # host syncs per request with the profiler and accountant on
+            # and off, over the same one-turn requests of fresh users
+            syncs = {}
+            for on in (True, False):
+                prof.set_enabled(on)
+                memprof().set_enabled(on)
+                s0, r0 = c["engine_host_syncs"].value, c[
+                    "engine_completed"].value
+                await turn([f"sync{int(on)}_{j}" for j in
+                            range(PROF_USERS)], USER_TEXT, one_wave=True)
+                await idle()
+                syncs[on] = ((c["engine_host_syncs"].value - s0)
+                             / max(1, c["engine_completed"].value - r0))
+            prof.set_enabled(True)
+            memprof().set_enabled(True)
+            for u in users:
+                db.receive_messages(u, max_messages=10 ** 4, timeout=0.05)
+            ratio = prof_turn_union(db, users, PROF_FIRST, eng._prof)
+            await idle()
+            report = await get("/admin/profile")
+            mem = await get("/admin/mem")
+            metrics = await get("/metrics")
+            trace = await get("/admin/trace/export")
+            ppath = prof.dump_to(dump_dir, name)
+            mpath = memprof().dump_to(dump_dir, name)
+            analyzers = {}
+            for flag, path in (("--roofline", ppath), ("--memory", mpath)):
+                out = subprocess.run(
+                    [sys.executable, "-m", "swarmdb_tpu_torch.obs.analyze",
+                     flag, path], cwd=str(ROOT), capture_output=True,
+                    text=True, timeout=120)
+                body = json.loads(out.stdout) if out.returncode == 0 else {}
+                analyzers[flag] = (out.returncode, body)
+            roof = analyzers["--roofline"][1].get("dumps", [{}])[0]
+            memrep = analyzers["--memory"][1].get("dumps", [{}])[0]
+            ran = [v for v in report["variants"] if v["invocations"] > 0]
+            decode = []
+            for v in ran:
+                if not v["variant"].startswith(("decode.", "resident.")):
+                    continue
+                per_ms = v["device_s"] / v["invocations"] * 1e3
+                bps = (v["bytes_per_call"] * v["invocations"]
+                       / v["device_s"])
+                decode.append(dict(
+                    variant=v["variant"], chunks=v["invocations"],
+                    ms_per_chunk=per_ms, mfu=v.get("mfu"),
+                    flops_per_chunk=v["flops_per_call"],
+                    bytes_per_chunk=v["bytes_per_call"],
+                    achieved_bytes_per_s=bps,
+                    share_of_hbm=bps / HBM_BYTES_PER_S,
+                    byte_bound_ms=v["bytes_per_call"] / HBM_BYTES_PER_S
+                    * 1e3,
+                    arithmetic_intensity=v.get("arithmetic_intensity"),
+                    roofline=v.get("roofline")))
+            occ = mem["occupancy"]
+            custody = None
+            if paged:
+                alloc = eng.paged.allocator
+                with alloc._lock:
+                    in_slot = sum(len(sp.pages)
+                                  for sp in alloc._by_slot.values())
+                cached = eng._prefix.stats()["cached_pages"]
+                pool = alloc.num_pages - 1
+                custody = dict(free=alloc.free_count(), in_slot=in_slot,
+                               prefix_cached=cached, pool=pool)
+            window = next((w for w in reversed(windows) if carries(w)),
+                          windows[-1] or {})
+            upper = ratio["wall_ms"] / ratio["union_ms"]
+            busy_ratio = ratio["profiler_busy_ms"] / ratio["union_ms"]
+            checks = {
+                "warmup harvested": harvest0 > 0,
+                "device_s == 0 after warmup": all(
+                    v["device_s"] == 0 for v in variants0),
+                "harvest_calls flat across traffic":
+                    report["harvest_calls"] == harvest0
+                    == prof.harvest_calls,
+                "host syncs per request equal on / off":
+                    syncs[True] == syncs[False],
+                "every executed variant timed, with a roofline row":
+                    bool(ran) and all(
+                        v["device_s"] > 0 and v.get("mfu") is not None
+                        and v.get("roofline") for v in ran),
+                "a decode variant executed": bool(decode),
+                "report mfu in (0, 1]": report["mfu"] is not None
+                    and 0 < report["mfu"] <= 1,
+                f"busy / union in [{PROF_BUSY_MIN_RATIO}, wall / union]":
+                    PROF_BUSY_MIN_RATIO <= busy_ratio <= upper,
+                "/admin/profile kind": report["kind"] == "swarmdb.profile",
+                "/admin/mem kind": mem["kind"] == "swarmdb.mem",
+                # the dense engine has no page pool: its side prefix
+                # pool's pages show as cached only
+                "occupancy: total = free + active + cached_evictable "
+                "+ pinned": not paged or occ["total_pages"] == occ["free"]
+                    + occ["active"] + occ["cached_evictable"]
+                    + occ["pinned"],
+                "occupancy equals custody": custody is None or (
+                    occ["total_pages"] == custody["pool"]
+                    and occ["free"] == custody["free"]
+                    and occ["active"] == custody["in_slot"]
+                    and occ["cached_evictable"] + occ["pinned"]
+                    == custody["prefix_cached"]
+                    and custody["free"] + custody["in_slot"]
+                    + custody["prefix_cached"] == custody["pool"]),
+                "prefix lookups": mem["prefix"]["lookups"] > 0,
+                f"a window carries {need_w}": carries(window),
+                "/metrics profiler and accountant lines": all(
+                    k in metrics for k in (
+                        "swarmdb_mfu ", "swarmdb_lane_duty_cycle{",
+                        "swarmdb_kernel_device_seconds_total{",
+                        "swarmdb_mem_pool_pages{")),
+                "trace export device tracks":
+                    trace["metadata"].get("device_tracks", 0) >= 1,
+                "analyze --roofline lists the variants":
+                    analyzers["--roofline"][0] == 0
+                    and bool(roof.get("top_variants")),
+                "analyze --memory reads the dump":
+                    analyzers["--memory"][0] == 0
+                    and memrep.get("occupancy") is not None,
+            }
+            emit("prof", serve=name, model="llama3-8b",
+                 harvest_calls=harvest0, mfu=report["mfu"],
+                 peaks=report["peaks"], platform=report["platform"],
+                 device_kind=report["device_kind"], decode=decode,
+                 variants=[{k: v.get(k) for k in (
+                     "variant", "invocations", "device_s", "mfu",
+                     "arithmetic_intensity", "roofline")} for v in ran],
+                 lanes=report["lanes"],
+                 dispatch_profile=report["dispatch_profile"],
+                 tiny_flush_waves=report["tiny_flush_waves"],
+                 host_syncs_per_request={"on": syncs[True],
+                                         "off": syncs[False]},
+                 profiled_turn=dict(ratio, busy_over_union=busy_ratio,
+                                    wall_over_union=upper),
+                 occupancy={k: occ[k] for k in (
+                     "total_pages", "free", "active", "cached_evictable",
+                     "pinned", "headroom_pages")},
+                 custody=custody, prefix=mem["prefix"],
+                 warm_tier=mem["warm_tier"][:1],
+                 cold_resume=mem["cold_resume"], window=window,
+                 extra_rounds=tries,
+                 card=card, checks=checks)
+            bad = [k for k, ok in checks.items() if not ok]
+            if bad:
+                fail(f"prof {name} checks failed: {bad}")
     finally:
         await runner.cleanup()
 
@@ -3977,6 +4428,14 @@ def lanes_colocated(card, params, tok):
             if c["phase_us_decode"].value else None),
         serve_wall_s=serve_s,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        # each lane's device-time profile: its own stream's busy time over
+        # the time since warmup (the two streams overlap on one card, so
+        # the card's busy share is the profiled turn's union, not a sum)
+        lane_duty=[dict(lane=e._prof.label,
+                        busy_s=getattr(e._prof, "busy_ns", 0) / 1e9,
+                        duty_cycle=e._prof.duty_cycle()
+                        if hasattr(e._prof, "duty_cycle") else None)
+                   for e in g.lanes],
         card=card, checks=checks)
     emit("lanes", **rec)
     bad = [k for k, ok in checks.items() if not ok]
@@ -4145,8 +4604,13 @@ def lanes_fleet(card, params, tok, kind, colo):
                 and fst["transit_store"]["entries"] == 0
                 and fst["in_flight"] == 0,
         }
+        from swarmdb_tpu_torch.obs.profiler import profiler
+
         emit("lanes", part=f"fleet_{kind}", card=card, warmup_s=warm_s,
              handoffs=fst["handoffs"], fallbacks=fst["handoff_fallbacks"],
+             # the profiler's per-pool rows: duty cycles and MFU of the
+             # prefill and decode pools
+             pools=profiler().pools_report(),
              handoff_ms_p50=1e3 * statistics.median(lat) if lat else None,
              handoff_ms_max=1e3 * lat[-1] if lat else None,
              gather_ms_per_page=fst["gather_ms_per_page"],
@@ -4719,6 +5183,8 @@ def main() -> int:
         for k, n in run_api(card, params).items():
             launches[k] = launches.get(k, 0) + n
         for k, n in run_obs(card, params).items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in run_prof(card, params).items():
             launches[k] = launches.get(k, 0) + n
         run_decode_loop(card, "llama3-8b", params, LOOP_LLAMA)
         for k, n in run_rolling(card, params).items():

@@ -17,14 +17,17 @@ JSON value; a ``token`` event's is a JSON string (the JAX package writes
 its text raw, which a line break inside the text cuts short).
 ``/admin/profile/start`` and ``/stop`` drive ``torch.profiler``.
 ``/metrics`` carries the counters, the latency histograms with their
-trace-id exemplars (``obs/metrics.py``) and the SLO sentinel's gauges;
-``/admin/slo`` serves the sentinel and ``/admin/cluster/trace`` the
-local trace through the cluster merge (the fan-out to other nodes rides
-the data plane, ROADMAP.md queue 1 item 12). Routes whose subsystem is
-not ported yet answer 501 with a body that names its ROADMAP.md item
-(queue 1): ``/admin/lockcheck``, ``/admin/pagecheck``,
-``/admin/kerncheck`` (item 10c), ``/admin/profile``, ``/admin/mem``
-(item 10b) and ``/admin/ha`` (item 12).
+trace-id exemplars (``obs/metrics.py``), the SLO sentinel's gauges and
+the device-time profiler's and memory accountant's lines;
+``/admin/profile`` and ``/admin/mem`` serve those two reports (503 with
+``SWARMDB_PROFILE=0`` / ``SWARMDB_MEMPROF=0``), and the trace export
+carries the profiler's ``device:<lane>`` tracks. ``/admin/slo`` serves
+the sentinel and ``/admin/cluster/trace`` the local trace through the
+cluster merge (the fan-out to other nodes rides the data plane,
+ROADMAP.md queue 1 item 12). Routes whose subsystem is not ported yet
+answer 501 with a body that names its ROADMAP.md item (queue 1):
+``/admin/lockcheck``, ``/admin/pagecheck``, ``/admin/kerncheck`` (item
+10c) and ``/admin/ha`` (item 12).
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ from pydantic import ValidationError
 from ..core.messages import MessageStatus
 from ..core.runtime import SwarmDB
 from ..obs import HISTOGRAMS, TRACER, propagate
+from ..obs.memprof import memprof, memprof_enabled
+from ..obs.profiler import profile_enabled
+from ..obs.profiler import profiler as kernel_profiler
 from ..utils import jwt as jwt_util
 from . import schemas
 
@@ -66,8 +72,6 @@ UNPORTED_ROUTES = {
     "/admin/lockcheck": ("the lock sanitizer", "10c"),
     "/admin/pagecheck": ("the page sanitizer", "10c"),
     "/admin/kerncheck": ("the kernel sanitizer", "10c"),
-    "/admin/profile": ("the device-time profiler", "10b"),
-    "/admin/mem": ("the memory accountant", "10b"),
 }
 
 
@@ -625,6 +629,15 @@ def create_app(
         supervisor = getattr(serving, "supervisor", None)
         if supervisor is not None:
             lines.extend(await _run_sync(supervisor.prometheus_lines))
+        # the device-time profiler (SWARMDB_PROFILE, default on): MFU,
+        # per-lane duty cycles, per-variant device seconds / invocations
+        if profile_enabled():
+            lines.extend(await _run_sync(
+                kernel_profiler().prometheus_lines))
+        # the memory accountant (SWARMDB_MEMPROF, default on): occupancy,
+        # conversation temperature, the sampled miss-ratio curve
+        if memprof_enabled():
+            lines.extend(await _run_sync(memprof().prometheus_lines))
         tier = getattr(serving, "_tier", None)
         if tier is not None:
             tstatus = await _run_sync(tier.status)
@@ -652,11 +665,15 @@ def create_app(
     async def trace_export(request: web.Request) -> web.Response:
         """GET /admin/trace/export: the span tracer's rings as Chrome
         trace-event JSON, bounded by ``?last_n=`` / ``?trace_id=`` and
-        ``SWARMDB_TRACE_EXPORT_MAX``."""
+        ``SWARMDB_TRACE_EXPORT_MAX``, with the profiler's device-time
+        tracks (one ``device:<lane>`` track per lane) merged in."""
         require_admin(current_agent(request))
         last_n, trace_id = _trace_query(request)
         trace = await _run_sync(
             lambda: TRACER.to_chrome_trace(last_n=last_n, rid=trace_id))
+        if profile_enabled():
+            trace = await _run_sync(
+                lambda: kernel_profiler().merge_chrome_trace(trace))
         return web.json_response(trace)
 
     async def cluster_trace(request: web.Request) -> web.Response:
@@ -735,6 +752,30 @@ def create_app(
         if supervisor is None:
             raise _error(503, "no lane supervisor attached")
         return web.json_response(await _run_sync(supervisor.status))
+
+    async def admin_profile(request: web.Request) -> web.Response:
+        """GET /admin/profile: the device-time profiler's report
+        (``"kind": "swarmdb.profile"``): per-variant invocations, device
+        seconds, harvested FLOPs and bytes, MFU, arithmetic intensity and
+        roofline class, per-lane duty cycles, per-pool rows and the
+        dispatch-shape profile. 503 with ``SWARMDB_PROFILE=0``: an empty
+        report would read as no device time spent."""
+        require_admin(current_agent(request))
+        if not profile_enabled():
+            raise _error(503, "profiler off: unset SWARMDB_PROFILE=0")
+        return web.json_response(await _run_sync(kernel_profiler().report))
+
+    async def admin_mem(request: web.Request) -> web.Response:
+        """GET /admin/mem: the memory accountant's report (``"kind":
+        "swarmdb.mem"``): per-pool occupancy and residency ages, the
+        conversation temperature ledger, the sampled miss-ratio curve,
+        the warm-tier / cold-resume models and ``tier_validation``. 503
+        with ``SWARMDB_MEMPROF=0``."""
+        require_admin(current_agent(request))
+        if not memprof_enabled():
+            raise _error(503, "memory accountant off: unset "
+                              "SWARMDB_MEMPROF=0")
+        return web.json_response(await _run_sync(memprof().report))
 
     def unported(path: str):
         what, item = UNPORTED_ROUTES[path]
@@ -899,6 +940,8 @@ def create_app(
         web.get("/admin/flight", flight_record),
         web.get("/admin/tiers", admin_tiers),
         web.get("/admin/lanes", admin_lanes),
+        web.get("/admin/profile", admin_profile),
+        web.get("/admin/mem", admin_mem),
     ] + [web.get(path, unported(path)) for path in UNPORTED_ROUTES])
 
     async def on_shutdown(app: web.Application) -> None:

@@ -69,12 +69,12 @@ DASHBOARD_HTML = """<!DOCTYPE html>
   SWARMDB_PAGECHECK=1)
   &middot;
   <button onclick="download('/admin/profile', 'profile.json')">
-    download swarmprof report</button>
-  (per-variant device time / MFU / roofline, lane duty cycles,
-  dispatch-shape profile; 503 if SWARMDB_PROFILE=0)
+    download device-time profile</button>
+  (per-variant device time from CUDA events / MFU / roofline, lane duty
+  cycles, dispatch-shape profile; 503 if SWARMDB_PROFILE=0)
   &middot;
   <button onclick="download('/admin/mem', 'mem.json')">
-    download swarmmem report</button>
+    download memory report</button>
   (memory accountant: pool occupancy + residency ages, hot/warm/cold
   conversation temperature, sampled miss-ratio curve, warm-tier and
   cold-resume models; 503 if SWARMDB_MEMPROF=0)

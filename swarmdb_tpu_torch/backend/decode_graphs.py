@@ -172,7 +172,8 @@ def decode_chunk(params, cache, io: ChunkIO, variant: int, *,
 class ChunkOut:
     """One launched chunk's block on its way to the host: ``host()``
     waits for it (on the card, the ring slot's event) and returns numpy
-    copies of the [K+1, B] tokens and logprobs."""
+    copies of the [K+1, B] tokens and logprobs. A chunk launched with
+    ``timed=True`` then has its ``device_ns()``."""
 
     __slots__ = ("_slot",)
 
@@ -186,11 +187,24 @@ class ChunkOut:
         slot.busy = False
         return slot.block.numpy().copy(), slot.block_lps.numpy().copy()
 
+    def device_ns(self) -> int:
+        """The chunk's device time, read after ``host()`` returned: on the
+        card the elapsed time between the timing event recorded before
+        its input copies and the block's event (both complete once the
+        host wait passed, so the read does not wait); on the CPU the wall
+        time of the eager chunk. Raises for an untimed launch."""
+        slot = self._slot
+        if slot.timed_ns is not None:
+            return slot.timed_ns
+        if slot.start is None or not slot.timed:
+            raise RuntimeError("device_ns() of a chunk launched untimed")
+        return int(slot.start.elapsed_time(slot.event) * 1e6)
+
 
 class _RingSlot:
     """Host staging of one chunk in flight: its inputs and its block, in
-    pinned memory on the card, and the event that follows the block's
-    copy."""
+    pinned memory on the card, the event that follows the block's copy
+    and, for a timed launch, the timing event before its inputs."""
 
     def __init__(self, io: ChunkIO, cuda: bool) -> None:
         host = lambda t: torch.empty(t.shape, dtype=t.dtype, device="cpu",
@@ -198,7 +212,11 @@ class _RingSlot:
         self.inputs = tuple(host(t) for t in io.inputs())
         self.block = host(io.block)
         self.block_lps = host(io.block_lps)
-        self.event = torch.cuda.Event() if cuda else None
+        self.event = torch.cuda.Event(enable_timing=True) if cuda else None
+        self.start = torch.cuda.Event(enable_timing=True) if cuda else None
+        self.timed = False
+        # the CPU's wall time of a timed eager chunk
+        self.timed_ns: Optional[int] = None
         self.busy = False
 
 
@@ -288,30 +306,40 @@ class ChunkRunner:
                 self.capture(variant)
 
     def launch(self, variant: int,
-               inputs: Optional[Sequence[np.ndarray]] = None) -> ChunkOut:
+               inputs: Optional[Sequence[np.ndarray]] = None,
+               timed: bool = False) -> ChunkOut:
         """Run one chunk of ``variant``: ``inputs`` (positions, keys,
         temperature, top-k, top-p as numpy arrays), when given, are copied
         into the static buffers first; None keeps the buffers as the last
         chunk left them (a resident session's later chunks). On the card
         the variant's graph is captured at first use, then replayed; on
-        the CPU the chunk runs eagerly."""
+        the CPU the chunk runs eagerly. ``timed`` (the device-time
+        profiler) brackets the chunk: on the card a timing event on the
+        runner's stream before the input copies, after any capture, and
+        the block's event after its copy; on the CPU the wall clock."""
         slot = self._ring[self._next]
         if slot.busy:
             raise RuntimeError("every decode ring slot holds a chunk in "
                                "flight: read one (ChunkOut.host) first")
         self._next = (self._next + 1) % len(self._ring)
         slot.busy = True
+        if self.cuda and variant not in self.graphs:
+            self.capture(variant)
+        slot.timed, slot.timed_ns = timed, None
+        t0 = time.monotonic_ns() if timed and not self.cuda else 0
+        if timed and self.cuda:
+            slot.start.record()
         if inputs is not None:
             for stage, buf, a in zip(slot.inputs, self.io.inputs(), inputs):
                 stage.copy_(torch.from_numpy(np.ascontiguousarray(a)))
                 buf.copy_(stage, non_blocking=self.cuda)
         if self.cuda:
-            if variant not in self.graphs:
-                self.capture(variant)
             self.graphs[variant].replay()
             attention_cuda.count_launches(self.graph_launches[variant])
         else:
             self.body(variant)
+            if timed:
+                slot.timed_ns = time.monotonic_ns() - t0
         self.chunks += 1
         slot.block.copy_(self.io.block, non_blocking=self.cuda)
         slot.block_lps.copy_(self.io.block_lps, non_blocking=self.cuda)

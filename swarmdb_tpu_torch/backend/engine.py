@@ -93,7 +93,18 @@ each admission and dispatch round with work (``_flight_step``, which
 also probes the sentinel's window), a request record at each retirement,
 and discrete events (backpressure, shedding, chaos, restarts). Spans,
 observations and counters all run on the host around the decode chunk,
-never inside the callable that a CUDA graph captures.
+never inside the callable that a CUDA graph captures. The device-time
+profiler (``obs/profiler.py``, the engine's ``_prof`` lane) gets each
+variant's cost facts at ``warmup`` (``profile_harvest``), and each decode
+chunk's and prefill wave's device time under the JAX engine's keys
+(``prof_key``): on the card from a pair of timing events on the engine's
+stream, read only after a host wait the engine takes anyway (a chunk's
+after its own block; a prefill wave's at the next host wait once its end
+event has passed), off the card from the wall clock around the call; each
+prefill wave also lands in the dispatch-shape profile. A paged engine
+prices its pool pages for the memory accountant (``obs/memprof.py``),
+whose residency and reuse hooks sit in ``PageAllocator`` and
+``PrefixLRU``.
 
 All tensors live on the engine's explicit ``device``, and on the card
 every operation on them runs on the engine's own stream (``stream``): its
@@ -131,13 +142,18 @@ from typing import (Any, Callable, ContextManager, Dict, List, Optional,
 import numpy as np
 import torch
 
+from ..obs import cost as prof_cost
 from ..obs.flight import FlightRecorder
+from ..obs.memprof import memprof
 from ..obs.metrics import HIST_DECODE_CHUNK, HIST_QUEUE_WAIT, HIST_TTFT
+from ..obs.profiler import NullLane
+from ..obs.profiler import profiler as kernel_profiler
 from ..obs.tracer import TRACER
 from ..ops.attention_cuda import decode_kernel_name
-from ..ops.paged_kv import (PageAllocator, QuantPool, paged_write_chunk,
-                             paged_write_ragged, pool_dtype,
-                             pool_insert_pages, pool_insert_raw, pool_layer,
+from ..ops.paged_kv import (KV_DTYPES, PageAllocator, QuantPool,
+                             paged_write_chunk, paged_write_ragged,
+                             pool_dtype, pool_insert_pages, pool_insert_raw,
+                             pool_layer, pool_page_bytes,
                              set_page_table_rows)
 from ..ops.prefix_cache import PrefixLRU, page_chains
 from ..utils.device import DeviceLike, resolve_device
@@ -164,6 +180,26 @@ RETRYABLE_REASONS = frozenset({
 def is_retryable_reason(reason: str) -> bool:
     """True when a finish reason is safe to requeue."""
     return reason in RETRYABLE_REASONS
+
+
+# One dispatched program = one profiler key, the JAX engine's names: the
+# decode / resident families have one shape each (per sampling variant);
+# prefill families key on the shapes of the wave (rows x token bucket, +
+# the prefix-gather width). The same helper names the warmup harvest's
+# rows and the runtime's dispatches, so cost facts and device time join.
+
+PROF_DECODE_KEYS = ("decode.full", "decode.fast", "decode.greedy")
+PROF_RESIDENT_KEYS = ("resident.full", "resident.fast", "resident.greedy")
+
+
+def prof_key(family: str, tok_shape, ppb: Optional[int] = None) -> str:
+    """Profiler variant key for a prefill family + its shape axes."""
+    if len(tok_shape) == 1:
+        return f"{family}[w{tok_shape[0]}]"
+    r, b = tok_shape
+    if ppb is None:
+        return f"{family}[r{r}xb{b}]"
+    return f"{family}[r{r}xb{b}xp{ppb}]"
 
 
 @dataclass
@@ -282,6 +318,7 @@ class Engine:
         device: DeviceLike = None,
         flight_dir: Optional[str] = None,
         pipeline_depth: int = 2,
+        model_config: Any = None,
     ) -> None:
         """``paged`` selects the paged pool (``prefix_cache`` then turns
         its prefix cache on); None the dense slot cache, which needs
@@ -319,7 +356,11 @@ class Engine:
         ``pipeline_depth`` chunks may be in flight before the host reads
         the oldest block (the dense engine, and the paged one under
         ``SWARMDB_EMIT_RING=0``); a paged engine otherwise decodes in
-        resident sessions (``SWARMDB_EMIT_RING``, read here)."""
+        resident sessions (``SWARMDB_EMIT_RING``, read here).
+
+        ``model_config`` (a ``models.configs.ModelConfig``) prices the
+        variants for the device-time profiler at ``warmup``; without it
+        the harvest registers the variants unpriced (no MFU)."""
         self.device = resolve_device(device)
         # the engine's stream on the card (module docstring); it first
         # waits for what the building thread enqueued (the weights)
@@ -359,9 +400,15 @@ class Engine:
                     self._row_buckets.append(min(self.prefill_batch,
                                                  2 * self._row_buckets[-1]))
             self.paged = paged
+            self.model_config = model_config
             self._chunked_fns = chunked_fns
             self._init_cache_fn = init_cache_fn
             self.cache = self._new_cache()
+            if paged is not None:
+                # KV bytes per pool page (scale rows included): prices the
+                # accountant's warm-tier re-admission
+                memprof().set_page_bytes(pool_page_bytes(self.cache["k"])
+                                         + pool_page_bytes(self.cache["v"]))
             self._chunk_kv = (chunked_fns[1](max_batch, self.decode_chunk)
                               if chunked_fns is not None else None)
             self.pipeline_depth = max(1, int(pipeline_depth))
@@ -523,6 +570,12 @@ class Engine:
             # the longest step so far (admission + the iteration's decode: a
             # chunk, or a resident session, which beats after every chunk)
             self.max_step_s = 0.0
+            # the device-time profiler's lane (the shared NullLane under
+            # SWARMDB_PROFILE=0), and the prefill waves whose timing events
+            # the host has not read yet: (key, t0_ns, start, end), read at
+            # the next host wait once complete
+            self._prof = kernel_profiler().lane()
+            self._prof_waves: List[Tuple[str, int, Any, Any]] = []
 
             self._queue: List[Tuple[int, float, int, GenRequest]] = []  # heap
             self._admitting: set = set()
@@ -599,19 +652,154 @@ class Engine:
         package's warmup compiles its decode variants): on the card, build
         the kernels and capture the three sampling variants' chunk graphs;
         on the CPU, where chunks run eagerly, there is nothing to prepare.
-        Call it on an idle engine, before ``start``. Returns the seconds
-        spent."""
+        Either way the device-time profiler's lane is suspended meanwhile
+        (captures and builds are not device time; resuming re-anchors the
+        lane's duty cycle at serving start) and its cost facts are
+        harvested here, the one place ``profile_harvest`` runs. Call it on
+        an idle engine, before ``start``. Returns the seconds spent."""
         if self._thread is not None or self._any_active():
             raise RuntimeError("warmup needs an idle engine, before start()")
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            from ..ops import build
+        self._prof.suspend()
+        try:
+            if not isinstance(self._prof, NullLane):
+                self.profile_harvest()
+            if self.device.type == "cuda":
+                from ..ops import build
 
-            build.build_all()
-            if self._role_warms_decode():
-                with self._on_stream():
-                    self._runner.capture_all()
+                build.build_all()
+                if self._role_warms_decode():
+                    with self._on_stream():
+                        self._runner.capture_all()
+        finally:
+            self._prof.resume()
         return time.perf_counter() - t0
+
+    def profile_harvest(self) -> int:
+        """Register every dispatchable variant's cost facts (FLOPs, bytes,
+        ``obs/cost.py``) with the process profiler -- warmup only. Lane
+        groups share the registry: the first lane to harvest a variant
+        covers its siblings. Returns the number of variants harvested."""
+        prof = kernel_profiler()
+        if self.device.type == "cuda":
+            prof.set_platform("gpu", torch.cuda.get_device_name(self.device))
+        else:
+            prof.set_platform(self.device.type, "")
+        harvested = 0
+        for key, cost, meta in self._prof_plan():
+            if prof.harvested(key):
+                continue
+            prof.record_variant(key, cost and cost["flops"],
+                                cost and cost["bytes"], meta)
+            harvested += 1
+        return harvested
+
+    def _prof_plan(self) -> List[Tuple[str, Optional[Dict[str, int]],
+                                       Dict[str, Any]]]:
+        """(key, cost or None, meta) of every variant this engine can
+        dispatch: the families and shapes of the JAX engine's warmup plan
+        (``warmup_call_plan`` through ``_prof_families``). Decode chunks
+        (and paged resident sessions) per sampling variant; ragged waves
+        per width, or row-bucketed waves per (rows, bucket); prefix and
+        resume waves per (rows, bucket, prefix width). A fleet prefill
+        lane has no decode side, a decode lane no admission side but its
+        resumes. Costs need ``model_config``."""
+        cfg = self.model_config
+        B, Bp, K = self.max_batch, self.prefill_batch, self.decode_chunk
+        pb = next(iter(self.params["layers"].values())).element_size()
+        kvt = self._kv_bytes_per_token()
+        price = dict(bytes_per_param=pb, kv_bytes_per_token=kvt)
+
+        def fwd(**kw):
+            return (None if cfg is None
+                    else prof_cost.forward_cost(cfg, **kw, **price))
+
+        meta: Dict[str, Any] = {"kv_bytes_per_token": kvt}
+        quant = False
+        if self.paged is not None:
+            quant = isinstance(self.cache["k"], QuantPool)
+            meta["kv_dtype"] = "int8" if quant else next(
+                k for k, v in KV_DTYPES.items()
+                if v == pool_dtype(self.cache["k"]))
+        plan: List[Tuple[str, Optional[Dict[str, int]], Dict[str, Any]]] = []
+        if self._role_warms_decode():
+            cost = None if cfg is None else prof_cost.decode_chunk_cost(
+                cfg, rows=B, steps=K, ctx=self.max_seq, **price)
+            keys = PROF_DECODE_KEYS + (PROF_RESIDENT_KEYS if self._resident
+                                       else ())
+            for key in keys:
+                plan.append((key, cost, dict(meta,
+                                             kernel=self._decode_kernel)))
+        warms_prefill = self._role != "decode"
+        if self.paged is not None and self._ragged and warms_prefill:
+            kernel = "ragged_prefill_quant" if quant else "ragged_prefill"
+            for wd in self._ragged_widths:
+                plan.append((prof_key("prefill.ragged", (wd,)),
+                             fwd(rows=1, tokens=wd, head_rows=B,
+                                 ragged=True),
+                             dict(meta, kernel=kernel)))
+        for bucket in self.prefill_buckets:
+            if not warms_prefill:
+                break
+            if self.paged is None:
+                plan.append((prof_key("prefill.dense", (Bp, bucket)),
+                             fwd(rows=Bp, tokens=bucket, head_rows=Bp),
+                             dict(meta)))
+            elif not self._ragged:
+                for rb in self._row_buckets:
+                    plan.append((prof_key("prefill.paged", (rb, bucket)),
+                                 fwd(rows=rb, tokens=bucket, head_rows=rb),
+                                 dict(meta)))
+        if self._prefix is None:
+            return plan
+        ps = self._prefix_ps
+        for bucket in self.prefill_buckets:
+            for ppb in self._prefix_pp_buckets:
+                if self.paged is None:
+                    if warms_prefill:
+                        plan.append((
+                            prof_key("prefill.dense_prefix", (Bp, bucket),
+                                     ppb),
+                            fwd(rows=Bp, tokens=bucket, prefix=ppb * ps,
+                                head_rows=Bp), dict(meta)))
+                    continue
+                if not self._ragged and warms_prefill:
+                    for rb in self._row_buckets:
+                        plan.append((
+                            prof_key("prefill.paged_prefix", (rb, bucket),
+                                     ppb),
+                            fwd(rows=rb, tokens=bucket, prefix=ppb * ps,
+                                head_rows=rb), dict(meta)))
+                if self._warm_resume():
+                    plan.append((
+                        prof_key("prefill.resume", (Bp, bucket), ppb),
+                        fwd(rows=Bp, tokens=bucket, prefix=ppb * ps,
+                            head_rows=Bp), dict(meta)))
+        return plan
+
+    def _warm_resume(self) -> bool:
+        """Whether the resume waves are in the profiler's plan: the JAX
+        engine's gate (a paged engine with the pages forward, under
+        ``SWARMDB_ROLLING_KV=1`` or on a fleet decode lane, whose
+        admission path is the resume)."""
+        if self._role == "prefill":
+            return False
+        return (self.paged is not None
+                and self._prefix_pages_fwd is not None
+                and (os.environ.get("SWARMDB_ROLLING_KV") == "1"
+                     or self._role == "decode"))
+
+    def _kv_bytes_per_token(self) -> int:
+        """Device bytes of one token's K and V across layers (scale rows
+        included for an int8 pool)."""
+        if self.paged is not None:
+            return ((pool_page_bytes(self.cache["k"])
+                     + pool_page_bytes(self.cache["v"]))
+                    // self.paged.page_size)
+        k, v = self.cache
+        per_slot_pos = k.shape[1] * k.shape[2]
+        return (k.numel() * k.element_size()
+                + v.numel() * v.element_size()) // per_slot_pos
 
     def _role_warms_decode(self) -> bool:
         """Whether warmup captures the decode graphs: not on a fleet
@@ -819,10 +1007,10 @@ class Engine:
             self._loop()
 
     def _loop(self) -> None:
-        # (block on its way, snapshot, dispatch stamp) per chunk in
-        # flight, oldest first
+        # (block on its way, snapshot, dispatch stamp, profiler key) per
+        # chunk in flight, oldest first
         in_flight: List[Tuple[ChunkOut, List[Tuple[int, GenRequest, int]],
-                              int]] = []
+                              int, Optional[str]]] = []
         with torch.no_grad():
             while True:
                 self._in_step = False
@@ -1509,6 +1697,7 @@ class Engine:
             lengths[row] = len(req.prompt)
             gather[row] = scatter[row] = slot_id
             self._set_slot_sampling(slot_id, req.sampling)
+        mark = self._wave_begin()
         positions = torch.arange(bucket, dtype=torch.int32,
                                  device=self.device).expand(Bp, bucket)
         last_idx = self._tensor(lengths - 1)
@@ -1525,6 +1714,10 @@ class Engine:
                                Bp)
         self._sample_into_slots(last, gather, last_idx, scatter)
         self._count_wave(lengths[:n], padded.size)
+        packed = int(lengths[:n].sum())
+        self._wave_end(mark, prof_key("prefill.dense" if self.paged is None
+                                      else "prefill.paged", padded.shape),
+                       "bucketed", bucket, packed, int(padded.size) - packed)
         self._activate([(it[0], it[1]) for it in batch], t0)
 
     def _insert_pages(self, kv: Tuple[torch.Tensor, torch.Tensor],
@@ -1576,6 +1769,7 @@ class Engine:
             table[r, :len(hits)] = hits
             gather[r] = scatter[r] = slot_id
             self._set_slot_sampling(slot_id, req.sampling)
+        mark = self._wave_begin()
         lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
         logits, sk, sv = self._prefix_pages_fwd(
             self.params, self._tensor(padded), self._tensor(table), plens_t,
@@ -1586,6 +1780,10 @@ class Engine:
         self._sample_into_slots(logits, gather, plens_t + lengths_t - 1,
                                 scatter)
         self._count_wave(lengths[:n], padded.size)
+        packed = int(lengths[:n].sum())
+        self._wave_end(mark, prof_key("prefill.paged_prefix", padded.shape,
+                                      ppb),
+                       "bucketed", bucket, packed, int(padded.size) - packed)
         self._register_prefix(batch)
         self._activate([(it[0], it[1]) for it in batch], t0)
 
@@ -1647,6 +1845,7 @@ class Engine:
             row_tables[r] = row
             gather[r] = scatter[r] = slot_id
             self._set_slot_sampling(slot_id, req.sampling)
+        mark = self._wave_begin()
         lengths_t, rlens_t = self._tensor(lengths), self._tensor(rlens)
         k_pool, v_pool = self.cache["k"], self.cache["v"]
         logits, sk, sv = self._prefix_pages_fwd(
@@ -1669,9 +1868,12 @@ class Engine:
                 sk[l:l + 1].to(dtype), sv[l:l + 1].to(dtype), rlens_t,
                 tables_t)
         n = len(batch)
+        packed = int(lengths[:n].sum())
+        self._wave_end(mark, prof_key("prefill.resume", padded.shape, ppb),
+                       "bucketed", bucket, packed, int(padded.size) - packed)
         c = self.metrics.counters
-        c["prefill_packed_tokens"].inc(int(lengths[:n].sum()))
-        c["prefill_padding_tokens"].inc(int(padded.size - lengths[:n].sum()))
+        c["prefill_packed_tokens"].inc(packed)
+        c["prefill_padding_tokens"].inc(int(padded.size) - packed)
         c["prefix_reused_tokens"].inc(int(rlens.sum()))
         self._last_wave_kind = "bucketed"
         self._activate([(it[0], it[1]) for it in batch], t0)
@@ -1749,6 +1951,7 @@ class Engine:
                 reg_cols.append(lane_page)
                 reg_pages.append(pid)
         pool_k, pool_v = self._prefix_pool
+        mark = self._wave_begin()
         lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
         logits, lane_k, lane_v = self._prefix_lane_fwd(
             self.params, self._tensor(padded), self._tensor(table), plens_t,
@@ -1766,6 +1969,10 @@ class Engine:
                 pool[:, idx[2]] = pages[:, idx[0], idx[1]].to(pool.dtype)
         self._sample_into_slots(logits, gather, plens_t + lengths_t - 1,
                                 scatter)
+        packed = int(lengths[:n].sum())
+        self._wave_end(mark, prof_key("prefill.dense_prefix", padded.shape,
+                                      ppb),
+                       "bucketed", bucket, packed, int(padded.size) - packed)
         self.metrics.counters["prefix_reused_tokens"].inc(int(plens.sum()))
         self._count_wave(lengths[:n], padded.size)
         self._activate([(r[0], r[1]) for r in rows], t0)
@@ -1781,6 +1988,49 @@ class Engine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _wave_begin(self) -> Optional[Tuple[int, Any]]:
+        """Open one prefill wave's device-time bracket: (monotonic ns, a
+        timing event recorded on the engine's stream, None off the
+        card), or None with the profiler off."""
+        if not self._prof.enabled:
+            return None
+        t0 = time.monotonic_ns()
+        if self.stream is None:
+            return t0, None
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(self.stream)
+        return t0, start
+
+    def _wave_end(self, mark: Optional[Tuple[int, Any]], key: str,
+                  kind: str, width: int, packed: int, padding: int) -> None:
+        """Close a wave's bracket: its shape into the dispatch profile
+        and its device time to ``key`` -- off the card the wall time
+        around the (synchronous) wave, on the card an end event whose
+        pair the next host wait reads once complete (no wait is added)."""
+        if mark is None:
+            return
+        self._prof.wave(kind, width, packed, padding, key)
+        t0, start = mark
+        if start is None:
+            self._prof.dispatch(key, t0, time.monotonic_ns() - t0)
+            return
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(self.stream)
+        self._prof_waves.append((key, t0, start, end))
+
+    def _drain_wave_times(self) -> None:
+        """Attribute the device time of every bracketed prefill wave whose
+        end event has passed (a non-blocking query; the rest wait for a
+        later host wait)."""
+        left = []
+        for key, t0, start, end in self._prof_waves:
+            if end.query():
+                self._prof.dispatch(key, t0,
+                                    int(start.elapsed_time(end) * 1e6))
+            else:
+                left.append((key, t0, start, end))
+        self._prof_waves = left
 
     def _prefill_ragged_waves(self, batch: List[Tuple]) -> None:
         """Packed ragged admission waves. ``batch`` rows: (slot_id, req,
@@ -1834,6 +2084,7 @@ class Engine:
                 it[3] = consumed + take
                 filled += take
                 r += 1
+            mark = self._wave_begin()
             tok_row_t, tok_pos_t = self._tensor(tok_row), self._tensor(tok_pos)
             tables_t = self._tensor(tables)
             plens_t, lens_t = self._tensor(plens), self._tensor(lens)
@@ -1846,6 +2097,10 @@ class Engine:
                 scatter)
             paged_write_ragged(k_pool, v_pool, sk, sv, tok_row_t, tok_pos_t,
                                tables_t)
+            # the dispatch profile's (ragged, width) row: tiny flush waves
+            # are the ones the ragged min width is to be set from
+            self._wave_end(mark, prof_key("prefill.ragged", tokens.shape),
+                           "ragged", wd, filled, wd - filled)
             packed_n += filled
             padding_n += wd - filled
             self.metrics.counters["prefill_waves"].inc()
@@ -1942,10 +2197,12 @@ class Engine:
 
     def _dispatch_decode(self) -> Tuple[ChunkOut,
                                         List[Tuple[int, GenRequest, int]],
-                                        int]:
+                                        int, Optional[str]]:
         """Launch one chunk over the active slots, without waiting for it,
         and return (its block on the way to the host, the (slot, request,
-        start position) snapshot, the dispatch stamp). Each active slot's
+        start position) snapshot, the dispatch stamp, its profiler key or
+        None with the profiler off: then the chunk is untimed). Each
+        active slot's
         dispatched position advances by K here; idle slots decode at 0.
         With chunks in flight a slot can retire and be re-admitted before
         this one is processed: the snapshot's request tells the host to
@@ -1960,16 +2217,21 @@ class Engine:
                 s.dispatched_position += K
         variant = variant_for(self._temp, self._topk, self._topp,
                               [i for i, _, _ in snapshot])
-        out = self._runner.launch(variant, self._chunk_inputs(positions))
+        key = PROF_DECODE_KEYS[variant] if self._prof.enabled else None
+        t_ns = time.monotonic_ns()
+        out = self._runner.launch(variant, self._chunk_inputs(positions),
+                                  timed=key is not None)
         self.metrics.counters["engine_decode_chunks"].inc()
-        return out, snapshot, time.monotonic_ns()
+        return out, snapshot, t_ns, key
 
     def _process_block(self, out: ChunkOut,
                        snapshot: List[Tuple[int, GenRequest, int]],
-                       t_dispatch_ns: int) -> None:
+                       t_dispatch_ns: int, key: Optional[str]) -> None:
         """Wait for one dispatched chunk's block (the host's one wait on
-        it) and emit its tokens."""
+        it), attribute its device time and emit its tokens."""
         block, lps = self._host_wait(out.host)
+        if key is not None:
+            self._prof.dispatch(key, t_dispatch_ns, out.device_ns())
         self._process_host_block(block, lps, snapshot, t_dispatch_ns)
 
     def _host_wait(self, fetch: Callable[[], Any]) -> Any:
@@ -1984,6 +2246,8 @@ class Engine:
         self.metrics.counters["engine_host_syncs"].inc()
         self._host_sync_n += 1
         self.metrics.counters["phase_us_host_sync"].inc((t1 - t0) // 1000)
+        if self._prof_waves:
+            self._drain_wave_times()
         return out
 
     def _process_host_block(self, block: np.ndarray, lps: np.ndarray,
@@ -2087,6 +2351,9 @@ class Engine:
                               [i for i, _, _ in snap])
         c = self.metrics.counters
         c["engine_resident_sessions"].inc()
+        # the JAX engine's resident keys: a session's chunks are billed to
+        # its variant's resident.* row
+        key = PROF_RESIDENT_KEYS[variant] if self._prof.enabled else None
         done = ~live
         inputs: Optional[Tuple[np.ndarray, ...]] = self._chunk_inputs(
             positions)
@@ -2097,8 +2364,12 @@ class Engine:
         self._lane_busy = True
         try:
             while n < max_chunks and cont and not done.all():
-                block, lps = self._host_wait(
-                    self._runner.launch(variant, inputs).host)
+                t_launch = time.monotonic_ns()
+                out = self._runner.launch(variant, inputs,
+                                          timed=key is not None)
+                block, lps = self._host_wait(out.host)
+                if key is not None:
+                    self._prof.dispatch(key, t_launch, out.device_ns())
                 inputs = None  # later chunks read what this one left
                 c["engine_decode_chunks"].inc()
                 done |= ((positions.astype(np.int64) + (n + 1) * K

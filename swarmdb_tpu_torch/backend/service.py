@@ -82,7 +82,7 @@ from ..core.messages import Message, MessageType
 from ..core.runtime import SwarmDB
 from ..models import llama, mixtral
 from ..obs import TRACER
-from ..obs.memprof import conv_ledger
+from ..obs.memprof import memprof
 from ..models.configs import ModelConfig, get_config
 from ..ops.paged_kv import (KV_DTYPES, PageAllocator, kv_dtype_name,
                             pages_per_slot)
@@ -289,7 +289,7 @@ def build_backend_engine(
         pad_id=tokenizer.pad_id, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch,
         prefix_cache=prefix_enabled, device=dev, flight_dir=flight_dir,
-        pipeline_depth=_pipeline_depth())
+        pipeline_depth=_pipeline_depth(), model_config=cfg)
     return engine, tokenizer
 
 
@@ -341,7 +341,8 @@ def _dense_engine(cfg: ModelConfig, mod, params: Dict[str, Any],
         max_batch=max_batch, max_seq=max_seq, eos_id=tokenizer.eos_id,
         pad_id=tokenizer.pad_id, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch, device=dev,
-        flight_dir=flight_dir, pipeline_depth=_pipeline_depth())
+        flight_dir=flight_dir, pipeline_depth=_pipeline_depth(),
+        model_config=cfg)
 
 
 class _Claim:
@@ -413,7 +414,7 @@ class ServingService:
         self._anchor_sep = self.tokenizer.encode("\n[…]\n", add_bos=False)
         # this service's conversation-temperature ledger (touched per
         # served message; the tier manager orders its victims by it)
-        self._mem = conv_ledger()
+        self._mem = memprof().conv_ledger()
         # rolling KV (SWARMDB_ROLLING_KV=1): (sender, receiver) -> {pages,
         # len, tail, msg_count, reply_ids, pending_count, epoch,
         # in_flight, last, ...}. Between turns the listed pages are in

@@ -126,6 +126,11 @@ class TierManager:
         self.demote_s = 0.0
         engine.on_tier_pressure = self.notify_pressure
         engine.on_tier_drain = self.drain_engine
+        # the memory accountant's tier_validation holds its what-if warm
+        # tier against this tier's measured promotions and cold resumes
+        from ..obs.memprof import memprof
+
+        memprof().bind_tier(self.status)
 
     # ------------------------------------------------------------ lifecycle
 

@@ -15,20 +15,28 @@ names and exports for these:
 - :mod:`.analyze`: the offline trace / flight analyzer
   (``python -m swarmdb_tpu_torch.obs.analyze``).
 - :mod:`.sentinel`: the online SLO monitor (``GET /admin/slo``).
-- :mod:`.memprof`: the conversation-temperature ledger that tiering
-  reads.
+- :mod:`.profiler`: the device-time profiler: per-variant device time,
+  MFU and roofline class, lane duty cycles, the dispatch-shape profile
+  (``GET /admin/profile``).
+- :mod:`.memprof`: the memory accountant: pool occupancy, conversation
+  temperature, prefix reuse curve, the warm-tier model and its
+  validation against the running tier (``GET /admin/mem``).
+- :mod:`.cost`: the per-variant FLOP and byte prices the engine
+  harvests into the profiler at warmup.
 
-The device-time profiler and the rest of the memory accountant
-(ROADMAP.md, queue 1 item 10b) and the sanitizers (item 10c) are not
-ported yet.
+The sanitizers (ROADMAP.md, queue 1 item 10c) are not ported yet.
 """
 
 from . import propagate
 from .flight import FlightRecorder
+from .memprof import MemProfiler, memprof, memprof_enabled
 from .metrics import HISTOGRAMS, Histogram, HistogramRegistry
+from .profiler import KernelProfiler, profile_enabled, profiler
 from .sentinel import SLOConfig, SLOSentinel
 from .tracer import TRACER, SpanTracer
 
 __all__ = ["FlightRecorder", "SpanTracer", "TRACER", "propagate",
            "HISTOGRAMS", "Histogram", "HistogramRegistry",
-           "SLOConfig", "SLOSentinel"]
+           "SLOConfig", "SLOSentinel",
+           "KernelProfiler", "profile_enabled", "profiler",
+           "MemProfiler", "memprof", "memprof_enabled"]

@@ -34,22 +34,28 @@ The contributors:
   device;
 - ``decode``: the rest of the decode-chunk growth.
 
-The readers of the device-time profiler's, the memory accountant's and
-the sanitizers' dumps (``--roofline``, ``--memory``, the lockcheck /
-pagecheck / kerncheck listings) come with the subsystems that write
-them (ROADMAP.md, queue 1 items 10b and 10c). ``--self-check`` runs the
-pipeline on synthetic traces and checks its own invariants.
+It also reads the device-time profiler's and the memory accountant's
+dumps (``profile_*.json``, ``mem_*.json``, the JAX package's schemas, so
+either package's analyzer reads the other's): ``--roofline`` (without the
+JAX package's VMEM view; the card's on-chip memory view is ROADMAP.md
+queue 1 item 10d), ``--memory``, and their one-line listings beside an
+analyzed trace. The sanitizers' dump listings come with the sanitizers
+(item 10c). ``--self-check`` runs the pipeline on synthetic traces and
+checks its own invariants.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 import sys
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["analyze_files", "summarize_trace", "summarize_flight",
-           "diagnose", "self_check", "main"]
+           "diagnose", "roofline_report", "memory_report", "self_check",
+           "main"]
 
 #: span name -> cost category (everything engine-side that serializes
 #: the loop; routing spans are microseconds and excluded by design)
@@ -73,7 +79,9 @@ _WAVE_GAP_US = 2000.0  # prefill starts closer than this = same wave
 
 def load_file(path: str) -> Tuple[str, Any]:
     """('trace', events) for Chrome trace JSON, ('flight', dump) for a
-    flight-recorder dump; raises ValueError for anything else."""
+    flight-recorder dump, ('profile', dump) for a device-time profiler
+    dump, ('mem', dump) for a memory accountant dump; raises ValueError
+    for anything else."""
     with open(path, "r", encoding="utf-8") as f:
         data = json.load(f)
     if isinstance(data, dict) and "traceEvents" in data:
@@ -81,8 +89,14 @@ def load_file(path: str) -> Tuple[str, Any]:
                          if e.get("ph") == "X"]
     if isinstance(data, dict) and "steps" in data and "requests" in data:
         return "flight", data
-    raise ValueError(f"{path}: not a Chrome trace export (traceEvents) "
-                     "or a flight dump (steps/requests)")
+    if isinstance(data, dict) and data.get("kind") == "swarmdb.profile":
+        return "profile", data
+    if isinstance(data, dict) and data.get("kind") == "swarmdb.mem":
+        return "mem", data
+    raise ValueError(f"{path}: not a Chrome trace export (traceEvents), "
+                     "a flight dump (steps/requests), a profile dump "
+                     "(kind=swarmdb.profile), or a mem dump "
+                     "(kind=swarmdb.mem)")
 
 
 # --------------------------------------------------------------- summaries
@@ -373,21 +387,37 @@ def analyze_files(paths: Sequence[str]) -> Dict[str, Any]:
     dumps pair with the traces in the order given."""
     traces: List[Tuple[str, Dict[str, Any]]] = []
     flights: List[Tuple[str, Dict[str, Any]]] = []
+    profiles: List[Tuple[str, Dict[str, Any]]] = []
+    mems: List[Tuple[str, Dict[str, Any]]] = []
     inputs = []
     for path in paths:
         kind, data = load_file(path)
         inputs.append({"path": path, "kind": kind})
         if kind == "trace":
             traces.append((path, summarize_trace(data)))
+        elif kind == "profile":
+            profiles.append((path, data))
+        elif kind == "mem":
+            mems.append((path, data))
         else:
             flights.append((path, summarize_flight(data)))
     if not traces:
-        raise ValueError("need at least one Chrome trace export")
+        raise ValueError("need at least one Chrome trace export "
+                         "(use --roofline for profile dumps alone, "
+                         "--memory for mem dumps alone)")
     report: Dict[str, Any] = {
         "kind": "swarmdb.obs.analyze",
         "version": 1,
         "inputs": inputs,
     }
+    profile_list = ([_profile_summary(p, d) for p, d in profiles]
+                    + _profile_dumps(paths))
+    if profile_list:
+        report["profile_dumps"] = profile_list
+    mem_list = ([_mem_summary(p, d) for p, d in mems]
+                + _mem_dumps(paths))
+    if mem_list:
+        report["mem_dumps"] = mem_list
     base_flight = flights[0][1] if flights else None
     test_flight = flights[-1][1] if flights else None
     if len(traces) >= 2:
@@ -404,6 +434,243 @@ def analyze_files(paths: Sequence[str]) -> Dict[str, Any]:
                              "flight": test_flight}
         report["diagnosis"] = _solo_diagnosis(summary, test_flight)
     return report
+
+
+def _profile_summary(path: str, dump: Dict[str, Any]) -> Dict[str, Any]:
+    """One line per profile dump for the main report: enough to spot
+    "the decode chunk ate 80% of device time at MFU 0.004" without
+    opening the file (the --roofline mode prints the full table)."""
+    variants = dump.get("variants") or []
+    top = variants[0] if variants else {}
+    return {
+        "path": path,
+        "node": dump.get("node"),
+        "platform": dump.get("platform"),
+        "mfu": dump.get("mfu"),
+        "variants": len(variants),
+        "top_variant": top.get("variant"),
+        "top_device_s": top.get("device_s"),
+        "tiny_flush_waves": dump.get("tiny_flush_waves", 0),
+    }
+
+
+def _profile_dumps(paths: Sequence[str]) -> List[Dict[str, Any]]:
+    """Profile dumps (``profile_*.json``) sitting next to the analyzed
+    flight/trace files: the flight dump says what the node was doing,
+    the profile dump which programs the device spent that time in."""
+    given = {os.path.abspath(p) for p in paths}
+    seen: set = set()
+    out: List[Dict[str, Any]] = []
+    for p in paths:
+        d = os.path.dirname(os.path.abspath(p))
+        if d in seen:
+            continue
+        seen.add(d)
+        for cand in sorted(glob.glob(os.path.join(d, "profile_*.json"))):
+            if os.path.abspath(cand) in given:
+                continue
+            try:
+                with open(cand, "r", encoding="utf-8") as f:
+                    dump = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if dump.get("kind") != "swarmdb.profile":
+                continue
+            out.append(_profile_summary(cand, dump))
+    return out
+
+
+def _mem_summary(path: str, dump: Dict[str, Any]) -> Dict[str, Any]:
+    """One line per mem dump for the main report: enough to spot
+    "the pool sat full of cold pages at a 40% prefix hit rate" without
+    opening the file (the --memory mode prints the full picture)."""
+    occ = dump.get("occupancy") or {}
+    conv = dump.get("conversations") or {}
+    prefix = dump.get("prefix") or {}
+    return {
+        "path": path,
+        "node": dump.get("node"),
+        "prefix_hit_rate": prefix.get("hit_rate"),
+        "total_pages": occ.get("total_pages"),
+        "headroom_pages": occ.get("headroom_pages"),
+        "conversations": conv.get("by_state"),
+        "tier_validation": dump.get("tier_validation"),
+        "verdict": dump.get("verdict"),
+    }
+
+
+def _mem_dumps(paths: Sequence[str]) -> List[Dict[str, Any]]:
+    """Mem dumps (``mem_*.json``) sitting next to the analyzed
+    flight/trace files: the flight dump says what the node was doing,
+    the mem dump where its KV pages and prefix-cache hit rate stood
+    while it did it."""
+    given = {os.path.abspath(p) for p in paths}
+    seen: set = set()
+    out: List[Dict[str, Any]] = []
+    for p in paths:
+        d = os.path.dirname(os.path.abspath(p))
+        if d in seen:
+            continue
+        seen.add(d)
+        for cand in sorted(glob.glob(os.path.join(d, "mem_*.json"))):
+            if os.path.abspath(cand) in given:
+                continue
+            try:
+                with open(cand, "r", encoding="utf-8") as f:
+                    dump = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if dump.get("kind") != "swarmdb.mem":
+                continue
+            out.append(_mem_summary(cand, dump))
+    return out
+
+
+# ------------------------------------------------------------------- memory
+
+
+def memory_report(paths: Sequence[str]) -> Dict[str, Any]:
+    """``--memory``: the full memory-accounting report over mem dumps
+    (``mem_*.json``). For each dump: the pool occupancy decomposition
+    with residency ages, the hot/warm/cold conversation temperature
+    distribution (plus the heaviest resident conversations, the tier's
+    demotion candidates), the sampled miss-ratio curve at the standard
+    capacity multiples, the what-if warm-tier model with re-admission
+    cost, the cold-resume TTFT model, ``tier_validation`` and the sizing
+    verdict."""
+    dumps: List[Dict[str, Any]] = []
+    for path in paths:
+        kind, data = load_file(path)
+        if kind != "mem":
+            raise ValueError(f"{path}: --memory takes mem dumps "
+                             "(kind=swarmdb.mem)")
+        conv = data.get("conversations") or {}
+        reuse = data.get("reuse") or {}
+        dumps.append({
+            "path": path,
+            "node": data.get("node"),
+            "enabled": data.get("enabled"),
+            "page_bytes": data.get("page_bytes"),
+            "occupancy": data.get("occupancy"),
+            "prefix": data.get("prefix"),
+            "temperature": {
+                "hot_s": data.get("hot_s"),
+                "warm_s": data.get("warm_s"),
+                "tracked": conv.get("tracked"),
+                "by_state": conv.get("by_state"),
+                "resident_pages_by_state":
+                    conv.get("resident_pages_by_state"),
+                "top_resident": conv.get("top_resident"),
+            },
+            "miss_ratio_curve": reuse.get("curve"),
+            "sampling": {k: reuse.get(k) for k in
+                         ("accesses", "sampled", "cold", "sample_rate",
+                          "stack_overflowed",
+                          "device_capacity_pages")},
+            "warm_tier": data.get("warm_tier"),
+            "cold_resume": data.get("cold_resume"),
+            # predicted-vs-measured warm tier: the what-if model's
+            # promised hit-rate gain against the promotion share the
+            # live tier delivered, with a drift flag when the model has
+            # gone stale
+            "tier_validation": data.get("tier_validation"),
+            "verdict": data.get("verdict"),
+        })
+    return {
+        "kind": "swarmdb.obs.memory",
+        "version": 1,
+        "dumps": dumps,
+        # dumps whose live tier disagreed with the what-if model by
+        # more than SWARMDB_MEM_TIER_DRIFT — re-run sizing before
+        # trusting the verdict line
+        "tier_drift_flagged": [
+            d["path"] for d in dumps
+            if (d.get("tier_validation") or {}).get("drifted")],
+    }
+
+
+# ----------------------------------------------------------------- roofline
+
+
+def roofline_report(paths: Sequence[str],
+                    top_n: int = 10) -> Dict[str, Any]:
+    """``--roofline``: the device-time report over profile dumps. For
+    each dump: the platform peak table, the top-N variants by cumulative
+    device seconds (invocations, device_s, per-call FLOPs and bytes,
+    achieved FLOP/s, MFU, arithmetic intensity, compute- vs
+    memory-bound), per-lane duty cycles and per-pool rows, and the
+    dispatch-shape profile with tiny ragged flush waves called out (what
+    ``SWARMDB_RAGGED_MIN_WIDTH`` is to be set from, ROADMAP item 3)."""
+    dumps: List[Dict[str, Any]] = []
+    for path in paths:
+        kind, data = load_file(path)
+        if kind != "profile":
+            raise ValueError(f"{path}: --roofline takes profile dumps "
+                             "(kind=swarmdb.profile)")
+        variants = list(data.get("variants") or [])
+        variants.sort(key=lambda v: -(v.get("device_s") or 0.0))
+        total_dev = sum(v.get("device_s") or 0.0 for v in variants)
+        top = []
+        for v in variants[:top_n]:
+            row = dict(v)
+            if total_dev > 0:
+                row["device_share"] = round(
+                    (v.get("device_s") or 0.0) / total_dev, 4)
+            top.append(row)
+        tiny = [w for w in (data.get("dispatch_profile") or [])
+                if w.get("tiny_flush")]
+        # per-pool section (the fleet): pool idleness is a first-class
+        # number. Prefer the dump's own pools rollup; reconstruct it from
+        # pool-labelled lane rows for dumps written mid-transition.
+        pools = [dict(p) for p in (data.get("pools") or [])]
+        if not pools:
+            by_pool: Dict[str, List[Dict[str, Any]]] = {}
+            for lrow in (data.get("lanes") or []):
+                p = lrow.get("pool")
+                if p:
+                    by_pool.setdefault(p, []).append(lrow)
+            for p, rows in sorted(by_pool.items()):
+                duties = [r.get("duty_cycle") or 0.0 for r in rows]
+                pools.append({
+                    "pool": p,
+                    "lanes": [r.get("lane") for r in rows],
+                    "duty_cycle_min": round(min(duties), 6),
+                    "duty_cycle_mean": round(sum(duties) / len(duties), 6),
+                })
+        fam = {"prefill": ("prefill",), "decode": ("decode", "resident")}
+        for prow in pools:
+            # each pool's variant family grouped out of the same device-
+            # time table: role-typed pools partition the variant names,
+            # so the share split is exact in fleet mode
+            fams = fam.get(str(prow.get("pool")))
+            if not fams:
+                continue
+            pv = [v for v in variants
+                  if str(v.get("variant") or "").startswith(fams)]
+            dev = sum(v.get("device_s") or 0.0 for v in pv)
+            prow["device_s"] = round(dev, 6)
+            if total_dev > 0:
+                prow["device_share"] = round(dev / total_dev, 4)
+            prow["top_variants"] = [v.get("variant") for v in pv[:3]]
+        dumps.append({
+            "path": path,
+            "node": data.get("node"),
+            "platform": data.get("platform"),
+            "device_kind": data.get("device_kind"),
+            "peaks": data.get("peaks"),
+            "mfu": data.get("mfu"),
+            "device_s_total": round(total_dev, 6),
+            "top_variants": top,
+            "lanes": data.get("lanes"),
+            "pools": pools,
+            "tiny_flush_waves": data.get("tiny_flush_waves", 0),
+            "tiny_flush_rows": tiny,
+        })
+    return {
+        "kind": "swarmdb.obs.roofline",
+        "version": 1,
+        "dumps": dumps,
+    }
 
 
 # --------------------------------------------------------------- self-check
@@ -511,6 +778,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--self-check", action="store_true",
                     help="run the pipeline on synthetic data and verify "
                          "its invariants")
+    ap.add_argument("--roofline", action="store_true",
+                    help="device-time roofline report over profile dumps "
+                         "(profile_*.json): top device-time variants, "
+                         "MFU, compute- vs memory-bound, lane duty "
+                         "cycles, tiny ragged flush waves")
+    ap.add_argument("--memory", action="store_true",
+                    help="memory-accounting report over mem dumps "
+                         "(mem_*.json): pool occupancy + residency ages, "
+                         "conversation temperature, sampled miss-ratio "
+                         "curve, warm-tier / cold-resume models, "
+                         "tier_validation and the sizing verdict")
     args = ap.parse_args(argv)
 
     if args.self_check:
@@ -521,7 +799,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args.paths:
         ap.error("no input files (or use --self-check)")
     try:
-        report = analyze_files(args.paths)
+        if args.memory:
+            report = memory_report(args.paths)
+        elif args.roofline:
+            report = roofline_report(args.paths)
+        else:
+            report = analyze_files(args.paths)
     except (OSError, ValueError, json.JSONDecodeError) as exc:
         print(f"analyze: {exc}", file=sys.stderr)
         return 2

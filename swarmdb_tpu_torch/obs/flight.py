@@ -1,9 +1,10 @@
 """Flight recorder: the last N engine steps, M requests and K events.
 
-A copy of ``swarmdb_tpu/obs/flight.py`` without its hooks into the lock
-sanitizer, the device-time profiler and the memory accountant, which are
-not ported yet (ROADMAP.md, queue 1 items 10b and 10c). Three fixed-size
-rings:
+A copy of ``swarmdb_tpu/obs/flight.py`` without its hook into the lock
+sanitizer, which is not ported yet (ROADMAP.md, queue 1 item 10c). Every
+automatic dump into a directory also writes the device-time profiler's
+and the memory accountant's dumps beside it (``_profile_dump`` /
+``_mem_dump``). Three fixed-size rings:
 
 - **step records** and **request records**, written by the engine
   thread only (no locks on the record path): ``Engine._flight_step``
@@ -161,14 +162,18 @@ class FlightRecorder:
 
     def auto_dump(self, reason: str,
                   directory: Optional[str] = None) -> Optional[str]:
-        """Best-effort dump for failure paths (engine restart): never
-        raises. ``SWARMDB_FLIGHT_DIR`` overrides ``directory``; with
-        neither, only the in-memory ``last_dump`` is kept."""
+        """Best-effort dump for failure paths (engine restart, an SLO
+        alert): never raises. ``SWARMDB_FLIGHT_DIR`` overrides
+        ``directory``; with neither, only the in-memory ``last_dump`` is
+        kept. A directory dump also carries the profiler's and the
+        accountant's dumps."""
         directory = os.environ.get("SWARMDB_FLIGHT_DIR") or directory
         try:
             if directory:
                 path = self.dump_to(directory, reason)
                 logger.info("flight record dumped to %s (%s)", path, reason)
+                self._profile_dump(reason, directory)
+                self._mem_dump(reason, directory)
                 return path
             self.last_dump = self.dump(reason)
             return None
@@ -179,3 +184,29 @@ class FlightRecorder:
             except Exception:
                 pass
             return None
+
+    @staticmethod
+    def _profile_dump(reason: str, directory: str) -> None:
+        """The device-time profiler's dump riding every flight auto-dump:
+        the failure paths that ship flight evidence ship the per-variant
+        device-time picture too. Best-effort, never raises."""
+        try:
+            from .profiler import profile_enabled, profiler
+
+            if profile_enabled():
+                profiler().auto_dump(reason, directory)
+        except Exception:
+            logger.exception("profile dump failed (%s)", reason)
+
+    @staticmethod
+    def _mem_dump(reason: str, directory: str) -> None:
+        """The memory accountant's snapshot riding every flight auto-dump
+        (pool occupancy, temperature, miss-ratio curve). Best-effort,
+        never raises."""
+        try:
+            from .memprof import memprof, memprof_enabled
+
+            if memprof_enabled():
+                memprof().auto_dump(reason, directory)
+        except Exception:
+            logger.exception("mem dump failed (%s)", reason)

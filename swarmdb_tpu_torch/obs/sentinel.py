@@ -29,11 +29,11 @@ The default objectives (TTFT p95 2.5 s, queue p95 1.0 s, handoff p95
 250 ms, cost growth 2x) are the JAX package's service objectives, kept
 for parity; none was measured on any card.
 
-The window's MFU / duty-cycle and prefix-hit / headroom folds read the
-device-time profiler and the memory accountant, which are not ported yet
-(ROADMAP.md, queue 1 item 10b): ``_profile_window`` and ``_mem_window``
-return at once, as the JAX package's do with those subsystems off, and
-their SLOs never fire.
+The window's MFU / duty-cycle fold reads the device-time profiler
+(``obs/profiler.py``) and its prefix-hit / headroom fold the memory
+accountant (``obs/memprof.py``): ``_profile_window`` and ``_mem_window``,
+as in the JAX package, so the mfu_drop_x, duty_drop_x, prefix_hit_drop_x
+and mem_headroom_min objectives fire on a served engine's windows.
 
 Locking: the deadline check takes no lock; the rare close takes a
 non-blocking lock only to elect one closer when engine loops and send
@@ -126,12 +126,12 @@ class SLOConfig:
         # profiler regression SLOs: a busy window whose MFU
         # (or worst lane duty cycle) fell past baseline/<factor> breaches
         # even while throughput holds — silicon efficiency is a
-        # first-class SLO. <= 1 disables (item 10b feeds them).
+        # first-class SLO (obs/profiler.py feeds them). <= 1 disables.
         self.mfu_drop_x = mfu_drop_x if mfu_drop_x is not None else \
             _env_float("SWARMDB_SLO_MFU_DROP_X", 3.0)
         self.duty_drop_x = duty_drop_x if duty_drop_x is not None else \
             _env_float("SWARMDB_SLO_DUTY_DROP_X", 3.0)
-        # memory SLOs (item 10b): a busy window whose prefix hit rate
+        # memory SLOs (obs/memprof.py): a busy window whose prefix hit rate
         # fell past baseline/<factor> (the anchor-jump / cache-thrash
         # signature), or whose pool headroom (free + evictable pages
         # over total) dropped under an absolute floor — parked KV is
@@ -190,6 +190,12 @@ class SLOSentinel:
         self._prev_counters: Optional[Dict[str, int]] = None
         self._prev_ttft: List[int] = list(HIST_TTFT.counts)
         self._prev_queue: List[int] = list(HIST_QUEUE_WAIT.counts)
+        # the profiler's cumulative snapshot at the previous close (window
+        # MFU / duty cycles are deltas, like every other window number)
+        self._prev_prof: Optional[Dict[str, Any]] = None
+        # the accountant's cumulative snapshot (the window's prefix hit
+        # rate is a token-count delta)
+        self._prev_mem: Optional[Dict[str, Any]] = None
         # the fleet's cumulative handoff count (window handoffs = delta)
         self._prev_handoffs: Optional[int] = None
 
@@ -214,6 +220,8 @@ class SLOSentinel:
             self._deadline = time.monotonic() + self.config.window_s
             self._window_opened = time.time()
             self._prev_counters = None  # re-anchor, don't bill the gap
+            self._prev_prof = None
+            self._prev_mem = None
             self._prev_handoffs = None
 
     # -------------------------------------------------------- record path
@@ -342,21 +350,55 @@ class SLOSentinel:
         self.ingest(window)
 
     def _profile_window(self, window: Dict[str, Any]) -> None:
-        """Fold the device-time profiler's deltas into the closing window
-        (the window's MFU and its lowest lane duty cycle, which the
-        mfu_drop_x / duty_drop_x SLOs watch). The profiler is not ported
-        yet (ROADMAP.md, queue 1 item 10b): this returns at once, as the
-        JAX package's does with its profiler off, and the window carries
-        neither number."""
-        return
+        """Fold the device-time profiler's deltas into the closing window:
+        executed-FLOPs MFU over the window's wall time and the minimum
+        per-lane duty cycle, the numbers the mfu_drop_x / duty_drop_x
+        SLOs watch. No-op with the profiler off."""
+        from .profiler import profile_enabled, profiler
+
+        if not profile_enabled():
+            return
+        prof = profiler()
+        cur = prof.counters_snapshot()
+        prev, self._prev_prof = self._prev_prof, cur
+        if prev is None:
+            return
+        span_s = max(1e-6, (cur["mono_ns"] - prev["mono_ns"]) / 1e9)
+        peaks = prof.peaks()
+        dflops = cur["flops_total"] - prev["flops_total"]
+        if peaks.get("peak_flops") and dflops > 0:
+            window["mfu"] = round(
+                dflops / span_s / peaks["peak_flops"], 6)
+        duties = []
+        for lane, busy in cur["lane_busy_ns"].items():
+            dbusy = busy - prev["lane_busy_ns"].get(lane, 0)
+            duties.append(min(1.0, max(0.0, dbusy / (span_s * 1e9))))
+        if duties:
+            window["min_lane_duty"] = round(min(duties), 4)
 
     def _mem_window(self, window: Dict[str, Any]) -> None:
-        """Fold the memory accountant's deltas into the closing window
-        (the prefix hit rate and the pool's headroom, which the
-        prefix_hit_drop_x / mem_headroom_min SLOs watch). The accountant
-        is not ported yet (ROADMAP.md, queue 1 item 10b): this returns at
-        once, as the JAX package's does with its accountant off."""
-        return
+        """Fold the memory accountant's deltas into the closing window:
+        the window's prefix hit rate (hit-token delta over looked-up-token
+        delta) and the current pool headroom fraction (free +
+        cached-evictable over total), the numbers the prefix_hit_drop_x /
+        mem_headroom_min SLOs watch. No-op with the accountant off."""
+        from .memprof import memprof, memprof_enabled
+
+        if not memprof_enabled():
+            return
+        mp = memprof()
+        cur = mp.counters_snapshot()
+        prev, self._prev_mem = self._prev_mem, cur
+        total = cur.get("pool_total_pages", 0)
+        if total > 0:
+            window["mem_headroom_frac"] = round(
+                cur.get("pool_headroom_pages", 0) / total, 4)
+        if prev is None:
+            return
+        dhit = cur["hit_tokens"] - prev["hit_tokens"]
+        dmiss = cur["miss_tokens"] - prev["miss_tokens"]
+        if dhit + dmiss > 0:
+            window["prefix_hit_rate"] = round(dhit / (dhit + dmiss), 4)
 
     def _fleet_window(self, window: Dict[str, Any]) -> None:
         """Fold the fleet's handoff latency into the closing window: only

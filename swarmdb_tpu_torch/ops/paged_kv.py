@@ -508,6 +508,12 @@ class PageAllocator:
         # only valid within the generation they were handed out in
         self.generation = 0
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        # the memory accountant's residency ledger: page alloc / free
+        # stamps written inside this allocator's critical sections (the
+        # shared null pool under SWARMDB_MEMPROF=0)
+        from ..obs.memprof import memprof
+
+        self.mem = memprof().pool(self.stats)
 
     # -- admission -----------------------------------------------------------
 
@@ -544,6 +550,7 @@ class PageAllocator:
             if fresh is None:
                 return None
             self.pages_allocated_total += len(fresh)
+            self.mem.page_alloc(fresh)
             self._by_slot[slot_id] = _SlotPages(fresh)
             row = np.zeros(self.maxp, np.int32)
             pages = list(prefix_pages) + fresh
@@ -564,6 +571,7 @@ class PageAllocator:
         with self._lock:
             self.pages_freed_total += len(page_ids)
             self._free.extend(page_ids)
+            self.mem.page_free(page_ids)
 
     def reserve(self, n: int) -> List[int]:
         """Withdraw up to ``n`` free pages from circulation (the serving
@@ -571,7 +579,9 @@ class PageAllocator:
         ``add_free`` returns them, and a reset() reclaims them with the
         generation."""
         with self._lock:
-            return [self._free.pop() for _ in range(min(n, len(self._free)))]
+            out = [self._free.pop() for _ in range(min(n, len(self._free)))]
+            self.mem.page_alloc(out)
+            return out
 
     def free_count(self, slot_id: Optional[int] = None) -> int:
         with self._lock:
@@ -609,6 +619,7 @@ class PageAllocator:
                 if sp is not None:
                     self.pages_freed_total += len(sp.pages)
                     self._free.extend(reversed(sp.pages))
+                    self.mem.page_free(sp.pages)
 
     def requeue_pending(self, pending: List[int]) -> None:
         with self._lock:
@@ -633,3 +644,4 @@ class PageAllocator:
             self._free = list(range(self.num_pages - 1, 0, -1))
             self._by_slot.clear()
             self._pending_free.clear()
+            self.mem.pool_reset()

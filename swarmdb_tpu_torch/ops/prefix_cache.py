@@ -25,7 +25,9 @@ table never points a chain at a page whose (eventual) content differs from
 that chain's tokens.
 
 A copy of ``swarmdb_tpu/ops/prefix_cache.py`` without the page-sanitizer
-factory and the memory-profiler probe (both not ported yet).
+factory (ROADMAP.md, queue 1 item 10c). Every ``match`` feeds its chain
+accesses to the memory accountant's reuse sampler (``mem``, the shared
+null probe under ``SWARMDB_MEMPROF=0``).
 """
 
 from __future__ import annotations
@@ -109,6 +111,12 @@ class PrefixLRU:
         # a later occupant's pages (same contract as
         # ops.paged_kv.PageAllocator.generation).
         self.generation = 0
+        # the memory accountant's reuse-distance probe: every match()
+        # feeds its chain accesses to the sampler (unsampled accesses
+        # cost one hash and one compare)
+        from ..obs.memprof import memprof
+
+        self.mem = memprof().prefix_probe(self.stats)
 
     # ---------------------------------------------------------------- lookup
 
@@ -135,6 +143,10 @@ class PrefixLRU:
                 self.lookups += 1
                 if not pages:
                     self.full_misses += 1
+            m = self.mem
+            if m.enabled:
+                for chain in chains:
+                    m.access(chain)
         return pages
 
     # ------------------------------------------------------------ allocation

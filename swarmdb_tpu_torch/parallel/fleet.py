@@ -160,7 +160,12 @@ class FleetManager:
         for role in ("prefill", "decode"):
             for j in pools[role]:
                 self._role_by_lane[j] = role
-                group.lanes[j]._role = role
+                eng = group.lanes[j]
+                eng._role = role
+                # the profiler's pools_report groups duty cycles and MFU
+                # by role (the shared NullLane has no pool)
+                if hasattr(eng._prof, "set_pool"):
+                    eng._prof.set_pool(role)
 
     # ------------------------------------------------------------- routing
 

@@ -160,6 +160,11 @@ class ShardLaneGroup:
             eng.flight_shard = idx
             eng._flight_dir = self._flight_dir
             eng.overlap_probe = self._make_probe(idx)
+            # the profiler's duty cycles and the accountant's occupancy
+            # rows name lane idx alike (GET /admin/profile, /admin/mem)
+            eng._prof.set_label(f"lane{idx}")
+            if eng.paged is not None:
+                eng.paged.allocator.mem.set_label(f"lane{idx}")
         # SWARMDB_FLEET=prefill:N,decode:M splits the lanes into role
         # pools; built before warmup(), which a prefill lane shortens
         from .fleet import build_fleet, parse_tier_weights

@@ -198,8 +198,7 @@ def test_find_packages_lists_every_port_folder():
 
 @pytest.mark.parametrize("path", [
     "/admin/ha",
-    "/admin/lockcheck", "/admin/pagecheck", "/admin/kerncheck",
-    "/admin/profile", "/admin/mem"])
+    "/admin/lockcheck", "/admin/pagecheck", "/admin/kerncheck"])
 def test_unported_routes_answer_501(path, tmp_path):
     """Every route of the JAX package's server exists in the port's; one
     whose subsystem is not ported answers 501 (admin only) with a body
@@ -287,11 +286,65 @@ def test_served_admin_routes_answer(path, tmp_path):
                 "last_window", "breached", "windows_total",
                 "alerts_total", "alerts", "exemplars"} == set(body)
     else:
+        # the export also carries the profiler's device tracks (cat
+        # "device"), which the cluster merge of host spans does not
         spans = [e for e in body["traceEvents"] if e.get("ph") == "X"]
         assert len(spans) == len([e for e in local["traceEvents"]
-                                  if e.get("ph") == "X"]) >= 2
+                                  if e.get("ph") == "X"
+                                  and e.get("cat") != "device"]) >= 2
         assert {"runtime.send", "broker.publish"} <= {
             e["name"] for e in spans}
         assert body["metadata"]["unreachable"] == []
         assert body["metadata"]["trace_id"] == mid
         assert len(body["metadata"]["nodes"]) == 1
+
+
+@pytest.mark.parametrize("switch", ["on", "off"])
+@pytest.mark.parametrize("path,env,kind", [
+    ("/admin/profile", "SWARMDB_PROFILE", "swarmdb.profile"),
+    ("/admin/mem", "SWARMDB_MEMPROF", "swarmdb.mem")])
+def test_profile_and_mem_routes_answer(path, env, kind, switch, tmp_path,
+                                       monkeypatch):
+    """The device-time profiler's and the memory accountant's routes
+    (501 until they were ported) serve the admin their report, with the
+    JAX package's ``kind`` and ``version``, and 403 a user; with their
+    switch off they answer 503, as in the JAX package."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from swarmdb_tpu_torch.api.app import (UNPORTED_ROUTES, ApiConfig,
+                                           create_app)
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    assert path not in UNPORTED_ROUTES
+    monkeypatch.setenv(env, "1" if switch == "on" else "0")
+
+    async def drive():
+        db = SwarmDB(save_dir=str(tmp_path))
+        client = TestClient(TestServer(create_app(db, ApiConfig(
+            jwt_secret_key="s", rate_limit_per_minute=10_000))))
+        await client.start_server()
+        try:
+            out = []
+            for user in ("tester", "admin"):
+                r = await client.post("/auth/token", json={
+                    "username": user, "password": "pw"})
+                tok = (await r.json())["access_token"]
+                r = await client.get(path, headers={
+                    "Authorization": f"Bearer {tok}"})
+                out.append((r.status, await r.json()))
+            return out
+        finally:
+            await client.close()
+            db.close()
+
+    (user_st, _), (admin_st, body) = asyncio.run(drive())
+    assert user_st == 403
+    if switch == "off":
+        assert admin_st == 503
+        assert env in body["detail"]
+    else:
+        assert admin_st == 200
+        assert body["kind"] == kind and body["version"] == 1
+        assert body["enabled"] is True

@@ -146,9 +146,19 @@ def test_self_check_and_cli(tmp_path):
         text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(report_path.read_text()) == ja.analyze_files(paths)
+    # a file of no known kind is refused; a profile dump is a known kind
+    # since the profiler was ported, but alone it is no trace to analyze
+    # (both packages answer so)
     bad = tmp_path / "bad.json"
-    bad.write_text(json.dumps({"kind": "swarmdb.profile"}))
+    bad.write_text(json.dumps({"kind": "swarmdb.unknown"}))
     out = subprocess.run(
         [sys.executable, "-m", "swarmdb_tpu_torch.obs.analyze", str(bad)],
         cwd=str(REPO), capture_output=True, text=True, timeout=60)
     assert out.returncode == 2 and "not a Chrome trace" in out.stderr
+    prof = tmp_path / "profile_only.json"
+    prof.write_text(json.dumps({"kind": "swarmdb.profile"}))
+    out = subprocess.run(
+        [sys.executable, "-m", "swarmdb_tpu_torch.obs.analyze", str(prof)],
+        cwd=str(REPO), capture_output=True, text=True, timeout=60)
+    assert (out.returncode == 2
+            and "need at least one Chrome trace export" in out.stderr)

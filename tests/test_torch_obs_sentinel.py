@@ -156,18 +156,19 @@ def test_alert_dumps_flight_and_trace_tagged_with_its_id(tmp_path,
 
 def test_window_close_from_counters_equals_jax(tmp_path, monkeypatch):
     """The online path: counter deltas between two forced closes become
-    the same window in both packages. The JAX package's device-time
-    profiler and memory accountant are switched off for it, as the port
-    has neither yet (their window folds return at once): with them on,
-    the JAX window also carries what other engines of this process left
-    in those process-global subsystems."""
+    the same window in both packages. Both packages' device-time
+    profilers and memory accountants are switched off for it: with them
+    on, each window also carries what other engines of this process left
+    in those process-global subsystems (their folds have tests of their
+    own, tests/test_torch_profiler.py and tests/test_torch_memprof.py)."""
     import importlib
 
     # the modules, not the same-named functions obs/__init__ exports
-    jmemprof = importlib.import_module("swarmdb_tpu.obs.memprof")
-    jprofiler = importlib.import_module("swarmdb_tpu.obs.profiler")
-    monkeypatch.setattr(jprofiler, "profile_enabled", lambda: False)
-    monkeypatch.setattr(jmemprof, "memprof_enabled", lambda: False)
+    for pkg in ("swarmdb_tpu", "swarmdb_tpu_torch"):
+        mp_mod = importlib.import_module(f"{pkg}.obs.memprof")
+        prof_mod = importlib.import_module(f"{pkg}.obs.profiler")
+        monkeypatch.setattr(prof_mod, "profile_enabled", lambda: False)
+        monkeypatch.setattr(mp_mod, "memprof_enabled", lambda: False)
     out = {}
     for pkg in PKGS:
         sent, _ = make(pkg, tmp_path, min_completions=1)
