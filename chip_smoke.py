@@ -10,8 +10,9 @@ and exits non-zero at the first failure:
 
 1. device   -- the card's name and power limit (``nvidia-smi``).
 2. build    -- compiles the eight CUDA kernels from
-               ``swarmdb_tpu_torch/csrc`` (one ``nvcc`` per source, started
-               together).
+               ``swarmdb_tpu_torch/csrc`` and their bounds-checked variants
+               (``-DSWARM_KERNCHECK``, the sanitize phase's): one ``nvcc``
+               per source and variant, all started together.
 3. kernels  -- each kernel at the serving path's shapes (Llama-3-8B heads:
                Hq 32, Hkv 8, D 128; 8 slots of 64 pages of 16, or a dense
                slot cache of 8 x 1024 positions) against its plain PyTorch
@@ -143,7 +144,9 @@ and exits non-zero at the first failure:
                ``phase_us_queue_wait`` and ``phase_us_host_sync`` are
                positive, ``/admin/cluster/trace`` gives the span count of
                ``/admin/trace/export``, and, with
-               ``SWARMDB_SLO_TTFT_P95_S=0.001`` for a third round,
+               ``SWARMDB_SLO_TTFT_P95_S=0.001`` for a third round (each
+               try in a window of its own that holds the whole turn, at
+               most ``OBS_ROUND_TRIES`` until an alert names the TTFT),
                ``/admin/slo`` reports the breach with an alert whose shares
                sum to 1 and whose flight and trace dumps land in the
                directory. The paged engine then prints one profiled
@@ -256,6 +259,40 @@ and exits non-zero at the first failure:
                where the plain forward's top-2 gap is below the measured
                max logit difference of the two paths at the first step
                (``first_step_logit_diff``), a near tie.
+7d. sanitize -- the three runtime sanitizers, in a child process
+               (``--sanitize-child``) run with ``SWARMDB_LOCKCHECK=1
+               SWARMDB_PAGECHECK=1 SWARMDB_KERNCHECK=1`` and a temporary
+               ``SWARMDB_FLIGHT_DIR`` once this process has freed its
+               Llama-3-8B weights; the child draws Llama-3-8B at full width
+               and depth from seed 0. (a) Five clean serves
+               (``SANITIZE_SERVES``: paged bf16 and int8, dense, all
+               chunked; rolling paged bf16 with the warm tier, every
+               conversation demoted between its turns and promoted back;
+               a ``prefill:1,decode:1`` fleet over two lanes on cuda:0),
+               each 4 users x 2 turns of ~400 tokens, 32 greedy new
+               tokens, each turn's requests sent together, with the
+               sanitizers on and again off: zero lock cycles, page
+               violations and kernel violations, and every reply's tokens
+               equal to the sanitizers-off ones or parting at a near tie,
+               checked as the lanes phase checks one (``compare_replies``:
+               a plain bf16 forward over the conversation); TTFT and
+               decode tokens/s on and off. (b) The differential soups (``obs/kerncheck.py``)
+               through all eight entry points, f32 and bf16, on the plain
+               and on the checked build: zero mismatches, zero violations;
+               each kernel's checked-build ms per call beside its plain
+               build's. (c) Four seeded defects, each caught with its kind:
+               a write into a freed, poisoned page through
+               ``paged_write_decode`` (``canary`` at the next admission), a
+               ragged launch whose table holds page id P + 5 (``oob-block``
+               from the checked build naming the block and the id; the
+               plain build's clamped result held against the plain version
+               on the clamped table), two ragged rows overlapping in the
+               stream (``write-race`` from the host audit and from the
+               device writer map), two ``make_lock`` locks taken in both
+               orders on two threads (a lockcheck cycle naming both
+               sites). (d) The three routes over HTTP, their ``/metrics``
+               lines, and ``python -m swarmdb_tpu_torch.obs.analyze`` over
+               the dump directory listing all three kinds of dump.
 8. mixtral -- Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128,
                8 experts of FFN 14336, top-2, vocab 32000, rope theta 1e6)
                and 16 of its 32 layers (``reduced``: all 32 do not fit one
@@ -288,11 +325,12 @@ and exits non-zero at the first failure:
                printed beside the non-rolling serve's.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
-serves, the api, obs, prof, rolling and lanes phases and the seven
-Mixtral serves,
-each counted from zero
+serves, the api, obs, prof, rolling and lanes phases, the sanitize
+phase's five sanitizers-on serves and the seven Mixtral serves, each
+counted from zero
 just before it and read just after; a graph replay adds the launches its
-capture recorded) and, last,
+capture recorded; ``checked_ms`` is the bounds-checked build's time) and,
+last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
 """
@@ -3559,21 +3597,40 @@ async def _obs_http(db, svc, eng, slots, name, paged, flight_dir, card):
             bad = [k for k, ok in checks.items() if not ok]
             if bad:
                 fail(f"obs {name} checks failed: {bad}")
-            # a forced breach: TTFT p95 over 1 ms
-            alerts_before = slo["alerts_total"]
+            # a forced breach: TTFT p95 over 1 ms. Each try's turn gets a
+            # window of its own, opened after the engine went idle and
+            # closed after the turn's last completion: a dense turn takes
+            # about as long as a 2 s window, and a deadline inside it
+            # splits its first tokens from its completions (a window
+            # under the minimum completions is idle, and the other
+            # carries no TTFT)
+            def ttft_alert(s):
+                return next((a for a in reversed(s["alerts"]) if any(
+                    b["slo"] == "ttft_p95_s" and b["limit"] == 0.001
+                    for b in a["breaches"])), None)
+
+            async def close_now():
+                db.sentinel._deadline = time.monotonic()
+                return await get("/admin/slo?tick=1")
+
             with env_scope(SWARMDB_SLO_TTFT_P95_S="0.001"):
                 db.sentinel.config.ttft_p95_s = SLOConfig().ttft_p95_s
+            db.sentinel.config.window_s = 3600.0
             third, tries = 0, 0
             while tries < OBS_ROUND_TRIES:
                 tries += 1
+                await idle()
+                await close_now()
                 got, _ = await turn(users, OBS_THIRD)
                 third += len(got)
-                slo = await close_window()
-                if slo["alerts_total"] > alerts_before:
+                await idle()
+                slo = await close_now()
+                if ttft_alert(slo) is not None:
                     break
-            alert = next((a for a in reversed(slo["alerts"]) if any(
-                b["slo"] == "ttft_p95_s" and b["limit"] == 0.001
-                for b in a["breaches"])), None)
+            db.sentinel.config.window_s = SLOConfig().window_s
+            db.sentinel._deadline = (time.monotonic()
+                                     + db.sentinel.config.window_s)
+            alert = ttft_alert(slo)
             shares = alert["diagnosis"]["shares"] if alert else {}
             dumps = sorted(os.listdir(flight_dir))
             breach = {
@@ -4691,6 +4748,759 @@ def run_lanes(card, params):
     return launches
 
 
+# ---------------------------------------------------------------- sanitize
+
+
+#: The sanitize phase's five clean serves: (name, paged, cache dtype,
+#: rolling with the warm tier, fleet). Each runs with the three sanitizers
+#: on and again with them off, 4 users x 2 turns of ~400 tokens, 32 new
+#: greedy tokens, each turn's requests sent together.
+SANITIZE_SERVES = (("paged_bf16_chunked", True, "bfloat16", False, False),
+                   ("paged_int8_chunked", True, "int8", False, False),
+                   ("dense_chunked", None, "bfloat16", False, False),
+                   ("rolling_paged_bf16", True, "bfloat16", True, False),
+                   ("fleet_paged_bf16", True, "bfloat16", False, True))
+SANITIZE_FLAGS = ("SWARMDB_LOCKCHECK", "SWARMDB_PAGECHECK",
+                  "SWARMDB_KERNCHECK")
+#: Rounds of each differential soup (``obs/kerncheck.py``) per build.
+SANITIZE_SOUP_ROUNDS = 4
+
+
+def run_sanitize(card: str):
+    """The sanitize phase in a child process (the flags are read at
+    import by module-level locks, and the child must not share the
+    parent's freed Llama weights): ``python3 chip_smoke.py
+    --sanitize-child <result>`` with ``SWARMDB_LOCKCHECK=1
+    SWARMDB_PAGECHECK=1 SWARMDB_KERNCHECK=1`` and a temporary
+    ``SWARMDB_FLIGHT_DIR``. Returns the child's clean serves' launches and
+    each kernel's checked-build and plain-build ms."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="swarm_sanitize_")
+    result = os.path.join(work, "result.json")
+    env = dict(os.environ, SWARMDB_FLIGHT_DIR=os.path.join(work, "dumps"),
+               SWARMDB_NODE_ID="sanitize", PYTHONPATH=str(ROOT),
+               **{f: "1" for f in SANITIZE_FLAGS})
+    for k in ("SWARMDB_PAGED", "SWARMDB_FLEET", "SWARMDB_ROLLING_KV"):
+        env.pop(k, None)
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sanitize-child",
+         result], cwd=str(ROOT), env=env, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(result):
+        fail(f"sanitize: the child exited with {proc.returncode}")
+    with open(result, encoding="utf-8") as f:
+        out = json.load(f)
+    emit("sanitize", step="done", seconds=seconds,
+         child_seconds=out["seconds"], card=card,
+         launches={k: n for k, n in out["launches"].items() if n})
+    return out["launches"], out["checked_ms"]
+
+
+def sanitize_child(result_path: str) -> int:
+    """The sanitize phase's body, in the child: Llama-3-8B at full width
+    and depth from seed 0; (a) five clean serves with the sanitizers on
+    and off; (b) the differential soups on all eight entry points, plain
+    and checked build; then each kernel timed in both builds; (c) four
+    seeded defects, each caught with its kind; (d) the three routes over
+    HTTP, their ``/metrics`` lines and the analyzer over the dumps."""
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    missing = [f for f in SANITIZE_FLAGS if os.environ.get(f) != "1"]
+    if missing:
+        fail(f"sanitize: the child runs with {missing} unset")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    build.build_all(checked=True)   # built with the parent's, up front
+    with torch.no_grad():
+        params = llama.init_params(get_config("llama3-8b"), seed=0,
+                                   device=dev)
+        torch.cuda.synchronize()
+        emit("sanitize", step="weights", seconds=time.perf_counter() - t0)
+        launches = sanitize_clean_serves(params)
+        sanitize_soups(dev)
+        checked_ms = sanitize_timing(dev)
+        sanitize_seeded(params, dev)
+        sanitize_endpoints()
+    out = dict(launches=launches, checked_ms=checked_ms,
+               seconds=time.perf_counter() - t0)
+    with open(result_path, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _registries():
+    from swarmdb_tpu_torch.obs import kerncheck, lockcheck, pagecheck
+
+    return lockcheck.registry(), pagecheck.registry(), kerncheck.registry()
+
+
+def _violation_counts() -> dict:
+    lk, pc, kc = _registries()
+    return {"lock_cycles": len(lk.cycles()),
+            "page_violations": len(pc.violations()),
+            "kernel_violations": len(kc.violations())}
+
+
+def sanitize_serve(params, name, paged, kind, rolling, fleet, on: bool):
+    """One clean serve with the sanitizers on (``on``) or off: the engine
+    (or the two-lane fleet on ``cuda:0``) built and served under the flags
+    (the kernels' checked build is picked per launch, the checked classes
+    and dispatchers when the engine is built). Returns every request's
+    (prompt, tokens, logprobs, reason), the launches, TTFT and decode
+    tokens/s, and the tier and fleet counters; ``conv`` maps each user
+    message's id to its (turn, user)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import (ServingService,
+                                                   build_backend_engine)
+    from swarmdb_tpu_torch.backend.tokenizer import default_tokenizer
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.parallel import build_serving_engine
+
+    flags = {f: "1" if on else None for f in SANITIZE_FLAGS}
+    env = dict(flags, SWARMDB_CHUNKED="1", SWARMDB_PAGED=None,
+               SWARMDB_ROLLING_KV="1" if rolling else "0",
+               SWARMDB_FLEET="prefill:1,decode:1" if fleet else None,
+               SWARMDB_FLEET_TRANSIT_MB=LANE_TRANSIT_MB if fleet else None,
+               SWARMDB_FLEET_TIERS=None, SWARMDB_PREFIX_TOKENS=None,
+               SWARMDB_EMIT_RING=None)
+    users = [f"user{i}" for i in range(4)]
+    with env_scope(**env):
+        torch.cuda.empty_cache()
+        db = SwarmDB(broker=LocalBroker(),
+                     save_dir=tempfile.mkdtemp(prefix="swarm_sanitize_"))
+        cfg = get_llama_cfg()
+        kv = getattr(torch, kind)
+        if fleet:
+            eng, info = build_serving_engine(
+                "llama3-8b", ["cuda:0", "cuda:0"], max_batch=LANE_BATCH,
+                max_seq=1024, paged=True, page_size=16, decode_chunk=8,
+                params=params, kv_dtype=kv, metrics=db.metrics)
+            if eng.fleet is None:
+                fail(f"sanitize {name}: the group built no fleet")
+            eng.warmup()
+            tok = default_tokenizer(cfg.vocab_size)
+        else:
+            eng, tok = build_backend_engine(
+                "llama3-8b", seed=0, device="cuda", params=params,
+                paged=paged, kv_dtype=kv if paged else None,
+                metrics=db.metrics)
+        svc = ServingService(db, eng, tok, backend_id="h100-0")
+        records, conv = [], {}
+        submit = svc._submit
+
+        def recording_submit(req):
+            done = req.on_done
+
+            def fin(rid, toks, reason, _r=req, _d=done):
+                records.append(dict(
+                    prompt=list(_r.prompt), toks=list(toks), reason=reason,
+                    lps=list(_r.metadata.get("logprobs") or []),
+                    mid=_r.metadata.get("message_id"),
+                    resume_len=_r.resume_len))
+                if _d is not None:
+                    _d(rid, toks, reason)
+
+            req.on_done = fin
+            return submit(req)
+
+        svc._submit = recording_submit
+        try:
+            for a in users + ["assistant"]:
+                db.register_agent(a)
+            db.assign_llm_backend("assistant", "h100-0")
+            svc.start(warmup=not fleet)
+            if rolling:
+                svc._tier.min_idle_s = 0.0
+            c = db.metrics.counters
+            base = {k: c[k].value for k in ("tokens_generated",
+                                            "phase_us_decode")}
+            ac.reset_launches()
+            for turn, text in enumerate((USER_TEXT, FOLLOW_UP)):
+                if rolling and turn == 1:
+                    # every parked conversation to the warm tier: turn 2
+                    # promotes it back
+                    for u in users:
+                        wait_parked(svc, (u, "assistant"))
+                    with svc._rolling_lock:
+                        svc._tier.demote_now(10 ** 6)
+                for u in users:
+                    conv[db.send_message(
+                        u, "assistant", text.format(u=u),
+                        metadata={"generation": {"max_new_tokens": 32,
+                                                 "temperature": 0.0}})] = (
+                        turn, u)
+                got = await_replies(db, users)
+                if len(got) < len(users):
+                    fail(f"sanitize {name} ({'on' if on else 'off'}) turn "
+                         f"{turn + 1}: {len(got)} of {len(users)} replies")
+            launches = dict(ac.LAUNCHES)
+            ttft = sorted(db.metrics.latencies[
+                "send_to_first_token_s"].values())
+            dec_s = (c["phase_us_decode"].value
+                     - base["phase_us_decode"]) / 1e6
+            gen = c["tokens_generated"].value - base["tokens_generated"]
+            out = dict(records=records, conv=conv, launches=launches,
+                       ttft_p50_s=statistics.median(ttft),
+                       decode_tokens_per_s=gen / dec_s if dec_s else None,
+                       demotions=c["tier_demotions"].value,
+                       promotions=c["tier_promotions"].value,
+                       handoffs=(eng.fleet.stats()["handoffs"] if fleet
+                                 else None),
+                       kerncheck_engine=bool(getattr(
+                           eng.lanes[0] if fleet else eng, "_kerncheck",
+                           False)))
+            # the page sanitizer's hooks: the paged engines' checked
+            # allocator, the dense engine's checked side-pool prefix cache
+            out["pagecheck_engine"] = [
+                e._pagecheck is not None
+                or type(e._prefix).__name__ == "CheckedPrefixLRU"
+                for e in (eng.lanes if fleet else [eng])]
+            return out
+        finally:
+            svc.stop()
+            db.close()
+            del svc, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def get_llama_cfg():
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    return get_config("llama3-8b")
+
+
+def serve_contexts(name, out) -> dict:
+    """Each reply of a ``sanitize_serve`` by its (turn, user): the full
+    token context the model saw before its first new token, and its
+    record. A rolling turn's prompt is only the delta after the kept pages
+    (``resume_len`` tokens of the previous turn's context and reply), so
+    its context is rebuilt from that turn's."""
+    by = {}
+    for r in out["records"]:
+        key = out["conv"].get(r["mid"])
+        if key is None:
+            fail(f"sanitize {name}: a reply to no message of the serve")
+        by[key] = r
+    ctx = {}
+    for key in sorted(by):
+        r = by[key]
+        if r["resume_len"]:
+            prev = ctx.get((key[0] - 1, key[1]))
+            if prev is None:
+                fail(f"sanitize {name}: a resumed turn {key} with no turn "
+                     f"before it")
+            seen = prev[0] + prev[1]["toks"]
+            tail = seen[r["resume_len"]:]
+            if r["prompt"][:len(tail)] != tail:
+                fail(f"sanitize {name}: turn {key}'s delta does not start "
+                     f"with the tokens past its kept pages")
+            ctx[key] = (seen[:r["resume_len"]] + r["prompt"], r)
+        else:
+            ctx[key] = (list(r["prompt"]), r)
+    return ctx
+
+
+def plain_step_logits(params, ctx, toks):
+    """The plain bf16 forward (``llama.forward``, one sequence, a dense
+    cache) over ``ctx`` and ``toks``: the f32 logits that pick each of
+    ``toks``, one row per step."""
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+
+    cfg = get_llama_cfg()
+    seq = list(ctx) + list(toks)
+    T0, T, dev = len(ctx), len(seq), params["embed"].device
+    logits, _ = llama.forward(
+        params, cfg, torch.tensor([seq], dtype=torch.int32, device=dev),
+        torch.arange(T, dtype=torch.int32, device=dev)[None],
+        llama.init_kv_cache(cfg, 1, T, device=dev),
+        logits_at=torch.arange(T0 - 1, T - 1, device=dev))
+    return logits.float()
+
+
+def compare_replies(name, params, ref, got) -> dict:
+    """Every sanitizers-on reply against the sanitizers-off one of the same
+    conversation turn: equal tokens, or a parting at a near tie checked as
+    the lanes phase checks one. A plain bf16 forward over the turn's
+    context and the sanitizers-off tokens gives each step's logits; the
+    tolerance is the largest difference this run measured between any two
+    of the three paths (off, on, plain) in the chosen tokens' log-
+    probabilities where they agree; at the parting step both runs' tokens
+    must lie within it of the plain forward's top logit. A conversation
+    that parted leaves its next turn without a partner: counted, never
+    compared."""
+    import torch
+
+    def lp_at(rec, s):
+        off = len(rec["toks"]) - len(rec["lps"])
+        return rec["lps"][s - off] if s >= off else None
+
+    rctx, gctx = serve_contexts(name, ref), serve_contexts(name, got)
+    if sorted(rctx) != sorted(gctx):
+        fail(f"sanitize {name}: the two serves answered different turns")
+    equal = orphans = 0
+    parted_users, diffs, tops = set(), [], []
+    for key in sorted(gctx):
+        (c, o), (_, r) = rctx[key], gctx[key]
+        if r["reason"] not in ("length", "eos"):
+            fail(f"sanitize {name}: a reply ended {r['reason']}")
+        if key[1] in parted_users:
+            orphans += 1
+            continue
+        if gctx[key][0] != c:
+            fail(f"sanitize {name}: turn {key} saw another context with "
+                 f"the sanitizers on, its conversation never parted")
+        a, b = o["toks"], r["toks"]
+        i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None and len(a) != len(b):
+            fail(f"sanitize {name}: replies of {len(a)} and {len(b)} "
+                 f"tokens agree to the shorter one's end")
+        logits = plain_step_logits(params, c, a)
+        lp = torch.log_softmax(logits, -1)
+        for s in range(len(a) if i is None else i):
+            vals = [float(lp[s, a[s]]), lp_at(o, s), lp_at(r, s)]
+            vals = [v for v in vals if v is not None]
+            diffs += [abs(x - y) for k, x in enumerate(vals)
+                      for y in vals[k + 1:]]
+        if i is None:
+            equal += 1
+            continue
+        parted_users.add(key[1])
+        z = logits[i]
+        top = float(z.max())
+        tops.append(dict(step=i, turn=key[0], lp_off=lp_at(o, i),
+                         lp_on=lp_at(r, i),
+                         gap_off=top - float(z[a[i]]),
+                         gap_on=top - float(z[b[i]])))
+    tol = max(diffs, default=0.0)
+    for p in tops:
+        p["tol"] = tol
+        p["near_tie"] = p["gap_off"] < tol and p["gap_on"] < tol
+        if not p["near_tie"]:
+            fail(f"sanitize {name}: sanitizers-on tokens part from the "
+                 f"sanitizers-off ones at step {p['step']}, not at a near "
+                 f"tie: {p}")
+    return dict(equal=equal, near_ties=len(tops), after_a_tie=orphans,
+                tol=tol, partings=tops)
+
+
+def sanitize_clean_serves(params) -> dict:
+    """(a) The five clean serves, each off then on; zero lock cycles, page
+    violations and kernel violations after them all. Returns the
+    sanitizers-on serves' launches (counted from zero before each, read
+    after it)."""
+    total = {}
+    for spec in SANITIZE_SERVES:
+        name, paged, kind, rolling, fleet = spec
+        t0 = time.perf_counter()
+        ref = sanitize_serve(params, *spec, on=False)
+        got = sanitize_serve(params, *spec, on=True)
+        cmp = compare_replies(name, params, ref, got)
+        checks = {
+            "flags on: checked allocator and kernel sanitizer in the engine":
+                all(got["pagecheck_engine"]) and got["kerncheck_engine"],
+            "flags off: plain engine": not any(ref["pagecheck_engine"])
+                and not ref["kerncheck_engine"],
+            "8 replies": len(got["records"]) >= 8,
+        }
+        if rolling:
+            checks["demoted and promoted"] = (got["demotions"] > 0
+                                             and got["promotions"] > 0)
+        if fleet:
+            checks["handoffs"] = got["handoffs"] >= 4
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"sanitize {name}: {bad}")
+        for k, n in got["launches"].items():
+            total[k] = total.get(k, 0) + n
+        emit("sanitize", step="a_clean_serve", serve=name, **cmp,
+             seconds=time.perf_counter() - t0,
+             ttft_p50_s_on=got["ttft_p50_s"], ttft_p50_s_off=ref["ttft_p50_s"],
+             decode_tokens_per_s_on=got["decode_tokens_per_s"],
+             decode_tokens_per_s_off=ref["decode_tokens_per_s"],
+             demotions=got["demotions"], promotions=got["promotions"],
+             handoffs=got["handoffs"],
+             launches={k: n for k, n in got["launches"].items() if n},
+             **_violation_counts())
+    counts = _violation_counts()
+    if any(counts.values()):
+        lk, pc, kc = _registries()
+        fail(f"sanitize (a): the clean serves left {counts}: "
+             f"{lk.cycles()[:2]} {pc.violations()[:2]} "
+             f"{kc.violations()[:2]}")
+    _, pc, kc = _registries()
+    emit("sanitize", step="a_clean", **counts,
+         kernel_checks=kc.report()["checks"],
+         page_pools=len(pc.report()["pools"]))
+    return total
+
+
+def sanitize_soups(dev) -> None:
+    """(b) The differential soups through all eight entry points (the
+    ragged prefill plain and int8, the six decode kernels), in f32 and
+    bf16, on the plain and on the checked build: zero mismatching rounds,
+    zero violations (the checked build's record included). The launches
+    are a comparison's, kept out of ``LAUNCHES``."""
+    import torch
+
+    from swarmdb_tpu_torch.obs import kerncheck as kc
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    t0 = time.perf_counter()
+    out = {}
+    with ac.launches_into({}):
+        for checked in (False, True):
+            with ac.use_checked_build(checked):
+                for dt in (torch.float32, torch.bfloat16):
+                    for quant in (False, True):
+                        tol = (kc.parity_tol("int8") if quant else
+                               1e-4 if dt == torch.float32 else
+                               kc.parity_tol("bf16"))
+                        key = (f"{'checked' if checked else 'plain'}_"
+                               f"{str(dt)[6:]}_{'int8' if quant else 'pages'}")
+                        out[key] = dict(
+                            ragged_prefill=kc.differential_ragged_prefill(
+                                seed=11, rounds=SANITIZE_SOUP_ROUNDS,
+                                tol=tol, quantized=quant, device=dev,
+                                dtype=dt),
+                            decode=kc.differential_paged_decode(
+                                seed=12, rounds=SANITIZE_SOUP_ROUNDS,
+                                tol=tol, quantized=quant, device=dev,
+                                dtype=dt))
+    torch.cuda.synchronize()
+    ac.kerncheck_poll(dev)
+    bad = {k: v for k, v in out.items() if any(v.values())}
+    counts = _violation_counts()
+    emit("sanitize", step="b_soups", rounds=SANITIZE_SOUP_ROUNDS,
+         mismatching_rounds=out, seconds=time.perf_counter() - t0,
+         checks=kc.registry().report()["checks"], **counts)
+    if bad or counts["kernel_violations"]:
+        fail(f"sanitize (b): soups mismatched {bad}; "
+             f"{kc.registry().violations()[:3]}")
+
+
+def sanitize_timing(dev) -> dict:
+    """Each kernel at the kernels phase's bf16 serving shape, its checked
+    build's ms per call beside its plain build's (CUDA graphs of 10
+    calls, median of 30 replays; plain, checked, checked, plain). Returns
+    the checked ms per kernel."""
+    import torch
+
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    bf, i8 = torch.bfloat16, torch.int8
+    rows, out = {}, {}
+    with ac.launches_into({}):
+        for name, sp in kernel_specs().items():
+            c = sp["case"](bf, i8 if sp["quant"] else bf, dev)
+            t = {}
+            for checked in (False, True, True, False):
+                with ac.use_checked_build(checked):
+                    t.setdefault(checked, []).append(
+                        time_graph(lambda: sp["kernel"](**c)))
+            plain_ms = min(t[False])
+            checked_ms = min(t[True])
+            out[name] = checked_ms
+            rows[name] = dict(plain_ms=plain_ms, checked_ms=checked_ms,
+                              checked_over_plain=checked_ms / plain_ms)
+    ac.kerncheck_poll(dev)
+    emit("sanitize", step="b_timing", kernels=rows,
+         **_violation_counts())
+    if _violation_counts()["kernel_violations"]:
+        fail("sanitize (b): the timed checked launches recorded a "
+             "violation")
+    return out
+
+
+def sanitize_seeded(params, dev) -> None:
+    """(c) Four seeded defects, each caught with its kind (registries
+    reset first: the clean part is over)."""
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    for reg in _registries():
+        reg.reset()
+    ac.kerncheck_poll(dev)
+    found = dict(canary=seed_canary(params, dev), oob_block=seed_oob(dev),
+                 write_race=seed_race(dev), lock_cycle=seed_lock_cycle())
+    _, pc, kc = _registries()
+    emit("sanitize", step="c_seeded", caught=found,
+         page_kinds=sorted({v["kind"] for v in pc.violations()}),
+         kernel_kinds=sorted({v["kind"] for v in kc.violations()}))
+
+
+def seed_canary(params, dev) -> dict:
+    """A write into a freed, poisoned page through ``paged_write_decode``
+    on a Llama-3-8B paged engine (prefix cache off, so freed pages
+    linger poisoned): the page sanitizer's canary check at the page's
+    next admission names it."""
+    import threading
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.ops.paged_kv import paged_write_decode, pool_layer
+
+    _, pc, _ = _registries()
+    with env_scope(SWARMDB_CHUNKED="1", SWARMDB_PAGED=None,
+                   SWARMDB_PREFIX="0", SWARMDB_ROLLING_KV="0"):
+        eng, _tok = build_backend_engine(
+            "llama3-8b", seed=0, device="cuda", params=params, paged=True,
+            max_batch=4, max_seq=256, kv_pool_tokens=4 * 256,
+            kv_dtype=torch.bfloat16)
+    eng.start()
+    try:
+        def wave(tags):
+            done = [threading.Event() for _ in tags]
+            for t, d in zip(tags, done):
+                eng.submit(GenRequest(
+                    prompt=[1000 + t] * 40,
+                    sampling=SamplingParams(max_new_tokens=8),
+                    on_done=lambda rid, toks, reason, _d=d: _d.set()))
+            for d in done:
+                if not d.wait(120):
+                    fail("sanitize (c1): a request never finished")
+
+        wave([1, 2])
+        wave([3])     # reclaims the first wave's pages, reuses half
+        shadow = pc._pools[eng.paged.allocator.pagecheck.pool_id]
+        poisoned = [p for p in range(1, eng.paged.num_pages)
+                    if shadow.pages[p].poisoned]
+        if not poisoned:
+            fail("sanitize (c1): no freed page carries the canary")
+        rogue = poisoned[0]
+        cfg = get_llama_cfg()
+        table = torch.zeros((1, eng.paged.allocator.maxp),
+                            dtype=torch.int32, device=dev)
+        table[0, 0] = rogue
+        kv = torch.ones((1, 1, cfg.n_kv_heads, cfg.head_dim),
+                        dtype=torch.bfloat16, device=dev)
+        with torch.cuda.stream(eng.stream):
+            paged_write_decode(pool_layer(eng.cache["k"], 1),
+                               pool_layer(eng.cache["v"], 1), kv, kv,
+                               torch.tensor([[5]], device=dev), table)
+        torch.cuda.synchronize()
+        hit = []
+        for i in range(6):
+            wave([10 + 2 * i, 11 + 2 * i])
+            hit = [v for v in pc.violations() if v["kind"] == "canary"]
+            if hit:
+                break
+        if not hit or rogue not in hit[0]["pages"]:
+            fail(f"sanitize (c1): the rogue write to page {rogue} was not "
+                 f"caught: {pc.violations()}")
+        return dict(page=rogue, message=hit[0]["message"])
+    finally:
+        eng.stop()
+        del eng
+
+
+def seed_oob(dev) -> dict:
+    """A ragged launch (the kernels phase's bf16 512-token wave) whose
+    table holds page id P + 5: the checked build records an oob-block
+    naming the block and the id; the plain build records nothing and
+    returns its clamped result, held against the plain version on the
+    clamped table."""
+    import torch
+
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    sp = kernel_specs()["ragged_prefill"]
+    c = prefill_case(torch.bfloat16, torch.bfloat16, dev)
+    P = c["k_pages"].shape[0]
+    c["row_tables"][0, 0] = P + 5     # row 0 reads its first prefix page
+    with ac.launches_into({}):
+        with ac.use_checked_build(False):
+            plain = sp["kernel"](**c)
+        torch.cuda.synchronize()
+        quiet = ac.kerncheck_poll(dev)
+        with ac.use_checked_build(True):
+            checked = sp["kernel"](**c)
+        torch.cuda.synchronize()
+        hits = ac.kerncheck_poll(dev)
+    clamped = dict(c, row_tables=c["row_tables"].clamp(0, P - 1))
+    want = sp["plain"](**clamped)
+    err = float((plain.float() - want.float()).abs().max())
+    builds = float((plain.float() - checked.float()).abs().max())
+    oob = [h for h in hits if h["kind"] == "oob-block"]
+    if (quiet or not oob or oob[0]["raw"] != P + 5
+            or oob[0]["bound"] != P or not builds < 2e-2
+            or not err < 2e-2):
+        fail(f"sanitize (c2): plain-build record {quiet}, checked-build "
+             f"record {hits}, plain vs checked build {builds}, clamped "
+             f"result vs plain version {err}")
+    return dict(kernel=oob[0]["kernel"],
+                block=[oob[0]["bx"], oob[0]["by"], oob[0]["bz"]],
+                page_id=oob[0]["raw"], bound=oob[0]["bound"],
+                hits=oob[0]["hits"], clamped_vs_plain_version=err,
+                plain_vs_checked_build=builds)
+
+
+def seed_race(dev) -> dict:
+    """Two ragged rows overlapping in the stream, through the checked
+    dispatcher onto the checked build: a write-race from the host audit
+    (naming both rows) and from the device writer map (naming both
+    blocks)."""
+    import torch
+
+    from swarmdb_tpu_torch.obs import kerncheck
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.ops import layers
+
+    _, _, kc = _registries()
+    c = prefill_case(torch.bfloat16, torch.bfloat16, dev)
+    c["starts"][2] = c["starts"][0]    # rows 0 and 2 share positions
+    checked_dispatch = kerncheck.checked_ragged_prefill_dispatch(
+        layers.ragged_prefill_dispatch)
+    with ac.launches_into({}):
+        checked_dispatch(c["q"], c["sfx_k"], c["sfx_v"], c["k_pages"],
+                         c["v_pages"], c["row_tables"], c["starts"],
+                         c["lens"], c["prefix_lens"])
+        torch.cuda.synchronize()
+        ac.kerncheck_poll(dev)
+    races = [v for v in kc.violations() if v["kind"] == "write-race"]
+    host = [v for v in races if "rows" in v["where"]]
+    device = [v for v in races if "blocks" in v["where"]]
+    if not host or not device:
+        fail(f"sanitize (c3): write-race from the host audit {host}, from "
+             f"the device writer map {device}")
+    return dict(host_rows=host[0]["where"]["rows"],
+                device_blocks=device[0]["where"]["blocks"],
+                device_kernel=device[0]["kernel"])
+
+
+def seed_lock_cycle() -> dict:
+    """Two ``make_lock`` locks taken in both orders on two threads: one
+    lockcheck cycle naming both sites."""
+    import threading
+
+    from swarmdb_tpu_torch.utils import sync
+
+    lk, _, _ = _registries()
+    a = sync.make_lock("chip_smoke.sanitize.lock_a")
+    b = sync.make_lock("chip_smoke.sanitize.lock_b")
+
+    def order(x, y):
+        with x:
+            with y:
+                pass
+
+    for x, y in ((a, b), (b, a)):
+        t = threading.Thread(target=order, args=(x, y))
+        t.start()
+        t.join(10)
+    cycles = lk.cycles()
+    if (len(cycles) != 1 or set(cycles[0]["sites"])
+            != {"chip_smoke.sanitize.lock_a", "chip_smoke.sanitize.lock_b"}):
+        fail(f"sanitize (c4): lock cycles {cycles}")
+    return dict(sites=cycles[0]["sites"])
+
+
+def sanitize_endpoints() -> None:
+    """(d) ``/admin/lockcheck``, ``/admin/pagecheck`` and
+    ``/admin/kerncheck`` over HTTP (create_app on 127.0.0.1:0), their
+    ``/metrics`` lines, then ``python -m swarmdb_tpu_torch.obs.analyze``
+    over a trace exported into the dump directory: it must list all
+    three kinds of dump."""
+    import tempfile
+
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+    from swarmdb_tpu_torch.obs import TRACER
+
+    async def drive(db):
+        import aiohttp
+        from aiohttp import web
+
+        from swarmdb_tpu_torch.api.app import ApiConfig, create_app
+
+        runner = web.AppRunner(create_app(db, ApiConfig(
+            jwt_secret_key="chip-smoke", rate_limit_per_minute=100_000)))
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        url = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+        try:
+            async with aiohttp.ClientSession() as s:
+                async with s.post(url + "/auth/token", json={
+                        "username": "admin", "password": "pw"}) as r:
+                    hdr = {"Authorization":
+                           f"Bearer {(await r.json())['access_token']}"}
+                out = {}
+                for path in ("/admin/lockcheck", "/admin/pagecheck",
+                             "/admin/kerncheck"):
+                    async with s.get(url + path, headers=hdr) as r:
+                        out[path] = (r.status, await r.json())
+                async with s.get(url + "/metrics") as r:
+                    out["metrics"] = await r.text()
+                return out
+        finally:
+            await runner.cleanup()
+
+    dumps = os.environ["SWARMDB_FLIGHT_DIR"]
+    db = SwarmDB(save_dir=tempfile.mkdtemp(prefix="swarm_sanitize_db_"))
+    try:
+        out = asyncio.run(drive(db))
+    finally:
+        db.close()
+    drop_app_cache()
+    lines = {k: [ln for ln in out["metrics"].splitlines()
+                 if ln.startswith(k)]
+             for k in ("swarmdb_lock_inversion_cycles",
+                       "swarmdb_page_violations_total",
+                       "swarmdb_kernel_violations_total")}
+    routes = {}
+    for p in ("/admin/lockcheck", "/admin/pagecheck", "/admin/kerncheck"):
+        st, body = out[p]
+        routes[p] = dict(status=st, keys=sorted(body)[:8],
+                         violations=len(body.get("violations",
+                                                 body.get("cycles", []))))
+    for reg in _registries():
+        reg.dump_to(dumps)
+    trace = os.path.join(dumps, "trace.json")
+    with open(trace, "w", encoding="utf-8") as f:
+        json.dump(TRACER.to_chrome_trace(), f)
+    proc = subprocess.run(
+        [sys.executable, "-m", "swarmdb_tpu_torch.obs.analyze", trace],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        report = {}
+    listed = {k: [dict(node=d.get("node"),
+                       count=d.get("cycles", d.get("violations")),
+                       kinds=d.get("violation_kinds", d.get("cycle_sites")))
+                  for d in report.get(k, [])]
+              for k in ("lockcheck_dumps", "pagecheck_dumps",
+                        "kerncheck_dumps")}
+    emit("sanitize", step="d_endpoints", routes=routes, metrics=lines,
+         analyzer_rc=proc.returncode, analyzer=listed)
+    bad = ([p for p, r in routes.items() if r["status"] != 200
+            or not r["violations"]]
+           + [k for k, v in lines.items() if not v]
+           + [k for k, v in listed.items() if not v])
+    if proc.returncode != 0 or bad:
+        fail(f"sanitize (d): {bad}; analyzer rc {proc.returncode}: "
+             f"{proc.stderr[-1500:]}")
+
+
 # ----------------------------------------------------------------- mixtral
 
 
@@ -5155,6 +5965,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from swarmdb_tpu_torch.ops import build
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--sanitize-child":
+        return sanitize_child(sys.argv[2])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     name = torch.cuda.get_device_name(0)
@@ -5172,7 +5984,9 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    logs = build.build_all()
+    # both variants of every kernel, plain and bounds-checked (the
+    # sanitize phase's), one nvcc each, all started together
+    logs = build.build_all(checked=True)
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: ptxas_summary(v) for k, v in logs.items()})
 
@@ -5193,10 +6007,17 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         free_weights(params)   # Llama-3-8B's weights go before Mixtral's
         del params
+        # the child draws its own Llama-3-8B: it runs while this process
+        # holds no weights
+        san_launches, checked_ms = run_sanitize(card)
+        for k, n in san_launches.items():
+            launches[k] = launches.get(k, 0) + n
         for k, n in run_mixtral(card).items():
             launches[k] = launches.get(k, 0) + n
     for k, n in launches.items():
         rows[k]["launches"] = n
+    for k, ms in checked_ms.items():
+        rows[k]["checked_ms"] = ms
     idle = [k for k, row in rows.items() if not row["launches"]]
     if idle:
         fail(f"kernels never launched by the serves: {idle}")

@@ -24,10 +24,12 @@ the device-time profiler's and memory accountant's lines;
 carries the profiler's ``device:<lane>`` tracks. ``/admin/slo`` serves
 the sentinel and ``/admin/cluster/trace`` the local trace through the
 cluster merge (the fan-out to other nodes rides the data plane,
-ROADMAP.md queue 1 item 12). Routes whose subsystem is not ported yet
-answer 501 with a body that names its ROADMAP.md item (queue 1):
-``/admin/lockcheck``, ``/admin/pagecheck``, ``/admin/kerncheck`` (item
-10c) and ``/admin/ha`` (item 12).
+ROADMAP.md queue 1 item 12). ``/admin/lockcheck``, ``/admin/pagecheck``
+and ``/admin/kerncheck`` serve the three runtime sanitizers' reports (503
+with their flag off: an empty report would read as "no bugs" when nothing
+watched), and ``/metrics`` carries their lines. Routes whose subsystem is
+not ported yet answer 501 with a body that names its ROADMAP.md item
+(queue 1): ``/admin/ha`` (item 12).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from ..core.runtime import SwarmDB
 from ..obs import HISTOGRAMS, TRACER, propagate
 from ..obs.memprof import memprof, memprof_enabled
 from ..obs.profiler import profile_enabled
+from ..utils.sync import lockcheck_enabled
 from ..obs.profiler import profiler as kernel_profiler
 from ..utils import jwt as jwt_util
 from . import schemas
@@ -64,14 +67,22 @@ DB_KEY: web.AppKey = web.AppKey("db", object)
 CONFIG_KEY: web.AppKey = web.AppKey("config", object)
 SERVING_KEY: web.AppKey = web.AppKey("serving", object)
 
+def pagecheck_enabled() -> bool:
+    """The page sanitizer's flag (``ops.paged_kv.pagecheck_enabled``, read
+    here without importing the ops)."""
+    return os.environ.get("SWARMDB_PAGECHECK", "0") not in ("", "0")
+
+
+def kerncheck_enabled() -> bool:
+    """The kernel sanitizer's flag (``ops.layers.kerncheck_enabled``)."""
+    return os.environ.get("SWARMDB_KERNCHECK", "0") not in ("", "0")
+
+
 #: Routes of the JAX package's server whose subsystem the port has not
 #: yet: path -> (what it serves, the ROADMAP.md queue 1 item). They
 #: answer 501 naming the item.
 UNPORTED_ROUTES = {
     "/admin/ha": ("the HA control plane", "12"),
-    "/admin/lockcheck": ("the lock sanitizer", "10c"),
-    "/admin/pagecheck": ("the page sanitizer", "10c"),
-    "/admin/kerncheck": ("the kernel sanitizer", "10c"),
 }
 
 
@@ -629,6 +640,24 @@ def create_app(
         supervisor = getattr(serving, "supervisor", None)
         if supervisor is not None:
             lines.extend(await _run_sync(supervisor.prometheus_lines))
+        # the runtime sanitizers, each only with its flag on: lock
+        # contention, hold time and inversion cycles; page violations and
+        # shadow states; kernel violations and check tallies
+        if lockcheck_enabled():
+            from ..obs import lockcheck
+
+            lines.extend(await _run_sync(
+                lockcheck.registry().prometheus_lines))
+        if pagecheck_enabled():
+            from ..obs import pagecheck
+
+            lines.extend(await _run_sync(
+                pagecheck.registry().prometheus_lines))
+        if kerncheck_enabled():
+            from ..obs import kerncheck
+
+            lines.extend(await _run_sync(
+                kerncheck.registry().prometheus_lines))
         # the device-time profiler (SWARMDB_PROFILE, default on): MFU,
         # per-lane duty cycles, per-variant device seconds / invocations
         if profile_enabled():
@@ -776,6 +805,47 @@ def create_app(
             raise _error(503, "memory accountant off: unset "
                               "SWARMDB_MEMPROF=0")
         return web.json_response(await _run_sync(memprof().report))
+
+    async def admin_lockcheck(request: web.Request) -> web.Response:
+        """GET /admin/lockcheck: the runtime lock sanitizer's report
+        (``SWARMDB_LOCKCHECK=1``): per-site acquire, contention and hold
+        stats, the observed acquisition-order edges and any inversion
+        cycles. 503 with the flag off."""
+        require_admin(current_agent(request))
+        if not lockcheck_enabled():
+            raise _error(503, "lock sanitizer off: set SWARMDB_LOCKCHECK=1")
+        from ..obs import lockcheck
+
+        return web.json_response(
+            await _run_sync(lockcheck.registry().report))
+
+    async def admin_pagecheck(request: web.Request) -> web.Response:
+        """GET /admin/pagecheck: the runtime page sanitizer's report
+        (``SWARMDB_PAGECHECK=1``): per-pool shadow-state counts and churn,
+        and every recorded violation with owners and stacks. 503 with the
+        flag off."""
+        require_admin(current_agent(request))
+        if not pagecheck_enabled():
+            raise _error(503, "page sanitizer off: set SWARMDB_PAGECHECK=1")
+        from ..obs import pagecheck
+
+        return web.json_response(
+            await _run_sync(pagecheck.registry().report))
+
+    async def admin_kerncheck(request: web.Request) -> web.Response:
+        """GET /admin/kerncheck: the kernel sanitizer's report
+        (``SWARMDB_KERNCHECK=1``): check tallies and every recorded
+        violation (out-of-bounds block, write race, short-written output
+        row, parity break) with the kernel and the block. 503 with the
+        flag off."""
+        require_admin(current_agent(request))
+        if not kerncheck_enabled():
+            raise _error(503, "kernel sanitizer off: set "
+                              "SWARMDB_KERNCHECK=1")
+        from ..obs import kerncheck
+
+        return web.json_response(
+            await _run_sync(kerncheck.registry().report))
 
     def unported(path: str):
         what, item = UNPORTED_ROUTES[path]
@@ -942,6 +1012,9 @@ def create_app(
         web.get("/admin/lanes", admin_lanes),
         web.get("/admin/profile", admin_profile),
         web.get("/admin/mem", admin_mem),
+        web.get("/admin/lockcheck", admin_lockcheck),
+        web.get("/admin/pagecheck", admin_pagecheck),
+        web.get("/admin/kerncheck", admin_kerncheck),
     ] + [web.get(path, unported(path)) for path in UNPORTED_ROUTES])
 
     async def on_shutdown(app: web.Application) -> None:

@@ -42,16 +42,17 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Callable, ContextManager, Dict, Optional, Sequence, Tuple
+from typing import (Any, Callable, ContextManager, Dict, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from ..ops import attention_cuda
+from ..utils.sync import make_lock
 from .sampling import sample_tokens, token_logprob
 
 #: (use_filters, assume_greedy) of variants 0, 1 and 2, as the JAX engine
@@ -61,8 +62,8 @@ VARIANTS: Tuple[Tuple[bool, bool], ...] = ((True, False), (False, False),
 
 
 # one per CUDA device index: the device is the process's, so is its lock
-_DEVICE_LOCKS: Dict[int, threading.Lock] = {}
-_DEVICE_LOCKS_GUARD = threading.Lock()
+_DEVICE_LOCKS: Dict[int, Any] = {}
+_DEVICE_LOCKS_GUARD = make_lock("backend.decode_graphs._DEVICE_LOCKS_GUARD")
 
 
 def device_lock(device: torch.device) -> ContextManager:
@@ -71,7 +72,11 @@ def device_lock(device: torch.device) -> ContextManager:
     if device.type != "cuda":
         return contextlib.nullcontext()
     with _DEVICE_LOCKS_GUARD:
-        return _DEVICE_LOCKS.setdefault(device.index, threading.Lock())
+        lock = _DEVICE_LOCKS.get(device.index)
+        if lock is None:
+            lock = _DEVICE_LOCKS[device.index] = make_lock(
+                "backend.decode_graphs.device_lock")
+        return lock
 
 
 def variant_for(temp: np.ndarray, topk: np.ndarray, topp: np.ndarray,

@@ -149,13 +149,15 @@ from ..obs.metrics import HIST_DECODE_CHUNK, HIST_QUEUE_WAIT, HIST_TTFT
 from ..obs.profiler import NullLane
 from ..obs.profiler import profiler as kernel_profiler
 from ..obs.tracer import TRACER
-from ..ops.attention_cuda import decode_kernel_name
+from ..ops.attention_cuda import (decode_kernel_name, kerncheck_poll,
+                                  kerncheck_record)
+from ..ops.layers import kerncheck_enabled
 from ..ops.paged_kv import (KV_DTYPES, PageAllocator, QuantPool,
-                             paged_write_chunk, paged_write_ragged,
-                             pool_dtype, pool_insert_pages, pool_insert_raw,
-                             pool_layer, pool_page_bytes,
-                             set_page_table_rows)
-from ..ops.prefix_cache import PrefixLRU, page_chains
+                             canary_check, canary_fill, paged_write_chunk,
+                             paged_write_ragged, pool_dtype,
+                             pool_insert_pages, pool_insert_raw, pool_layer,
+                             pool_page_bytes, set_page_table_rows)
+from ..ops.prefix_cache import PrefixLRU, make_prefix_lru, page_chains
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
 from ..utils.sync import make_condition, make_rlock
@@ -490,8 +492,10 @@ class Engine:
                 if max_seq % paged.page_size:
                     raise ValueError("max_seq must be a page-size multiple "
                                      "for prefix caching")
-                self._prefix = PrefixLRU(paged.num_pages, paged.page_size,
-                                         manage_free=False)
+                self._prefix = make_prefix_lru(paged.num_pages,
+                                               paged.page_size,
+                                               manage_free=False,
+                                               pool=paged.allocator)
                 self._prefix_pp_buckets = self._pp_widths(paged.allocator.maxp)
                 self._prefix_max_pages = self._prefix_pp_buckets[-1]
                 self._prefix_pages_fwd = prefix_fns[0] if prefix_fns else None
@@ -505,8 +509,8 @@ class Engine:
                                      "for prefix caching")
                 self._prefix_lane_fwd, self._prefix_init_pool = prefix_fns
                 self._prefix_num_pages = max(2, prefix_pages)
-                self._prefix = PrefixLRU(self._prefix_num_pages,
-                                         prefix_page_size)
+                self._prefix = make_prefix_lru(self._prefix_num_pages,
+                                               prefix_page_size)
                 self._prefix_pool = self._prefix_init_pool(
                     self._prefix_num_pages, prefix_page_size)
                 self._prefix_pp_buckets = self._pp_widths(
@@ -543,6 +547,27 @@ class Engine:
             # the engine's own, dumped on restart and on an SLO alert
             self.tracer = TRACER
             self.flight = FlightRecorder()
+            # the runtime sanitizers: the page sanitizer is on when the
+            # allocator came from its checked factory, the kernel sanitizer
+            # when SWARMDB_KERNCHECK was set at this engine's build (the
+            # checked ragged write; the kernels' bounds-checked build is
+            # picked per launch); each attaches the flight recorder
+            self._pagecheck = (getattr(paged.allocator, "pagecheck", None)
+                               if paged is not None else None)
+            if self._pagecheck is not None:
+                from ..obs.pagecheck import registry as pagecheck_registry
+
+                pagecheck_registry().attach_flight(self.flight)
+            self._kerncheck = kerncheck_enabled()
+            self._write_ragged = paged_write_ragged
+            if self._kerncheck:
+                from ..obs import kerncheck
+
+                kerncheck.registry().attach_flight(self.flight)
+                self._write_ragged = kerncheck.checked_paged_write_ragged(
+                    paged_write_ragged)
+                if self.device.type == "cuda":
+                    kerncheck_record(self.device)  # before any capture
             self._flight_dir = flight_dir
             self._flight_last_had_work = False
             # the SLO sentinel (obs/sentinel.py): the runtime owns it and
@@ -829,7 +854,9 @@ class Engine:
     def _reset_state(self) -> None:
         """Rebuild the device state on the engine's stream, holding the
         device's graph lock: dropping the runner destroys its graphs,
-        which must not happen inside a sibling lane's capture."""
+        which must not happen inside a sibling lane's capture. The
+        allocator's reset tells the page sanitizer the pool was rebuilt
+        (every page free, no stamps, no poison)."""
         with device_lock(self.device), self._on_stream():
             self._rebuild_state()
 
@@ -1313,6 +1340,10 @@ class Engine:
         # first, then return the pages (a stale row never sees reuse)
         pending = alloc.take_pending_frees()
         if pending:
+            freed_pages: List[int] = []
+            if self._pagecheck is not None:
+                for sid in pending:
+                    freed_pages.extend(alloc.pages_for(sid))
             try:
                 set_page_table_rows(self.cache["page_table"], pending,
                                     np.zeros((len(pending), alloc.maxp),
@@ -1321,6 +1352,8 @@ class Engine:
                 alloc.requeue_pending(pending)
                 raise
             alloc.release_taken(pending)
+            if freed_pages:
+                self._pagecheck_poison(freed_pages)
         self._promote_sources = [(ev, src) for ev, src
                                  in self._promote_sources if not ev.query()]
         if self.on_tier_drain is not None:
@@ -1415,6 +1448,12 @@ class Engine:
                 if stale:
                     continue  # the stale pops may have unblocked the head
                 return
+            if self._pagecheck is not None:
+                # stamp owners, then verify the canary of every re-
+                # allocated page: an overwritten canary is a write landed
+                # between free and re-allocation
+                for (sid, _row), req in zip(rows, popped):
+                    self._pagecheck_admit(sid, req)
             set_page_table_rows(self.cache["page_table"],
                                 [r[0] for r in rows],
                                 np.stack([r[1] for r in rows]))
@@ -2084,6 +2123,14 @@ class Engine:
                 it[3] = consumed + take
                 filled += take
                 r += 1
+            if self._kerncheck:
+                # descriptor audit before the wave ships: a bad page id, a
+                # trash-page target or a duplicate (page, offset) cell is
+                # an engine bug the write would silently scatter
+                from ..obs.kerncheck import check_wave_descriptors
+
+                check_wave_descriptors(tok_row, tok_pos, tables,
+                                       self.paged.allocator.num_pages, ps)
             mark = self._wave_begin()
             tok_row_t, tok_pos_t = self._tensor(tok_row), self._tensor(tok_pos)
             tables_t = self._tensor(tables)
@@ -2095,7 +2142,7 @@ class Engine:
             self._sample_into_slots(
                 logits, gather, torch.clamp(plens_t + lens_t - 1, min=0),
                 scatter)
-            paged_write_ragged(k_pool, v_pool, sk, sv, tok_row_t, tok_pos_t,
+            self._write_ragged(k_pool, v_pool, sk, sv, tok_row_t, tok_pos_t,
                                tables_t)
             # the dispatch profile's (ragged, width) row: tiny flush waves
             # are the ones the ragged min width is to be set from
@@ -2139,6 +2186,13 @@ class Engine:
 
     def _activate(self, batch: List[Tuple[int, GenRequest]],
                   t0: float) -> None:
+        if self._pagecheck is not None:
+            # dispatch-time page validation: every page the slot's row was
+            # stamped with at allocation is still live at the same alloc
+            # epoch (a page freed and re-allocated in between is the
+            # stale-table race)
+            for slot_id, _req in batch:
+                self._pagecheck.validate_row(slot_id)
         for slot_id, req in batch:
             slot = self.slots[slot_id]
             slot.active = True
@@ -2234,6 +2288,35 @@ class Engine:
             self._prof.dispatch(key, t_dispatch_ns, out.device_ns())
         self._process_host_block(block, lps, snapshot, t_dispatch_ns)
 
+    # ------------------------------------------------- page sanitizer
+    # Both helpers run only under SWARMDB_PAGECHECK=1 (self._pagecheck set
+    # by the checked allocator); the flag-off path never reaches them. The
+    # canary read-back is the sanitizer's own sync: it is not a host wait
+    # of the serving loop and does not count into engine_host_syncs.
+
+    def _pagecheck_poison(self, pages: List[int]) -> None:
+        """Stamp freed pages' K/V with the canary, in place on the
+        engine's stream: after every gather already enqueued there that
+        reads them (a tier demotion, the fleet's stage-1 gather)."""
+        canary_fill(self.cache["k"], self.cache["v"], pages)
+        self._pagecheck.mark_poisoned(pages)
+
+    def _pagecheck_admit(self, slot_id: int, req: GenRequest) -> None:
+        """Stamp the slot's owner (the aliasing reports name both
+        requests), then verify the canary of every poisoned page the
+        slot was just handed: a mismatch means something WROTE to the
+        page while it was free."""
+        pc = self._pagecheck
+        pc.set_owner(slot_id, req.request_id)
+        poisoned = pc.poisoned_pages(self.paged.allocator.pages_for(slot_id))
+        if not poisoned:
+            return
+        bad = canary_check(self.cache["k"], self.cache["v"], poisoned)
+        if bad:
+            pc.canary_violation(bad,
+                                detail=f"at admission of {req.request_id}")
+        pc.clear_poison(poisoned)
+
     def _host_wait(self, fetch: Callable[[], Any]) -> Any:
         """One host wait on the device (``fetch``), counted as a host
         sync: an ``engine.host_sync`` span, ``engine_host_syncs`` and the
@@ -2248,6 +2331,10 @@ class Engine:
         self.metrics.counters["phase_us_host_sync"].inc((t1 - t0) // 1000)
         if self._prof_waves:
             self._drain_wave_times()
+        if self._kerncheck:
+            # the checked kernels' violation record, copied to host memory
+            # behind every checked launch: complete up to this wait
+            kerncheck_poll(self.device)
         return out
 
     def _process_host_block(self, block: np.ndarray, lps: np.ndarray,

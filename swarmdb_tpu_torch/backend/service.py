@@ -84,7 +84,8 @@ from ..models import llama, mixtral
 from ..obs import TRACER
 from ..obs.memprof import memprof
 from ..models.configs import ModelConfig, get_config
-from ..ops.paged_kv import (KV_DTYPES, PageAllocator, kv_dtype_name,
+from ..ops.layers import attention_dispatchers
+from ..ops.paged_kv import (KV_DTYPES, kv_dtype_name, make_page_allocator,
                             pages_per_slot)
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.hashing import stable_partition
@@ -242,22 +243,27 @@ def build_backend_engine(
     num_pages = 1 + -(-pool_tokens // page_size)  # +1 trash page
     pool_kind = kv_dtype or KV_DTYPES[kv_dtype_name()]
     temp_dtype = torch.bfloat16 if pool_kind == torch.int8 else pool_kind
+    # the attention dispatchers (the kernel sanitizer's checked ones under
+    # SWARMDB_KERNCHECK=1, read here)
+    ragged_attn, decode_attn = attention_dispatchers()
     prefill_ragged = None
     if hasattr(mod, "forward_ragged_prefill"):
         prefill_ragged = (
             lambda p, toks, trow, tpos, tables, st, ln, pl, pk, pv:
                 mod.forward_ragged_prefill(p, cfg, toks, trow, tpos, tables,
-                                           st, ln, pl, pk, pv))
+                                           st, ln, pl, pk, pv,
+                                           attention=ragged_attn))
     paged_spec = PagedKV(
         init_pool=lambda: mod.init_paged_cache(
             cfg, max_batch, seq, num_pages, page_size, dtype=pool_kind,
             device=dev),
         page_size=page_size,
         num_pages=num_pages,
-        allocator=PageAllocator(num_pages, page_size, seq, max_batch),
+        allocator=make_page_allocator(num_pages, page_size, seq,
+                                      max_batch),
         prefill_ragged=prefill_ragged,
         decode_forward=lambda p, t, pos, c: mod.forward_paged(
-            p, cfg, t, pos, c),
+            p, cfg, t, pos, c, attention=decode_attn),
     )
     # two-segment chunked decode (the pool frozen per chunk, one merge);
     # SWARMDB_CHUNKED=0 decodes one step at a time through decode_forward

@@ -34,8 +34,13 @@ Threading, as in the JAX package:
   (``ServingService._on_pool_pressure``: engine thread, registry lock
   held), spilling idle conversations before any is evicted to nothing.
 
-The page sanitizer's custody hooks (``obs/pagecheck`` in the JAX package)
-are not ported yet (ROADMAP.md, queue 1 item 10c).
+Under the page sanitizer (``SWARMDB_PAGECHECK=1``, ``obs/pagecheck.py``)
+every move is mirrored into the pool's shadow state, as in the JAX
+package: a demotion marks the pages ``host_resident`` before the gather,
+a promotion turns its reserved pages into rolling custody, and a warm
+entry that leaves the store without promotion clears its key. Referencing
+a demoted page, demoting a key twice and promoting into pages that were
+not reserved are violations.
 """
 
 from __future__ import annotations
@@ -268,6 +273,9 @@ class TierManager:
             # the ids already
             self._finish_cold(key, st, len(pages), free=False)
             return 0
+        pc = getattr(eng, "_pagecheck", None)
+        if pc is not None:
+            pc.on_demote(pages, key)
         t0 = time.perf_counter()
         evicted: List[Any] = []
 
@@ -324,6 +332,9 @@ class TierManager:
             eng.rolling_free(st["pages"])
         self.service._rolling.pop(key, None)
         self.service._mem.drop(key)
+        pc = getattr(eng, "_pagecheck", None)
+        if pc is not None:
+            pc.on_host_drop(key)
         self.note_cold(key, n_pages)
 
     def _warm_to_cold(self, key: Any) -> None:
@@ -337,6 +348,9 @@ class TierManager:
             n = -(-st["len"] // ps)
             svc._rolling.pop(key, None)
             svc._mem.drop(key)
+        pc = getattr(self.engine, "_pagecheck", None)
+        if pc is not None:
+            pc.on_host_drop(key)
         self.warm_evictions += 1
         svc.db.metrics.counters["tier_warm_evictions"].inc()
         self.note_cold(key, n)
@@ -364,10 +378,15 @@ class TierManager:
             except BaseException:
                 alloc.add_free(ids)  # nothing owns them yet
                 raise
+        pc = getattr(eng, "_pagecheck", None)
         if len(ids) < n:
             alloc.add_free(ids)
+            if pc is not None:
+                pc.on_host_drop(key)
             self.note_cold(key, n)
             return None
+        if pc is not None:
+            pc.on_promote(ids, key)
         self.promotions += 1
         self.service.db.metrics.counters["tier_promotions"].inc()
         self.service._mem.resident(key, n)
@@ -380,6 +399,9 @@ class TierManager:
         """The warm copy is obsolete (restart, or a non-clean finish):
         discard it without cold accounting."""
         self.store.drop(key)
+        pc = getattr(self.engine, "_pagecheck", None)
+        if pc is not None:
+            pc.on_host_drop(key)
 
     # ---------------------------------------------------------- cold ledger
 

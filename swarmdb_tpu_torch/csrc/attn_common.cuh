@@ -151,6 +151,117 @@ __device__ __forceinline__ void load_rows(int code, float* dst, int nrows,
   }
 }
 
+#ifdef SWARM_KERNCHECK
+// ---------------------------------------------------------------------
+// The bounds-checked build (nvcc -DSWARM_KERNCHECK; ops/build.py builds
+// it beside the plain one into lib<name>-kc-<hash>.so, and
+// ops/attention_cuda.py launches it under SWARMDB_KERNCHECK=1): the card's
+// counterpart of the JAX kernel sanitizer's bounds-checked refs and
+// per-grid-step write diff. Every clamp of the plain build still clamps,
+// so a checked launch stays memory-safe, and also records an `oob-block`
+// violation; on eager launches every output store stamps a writer map
+// (one entry per output row and query head) with the writing block's
+// linear id, and a second block writing the same entry records a
+// `write-race`. A record is written once (atomicCAS on `taken`); `hits`
+// counts every further hit. Slot 0 holds the first oob-block, slot 1 the
+// first write-race. The record lives in device memory and is copied to a
+// page-locked host mirror on the launch's stream after every launch, so
+// the host reads it at a wait it already makes, without a sync of its
+// own. With the macro undefined none of this is compiled.
+struct KcRecord {
+  int hits, taken, entry, site;
+  int bx, by, bz, rank;  // the recording block; rank -1 outside a cluster
+  int raw, bound;        // the bad index and its bound (race: row, head)
+  int other, ox, oy, oz;  // race: the first writer's linear id and (x, y, z)
+  int pad[2];
+};
+enum KcSite : int {
+  kKcPage = 1,      // page id outside [0, P)
+  kKcColumn = 2,    // page-table column outside [0, maxp)
+  kKcRowLen = 3,    // a ragged row's [start, start + len) past the stream
+  kKcCoverage = 4,  // a decode walk past the cache's coverage
+  kKcWriter = 5,    // two blocks wrote one output row and head
+};
+// What a checked kernel gets: the device record, the writer map ([rows *
+// heads] int32, -1 = unwritten; null on a captured launch), the entry
+// point's index in ops/build.py's KERNELS, the query heads per row.
+struct KcArgs {
+  KcRecord* rec;
+  int* wmap;
+  int entry;
+  int heads;
+};
+// Armed by swarm_kc_arm right before each launch, on the launching
+// thread (ctypes calls of one launch come from one thread).
+struct KcHost {
+  KcRecord* rec = nullptr;
+  KcRecord* host = nullptr;
+  int* wmap = nullptr;
+  int entry = -1;
+  int heads = 0;
+};
+static thread_local KcHost kc_host_state;
+
+inline KcArgs kc_args() {
+  return KcArgs{kc_host_state.rec, kc_host_state.wmap, kc_host_state.entry,
+                kc_host_state.heads};
+}
+
+// After a launch: copy the record to its host mirror on the same stream.
+inline cudaError_t kc_publish(cudaError_t e, cudaStream_t stream) {
+  if (e != cudaSuccess || kc_host_state.rec == nullptr) return e;
+  return cudaMemcpyAsync(kc_host_state.host, kc_host_state.rec,
+                         2 * sizeof(KcRecord), cudaMemcpyDeviceToHost,
+                         stream);
+}
+
+__device__ __forceinline__ int kc_cluster_rank() {
+  unsigned n, r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return n > 1 ? static_cast<int>(r) : -1;
+}
+
+__device__ __noinline__ void kc_record(const KcArgs& kc, int slot, int site,
+                                       int raw, int bound, int other) {
+  if (kc.rec == nullptr) return;
+  KcRecord* r = kc.rec + slot;
+  atomicAdd(&r->hits, 1);
+  if (atomicCAS(&r->taken, 0, 1) != 0) return;
+  r->entry = kc.entry;
+  r->site = site;
+  r->bx = blockIdx.x, r->by = blockIdx.y, r->bz = blockIdx.z;
+  r->rank = kc_cluster_rank();
+  r->raw = raw, r->bound = bound, r->other = other;
+  if (other >= 0) {
+    r->ox = other % gridDim.x;
+    r->oy = (other / gridDim.x) % gridDim.y;
+    r->oz = other / (gridDim.x * gridDim.y);
+  }
+  __threadfence();
+}
+
+// Stamp output (row, head) with `writer` (a block's linear id); a
+// different earlier writer is a write-race.
+__device__ __forceinline__ void kc_stamp(const KcArgs& kc, int64_t row,
+                                         int head, int writer) {
+  if (kc.wmap == nullptr) return;
+  const int old = atomicCAS(kc.wmap + row * kc.heads + head, -1, writer);
+  if (old != -1 && old != writer)
+    kc_record(kc, 1, kKcWriter, static_cast<int>(row), head, old);
+}
+
+__device__ __forceinline__ int kc_block_id() {
+  return blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+}
+
+#define SWARM_KC(...) , __VA_ARGS__
+#define SWARM_KC_DONE(e, stream) swarm::kc_publish((e), (stream))
+#else
+#define SWARM_KC(...)
+#define SWARM_KC_DONE(e, stream) (e)
+#endif
+
 // The rows of one KV head of a paged pool seen through one page-table row:
 // position -> page id (clamped into the pool, so a bad table entry cannot
 // read outside it) -> row pointer, and for int8 pages the page's scale.
@@ -159,11 +270,20 @@ template <typename TP, int D> struct PagedRows {
   const float* scales;  // [P, Hkv] for int8 pages, unused otherwise
   const int* trow;      // [maxp] page ids
   int P, ps, Hkv, maxp, h;
+#ifdef SWARM_KERNCHECK
+  KcArgs kc;
+#endif
 
   __device__ __forceinline__ int page(int pos) const {
     int col = pos / ps;
+#ifdef SWARM_KERNCHECK
+    if (col >= maxp) kc_record(kc, 0, kKcColumn, col, maxp, -1);
+#endif
     col = col < maxp ? col : maxp - 1;
     const int pg = trow[col];
+#ifdef SWARM_KERNCHECK
+    if (pg < 0 || pg >= P) kc_record(kc, 0, kKcPage, pg, P, -1);
+#endif
     return pg < 0 ? 0 : (pg >= P ? P - 1 : pg);
   }
   __device__ __forceinline__ const TP* row(int pos) const {
@@ -388,6 +508,21 @@ __device__ __forceinline__ void widen_i8_bf16(const uint4& u, uint4& lo,
 }
 
 }  // namespace swarm
+
+#ifdef SWARM_KERNCHECK
+// Arm the checked build for this thread's next launch: the device record
+// and its page-locked host mirror, the writer map (or null), the entry
+// point's index in KERNELS, the query heads per output row.
+extern "C" int swarm_kc_arm(void* rec, void* host, void* wmap, int entry,
+                            int heads) {
+  swarm::kc_host_state.rec = static_cast<swarm::KcRecord*>(rec);
+  swarm::kc_host_state.host = static_cast<swarm::KcRecord*>(host);
+  swarm::kc_host_state.wmap = static_cast<int*>(wmap);
+  swarm::kc_host_state.entry = entry;
+  swarm::kc_host_state.heads = heads;
+  return 0;
+}
+#endif
 
 // Error text for a code returned by an entry point (ctypes side).
 #define SWARM_DEFINE_ERROR_STRING(name)                 \

@@ -109,6 +109,9 @@ struct DecodeArgs {
   float scale;
   void* out;               // [B, Hq, D]
   int B, Hq, Hkv, P, ps, maxp, S, Kc;
+#ifdef SWARM_KERNCHECK
+  KcArgs kc;               // the checked build's record (attn_common.cuh)
+#endif
 };
 
 // Where a cache keeps position pos of slot b, KV head h: a row index in
@@ -122,7 +125,7 @@ template <typename TP, int D> struct PagedCache {
                                                 float* sv) {
     const PagedRows<TP, D> pr{static_cast<const TP*>(a.k), a.ks,
                               a.table + (int64_t)b * a.maxp,
-                              a.P, a.ps, a.Hkv, a.maxp, h};
+                              a.P, a.ps, a.Hkv, a.maxp, h SWARM_KC(a.kc)};
     const int pg = pr.page(pos);
     if constexpr (std::is_same<TP, int8_t>::value) {
       *sk = __ldg(a.ks + (int64_t)pg * a.Hkv + h);
@@ -323,6 +326,10 @@ __device__ __forceinline__ void decode_cluster_block(const DecodeArgs& a) {
     qpos = a.pos[b] - 1;
     end = min(a.pos[b], Cache::coverage(a));
   }
+#ifdef SWARM_KERNCHECK
+  if (tid == 0 && a.pos[b] > Cache::coverage(a))
+    kc_record(a.kc, 0, kKcCoverage, a.pos[b], Cache::coverage(a), -1);
+#endif
   int tile0 = 0;
   if (a.window > 0) {
     const int lo = qpos - a.window + 1;
@@ -450,6 +457,10 @@ __device__ __forceinline__ void decode_cluster_block(const DecodeArgs& a) {
     const float den = fmaxf(L, 1e-30f);
     const float o[4] = {A.x / den, A.y / den, A.z / den, A.w / den};
     const int64_t off = qoff + 4 * (int64_t)x;
+#ifdef SWARM_KERNCHECK
+    // the writer of a (slot, head) row is its cluster: rank 0's linear id
+    if (c == 0) kc_stamp(a.kc, b, h * G + g, kc_block_id() - rank);
+#endif
     if (a.q_code == kBF16) {
       __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.out) + off;
 #pragma unroll
@@ -523,6 +534,12 @@ cudaError_t launch_decode(const DecodeArgs& a, cudaStream_t stream) {
   attr[0].val.clusterDim.x = kDecodeSplit;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+#ifdef SWARM_KERNCHECK
+  DecodeArgs ka = a;
+  ka.kc = kc_args();
+#else
+  const DecodeArgs& ka = a;
+#endif
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kDecodeSplit, a.Hkv, a.B);
   cfg.blockDim = dim3(kDecodeThreads);
@@ -530,8 +547,8 @@ cudaError_t launch_decode(const DecodeArgs& a, cudaStream_t stream) {
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  e = cudaLaunchKernelEx(&cfg, kernel, ka);
+  return SWARM_KC_DONE(e != cudaSuccess ? e : cudaGetLastError(), stream);
 }
 
 // One instance per head dim the wrappers accept (ops/attention_cuda.py).

@@ -92,7 +92,7 @@ ragged_prefill_kernel(int q_code, int s_code,
                       const int* __restrict__ plens,
                       void* __restrict__ out,  // [W, Hq, D]
                       int W, int Hq, int Hkv, int P, int ps, int maxp,
-                      int window, float scale) {
+                      int window, float scale SWARM_KC(const KcArgs kc)) {
   constexpr int TPR = kPrefillTPR;
   constexpr int KT = kPrefillKT;
   extern __shared__ float4 smem4[];
@@ -118,6 +118,10 @@ ragged_prefill_kernel(int q_code, int s_code,
   const int g = qrow % G;
   const int x = start + qi;  // stream index of the query
   const bool live = qrow < QT * G && qi < len && x < W;
+#ifdef SWARM_KERNCHECK
+  if (qrow < QT * G && qi < len && x >= W && sub == 0)
+    kc_record(kc, 0, kKcRowLen, x, W, -1);
+#endif
   const int q_abs = plen + qi;  // absolute position of the query
 
   RowState<D, TPR> st;
@@ -127,8 +131,8 @@ ragged_prefill_kernel(int q_code, int s_code,
   // prefix segment: positions [lo, plen) through the row's page table,
   // never past the table's coverage
   const int* trow = tables + (int64_t)r * maxp;
-  const PagedRows<TP, D> kr{kp, ks, trow, P, ps, Hkv, maxp, h};
-  const PagedRows<TP, D> vr{vp, vs, trow, P, ps, Hkv, maxp, h};
+  const PagedRows<TP, D> kr{kp, ks, trow, P, ps, Hkv, maxp, h SWARM_KC(kc)};
+  const PagedRows<TP, D> vr{vp, vs, trow, P, ps, Hkv, maxp, h SWARM_KC(kc)};
   int tile0 = 0;
   if (window > 0) {
     const int lo = plen + q_first - window + 1;  // lowest key any query sees
@@ -165,6 +169,9 @@ ragged_prefill_kernel(int q_code, int s_code,
   }
 
   if (live) st.store(q_code, out, ((int64_t)x * Hq + h * G + g) * D, sub);
+#ifdef SWARM_KERNCHECK
+  if (live && sub == 0) kc_stamp(kc, x, h * G + g, kc_block_id());
+#endif
 }
 
 template <typename TP, int D>
@@ -183,8 +190,8 @@ cudaError_t launch_ragged_prefill(
       <<<grid, kPrefillQRows * kPrefillTPR, smem, stream>>>(
           q_code, s_code, q, sk, sv, static_cast<const TP*>(kp), ks,
           static_cast<const TP*>(vp), vs, tables, starts, lens, plens, out, W,
-          Hq, Hkv, P, ps, maxp, window, scale);
-  return cudaGetLastError();
+          Hq, Hkv, P, ps, maxp, window, scale SWARM_KC(kc_args()));
+  return SWARM_KC_DONE(cudaGetLastError(), stream);
 }
 
 // One instance per head dim the wrappers accept (ops/attention_cuda.py).

@@ -127,7 +127,8 @@ ragged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,   // [W, Hq, D]
                           const int* __restrict__ plens,
                           __nv_bfloat16* __restrict__ out,  // [W, Hq, D]
                           int W, int R, int Hq, int Hkv, int P, int ps,
-                          int maxp, int window, float scale) {
+                          int maxp, int window,
+                          float scale SWARM_KC(const KcArgs kc)) {
   using L = MmaSmem<D, NG>;
   using bf16 = __nv_bfloat16;
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
@@ -179,6 +180,10 @@ ragged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,   // [W, Hq, D]
   const int r = pick[0];
   if (r < 0) return;  // past the wave's tiles: uniform over the block
   const int start = starts[r];
+#ifdef SWARM_KERNCHECK
+  if (tid == 0 && lens[r] > W - start)
+    kc_record(kc, 0, kKcRowLen, start + lens[r], W, -1);
+#endif
   const int len = min(lens[r], W - start);  // never past the stream
   const int plen = plens[r];
   const int q_first = pick[1] * QT;
@@ -206,7 +211,7 @@ ragged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,   // [W, Hq, D]
   int* walk = reinterpret_cast<int*>(smem + L::walk_off) + grp * 4 * KT;
 
   const int* trow = tables + static_cast<int64_t>(r) * maxp;
-  const PagedRows<TP, D> kr{kp, ks, trow, P, ps, Hkv, maxp, h};
+  const PagedRows<TP, D> kr{kp, ks, trow, P, ps, Hkv, maxp, h SWARM_KC(kc)};
   const int64_t hd = static_cast<int64_t>(h) * D;
   const int64_t rstride = static_cast<int64_t>(Hkv) * D;  // pool row stride
 
@@ -557,6 +562,9 @@ ragged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,   // [W, Hq, D]
         cc * 8;
     *reinterpret_cast<uint4*>(out + off) =
         *reinterpret_cast<const uint4*>(Qs + m * DS + cc * 8);
+#ifdef SWARM_KERNCHECK
+    if (cc == 0) kc_stamp(kc, start + q_first + t, h * G + g, kc_block_id());
+#endif
   }
 }
 
@@ -608,8 +616,9 @@ cudaError_t launch_ragged_prefill_mma(
           static_cast<const bf16*>(q), static_cast<const bf16*>(sk),
           static_cast<const bf16*>(sv), static_cast<const TP*>(kp), ks,
           static_cast<const TP*>(vp), vs, tables, starts, lens, plens,
-          static_cast<bf16*>(out), W, R, Hq, Hkv, P, ps, maxp, window, scale);
-  return cudaGetLastError();
+          static_cast<bf16*>(out), W, R, Hq, Hkv, P, ps, maxp, window, scale
+          SWARM_KC(kc_args()));
+  return SWARM_KC_DONE(cudaGetLastError(), stream);
 }
 
 // Two groups per block when the wave's query tiles x KV heads (an upper

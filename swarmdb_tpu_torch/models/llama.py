@@ -236,6 +236,8 @@ def forward_ragged_prefill(
     prefix_lens: torch.Tensor,  # [R] int32 tokens already in the row's pages
     pool_k: Any,               # [L, P, ps, Hkv, D] main page pool, or int8
     pool_v: Any,
+    *,
+    attention: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed ragged prefill forward: one token stream per admission wave,
     each token attending its own row's prefix pages in place plus the
@@ -244,11 +246,13 @@ def forward_ragged_prefill(
     [L, W, Hkv, D] in the pool's logical dtype, stream order, for
     ``paged_kv.paged_write_ragged``). The pool is only read. Llama only:
     models.mixtral has no ragged forward, as in the JAX package (its paged
-    engine prefills in row-bucketed waves)."""
+    engine prefills in row-bucketed waves). ``attention`` replaces the
+    dispatcher (the engine's pick: ``layers.attention_dispatchers``)."""
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name!r} is a MoE config: models.mixtral has no ragged "
             "prefill forward")
+    attention = attention or ragged_prefill_dispatch
     W = tokens.shape[0]
     L = pool_data(pool_k).shape[0]
     kdt, vdt = pool_dtype(pool_k), pool_dtype(pool_v)
@@ -265,7 +269,7 @@ def forward_ragged_prefill(
         # (up to quantization, for an int8 pool)
         ks = k[0].to(kdt).contiguous()
         vs = v[0].to(vdt).contiguous()
-        attn = ragged_prefill_dispatch(
+        attn = attention(
             q[0].contiguous(), ks, vs, pool_layer(pool_k, l),
             pool_layer(pool_v, l), row_tables, starts, lens, prefix_lens,
             window=cfg.sliding_window)
@@ -331,14 +335,16 @@ def forward_paged(
     cache: Dict[str, Any],     # {"k","v","page_table"}: written in place
     *,
     ffn: Optional[FFN] = None,
+    attention: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Single-step paged decode forward (``SWARMDB_CHUNKED=0``): in every
     layer the step's K/V is written into its page first
     (``paged_kv.paged_write_decode``; a requant window for an int8 pool),
     then each slot attends its pages up to and including its position
-    (``layers.paged_attention_dispatch``). Returns (fp32 logits [B, 1, V],
-    the cache)."""
+    (``layers.paged_attention_dispatch``, or ``attention``, the engine's
+    pick). Returns (fp32 logits [B, 1, V], the cache)."""
     ffn = _ffn_of(cfg, ffn)
+    attention = attention or paged_attention_dispatch
     x = params["embed"][tokens.long()]                   # [B, 1, dim]
     B = x.shape[0]
     table = cache["page_table"]
@@ -350,8 +356,8 @@ def forward_paged(
                            cfg.head_dim, cos, sin)
         kp, vp = pool_layer(cache["k"], l), pool_layer(cache["v"], l)
         paged_write_decode(kp, vp, k, v, positions, table)
-        attn = paged_attention_dispatch(q.contiguous(), kp, vp, table,
-                                        positions, window=cfg.sliding_window)
+        attn = attention(q.contiguous(), kp, vp, table, positions,
+                         window=cfg.sliding_window)
         x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
         x = x + ffn(h2, lp, l)

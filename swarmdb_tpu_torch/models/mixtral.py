@@ -33,7 +33,7 @@ kernels, in the JAX package.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -286,10 +286,12 @@ def forward_chunked(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, cache: Dict[str, Any],
-                  moe_dispatch: Optional[str] = None
+                  moe_dispatch: Optional[str] = None, *,
+                  attention: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Single-step paged decode (``llama.forward_paged``: kernel 3, or 6
     over int8 pages) with the MoE block."""
     _check_moe(cfg)
     return llama.forward_paged(params, cfg, tokens, positions, cache,
-                               ffn=_moe_ffn(cfg, moe_dispatch))
+                               ffn=_moe_ffn(cfg, moe_dispatch),
+                               attention=attention)

@@ -23,8 +23,11 @@ names and exports for these:
   validation against the running tier (``GET /admin/mem``).
 - :mod:`.cost`: the per-variant FLOP and byte prices the engine
   harvests into the profiler at warmup.
-
-The sanitizers (ROADMAP.md, queue 1 item 10c) are not ported yet.
+- :mod:`.lockcheck`, :mod:`.pagecheck`, :mod:`.kerncheck`: the three
+  runtime sanitizers behind ``SWARMDB_LOCKCHECK``, ``SWARMDB_PAGECHECK``
+  and ``SWARMDB_KERNCHECK`` (``GET /admin/lockcheck``, ``/admin/pagecheck``,
+  ``/admin/kerncheck``). As in the JAX package they are not imported
+  here: with its flag off none of them is imported at all.
 """
 
 from . import propagate

@@ -39,9 +39,11 @@ dumps (``profile_*.json``, ``mem_*.json``, the JAX package's schemas, so
 either package's analyzer reads the other's): ``--roofline`` (without the
 JAX package's VMEM view; the card's on-chip memory view is ROADMAP.md
 queue 1 item 10d), ``--memory``, and their one-line listings beside an
-analyzed trace. The sanitizers' dump listings come with the sanitizers
-(item 10c). ``--self-check`` runs the pipeline on synthetic traces and
-checks its own invariants.
+analyzed trace, and the three runtime sanitizers' dumps
+(``lockcheck_*.json``, ``pagecheck_*.json``, ``kerncheck_*.json``) beside
+an analyzed trace, with their cycle and violation counts and kinds.
+``--self-check`` runs the pipeline on synthetic traces and checks its own
+invariants.
 """
 
 from __future__ import annotations
@@ -410,6 +412,15 @@ def analyze_files(paths: Sequence[str]) -> Dict[str, Any]:
         "version": 1,
         "inputs": inputs,
     }
+    lockchecks = _lockcheck_dumps(paths)
+    if lockchecks:
+        report["lockcheck_dumps"] = lockchecks
+    pagechecks = _pagecheck_dumps(paths)
+    if pagechecks:
+        report["pagecheck_dumps"] = pagechecks
+    kernchecks = _kerncheck_dumps(paths)
+    if kernchecks:
+        report["kerncheck_dumps"] = kernchecks
     profile_list = ([_profile_summary(p, d) for p, d in profiles]
                     + _profile_dumps(paths))
     if profile_list:
@@ -434,6 +445,107 @@ def analyze_files(paths: Sequence[str]) -> Dict[str, Any]:
                              "flight": test_flight}
         report["diagnosis"] = _solo_diagnosis(summary, test_flight)
     return report
+
+
+def _lockcheck_dumps(paths: Sequence[str]) -> List[Dict[str, Any]]:
+    """Lock-sanitizer dumps (``lockcheck_<node>.json``, ``obs/lockcheck.py``)
+    sitting next to the analyzed flight/trace files: the flight dump
+    says what the node was doing, the lockcheck dump says which lock
+    orders it exercised doing it -- an inversion cycle here IS the
+    diagnosis. Listed with their cycle counts so a report reader never
+    has to know the files exist to notice a detected deadlock order."""
+    seen: set = set()
+    out: List[Dict[str, Any]] = []
+    for p in paths:
+        d = os.path.dirname(os.path.abspath(p))
+        if d in seen:
+            continue
+        seen.add(d)
+        for cand in sorted(glob.glob(os.path.join(d,
+                                                  "lockcheck_*.json"))):
+            try:
+                with open(cand, "r", encoding="utf-8") as f:
+                    dump = json.load(f)
+            except (OSError, ValueError):
+                continue
+            cycles = dump.get("cycles") or []
+            out.append({
+                "path": cand,
+                "node": dump.get("node"),
+                "cycles": len(cycles),
+                "cycle_sites": [c.get("sites") for c in cycles],
+                "sites_tracked": len(dump.get("sites") or {}),
+            })
+    return out
+
+
+def _pagecheck_dumps(paths: Sequence[str]) -> List[Dict[str, Any]]:
+    """Page-sanitizer dumps (``pagecheck_<node>.json``, ``obs/pagecheck.py``)
+    sitting next to the analyzed flight/trace files -- the page twin of
+    the lockcheck listing above: the flight dump says what the node was
+    doing, the pagecheck dump says which page custody it violated doing
+    it. Listed with violation counts/kinds so a detected use-after-free
+    is never invisible in a report."""
+    seen: set = set()
+    out: List[Dict[str, Any]] = []
+    for p in paths:
+        d = os.path.dirname(os.path.abspath(p))
+        if d in seen:
+            continue
+        seen.add(d)
+        for cand in sorted(glob.glob(os.path.join(d,
+                                                  "pagecheck_*.json"))):
+            try:
+                with open(cand, "r", encoding="utf-8") as f:
+                    dump = json.load(f)
+            except (OSError, ValueError):
+                continue
+            violations = dump.get("violations") or []
+            out.append({
+                "path": cand,
+                "node": dump.get("node"),
+                "violations": len(violations),
+                "violation_kinds": sorted(
+                    {v.get("kind") for v in violations}),
+                "pools": len(dump.get("pools") or []),
+            })
+    return out
+
+
+def _kerncheck_dumps(paths: Sequence[str]) -> List[Dict[str, Any]]:
+    """Kernel-sanitizer dumps (``kerncheck_<node>.json``, ``obs/kerncheck.py``)
+    sitting next to the analyzed flight/trace files -- the kernel twin
+    of the lockcheck/pagecheck listings above: the flight dump says
+    what the node was doing, the kerncheck dump says which kernel
+    contract it broke doing it (out-of-bounds block, write race,
+    short-written output row, parity break).
+    Listed with violation counts/kinds so a detected kernel crime is
+    never invisible in a report."""
+    seen: set = set()
+    out: List[Dict[str, Any]] = []
+    for p in paths:
+        d = os.path.dirname(os.path.abspath(p))
+        if d in seen:
+            continue
+        seen.add(d)
+        for cand in sorted(glob.glob(os.path.join(d,
+                                                  "kerncheck_*.json"))):
+            try:
+                with open(cand, "r", encoding="utf-8") as f:
+                    dump = json.load(f)
+            except (OSError, ValueError):
+                continue
+            violations = dump.get("violations") or []
+            out.append({
+                "path": cand,
+                "node": dump.get("node"),
+                "violations": len(violations),
+                "violation_kinds": sorted(
+                    {v.get("kind") for v in violations}),
+                "kernels": sorted(
+                    {v.get("kernel") for v in violations}),
+            })
+    return out
 
 
 def _profile_summary(path: str, dump: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,8 +1,9 @@
 """Flight recorder: the last N engine steps, M requests and K events.
 
-A copy of ``swarmdb_tpu/obs/flight.py`` without its hook into the lock
-sanitizer, which is not ported yet (ROADMAP.md, queue 1 item 10c). Every
-automatic dump into a directory also writes the device-time profiler's
+A copy of ``swarmdb_tpu/obs/flight.py``. With the lock sanitizer on
+(``SWARMDB_LOCKCHECK=1``, :mod:`.lockcheck`) every recorder attaches
+itself to its registry, so an inversion lands in the event ring as a
+``lockcheck.inversion`` instant. Every automatic dump into a directory also writes the device-time profiler's
 and the memory accountant's dumps beside it (``_profile_dump`` /
 ``_mem_dump``). Three fixed-size rings:
 
@@ -96,6 +97,12 @@ class FlightRecorder:
         self.meta: Dict[str, Any] = {}
         self.last_dump: Optional[Dict[str, Any]] = None
         self.last_dump_path: Optional[str] = None
+        # with the lock sanitizer on, inversion violations land in this
+        # event ring as `lockcheck.inversion` instants
+        if os.environ.get("SWARMDB_LOCKCHECK", "0") not in ("", "0"):
+            from . import lockcheck
+
+            lockcheck.registry().attach_flight(self)
 
     # ---------------------------------------------------------- record path
 

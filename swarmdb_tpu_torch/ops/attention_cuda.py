@@ -49,6 +49,18 @@ its library's (``ops/build.py``) and, prefixed with ``swarm_``, its entry
 point's; ``launches_into`` diverts one thread's counts while it captures a
 CUDA graph. Lanes launch from one thread each, so every count goes through
 ``count_launches``, under one lock: the counts stay exact.
+
+The bounds-checked build. Under ``SWARMDB_KERNCHECK=1`` (read per launch;
+``use_checked_build`` overrides it for one thread) ``_launch`` loads each
+library's bounds-checked variant (``ops/build.py``, ``-DSWARM_KERNCHECK``),
+inside captured graphs too, and counts its launches under the same key.
+Each checked launch is armed with the device's violation record (device
+memory, mirrored after every launch into page-locked host memory on the
+launch's stream) and, on an eager launch, a writer map over the output's
+(row, query head) entries. ``kerncheck_poll`` reads the mirror -- at a
+host wait the caller already makes, so it adds no sync -- and hands any
+``oob-block`` or ``write-race`` to the kernel sanitizer's registry
+(``obs/kerncheck.py``).
 """
 
 from __future__ import annotations
@@ -56,20 +68,21 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from . import build
 from .layers import (gqa_attention_chunked_reference,
-                     gqa_attention_reference,
+                     gqa_attention_reference, kerncheck_enabled,
                      ragged_prefill_attention_reference)
 from .paged_kv import QuantPool, paged_gather_kv, pool_data
+from ..utils.sync import make_lock
 
 #: Kernel launches per kernel since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
 # lane threads add to LAUNCHES at once; a += is a read-modify-write
-_LAUNCH_LOCK = threading.Lock()
+_LAUNCH_LOCK = make_lock("ops.attention_cuda._LAUNCH_LOCK")
 
 _FLOAT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)  # instantiated in csrc/*.cuh
@@ -175,18 +188,119 @@ def _cuda_ready(D: int, *tensors: torch.Tensor) -> None:
                "rows must be whole 16-byte vectors")
 
 
-def _launch(kernel: str, sig: str, dev: torch.device, *args) -> None:
+# ------------------------------------------------ the bounds-checked build
+
+#: int32 fields of one violation slot of the device record (KcRecord in
+#: csrc/attn_common.cuh); slot 0 = first oob-block, slot 1 = first
+#: write-race
+KC_FIELDS = ("hits", "taken", "entry", "site", "bx", "by", "bz", "rank",
+             "raw", "bound", "other", "ox", "oy", "oz", "pad0", "pad1")
+KC_SITES = {1: "page id", 2: "page-table column",
+            3: "row end past the stream", 4: "walk past the coverage",
+            5: "output row written twice"}
+_KC_WORDS = 2 * len(KC_FIELDS)
+_kc_local = threading.local()
+_KC_LOCK = make_lock("ops.attention_cuda._KC_LOCK")
+# device index -> (device record, its page-locked host mirror)
+_KC_RECORDS: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def kerncheck_launches() -> bool:
+    """Whether this thread's launches take the bounds-checked build:
+    ``use_checked_build``'s choice, else ``SWARMDB_KERNCHECK``."""
+    forced = getattr(_kc_local, "checked", None)
+    return kerncheck_enabled() if forced is None else forced
+
+
+@contextlib.contextmanager
+def use_checked_build(checked: bool) -> Iterator[None]:
+    """Launch the bounds-checked (True) or the plain (False) build from
+    this thread while the block runs, whatever the flag says."""
+    prev = getattr(_kc_local, "checked", None)
+    _kc_local.checked = bool(checked)
+    try:
+        yield
+    finally:
+        _kc_local.checked = prev
+
+
+def kerncheck_record(dev: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dev``'s violation record (device memory) and its page-locked
+    host mirror, made at first use: before any graph capture on the
+    device (an engine under the kernel sanitizer makes it when built),
+    since page-locked memory cannot be allocated inside one."""
+    with _KC_LOCK:
+        rec = _KC_RECORDS.get(dev.index)
+        if rec is None:
+            rec = _KC_RECORDS[dev.index] = (
+                torch.zeros(_KC_WORDS, dtype=torch.int32, device=dev),
+                torch.zeros(_KC_WORDS, dtype=torch.int32).pin_memory())
+        return rec
+
+
+def kerncheck_poll(device: torch.device) -> List[Dict[str, int]]:
+    """Read ``device``'s violation record as of the last host wait (its
+    page-locked mirror; no sync of its own), hand every hit to the kernel
+    sanitizer's registry, and clear the record. Returns the hits (the
+    record's fields by name, ``kind`` and the kernel's name added)."""
+    rec = _KC_RECORDS.get(getattr(device, "index", None))
+    if rec is None:
+        return []
+    dev_rec, host = rec
+    words = host.tolist()
+    hits = []
+    for slot, kind in enumerate(("oob-block", "write-race")):
+        f = dict(zip(KC_FIELDS, words[slot * len(KC_FIELDS):
+                                      (slot + 1) * len(KC_FIELDS)]))
+        if f["hits"] <= 0:
+            continue
+        f["kind"] = kind
+        f["kernel"] = (build.KERNELS[f["entry"]]
+                       if 0 <= f["entry"] < len(build.KERNELS) else "?")
+        hits.append(f)
+    if hits:
+        from ..obs import kerncheck
+
+        for f in hits:
+            kerncheck.record_device_hit(f)
+        dev_rec.zero_()  # on the current stream of the record's device
+        host.zero_()
+    return hits
+
+
+def _launch(kernel: str, sig: str, dev: torch.device, *args,
+            out_rows: Optional[Tuple[int, int]] = None) -> None:
     """Call ``swarm_<kernel>`` of library ``kernel`` on the current stream
     of ``dev`` (the stream is the last argument of every entry point);
     ``sig`` spells the other arguments' C types (p pointer, i int, f
-    float). Raises on a refused launch; counts the launch."""
-    lib = build.load(kernel)
+    float). The bounds-checked build under the kernel sanitizer, armed
+    with the device record and, on an eager launch, a writer map over
+    ``out_rows`` = (output rows, query heads). Raises on a refused
+    launch; counts the launch."""
+    checked = kerncheck_launches()
+    lib = build.load(kernel, checked)
     entry = f"swarm_{kernel}"
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [_CTYPES[c] for c in sig + "p"]
     with torch.cuda.device(dev):
-        code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev)
+        wmap = None
+        if checked:
+            dev_rec, host = kerncheck_record(dev)
+            if (out_rows is not None
+                    and not torch.cuda.is_current_stream_capturing()):
+                wmap = torch.full((out_rows[0] * out_rows[1],), -1,
+                                  dtype=torch.int32, device=dev)
+            arm = lib.swarm_kc_arm
+            arm.restype = ctypes.c_int
+            arm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+            arm(dev_rec.data_ptr(), host.data_ptr(),
+                wmap.data_ptr() if wmap is not None else None,
+                build.KERNELS.index(kernel),
+                out_rows[1] if out_rows is not None else 0)
+        code = fn(*args, stream.cuda_stream)
     if code != 0:
         err = getattr(lib, f"{entry}_error")
         err.restype = ctypes.c_char_p
@@ -257,8 +371,25 @@ def ragged_prefill_quant_plain(q, sfx_k, sfx_v, k_pages, k_scale, v_pages,
         window=window)
 
 
+def _owned(W: int, starts: torch.Tensor, lens: torch.Tensor
+           ) -> torch.Tensor:
+    """[W] bool: stream positions some row owns."""
+    x = torch.arange(W, device=starts.device)
+    st = starts.long()[:, None]
+    return ((x[None, :] >= st)
+            & (x[None, :] < st + lens.long()[:, None])).any(dim=0)
+
+
+def _check_out(out: torch.Tensor, q: torch.Tensor) -> None:
+    _check(out.shape == q.shape and out.dtype == q.dtype
+           and out.device == q.device and out.is_contiguous(),
+           f"out must be a contiguous {q.dtype} tensor of {list(q.shape)} "
+           f"on {q.device}")
+
+
 def _ragged_prefill(q, sfx_k, sfx_v, k_pages, k_scale, v_pages, v_scale,
-                    row_tables, starts, lens, prefix_lens, window):
+                    row_tables, starts, lens, prefix_lens, window,
+                    out=None):
     quant = k_scale is not None
     dev = _check_args(
         {"q": q, "sfx_k": sfx_k, "sfx_v": sfx_v},
@@ -276,12 +407,19 @@ def _ragged_prefill(q, sfx_k, sfx_v, k_pages, k_scale, v_pages, v_scale,
     _check(Hq % Hkv == 0, f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     _check(starts.shape == (R,) and lens.shape == (R,)
            and prefix_lens.shape == (R,), f"descriptors must be [{R}]")
+    if out is not None:
+        _check_out(out, q)
     if dev.type == "cpu":
-        return ragged_prefill_plain(
+        res = ragged_prefill_plain(
             q, sfx_k, sfx_v, _pool(k_pages, k_scale), _pool(v_pages, v_scale),
             row_tables, starts, lens, prefix_lens, window=window)
+        if out is None:
+            return res
+        own = _owned(W, starts, lens)[:, None, None]
+        return out.copy_(torch.where(own, res, out))
     _cuda_ready(D, q, sfx_k, k_pages)
-    out = torch.zeros_like(q)
+    if out is None:
+        out = torch.zeros_like(q)
     ptrs = [q.data_ptr(), sfx_k.data_ptr(), sfx_v.data_ptr(),
             k_pages.data_ptr()]
     ptrs += [k_scale.data_ptr(), v_pages.data_ptr(), v_scale.data_ptr()] \
@@ -292,10 +430,11 @@ def _ragged_prefill(q, sfx_k, sfx_v, k_pages, k_scale, v_pages, v_scale,
     codes = [_FLOAT_CODE[q.dtype], _FLOAT_CODE[sfx_k.dtype]]
     if quant:
         _launch("ragged_prefill_quant", "ii" + "p" * 12 + "i" * 9 + "f", dev,
-                *codes, *ptrs, *shape, _scale(D))
+                *codes, *ptrs, *shape, _scale(D), out_rows=(W, Hq))
     else:
         _launch("ragged_prefill", "iii" + "p" * 10 + "i" * 9 + "f", dev,
-                _FLOAT_CODE[k_pages.dtype], *codes, *ptrs, *shape, _scale(D))
+                _FLOAT_CODE[k_pages.dtype], *codes, *ptrs, *shape, _scale(D),
+                out_rows=(W, Hq))
     return out
 
 
@@ -311,12 +450,16 @@ def ragged_paged_prefill_attention(
     prefix_lens: torch.Tensor,
     *,
     window: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Ragged paged prefill attention over a packed wave and a plain pool;
     [W, Hq, D] in q.dtype, zero where no row owns the position. The kernel
-    on CUDA tensors, ``ragged_prefill_plain`` on CPU tensors."""
+    on CUDA tensors, ``ragged_prefill_plain`` on CPU tensors. ``out``, when
+    given, is the buffer written instead (positions no row owns keep what
+    it holds): the kernel sanitizer's canary-filled output."""
     return _ragged_prefill(q, sfx_k, sfx_v, k_pages, None, v_pages, None,
-                           row_tables, starts, lens, prefix_lens, window)
+                           row_tables, starts, lens, prefix_lens, window,
+                           out)
 
 
 def ragged_paged_prefill_attention_quant(
@@ -333,12 +476,13 @@ def ragged_paged_prefill_attention_quant(
     prefix_lens: torch.Tensor,
     *,
     window: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Ragged paged prefill attention over int8 prefix pages; as
     ``ragged_paged_prefill_attention`` otherwise."""
     return _ragged_prefill(q, sfx_k, sfx_v, k_pages, k_scale, v_pages,
                            v_scale, row_tables, starts, lens, prefix_lens,
-                           window)
+                           window, out)
 
 
 # -------------------------------------------------------- chunked decode
@@ -412,10 +556,11 @@ def _paged_decode_chunked(q, k_pages, k_scale, v_pages, v_scale, page_table,
     codes = [_FLOAT_CODE[q.dtype], _FLOAT_CODE[chunk_k.dtype]]
     if quant:
         _launch("paged_decode_chunked_quant", "ii" + "p" * 9 + "iifp"
-                + "i" * 8, dev, *codes, *ptrs, *rest)
+                + "i" * 8, dev, *codes, *ptrs, *rest, out_rows=(B, Hq))
     else:
         _launch("paged_decode_chunked", "iii" + "p" * 7 + "iifp" + "i" * 8,
-                dev, _FLOAT_CODE[k_pages.dtype], *codes, *ptrs, *rest)
+                dev, _FLOAT_CODE[k_pages.dtype], *codes, *ptrs, *rest,
+                out_rows=(B, Hq))
     return out
 
 
@@ -492,7 +637,7 @@ def paged_decode_quant_plain(q, k_pages, k_scale, v_pages, v_scale,
 
 
 def _paged_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,
-                  lengths, window):
+                  lengths, window, out=None):
     quant = k_scale is not None
     dev = _check_args(
         {"q": q}, {"k_pages": k_pages, "v_pages": v_pages},
@@ -505,12 +650,16 @@ def _paged_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,
     _check(page_table.shape[0] == B and lengths.shape == (B,),
            f"page_table and lengths must cover {B} slots")
     _check(Hq % Hkv == 0, f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if out is not None:
+        _check_out(out, q)
     if dev.type == "cpu":
-        return paged_decode_plain(q, _pool(k_pages, k_scale),
-                                  _pool(v_pages, v_scale), page_table,
-                                  lengths, window=window)
+        res = paged_decode_plain(q, _pool(k_pages, k_scale),
+                                 _pool(v_pages, v_scale), page_table,
+                                 lengths, window=window)
+        return res if out is None else out.copy_(res)
     _cuda_ready(D, q, k_pages)
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
     ptrs = [q.data_ptr(), k_pages.data_ptr()]
     ptrs += [k_scale.data_ptr(), v_pages.data_ptr(), v_scale.data_ptr()] \
         if quant else [v_pages.data_ptr()]
@@ -519,11 +668,11 @@ def _paged_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,
             ps, maxp]
     if quant:
         _launch("paged_decode_quant", "i" + "p" * 7 + "ifp" + "i" * 7, dev,
-                _FLOAT_CODE[q.dtype], *ptrs, *rest)
+                _FLOAT_CODE[q.dtype], *ptrs, *rest, out_rows=(B, Hq))
     else:
         _launch("paged_decode", "ii" + "p" * 5 + "ifp" + "i" * 7, dev,
                 _FLOAT_CODE[k_pages.dtype], _FLOAT_CODE[q.dtype], *ptrs,
-                *rest)
+                *rest, out_rows=(B, Hq))
     return out
 
 
@@ -535,13 +684,14 @@ def paged_decode_gqa_attention(
     lengths: torch.Tensor,
     *,
     window: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-step paged decode attention over a plain pool: each slot's
     query attends its positions < ``lengths``; [B, Hq, D] in q.dtype, zeros
     for a slot of length 0. The kernel on CUDA tensors,
-    ``paged_decode_plain`` on CPU tensors."""
+    ``paged_decode_plain`` on CPU tensors; into ``out`` when given."""
     return _paged_decode(q, k_pages, None, v_pages, None, page_table,
-                         lengths, window)
+                         lengths, window, out)
 
 
 def paged_decode_gqa_attention_quant(
@@ -554,11 +704,12 @@ def paged_decode_gqa_attention_quant(
     lengths: torch.Tensor,
     *,
     window: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-step paged decode attention over int8 pages; as
     ``paged_decode_gqa_attention`` otherwise."""
     return _paged_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,
-                         lengths, window)
+                         lengths, window, out)
 
 
 # ---------------------------------------------------- dense slot cache
@@ -657,7 +808,7 @@ def decode_gqa_attention_chunked(
             _FLOAT_CODE[chunk_k.dtype], q.data_ptr(), cache_k.data_ptr(),
             cache_v.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
             starts.data_ptr(), step, int(window or 0), _scale(D),
-            out.data_ptr(), B, Hq, Hkv, D, S, Kc)
+            out.data_ptr(), B, Hq, Hkv, D, S, Kc, out_rows=(B, Hq))
     return out
 
 
@@ -687,5 +838,6 @@ def decode_gqa_attention(
     _launch("dense_decode", "ii" + "p" * 4 + "ifp" + "i" * 5, dev,
             _FLOAT_CODE[cache_k.dtype], _FLOAT_CODE[q.dtype], q.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
-            int(window or 0), _scale(D), out.data_ptr(), B, Hq, Hkv, D, S)
+            int(window or 0), _scale(D), out.data_ptr(), B, Hq, Hkv, D, S,
+            out_rows=(B, Hq))
     return out

@@ -7,12 +7,17 @@ plain C interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the sources it was built from, so an
-edited kernel never loads a stale build. Builds happen at first use (or up
-front through ``build_all``, which starts one ``nvcc`` per source at once)
-into ``swarmdb_tpu_torch/_build/`` inside the checkout. Nothing here runs
-at import time: the CPU tests import every module on a machine with no
-``nvcc``.
+Every library has a second, bounds-checked variant: the same source and
+flags plus ``-DSWARM_KERNCHECK`` (``csrc/attn_common.cuh``), built into
+``_build/lib<name>-kc-<hash>.so``. The kernel sanitizer
+(``SWARMDB_KERNCHECK=1``) launches it; see ``ops/attention_cuda.py``.
+
+The library name carries a hash of the sources and flags it was built
+from, so an edited kernel never loads a stale build. Builds happen at
+first use (or up front through ``build_all``, which starts one ``nvcc``
+per source and variant at once) into ``swarmdb_tpu_torch/_build/`` inside
+the checkout. Nothing here runs at import time: the CPU tests import
+every module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
+
+from ..utils.sync import make_lock
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -35,8 +41,8 @@ KERNELS = ("ragged_prefill", "paged_decode_chunked", "paged_decode",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_lock = make_lock("ops.build._lock")
+_libs: Dict[Tuple[str, bool], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -51,24 +57,33 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
+#: the bounds-checked variant's extra flag
+CHECKED_FLAGS = ["-DSWARM_KERNCHECK"]
+
+
 def _sources(name: str) -> List[Path]:
     return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(checked: bool) -> List[str]:
+    return NVCC_FLAGS + (CHECKED_FLAGS if checked else [])
+
+
+def library_path(name: str, checked: bool = False) -> Path:
+    h = hashlib.sha256(" ".join(_flags(checked)).encode())
     for src in _sources(name):
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    kind = "-kc" if checked else ""
+    return BUILD_DIR / f"lib{name}{kind}-{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str) -> Optional[subprocess.Popen]:
-    out = library_path(name)
+def _start_build(name: str, checked: bool) -> Optional[subprocess.Popen]:
+    out = library_path(name, checked)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+    cmd = [nvcc_path(), *_flags(checked), "-Xptxas", "-v", "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -82,28 +97,42 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> str:
     log, _ = proc.communicate()
     tmp, out = proc.swarm_paths  # type: ignore[attr-defined]
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {out.name} ({name}.cu):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return log
 
 
-def build_all(names=KERNELS) -> Dict[str, str]:
+def _kerncheck_enabled() -> bool:
+    return os.environ.get("SWARMDB_KERNCHECK", "0") not in ("", "0")
+
+
+def build_all(names=KERNELS, checked: Optional[bool] = None
+              ) -> Dict[str, str]:
     """Compile every kernel that has no up-to-date library yet, one
-    ``nvcc`` process per source, all started together. Returns each
-    source's compiler log (``-Xptxas -v``: registers, shared memory,
-    spills); empty for a source that was already built."""
+    ``nvcc`` process per source and variant, all started together: the
+    plain variants, and the bounds-checked ones too when ``checked`` (by
+    default: when ``SWARMDB_KERNCHECK`` is on). Returns each build's
+    compiler log (``-Xptxas -v``: registers, shared memory, spills) under
+    the kernel's name (``<name>-kc`` for a checked one); empty for one
+    that was already built."""
+    if checked is None:
+        checked = _kerncheck_enabled()
+    variants = (False, True) if checked else (False,)
     with _lock:
-        procs = {n: _start_build(n) for n in names}
-        return {n: _finish_build(n, p) for n, p in procs.items()}
+        procs = {(n, c): _start_build(n, c) for c in variants for n in names}
+        return {n + ("-kc" if c else ""): _finish_build(n, p)
+                for (n, c), p in procs.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of kernel library ``name``, built if needed."""
-    lib = _libs.get(name)
+def load(name: str, checked: bool = False) -> ctypes.CDLL:
+    """The ctypes handle of kernel library ``name`` (its bounds-checked
+    variant when ``checked``), built if needed."""
+    key = (name, checked)
+    lib = _libs.get(key)
     if lib is not None:
         return lib
     with _lock:
-        if name not in _libs:
-            _finish_build(name, _start_build(name))
-            _libs[name] = ctypes.CDLL(str(library_path(name)))
-        return _libs[name]
+        if key not in _libs:
+            _finish_build(name, _start_build(name, checked))
+            _libs[key] = ctypes.CDLL(str(library_path(name, checked)))
+        return _libs[key]

@@ -26,7 +26,8 @@ CUDA kernel tiles queries within each row, so no sublane quantum applies.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+import os
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -472,24 +473,28 @@ def paged_attention_dispatch(
     q_positions: torch.Tensor,  # [B, 1] position of the query
     *,
     window: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-step decode attention over the paged pool, whose pages
     already hold this step's token: each slot attends its positions
     ``< q_position + 1``. The single-step decode kernels on CUDA (the
     int8 one for a ``QuantPool``), their plain versions (page gather +
-    ``gqa_attention_reference``) on CPU. Returns [B, 1, Hq, D]."""
+    ``gqa_attention_reference``) on CPU. ``out`` ([B, Hq, D]), when
+    given, is the buffer the kernel writes (the kernel sanitizer's
+    canary-filled one). Returns [B, 1, Hq, D]."""
     from .attention_cuda import (paged_decode_gqa_attention,
                                  paged_decode_gqa_attention_quant)
 
     lengths = (q_positions[:, 0] + 1).to(torch.int32)
     if is_quantized(k_pages):
-        out = paged_decode_gqa_attention_quant(
+        res = paged_decode_gqa_attention_quant(
             q[:, 0], k_pages.data, k_pages.scale, v_pages.data,
-            v_pages.scale, page_table, lengths, window=window)
+            v_pages.scale, page_table, lengths, window=window, out=out)
     else:
-        out = paged_decode_gqa_attention(q[:, 0], k_pages, v_pages,
-                                         page_table, lengths, window=window)
-    return out[:, None]
+        res = paged_decode_gqa_attention(q[:, 0], k_pages, v_pages,
+                                         page_table, lengths, window=window,
+                                         out=out)
+    return res[:, None]
 
 
 def paged_attention_dispatch_chunked(
@@ -536,11 +541,13 @@ def ragged_prefill_dispatch(
     prefix_lens: torch.Tensor,
     *,
     window: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Packed ragged prefill attention over the paged pool: the ragged
     prefill kernels on CUDA (prefix pages read in place; the int8 one for
     a ``QuantPool``), their plain version on CPU. Returns [W, Hq, D];
-    positions no row owns are zero."""
+    positions no row owns are zero, or keep what ``out`` (the buffer the
+    kernel writes, when given) held there."""
     from .attention_cuda import (ragged_paged_prefill_attention,
                                  ragged_paged_prefill_attention_quant)
 
@@ -548,7 +555,31 @@ def ragged_prefill_dispatch(
         return ragged_paged_prefill_attention_quant(
             q, sfx_k, sfx_v, k_pages.data, k_pages.scale, v_pages.data,
             v_pages.scale, row_tables, starts, lens, prefix_lens,
-            window=window)
+            window=window, out=out)
     return ragged_paged_prefill_attention(
         q, sfx_k, sfx_v, k_pages, v_pages, row_tables, starts, lens,
-        prefix_lens, window=window)
+        prefix_lens, window=window, out=out)
+
+
+def kerncheck_enabled() -> bool:
+    """The kernel sanitizer's flag (``SWARMDB_KERNCHECK``,
+    :mod:`swarmdb_tpu_torch.obs.kerncheck`)."""
+    return os.environ.get("SWARMDB_KERNCHECK", "0") not in ("", "0")
+
+
+def attention_dispatchers() -> Tuple[Optional[Callable],
+                                     Optional[Callable]]:
+    """The (ragged prefill, single-step paged decode) dispatchers an
+    engine's forwards call, picked when the engine is built: under
+    ``SWARMDB_KERNCHECK=1`` the kernel sanitizer's checked wrappers
+    (descriptor audit, output canary, parity against the plain version on
+    every eager call); otherwise None, None: the forwards call the plain
+    dispatchers themselves."""
+    if not kerncheck_enabled():
+        return None, None
+    from ..obs import kerncheck
+
+    return (kerncheck.checked_ragged_prefill_dispatch(
+                ragged_prefill_dispatch),
+            kerncheck.checked_paged_attention_dispatch(
+                paged_attention_dispatch))

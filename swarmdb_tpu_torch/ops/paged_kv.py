@@ -33,7 +33,8 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -142,6 +143,99 @@ def _requant_window(old_q: torch.Tensor, old_s: torch.Tensor,
     vals = torch.where(is_new[..., None, None], new_v.float(),
                        torch.where(is_keep[..., None, None], old_f, 0.0))
     return _quantize_pages(vals)
+
+
+def pagecheck_enabled() -> bool:
+    """The runtime page sanitizer's flag (``SWARMDB_PAGECHECK``,
+    :mod:`swarmdb_tpu_torch.obs.pagecheck`), read where a pool is built."""
+    return os.environ.get("SWARMDB_PAGECHECK", "0") not in ("", "0")
+
+
+def make_page_allocator(num_pages: int, page_size: int, max_seq: int,
+                        batch: int, label: Optional[str] = None) -> Any:
+    """Allocator factory. Flag off (default): the plain
+    :class:`PageAllocator`, exactly. ``SWARMDB_PAGECHECK=1``: the checked
+    subclass that mirrors every custody transition into the sanitizer's
+    shadow registry."""
+    if pagecheck_enabled():
+        from ..obs import pagecheck
+
+        return pagecheck.CheckedPageAllocator(
+            num_pages, page_size, max_seq, batch, label=label)
+    return PageAllocator(num_pages, page_size, max_seq, batch)
+
+
+#: canary stamped into freed pages' K/V under the page sanitizer: exactly
+#: representable in bf16 and f32, far outside any K/V value
+CANARY_VALUE = -16384.0
+
+#: int8 pools cannot hold -16384: their canary is -128, the one int8 code
+#: the quantizer never emits (payload clipped to [-127, 127])
+INT8_CANARY_VALUE = -128
+
+#: canary of a quantized pool's SCALE slots: real scales are strictly
+#: positive, so a write-after-free that recomputes a scale always trips it
+SCALE_CANARY_VALUE = -1.0
+
+
+def canary_for(dtype: torch.dtype) -> float:
+    """The canary a pool of ``dtype`` holds: the float canary, or int8's
+    reserved -128 on quantized pools."""
+    if not dtype.is_floating_point:
+        return float(INT8_CANARY_VALUE)
+    return CANARY_VALUE
+
+
+def canary_fill(k_pages: Any, v_pages: Any, page_ids: Sequence[int],
+                value: Optional[float] = None) -> Tuple[Any, Any]:
+    """Poison freed pages' K/V [L, P, ...] with the canary, IN PLACE on
+    the current stream (the pool keeps its storage: captured decode graphs
+    read fixed addresses). A quantized pool gets both fields poisoned:
+    -128 in the int8 payload and -1.0 in the scale rows. Returns the
+    pools."""
+    ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                          device=pool_data(k_pages).device)
+    if ids.numel() == 0:
+        return k_pages, v_pages
+    if isinstance(k_pages, QuantPool):
+        dv = int(value) if value is not None else INT8_CANARY_VALUE
+        for pool in (k_pages, v_pages):
+            pool.data.index_fill_(1, ids, dv)
+            pool.scale.index_fill_(1, ids, SCALE_CANARY_VALUE)
+        return k_pages, v_pages
+    fv = value if value is not None else canary_for(k_pages.dtype)
+    k_pages.index_fill_(1, ids, fv)
+    v_pages.index_fill_(1, ids, fv)
+    return k_pages, v_pages
+
+
+def canary_check(k_pages: Any, v_pages: Any, page_ids: Sequence[int],
+                 value: Optional[float] = None) -> List[int]:
+    """Page ids whose canary was OVERWRITTEN between free and re-
+    allocation (a write-after-free landed in the pool). One read-back to
+    the host per call: the sanitizer's own sync. Quantized pools verify
+    payload AND scale rows."""
+    ids = [int(p) for p in page_ids]
+    if not ids:
+        return []
+    idx = torch.as_tensor(ids, dtype=torch.long,
+                          device=pool_data(k_pages).device)
+
+    def intact(t: torch.Tensor, want: float) -> torch.Tensor:
+        sel = t.index_select(1, idx)                     # [L, n, ...]
+        return (sel == want).reshape(sel.shape[0], len(ids), -1).all(
+            dim=2).all(dim=0)
+
+    if isinstance(k_pages, QuantPool):
+        dv = int(value) if value is not None else INT8_CANARY_VALUE
+        ok = (intact(k_pages.data, dv) & intact(v_pages.data, dv)
+              & intact(k_pages.scale, SCALE_CANARY_VALUE)
+              & intact(v_pages.scale, SCALE_CANARY_VALUE))
+    else:
+        fv = value if value is not None else canary_for(k_pages.dtype)
+        ok = intact(k_pages, fv) & intact(v_pages, fv)
+    good = ok.cpu().tolist()
+    return [p for p, g in zip(ids, good) if not g]
 
 
 def pages_per_slot(max_seq: int, page_size: int) -> int:

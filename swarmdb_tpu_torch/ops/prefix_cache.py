@@ -24,8 +24,9 @@ REWRITTEN by a dispatch that the device executes after N's reads. The
 table never points a chain at a page whose (eventual) content differs from
 that chain's tokens.
 
-A copy of ``swarmdb_tpu/ops/prefix_cache.py`` without the page-sanitizer
-factory (ROADMAP.md, queue 1 item 10c). Every ``match`` feeds its chain
+A copy of ``swarmdb_tpu/ops/prefix_cache.py``; ``make_prefix_lru`` is
+the page sanitizer's factory (``SWARMDB_PAGECHECK``,
+``obs/pagecheck.py``). Every ``match`` feeds its chain
 accesses to the memory accountant's reuse sampler (``mem``, the shared
 null probe under ``SWARMDB_MEMPROF=0``).
 """
@@ -33,11 +34,29 @@ null probe under ``SWARMDB_MEMPROF=0``).
 from __future__ import annotations
 
 import hashlib
+import os
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 from ..utils.sync import make_lock
+
+
+def make_prefix_lru(num_pages: int, page_size: int,
+                    manage_free: bool = True, pool: Any = None,
+                    label: Optional[str] = None) -> "PrefixLRU":
+    """Prefix-cache factory. Flag off: the plain :class:`PrefixLRU`,
+    exactly. ``SWARMDB_PAGECHECK=1``: the checked subclass whose pin /
+    unpin / register / evict events feed the page sanitizer's shadow
+    registry -- ``pool`` (the engine's checked allocator) shares its pool
+    shadow in paged mode; dense mode registers its own."""
+    if os.environ.get("SWARMDB_PAGECHECK", "0") not in ("", "0"):
+        from ..obs import pagecheck
+
+        return pagecheck.CheckedPrefixLRU(
+            num_pages, page_size, manage_free=manage_free, pool=pool,
+            label=label)
+    return PrefixLRU(num_pages, page_size, manage_free=manage_free)
 
 
 def page_chains(tokens: Sequence[int], page_size: int,

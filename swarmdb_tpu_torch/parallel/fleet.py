@@ -294,7 +294,12 @@ class FleetManager:
 
         stored = False
         t0 = time.perf_counter()
+        # the page sanitizer sees transit custody as host_resident, as a
+        # demotion's
+        pc = getattr(eng, "_pagecheck", None)
         try:
+            if pc is not None:
+                pc.on_demote(pages, rid)
             k_pay = pool_gather_pages(eng.cache["k"], pages, host)
             v_pay = (pool_gather_pages(eng.cache["v"], pages, host)
                      if k_pay is not None else None)
@@ -311,6 +316,8 @@ class FleetManager:
             logger.exception("fleet handoff gather failed for %s", rid)
         finally:
             eng.rolling_free(pages)
+            if not stored and pc is not None:
+                pc.on_host_drop(rid)
         for ek in evicted:
             if ek != rid:
                 self._evict_handoff(ek)
@@ -327,8 +334,13 @@ class FleetManager:
         2 re-prefills."""
         with self._lock:
             victim = self._active.get(rid)
-        if victim is not None:
-            victim.has_payload = False
+        if victim is None:
+            return
+        victim.has_payload = False
+        pc = getattr(self.group.lanes[victim.prefill_idx], "_pagecheck",
+                     None)
+        if pc is not None:
+            pc.on_host_drop(rid)
 
     def _stage1_done(self, h: _Handoff, rid: str, toks: List[int],
                      reason: str) -> None:
@@ -367,6 +379,12 @@ class FleetManager:
         c = self.metrics.counters
         req = h.request
         entry = self.store.pop(rid)
+        pre_pc = getattr(self.group.lanes[h.prefill_idx], "_pagecheck",
+                         None)
+        if pre_pc is not None:
+            # custody leaves the prefill pool whether or not the payload
+            # survived (a miss re-prefills)
+            pre_pc.on_host_drop(rid)
         dec_ok = self._admissible("decode")
         if entry is None or not h.has_payload or not dec_ok:
             c["fleet_handoff_fallbacks"].inc()
@@ -380,6 +398,9 @@ class FleetManager:
             c["fleet_handoff_fallbacks"].inc()
             self._cold_replay(h, rid)
             return
+        pc = getattr(eng, "_pagecheck", None)
+        if pc is not None:
+            pc.on_promote(ids, rid)
         sp = req.sampling
         epoch = eng.pool_epoch()
         stage2 = dataclasses.replace(
@@ -400,6 +421,15 @@ class FleetManager:
                 return
             h.in_transit = False
         self._note(rid, idx)
+        # the handoff is counted before stage 2 is submitted: the decode
+        # lane can finish it, and its caller read the counters, before
+        # this thread runs again (a failed submit then counts a fallback
+        # beside it)
+        dt_ms = (time.monotonic() - h.t0) * 1e3
+        with self._lock:
+            self._handoff_ms.append(dt_ms)
+        c["fleet_handoffs"].inc()
+        self.metrics.latencies["fleet_handoff_s"].observe(dt_ms / 1e3)
         try:
             eng.submit(stage2)
         except Exception:
@@ -407,12 +437,6 @@ class FleetManager:
             eng.rolling_free(ids)
             c["fleet_handoff_fallbacks"].inc()
             self._cold_replay(h, rid)
-            return
-        dt_ms = (time.monotonic() - h.t0) * 1e3
-        with self._lock:
-            self._handoff_ms.append(dt_ms)
-        c["fleet_handoffs"].inc()
-        self.metrics.latencies["fleet_handoff_s"].observe(dt_ms / 1e3)
 
     def _stage2_done(self, h: _Handoff, eng: Any, ids: List[int],
                      epoch: int, rid: str, toks: List[int],
@@ -465,7 +489,12 @@ class FleetManager:
         eng.submit(replay)
 
     def _drop_payload(self, h: _Handoff) -> None:
-        self.store.drop(h.request.request_id)
+        rid = h.request.request_id
+        if self.store.drop(rid) or h.has_payload:
+            pc = getattr(self.group.lanes[h.prefill_idx], "_pagecheck",
+                         None)
+            if pc is not None:
+                pc.on_host_drop(rid)
         h.has_payload = False
 
     def _finish(self, h: _Handoff, rid: str, tokens: List[int],

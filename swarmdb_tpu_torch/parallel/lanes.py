@@ -165,6 +165,19 @@ class ShardLaneGroup:
             eng._prof.set_label(f"lane{idx}")
             if eng.paged is not None:
                 eng.paged.allocator.mem.set_label(f"lane{idx}")
+            # the page sanitizer (SWARMDB_PAGECHECK=1): the lane's pool is
+            # labelled so aliasing reports and churn counters name lanes,
+            # and its violations land in the group's flight recorder
+            pagecheck = getattr(eng, "_pagecheck", None)
+            if pagecheck is not None:
+                pagecheck.set_lane(f"lane{idx}")
+                from ..obs.pagecheck import registry as pagecheck_registry
+
+                pagecheck_registry().attach_flight(self.flight)
+            if getattr(eng, "_kerncheck", False):
+                from ..obs.kerncheck import registry as kerncheck_registry
+
+                kerncheck_registry().attach_flight(self.flight)
         # SWARMDB_FLEET=prefill:N,decode:M splits the lanes into role
         # pools; built before warmup(), which a prefill lane shortens
         from .fleet import build_fleet, parse_tier_weights

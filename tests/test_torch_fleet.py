@@ -15,8 +15,8 @@ weights and pools; the JAX group on the conftest's virtual CPU devices):
   >= 3 pins to the fastest tier; a quarantined pool degrades to
   colocated serving;
 - custody balances after handoffs, by accounting (every page free, in a
-  slot, or in a prefix cache; the transit store empty; the JAX package's
-  page sanitizer is ROADMAP.md queue 1 item 10);
+  slot, or in a prefix cache; the transit store empty; the page
+  sanitizer's view of a fleet is tests/test_torch_sanitize.py's);
 - a prefill lane killed mid-wave loses nothing (last in file order: it
   kills a lane and waits for its re-admission).
 """

@@ -196,9 +196,7 @@ def test_find_packages_lists_every_port_folder():
     assert "swarmdb_tpu_torch.api" in found
 
 
-@pytest.mark.parametrize("path", [
-    "/admin/ha",
-    "/admin/lockcheck", "/admin/pagecheck", "/admin/kerncheck"])
+@pytest.mark.parametrize("path", ["/admin/ha"])
 def test_unported_routes_answer_501(path, tmp_path):
     """Every route of the JAX package's server exists in the port's; one
     whose subsystem is not ported answers 501 (admin only) with a body
@@ -348,3 +346,131 @@ def test_profile_and_mem_routes_answer(path, env, kind, switch, tmp_path,
         assert admin_st == 200
         assert body["kind"] == kind and body["version"] == 1
         assert body["enabled"] is True
+
+
+@pytest.mark.parametrize("switch", ["on", "off"])
+@pytest.mark.parametrize("path,env,keys", [
+    ("/admin/lockcheck", "SWARMDB_LOCKCHECK",
+     {"enabled", "node", "sites", "edges", "cycles"}),
+    ("/admin/pagecheck", "SWARMDB_PAGECHECK",
+     {"enabled", "node", "pools", "violations"}),
+    ("/admin/kerncheck", "SWARMDB_KERNCHECK",
+     {"enabled", "node", "checks", "violations"})])
+def test_sanitizer_routes_answer(path, env, keys, switch, tmp_path,
+                                 monkeypatch):
+    """The three runtime sanitizers' routes (501 until they were ported)
+    answer 403 to a user, 503 naming the flag to an admin with the flag
+    off (an empty report would read as "no bugs"), and the report with
+    the JAX package's keys with it on; ``/metrics`` carries the
+    sanitizer's lines exactly when its flag is on."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from swarmdb_tpu_torch.api.app import (UNPORTED_ROUTES, ApiConfig,
+                                           create_app)
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    assert path not in UNPORTED_ROUTES
+    monkeypatch.setenv(env, "1" if switch == "on" else "0")
+    metric = {"SWARMDB_LOCKCHECK": "swarmdb_lock_inversion_cycles",
+              "SWARMDB_PAGECHECK": "swarmdb_page_violations_total",
+              "SWARMDB_KERNCHECK": "swarmdb_kernel_violations_total"}[env]
+
+    async def drive():
+        db = SwarmDB(save_dir=str(tmp_path))
+        client = TestClient(TestServer(create_app(db, ApiConfig(
+            jwt_secret_key="s", rate_limit_per_minute=10_000))))
+        await client.start_server()
+        try:
+            out = []
+            for user in ("tester", "admin"):
+                r = await client.post("/auth/token", json={
+                    "username": user, "password": "pw"})
+                tok = (await r.json())["access_token"]
+                r = await client.get(path, headers={
+                    "Authorization": f"Bearer {tok}"})
+                out.append((r.status, await r.json()))
+            r = await client.get("/metrics")
+            return out, await r.text()
+        finally:
+            await client.close()
+            db.close()
+
+    ((user_st, _), (admin_st, body)), text = asyncio.run(drive())
+    assert user_st == 403
+    if switch == "off":
+        assert admin_st == 503
+        assert env in body["detail"]
+        assert metric not in text
+    else:
+        assert admin_st == 200
+        assert keys <= set(body)
+        assert body["enabled"] is True
+        assert metric in text
+
+
+def test_scan_covers_the_sanitizers():
+    """The AST scan above reaches the three sanitizer modules."""
+    scanned = set(PORT.rglob("*.py"))
+    for name in ("lockcheck", "pagecheck", "kerncheck"):
+        assert PORT / "obs" / f"{name}.py" in scanned
+
+
+def test_sanitizer_factories_are_plain_with_flags_off(monkeypatch):
+    """Flags off, every sanitizer factory hands back the plain object:
+    the exact ``threading`` types, ``PageAllocator``, ``PrefixLRU`` and
+    the unwrapped dispatch functions (the engine's forwards then call the
+    plain dispatchers themselves)."""
+    import threading
+
+    from swarmdb_tpu_torch.obs import kerncheck
+    from swarmdb_tpu_torch.ops import layers, paged_kv
+    from swarmdb_tpu_torch.ops.prefix_cache import (PrefixLRU,
+                                                    make_prefix_lru)
+    from swarmdb_tpu_torch.utils import sync
+
+    for env in ("SWARMDB_LOCKCHECK", "SWARMDB_PAGECHECK",
+                "SWARMDB_KERNCHECK"):
+        monkeypatch.delenv(env, raising=False)
+    assert type(sync.make_lock("x")) is type(threading.Lock())
+    assert type(sync.make_rlock("x")) is type(threading.RLock())
+    assert type(sync.make_condition("x")) is threading.Condition
+    assert type(paged_kv.make_page_allocator(8, 4, 16, 2)) \
+        is paged_kv.PageAllocator
+    assert type(make_prefix_lru(8, 4)) is PrefixLRU
+    assert layers.attention_dispatchers() == (None, None)
+    fn = paged_kv.paged_write_ragged
+    assert kerncheck.checked_ragged_prefill_dispatch(fn) is fn
+    assert kerncheck.checked_paged_attention_dispatch(fn) is fn
+    assert kerncheck.checked_paged_write_ragged(fn) is fn
+
+
+def test_flags_off_serve_imports_no_sanitizer(tmp_path):
+    """A tiny-debug paged serve with every flag off imports none of the
+    three sanitizer modules (a fresh process: the tests above import
+    them)."""
+    code = (
+        "import sys\n"
+        "from swarmdb_tpu_torch.backend.service import build_backend_engine\n"
+        "from swarmdb_tpu_torch.backend.sampling import SamplingParams\n"
+        "eng, _ = build_backend_engine('tiny-debug', paged=True, "
+        "device='cpu', max_batch=2, max_seq=64, page_size=8, "
+        "decode_chunk=4)\n"
+        "eng.start()\n"
+        "toks, why = eng.generate_sync([5] * 12, "
+        "SamplingParams(max_new_tokens=4))\n"
+        "eng.stop()\n"
+        "assert why in ('length', 'eos'), why\n"
+        "assert eng._pagecheck is None and not eng._kerncheck\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[-1] in "
+        "('lockcheck', 'pagecheck', 'kerncheck')))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SWARMDB_LOCKCHECK", "SWARMDB_PAGECHECK",
+                        "SWARMDB_KERNCHECK")}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
