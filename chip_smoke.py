@@ -13,6 +13,22 @@ and exits non-zero at the first failure:
                ``swarmdb_tpu_torch/csrc`` and their bounds-checked variants
                (``-DSWARM_KERNCHECK``, the sanitize phase's): one ``nvcc``
                per source and variant, all started together.
+2b. lint    -- ``python -m swarmdb_tpu_torch.analysis`` (the port's
+               swarmlint against its own baseline) must exit 0 under this
+               machine's Python.
+2c. smem    -- for each of the eight entry points at Hq 32, Hkv 8, D 128,
+               every dtype the engines launch it with (and the prefill at
+               a 64- and a 4096-token wave: two thread groups a block, and
+               one), ``analysis.kernelcheck.estimate_smem`` (the Python
+               mirror of the C++ layouts) must equal the library's own
+               shared memory per block (``swarm_<kernel>_smem``: the
+               dynamic bytes its launch passes plus the instance's static
+               bytes), fit the instance's dynamic limit after the launch's
+               opt-in (the tensor-core prefill opts in to exactly its
+               size) and the device's opt-in limit; registers, spills and
+               static shared memory from the parsed build log are printed
+               beside ``cudaFuncGetAttributes``. The serving instance's
+               numbers join each kernel's ``kernels`` line.
 3. kernels  -- each kernel at the serving path's shapes (Llama-3-8B heads:
                Hq 32, Hkv 8, D 128; 8 slots of 64 pages of 16, or a dense
                slot cache of 8 x 1024 positions) against its plain PyTorch
@@ -181,7 +197,11 @@ and exits non-zero at the first failure:
                ``/metrics`` carries the profiler's and accountant's lines,
                the trace export a ``device:`` track, and ``python -m
                swarmdb_tpu_torch.obs.analyze --roofline`` / ``--memory``
-               read the phase's dumps. Prints each decode variant's chunk
+               read the phase's dumps; every kernel variant carries its
+               build's ptxas facts, and on the paged engine its shared
+               memory per block (``vmem_est_bytes``), which ``--roofline``
+               prints as its column (an ``smem`` line per engine). Prints
+               each decode variant's chunk
                ms, MFU, achieved bytes/s and share of 3.35 TB/s beside its
                byte bound, the dispatch-shape profile and the lane's duty.
 7. decode_loop -- graph against eager on Llama-3-8B (``LOOP_LLAMA``: paged
@@ -293,6 +313,21 @@ and exits non-zero at the first failure:
                sites). (d) The three routes over HTTP, their ``/metrics``
                lines, and ``python -m swarmdb_tpu_torch.obs.analyze`` over
                the dump directory listing all three kinds of dump.
+7e. ckpt  -- weights read from disk: Llama-3-8B at full width and
+               ``CKPT_LLAMA_LAYERS`` (4) of 32 layers, then Mixtral-8x7B
+               at full width and ``CKPT_MIXTRAL_LAYERS`` (1), each drawn
+               from seed 0 on the card, written as an HF checkpoint (HF
+               key names, ``[out, in]``, bf16, two safetensors shards and
+               an index, by ``write_hf_checkpoint``), read back by
+               ``utils.checkpoint.load_hf_checkpoint`` onto the card (bit
+               for bit), served (4 greedy requests of ~400 tokens, 32 new,
+               submitted together) with the loaded weights and with the
+               drawn ones -- Llama on the paged bf16 engine (kernels 1 and
+               2) and the dense engine (kernel 7), Mixtral on the dense
+               engine -- with identical tokens, then a ``save_params`` /
+               ``restore_params`` round trip onto the card (bit for bit);
+               bytes written, load seconds and GB/s printed; each
+               directory deleted before the next step.
 8. mixtral -- Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128,
                8 experts of FFN 14336, top-2, vocab 32000, rope theta 1e6)
                and 16 of its 32 layers (``reduced``: all 32 do not fit one
@@ -326,10 +361,13 @@ and exits non-zero at the first failure:
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
 serves, the api, obs, prof, rolling and lanes phases, the sanitize
-phase's five sanitizers-on serves and the seven Mixtral serves, each
+phase's five sanitizers-on serves, the ckpt phase's serves of the loaded
+weights and the seven Mixtral serves, each
 counted from zero
 just before it and read just after; a graph replay adds the launches its
-capture recorded; ``checked_ms`` is the bounds-checked build's time) and,
+capture recorded; ``checked_ms`` is the bounds-checked build's time;
+``smem_bytes``, ``smem_limit``, ``regs``, ``local_bytes``, ``spill_stores``
+/ ``spill_loads`` the smem step's serving instance) and,
 last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
@@ -4017,6 +4055,7 @@ async def _prof_http(db, svc, eng, name, paged, dump_dir, card):
             roof = analyzers["--roofline"][1].get("dumps", [{}])[0]
             memrep = analyzers["--memory"][1].get("dumps", [{}])[0]
             ran = [v for v in report["variants"] if v["invocations"] > 0]
+            kern = [v for v in ran if (v.get("meta") or {}).get("kernel")]
             decode = []
             for v in ran:
                 if not v["variant"].startswith(("decode.", "resident.")):
@@ -4099,7 +4138,24 @@ async def _prof_http(db, svc, eng, name, paged, dump_dir, card):
                 "analyze --memory reads the dump":
                     analyzers["--memory"][0] == 0
                     and memrep.get("occupancy") is not None,
+                "kernel variants carry their build's ptxas facts": all(
+                    v["meta"].get("ptxas") for v in kern),
+                # the paged dispatchers record shared memory per block
+                # (the dense engine's decode dispatch records none, as in
+                # the JAX package)
+                "paged: kernel variants carry vmem_est_bytes": not paged
+                    or (bool(kern) and all(
+                        v.get("vmem_est_bytes") for v in kern)),
+                "paged: analyze --roofline prints the column": not paged
+                    or bool(roof.get("vmem_variants")),
             }
+            emit("smem", step="served_profile", serve=name,
+                 variants=[{k: v.get(k) for k in (
+                     "variant", "vmem_est_bytes", "vmem_budget_bytes",
+                     "vmem_utilization")} for v in kern],
+                 ptxas={v["variant"]: v["meta"].get("ptxas") for v in kern},
+                 roofline_budget=roof.get("vmem_budget_bytes"),
+                 roofline_column=roof.get("vmem_variants"))
             emit("prof", serve=name, model="llama3-8b",
                  harvest_calls=harvest0, mfu=report["mfu"],
                  peaks=report["peaks"], platform=report["platform"],
@@ -5927,25 +5983,367 @@ def moe_layer_breakdown(params, cfg, card):
 # -------------------------------------------------------------------- main
 
 
-def ptxas_summary(log: str) -> list:
-    """One line per kernel entry of an ``nvcc -Xptxas -v`` log: the
-    entry's mangled name without the ``swarm`` namespace and argument
-    list, its registers and its spill bytes (stores / loads)."""
-    import re
+# ------------------------------------------------------------- smem / lint
 
-    out, name, spills = [], None, ""
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '_ZN5swarm\d+(\w+?EE)v", ln)
-        if m:
-            name = m.group(1).rstrip("E")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m:
-            spills = f"{m.group(1)}/{m.group(2)}"
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} registers, spills {spills}")
-            name = None
+#: the prefill waves the smem step asks about: one that fits a block per
+#: SM twice over (two groups a block) and one that does not (one group)
+SMEM_WAVES = (64, 4096)
+SMEM_DIMS = {"Hq": 32, "Hkv": 8, "D": 128}
+#: the kernel (template) each decode entry point runs
+_SMEM_BODIES = {
+    "paged_decode": "paged_decode_cluster_kernel",
+    "paged_decode_quant": "paged_decode_cluster_kernel",
+    "paged_decode_chunked": "paged_decode_chunked_cluster_kernel",
+    "paged_decode_chunked_quant": "paged_decode_chunked_cluster_kernel",
+    "dense_decode": "dense_decode_cluster_kernel",
+    "dense_decode_chunked": "dense_decode_chunked_cluster_kernel",
+}
+_PTX_TYPE = {"f32": "float", "bf16": "bf16", "int8": "int8"}
+
+
+def _ptxas_row(kernel: str, dims: dict, info: dict):
+    """The parsed build log's row of the instance a query answered for."""
+    from swarmdb_tpu_torch.analysis.kernelcheck import KERNEL_BODIES
+    from swarmdb_tpu_torch.ops import build
+
+    page = _PTX_TYPE["int8" if KERNEL_BODIES[kernel][2] else dims["page"]]
+    if kernel.startswith("ragged_prefill"):
+        body = ("ragged_prefill_mma_kernel" if info["groups"]
+                else "ragged_prefill_kernel")
+        tail = f", {info['groups']}>" if info["groups"] else ">"
+    else:
+        body, tail = _SMEM_BODIES[kernel], ">"
+    return next((r for r in build.ptxas_instances(kernel, page, dims["D"])
+                 if r["instance"].startswith(body + "<")
+                 and r["instance"].endswith(tail)), None)
+
+
+def run_smem(dev) -> dict:
+    """The smem step: for each of the eight entry points at the shapes this
+    script launches (``SMEM_DIMS``, every dtype the engines launch it
+    with, the prefill at ``SMEM_WAVES``), ``estimate_smem`` (the Python
+    mirror) must equal the library's own shared memory per block (its
+    ``swarm_<kernel>_smem`` query: the dynamic bytes the launch passes
+    plus the instance's static bytes), fit the instance's dynamic limit
+    after the launch's own opt-in (exactly that limit for the tensor-core
+    prefill, which opts in to its size) and the device's opt-in limit.
+    Prints registers, spills and static shared memory from the parsed
+    build log beside ``cudaFuncGetAttributes``. Returns per kernel its
+    serving instance's numbers (bf16 operands, int8 pages for a quant
+    kernel, the first wave) for the kernels line."""
+    from swarmdb_tpu_torch.analysis.kernelcheck import (estimate_smem,
+                                                        launch_dtypes,
+                                                        smem_budget)
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.ops import build
+
+    limit = smem_budget(device=dev)
+    rows, summary, bad = [], {}, []
+    for kernel in build.KERNELS:
+        waves = SMEM_WAVES if kernel.startswith("ragged") else (None,)
+        for dt in launch_dtypes(kernel):
+            for W in waves:
+                dims = dict(SMEM_DIMS, **dt)
+                if W is not None:
+                    dims["W"] = W
+                info = ac.smem_info(kernel, dims, device=dev)
+                est = estimate_smem(kernel, dict(dims, sms=info["sms"]))
+                lib = info["dynamic"] + info["static"]
+                ptx = _ptxas_row(kernel, dims, info)
+                row = dict(kernel=kernel, **dt, W=W, estimate=est,
+                           library=lib, dynamic=info["dynamic"],
+                           static=info["static"],
+                           max_dynamic=info["max_dynamic"],
+                           optin=info["optin"], groups=info["groups"],
+                           regs=info["regs"], local=info["local"],
+                           ptxas=ptx and {k: ptx[k] for k in (
+                               "instance", "regs", "spill_stores",
+                               "spill_loads", "stack", "smem_static")})
+                rows.append(row)
+                if est != lib:
+                    bad.append(f"{kernel} {dt} W={W}: estimate {est} != "
+                               f"library {lib}")
+                if lib > info["optin"] or lib > limit:
+                    bad.append(f"{kernel} {dt} W={W}: {lib} bytes over the "
+                               f"opt-in limit {info['optin']}")
+                if info["dynamic"] > info["max_dynamic"] or (
+                        info["groups"]
+                        and info["dynamic"] != info["max_dynamic"]):
+                    bad.append(f"{kernel} {dt} W={W}: dynamic "
+                               f"{info['dynamic']} against the instance's "
+                               f"limit {info['max_dynamic']}")
+                serving = (dt["q"] == "bf16" and dt.get("chunk", "bf16")
+                           == "bf16" and dt["page"] in ("bf16", "int8")
+                           and W in (None, SMEM_WAVES[0]))
+                if serving:
+                    summary[kernel] = dict(
+                        smem_bytes=lib, smem_limit=info["optin"],
+                        regs=info["regs"], local_bytes=info["local"],
+                        spill_stores=ptx and ptx["spill_stores"],
+                        spill_loads=ptx and ptx["spill_loads"],
+                        instance=ptx and ptx["instance"])
+    emit("smem", step="kernels", limit=limit, dims=SMEM_DIMS,
+         waves=SMEM_WAVES, queries=len(rows), rows=rows)
+    if bad:
+        fail("smem: " + "; ".join(bad[:8]))
+    missing = [k for k in build.KERNELS if k not in summary]
+    if missing:
+        fail(f"smem: no serving instance answered for {missing}")
+    return summary
+
+
+def run_lint() -> None:
+    """The lint step: ``python -m swarmdb_tpu_torch.analysis`` (the port
+    against its own baseline) must exit 0 under this machine's Python."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "swarmdb_tpu_torch.analysis"],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=300)
+    tail = (out.stdout.strip().splitlines() or [""])[-1]
+    emit("lint", rc=out.returncode, result=tail, python=sys.version.split()[0],
+         seconds=time.perf_counter() - t0)
+    if out.returncode != 0:
+        fail(f"lint: python -m swarmdb_tpu_torch.analysis exited "
+             f"{out.returncode}: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+
+
+# ------------------------------------------------------------------ ckpt
+
+CKPT_LLAMA_LAYERS = 4
+CKPT_MIXTRAL_LAYERS = 1
+CKPT_PROMPT = 400
+CKPT_NEW = 32
+
+
+def hf_layout(params, cfg) -> list:
+    """(HF key, tensor in HF layout) for every weight of a drawn tree:
+    Linear weights as ``[out, in]``, experts under
+    ``block_sparse_moe.experts.{e}.w{1,2,3}``."""
+    L = params["layers"]
+    out = [("model.embed_tokens.weight", params["embed"]),
+           ("model.norm.weight", params["final_norm"])]
+    if "lm_head" in params:
+        out.append(("lm_head.weight", params["lm_head"].t()))
+    names = {"attn_norm": ("input_layernorm.weight", False),
+             "wq": ("self_attn.q_proj.weight", True),
+             "wk": ("self_attn.k_proj.weight", True),
+             "wv": ("self_attn.v_proj.weight", True),
+             "wo": ("self_attn.o_proj.weight", True),
+             "mlp_norm": ("post_attention_layernorm.weight", False)}
+    if cfg.is_moe:
+        names["router"] = ("block_sparse_moe.gate.weight", True)
+    else:
+        names.update({"w_gate": ("mlp.gate_proj.weight", True),
+                      "w_up": ("mlp.up_proj.weight", True),
+                      "w_down": ("mlp.down_proj.weight", True)})
+    for i in range(cfg.n_layers):
+        for name, (key, tr) in names.items():
+            w = L[name][i]
+            out.append((f"model.layers.{i}.{key}", w.t() if tr else w))
+        if cfg.is_moe:
+            for e in range(cfg.n_experts):
+                for name, w in (("w_gate", "w1"), ("w_up", "w3"),
+                                ("w_down", "w2")):
+                    out.append((f"model.layers.{i}.block_sparse_moe."
+                                f"experts.{e}.{w}.weight",
+                                L[name][i, e].t()))
     return out
+
+
+def write_hf_checkpoint(params, cfg, path: str, shards: int = 2) -> int:
+    """Write a drawn tree as an HF checkpoint in bf16: ``shards``
+    safetensors files (an 8-byte header length, a JSON header of dtype,
+    shape and data offsets, then the bytes, 8-byte aligned) and
+    ``model.safetensors.index.json``. Returns the bytes written. A test
+    writer: it knows bf16 tensors only."""
+    import torch
+
+    tensors = hf_layout(params, cfg)
+    total = sum(t.numel() * 2 for _, t in tensors)
+    os.makedirs(path, exist_ok=True)
+    groups, acc, cur = [], 0, []
+    for key, t in tensors:
+        cur.append((key, t))
+        acc += t.numel() * 2
+        if acc >= total * (len(groups) + 1) / shards and len(
+                groups) < shards - 1:
+            groups.append(cur)
+            cur = []
+    groups.append(cur)
+    weight_map, written = {}, 0
+    for n, group in enumerate(groups):
+        fname = f"model-{n + 1:05d}-of-{len(groups):05d}.safetensors"
+        header, off = {}, 0
+        for key, t in group:
+            if t.dtype != torch.bfloat16:
+                raise ValueError(f"{key}: the test writer writes bf16")
+            header[key] = {"dtype": "BF16", "shape": list(t.shape),
+                           "data_offsets": [off, off + t.numel() * 2]}
+            off += t.numel() * 2
+            weight_map[key] = fname
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(len(blob).to_bytes(8, "little"))
+            f.write(blob)
+            for _key, t in group:
+                host = t.contiguous().cpu().view(torch.int16).numpy()
+                f.write(memoryview(host).cast("B"))
+        written += 8 + len(blob) + off
+    with open(os.path.join(path, "model.safetensors.index.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return written
+
+
+def tree_bit_equal(a, b, key="") -> list:
+    """Keys whose tensors differ in any bit (or shape / dtype)."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{key}: keys {sorted(set(a) ^ set(b))}"]
+        return [k for n in sorted(a) for k in tree_bit_equal(
+            a[n], b[n], f"{key}.{n}" if key else n)]
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return [key]
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    same = (torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype]))
+            if a.dtype in bits else torch.equal(a, b))
+    return [] if same else [key]
+
+
+def ckpt_serve(cfg, params, paged: bool) -> list:
+    """4 greedy requests of ~``CKPT_PROMPT`` tokens, ``CKPT_NEW`` new,
+    submitted together on a fresh engine over ``params`` (paged bf16 or
+    dense, chunked): their (tokens, reason)."""
+    import numpy as np
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(3, min(cfg.vocab_size, 30000),
+                            CKPT_PROMPT + 7 * i).tolist() for i in range(4)]
+    with engine_env(chunked=True):
+        eng, _tok = build_backend_engine(
+            cfg, seed=0, device="cuda", params=params, paged=paged,
+            kv_dtype=torch.bfloat16 if paged else None, max_seq=1024)
+    try:
+        return run_together(eng, prompts, [CKPT_NEW] * 4, timeout=300.0)
+    finally:
+        del eng
+        torch.cuda.empty_cache()
+
+
+def ckpt_model(card: str, model: str, layers: int, engines) -> dict:
+    """One model of the ckpt phase: drawn at full width and ``layers``
+    layers from seed 0 on the card, written as an HF checkpoint, read back
+    through ``load_hf_checkpoint`` (bit for bit), served on ``engines``
+    (paged flags) with the loaded and the drawn weights (identical
+    tokens), then a ``save_params`` / ``restore_params`` round trip (bit
+    for bit). Each checkpoint directory is deleted before the next step.
+    Returns the kernel launches of its serves."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.models import llama, mixtral
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.utils.checkpoint import (load_hf_checkpoint,
+                                                    restore_params,
+                                                    save_params)
+
+    cfg = get_config(model, n_layers=layers)
+    mod = mixtral if cfg.is_moe else llama
+    t0 = time.perf_counter()
+    drawn = mod.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="swarm_ckpt_")
+    free = shutil.disk_usage(work).free
+    hf_dir = os.path.join(work, "hf")
+    try:
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(drawn, cfg, hf_dir)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_hf_checkpoint(hf_dir, cfg, dtype=torch.bfloat16,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        shutil.rmtree(hf_dir)
+        diff = tree_bit_equal(drawn, loaded)
+        if diff:
+            fail(f"ckpt: {model} loaded weights differ from the drawn ones "
+                 f"at {diff[:5]}")
+        serves, launches = [], {}
+        for paged in engines:
+            ac.reset_launches()
+            got = ckpt_serve(cfg, loaded, paged)
+            for k, n in ac.LAUNCHES.items():
+                if n:
+                    launches[k] = launches.get(k, 0) + n
+            want = ckpt_serve(cfg, drawn, paged)
+            toks = [g and g[0] for g in got]
+            if (any(g is None or g[1] not in ("length", "eos") for g in got)
+                    or toks != [w and w[0] for w in want]):
+                fail(f"ckpt: {model} {'paged' if paged else 'dense'} "
+                     f"tokens of the loaded weights differ from the drawn "
+                     f"ones: {got} != {want}")
+            serves.append(dict(engine="paged bf16" if paged else "dense",
+                               requests=len(got),
+                               tokens=sum(len(t) for t in toks)))
+        del loaded
+        gc.collect()
+        tpath = os.path.join(work, "params.pt")
+        t0 = time.perf_counter()
+        save_params(drawn, tpath)
+        save_s = time.perf_counter() - t0
+        saved = os.path.getsize(tpath)
+        t0 = time.perf_counter()
+        back = restore_params(tpath, target=drawn, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        os.remove(tpath)
+        diff = tree_bit_equal(drawn, back)
+        if diff:
+            fail(f"ckpt: {model} restore_params differs at {diff[:5]}")
+        del back
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        del drawn
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("ckpt", model=model, layers=layers, layers_full=get_config(
+        model).n_layers, card=card, disk_free_bytes=free,
+         draw_s=draw_s, bytes_written=written, write_s=write_s,
+         load_s=load_s, load_gb_per_s=written / load_s / 1e9,
+         bit_equal=True, serves=serves, save_bytes=saved, save_s=save_s,
+         restore_s=restore_s,
+         restore_gb_per_s=saved / restore_s / 1e9,
+         launches={k: n for k, n in launches.items() if n})
+    return launches
+
+
+def run_ckpt(card: str) -> dict:
+    """The ckpt phase: Llama-3-8B at full width and ``CKPT_LLAMA_LAYERS``
+    layers served on the paged bf16 engine (kernels 1 and 2) and the
+    dense engine (kernel 7), then Mixtral-8x7B at full width and
+    ``CKPT_MIXTRAL_LAYERS`` layer on the dense engine (the expert order),
+    all from weights read off disk. Returns the serves' launches."""
+    launches = {}
+    for model, layers, engines in (
+            ("llama3-8b", CKPT_LLAMA_LAYERS, (True, False)),
+            ("mixtral-8x7b", CKPT_MIXTRAL_LAYERS, (False,))):
+        for k, n in ckpt_model(card, model, layers, engines).items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
 
 
 def main() -> int:
@@ -5988,9 +6386,13 @@ def main() -> int:
     # sanitize phase's), one nvcc each, all started together
     logs = build.build_all(checked=True)
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: ptxas_summary(v) for k, v in logs.items()})
+         ptxas={k: [f"{r['instance']}: {r['regs']} registers, spills "
+                    f"{r['spill_stores']}/{r['spill_loads']}"
+                    for r in build.parse_ptxas(v)] for k, v in logs.items()})
+    run_lint()
 
     with torch.no_grad():
+        smem = run_smem(dev)
         rows = run_kernels(dev)
         run_parity(dev)
         launches, params = run_serves(card)
@@ -6012,12 +6414,16 @@ def main() -> int:
         san_launches, checked_ms = run_sanitize(card)
         for k, n in san_launches.items():
             launches[k] = launches.get(k, 0) + n
+        for k, n in run_ckpt(card).items():
+            launches[k] = launches.get(k, 0) + n
         for k, n in run_mixtral(card).items():
             launches[k] = launches.get(k, 0) + n
     for k, n in launches.items():
         rows[k]["launches"] = n
     for k, ms in checked_ms.items():
         rows[k]["checked_ms"] = ms
+    for k, row in smem.items():
+        rows[k].update(row)
     idle = [k for k, row in rows.items() if not row["launches"]]
     if idle:
         fail(f"kernels never launched by the serves: {idle}")

@@ -154,7 +154,7 @@ from ..ops.attention_cuda import (decode_kernel_name, kerncheck_poll,
 from ..ops.layers import kerncheck_enabled
 from ..ops.paged_kv import (KV_DTYPES, PageAllocator, QuantPool,
                              canary_check, canary_fill, paged_write_chunk,
-                             paged_write_ragged, pool_dtype,
+                             paged_write_ragged, pool_data, pool_dtype,
                              pool_insert_pages, pool_insert_raw, pool_layer,
                              pool_page_bytes, set_page_table_rows)
 from ..ops.prefix_cache import PrefixLRU, make_prefix_lru, page_chains
@@ -297,6 +297,9 @@ class Engine:
     """Slot-based continuous batching over the paged pool or the dense
     slot cache."""
 
+    # swarmlint: guarded-by[self._cv]: _queue, _admitting, _cancel_pending, _stop
+    # swarmlint: device-state: _last_tokens, _last_lps, cache
+
     def __init__(
         self,
         params: Any,
@@ -391,6 +394,11 @@ class Engine:
             self.eos_id = eos_id
             self.pad_id = pad_id
             self.metrics = metrics or MetricsRegistry()
+            # bound once, as the JAX engine does: the hot paths observe
+            # without a registry lookup per observation (SWL503)
+            self._lat_queue_wait = self.metrics.latencies["queue_wait_s"]
+            self._lat_prefill = self.metrics.latencies["prefill_s"]
+            self._lat_first_token = self.metrics.latencies["first_token_s"]
             self.decode_chunk = max(1, int(decode_chunk))
             self.prefill_batch = max(1, min(prefill_batch or 8, max_batch))
             # rows of a bucketed wave: prefill_batch, or a power-of-two ladder
@@ -649,8 +657,11 @@ class Engine:
                 self._thread = None
 
     def alive(self) -> bool:
-        """True while the decode loop thread is running."""
-        return self._thread is not None and self._thread.is_alive()
+        """True while the decode loop thread is running. One read of the
+        thread: ``stop()`` may clear it between two (then ``None``'s
+        ``is_alive`` raised in the supervisor's watch)."""
+        thread = self._thread  # swarmlint: disable=SWL303 -- one reference read, atomic; the lock would make the supervisor's poll wait out a 60 s stop
+        return thread is not None and thread.is_alive()
 
     def restart(self) -> None:
         """Recover a dead or failing loop: stop it, fail every request
@@ -687,15 +698,17 @@ class Engine:
         t0 = time.perf_counter()
         self._prof.suspend()
         try:
-            if not isinstance(self._prof, NullLane):
-                self.profile_harvest()
             if self.device.type == "cuda":
                 from ..ops import build
 
+                # before the harvest: the variants' meta carries the
+                # builds' ptxas facts
                 build.build_all()
-                if self._role_warms_decode():
-                    with self._on_stream():
-                        self._runner.capture_all()
+            if not isinstance(self._prof, NullLane):
+                self.profile_harvest()
+            if self.device.type == "cuda" and self._role_warms_decode():
+                with self._on_stream():
+                    self._runner.capture_all()
         finally:
             self._prof.resume()
         return time.perf_counter() - t0
@@ -752,17 +765,18 @@ class Engine:
                 cfg, rows=B, steps=K, ctx=self.max_seq, **price)
             keys = PROF_DECODE_KEYS + (PROF_RESIDENT_KEYS if self._resident
                                        else ())
+            kmeta = self._kernel_meta(self._decode_kernel)
             for key in keys:
-                plan.append((key, cost, dict(meta,
-                                             kernel=self._decode_kernel)))
+                plan.append((key, cost, dict(meta, **kmeta)))
         warms_prefill = self._role != "decode"
         if self.paged is not None and self._ragged and warms_prefill:
-            kernel = "ragged_prefill_quant" if quant else "ragged_prefill"
+            kmeta = self._kernel_meta(
+                "ragged_prefill_quant" if quant else "ragged_prefill")
             for wd in self._ragged_widths:
                 plan.append((prof_key("prefill.ragged", (wd,)),
                              fwd(rows=1, tokens=wd, head_rows=B,
                                  ragged=True),
-                             dict(meta, kernel=kernel)))
+                             dict(meta, **kmeta)))
         for bucket in self.prefill_buckets:
             if not warms_prefill:
                 break
@@ -801,6 +815,26 @@ class Engine:
                         fwd(rows=Bp, tokens=bucket, prefix=ppb * ps,
                             head_rows=Bp), dict(meta)))
         return plan
+
+    def _kernel_meta(self, kernel: str) -> Dict[str, Any]:
+        """A variant's kernel (a ``build.KERNELS`` name) and, on the card,
+        its build's ptxas facts for the instances at this engine's head
+        dim and page type (``ops.build.ptxas_info``: registers, spill
+        stores and loads, stack, static shared memory), under
+        ``"ptxas"``."""
+        meta: Dict[str, Any] = {"kernel": kernel}
+        if self.device.type != "cuda":
+            return meta
+        from ..ops import build
+
+        k = self.cache["k"] if self.paged is not None else self.cache[0]
+        data = pool_data(k)
+        page = build.PAGE_TYPES[str(data.dtype).removeprefix("torch.")]
+        meta["ptxas"] = [
+            {f: r[f] for f in ("instance", "regs", "spill_stores",
+                               "spill_loads", "stack", "smem_static")}
+            for r in build.ptxas_instances(kernel, page, data.shape[-1])]
+        return meta
 
     def _warm_resume(self) -> bool:
         """Whether the resume waves are in the profiler's plan: the JAX
@@ -1026,6 +1060,7 @@ class Engine:
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream)
 
+    # swarmlint: hot
     def _run(self, cpu_threads: int) -> None:
         torch.set_num_threads(cpu_threads)
         if self.device.type == "cuda":
@@ -1033,6 +1068,7 @@ class Engine:
         with self._on_stream():
             self._loop()
 
+    # swarmlint: hot
     def _loop(self) -> None:
         # (block on its way, snapshot, dispatch stamp, profiler key) per
         # chunk in flight, oldest first
@@ -1122,6 +1158,7 @@ class Engine:
     def _any_active(self) -> bool:
         return any(s.active for s in self.slots)
 
+    # swarmlint: hot
     def _flight_step(self, in_flight_n: int, settle: bool = False) -> None:
         """One flight-recorder step per loop iteration that has work, as
         in the JAX engine: idle iterations are skipped, and the first one
@@ -1183,10 +1220,12 @@ class Engine:
 
     # ------------------------------------------------- supervision signals
 
+    # swarmlint: heartbeat
     def _beat(self) -> None:
         """Liveness proof: one monotonic read into a single-writer slot."""
         self._beat_mono = time.monotonic()
 
+    # swarmlint: heartbeat
     def beat_age_s(self, now: float = 0.0) -> float:
         """Seconds since the loop last proved progress; only a dead or
         wedged loop lets it grow."""
@@ -1198,6 +1237,7 @@ class Engine:
 
     # ------------------------------------------------------------- admission
 
+    # swarmlint: hot
     def _age_queue(self) -> None:
         """Anti-starvation: every SWARMDB_AGING_S seconds a queued request
         waits, it competes one priority class higher (recomputed from wait
@@ -1217,6 +1257,7 @@ class Engine:
                 heapq.heapify(self._queue)
                 self.metrics.counters["engine_priority_aged"].inc()
 
+    # swarmlint: hot
     def _expire_deadlines(self) -> None:
         """Fail queued requests whose deadline has passed with the final
         reason "deadline"; an active request is never cut mid-stream (the
@@ -1243,6 +1284,7 @@ class Engine:
             free += self._prefix.evictable_count()
         return min(1.0, free / max(1, self.paged.num_pages - 1))
 
+    # swarmlint: hot
     def _backpressure_gate(self) -> bool:
         """Watermark hysteresis over pool utilisation; True when admission
         may proceed. Past the demote watermark the tier manager is
@@ -1298,6 +1340,7 @@ class Engine:
             self._shed_lowest()
         return False
 
+    # swarmlint: hot
     def _shed_lowest(self) -> None:
         shed: List[GenRequest] = []
         with self._cv:
@@ -1318,6 +1361,7 @@ class Engine:
                  "priority": req.priority, "shard": self.flight_shard})
             _call(req.on_done, req.request_id, [], "shed")
 
+    # swarmlint: hot
     def _admit(self) -> None:
         """Move queued requests into free slots (highest priority first),
         up to ``prefill_batch`` per round, and prefill them."""
@@ -1328,6 +1372,7 @@ class Engine:
         else:
             self._admit_paged()
 
+    # swarmlint: hot
     def _admit_paged(self) -> None:
         """Paged admission rounds. A request whose pages the pool cannot
         cover stops the round (no skip-ahead: long prompts do not starve
@@ -1627,6 +1672,7 @@ class Engine:
                 return b
         return self._prefix_pp_buckets[-1]
 
+    # swarmlint: hot
     def _admit_dense(self) -> None:
         """Dense admission rounds of up to ``prefill_batch`` requests into
         free slots. Prompts of at least one page take the prefix path even
@@ -1713,6 +1759,7 @@ class Engine:
                 return rb
         return self._row_buckets[-1]
 
+    # swarmlint: hot
     def _prefill_batch(self, batch: List[Tuple]) -> None:
         """One bucketed prefill of short prompts (dense), or of the
         prompts without a prefix plan (paged, row-bucketed): forward at
@@ -1782,6 +1829,7 @@ class Engine:
             pool_insert_pages(pool, flat, fresh.reshape(
                 (L, Bp * chunks, ps) + tuple(fresh.shape[3:])))
 
+    # swarmlint: hot
     def _prefill_paged_prefix_batch(self, batch: List[Tuple], bucket: int,
                                     ppb: int) -> None:
         """The paged prefix wave: the rows with a prefix plan (slot_id,
@@ -1856,6 +1904,7 @@ class Engine:
             event.synchronize()
         self._promote_sources.clear()
 
+    # swarmlint: hot
     def _prefill_paged_resume_batch(self, batch: List[Tuple], bucket: int,
                                     ppb: int) -> None:
         """One suffix prefill continuing kept conversations (rolling KV,
@@ -1917,6 +1966,7 @@ class Engine:
         self._last_wave_kind = "bucketed"
         self._activate([(it[0], it[1]) for it in batch], t0)
 
+    # swarmlint: hot
     def _prefill_dense_resume_batch(self, batch: List[Tuple], bucket: int,
                                     ppb: int) -> None:
         """Dense rolling resume: each row's kept side-pool pages compose
@@ -1929,6 +1979,7 @@ class Engine:
             [(slot_id, req, req.prompt, req.resume_len, req.resume_pages, [])
              for slot_id, req in batch], bucket, ppb, time.time())
 
+    # swarmlint: hot
     def _prefill_prefix_batch(self, batch: List[Tuple], bucket: int,
                               ppb: int) -> None:
         """One fused dense prefix prefill for the round's prefix-path
@@ -1960,6 +2011,7 @@ class Engine:
         for rec in records:
             self._prefix.register(*rec)
 
+    # swarmlint: hot
     def _prefix_fused_dispatch(self, rows: List[Tuple], bucket: int,
                                ppb: int, t0: float) -> None:
         """The dense prefix prefill of ``rows`` (slot_id, req,
@@ -2071,6 +2123,7 @@ class Engine:
                 left.append((key, t0, start, end))
         self._prof_waves = left
 
+    # swarmlint: hot
     def _prefill_ragged_waves(self, batch: List[Tuple]) -> None:
         """Packed ragged admission waves. ``batch`` rows: (slot_id, req,
         hits, chains, table_row). A row longer than the wave's remaining
@@ -2184,6 +2237,7 @@ class Engine:
         if reused:
             self.metrics.counters["prefix_reused_tokens"].inc(reused)
 
+    # swarmlint: hot
     def _activate(self, batch: List[Tuple[int, GenRequest]],
                   t0: float) -> None:
         if self._pagecheck is not None:
@@ -2218,7 +2272,7 @@ class Engine:
                 len(req.prompt) + req.resume_len)
             self.metrics.counters["engine_admitted"].inc()
             wait = t0 - req.submitted_at
-            self.metrics.latencies["queue_wait_s"].observe(wait)
+            self._lat_queue_wait.observe(wait)
             HIST_QUEUE_WAIT.observe(wait, req.request_id)
             self.metrics.counters["phase_us_queue_wait"].inc(
                 max(0, int(wait * 1e6)))
@@ -2227,7 +2281,7 @@ class Engine:
             self.tracer.span_at("engine.admit", req.submitted_at, t0,
                                 cat="engine", rid=req.request_id)
         dt = time.time() - t0
-        self.metrics.latencies["prefill_s"].observe(dt)
+        self._lat_prefill.observe(dt)
         self.metrics.counters["phase_us_prefill"].inc(max(0, int(dt * 1e6)))
         self.metrics.counters["engine_admission_waves"].inc()
         if self.overlap_probe is not None and self.overlap_probe():
@@ -2249,6 +2303,7 @@ class Engine:
         return (positions, self._base_keys_np.astype(np.int64), self._temp,
                 self._topk, self._topp)
 
+    # swarmlint: hot
     def _dispatch_decode(self) -> Tuple[ChunkOut,
                                         List[Tuple[int, GenRequest, int]],
                                         int, Optional[str]]:
@@ -2278,6 +2333,7 @@ class Engine:
         self.metrics.counters["engine_decode_chunks"].inc()
         return out, snapshot, t_ns, key
 
+    # swarmlint: hot
     def _process_block(self, out: ChunkOut,
                        snapshot: List[Tuple[int, GenRequest, int]],
                        t_dispatch_ns: int, key: Optional[str]) -> None:
@@ -2317,6 +2373,7 @@ class Engine:
                                 detail=f"at admission of {req.request_id}")
         pc.clear_poison(poisoned)
 
+    # swarmlint: hot
     def _host_wait(self, fetch: Callable[[], Any]) -> Any:
         """One host wait on the device (``fetch``), counted as a host
         sync: an ``engine.host_sync`` span, ``engine_host_syncs`` and the
@@ -2337,6 +2394,7 @@ class Engine:
             kerncheck_poll(self.device)
         return out
 
+    # swarmlint: hot
     def _process_host_block(self, block: np.ndarray, lps: np.ndarray,
                             snapshot: List[Tuple[int, GenRequest, int]],
                             t_dispatch_ns: int) -> None:
@@ -2391,13 +2449,14 @@ class Engine:
             if s.active:
                 s.position = pos0 + K
 
+    # swarmlint: hot
     def _resident_should_continue(self) -> bool:
         """The host's vote after each chunk of a session: stop when the
         engine is stopping, a chaos fault is armed (it must land at the
         loop-top seam), nothing is active, or queued work meets a free
         slot (end the session, admit, start another). Lock-light as in
         the JAX package: a stale verdict costs one chunk."""
-        if self._stop or self._chaos_pending():
+        if self._stop or self._chaos_pending():  # swarmlint: disable=SWL301 -- chunk-granular race is benign
             return False
         if not self._any_active():
             return False
@@ -2405,6 +2464,7 @@ class Engine:
             queued = len(self._queue)
         return not (queued and any(not s.active for s in self.slots))
 
+    # swarmlint: hot
     def _run_resident(self) -> None:
         """One device-resident decode session over the active slots: live
         slots start at their dispatched positions, idle rows at 0, and
@@ -2484,6 +2544,7 @@ class Engine:
                 # processed extent
                 s.dispatched_position = s.position
 
+    # swarmlint: hot
     def _drain_prefill_only(self) -> None:
         """Fleet prefill lanes: retire admission-only (max_new_tokens <=
         1) requests straight off the prefill sample. The fed-token vector
@@ -2497,8 +2558,9 @@ class Engine:
         if not rows:
             return
         toks, lps = self._host_wait(
+            # swarmlint: sanctioned-drain -- the admission round's one wait
             lambda: (self._last_tokens.cpu().numpy(),
-                     self._last_lps.cpu().numpy()))
+                     self._last_lps.cpu().numpy()))  # swarmlint: sanctioned-drain
         now = time.time()
         for i in rows:
             s = self.slots[i]
@@ -2513,6 +2575,7 @@ class Engine:
                 # only a max_new_tokens 0 request gets here
                 self._retire(i, "length")
 
+    # swarmlint: hot
     def _emit_token(self, slot_id: int, token: int, now: float,
                     logprob: float) -> None:
         """Record a sampled token, stream it, retire if finished."""
@@ -2520,7 +2583,7 @@ class Engine:
         req = slot.request
         if slot.first_token_at is None:
             slot.first_token_at = now
-            self.metrics.latencies["first_token_s"].observe(
+            self._lat_first_token.observe(
                 now - req.submitted_at)
             HIST_TTFT.observe(now - req.submitted_at, req.request_id)
         reason = None
@@ -2542,6 +2605,7 @@ class Engine:
         if reason is not None:
             self._retire(slot_id, reason)
 
+    # swarmlint: hot
     def _retire(self, slot_id: int, reason: str) -> None:
         slot = self.slots[slot_id]
         req = slot.request
@@ -2610,6 +2674,7 @@ class Engine:
             alloc.add_free(extras)
         _call(req.on_pages, req.request_id, kept, written, tail)
 
+    # swarmlint: hot
     def _dense_keep_extract(self, slot_id: int, slot: _Slot,
                             req: GenRequest) -> None:
         """Rolling KV at a dense retirement: copy the lane's written K/V

@@ -607,6 +607,7 @@ class ServingService:
             if need > 0:
                 self._rolling_evict(need)
 
+    # swarmlint: holds[self._rolling_lock]
     def _rolling_evict(self, need_free: int) -> None:
         """LRU-evict idle conversations until the pool can cover
         ``need_free`` pages (caller holds ``_rolling_lock``)."""
@@ -673,6 +674,7 @@ class ServingService:
                         "cold" if self._tier.take_cold(key) else "fresh")
                 return "keep", None, None
 
+            # swarmlint: holds[self._rolling_lock]
             def restart() -> Tuple[str, None, None]:
                 if st.get("pages") and st["epoch"] == epoch:
                     eng.rolling_free(st["pages"])

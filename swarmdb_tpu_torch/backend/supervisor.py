@@ -198,6 +198,7 @@ class LaneSupervisor:
             "SWARMDB_LANE_DISPATCH_GRACE_S", 30.0)
         self.storm_n = _env_int("SWARMDB_RETRY_STORM_N", 8)
         self.health: List[_LaneHealth] = [_LaneHealth() for _ in self.lanes]
+        # swarmlint: guarded-by[self._lock]: _tracked
         self._tracked: Dict[str, _Tracked] = {}
         self._lock = make_lock("backend.supervisor.LaneSupervisor._lock")
         self._stop = threading.Event()
@@ -423,6 +424,7 @@ class LaneSupervisor:
 
     # ------------------------------------------------------------ verdicts
 
+    # swarmlint: heartbeat
     def _evaluate(self, eng: Engine, now: float) -> LaneState:
         # plain arithmetic over the engine's single-writer stamps
         if eng._thread is None:
@@ -579,6 +581,7 @@ class LaneSupervisor:
             TRACER.instant("lane.readmitted", cat="supervisor",
                            args={"lane": idx})
 
+    # swarmlint: retry
     def _probe_lane(self, eng: Engine, h: _LaneHealth) -> bool:
         """The probes still owed, bounded per tick, spaced, and under a
         deadline."""

@@ -217,7 +217,7 @@ class Producer:
     def __init__(self, broker: Broker) -> None:
         self._broker = broker
         self._pending: List[Tuple[DeliveryCallback, Optional[str], Record]] = []
-        # guarded by self._pending_lock: _pending
+        # swarmlint: guarded-by[self._pending_lock]: _pending
         self._pending_lock = make_lock("broker.base.Producer._pending_lock")
         # serializes whole poll() invocations: two concurrent pollers (the
         # runtime's delivery-poll thread + send_message's inline poll) could

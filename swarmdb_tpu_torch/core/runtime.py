@@ -102,6 +102,7 @@ class SwarmDB:
                                  self.config.retention_ms * 2)
 
         self._lock = make_rlock("core.runtime.SwarmDB._lock")
+        # swarmlint: guarded-by[self._lock]: registered_agents, messages, agent_inbox, _conversations, message_count, _stats_by_type, _stats_by_status, _stats_by_agent
         self.registered_agents: Set[str] = set()
         self.consumers: Dict[str, Consumer] = {}
         self.messages: Dict[str, Message] = {}
@@ -563,6 +564,7 @@ class SwarmDB:
 
     # ------------------------------------------------------------- status mgmt
 
+    # swarmlint: holds[self._lock]
     def _set_status(self, msg: Message, status: MessageStatus) -> None:
         """Single choke-point for status transitions (caller holds the
         lock); keeps the by-status counters consistent."""
@@ -763,6 +765,7 @@ class SwarmDB:
 
     # ------------------------------------------------------------------ stats
 
+    # swarmlint: holds[self._lock]
     def _stats_record_new(self, msg: Message) -> None:
         self._stats_by_type[msg.type.value] = (
             self._stats_by_type.get(msg.type.value, 0) + 1)
@@ -776,6 +779,7 @@ class SwarmDB:
                 msg.receiver_id, {"sent": 0, "received": 0})
             recv["received"] += 1
 
+    # swarmlint: holds[self._lock]
     def _stats_record_removed(self, msg: Message) -> None:
         self._stats_by_type[msg.type.value] = max(
             0, self._stats_by_type.get(msg.type.value, 0) - 1)
@@ -789,6 +793,7 @@ class SwarmDB:
             if recv is not None:
                 recv["received"] = max(0, recv["received"] - 1)
 
+    # swarmlint: holds[self._lock]
     def _rebuild_stats(self) -> None:
         self._stats_by_type = {}
         self._stats_by_status = {}

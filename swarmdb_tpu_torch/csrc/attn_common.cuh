@@ -507,6 +507,50 @@ __device__ __forceinline__ void widen_i8_bf16(const uint4& u, uint4& lo,
                   widen_i8x2_bf16(w[3], 0), widen_i8x2_bf16(w[3], 2));
 }
 
+// Slots of the `swarm_<entry>_smem` queries' info array (ctypes side:
+// ops/attention_cuda.py SMEM_INFO).
+enum SmemInfo {
+  kInfoDynamic = 0,   // dynamic shared bytes per block the launch passes
+  kInfoStatic,        // static shared bytes (cudaFuncGetAttributes)
+  kInfoRegs,          // registers per thread
+  kInfoLocal,         // local (spill) bytes per thread
+  kInfoMaxDynamic,    // the instance's dynamic limit after its opt-in
+  kInfoOptin,         // the device's opt-in shared bytes per block
+  kInfoThreads,       // threads per block
+  kInfoGroups,        // the tensor-core prefill's NG (0 elsewhere)
+  kInfoSms,           // the device's streaming multiprocessors
+  kInfoSlots
+};
+
+// Fill `info` for one kernel instance: `dyn` is the dynamic shared memory
+// its launch passes (the layout's bytes at the launch's dims).
+template <typename K>
+cudaError_t smem_info(K* kernel, size_t dyn, int threads, int groups,
+                      long long* info) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  int optin = 0, sms = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  info[kInfoDynamic] = static_cast<long long>(dyn);
+  info[kInfoStatic] = static_cast<long long>(fa.sharedSizeBytes);
+  info[kInfoRegs] = fa.numRegs;
+  info[kInfoLocal] = static_cast<long long>(fa.localSizeBytes);
+  info[kInfoMaxDynamic] = fa.maxDynamicSharedSizeBytes;
+  info[kInfoOptin] = optin;
+  info[kInfoThreads] = threads;
+  info[kInfoGroups] = groups;
+  info[kInfoSms] = sms;
+  return cudaSuccess;
+}
+
 }  // namespace swarm
 
 #ifdef SWARM_KERNCHECK

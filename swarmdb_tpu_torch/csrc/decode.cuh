@@ -574,4 +574,41 @@ cudaError_t decode_d(int D, const DecodeArgs& a, cudaStream_t stream) {
 #undef SWARM_CASE
 }
 
+// The shared memory a launch at these dims passes (DecodeLayout::bytes),
+// with the instance's attributes after the launch's own opt-in: the
+// `swarm_<entry>_smem` queries (attn_common.cuh SmemInfo).
+template <typename TP, int D, bool DENSE, bool CHUNKED>
+cudaError_t decode_smem_info_d(int G, int c_code, long long* info) {
+  void (*kernel)(DecodeArgs) = decode_kernel<TP, D, DENSE, CHUNKED>();
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = decode_smem_opt_in(reinterpret_cast<const void*>(kernel), dev);
+  if (e != cudaSuccess) return e;
+  const int csize = CHUNKED ? (c_code == kBF16 ? 2 : 4) : 0;
+  const DecodeLayout lay{decode_row_stride(D * (int)sizeof(TP), D * csize),
+                         G, D};
+  return smem_info(kernel, lay.bytes(), kDecodeThreads, 0, info);
+}
+
+template <typename TP, bool DENSE, bool CHUNKED>
+cudaError_t decode_smem_info(int D, int Hq, int Hkv, int c_code,
+                             long long* info) {
+  if (Hkv <= 0 || Hq % Hkv != 0 ||
+      (CHUNKED && (c_code < kF32 || c_code > kBF16)))
+    return cudaErrorInvalidValue;
+#define SWARM_CASE(DV) \
+  case DV:             \
+    return decode_smem_info_d<TP, DV, DENSE, CHUNKED>(Hq / Hkv, c_code, info);
+  switch (D) {
+    SWARM_CASE(16)
+    SWARM_CASE(32)
+    SWARM_CASE(64)
+    SWARM_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SWARM_CASE
+}
+
 }  // namespace swarm

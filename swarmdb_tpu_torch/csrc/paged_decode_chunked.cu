@@ -27,4 +27,19 @@ extern "C" int swarm_paged_decode_chunked(
   return cudaErrorInvalidValue;
 }
 
+// Shared memory per block and registers of the instance a launch at these
+// dims runs (attn_common.cuh SmemInfo): `info` holds kInfoSlots values.
+// Codes as above; unused ones are ignored. Returns the CUDA error.
+extern "C" int swarm_paged_decode_chunked_smem(int page_code, int q_code,
+    int c_code, int Hq, int Hkv, int D, int W, long long* info) {
+  (void)q_code, (void)W;
+  if (page_code == swarm::kF32)
+    return swarm::decode_smem_info<float, false, true>(D, Hq, Hkv, c_code,
+                                                       info);
+  if (page_code == swarm::kBF16)
+    return swarm::decode_smem_info<__nv_bfloat16, false, true>(D, Hq, Hkv,
+                                                             c_code, info);
+  return cudaErrorInvalidValue;
+}
+
 SWARM_DEFINE_ERROR_STRING(swarm_paged_decode_chunked_error)

@@ -26,4 +26,14 @@ extern "C" int swarm_paged_decode_chunked_quant(
       D, a, static_cast<cudaStream_t>(stream));
 }
 
+// Shared memory per block and registers of the instance a launch at these
+// dims runs (attn_common.cuh SmemInfo): `info` holds kInfoSlots values.
+// Codes as above; unused ones are ignored. Returns the CUDA error.
+extern "C" int swarm_paged_decode_chunked_quant_smem(int page_code, int q_code,
+    int c_code, int Hq, int Hkv, int D, int W, long long* info) {
+  (void)page_code, (void)q_code, (void)W;
+  return swarm::decode_smem_info<int8_t, false, true>(D, Hq, Hkv, c_code,
+                                                      info);
+}
+
 SWARM_DEFINE_ERROR_STRING(swarm_paged_decode_chunked_quant_error)

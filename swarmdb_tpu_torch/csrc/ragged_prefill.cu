@@ -37,4 +37,20 @@ extern "C" int swarm_ragged_prefill(int page_code, int q_code, int s_code,
   return cudaErrorInvalidValue;
 }
 
+// Shared memory per block and registers of the instance a launch at these
+// dims runs (attn_common.cuh SmemInfo): `info` holds kInfoSlots values.
+// Codes as above; unused ones are ignored. Returns the CUDA error.
+extern "C" int swarm_ragged_prefill_smem(int page_code, int q_code,
+    int c_code, int Hq, int Hkv, int D, int W, long long* info) {
+  if (page_code == swarm::kBF16 && q_code == swarm::kBF16 &&
+      c_code == swarm::kBF16)
+    return swarm::ragged_prefill_mma_smem_info<__nv_bfloat16>(D, Hq, Hkv, W,
+                                                              info);
+  if (page_code == swarm::kF32)
+    return swarm::ragged_prefill_smem_info<float>(D, Hq, Hkv, info);
+  if (page_code == swarm::kBF16)
+    return swarm::ragged_prefill_smem_info<__nv_bfloat16>(D, Hq, Hkv, info);
+  return cudaErrorInvalidValue;
+}
+
 SWARM_DEFINE_ERROR_STRING(swarm_ragged_prefill_error)

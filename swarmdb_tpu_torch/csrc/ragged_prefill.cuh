@@ -222,4 +222,27 @@ cudaError_t ragged_prefill_d(int D, int q_code, int s_code, const void* q,
 #undef SWARM_CASE
 }
 
+// The shared memory a launch passes (two KT x D fp32 tiles), with the
+// instance's attributes: the `swarm_<entry>_smem` queries.
+template <typename TP>
+cudaError_t ragged_prefill_smem_info(int D, int Hq, int Hkv,
+                                     long long* info) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kPrefillQRows)
+    return cudaErrorInvalidValue;
+#define SWARM_CASE(DV)                                                   \
+  case DV:                                                               \
+    return smem_info(&ragged_prefill_kernel<TP, DV>,                     \
+                     2 * kPrefillKT * DV * sizeof(float),                \
+                     kPrefillQRows * kPrefillTPR, 0, info);
+  switch (D) {
+    SWARM_CASE(16)
+    SWARM_CASE(32)
+    SWARM_CASE(64)
+    SWARM_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SWARM_CASE
+}
+
 }  // namespace swarm

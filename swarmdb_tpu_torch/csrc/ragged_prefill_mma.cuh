@@ -675,4 +675,48 @@ cudaError_t ragged_prefill_mma_d(int D, const void* q, const void* sk,
 #undef SWARM_CASE
 }
 
+// The shared memory a launch of W packed tokens passes (MmaSmem<D, NG>::
+// bytes, NG picked as the launch picks it), with the instance's attributes
+// after its opt-in: the `swarm_<entry>_smem` queries.
+template <typename TP, int D>
+cudaError_t ragged_prefill_mma_smem_info_d(int Hq, int Hkv, int W,
+                                           long long* info) {
+  const int G = Hq / Hkv;
+  if (G > kMmaRows) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int QT = kMmaRows / G;
+  const bool two =
+      static_cast<int64_t>((W + QT - 1) / QT) * Hkv <= sm_count(dev);
+  if (two) {
+    e = mma_smem_opt_in<TP, D, 2>(dev);
+    if (e != cudaSuccess) return e;
+    return smem_info(&ragged_prefill_mma_kernel<TP, D, 2>,
+                     MmaSmem<D, 2>::bytes, kMmaGroupThreads * 2, 2, info);
+  }
+  e = mma_smem_opt_in<TP, D, 1>(dev);
+  if (e != cudaSuccess) return e;
+  return smem_info(&ragged_prefill_mma_kernel<TP, D, 1>,
+                   MmaSmem<D, 1>::bytes, kMmaGroupThreads, 1, info);
+}
+
+template <typename TP>
+cudaError_t ragged_prefill_mma_smem_info(int D, int Hq, int Hkv, int W,
+                                         long long* info) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+#define SWARM_CASE(DV) \
+  case DV:             \
+    return ragged_prefill_mma_smem_info_d<TP, DV>(Hq, Hkv, W, info);
+  switch (D) {
+    SWARM_CASE(16)
+    SWARM_CASE(32)
+    SWARM_CASE(64)
+    SWARM_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SWARM_CASE
+}
+
 }  // namespace swarm

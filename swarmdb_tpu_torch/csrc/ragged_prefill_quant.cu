@@ -29,4 +29,15 @@ extern "C" int swarm_ragged_prefill_quant(
       static_cast<cudaStream_t>(stream));
 }
 
+// Shared memory per block and registers of the instance a launch at these
+// dims runs (attn_common.cuh SmemInfo): `info` holds kInfoSlots values.
+// Codes as above; unused ones are ignored. Returns the CUDA error.
+extern "C" int swarm_ragged_prefill_quant_smem(int page_code, int q_code,
+    int c_code, int Hq, int Hkv, int D, int W, long long* info) {
+  (void)page_code;
+  if (q_code == swarm::kBF16 && c_code == swarm::kBF16)
+    return swarm::ragged_prefill_mma_smem_info<int8_t>(D, Hq, Hkv, W, info);
+  return swarm::ragged_prefill_smem_info<int8_t>(D, Hq, Hkv, info);
+}
+
 SWARM_DEFINE_ERROR_STRING(swarm_ragged_prefill_quant_error)

@@ -36,10 +36,11 @@ The contributors:
 
 It also reads the device-time profiler's and the memory accountant's
 dumps (``profile_*.json``, ``mem_*.json``, the JAX package's schemas, so
-either package's analyzer reads the other's): ``--roofline`` (without the
-JAX package's VMEM view; the card's on-chip memory view is ROADMAP.md
-queue 1 item 10d), ``--memory``, and their one-line listings beside an
-analyzed trace, and the three runtime sanitizers' dumps
+either package's analyzer reads the other's): ``--roofline`` (with the
+on-chip memory column under the JAX package's VMEM keys: on the card a
+CUDA kernel's shared memory per block against the device's opt-in
+limit), ``--memory``, and their one-line listings beside an analyzed
+trace, and the three runtime sanitizers' dumps
 (``lockcheck_*.json``, ``pagecheck_*.json``, ``kerncheck_*.json``) beside
 an analyzed trace, with their cycle and violation counts and kinds.
 ``--self-check`` runs the pipeline on synthetic traces and checks its own
@@ -712,7 +713,14 @@ def roofline_report(paths: Sequence[str],
     achieved FLOP/s, MFU, arithmetic intensity, compute- vs
     memory-bound), per-lane duty cycles and per-pool rows, and the
     dispatch-shape profile with tiny ragged flush waves called out (what
-    ``SWARMDB_RAGGED_MIN_WIDTH`` is to be set from, ROADMAP item 3)."""
+    ``SWARMDB_RAGGED_MIN_WIDTH`` is to be set from, ROADMAP item 3), and
+    the on-chip memory column: each variant whose dispatch recorded a
+    static estimate (``vmem_est_bytes``; on the card, shared memory per
+    block) against its budget, the dump's own per-variant budget or, for
+    the dump as a whole, ``analysis.kernelcheck.smem_budget`` of its
+    device kind (the card's opt-in limit, or a TPU's VMEM)."""
+    from ..analysis.kernelcheck import smem_budget
+
     dumps: List[Dict[str, Any]] = []
     for path in paths:
         kind, data = load_file(path)
@@ -731,6 +739,22 @@ def roofline_report(paths: Sequence[str],
             top.append(row)
         tiny = [w for w in (data.get("dispatch_profile") or [])
                 if w.get("tiny_flush")]
+        # the static on-chip memory view: variants whose dispatch recorded
+        # an estimate, shown against the budget — how close a kernel is
+        # to a refused launch belongs next to its roofline class
+        budget = smem_budget(data.get("device_kind") or "")
+        vm_rows = []
+        for v in variants:
+            est = v.get("vmem_est_bytes")
+            if est is None:
+                continue
+            b = v.get("vmem_budget_bytes") or budget
+            vm_rows.append({
+                "variant": v.get("variant"),
+                "vmem_est_bytes": est,
+                "vmem_budget_bytes": b,
+                "vmem_utilization": (round(est / b, 4) if b else None),
+            })
         # per-pool section (the fleet): pool idleness is a first-class
         # number. Prefer the dump's own pools rollup; reconstruct it from
         # pool-labelled lane rows for dumps written mid-transition.
@@ -777,6 +801,8 @@ def roofline_report(paths: Sequence[str],
             "pools": pools,
             "tiny_flush_waves": data.get("tiny_flush_waves", 0),
             "tiny_flush_rows": tiny,
+            "vmem_budget_bytes": budget,
+            "vmem_variants": vm_rows,
         })
     return {
         "kind": "swarmdb.obs.roofline",

@@ -228,6 +228,7 @@ class LockCheckRegistry:
 
     # ------------------------------------------------------- graph/cycles
 
+    # swarmlint: holds[self._mu]
     def _add_edge(self, a: "CheckedLock",
                   b: "CheckedLock") -> Optional[Dict[str, Any]]:
         """Called under ``self._mu``; returns a newly-detected cycle
@@ -254,6 +255,7 @@ class LockCheckRegistry:
         # exactly once
         return self._record_cycle([key[0]] + path[:-1])
 
+    # swarmlint: holds[self._mu]
     def _find_path(self, frm: int, to: int) -> Optional[List[int]]:
         """DFS instance path frm -> to, as a node list ending at to."""
         stack: List[Tuple[int, List[int]]] = [(frm, [frm])]
@@ -268,6 +270,7 @@ class LockCheckRegistry:
                     stack.append((nxt, path + [nxt]))
         return None
 
+    # swarmlint: holds[self._mu]
     def _record_cycle(self, nodes: List[int]
                       ) -> Optional[Dict[str, Any]]:
         """``nodes`` is the instance cycle (closing edge implied);
@@ -362,6 +365,7 @@ class LockCheckRegistry:
         lines.append(f"{prefix}lock_inversion_cycles {n_cycles}")
         return lines
 
+    # swarmlint: holds[self._mu]
     def _write_dump(self, directory: str) -> str:
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(
@@ -517,6 +521,7 @@ class CheckedCondition:
         # order edges against locks this thread still holds
         depth = self._reg.force_release(self._lock)
         try:
+            # swarmlint: disable=SWL304 -- this wrapper IS the wait primitive; predicate loops live at its call sites
             return self._cond.wait(timeout)
         finally:
             self._reg.on_acquired(self._lock, 0.0, False, depth=depth)

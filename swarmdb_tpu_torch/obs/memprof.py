@@ -179,6 +179,7 @@ class MemPool:
 
     # ---------------------------------------------------------- record path
 
+    # swarmlint: hot
     def page_alloc(self, pages) -> None:
         """Stamp newly granted pages (caller: allocator, lock held).
         One clock read + one dict write per page."""
@@ -190,6 +191,7 @@ class MemPool:
             ages[p] = t
         self.alloc_events += 1
 
+    # swarmlint: hot
     def page_free(self, pages) -> None:
         """Clear stamps of returned pages (caller: allocator, lock
         held). One dict pop per page."""
@@ -224,7 +226,7 @@ class MemPool:
         now_ns = now_ns or time.monotonic_ns()
         for _ in range(4):
             try:
-                vals = list(self.ages.values())
+                vals = list(self.ages.values())  # swarmlint: disable=SWL301 -- lock-free snapshot; a concurrent resize retries
                 break
             except RuntimeError:
                 continue
@@ -260,6 +262,7 @@ class ConvLedger:
         self._lock = make_lock("obs.memprof.ConvLedger._lock")
         # key -> [last_touch_ns, touches, resident_pages, anchor_tokens,
         #         prompt_tokens]; insertion order == LRU (size-capped)
+        # swarmlint: guarded-by[self._lock]: _convs
         self._convs: "OrderedDict[Any, List[Any]]" = OrderedDict()
         self._cap = cap
         self.touches_total = 0
@@ -451,6 +454,7 @@ class ReuseSampler:
         self._mod = self._MOD
         self._thresh = max(1, self._mod // max(1, sample_inv))
         self.rate = self._mod / self._thresh  # distance scale factor
+        # swarmlint: guarded-by[self._lock]: _stack, _hist
         self._stack: "OrderedDict[bytes, None]" = OrderedDict()
         self._stack_cap = stack_cap
         self._hist: Dict[int, int] = {}  # scaled distance -> count
@@ -461,6 +465,7 @@ class ReuseSampler:
 
     # ---------------------------------------------------------- record path
 
+    # swarmlint: hot
     def access(self, chain: bytes) -> None:
         """One prefix-chain access (caller: PrefixLRU.match, its lock
         held). Unsampled: one hash, one compare. Sampled (1/rate of
@@ -479,6 +484,7 @@ class ReuseSampler:
         with self._lock:
             self._record(chain)
 
+    # swarmlint: holds[self._lock]
     def _record(self, chain: bytes) -> None:
         self.sampled += 1
         stack = self._stack
@@ -559,6 +565,7 @@ class PrefixProbe:
         self._stats_ref = (weakref.WeakMethod(stats)
                            if stats is not None else None)
 
+    # swarmlint: hot
     def access(self, chain: bytes) -> None:
         if not self.enabled:
             return
@@ -594,6 +601,7 @@ class MemProfiler:
     def __init__(self, enabled: Optional[bool] = None) -> None:
         self.enabled = memprof_enabled() if enabled is None else enabled
         self._lock = make_lock("obs.memprof.MemProfiler._lock")
+        # swarmlint: guarded-by[self._lock]: _pools, _probes
         self._pools: List[MemPool] = []
         self._probes: List[PrefixProbe] = []
         self.hot_s = _env_float("SWARMDB_MEM_HOT_S", 30.0)

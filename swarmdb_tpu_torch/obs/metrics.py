@@ -91,6 +91,7 @@ class Histogram:
         self._ex_vals: List[float] = [0.0] * n
         self._ex_ts: List[float] = [0.0] * n
 
+    # swarmlint: hot
     def observe(self, seconds: float, rid: Optional[str] = None) -> None:
         """Record one latency (no lock; a lost count under a write race
         is the accepted failure). ``rid``, the observation's trace id,
@@ -183,6 +184,7 @@ class HistogramRegistry:
         if enabled is None:
             enabled = os.environ.get("SWARMDB_HISTOGRAMS", "1") != "0"
         self._lock = make_lock("obs.metrics.HistogramRegistry._lock")
+        # swarmlint: guarded-by[self._lock]: _hists
         self._hists: Dict[str, Histogram] = {}
         self.enabled = bool(enabled)
 

@@ -158,6 +158,7 @@ class PageCheckRegistry:
     # All on_* methods may be called under the owning allocator's lock;
     # violation side effects (flight instants, dump) run OUTSIDE _mu.
 
+    # swarmlint: holds[self._mu]
     def _violation(self, pool: _Pool, kind: str, message: str,
                    pages: Sequence[int]) -> Optional[Dict[str, Any]]:
         """Called under ``self._mu``; dedup by (pool, kind, pages)."""
@@ -185,6 +186,7 @@ class PageCheckRegistry:
         logger.warning("pagecheck: %s violation in %s: %s",
                        violation["kind"], violation["pool"],
                        violation["message"])
+        # swarmlint: disable=SWL303 -- benign racy snapshot of an append-only list: flight rings take their own locks
         for fl in list(self._flights):
             try:
                 fl.record_event({
@@ -693,6 +695,7 @@ def _checked_allocator() -> type:
                 self.num_pages, [0], label=label)
 
         # ``allocate`` goes through here in the port
+        # swarmlint: borrows[page]: prefix_pages
         def allocate_with_prefix(self, slot_id: int,
                                  prefix_pages: List[int],
                                  n_fresh: int):

@@ -202,6 +202,7 @@ class LaneProfile:
 
     # ---------------------------------------------------------- record path
 
+    # swarmlint: hot
     def dispatch(self, key: str, t0_ns: int, dur_ns: int) -> None:
         """Attribute one dispatch's device time to ``key`` (a timing-event
         pair's elapsed time on the card, wall-around-dispatch off it). Two
@@ -217,6 +218,7 @@ class LaneProfile:
         self._ring[i] = (key, t0_ns, dur_ns)
         self._ring_idx += 1
 
+    # swarmlint: hot
     def wave(self, kind: str, width: int, packed: int, padding: int,
              variant_key: Optional[str] = None) -> None:
         """One admission wave's shape into the dispatch profile (per
@@ -273,7 +275,7 @@ class KernelProfiler:
     def __init__(self, enabled: Optional[bool] = None) -> None:
         self.enabled = profile_enabled() if enabled is None else enabled
         self._lock = make_lock("obs.profiler.KernelProfiler._lock")
-        # _vars, _lanes, _waves and _vmem_est are guarded by _lock
+        # swarmlint: guarded-by[self._lock]: _vars, _lanes, _waves
         self._vars: Dict[str, _Variant] = {}
         # held weakly: a dropped engine's lane leaves every report (a
         # stopped engine's zero duty would otherwise pin min_lane_duty)
@@ -281,9 +283,10 @@ class KernelProfiler:
         self._lanes_made = 0
         # (kind, width) -> [waves, packed, padding, {variant_key: waves}]
         self._waves: Dict[Tuple[str, int], List[Any]] = {}
+        # swarmlint: guarded-by[self._lock]: _vmem_est
         # variant key (or "kernel:<tag>") -> (static bytes, budget bytes):
-        # kept empty for the report's schema; the kernels' shared-memory
-        # footprint per block is its card counterpart (ROADMAP item 10d)
+        # on the card, a CUDA kernel's shared memory per block and the
+        # device's opt-in limit, folded in by ops.layers._record_static_smem
         self._vmem_est: Dict[str, Tuple[int, int]] = {}
         self.harvest_calls = 0
         self.platform: Optional[str] = None
@@ -309,6 +312,7 @@ class KernelProfiler:
             self._lanes.append(weakref.ref(lane))
         return lane
 
+    # swarmlint: holds[self._lock]
     def _live_lanes(self) -> List["LaneProfile"]:
         """The lanes whose engines are alive, in creation order (call
         with ``_lock`` held)."""
@@ -332,7 +336,7 @@ class KernelProfiler:
     def variant(self, key: str) -> _Variant:
         # racy fast path: dict.get is GIL-atomic and a miss re-checks
         # under the lock — the record path never blocks on registration
-        v = self._vars.get(key)
+        v = self._vars.get(key)  # swarmlint: disable=SWL301 -- lock-free read fast path; miss re-checks under the lock
         if v is None:
             with self._lock:
                 v = self._vars.get(key)
@@ -361,24 +365,32 @@ class KernelProfiler:
     def record_vmem_estimate(self, key: str, est_bytes: int,
                              budget_bytes: int) -> None:
         """A static on-chip memory estimate for a variant, in a SIDE table
-        (``record_variant`` would mark the variant harvested). Nothing on
-        the card records one yet (ROADMAP item 10d); the table keeps the
-        report's schema. ``key`` is the exact variant key or a
-        ``kernel:<tag>`` alias matched against ``meta["kernel"]``."""
+        (``record_variant`` would mark the variant harvested): on the card
+        a CUDA kernel's shared memory per block and the device's opt-in
+        limit per block, recorded at dispatch by
+        ``ops.layers._record_static_smem``. The report keeps the JAX
+        package's keys (``vmem_est_bytes``, ``vmem_budget_bytes``,
+        ``vmem_utilization``). ``key`` is the exact variant key or a
+        ``kernel:<name>`` alias matched against ``meta["kernel"]``."""
         with self._lock:
             self._vmem_est[key] = (int(est_bytes), int(budget_bytes))
+
+    def has_vmem_estimate(self, key: str) -> bool:
+        """Whether ``key`` already has an estimate (the dispatchers record
+        once per key). A racy read: the worst case is one recomputation."""
+        return key in self._vmem_est  # swarmlint: disable=SWL301 -- racy membership read; worst case one recomputed estimate
 
     def harvested(self, key: str) -> bool:
         """Whether a variant already carries cost facts (lane groups
         harvest once per variant, not once per lane). A racy read: the
         worst case is one redundant harvest."""
-        v = self._vars.get(key)
+        v = self._vars.get(key)  # swarmlint: disable=SWL301 -- racy read; worst case one redundant harvest
         return v is not None and v.flops is not None
 
     def record_wave(self, kind: str, width: int, packed: int, padding: int,
                     variant_key: Optional[str] = None) -> None:
         # racy fast path, same shape as variant(): miss re-checks locked
-        entry = self._waves.get((kind, width))
+        entry = self._waves.get((kind, width))  # swarmlint: disable=SWL301 -- lock-free read fast path; miss re-checks under the lock
         if entry is None:
             with self._lock:
                 entry = self._waves.setdefault((kind, width),
@@ -517,7 +529,7 @@ class KernelProfiler:
                 inv = 0
                 for key in keys:
                     # read-only join against live counters (benign race)
-                    v = self._vars.get(key)
+                    v = self._vars.get(key)  # swarmlint: disable=SWL301 -- read-only snapshot join; torn read costs one stale row
                     if v is not None:
                         dev_s += v.device_ns / 1e9
                         inv += v.invocations

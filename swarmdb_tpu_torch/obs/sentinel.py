@@ -181,6 +181,7 @@ class SLOSentinel:
         self.breached = False
         self.windows_total = 0
         self.alerts_total = 0
+        # swarmlint: guarded-by[self._alerts_lock]: _alerts
         self._alerts: List[Dict[str, Any]] = []
         self._alerts_lock = make_lock("obs.sentinel.SLOSentinel._alerts_lock")
         self._warmup: List[Dict[str, Any]] = []
@@ -226,6 +227,7 @@ class SLOSentinel:
 
     # -------------------------------------------------------- record path
 
+    # swarmlint: hot
     def maybe_tick(self, now: float = 0.0) -> None:
         """Deadline probe, called from the engine loop and the runtime
         send path: one compare on the fast path, window close only when

@@ -68,7 +68,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -311,6 +311,48 @@ def _launch(kernel: str, sig: str, dev: torch.device, *args,
         count_launches({kernel: 1})
     else:
         sink[kernel] = sink.get(kernel, 0) + 1
+
+
+#: slots of the ``swarm_<kernel>_smem`` queries' info array (SmemInfo in
+#: csrc/attn_common.cuh)
+SMEM_INFO = ("dynamic", "static", "regs", "local", "max_dynamic", "optin",
+             "threads", "groups", "sms")
+_DTYPE_CODE = {"f32": 0, "bf16": 1, "int8": 0}
+
+
+def smem_info(kernel: str, dims: Dict[str, Any],
+              device: Any = None) -> Dict[str, int]:
+    """What kernel library ``kernel`` itself computes for a launch at
+    ``dims`` (``Hq``, ``Hkv``, ``D``, and the dtype codes and wave width
+    of ``analysis.kernelcheck.smem_layout``): the dynamic shared memory
+    per block it passes, and the instance's ``cudaFuncGetAttributes``
+    (static shared memory, registers, local bytes, its dynamic limit after
+    the launch's own opt-in), the device's opt-in limit, threads per
+    block, the tensor-core prefill's group count and the device's SM
+    count, by ``SMEM_INFO`` name. Card only; builds the library if
+    needed; raises on an error."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise RuntimeError("smem_info asks a kernel library on the card")
+    lib = build.load(kernel)
+    fn = getattr(lib, f"swarm_{kernel}_smem")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    info = (ctypes.c_longlong * len(SMEM_INFO))()
+    q = dims.get("q", "bf16")
+    third = dims.get("chunk", "bf16") if "chunked" in kernel else dims.get(
+        "suffix", q)
+    with torch.cuda.device(dev):
+        code = fn(_DTYPE_CODE[dims.get("page", "bf16")], _DTYPE_CODE[q],
+                  _DTYPE_CODE[third], int(dims["Hq"]), int(dims["Hkv"]),
+                  int(dims["D"]), int(dims.get("W") or 0),
+                  ctypes.cast(info, ctypes.c_void_p))
+    if code != 0:
+        err = getattr(lib, f"swarm_{kernel}_error")
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"swarm_{kernel}_smem failed: cuda error {code} "
+                           f"({err(code).decode()})")
+    return dict(zip(SMEM_INFO, (int(v) for v in info)))
 
 
 def _scale(D: int) -> float:

@@ -13,7 +13,11 @@ flags plus ``-DSWARM_KERNCHECK`` (``csrc/attn_common.cuh``), built into
 (``SWARMDB_KERNCHECK=1``) launches it; see ``ops/attention_cuda.py``.
 
 The library name carries a hash of the sources and flags it was built
-from, so an edited kernel never loads a stale build. Builds happen at
+from, so an edited kernel never loads a stale build. Each build's
+``-Xptxas -v`` log is kept beside its library (``lib<name>-<hash>.log``)
+and ``ptxas_info`` parses it: registers, spill stores and loads, stack and
+static shared memory of every kernel instance (the shared-memory view's
+compile-time half; ``analysis/kernelcheck.py`` mirrors the dynamic half). Builds happen at
 first use (or up front through ``build_all``, which starts one ``nvcc``
 per source and variant at once) into ``swarmdb_tpu_torch/_build/`` inside
 the checkout. Nothing here runs at import time: the CPU tests import
@@ -25,10 +29,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..utils.sync import make_lock
 
@@ -98,6 +103,7 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> str:
     tmp, out = proc.swarm_paths  # type: ignore[attr-defined]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {out.name} ({name}.cu):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return log
 
@@ -136,3 +142,106 @@ def load(name: str, checked: bool = False) -> ctypes.CDLL:
             _finish_build(name, _start_build(name, checked))
             _libs[key] = ctypes.CDLL(str(library_path(name, checked)))
         return _libs[key]
+
+
+# ------------------------------------------------------- the ptxas view
+
+_ENTRY_RE = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME_RE = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads")
+_USED_RE = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+#: Itanium codes of the template arguments the kernels take
+_TYPE_CODES = {"f": "float", "a": "int8", "b": "bool", "i": "int"}
+
+
+def _template_args(s: str) -> List[str]:
+    """Arguments of a mangled ``I...E`` template list: types (float,
+    int8, bf16) and integer / bool literals, as the kernels use them."""
+    args, i = [], 0
+    while i < len(s) and s[i] != "E":
+        if s[i] == "L":  # literal: L<type><value>E
+            j = s.index("E", i)
+            val = s[i + 2:j]
+            args.append({"b": ("true" if val == "1" else "false")}.get(
+                s[i + 1], val.replace("n", "-")))
+            i = j + 1
+        elif s[i].isdigit():  # a named type: <len><name>
+            m = re.match(r"\d+", s[i:])
+            n = int(m.group(0))
+            name = s[i + len(m.group(0)):i + len(m.group(0)) + n]
+            args.append("bf16" if name == "__nv_bfloat16" else name)
+            i += len(m.group(0)) + n
+        else:
+            args.append(_TYPE_CODES.get(s[i], s[i]))
+            i += 1
+    return args
+
+
+def demangle(symbol: str) -> str:
+    """``swarm::<kernel><args>`` of a kernel instance's mangled name as
+    ``kernel<arg, ...>`` (e.g. ``ragged_prefill_mma_kernel<bf16, 128, 2>``);
+    the symbol itself when it is not one of ours."""
+    m = re.match(r"_ZN5swarm(\d+)", symbol)
+    if m is None:
+        return symbol
+    start = m.end()
+    name = symbol[start:start + int(m.group(1))]
+    rest = symbol[start + int(m.group(1)):]
+    if rest.startswith("I"):
+        return f"{name}<{', '.join(_template_args(rest[1:]))}>"
+    return name
+
+
+def parse_ptxas(log: str) -> List[Dict[str, Any]]:
+    """Every kernel instance of a ``-Xptxas -v`` log: ``instance``
+    (demangled), ``symbol``, ``regs``, ``spill_stores`` / ``spill_loads``
+    (bytes per thread), ``stack`` (bytes) and ``smem_static`` (bytes)."""
+    out: List[Dict[str, Any]] = []
+    cur: Optional[Dict[str, Any]] = None
+    for line in log.splitlines():
+        m = _ENTRY_RE.search(line)
+        if m:
+            cur = {"symbol": m.group(1), "instance": demangle(m.group(1)),
+                   "regs": 0, "spill_stores": 0, "spill_loads": 0,
+                   "stack": 0, "smem_static": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _FRAME_RE.search(line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                int(g) for g in m.groups())
+            continue
+        m = _USED_RE.search(line)
+        if m:
+            cur["regs"] = int(m.group(1))
+            cur["smem_static"] = int(m.group(2) or 0)
+    return out
+
+
+def ptxas_info(name: str, checked: bool = False) -> List[Dict[str, Any]]:
+    """The parsed ``-Xptxas -v`` log of kernel library ``name`` (its
+    bounds-checked variant when ``checked``), kept beside the library at
+    its build; empty when the library has not been built here."""
+    try:
+        log = library_path(name, checked).with_suffix(".log").read_text()
+    except OSError:
+        return []
+    return parse_ptxas(log)
+
+
+#: the kernels' page type template argument, by torch dtype name
+PAGE_TYPES = {"float32": "float", "bfloat16": "bf16", "int8": "int8"}
+
+
+def ptxas_instances(name: str, page: str, head_dim: int
+                    ) -> List[Dict[str, Any]]:
+    """The instances of library ``name`` over pages of ``page`` (a
+    ``PAGE_TYPES`` value) at head dim ``head_dim``: their template
+    arguments lead with the page type and the head dim (``<bf16, 128,
+    2>``)."""
+    want = [page, str(head_dim)]
+    return [r for r in ptxas_info(name)
+            if r["instance"].partition("<")[2].rstrip(">").split(", ")[:2]
+            == want]

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -465,6 +466,73 @@ def gqa_attention_chunked(
     return out[:, None]
 
 
+_SMEM_CODES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.int8: "int8"}
+# estimates computed while this thread captured a CUDA graph, recorded by
+# flush_static_smem once the capture is over
+_smem_deferred = threading.local()
+
+
+def _record_static_smem(kernel: str, key: str, q: torch.Tensor,
+                        pages: Any, **dtypes: torch.Tensor) -> None:
+    """Fold a CUDA kernel's shared memory per block at this launch's dims
+    (``analysis.kernelcheck.estimate_smem``, against the device's opt-in
+    limit) into the device-time profiler under ``key``, as the JAX
+    package's ``_record_static_vmem`` folds its VMEM estimate. On the card
+    only, with the profiler on, at a key's first dispatch; a dispatch
+    inside a graph capture defers the record to ``flush_static_smem``
+    after it. ``q`` is the query ([.., Hq, D]), ``pages`` the pool or
+    dense cache, ``dtypes`` the other operands by role (``chunk``,
+    ``suffix``). Accounting never raises into the dispatch."""
+    if q.device.type != "cuda":
+        return
+    from ..obs.profiler import profiler
+
+    prof = profiler()
+    if not prof.enabled or prof.has_vmem_estimate(key):
+        return
+    try:
+        from ..analysis.kernelcheck import estimate_smem, smem_budget
+
+        kd = pool_data(pages)
+        props = torch.cuda.get_device_properties(q.device)
+        dims = {"Hq": q.shape[-2], "Hkv": kd.shape[-2], "D": q.shape[-1],
+                "page": _SMEM_CODES[kd.dtype], "q": _SMEM_CODES[q.dtype],
+                "W": q.shape[0], "sms": props.multi_processor_count}
+        dims.update({role: _SMEM_CODES[t.dtype] for role, t in
+                     dtypes.items()})
+        est = estimate_smem(kernel, dims)
+        if est is None:
+            return
+        rec = (key, est, smem_budget(device=q.device))
+    except (KeyError, RuntimeError):
+        # a dtype no kernel takes (its wrapper raises below), or a device
+        # query that failed: accounting never breaks the dispatch
+        return
+    if torch.cuda.is_current_stream_capturing():
+        pending = getattr(_smem_deferred, "items", None)
+        if pending is None:
+            pending = _smem_deferred.items = []
+        pending.append(rec)
+        return
+    prof.record_vmem_estimate(*rec)
+
+
+def flush_static_smem() -> None:
+    """Record the estimates this thread's last graph capture deferred
+    (``backend.decode_graphs.ChunkRunner.capture`` calls it after the
+    capture)."""
+    pending = getattr(_smem_deferred, "items", None)
+    if not pending:
+        return
+    from ..obs.profiler import profiler
+
+    prof = profiler()
+    for rec in pending:
+        prof.record_vmem_estimate(*rec)
+    pending.clear()
+
+
 def paged_attention_dispatch(
     q: torch.Tensor,           # [B, 1, Hq, D] decode query
     k_pages: Any,              # [P, ps, Hkv, D] single layer, either kind
@@ -486,7 +554,10 @@ def paged_attention_dispatch(
                                  paged_decode_gqa_attention_quant)
 
     lengths = (q_positions[:, 0] + 1).to(torch.int32)
-    if is_quantized(k_pages):
+    quant = is_quantized(k_pages)
+    kernel = "paged_decode_quant" if quant else "paged_decode"
+    _record_static_smem(kernel, f"kernel:{kernel}", q[:, 0], k_pages)
+    if quant:
         res = paged_decode_gqa_attention_quant(
             q[:, 0], k_pages.data, k_pages.scale, v_pages.data,
             v_pages.scale, page_table, lengths, window=window, out=out)
@@ -517,7 +588,11 @@ def paged_attention_dispatch_chunked(
     from .attention_cuda import (paged_decode_gqa_attention_chunked,
                                  paged_decode_gqa_attention_chunked_quant)
 
-    if is_quantized(k_pages):
+    quant = is_quantized(k_pages)
+    kernel = "paged_decode_chunked_quant" if quant else "paged_decode_chunked"
+    _record_static_smem(kernel, f"kernel:{kernel}", q[:, 0], k_pages,
+                        chunk=chunk_k)
+    if quant:
         out = paged_decode_gqa_attention_chunked_quant(
             q[:, 0], k_pages.data, k_pages.scale, v_pages.data,
             v_pages.scale, page_table, chunk_k, chunk_v, starts, step,
@@ -551,7 +626,11 @@ def ragged_prefill_dispatch(
     from .attention_cuda import (ragged_paged_prefill_attention,
                                  ragged_paged_prefill_attention_quant)
 
-    if is_quantized(k_pages):
+    quant = is_quantized(k_pages)
+    _record_static_smem(
+        "ragged_prefill_quant" if quant else "ragged_prefill",
+        f"prefill.ragged[w{q.shape[0]}]", q, k_pages, suffix=sfx_k)
+    if quant:
         return ragged_paged_prefill_attention_quant(
             q, sfx_k, sfx_v, k_pages.data, k_pages.scale, v_pages.data,
             v_pages.scale, row_tables, starts, lens, prefix_lens,

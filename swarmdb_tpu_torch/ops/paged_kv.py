@@ -622,6 +622,7 @@ class PageAllocator:
         with self._lock:
             return len(self._free) >= n
 
+    # swarmlint: holds[self._lock]
     def _take(self, n: int) -> Optional[List[int]]:
         if len(self._free) < n:
             return None
@@ -632,6 +633,7 @@ class PageAllocator:
         Returns the slot's FULL page-table row (maxp wide, trash-padded)."""
         return self.allocate_with_prefix(slot_id, [], n)
 
+    # swarmlint: borrows[page]: prefix_pages
     def allocate_with_prefix(self, slot_id: int, prefix_pages: List[int],
                              n_fresh: int) -> Optional[np.ndarray]:
         """Row = ``prefix_pages`` (prefix-cache pages the slot only

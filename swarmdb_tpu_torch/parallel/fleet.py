@@ -151,6 +151,7 @@ class FleetManager:
             capacity_bytes=transit_capacity_bytes(), label="fleet",
             pinned=any(e.device.type == "cuda" for e in group.lanes))
         self._lock = make_lock("parallel.fleet.FleetManager._lock")
+        # swarmlint: guarded-by[self._lock]: _active
         self._active: Dict[str, _Handoff] = {}
         self._handoff_ms: "deque[float]" = deque(maxlen=1024)
         self._gather_s = 0.0

@@ -49,13 +49,58 @@ def test_no_jax_imports(path):
         assert top not in FORBIDDEN, f"{path} imports {name}"
 
 
+NEW_MODULES = sorted((PORT / "analysis").glob("*.py")) + [
+    PORT / "utils" / "checkpoint.py"]
+
+
+@pytest.mark.parametrize("path", NEW_MODULES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_lint_and_checkpoint_modules_import_none_of_four(path):
+    """swarmlint and the checkpoint reader import neither JAX, the JAX
+    package, ``transformers`` nor ``safetensors``; swarmlint's modules
+    import only the standard library at module level (PyTorch is asked
+    inside ``smem_budget`` only, given a device)."""
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN + ("transformers", "safetensors"), (
+            f"{path} imports {name}")
+    if path.parent.name == "analysis":
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] in sys.stdlib_module_names, (
+                    f"{path} imports {name} at module level")
+
+
+def test_lint_baseline_ships_with_the_package():
+    """``pyproject.toml`` lists the port's lint baseline as package data
+    (the CLI finds it beside its own file, installed or not)."""
+    import json
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    assert "analysis/baseline.json" in data["swarmdb_tpu_torch"]
+    from swarmdb_tpu_torch.analysis.core import DEFAULT_BASELINE
+
+    assert Path(DEFAULT_BASELINE) == PORT / "analysis" / "baseline.json"
+    with open(DEFAULT_BASELINE, encoding="utf-8") as f:
+        assert json.load(f)["version"] == 1
+
+
 def test_scan_covers_every_port_folder():
     """The AST scan above walks every folder of the port, the wire API and
     observability included."""
     folders = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")
                if len(p.relative_to(PORT).parts) > 1}
     assert {"api", "obs", "backend", "core", "broker", "ops", "models",
-            "parallel", "utils"} <= folders
+            "parallel", "utils", "analysis"} <= folders
     assert PORT / "models" / "mixtral.py" in set(PORT.rglob("*.py"))
 
 
