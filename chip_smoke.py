@@ -279,6 +279,46 @@ and exits non-zero at the first failure:
                where the plain forward's top-2 gap is below the measured
                max logit difference of the two paths at the first step
                (``first_step_logit_diff``), a near tie.
+7c'. ha    -- the broker, replication and HA control plane on the same
+               weights (``run_ha``). (a) In process: three HA nodes
+               (``build_local_cluster``, partition leadership, the JAX
+               package's detector: suspect 0.3 s, dead 0.6 s) each on the
+               broker ``BROKER_IMPL=auto`` picks, which must be the port's
+               ``NativeBroker``; a ``SwarmDB`` over ``n0.client_broker()``
+               (6 partitions) and a ``ServingService`` on the lanes
+               phase's 2-lane group bound with
+               ``bind_partition_leadership(n0)``; 8 users x 2 turns of
+               ~400 tokens to 8 assistants, 32 greedy tokens; mid-turn 2
+               the non-controller leading most partitions is killed. Fails
+               unless every reply ends "length", every acknowledged message
+               is read back from the survivors, each orphan is re-seated
+               within ``HA_PROMOTE_BUDGET_S`` (2.4 s), the blast radius is
+               at most 1/3 + one partition, ``ha.repin`` events from the
+               victim name exactly its conversations' partitions, and after
+               the kill each conversation's pin names its partition's
+               leader and the lane derived from it, which a probe turn's
+               requests carry as their hint; each turn-2 prompt must hold
+               turn 1's exchange, and the replies must equal those of the
+               same turns served undisturbed (a fresh runtime on
+               ``LocalBroker`` and a fresh service on the same group, its
+               prefix caches flushed, no kill), or part where both tokens
+               lie within the undisturbed serve's measured difference from
+               a plain bf16 forward of the top logit (``ha_compare``).
+               Replies retry their produce through the failover at the
+               service's defaults. Prints time to promote, blast radius,
+               acked records, repins, TTFT per turn with and without the
+               kill, the replies that retried, and the echo loop's msgs/s
+               on the native broker beside LocalBroker's. (b) Across
+               processes: two
+               ``python -m swarmdb_tpu_torch.ha.node`` nodes and the port's
+               server (``SWARMDB_HA_NODE_ID``, ``SERVE_MODEL=tiny-debug``,
+               the dense engine: kernel 7, in its own process) as the
+               third over a ``FileClusterMap``; one SSE message, the
+               controller SIGKILLed, a second message: both replies,
+               ``/admin/ha`` showing the promotion, ``metadata.unreachable``
+               naming the dead node, and a merged
+               ``/admin/cluster/trace?trace_id=`` over two or more pids
+               holding the ``ha.promoted`` instant.
 7d. sanitize -- the three runtime sanitizers, in a child process
                (``--sanitize-child``) run with ``SWARMDB_LOCKCHECK=1
                SWARMDB_PAGECHECK=1 SWARMDB_KERNCHECK=1`` and a temporary
@@ -360,7 +400,7 @@ and exits non-zero at the first failure:
                printed beside the non-rolling serve's.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
-serves, the api, obs, prof, rolling and lanes phases, the sanitize
+serves, the api, obs, prof, rolling, lanes and ha phases, the sanitize
 phase's five sanitizers-on serves, the ckpt phase's serves of the loaded
 weights and the seven Mixtral serves, each
 counted from zero
@@ -4804,6 +4844,724 @@ def run_lanes(card, params):
     return launches
 
 
+# ---------------------------------------------------------------------- ha
+
+
+#: The ha phase's in-process cluster: three nodes with partition
+#: leadership, the JAX package's detector times (build_local_cluster's
+#: defaults: suspect 0.3 s, dead 0.6 s, heartbeats every 0.05 s) and its
+#: promotion budget (tests/test_partition_leadership.py: dead_s +
+#: 6 x suspect_s).
+HA_NODES = ("n0", "n1", "n2")
+HA_SUSPECT_S, HA_DEAD_S = 0.3, 0.6
+HA_PROMOTE_BUDGET_S = HA_DEAD_S + 6 * HA_SUSPECT_S
+#: partitions of the messages topic: two a node
+HA_PARTITIONS = 6
+HA_USERS = 8
+#: new tokens of the probe turn after the kill (its hints are checked)
+HA_PROBE_NEW = 8
+#: the across-process step's detector times (its server process loads
+#: PyTorch and the card while its node runs)
+HA_PROC_ENV = dict(SWARMDB_HA_SUSPECT_S="1.0", SWARMDB_HA_DEAD_S="2.0",
+                   SWARMDB_HA_HEARTBEAT_S="0.1")
+
+
+def ha_pick(db, users, mids, timeout=300.0):
+    """Each user's reply to its message in ``mids`` (message id -> user),
+    reading through failovers (a read on a partition mid-failover raises
+    the retryable LeaderChangedError)."""
+    got = {}
+    deadline = time.time() + timeout
+    while len(got) < len(mids) and time.time() < deadline:
+        for u in users:
+            try:
+                msgs = db.receive_messages(u, timeout=0.05)
+            except Exception as exc:
+                if not getattr(exc, "retryable", False):
+                    raise
+                time.sleep(0.02)
+                continue
+            for m in msgs:
+                if m.metadata.get("reply_to") in mids:
+                    got[m.metadata["reply_to"]] = m
+    return got
+
+
+def ha_send(db, user, bot, text, new):
+    """One greedy message, re-sent while its partition fails over (the
+    failed first copy stays in the conversation's history, which the
+    phase's prompt checks would show)."""
+    deadline = time.time() + 60
+    while True:
+        try:
+            return db.send_message(user, bot, text, metadata={
+                "generation": {"max_new_tokens": new,
+                               "temperature": 0.0}})
+        except Exception as exc:
+            if not getattr(exc, "retryable", False) or time.time() > deadline:
+                raise
+            time.sleep(0.05)
+
+
+def ha_record(svc) -> dict:
+    """Wrap ``svc``'s submission and reply emission. Per message id: its
+    prompt and lane hint, the wall time of its first token, its tokens,
+    finish and logprobs, and its reply's produce attempts (``emits``) with
+    the seconds from the first attempt to the one that landed
+    (``emit_s``)."""
+    seen = {}
+    submit, emit = svc._submit, svc._emit_reply
+
+    def recorded(req):
+        mid = req.metadata.get("message_id")
+        rec = seen.setdefault(mid, {})
+        rec.update(prompt=list(req.prompt), hint=req.shard_hint)
+        done, on_tok = req.on_done, req.on_token
+
+        def tok_seen(rid, t, _rec=rec, _t=on_tok):
+            _rec.setdefault("first", time.time())
+            if _t is not None:
+                _t(rid, t)
+
+        def fin(rid, toks, reason, _r=req, _rec=rec, _d=done):
+            _rec.update(toks=list(toks), reason=reason, logprobs=list(
+                _r.metadata.get("logprobs") or []))
+            return _d(rid, toks, reason)
+
+        req.on_token, req.on_done = tok_seen, fin
+        return submit(req)
+
+    def emitted(msg, *a):
+        rec = seen.setdefault(msg.id, {})
+        t0 = rec.setdefault("emit_t0", time.perf_counter())
+        rec["emits"] = rec.get("emits", 0) + 1
+        out = emit(msg, *a)
+        rec["emit_s"] = time.perf_counter() - t0
+        return out
+
+    svc._submit, svc._emit_reply = recorded, emitted
+    return seen
+
+
+def ha_turns(db, users, bots, seen, mid_turn=None):
+    """Two greedy turns (``USER_TEXT``, ``FOLLOW_UP``) of every (user,
+    bot) pair, ``LANE_NEW`` new tokens; ``mid_turn(turn, tokens0)`` runs
+    once a turn's messages are sent, ``tokens0`` the runtime's generated
+    tokens when the turn began. Per turn, {message id: user} and the
+    replies by message id; and each turn's TTFT from send."""
+    turns, replies, ttft = [], {}, {}
+    generated = db.metrics.counters["tokens_generated"]
+    for turn, text in enumerate((USER_TEXT, FOLLOW_UP)):
+        mids, sent, tokens0 = {}, {}, generated.value
+        for u, b in zip(users, bots):
+            t_send = time.time()
+            mid = ha_send(db, u, b, text.format(u=u), LANE_NEW)
+            mids[mid], sent[mid] = u, t_send
+        if mid_turn is not None:
+            mid_turn(turn, tokens0)
+        got = ha_pick(db, users, mids)
+        if len(got) < len(mids):
+            fail(f"ha (a) turn {turn + 1}: {len(got)} of {len(mids)} "
+                 "replies")
+        turns.append(mids)
+        replies.update(got)
+        ttft[f"turn{turn + 1}"] = _summary(
+            [seen[m]["first"] - sent[m] for m in mids
+             if "first" in seen.get(m, {})])
+    return turns, replies, ttft
+
+
+def ha_flush_prefix(g) -> None:
+    """Return every idle lane's prefix-cache pages to its pool: the next
+    serve on the group starts from no cached page."""
+    wait_until_idle(g)
+    for e in g.lanes:
+        e.paged.allocator.add_free(e._prefix.evict_lru(e.paged.num_pages))
+        if e._prefix.stats()["cached_pages"]:
+            fail("ha (a): a lane's prefix cache kept pages after the flush")
+
+
+def ha_compare(params, tok, users, bots, ha, ref) -> dict:
+    """The HA serve's replies against the undisturbed serve's, conversation
+    by conversation (``ha`` and ``ref``: (seen, turns, replies) of
+    ``ha_record`` / ``ha_turns``). Each HA turn-2 prompt must hold turn
+    1's exchange as history lines. A reply whose prompt equals the
+    reference's is compared: equal tokens, or a parting at a near tie by
+    the sanitize phase's rule (``compare_replies``): a plain bf16 forward
+    over the prompt and the reference's tokens gives each step's logits,
+    and at the parting step both tokens must lie within ``tol`` of the top
+    logit. ``tol`` comes only from paths outside the run under test: the
+    largest |log-probability difference| of the chosen token between the
+    undisturbed serve and the plain forward, over every reference reply.
+    A prompt that differs from the reference's is allowed only after that
+    conversation parted in turn 1, and is then counted, not compared."""
+    import torch
+
+    (hseen, hturns, hrep), (rseen, rturns, rrep) = ha, ref
+    bot_of = dict(zip(users, bots))
+    by = {}
+    for side, turns in (("ha", hturns), ("ref", rturns)):
+        for t, mids in enumerate(turns):
+            for mid, u in mids.items():
+                by.setdefault((t, u), {})[side] = mid
+    # turn 1's exchange in every HA turn-2 prompt: the failover kept the
+    # conversation's history
+    history_ok = {}
+    for u in users:
+        m1, m2 = by[(0, u)]["ha"], by[(1, u)]["ha"]
+        reply = hrep[m1].content
+        text = "\n" + tok.decode(hseen[m2]["prompt"]) + "\n"
+        history_ok[u] = (reply == tok.decode(hseen[m1]["toks"])
+                         and f"\n{u}: {USER_TEXT.format(u=u)}\n" in text
+                         and f"\n{bot_of[u]}: {reply}\n" in text)
+    plain, diffs = {}, []
+    for key, ids in by.items():
+        r = rseen[ids["ref"]]
+        logits = plain_step_logits(params, r["prompt"], r["toks"])
+        plain[key] = logits
+        lp = torch.log_softmax(logits, -1)
+        off = len(r["toks"]) - len(r["logprobs"])
+        for s in range(off, len(r["toks"])):
+            diffs.append(abs(float(lp[s, r["toks"][s]])
+                             - r["logprobs"][s - off]))
+    if not diffs:
+        fail("ha (a): the undisturbed serve returned no logprobs")
+    tol = max(diffs)
+    equal, parted, after_tie, partings = 0, set(), 0, []
+    for key in sorted(by):
+        h, r = hseen[by[key]["ha"]], rseen[by[key]["ref"]]
+        if h["prompt"] != r["prompt"]:
+            if key[0] == 1 and key[1] in parted:
+                after_tie += 1
+                continue
+            fail(f"ha (a): turn {key[0] + 1} of {key[1]} saw another "
+                 f"prompt than the undisturbed serve's")
+        a, b = r["toks"], h["toks"]
+        i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            if len(a) != len(b):
+                fail(f"ha (a): {key} replies of {len(a)} and {len(b)} "
+                     "tokens agree to the shorter one's end")
+            equal += 1
+            continue
+        parted.add(key[1])
+        z = plain[key][i]
+        top = float(z.max())
+        p = dict(turn=key[0] + 1, user=key[1], step=i, ref_token=a[i],
+                 ha_token=b[i], gap_ref=top - float(z[a[i]]),
+                 gap_ha=top - float(z[b[i]]), tol=tol)
+        p["near_tie"] = p["gap_ref"] < tol and p["gap_ha"] < tol
+        partings.append(p)
+    return dict(equal=equal, near_ties=len(partings),
+                after_a_tie=after_tie, tol=tol, partings=partings,
+                history_ok=history_ok)
+
+
+def ha_in_process(card, params):
+    """(a) A 3-node partition-leadership cluster on the port's native
+    broker feeds the lanes phase's 2-lane group (``build_lanes``) bound
+    to partition leadership; the non-controller node leading most of the
+    messages topic's partitions is killed mid-stream in turn 2. The same
+    turns are then served undisturbed on the same group, its prefix caches
+    flushed, through a fresh ``SwarmDB`` on ``LocalBroker`` and a fresh
+    ``ServingService``: the reference the replies are held to
+    (``ha_compare``). Returns the record."""
+    import tempfile
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import ServingService
+    from swarmdb_tpu_torch.backend.tokenizer import default_tokenizer
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.broker.native import NativeBroker
+    from swarmdb_tpu_torch.core.messages import BrokerConfig
+    from swarmdb_tpu_torch.core.runtime import SwarmDB, _default_broker
+    from swarmdb_tpu_torch.ha import build_local_cluster, tp_key, wait_until
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.obs import TRACER
+
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="swarm_ha_")
+    # each node's broker is what BROKER_IMPL=auto picks: it must be the
+    # native engine, never a quiet fallback to LocalBroker
+    harness, cluster, client = build_local_cluster(
+        list(HA_NODES), partition_leadership=True,
+        suspect_s=HA_SUSPECT_S, dead_s=HA_DEAD_S,
+        broker_factory=lambda nid: _default_broker(BrokerConfig(
+            implementation="auto", log_dir=os.path.join(tmp, nid))))
+    kinds = {nid: type(n.broker).__name__ for nid, n in
+             harness.nodes.items()}
+    if any(not isinstance(n.broker, NativeBroker)
+           for n in harness.nodes.values()):
+        harness.stop()
+        fail(f"ha (a): the nodes' brokers are {kinds}, not NativeBroker")
+    n0 = harness.nodes["n0"]
+    db = svc = g = ref_db = ref_svc = None
+    try:
+        wait_until(lambda: cluster.read()["leader"] == "n0", 30.0,
+                   what="bootstrap leader")
+        db = SwarmDB(config=BrokerConfig(num_partitions=HA_PARTITIONS),
+                     broker=n0.client_broker(), autosave_interval=1e9,
+                     save_dir=os.path.join(tmp, "hist"))
+        topic = db.topic_name
+
+        def assignments():
+            return {int(k.rpartition(":")[2]): a for k, a in
+                    cluster.read()["assignments"].items()
+                    if k.rpartition(":")[0] == topic}
+
+        def spread_and_leased():
+            a = assignments()
+            leaders = [x["leader"] for x in a.values()]
+            if sorted(leaders) != sorted(
+                    HA_NODES * (HA_PARTITIONS // len(HA_NODES))):
+                return False
+            for p, x in a.items():
+                node = harness.nodes[x["leader"]]
+                if (node._pbroker is None
+                        or node._pbroker.leases.epoch_of(topic, p) is None):
+                    return False
+            return True
+
+        # the steady state before any send: the topic is assigned to the
+        # controller first and spread after, and the map names a leader
+        # before it takes the partition's lease (an append in between is
+        # refused, and a re-sent message leaves its failed copy in the
+        # conversation's history)
+        wait_until(spread_and_leased, 30.0,
+                   what="the messages topic spread and leased")
+        tok = default_tokenizer(get_config(LANE_MODEL).vocab_size)
+        g, _, _, warm_s = build_lanes(params, "bfloat16", db.metrics)
+        svc = ServingService(db, g, tok, backend_id="h100-ha")
+        svc.bind_partition_leadership(n0)
+        if svc._locality is None:
+            fail("ha (a): bind_partition_leadership left no locality")
+        seen = ha_record(svc)
+        users = [f"ha_user{i}" for i in range(HA_USERS)]
+        bots = [f"ha_assistant{i}" for i in range(HA_USERS)]
+        for a in users + bots:
+            db.register_agent(a)
+        for b in bots:
+            db.assign_llm_backend(b, "h100-ha")
+        svc.start(warmup=False)
+        kill = {}
+        tokens = db.metrics.counters["tokens_generated"]
+
+        def kill_in_turn_2(turn, tokens0):
+            if turn != 1:
+                return
+            # mid-stream: once turn 2 has decoded a few tokens
+            wait_until(lambda: tokens.value - tokens0 >= 2 * HA_USERS,
+                       120.0, poll_s=0.005, what="turn 2 decoding")
+            counts = {}
+            for a in assignments().values():
+                counts[a["leader"]] = counts.get(a["leader"], 0) + 1
+            victim = max(("n1", "n2"), key=lambda n: counts.get(n, 0))
+            orphans = sorted(p for p, a in assignments().items()
+                             if a["leader"] == victim)
+            t_kill, wall_kill = time.perf_counter(), time.time()
+            harness.kill(victim)
+            reseat = {}
+            while (len(reseat) < len(orphans)
+                   and time.perf_counter() - t_kill < 30.0):
+                now_a = assignments()
+                for p in orphans:
+                    if p not in reseat and now_a[p]["leader"] != victim:
+                        reseat[p] = time.perf_counter() - t_kill
+                time.sleep(0.002)
+            kill.update(victim=victim, orphans=orphans, reseat=reseat,
+                        leaders_before=counts, wall=wall_kill)
+
+        turns, replies, ttft = ha_turns(db, users, bots, seen,
+                                        kill_in_turn_2)
+        # locality converged: every pin names its partition's leader and
+        # the lane derived from it
+        def pins_agree():
+            a = assignments()
+            for u, b in zip(users, bots):
+                pin = svc._locality.pin(u, b)
+                if (pin.leader != a[pin.partition]["leader"]
+                        or pin.lane != svc._locality._lane_for(
+                            pin.partition, pin.leader)):
+                    return False
+            return True
+
+        wait_until(pins_agree, 30.0, what="locality converged")
+        # a probe turn after the kill: each request's hint is its pin
+        probe, sent = {}, {}
+        for u, b in zip(users, bots):
+            t_send = time.time()
+            mid = ha_send(db, u, b, f"One line from {u}, please.",
+                          HA_PROBE_NEW)
+            probe[mid], sent[mid] = u, t_send
+        got_probe = ha_pick(db, users, probe)
+        ttft["probe_after_kill"] = _summary(
+            [seen[m]["first"] - sent[m] for m in probe
+             if "first" in seen.get(m, {})])
+        hints_ok = all(
+            seen.get(mid, {}).get("hint")
+            == svc._locality.pin(u, bots[users.index(u)]).lane
+            for mid, u in probe.items())
+        # every acknowledged message read back from the survivors
+        acked = {m.id for m in list(db.messages.values())
+                 if "offset" in m.metadata}
+        found = set()
+        for p in range(HA_PARTITIONS):
+            off = 0
+            while True:
+                recs = client.fetch(topic, p, off, 1024)
+                if not recs:
+                    break
+                found.update(r.key.decode() for r in recs if r.key)
+                off = recs[-1].offset + 1
+        lost = sorted(acked - found)
+        # the reference: the same turns served undisturbed, no cluster,
+        # no kill, from no cached page, through a fresh runtime and
+        # service (unsupervised: the group keeps the HA service's
+        # supervisor)
+        ha_flush_prefix(g)
+        ref_db = SwarmDB(config=BrokerConfig(num_partitions=HA_PARTITIONS),
+                         broker=LocalBroker(), autosave_interval=1e9,
+                         save_dir=os.path.join(tmp, "ref_hist"))
+        with env_scope(SWARMDB_SUPERVISE="0"):
+            ref_svc = ServingService(ref_db, g, tok, backend_id="h100-ref")
+        ref_seen = ha_record(ref_svc)
+        for a in users + bots:
+            ref_db.register_agent(a)
+        for b in bots:
+            ref_db.assign_llm_backend(b, "h100-ref")
+        ref_svc.start(warmup=False)
+        ref_turns, ref_replies, ref_ttft = ha_turns(ref_db, users, bots,
+                                                    ref_seen)
+        cmp = ha_compare(params, tok, users, bots,
+                         (seen, turns, replies),
+                         (ref_seen, ref_turns, ref_replies))
+        victim, orphans = kill["victim"], kill["orphans"]
+        reseat = sorted(kill["reseat"].values())
+        repins = [ev for ev in g.flight.events()
+                  if ev.get("kind") == "ha.repin"
+                  and ev.get("t", 0) >= kill["wall"]]
+        from_victim = {ev["partition"] for ev in repins
+                       if ev.get("from_leader") == victim}
+        conv_parts = {pin.partition for pin in
+                      (svc._locality.pin(u, b) for u, b in zip(users, bots))}
+        want_repin = {tp_key(topic, p) for p in orphans if p in conv_parts}
+        instants = [e for e in TRACER.to_chrome_trace()["traceEvents"]
+                    if e.get("name") == "ha.repin"]
+        ha_mids = [m for t in turns for m in t]
+        reasons = [replies[m].metadata.get("finish_reason")
+                   for m in ha_mids]
+        emits = sorted((seen[m]["emits"], seen[m]["emit_s"])
+                       for m in ha_mids if "emits" in seen[m])
+        blast = len(orphans) / HA_PARTITIONS
+        checks = {
+            "every node on NativeBroker": set(kinds.values())
+                == {"NativeBroker"},
+            "16 replies, finish length": all(r == "length"
+                                             for r in reasons)
+                and len(reasons) == 2 * HA_USERS,
+            "probe turn answered": len(got_probe) == HA_USERS,
+            "acked_loss == 0": not lost and bool(acked),
+            "every orphan re-seated within the promotion budget":
+                len(reseat) == len(orphans) and bool(orphans)
+                and reseat[-1] < HA_PROMOTE_BUDGET_S,
+            "blast radius <= 1/3 + one partition":
+                blast <= 1 / 3 + 1 / HA_PARTITIONS + 1e-9,
+            "pins, hints and leaders agree after the kill":
+                pins_agree() and hints_ok,
+            "ha.repin names exactly the victim's partitions":
+                from_victim == want_repin and len(instants) >= len(
+                    from_victim),
+            "each turn-2 prompt holds turn 1's exchange":
+                all(cmp["history_ok"].values()),
+            "tokens equal the undisturbed serve's, or part at a near tie":
+                all(p["near_tie"] for p in cmp["partings"]),
+        }
+        # the native broker's appends beside LocalBroker's: the obs
+        # phase's echo loop over each (runtime alone, no cluster)
+        echo = {}
+        for name, mk in (("native", lambda: NativeBroker(
+                log_dir=os.path.join(tmp, "echo"))),
+                         ("local", LocalBroker)):
+            edb = SwarmDB(broker=mk(), autosave_interval=1e9,
+                          save_dir=os.path.join(tmp, f"echo_{name}"))
+            try:
+                echo[f"{name}_msgs_per_s"] = _echo_loop(edb, 2.0)
+            finally:
+                edb.close()
+        rec = dict(
+            part="in_process", card=card, model=LANE_MODEL,
+            lanes=len(g.lanes), warmup_s=warm_s, brokers=kinds,
+            partitions=HA_PARTITIONS, users=HA_USERS, turns=2,
+            victim=victim, leaders_before_kill=kill["leaders_before"],
+            orphaned_partitions=orphans,
+            time_to_promote_s=dict(p50=statistics.median(reseat)
+                                   if reseat else None,
+                                   max=reseat[-1] if reseat else None,
+                                   budget=HA_PROMOTE_BUDGET_S),
+            blast_radius=blast, blast_radius_bound=1 / 3 + 1 / HA_PARTITIONS,
+            acked_records=len(acked), acked_loss=len(lost),
+            repins=len(repins), repinned_from_victim=sorted(from_victim),
+            locality=svc._locality.stats(),
+            ttft_s=ttft, ttft_undisturbed_s=ref_ttft,
+            equal_to_undisturbed=cmp["equal"],
+            near_ties=cmp["near_ties"], after_a_tie=cmp["after_a_tie"],
+            tol=cmp["tol"], partings=cmp["partings"],
+            finish_reasons=reasons,
+            reply_retries=db.metrics.counters["reply_retries"].value,
+            reply_retry_budget_s=svc._failover_budget_s,
+            # (produce attempts, seconds from the first to the one that
+            # landed) of every reply that needed more than one
+            retried_replies=[e for e in emits if e[0] > 1],
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            checks=checks, **echo)
+        emit("ha", **rec)
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"ha (a) checks failed: {bad}")
+        return rec
+    finally:
+        for s_, d_ in ((ref_svc, ref_db), (svc, db)):
+            if s_ is not None:
+                s_.stop()
+            if d_ is not None:
+                d_.close()
+        harness.stop()
+        client.close()
+        for n in harness.nodes.values():
+            try:
+                n.broker.close()
+            except Exception:
+                pass
+
+
+def ha_cluster_trace(card):
+    """(b) Across processes: two ``python -m swarmdb_tpu_torch.ha.node``
+    nodes over a ``FileClusterMap`` and the port's server as the third
+    node (``SWARMDB_HA_NODE_ID``, ``SERVE_MODEL=tiny-debug`` on the card,
+    the default dense engine: kernel 7); one message streamed, the
+    controller node SIGKILLed, a second streamed; ``/admin/ha`` shows the
+    promotion and ``/admin/cluster/trace`` merges the cluster's rings
+    with the dead node listed unreachable. Every child is killed at the
+    end."""
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from swarmdb_tpu_torch.ha import FileClusterMap
+
+    tmp = tempfile.mkdtemp(prefix="swarm_ha_proc_")
+    cluster_path = os.path.join(tmp, "cluster.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), **HA_PROC_ENV)
+    for k in ("SWARMDB_HA_NODE_ID", "SWARMDB_HA_CLUSTER", "BROKER_IMPL",
+              "SWARMDB_PAGED", "SWARMDB_HA_PARTITION_LEADERSHIP"):
+        env.pop(k, None)
+    procs = {}
+
+    def spawn_node(node_id, role):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "swarmdb_tpu_torch.ha.node",
+             "--node-id", node_id, "--role", role,
+             "--log-dir", os.path.join(tmp, node_id),
+             "--cluster", cluster_path, "--listen", "127.0.0.1:0",
+             "--liveness", "127.0.0.1:0", "--data", "127.0.0.1:0",
+             "--advertise-host", "127.0.0.1"],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
+        procs[node_id] = proc
+        line = proc.stdout.readline()
+        if not line.startswith(f"HA_NODE_READY {node_id}"):
+            fail(f"ha (b): node {node_id} did not start: {line!r}")
+
+    cmap = FileClusterMap(cluster_path)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+
+    def call(path, body=None, headers=None, timeout=120):
+        req = urllib.request.Request(
+            url + path, data=None if body is None else
+            json.dumps(body).encode(), headers={
+                "Content-Type": "application/json", **(headers or {})},
+            method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.read().decode()
+
+    def wait(pred, timeout, what):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            try:
+                if pred():
+                    return time.perf_counter() - t0
+            except (OSError, ValueError, KeyError):
+                pass
+            time.sleep(0.05)
+        fail(f"ha (b): timed out waiting for {what}")
+
+    try:
+        spawn_node("p0", "leader")
+        spawn_node("p1", "follower")
+        wait(lambda: cmap.read()["leader"] == "p0", 30, "bootstrap")
+        senv = dict(env, SERVE_MODEL="tiny-debug", API_HOST="127.0.0.1",
+                    API_PORT=str(port), SAVE_DIR=os.path.join(tmp, "srv"),
+                    JWT_SECRET_KEY="chip-smoke", SERVE_MAX_SEQ="256",
+                    SWARMDB_HA_NODE_ID="p2",
+                    SWARMDB_HA_CLUSTER=cluster_path,
+                    SWARMDB_HA_ROLE="follower",
+                    SWARMDB_HA_LISTEN="127.0.0.1:0",
+                    SWARMDB_HA_LIVENESS="127.0.0.1:0",
+                    SWARMDB_HA_DATA="127.0.0.1:0",
+                    SWARMDB_HA_ADVERTISE_HOST="127.0.0.1",
+                    BROKER_LOG_DIR=os.path.join(tmp, "p2"),
+                    SWARMDB_NODE_ID="p2")
+        t0 = time.perf_counter()
+        # the server's log goes to a file: a pipe nobody drains fills up
+        # with the failover's retry tracebacks and then blocks the
+        # process, its HA node's threads included
+        err_path = os.path.join(tmp, "server.err")
+        with open(err_path, "wb") as err:
+            procs["p2"] = subprocess.Popen(
+                [sys.executable, "-m", "swarmdb_tpu_torch.api.server"],
+                cwd=str(ROOT), env=senv, stdout=subprocess.DEVNULL,
+                stderr=err)
+        health = {}
+
+        def healthy():
+            if procs["p2"].poll() is not None:
+                with open(err_path, "rb") as f:
+                    tail = f.read()[-2000:].decode(errors="replace")
+                fail(f"ha (b): the server exited: {tail}")
+            health.update(json.loads(call("/health", timeout=10)))
+            return True
+
+        wait(healthy, 300, "the server's /health")
+        up_s = time.perf_counter() - t0
+        tokn = json.loads(call("/auth/token", {"username": "admin",
+                                               "password": "pw"}))
+        hdr = {"Authorization": f"Bearer {tokn['access_token']}"}
+        call("/agents/register", {"agent_id": "assistant"}, hdr)
+        call("/admin/llm_backend", {"agent_id": "assistant",
+                                    "backend_id": "gpu-0"}, hdr)
+        wait(lambda: any(k.startswith("swarm_messages:") for k in
+                         cmap.read()["assignments"]), 30,
+             "the messages topic's assignment")
+
+        def stream(text):
+            """One streamed message, re-sent while the cluster fails over:
+            (message id, reply event, seconds)."""
+            t = time.perf_counter()
+            while time.perf_counter() - t < 120:
+                try:
+                    body = call("/messages", {
+                        "receiver_id": "assistant", "content": text,
+                        "stream": True, "metadata": {"generation": {
+                            "max_new_tokens": 8}}}, hdr)
+                except (urllib.error.HTTPError, OSError):
+                    time.sleep(0.2)
+                    continue
+                events = _sse_events(body.splitlines())
+                first = next((d for e, d in events if e == "message"), {})
+                reply = [d for e, d in events if e == "reply"]
+                if reply:
+                    return first.get("id"), reply[0], time.perf_counter() - t
+                time.sleep(0.2)
+            fail(f"ha (b): no reply to {text!r}")
+
+        mid_a, reply_a, _ = stream("hello before the kill")
+        st0 = cmap.read()
+        t_kill = time.perf_counter()
+        procs["p0"].send_signal(signal.SIGKILL)
+        procs["p0"].wait(timeout=30)
+        # at once, while the map still lists p0 (its peers deregister it
+        # once their detectors call it dead): the merge skips the dead
+        # node and names it
+        early = json.loads(call("/admin/cluster/trace?last_n=50",
+                                headers=hdr))
+        early_s = time.perf_counter() - t_kill
+        unreachable = [u["node"] for u in early["metadata"]["unreachable"]]
+        wait(lambda: cmap.read()["leader"] not in ("p0", None)
+             and cmap.read()["epoch"] > st0["epoch"], 60, "a new controller")
+        promote_s = time.perf_counter() - t_kill
+        wait(lambda: all(a["leader"] != "p0"
+                         for a in cmap.read()["assignments"].values()),
+             60, "every partition of p0 re-seated")
+        reseat_s = time.perf_counter() - t_kill
+        mid_b, reply_b, b_s = stream("hello after the kill")
+        admin_ha = json.loads(call("/admin/ha", headers=hdr))
+        trace = json.loads(call(f"/admin/cluster/trace?trace_id={mid_b}",
+                                headers=hdr))
+        events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+        pids = {e["pid"] for e in events}
+        names = {e["name"] for e in events}
+        kinds = {ev.get("kind") for ev in admin_ha.get("events", [])}
+        table = (admin_ha.get("partition_leadership") or {}).get(
+            "partitions", {})
+        checks = {
+            "both replies arrive": bool(reply_a and reply_b),
+            "/admin/ha shows the promotion": admin_ha.get("leader")
+                not in ("p0", None)
+                and admin_ha.get("cluster_epoch", 0) > st0["epoch"]
+                and bool(table)
+                and all(r.get("leader") != "p0" for r in table.values()),
+            "the merge spans >= 2 pids": len(pids) >= 2,
+            "the promotion instant is in the merge": "ha.promoted" in names,
+            "metadata.unreachable names p0": "p0" in unreachable,
+        }
+        rec = dict(part="across_processes", card=card,
+                   server_seconds_to_health=up_s,
+                   server_device=(health.get("tpu") or {}).get("device"),
+                   server_ha=health.get("ha"), kill_to_controller_s=promote_s,
+                   kill_to_reseated_s=reseat_s,
+                   kill_to_second_reply_s=time.perf_counter() - t_kill,
+                   second_stream_s=b_s,
+                   replies=[r.get("metadata", {}).get("finish_reason")
+                            for r in (reply_a, reply_b)],
+                   admin_ha_leader=admin_ha.get("leader"),
+                   admin_ha_events=sorted(k for k in kinds if k),
+                   merged_pids=len(pids), merged_events=len(events),
+                   merged_names=sorted(names), unreachable=unreachable,
+                   unreachable_read_s_after_kill=early_s,
+                   checks=checks)
+        emit("ha", **rec)
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"ha (b) checks failed: {bad}")
+        return rec
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+
+
+def run_ha(card, params):
+    """The ha phase: (a) Llama-3-8B at full width on two lanes fed by a
+    3-node partition-leadership cluster through a node kill; (b) the
+    cluster trace across processes. Returns (a)'s launches."""
+    import gc
+
+    import torch
+
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    t0 = time.perf_counter()
+    ac.reset_launches()
+    ha_in_process(card, params)
+    launches = dict(ac.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ha_cluster_trace(card)
+    emit("ha", part="done", seconds=time.perf_counter() - t0,
+         launches={k: n for k, n in launches.items() if n}, card=card)
+    return launches
+
+
 # ---------------------------------------------------------------- sanitize
 
 
@@ -6406,6 +7164,8 @@ def main() -> int:
         for k, n in run_rolling(card, params).items():
             launches[k] = launches.get(k, 0) + n
         for k, n in run_lanes(card, params).items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in run_ha(card, params).items():
             launches[k] = launches.get(k, 0) + n
         free_weights(params)   # Llama-3-8B's weights go before Mixtral's
         del params

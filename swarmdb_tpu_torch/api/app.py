@@ -22,14 +22,19 @@ the device-time profiler's and memory accountant's lines;
 ``/admin/profile`` and ``/admin/mem`` serve those two reports (503 with
 ``SWARMDB_PROFILE=0`` / ``SWARMDB_MEMPROF=0``), and the trace export
 carries the profiler's ``device:<lane>`` tracks. ``/admin/slo`` serves
-the sentinel and ``/admin/cluster/trace`` the local trace through the
-cluster merge (the fan-out to other nodes rides the data plane,
-ROADMAP.md queue 1 item 12). ``/admin/lockcheck``, ``/admin/pagecheck``
-and ``/admin/kerncheck`` serve the three runtime sanitizers' reports (503
-with their flag off: an empty report would read as "no bugs" when nothing
-watched), and ``/metrics`` carries their lines. Routes whose subsystem is
-not ported yet answer 501 with a body that names its ROADMAP.md item
-(queue 1): ``/admin/ha`` (item 12).
+the sentinel and ``/admin/cluster/trace`` one merged trace of the cluster:
+the local rings plus every cluster-map node's, fetched over the data
+plane (dead nodes listed in ``metadata.unreachable``). ``/admin/lockcheck``,
+``/admin/pagecheck`` and ``/admin/kerncheck`` serve the three runtime
+sanitizers' reports (503 with their flag off: an empty report would read
+as "no bugs" when nothing watched), and ``/metrics`` carries their lines.
+With an HA node (``create_app(ha_node=...)``) ``/health`` carries its
+role, epoch and detector verdict, ``/admin/ha`` its whole status (the
+partition-leadership table and the serving tier's locality view), and
+``/metrics`` the ``swarmdb_ha_*``, partition-leadership and
+conversation-locality lines; a replicated broker adds the
+``swarmdb_replica_*`` lag gauges. Routes whose subsystem is not ported
+yet answer 501 with a body that names their ROADMAP.md item (none now).
 """
 
 from __future__ import annotations
@@ -66,6 +71,10 @@ ADMIN_USERNAME = "admin"  # the authorization superuser
 DB_KEY: web.AppKey = web.AppKey("db", object)
 CONFIG_KEY: web.AppKey = web.AppKey("config", object)
 SERVING_KEY: web.AppKey = web.AppKey("serving", object)
+HA_KEY: web.AppKey = web.AppKey("ha_node", object)
+
+# /metrics role codes of an HA node
+_HA_ROLE_CODES = {"follower": 0, "leader": 1, "deposed": 2, "dead": 3}
 
 def pagecheck_enabled() -> bool:
     """The page sanitizer's flag (``ops.paged_kv.pagecheck_enabled``, read
@@ -80,10 +89,8 @@ def kerncheck_enabled() -> bool:
 
 #: Routes of the JAX package's server whose subsystem the port has not
 #: yet: path -> (what it serves, the ROADMAP.md queue 1 item). They
-#: answer 501 naming the item.
-UNPORTED_ROUTES = {
-    "/admin/ha": ("the HA control plane", "12"),
-}
+#: answer 501 naming the item. Every route is ported now.
+UNPORTED_ROUTES: Dict[str, tuple] = {}
 
 
 @dataclass
@@ -269,11 +276,10 @@ def create_app(
     answers LLM-addressed messages (and streams them); it is stopped
     with the app. ``on_max_requests`` fires once after
     ``cfg.max_requests`` (+ jitter) requests (worker recycling).
-    ``ha_node`` is refused: the HA control plane is not ported yet."""
-    if ha_node is not None:
-        raise NotImplementedError(
-            "the HA control plane is not ported yet (ROADMAP.md, queue 1 "
-            "item 12)")
+    ``ha_node`` is this process's embedded
+    :class:`~swarmdb_tpu_torch.ha.node.HANode`, when it is a cluster node:
+    ``/health``, ``/admin/ha`` and ``/metrics`` then show its control
+    plane."""
     cfg = config or ApiConfig()
     limiter = RateLimiter(cfg.rate_limit_per_minute)
     recycle_at: Optional[int] = None
@@ -554,10 +560,46 @@ def create_app(
                 backend = await _run_sync(serving.health)
             except Exception as exc:
                 backend = {"status": "error", "error": str(exc)}
+        ha_state = None
+        if ha_node is not None:
+            try:
+                full = await _run_sync(ha_node.status)
+                ha_state = {k: full.get(k) for k in
+                            ("node_id", "role", "epoch", "leader")}
+                if "detector" in full:
+                    ha_state["detector"] = full["detector"]["state"]
+            except Exception as exc:
+                ha_state = {"status": "error", "error": str(exc)}
         resp = schemas.HealthResponse(
             status="healthy" if ok else "degraded", broker_connected=ok,
-            tpu=backend)
+            tpu=backend, ha=ha_state)
         return _json(resp, 200 if ok else 503)
+
+    async def admin_ha(request: web.Request) -> web.Response:
+        """GET /admin/ha: the control plane's whole status (role, fencing
+        epoch, cluster map view, detector state, replication lag), under
+        partition leadership the ``partition_leadership`` table and the
+        serving tier's ``partition_serving`` locality view, and the recent
+        HA events from the flight recorder's event ring. 503 without an
+        HA node."""
+        require_admin(current_agent(request))
+        if ha_node is None:
+            raise _error(503, "this process runs without an HA node")
+        out = await _run_sync(ha_node.status)
+        loc = getattr(serving, "_locality", None)
+        if loc is not None:
+            try:
+                out["partition_serving"] = await _run_sync(loc.stats)
+            except Exception:
+                logger.exception("locality stats read failed")
+        try:
+            out["events"] = [
+                ev for ev in await _run_sync(ha_node.flight.events)
+                if str(ev.get("kind", "")).startswith(("ha.", "chaos."))
+            ][-50:]
+        except Exception:
+            logger.exception("HA event ring read failed")
+        return web.json_response(out)
 
     async def stats(request: web.Request) -> web.Response:
         """GET /stats: admin only."""
@@ -677,8 +719,103 @@ def create_app(
                 lines += [f"# TYPE swarmdb_tier_{cname}_total counter",
                           f"swarmdb_tier_{cname}_total "
                           f"{tstatus['counters'][cname]}"]
+        lines += await _replica_lines()
+        lines += await _ha_lines()
         return web.Response(text="\n".join(lines) + "\n",
                             content_type="text/plain")
+
+    async def _replica_lines() -> list:
+        """Per-follower fsync-watermark lag of a replicated broker: a
+        disconnected follower shows as growing lag_records and
+        connected=0 while DELIVERED reports stall."""
+        repl_stats = getattr(db.broker, "replication_stats", None)
+        if repl_stats is None:
+            return []
+        try:
+            followers = await _run_sync(repl_stats)
+        except Exception:
+            logger.exception("replication_stats failed")
+            return []
+        if not followers:
+            return []
+        lines = ["# TYPE swarmdb_replica_lag_records gauge",
+                 "# TYPE swarmdb_replica_lag_seconds gauge",
+                 "# TYPE swarmdb_replica_connected gauge",
+                 "# TYPE swarmdb_replica_gapped_partitions gauge"]
+        for f in followers:
+            lbl = f'{{follower="{f["target"]}"}}'
+            lines += [
+                f"swarmdb_replica_lag_records{lbl} {f['lag_records']}",
+                f"swarmdb_replica_lag_seconds{lbl} {f['lag_seconds']}",
+                f"swarmdb_replica_connected{lbl} "
+                f"{1 if f['connected'] else 0}",
+                f"swarmdb_replica_gapped_partitions{lbl} {f['gapped']}"]
+        return lines
+
+    async def _ha_lines() -> list:
+        """The HA node's role / fencing epoch / detector verdict (a
+        deposed leader, role 2, or a detector stuck SUSPECT, state 1, is
+        an incident while traffic still flows), leaderships per node and
+        the leaderless count, the last rebalance's convergence, and the
+        serving tier's conversation locality (remote > 0 on a converged
+        cluster means serving and log ownership drifted apart)."""
+        lines = []
+        st = None
+        if ha_node is not None:
+            try:
+                st = await _run_sync(ha_node.status)
+            except Exception:
+                logger.exception("HA status read failed")
+        if st is not None:
+            role_code = _HA_ROLE_CODES.get(st.get("role"), -1)
+            lines += ["# TYPE swarmdb_ha_role gauge",
+                      f'swarmdb_ha_role{{node="{st["node_id"]}",'
+                      f'role="{st.get("role")}"}} {role_code}',
+                      "# TYPE swarmdb_ha_epoch gauge",
+                      f"swarmdb_ha_epoch {st.get('epoch', 0)}"]
+            if st.get("cluster_epoch") is not None:
+                lines += ["# TYPE swarmdb_ha_cluster_epoch gauge",
+                          f"swarmdb_ha_cluster_epoch {st['cluster_epoch']}"]
+            det = st.get("detector")
+            if det:
+                # 0=alive 1=suspect 2=dead (DetectorState codes)
+                lines += [
+                    "# TYPE swarmdb_ha_detector_state gauge",
+                    f'swarmdb_ha_detector_state{{state="{det["state"]}"}} '
+                    f'{det["state_code"]}',
+                    "# TYPE swarmdb_ha_detector_signal_age_seconds gauge",
+                    f"swarmdb_ha_detector_signal_age_seconds "
+                    f"{det['signal_age_s']}"]
+            pl = st.get("partition_leadership")
+            if pl:
+                lines.append("# TYPE swarmdb_partition_leaderships gauge")
+                lines += [f'swarmdb_partition_leaderships{{node="{nid}"}} {n}'
+                          for nid, n in sorted(
+                              (pl.get("leaderships") or {}).items())]
+                lines += ["# TYPE swarmdb_partition_leaderless gauge",
+                          f"swarmdb_partition_leaderless "
+                          f"{pl.get('leaderless', 0)}"]
+                conv = pl.get("rebalance_convergence_s")
+                if conv is not None:
+                    lines += [
+                        "# TYPE swarmdb_rebalance_convergence_seconds gauge",
+                        f"swarmdb_rebalance_convergence_seconds {conv}"]
+        loc = getattr(serving, "_locality", None)
+        if loc is not None:
+            try:
+                ls = await _run_sync(loc.stats)
+            except Exception:
+                logger.exception("locality stats read failed")
+                ls = None
+            if ls is not None:
+                lines.append("# TYPE swarmdb_conversation_locality gauge")
+                lines += [f'swarmdb_conversation_locality{{state="{state}"}} '
+                          f"{ls.get(state, 0)}"
+                          for state in ("local", "remote", "leaderless")]
+                lines += ["# TYPE swarmdb_conversation_repins_total counter",
+                          f"swarmdb_conversation_repins_total "
+                          f"{ls.get('repins', 0)}"]
+        return lines
 
     def _trace_query(request: web.Request):
         """(last_n, trace_id) of a trace route's query."""
@@ -707,18 +844,53 @@ def create_app(
 
     async def cluster_trace(request: web.Request) -> web.Response:
         """GET /admin/cluster/trace: one merged, Perfetto-loadable trace
-        of the cluster, with the filters of /admin/trace/export. The port
-        has no cluster map yet, so this is the JAX package's no-cluster
-        answer: the local process's trace through ``merge_chrome_traces``
-        and an empty ``metadata.unreachable`` (the fan-out to other nodes
-        rides the data plane, ROADMAP.md queue 1 item 12)."""
+        of the cluster, with the filters of /admin/trace/export. It fans
+        out to every node of the cluster map (this process's HA node's,
+        or a cluster-routed ``db.broker``'s) over the data plane's
+        ``trace_export`` op and merges the rings on the shared wall clock
+        (in-process clusters share a tracer: the merge dedups). Dead or
+        unreachable nodes are skipped and listed in
+        ``metadata.unreachable``: a failover trace must survive the dead
+        leader it documents. With ``trace_id`` the merge keeps that
+        trace's spans plus every node's HA instants. Without a cluster
+        map, the local trace alone."""
         require_admin(current_agent(request))
         last_n, trace_id = _trace_query(request)
+        # the local process is always a source (API and engine spans live
+        # here even when it runs no HA node)
         local = await _run_sync(
             lambda: TRACER.to_chrome_trace(last_n=last_n, rid=trace_id))
-        merged = propagate.merge_chrome_traces([(propagate.node_id(),
-                                                 local)])
-        merged["metadata"]["unreachable"] = []
+        sources = [(propagate.node_id(), local)]
+        unreachable = []
+        cluster = (ha_node.cluster if ha_node is not None
+                   else getattr(db.broker, "cluster", None))
+
+        def _fan_out():
+            from ..ha.dataplane import RemoteBroker
+
+            try:
+                state = cluster.read()
+            except Exception as exc:
+                unreachable.append({"node": "<cluster-map>",
+                                    "error": str(exc)})
+                return
+            for nid, info in sorted(state.get("nodes", {}).items()):
+                addr = (info or {}).get("data_addr")
+                if not addr:
+                    continue
+                rb = RemoteBroker(addr, timeout_s=2.0)
+                try:
+                    out = rb.trace_export(last_n=last_n, trace_id=trace_id)
+                    sources.append((out.get("node", nid), out["trace"]))
+                except Exception as exc:
+                    unreachable.append({"node": nid, "error": str(exc)})
+                finally:
+                    rb.close()
+
+        if cluster is not None:
+            await _run_sync(_fan_out)
+        merged = propagate.merge_chrome_traces(sources)
+        merged["metadata"]["unreachable"] = unreachable
         if trace_id:
             merged["metadata"]["trace_id"] = trace_id
         return web.json_response(merged)
@@ -979,6 +1151,7 @@ def create_app(
     app[DB_KEY] = db
     app[CONFIG_KEY] = cfg
     app[SERVING_KEY] = serving
+    app[HA_KEY] = ha_node
     app.add_routes([
         web.post("/auth/token", auth_token),
         web.post("/agents/register", register_agent),
@@ -1007,6 +1180,7 @@ def create_app(
         web.get("/admin/trace/export", trace_export),
         web.get("/admin/cluster/trace", cluster_trace),
         web.get("/admin/slo", admin_slo),
+        web.get("/admin/ha", admin_ha),
         web.get("/admin/flight", flight_record),
         web.get("/admin/tiers", admin_tiers),
         web.get("/admin/lanes", admin_lanes),

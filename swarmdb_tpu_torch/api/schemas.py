@@ -125,7 +125,8 @@ class HealthResponse(BaseModel):
     version: str = "0.1.0"
     # the serving backend's device probe and engine state (wire name kept)
     tpu: Optional[Dict[str, Any]] = None
-    # the HA control plane's block: always None here (not ported yet)
+    # the HA node's role / epoch / leader / detector verdict (None when
+    # this process runs no HA node)
     ha: Optional[Dict[str, Any]] = None
 
 

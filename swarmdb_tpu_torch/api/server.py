@@ -5,7 +5,10 @@ KAFKA_GROUP_ID, KAFKA_NUM_PARTITIONS, KAFKA_TOPIC, SAVE_DIR,
 AUTOSAVE_INTERVAL, BROKER_IMPL, JWT_SECRET_KEY, TOKEN_EXPIRE_MINUTES,
 RATE_LIMIT_PER_MINUTE, CORS_ORIGINS, API_HOST, API_PORT, API_SSL_CERT /
 API_SSL_KEY, API_MAX_REQUESTS, API_SHUTDOWN_TIMEOUT, LOG_FILE. One process
-owns the broker: a single node over ``LocalBroker``.
+owns the broker. ``BROKER_IMPL`` picks it as the JAX server does: ``auto``
+(the default) takes the native C++ broker when its library builds, else
+``LocalBroker``; ``native`` raises if it cannot build; ``python`` takes
+``LocalBroker``.
 
 Set ``SERVE_MODEL`` (``llama3-8b``, ``tiny-debug``, ...) to attach a
 serving backend (``ServingService.from_model_name``) on the card
@@ -15,12 +18,24 @@ serving backend (``ServingService.from_model_name``) on the card
 ``POST /admin/llm_backend`` naming the backend ``gpu-0`` (its id is also
 in ``GET /health``).
 
-Not ported yet, and refused with ``NotImplementedError``: the native
-broker (``BROKER_IMPL=native``) and HA (``SWARMDB_HA_NODE_ID`` /
-``SWARMDB_HA_CLUSTER``), ROADMAP.md queue 1 item 12; multi-process
+High availability, two modes as in the JAX server:
+
+- ``SWARMDB_HA_NODE_ID`` (+ ``SWARMDB_HA_CLUSTER``, the shared cluster-map
+  file): this process IS a cluster node. An embedded ``HANode``
+  supervises its broker (failure detection, fenced promotion) with
+  partition leadership on by default (``SWARMDB_HA_PARTITION_LEADERSHIP``
+  overrides); the runtime writes through ``HANode.client_broker()`` and
+  the serving backend pins conversations to lanes by partition leader.
+  ``SWARMDB_HA_ROLE`` (``follower``), ``SWARMDB_HA_LISTEN`` /
+  ``_LIVENESS`` / ``_DATA`` (``0.0.0.0:9444`` / ``:9445`` / ``:9446``;
+  port 0 picks a free one), ``SWARMDB_HA_ADVERTISE_HOST`` and
+  ``BROKER_LOG_DIR`` (``ha_broker_log``) shape it.
+- ``SWARMDB_HA_CLUSTER`` alone: a client of an external cluster (the
+  runtime binds a ``ClusterBroker``, ``core/runtime.py``).
+
+Not ported yet, and refused with ``NotImplementedError``: multi-process
 serving (``SWARMDB_COORDINATOR`` / ``SWARMDB_NUM_PROCESSES`` > 1),
-item 11. ``BROKER_IMPL=auto`` takes ``LocalBroker``, as the JAX server
-does where the native library is absent.
+ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -38,15 +53,6 @@ from .app import ApiConfig, create_app
 def refuse_unported() -> None:
     """Raise for the deployment modes of the JAX server that the port
     does not have yet."""
-    if os.environ.get("SWARMDB_HA_NODE_ID") or os.environ.get(
-            "SWARMDB_HA_CLUSTER"):
-        raise NotImplementedError(
-            "HA serving (SWARMDB_HA_NODE_ID / SWARMDB_HA_CLUSTER) is not "
-            "ported yet (ROADMAP.md, queue 1 item 12)")
-    if os.environ.get("BROKER_IMPL", "auto") == "native":
-        raise NotImplementedError(
-            "BROKER_IMPL=native: the C++ broker is not ported yet "
-            "(ROADMAP.md, queue 1 item 12); use auto or python")
     if (os.environ.get("SWARMDB_COORDINATOR")
             or int(os.environ.get("SWARMDB_NUM_PROCESSES", "1")) > 1):
         raise NotImplementedError(
@@ -54,7 +60,55 @@ def refuse_unported() -> None:
             "item 11)")
 
 
-def build_db() -> SwarmDB:
+def build_ha_node():
+    """The embedded HA node when this server process is a cluster member
+    (``SWARMDB_HA_NODE_ID`` + ``SWARMDB_HA_CLUSTER``), started; else None.
+    Its broker follows ``BROKER_IMPL`` as the runtime's does."""
+    node_id = os.environ.get("SWARMDB_HA_NODE_ID")
+    cluster_path = os.environ.get("SWARMDB_HA_CLUSTER")
+    if not node_id:
+        return None
+    if not cluster_path:
+        raise SystemExit(
+            "SWARMDB_HA_NODE_ID is set but SWARMDB_HA_CLUSTER is not: an "
+            "HA node needs the shared cluster-map path")
+    from ..broker.local import LocalBroker
+    from ..core.runtime import _default_broker
+    from ..ha.cluster import FileClusterMap
+    from ..ha.node import HANode
+
+    log_dir = os.environ.get("BROKER_LOG_DIR") or "ha_broker_log"
+    broker = _default_broker(BrokerConfig(
+        implementation=os.environ.get("BROKER_IMPL", "auto"),
+        log_dir=log_dir))
+    if isinstance(broker, LocalBroker):
+        # the python broker keeps the node's log as a snapshot in its folder
+        broker = LocalBroker(
+            snapshot_path=os.path.join(log_dir, "snapshot.json"))
+
+    def port_of(addr: str) -> str:
+        return addr.rpartition(":")[2]
+
+    listen = os.environ.get("SWARMDB_HA_LISTEN", "0.0.0.0:9444")
+    data = os.environ.get("SWARMDB_HA_DATA", "0.0.0.0:9446")
+    host = listen.rpartition(":")[0]
+    node = HANode(
+        node_id, broker, FileClusterMap(cluster_path),
+        listen_host=host or "0.0.0.0", replica_port=int(port_of(listen)),
+        liveness_port=int(port_of(
+            os.environ.get("SWARMDB_HA_LIVENESS", "0.0.0.0:9445"))),
+        data_port=None if port_of(data) == "off" else int(port_of(data)),
+        advertise_host=os.environ.get("SWARMDB_HA_ADVERTISE_HOST"),
+        log_dir=log_dir,
+        # a deployment entry point is cluster mode: partition leadership
+        # on by default (SWARMDB_HA_PARTITION_LEADERSHIP overrides)
+        cluster_mode=True,
+    )
+    node.start(role=os.environ.get("SWARMDB_HA_ROLE", "follower"))
+    return node
+
+
+def build_db(ha_node=None) -> SwarmDB:
     cfg = BrokerConfig(
         bootstrap_servers=os.environ.get("KAFKA_BOOTSTRAP_SERVERS",
                                          "localhost:9092"),
@@ -63,17 +117,23 @@ def build_db() -> SwarmDB:
         log_dir=os.environ.get("BROKER_LOG_DIR") or None,
         implementation=os.environ.get("BROKER_IMPL", "auto"),
     )
+    # a cluster node writes through its node: in partition mode a
+    # per-partition-routing ClusterBroker whose opener short-circuits this
+    # node, so every produce reaches the owning partition leader
     return SwarmDB(
         config=cfg,
         topic_name=os.environ.get("KAFKA_TOPIC", "swarm_messages"),
         save_dir=os.environ.get("SAVE_DIR", "message_history"),
         autosave_interval=float(os.environ.get("AUTOSAVE_INTERVAL", "300")),
+        broker=ha_node.client_broker() if ha_node is not None else None,
     )
 
 
-def build_serving(db: SwarmDB, device: DeviceLike = None):
+def build_serving(db: SwarmDB, device: DeviceLike = None, ha_node=None):
     """The ``SERVE_MODEL`` backend, or None without one. ``device``
-    (default the card) lets a caller ask for the CPU."""
+    (default the card) lets a caller ask for the CPU. With ``ha_node``
+    its conversations ride partition leadership (lane pins follow the
+    partition leaders and re-pin on rebalance)."""
     model_name = os.environ.get("SERVE_MODEL")
     if not model_name:
         return None
@@ -87,6 +147,7 @@ def build_serving(db: SwarmDB, device: DeviceLike = None):
         seed=int(os.environ.get("SERVE_SEED", "0")),
         tokenizer_path=os.environ.get("SERVE_TOKENIZER") or None,
         device=device)
+    serving.bind_partition_leadership(ha_node)
     if db.token_counter is None:
         # the backend's tokenizer fills Message.token_count
         db.token_counter = serving.tokenizer.count
@@ -110,8 +171,9 @@ def main() -> None:
 
     configure_logging()
     refuse_unported()
-    db = build_db()
-    serving = build_serving(db)
+    ha_node = build_ha_node()
+    db = build_db(ha_node)
+    serving = build_serving(db, ha_node=ha_node)
     cfg = ApiConfig.from_env()
 
     def _recycle() -> None:
@@ -121,7 +183,8 @@ def main() -> None:
 
         os.kill(os.getpid(), signal.SIGTERM)
 
-    app = create_app(db, cfg, serving=serving, on_max_requests=_recycle)
+    app = create_app(db, cfg, serving=serving, on_max_requests=_recycle,
+                     ha_node=ha_node)
     if serving is not None:
         serving.start()
     web.run_app(app, host=cfg.host, port=cfg.port,

@@ -58,8 +58,9 @@ An engine that cannot roll logs it and serves without; a lane group
 refuses rolling with the JAX package's warning. The runtime's SLO
 sentinel is bound to the engine (its flight rings, the tracer and the
 flight directory for an alert's dumps), and the engine's loop drives its
-windows. Not ported yet (ROADMAP.md, queue 1 item 12): partition
-locality.
+windows. ``bind_partition_leadership(ha_node)`` makes a lane group's
+conversation pins follow their log partition's leader
+(``backend/locality.py``) and re-pin when leadership moves.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ import json
 import logging
 import os
 import queue
+import random
 import threading
 import time
 import uuid
@@ -80,6 +82,7 @@ import torch
 
 from ..core.messages import Message, MessageType
 from ..core.runtime import SwarmDB
+from ..ha.detector import promotion_budget_s
 from ..models import llama, mixtral
 from ..obs import TRACER
 from ..obs.memprof import memprof
@@ -436,6 +439,13 @@ class ServingService:
         # reserve, seeded relative to the window
         self._rolling_delta_ema = min(64.0, engine.max_seq / 8.0)
         self._tier = None
+        # partition-leadership locality (bind_partition_leadership); None
+        # keeps the pair-hash lane hint
+        self._locality = None
+        # how long a retryable reply produce is retried: the promotion
+        # budget of the detector's env times, the bound HA node's own
+        # once bind_partition_leadership saw it
+        self._failover_budget_s = promotion_budget_s()
         rolling_wanted = os.environ.get("SWARMDB_ROLLING_KV") == "1"
         if rolling_wanted and self._n_shards() > 1:
             # a kept conversation's pages pin it to one lane's pool, which
@@ -465,6 +475,34 @@ class ServingService:
         """Lanes behind the engine (1 for a lone engine)."""
         paged = self.engine.paged
         return getattr(paged.allocator, "n_shards", 1) if paged else 1
+
+    def bind_partition_leadership(self, ha_node) -> None:
+        """Ride partition leadership: every conversation's ``shard_hint``
+        comes from its log partition's current leader
+        (``ConversationLocality``), and the service subscribes to the
+        node's rebalance stream, so a leadership move (drain handover,
+        failover promotion) re-pins the conversation's lane: its anchor
+        head and prefix pages re-register on the new lane at the next
+        turn, and ``ha.repin`` instants attribute the TTFT spike. A no-op
+        unless the node runs partition leadership (but for the reply
+        retries' failover budget, taken from the node's detector times);
+        without a bind the pair-hash hint is used."""
+        if ha_node is None:
+            return
+        self._failover_budget_s = promotion_budget_s(
+            getattr(ha_node, "suspect_s", None),
+            getattr(ha_node, "dead_s", None))
+        if not getattr(ha_node, "partition_leadership", False):
+            return
+        from .locality import ConversationLocality
+
+        self._locality = ConversationLocality(
+            topic=self.db.topic_name, n_lanes=self._n_shards(),
+            leadership=ha_node.assignment_of,
+            num_partitions=self.db.num_partitions,
+            local_node=ha_node.node_id,
+            metrics=self.db.metrics, flight=self.engine.flight)
+        ha_node.add_rebalance_listener(self._locality.on_rebalance)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -1010,7 +1048,14 @@ class ServingService:
                              metadata={"message_id": msg.id},
                              request_id=claim.rid)
             n_shards = self._n_shards()
-            if n_shards > 1:
+            if self._locality is not None and msg.receiver_id:
+                # the lane pin follows the conversation's partition
+                # leader, so log ownership and serving coincide, and a
+                # leadership move re-pins it (ha.repin)
+                lpin = self._locality.pin(msg.sender_id, msg.receiver_id)
+                if n_shards > 1:
+                    req.shard_hint = lpin.lane
+            elif n_shards > 1:
                 # a lane group: the conversation's turns go to one lane,
                 # whose prefix cache holds its pages (the order-insensitive
                 # pair is get_conversation's identity)
@@ -1180,16 +1225,49 @@ class ServingService:
             if item is None:
                 return
             msg, rid, tokens, reason, stop, lps, alts, on_done = item
-            try:
-                self._emit_reply(msg, tokens, reason, stop, lps, alts)
-            except Exception:
-                logger.exception("failed to emit reply for %s", msg.id)
+            self._emit_with_retry(msg, tokens, reason, stop, lps, alts)
             if on_done is not None:
                 try:
                     on_done(rid, tokens, reason)
                 except Exception:
                     logger.exception("on_done callback failed for %s",
                                      msg.id)
+
+    # swarmlint: retry
+    def _emit_with_retry(self, msg: Message, tokens: List[int], reason: str,
+                         stop: tuple, lps: Optional[List[float]],
+                         alts: Optional[List[Tuple]]) -> None:
+        """Emit one reply. A retryable produce failure
+        (``LeaderChangedError`` from a partition-routed broker
+        mid-failover) is retried with jittered exponential backoff from
+        ``SWARMDB_RETRY_BACKOFF_S`` (0.05 s, each sleep at most 0.5 s)
+        until ``SWARMDB_REPLY_RETRIES`` attempts (3) are spent and the
+        failover budget has passed since the first failure
+        (``promotion_budget_s`` of the detector's times): the failover
+        re-seats the partition, and the reply lands on the new leader
+        instead of ending FAILED. The JAX package stops after the three
+        attempts, whose sleeps total 0.35-0.7 s: less than a promotion,
+        so a reply produced to a dead leader could be dropped."""
+        retries = _env_int("SWARMDB_REPLY_RETRIES", 3)
+        backoff = _env_float("SWARMDB_RETRY_BACKOFF_S", 0.05)
+        attempt, deadline = 0, None
+        while True:
+            try:
+                self._emit_reply(msg, tokens, reason, stop, lps, alts)
+                return
+            except Exception as exc:
+                if deadline is None:
+                    deadline = time.monotonic() + self._failover_budget_s
+                if (not getattr(exc, "retryable", False)
+                        or self._stop.is_set()
+                        or (attempt >= retries
+                            and time.monotonic() >= deadline)):
+                    logger.exception("failed to emit reply for %s", msg.id)
+                    return
+            self.db.metrics.counters["reply_retries"].inc()
+            time.sleep(min(backoff * 2 ** attempt, 0.5)
+                       * (1.0 + random.random()))
+            attempt += 1
 
     def _finish_completion(self, tokens: List[int], reason: str,
                            stop: tuple, logprobs: Optional[List[float]]

@@ -3,12 +3,18 @@
 This is the contract the reference consumes from confluent_kafka/librdkafka
 (produce/poll/flush at ` main.py:476-484,1386`; subscribe/poll/close at
 `:344,557,367`; list_topics/create_topics/create_partitions at
-`:241,277,1349`) re-expressed as an in-tree interface. The PyTorch port
-carries one implementation, ``broker.local.LocalBroker`` — pure-Python,
-thread-safe, in-memory with optional JSON durability (the C++ engine, the
-replicated broker and the HA client are not ported yet; see ROADMAP.md).
-A copy of ``swarmdb_tpu/broker/base.py``: the port imports nothing of the
-JAX package.
+`:241,277,1349`) re-expressed as an in-tree interface with the JAX
+package's two implementations:
+
+- ``broker.local.LocalBroker`` — pure-Python, thread-safe, in-memory with
+  optional JSON durability; used for tests and single-process serving.
+- ``broker.native.NativeBroker`` — the C++ engine (append-only segment
+  log, per-partition rings) loaded via ctypes, built at first use from the
+  port's own ``broker/cpp/broker.cpp``.
+
+``broker.replica`` replicates either across hosts and ``ha/`` supervises
+the replicas. A copy of ``swarmdb_tpu/broker/base.py``: the port imports
+nothing of the JAX package.
 
 Key semantic choices (deliberate departures from the reference):
 
@@ -70,7 +76,7 @@ class UnknownTopicError(BrokerError):
 class FencedError(BrokerError):
     """A deposed leader tried to write with a stale fencing epoch.
 
-    Raised by a replicated broker (not ported yet) once a
+    Raised by :class:`~swarmdb_tpu_torch.broker.replica.ReplicatedBroker` once a
     follower (or the cluster map) reports a higher epoch than this
     leader's: its appends and mirror connections are refused so a
     partitioned old leader coming back can never fork the replicated log.
@@ -97,7 +103,7 @@ class FencedError(BrokerError):
 class LeaderChangedError(BrokerError):
     """The cluster leader moved (failover in progress or completed).
 
-    Raised by a cluster-routed broker (not ported yet) when the node
+    Raised by :class:`~swarmdb_tpu_torch.ha.client.ClusterBroker` when the node
     it was bound to died or was deposed. Retryable: the next attempt
     re-resolves the leader from the cluster map."""
 

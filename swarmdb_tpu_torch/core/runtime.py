@@ -9,11 +9,18 @@ persistence with autosave and a final save on ``close``, archive of old
 messages, incremental stats and agent load, the agent -> backend routing
 table and partition autoscaling, and the online SLO sentinel
 (``self.sentinel``, one per runtime over its metrics registry, which the
-serving engine shares; the send path probes its window). Not ported yet
-(ROADMAP.md, queue 1 item 12): the native and replicated brokers, the HA
-cluster client, and the wire half of trace propagation (the send path
-activates the message's trace context around the publish, as the JAX
-package does, but no broker of the port carries it across processes).
+serving engine shares; the send path probes its window).
+
+The broker is chosen as the JAX package chooses it: the native C++ engine
+(``broker/native.py``) when ``implementation`` is ``auto`` and its library
+builds, or always under ``native`` (which raises if it cannot); the
+pure-Python ``LocalBroker`` under ``python``. ``replication_factor`` N > 1
+wraps it in a ``ReplicatedBroker`` streaming to the N - 1 followers named
+in ``SWARMDB_REPLICA_TARGETS``; ``SWARMDB_HA_CLUSTER`` (without
+``SWARMDB_HA_NODE_ID``) makes the runtime a client of an HA cluster
+through a ``ClusterBroker``. The send path activates the message's trace
+context around the publish, and those wire clients carry it across
+processes.
 
 Semantics kept from the JAX package: stable FNV-1a partition routing,
 consumers that read only their own partition, broadcast as a fan-out
@@ -33,7 +40,6 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from ..broker.base import Broker, Consumer, Producer, Record
-from ..broker.local import LocalBroker
 from ..obs import TRACER, propagate
 from ..obs.metrics import HIST_PUBLISH
 from ..obs.sentinel import SLOSentinel
@@ -53,17 +59,48 @@ logger = logging.getLogger("swarmdb_tpu_torch")
 
 
 def _default_broker(config: BrokerConfig) -> Broker:
-    """The in-tree LocalBroker; the native C++ broker and replication are
-    not ported (ROADMAP.md, queue 1 item 12)."""
-    if config.implementation == "native":
-        raise NotImplementedError(
-            "the native C++ broker is not ported yet (ROADMAP.md, queue 1 "
-            "item 12); use implementation='auto' or 'python'")
-    if config.replication_factor > 1:
-        raise NotImplementedError(
-            "replication_factor > 1 needs the replicated broker, which is "
-            "not ported yet (ROADMAP.md, queue 1 item 12)")
+    """Pick the broker implementation as the JAX package does: the native
+    C++ engine when its library builds and ``auto`` or ``native`` asks
+    for it, else the pure-Python LocalBroker. ``native`` raises when the
+    library cannot be built or loaded."""
+    impl = config.implementation
+    if impl in ("auto", "native"):
+        try:
+            from ..broker.native import NativeBroker, native_available
+
+            if native_available():
+                return NativeBroker(log_dir=config.log_dir)
+            if impl == "native":
+                raise RuntimeError(
+                    "native broker requested but its library could not be "
+                    "built")
+        except ImportError:
+            if impl == "native":
+                raise
+    from ..broker.local import LocalBroker
+
     return LocalBroker()
+
+
+def replica_targets(config: BrokerConfig) -> List[str]:
+    """The follower endpoints ``replication_factor`` N > 1 needs: N - 1
+    ``host:port`` entries of ``SWARMDB_REPLICA_TARGETS``, each running
+    ``python -m swarmdb_tpu_torch.broker.replica``. A factor without its
+    followers is refused: running single-node would misrepresent what a
+    DELIVERED report implies."""
+    if config.replication_factor <= 1:
+        return []
+    targets = [t.strip() for t in
+               os.environ.get("SWARMDB_REPLICA_TARGETS", "").split(",")
+               if t.strip()]
+    if len(targets) < config.replication_factor - 1:
+        raise ValueError(
+            f"replication_factor={config.replication_factor} needs "
+            f"{config.replication_factor - 1} follower endpoints in "
+            f"SWARMDB_REPLICA_TARGETS (found {len(targets)}); run followers "
+            "with `python -m swarmdb_tpu_torch.broker.replica` or use "
+            "replication_factor=1 (single-node group-commit fsync).")
+    return targets
 
 
 class SwarmDB:
@@ -93,13 +130,27 @@ class SwarmDB:
         # the send path and the engine loop drive its window closes.
         # SWARMDB_SENTINEL=0 turns it off
         self.sentinel = SLOSentinel(metrics=self.metrics)
+        targets = replica_targets(self.config)
+        # HA client mode: SWARMDB_HA_CLUSTER names a shared cluster-map
+        # file and this runtime writes through whichever node leads (a
+        # process with SWARMDB_HA_NODE_ID set is itself a node: the server
+        # hands it the node's client broker instead)
+        ha_cluster = os.environ.get("SWARMDB_HA_CLUSTER") or None
+        if (broker is None and ha_cluster
+                and not os.environ.get("SWARMDB_HA_NODE_ID")):
+            from ..ha.client import ClusterBroker, data_plane_opener
+            from ..ha.cluster import FileClusterMap
+
+            broker = ClusterBroker(FileClusterMap(ha_cluster),
+                                   data_plane_opener())
         self.broker: Broker = (broker if broker is not None
                                else _default_broker(self.config))
+        if targets:
+            from ..broker.replica import ReplicatedBroker
+
+            self.broker = ReplicatedBroker(self.broker, targets)
         self.producer = Producer(self.broker)
-        self.broker.create_topic(self.topic_name, self.config.num_partitions,
-                                 self.config.retention_ms)
-        self.broker.create_topic(self.error_topic, 1,
-                                 self.config.retention_ms * 2)
+        self._ensure_topics_exist()
 
         self._lock = make_rlock("core.runtime.SwarmDB._lock")
         # swarmlint: guarded-by[self._lock]: registered_agents, messages, agent_inbox, _conversations, message_count, _stats_by_type, _stats_by_status, _stats_by_agent
@@ -149,6 +200,29 @@ class SwarmDB:
             self._poller_stop.wait(0.005)
 
     # ------------------------------------------------------------------ setup
+
+    def _ensure_topics_exist(self) -> None:
+        """Create the base topic and ``{base}_errors`` (one partition, twice
+        the retention). With a partition-routed broker the create is an
+        admin op against the controller, and a runtime booting beside its
+        cluster can race the first promotion: a retryable failure
+        (LeaderChangedError) is retried for ``SWARMDB_TOPIC_WAIT_S``
+        (default 10 s) instead of failing the runtime."""
+        deadline = time.monotonic() + float(
+            os.environ.get("SWARMDB_TOPIC_WAIT_S", "10"))
+        while True:
+            try:
+                self.broker.create_topic(
+                    self.topic_name, self.config.num_partitions,
+                    self.config.retention_ms)
+                self.broker.create_topic(self.error_topic, 1,
+                                         self.config.retention_ms * 2)
+                return
+            except Exception as exc:
+                if (not getattr(exc, "retryable", False)
+                        or time.monotonic() >= deadline):
+                    raise
+                time.sleep(0.1)
 
     def _count_tokens(self, content: MessageContent) -> Optional[int]:
         if self.token_counter is None:
@@ -335,14 +409,23 @@ class SwarmDB:
                 self.producer.poll(0)
             self._poller_wake.set()
         except Exception as exc:
+            retryable = getattr(exc, "retryable", False)
             with self._lock:
                 self._set_status(msg, MessageStatus.FAILED)
                 msg.metadata["error"] = str(exc)
-            try:
-                self.producer.produce(self.error_topic, payload, key=key,
-                                      partition=0)
-            except Exception:
-                logger.exception("error-topic produce failed for %s", msg.id)
+                if retryable:
+                    # mid-failover (LeaderChangedError): the caller's retry
+                    # or resend_failed_messages lands it on the new leader
+                    msg.metadata["retryable"] = True
+            if not retryable:
+                # (a retryable failure skips the error-topic copy: it would
+                # go through the same dead leader)
+                try:
+                    self.producer.produce(self.error_topic, payload, key=key,
+                                          partition=0)
+                except Exception:
+                    logger.exception("error-topic produce failed for %s",
+                                     msg.id)
             raise
         TRACER.span_end(t_pub, "broker.publish", cat="broker", rid=msg.id)
         HIST_PUBLISH.observe(time.monotonic() - t_pub_mono, msg.id)

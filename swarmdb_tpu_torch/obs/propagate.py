@@ -9,14 +9,15 @@ carries), the hop's span and the process that started it:
   runtime activates it around a broker publish, and a wire client below
   it injects it without an argument threaded through the Broker ABC;
 - ``inject()`` / ``extract()``: the wire form, a 3-key dict
-  ``{"t": trace_id, "s": span_id, "o": origin}``. The port has no wire
-  client yet: the data plane, the cluster client and replication that
-  carry it are ROADMAP.md queue 1 item 12;
+  ``{"t": trace_id, "s": span_id, "o": origin}``. It rides every data
+  plane envelope (``ha/dataplane.py``: ``RemoteBroker._call`` injects the
+  current context as the ``tc`` key, the server extracts it and records
+  ``dataplane.<op>`` under it) and an occasional replication ``G`` frame
+  (``broker/replica.py``);
 - ``merge_chrome_traces()``: per-node Chrome-trace exports merged into
   one Perfetto-loadable document on a shared wall-clock origin (each
   export carries its ``anchor_epoch_s``). ``GET /admin/cluster/trace``
-  serves the merge of the local trace; the fan-out to other nodes is
-  item 12's.
+  fans out to the cluster map's nodes and serves this merge.
 
 Merged process rows are labelled ``swarmdb_tpu:<node>``, as the JAX
 package labels them, so merges from both packages read alike.

@@ -100,8 +100,53 @@ def test_scan_covers_every_port_folder():
     folders = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")
                if len(p.relative_to(PORT).parts) > 1}
     assert {"api", "obs", "backend", "core", "broker", "ops", "models",
-            "parallel", "utils", "analysis"} <= folders
+            "parallel", "utils", "analysis", "ha"} <= folders
     assert PORT / "models" / "mixtral.py" in set(PORT.rglob("*.py"))
+    assert {PORT / "broker" / "native.py", PORT / "broker" / "replica.py",
+            PORT / "backend" / "locality.py"} <= set(PORT.rglob("*.py"))
+
+
+# an import hook that reports (and refuses) JAX and the JAX package, then
+# runs a module as ``python -m`` does
+_CLI_RUNNER = (
+    "import runpy, sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'swarmdb_tpu'):\n"
+    "            print('FORBIDDEN', name, file=sys.stderr, flush=True)\n"
+    "            raise ImportError(name)\n"
+    "sys.meta_path.insert(0, Block())\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+@pytest.mark.parametrize("cli", ["swarmdb_tpu_torch.ha.node",
+                                 "swarmdb_tpu_torch.broker.replica"])
+def test_cli_runs_without_jax(cli, tmp_path):
+    """The HA node CLI and the follower CLI start (their ready line) with
+    JAX and the JAX package refused at import."""
+    if cli.endswith("node"):
+        args = ["--node-id", "n1", "--role", "leader", "--log-dir",
+                str(tmp_path / "log"), "--cluster",
+                str(tmp_path / "cluster.json"), "--listen", "127.0.0.1:0",
+                "--liveness", "127.0.0.1:0", "--data", "127.0.0.1:0"]
+        ready = "HA_NODE_READY"
+    else:
+        args = ["--log-dir", str(tmp_path / "log"), "--listen",
+                "127.0.0.1:0"]
+        ready = "REPLICA_READY"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen([sys.executable, "-c", _CLI_RUNNER, cli, *args],
+                            cwd=str(tmp_path), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith(ready), (line, proc.poll())
+    finally:
+        proc.kill()
+        _, err = proc.communicate(timeout=30)
+    assert "FORBIDDEN" not in err, err[-2000:]
 
 
 def test_serving_a_request_loads_no_jax():
@@ -205,26 +250,84 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
         m.setenv("SWARMDB_ADMIT_OVERLAP", "0")
         with pytest.raises(NotImplementedError, match="item 11"):
             build_serving_engine("tiny-debug", ["cpu"], max_seq=64)
-    for env, item in ((("SWARMDB_HA_NODE_ID", "n1"), 12),
-                      (("SWARMDB_HA_CLUSTER", "/x.json"), 12),
-                      (("BROKER_IMPL", "native"), 12),
-                      (("SWARMDB_NUM_PROCESSES", "2"), 11),
+    for env, item in ((("SWARMDB_NUM_PROCESSES", "2"), 11),
                       (("SWARMDB_COORDINATOR", "h:1"), 11)):
         with monkeypatch.context() as m:
             m.setenv(*env)
             with pytest.raises(NotImplementedError, match=f"item {item}"):
                 refuse_unported()
-    refuse_unported()   # a single node over LocalBroker: nothing to refuse
-    for cfg in (BrokerConfig(implementation="native"),
-                BrokerConfig(replication_factor=2)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            SwarmDB(config=cfg, save_dir=str(tmp_path))
-    db = SwarmDB(save_dir=str(tmp_path))
-    try:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            create_app(db, ha_node=object())
-    finally:
+    refuse_unported()   # a single node: nothing to refuse
+    # item 12 is ported: each of its modes builds
+    _item_12_modes_build(monkeypatch, tmp_path, create_app, BrokerConfig,
+                         SwarmDB)
+
+
+def _item_12_modes_build(monkeypatch, tmp_path, create_app, BrokerConfig,
+                         SwarmDB):
+    """The HA node and HA client modes, BROKER_IMPL=native and
+    replication_factor 2 build (they were refused naming item 12)."""
+    from swarmdb_tpu_torch.api import server
+    from swarmdb_tpu_torch.broker.native import NativeBroker
+    from swarmdb_tpu_torch.broker.replica import (ReplicatedBroker,
+                                                  ReplicaServer)
+    from swarmdb_tpu_torch.ha.client import ClusterBroker
+
+    cluster = str(tmp_path / "cluster.json")
+    node = client_db = None
+    with monkeypatch.context() as m:
+        # the HA node mode: the server's embedded node, leading
+        for key, val in (("SWARMDB_HA_NODE_ID", "n1"),
+                         ("SWARMDB_HA_CLUSTER", cluster),
+                         ("SWARMDB_HA_ROLE", "leader"),
+                         ("SWARMDB_HA_LISTEN", "127.0.0.1:0"),
+                         ("SWARMDB_HA_LIVENESS", "127.0.0.1:0"),
+                         ("SWARMDB_HA_DATA", "127.0.0.1:0"),
+                         ("BROKER_LOG_DIR", str(tmp_path / "halog"))):
+            m.setenv(key, val)
+        server.refuse_unported()
+        node = server.build_ha_node()
+        try:
+            assert node.partition_leadership       # cluster mode's default
+            assert type(node.broker).__name__ == "NativeBroker"
+            create_app(SwarmDB(save_dir=str(tmp_path / "node"),
+                               broker=node.client_broker()), ha_node=node)
+            # the HA client mode: SWARMDB_HA_CLUSTER alone
+            m.delenv("SWARMDB_HA_NODE_ID")
+            client_db = SwarmDB(save_dir=str(tmp_path / "client"))
+            assert isinstance(client_db.broker, ClusterBroker)
+            assert client_db.topic_name in client_db.broker.list_topics()
+        finally:
+            if client_db is not None:
+                client_db.close()
+            node.stop()
+            node.broker.close()
+    with monkeypatch.context() as m:
+        m.setenv("BROKER_IMPL", "native")
+        m.setenv("SAVE_DIR", str(tmp_path / "native"))
+        server.refuse_unported()
+        db = server.build_db()
+        assert isinstance(db.broker, NativeBroker)
         db.close()
+    db = SwarmDB(config=BrokerConfig(implementation="native"),
+                 save_dir=str(tmp_path))
+    assert isinstance(db.broker, NativeBroker)
+    db.close()
+    # replication_factor 2 needs its follower, as in the JAX package
+    with pytest.raises(ValueError, match="SWARMDB_REPLICA_TARGETS"):
+        SwarmDB(config=BrokerConfig(replication_factor=2),
+                save_dir=str(tmp_path))
+    follower = NativeBroker(log_dir=str(tmp_path / "follower"))
+    rs = ReplicaServer(follower).start()
+    try:
+        with monkeypatch.context() as m:
+            m.setenv("SWARMDB_REPLICA_TARGETS", f"127.0.0.1:{rs.port}")
+            db = SwarmDB(config=BrokerConfig(replication_factor=2),
+                         save_dir=str(tmp_path))
+            assert isinstance(db.broker, ReplicatedBroker)
+            db.close()
+    finally:
+        rs.stop()
+        follower.close()
 
 
 def test_find_packages_lists_every_port_folder():
@@ -239,13 +342,16 @@ def test_find_packages_lists_every_port_folder():
     assert folders, "no port folder found"
     assert folders <= found, sorted(folders - found)
     assert "swarmdb_tpu_torch.api" in found
+    assert "swarmdb_tpu_torch.ha" in found
 
 
 @pytest.mark.parametrize("path", ["/admin/ha"])
 def test_unported_routes_answer_501(path, tmp_path):
     """Every route of the JAX package's server exists in the port's; one
     whose subsystem is not ported answers 501 (admin only) with a body
-    that names its ROADMAP.md item."""
+    that names its ROADMAP.md item. None is left: ``/admin/ha``, the
+    last, is served now, and answers 503 in a process without an HA node
+    (the JAX server's answer there)."""
     import asyncio
 
     from aiohttp.test_utils import TestClient, TestServer
@@ -273,9 +379,10 @@ def test_unported_routes_answer_501(path, tmp_path):
             await client.close()
 
     (user_st, _), (admin_st, detail) = asyncio.run(drive())
+    assert UNPORTED_ROUTES == {}
     assert user_st == 403
-    assert admin_st == 501
-    assert f"queue 1 item {UNPORTED_ROUTES[path][1]}" in detail
+    assert admin_st == 503
+    assert "without an HA node" in detail
 
 
 @pytest.mark.parametrize("path", ["/admin/cluster/trace", "/admin/slo"])
