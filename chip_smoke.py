@@ -35,7 +35,9 @@ and exits non-zero at the first failure:
                version on the same inputs (the same int8 payload and
                scales for the int8 kernels): bf16 query / chunk / suffix
                within 2e-2 absolute, f32 within 1e-4, an f32 query over
-               bf16 pages or lanes within 2e-2, each with a windowed case;
+               bf16 pages or lanes within 2e-2, each with a windowed case
+               (the two dense decode kernels, 7 and 8, also at Hq 16, Hkv
+               4: one rank's heads in the tp phase);
                the two prefill kernels (whose bf16 calls run the tensor-
                core body) also on a seeded sweep of 16 waves over their
                edges (``prefill_sweep``), within 2e-2, and the six decode
@@ -319,6 +321,33 @@ and exits non-zero at the first failure:
                naming the dead node, and a merged
                ``/admin/cluster/trace?trace_id=`` over two or more pids
                holding the ``ha.promoted`` instant.
+7c''. tp   -- one serving program over a model axis (tensor parallelism,
+               ``parallel/``) on Llama-3-8B at full width and depth, 4
+               greedy requests of 380-420 seeded token ids submitted
+               together, 32 new tokens each, max_batch 4, max_seq 512
+               (one prefill wave of 4 x 512), chunk 8. (a) The reference: the default dense engine,
+               chunked, on the serve phase's weights, without its prefix
+               cache (the pod's engine has none, as the JAX package's
+               sharded engine). (b) World size 1 over NCCL (a TCP store on
+               127.0.0.1): the pod's coordinator (``enable_multihost``, no
+               worker) on the same weights, its chunks captured as CUDA
+               graphs at ``warmup()`` with their collectives in them:
+               tokens equal to (a)'s, kernel 7 launched. (c) World size 2
+               on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+               card): two ``--tp-child`` processes, each drawing
+               Llama-3-8B from seed 0 a tensor at a time and keeping its
+               half (Hq 16, Hkv 4), its chunks eager; rank 0 serves the
+               same requests on the dense engine chunked (kernel 7) and
+               single-step (kernel 8) and rank 1 replays them: each mode's
+               tokens equal to (b)'s or parting at a near tie, held to a
+               plain bf16 forward over (a)'s tokens: ``tol`` is (a)'s own
+               largest |log-probability difference| of its chosen tokens
+               from that forward (no path under test), and (c)'s chosen
+               tokens' log-probabilities must lie within twice ``tol`` of
+               it at every step up to the parting, where both tokens must
+               lie within twice ``tol`` of its top logit. Prints init seconds
+               per rank, TTFT and tokens/s per world size, the
+               collectives per decode step and each one's ms alone.
 7d. sanitize -- the three runtime sanitizers, in a child process
                (``--sanitize-child``) run with ``SWARMDB_LOCKCHECK=1
                SWARMDB_PAGECHECK=1 SWARMDB_KERNCHECK=1`` and a temporary
@@ -402,7 +431,8 @@ and exits non-zero at the first failure:
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
 serves, the api, obs, prof, rolling, lanes and ha phases, the sanitize
 phase's five sanitizers-on serves, the ckpt phase's serves of the loaded
-weights and the seven Mixtral serves, each
+weights, the tp phase's world-size-1 serve and both ranks' serves, and
+the seven Mixtral serves, each
 counted from zero
 just before it and read just after; a graph replay adds the launches its
 capture recorded; ``checked_ms`` is the bounds-checked build's time;
@@ -871,33 +901,37 @@ def check_kernel(name, sp, c, tol, key):
     return err
 
 
-def dense_chunked_case(qdt, cdt, dev, window=None):
+def dense_chunked_case(qdt, cdt, dev, window=None, heads=(HQ, HKV)):
     """The dense chunked decode step at the serving shape: 8 slots of a
     [8, 1024, 8, 128] slot cache with the same chunk starts (each lane
     full of draws past its start: a prefill's padding garbage), chunk of
-    8 at step 5."""
+    8 at step 5. ``heads`` (Hq, Hkv): (16, 4) is one rank's share of the
+    tp phase's model axis of two."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(4)
     B, Kc, step = 8, 8, 5
+    hq, hkv = heads
     r = lambda dt, *s: torch.randn(*s, generator=g).to(dt).to(dev)
-    return dict(q=r(qdt, B, HQ, D), cache_k=r(cdt, B, LANE, HKV, D),
-                cache_v=r(cdt, B, LANE, HKV, D),
-                chunk_k=r(cdt, B, Kc, HKV, D), chunk_v=r(cdt, B, Kc, HKV, D),
+    return dict(q=r(qdt, B, hq, D), cache_k=r(cdt, B, LANE, hkv, D),
+                cache_v=r(cdt, B, LANE, hkv, D),
+                chunk_k=r(cdt, B, Kc, hkv, D), chunk_v=r(cdt, B, Kc, hkv, D),
                 starts=torch.tensor(STARTS, dtype=torch.int32).to(dev),
                 step=step, window=window)
 
 
-def dense_single_case(qdt, cdt, dev, window=None):
+def dense_single_case(qdt, cdt, dev, window=None, heads=(HQ, HKV)):
     """The dense single-step decode: the same slots, each attending its
-    lane up to its position (lengths = start + 6, as after step 5)."""
+    lane up to its position (lengths = start + 6, as after step 5).
+    ``heads`` as in ``dense_chunked_case``."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(5)
     B = 8
+    hq, hkv = heads
     r = lambda dt, *s: torch.randn(*s, generator=g).to(dt).to(dev)
-    return dict(q=r(qdt, B, HQ, D), cache_k=r(cdt, B, LANE, HKV, D),
-                cache_v=r(cdt, B, LANE, HKV, D),
+    return dict(q=r(qdt, B, hq, D), cache_k=r(cdt, B, LANE, hkv, D),
+                cache_v=r(cdt, B, LANE, hkv, D),
                 lengths=torch.tensor([s + 6 for s in STARTS],
                                      dtype=torch.int32).to(dev),
                 window=window)
@@ -1161,6 +1195,13 @@ def run_kernels(dev):
                 key = f"q{str(qdt)[6:]}_p{str(pdt)[6:]}_w{window or 0}"
                 errs[key] = check_kernel(
                     name, sp, sp["case"](qdt, pdt, dev, window), tol, key)
+        if sp["case"] in (dense_chunked_case, dense_single_case):
+            # one rank's heads on the tp phase's model axis of two
+            for qdt, pdt, tol in checks:
+                key = f"hq16_hkv4_q{str(qdt)[6:]}_p{str(pdt)[6:]}"
+                errs[key] = check_kernel(
+                    name, sp, sp["case"](qdt, pdt, dev, heads=(16, 4)),
+                    tol, key)
         prefill = sp["case"] is prefill_case
         if prefill:
             errs["sweep"] = run_prefill_sweep(dev, name, sp)
@@ -7104,6 +7145,368 @@ def run_ckpt(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------- tp
+
+TP_MODEL = "llama3-8b"
+TP_DEVICE = "cuda:0"
+TP_BATCH = 4
+# 512 positions hold a ~420-token prompt and its 32 new tokens, and the
+# one prefill wave is 4 x 512 (not 4 x 1024): gloo stages every
+# all-reduce through host memory, so the two-rank run's prefill scales
+# with the wave's bytes
+TP_SEQ = 512
+TP_NEW = 32
+TP_PROMPT_LENS = (380, 400, 410, 420)
+TP_COLLECTIVE_ITERS = 20
+TP_CHILD = [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-child"]
+
+
+def tp_prompts() -> list:
+    """Four seeded prompts of ~400 token ids (numpy seed 16)."""
+    import numpy as np
+
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    rng = np.random.default_rng(16)
+    vocab = get_config(TP_MODEL).vocab_size
+    return [rng.integers(3, vocab, n).tolist() for n in TP_PROMPT_LENS]
+
+
+def tp_serve(eng, prompts) -> dict:
+    """The prompts submitted together on a started engine, greedy, TP_NEW
+    new tokens each; the engine is stopped after (a pod coordinator's
+    stop releases its workers). Returns tokens, their logprobs, finish
+    reasons, TTFT per request and the wall time."""
+    import threading
+
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+
+    done, first, out = threading.Event(), {}, {}
+    t0 = time.perf_counter()
+
+    def on_token(rid, tok):
+        first.setdefault(rid, time.perf_counter() - t0)
+
+    def on_done(rid, toks, why):
+        out[rid] = (list(toks), why)
+        if len(out) == len(prompts):
+            done.set()
+
+    reqs = [GenRequest(prompt=list(p),
+                       sampling=SamplingParams(max_new_tokens=TP_NEW),
+                       on_token=on_token, on_done=on_done) for p in prompts]
+    eng.start()
+    try:
+        rids = [eng.submit(r) for r in reqs]
+        if not done.wait(300):
+            fail(f"tp: {len(out)} of {len(prompts)} requests finished")
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    return dict(tokens=[out[r][0] for r in rids],
+                logprobs=[list(r.metadata.get("logprobs") or [])
+                          for r in reqs],
+                reasons=[out[r][1] for r in rids],
+                ttft_s=[first.get(r) for r in rids], wall_s=wall,
+                tokens_per_s=sum(len(out[r][0]) for r in rids) / wall)
+
+
+def tp_collective_ms(sm, batch: int) -> dict:
+    """One decode step's collectives timed alone on the model axis: the
+    sum of a [batch, 1, dim] bf16 activation (the embedding's and two per
+    layer) and the gather of the [batch, vocab / m] fp32 logits; ms each,
+    median of TP_COLLECTIVE_ITERS, every rank in step (host clock around
+    a synchronised call: gloo's collectives are host calls)."""
+    import torch
+
+    cfg, dev, tp = sm.cfg, sm.mesh.device, sm.model_axis
+    m = sm.mesh.shape["model"]
+    act = torch.ones((batch, 1, cfg.dim), dtype=torch.bfloat16, device=dev)
+    lg = torch.ones((batch, cfg.vocab_size // m), dtype=torch.float32,
+                    device=dev)
+    out = {}
+    for name, fn in (("all_reduce", lambda: tp.all_reduce(act)),
+                     ("gather_logits", lambda: tp.gather_last(lg))):
+        times = []
+        for i in range(TP_COLLECTIVE_ITERS + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_ms"] = statistics.median(times)
+    per_step = 2 * cfg.n_layers + 1
+    out["collectives_per_step"] = per_step + 1
+    out["step_collective_ms"] = (per_step * out["all_reduce_ms"]
+                                 + out["gather_logits_ms"])
+    return out
+
+
+def tp_engine(params, chunked: bool, model=None):
+    """This process's share of the dense single program (TP_BATCH slots,
+    max_seq TP_SEQ, chunk 8): (engine, ShardedModel)."""
+    import torch
+
+    from swarmdb_tpu_torch.parallel.serving import build_serving_engine
+
+    with engine_env(chunked):
+        return build_serving_engine(
+            TP_MODEL, [torch.device(TP_DEVICE)], model=model,
+            max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8, params=params)
+
+
+def tp_child(rank: int, store: str, result_path: str) -> int:
+    """One rank of the two-rank pod on cuda:0 over gloo: Llama-3-8B at
+    full width and depth drawn from seed 0, each tensor whole then this
+    rank's half kept; the dense engine chunked (kernel 7) and single-step
+    (kernel 8), rank 0 serving and rank 1 replaying; then the collectives
+    timed alone."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.ops import build
+    from swarmdb_tpu_torch.parallel.distributed import init_distributed
+
+    dev = torch.device(TP_DEVICE)
+    torch.cuda.set_device(dev)
+    build.build_all()
+    t0 = time.perf_counter()
+    init_distributed(f"file://{store}", 2, rank, backend="gloo", device=dev)
+    out = {"rank": rank}
+    with torch.no_grad():
+        eng, sm = tp_engine(None, True, model=2)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        lp = sm.params["layers"]
+        out["heads"] = [lp["wq"].shape[-1] // sm.cfg.head_dim,
+                        eng.cache[0].shape[3]]
+        out["backend"] = sm.model_axis.backend
+        out["graphs"] = eng.flight.meta["graphs"]
+        prompts = tp_prompts()
+        for chunked in (True, False):
+            if not chunked:
+                del eng
+                gc.collect()
+                eng, sm = tp_engine(sm.params, False, model=2)
+            tp = sm.model_axis
+            calls0 = tp.calls
+            ac.reset_launches()
+            if rank == 0:
+                eng.enable_multihost()
+                res = tp_serve(eng, prompts)
+            else:
+                eng.worker_loop()
+                res = {}
+            torch.cuda.synchronize()
+            res["launches"] = {k: n for k, n in ac.LAUNCHES.items() if n}
+            res["collectives"] = tp.calls - calls0
+            res["chunks"] = eng.metrics.counters[
+                "engine_decode_chunks"].value
+            out["chunked" if chunked else "single"] = res
+        out.update(tp_collective_ms(sm, TP_BATCH))
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(result_path, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+#: world size 2 against the plain forward is held to this many times the
+#: reference serve's own distance from it (``tol``): its logits carry the
+#: same engine path's rounding plus one more bf16 rounding of each split
+#: sum (the all-reduce of two halves where one rank sums all), of the same
+#: kind and no larger. A wrong split (a lost all-reduce, a bad masked
+#: embedding, shards of other weights) moves them by whole units.
+TP_WS2_TOL_FACTOR = 2.0
+
+
+def tp_hold(plain, ref, got, got_lps, bound) -> dict:
+    """World size 2's serve of one prompt against the plain bf16 forward
+    over the reference's tokens (``plain``: f32 logits, one row per
+    step): at every step whose context equals the reference's (up to and
+    including the first parting) the |log-probability difference| of
+    world size 2's token between it and the plain forward; and where the
+    tokens first part, whether both lie within ``bound`` of the plain
+    top logit there."""
+    import torch
+
+    lp = torch.log_softmax(plain, -1)
+    i = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+    off = len(got) - len(got_lps)
+    last = len(got) if i is None else i + 1
+    err = max((abs(float(lp[s, got[s]]) - got_lps[s - off])
+               for s in range(max(off, 0), min(last, len(ref)))),
+              default=float("inf"))
+    out = dict(logprob_err=err, held=err <= bound, step=i)
+    if i is not None:
+        z = plain[i]
+        top = float(z.max())
+        below = max(top - float(z[ref[i]]), top - float(z[got[i]]))
+        out.update(below_top=below, near_tie=below <= bound)
+    return out
+
+
+def run_tp(card, params):
+    """The tp phase (see the module docstring). Returns the launches of
+    the world-size-1 pod's serve and of both ranks' serves."""
+    import gc
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.parallel.distributed import init_distributed
+
+    t_phase = time.perf_counter()
+    dev = torch.device(TP_DEVICE)
+    prompts = tp_prompts()
+    # the reference: the default dense engine, chunked, as the serve
+    # phase builds it but without the prefix cache (the pod's engine has
+    # none, as the JAX package's sharded engine)
+    with engine_env(True, SWARMDB_PREFIX="0"):
+        ref_eng, _ = build_backend_engine(
+            TP_MODEL, seed=0, device=dev, params=params, paged=None,
+            max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8)
+    ref_eng.warmup()
+    ref = tp_serve(ref_eng, prompts)
+    del ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # world size 1 over NCCL: the pod path on the serve phase's weights
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    init_distributed(f"tcp://127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        eng, sm = tp_engine(params, True)
+        init_s = time.perf_counter() - t0
+        tp = sm.model_axis
+        eng.enable_multihost()
+        calls0 = tp.calls
+        eng.warmup()        # captures the three variants' chunk graphs
+        captured = tp.calls - calls0
+        ac.reset_launches()
+        ws1 = tp_serve(eng, prompts)
+        launches = dict(ac.LAUNCHES)
+        ws1.update(tp_collective_ms(sm, TP_BATCH))
+        ws1.update(init_s=init_s, backend=tp.backend,
+                   graphs=eng.flight.meta["graphs"],
+                   collectives_captured_per_step=captured / (3 * 8),
+                   chunks=eng.stats()["decode_chunks"])
+        del eng, sm
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {
+        "ws1 NCCL pod tokens == the dense chunked engine's":
+            ws1["tokens"] == ref["tokens"],
+        "ws1 replays graphs": ws1["graphs"] is True
+            and ws1["chunks"]["mode"] == "graphs",
+        "ws1 kernel 7 launched": launches.get("dense_decode_chunked", 0) > 0,
+        "ws1 reasons length/eos": all(r in ("length", "eos")
+                                      for r in ws1["reasons"]),
+    }
+
+    # world size 2 on cuda:0 over gloo: two child processes
+    work = tempfile.mkdtemp(prefix="swarm_tp_")
+    store = os.path.join(work, "store")
+    results = [os.path.join(work, f"rank{r}.json") for r in range(2)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), SWARMDB_PG_TIMEOUT_S="300")
+    for k in ("SWARMDB_PAGED", "SWARMDB_CHUNKED", "SWARMDB_PREFIX"):
+        env.pop(k, None)
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        TP_CHILD + [str(r), store, results[r]], cwd=str(ROOT), env=env)
+        for r in range(2)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ws2_s = time.perf_counter() - t0
+    if codes != [0, 0] or not all(os.path.exists(r) for r in results):
+        fail(f"tp: the two ranks exited with {codes}")
+    ranks = []
+    for r in results:
+        with open(r, encoding="utf-8") as f:
+            ranks.append(json.load(f))
+    # the tolerance comes only from paths outside the runs under test:
+    # the largest |log-probability difference| of the chosen token
+    # between the reference serve (a) and a plain bf16 forward over its
+    # tokens, over every step of every request; (b)'s tokens are held
+    # equal to (a)'s above, so (c) is compared with both at once
+    plain = [plain_step_logits(params, p, t)
+             for p, t in zip(prompts, ref["tokens"])]
+    diffs = []
+    for z, toks, lps in zip(plain, ref["tokens"], ref["logprobs"]):
+        lp = torch.log_softmax(z, -1)
+        off = len(toks) - len(lps)
+        diffs += [abs(float(lp[s, toks[s]]) - lps[s - off])
+                  for s in range(off, len(toks))]
+    if not diffs:
+        fail("tp: the reference serve returned no logprobs")
+    tol = max(diffs)
+    bound = TP_WS2_TOL_FACTOR * tol
+    holds = {mode: [tp_hold(z, a, b, lps, bound) for z, a, b, lps in zip(
+        plain, ref["tokens"], ranks[0][mode]["tokens"],
+        ranks[0][mode]["logprobs"])] for mode in ("chunked", "single")}
+    del plain
+    for r, rank in enumerate(ranks):
+        checks[f"rank {r} runs Hq 16, Hkv 4"] = rank["heads"] == [16, 4]
+        checks[f"rank {r} eager chunks over gloo"] = (
+            rank["backend"] == "gloo" and rank["graphs"] is False)
+        checks[f"rank {r} kernel 7 in the chunked serve"] = rank[
+            "chunked"]["launches"].get("dense_decode_chunked", 0) > 0
+        checks[f"rank {r} kernel 8 in the single-step serve"] = rank[
+            "single"]["launches"].get("dense_decode", 0) > 0
+    for mode, hs in holds.items():
+        checks[f"ws2 {mode} logprobs within {TP_WS2_TOL_FACTOR:g} x tol "
+               "of the plain forward"] = all(h["held"] for h in hs)
+        checks[f"ws2 {mode} tokens == ws1, or part at a near tie"] = all(
+            h["step"] is None or h["near_tie"] for h in hs)
+        checks[f"ws2 {mode} reasons length/eos"] = all(
+            r in ("length", "eos") for r in ranks[0][mode]["reasons"])
+    bad = [k for k, ok in checks.items() if not ok]
+    summary = {k: v for k, v in ws1.items()
+               if k not in ("tokens", "logprobs")}
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    emit("tp", card=card, model=TP_MODEL,
+         layers=get_config(TP_MODEL).n_layers, batch=TP_BATCH,
+         prompt_tokens=list(TP_PROMPT_LENS), new_tokens=TP_NEW,
+         ref=dict(ttft_s=ref["ttft_s"], tokens_per_s=ref["tokens_per_s"]),
+         ws1=summary, ws1_launches={k: n for k, n in launches.items() if n},
+         ws2={f"rank{r['rank']}": {k: v for k, v in r.items()
+                                   if k not in ("rank",)}
+              | {m: {k: v for k, v in r[m].items()
+                     if k not in ("tokens", "logprobs")}
+                 for m in ("chunked", "single")} for r in ranks},
+         ws2_wall_s=ws2_s, logprob_tol=tol, ws2_bound=bound, holds=holds,
+         phase_s=time.perf_counter() - t_phase, checks=checks)
+    if bad:
+        fail(f"tp checks failed: {bad}")
+    total = dict(launches)
+    for rank in ranks:
+        for mode in ("chunked", "single"):
+            for k, n in rank[mode]["launches"].items():
+                total[k] = total.get(k, 0) + n
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -7123,6 +7526,8 @@ def main() -> int:
 
     if len(sys.argv) == 3 and sys.argv[1] == "--sanitize-child":
         return sanitize_child(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-child":
+        return tp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     name = torch.cuda.get_device_name(0)
@@ -7166,6 +7571,8 @@ def main() -> int:
         for k, n in run_lanes(card, params).items():
             launches[k] = launches.get(k, 0) + n
         for k, n in run_ha(card, params).items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in run_tp(card, params).items():
             launches[k] = launches.get(k, 0) + n
         free_weights(params)   # Llama-3-8B's weights go before Mixtral's
         del params

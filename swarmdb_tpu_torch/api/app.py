@@ -33,8 +33,8 @@ role, epoch and detector verdict, ``/admin/ha`` its whole status (the
 partition-leadership table and the serving tier's locality view), and
 ``/metrics`` the ``swarmdb_ha_*``, partition-leadership and
 conversation-locality lines; a replicated broker adds the
-``swarmdb_replica_*`` lag gauges. Routes whose subsystem is not ported
-yet answer 501 with a body that names their ROADMAP.md item (none now).
+``swarmdb_replica_*`` lag gauges. Every route of the JAX package's
+server is served.
 """
 
 from __future__ import annotations
@@ -85,12 +85,6 @@ def pagecheck_enabled() -> bool:
 def kerncheck_enabled() -> bool:
     """The kernel sanitizer's flag (``ops.layers.kerncheck_enabled``)."""
     return os.environ.get("SWARMDB_KERNCHECK", "0") not in ("", "0")
-
-
-#: Routes of the JAX package's server whose subsystem the port has not
-#: yet: path -> (what it serves, the ROADMAP.md queue 1 item). They
-#: answer 501 naming the item. Every route is ported now.
-UNPORTED_ROUTES: Dict[str, tuple] = {}
 
 
 @dataclass
@@ -151,7 +145,6 @@ def _error(status_code: int, detail: Any) -> web.HTTPException:
         409: web.HTTPConflict,
         422: web.HTTPUnprocessableEntity,
         429: web.HTTPTooManyRequests,
-        501: web.HTTPNotImplemented,
         503: web.HTTPServiceUnavailable,
     }.get(status_code, web.HTTPInternalServerError)
     return exc_cls(text=json.dumps({"detail": detail}),
@@ -1019,16 +1012,6 @@ def create_app(
         return web.json_response(
             await _run_sync(kerncheck.registry().report))
 
-    def unported(path: str):
-        what, item = UNPORTED_ROUTES[path]
-
-        async def handler(request: web.Request) -> web.Response:
-            require_admin(current_agent(request))
-            raise _error(501, f"{path}: {what} is not ported yet "
-                              f"(ROADMAP.md, queue 1 item {item})")
-
-        return handler
-
     async def dashboard(request: web.Request) -> web.Response:
         """GET /dashboard: the self-contained observability page."""
         from .dashboard import DASHBOARD_HTML
@@ -1189,7 +1172,7 @@ def create_app(
         web.get("/admin/lockcheck", admin_lockcheck),
         web.get("/admin/pagecheck", admin_pagecheck),
         web.get("/admin/kerncheck", admin_kerncheck),
-    ] + [web.get(path, unported(path)) for path in UNPORTED_ROUTES])
+    ])
 
     async def on_shutdown(app: web.Application) -> None:
         torch_profile.close()

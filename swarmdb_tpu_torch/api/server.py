@@ -12,11 +12,23 @@ owns the broker. ``BROKER_IMPL`` picks it as the JAX server does: ``auto``
 
 Set ``SERVE_MODEL`` (``llama3-8b``, ``tiny-debug``, ...) to attach a
 serving backend (``ServingService.from_model_name``) on the card
-(``build_serving(db, device="cpu")`` puts it on the CPU). ``SERVE_MAX_BATCH``,
-``SERVE_MAX_SEQ``, ``SERVE_CHUNK`` and ``SERVE_SEED`` shape the engine;
-``SWARMDB_PAGED=1`` picks the paged one. An agent becomes LLM-backed with
-``POST /admin/llm_backend`` naming the backend ``gpu-0`` (its id is also
-in ``GET /health``).
+(``SERVE_DEVICE=cpu``, or ``build_serving(db, device="cpu")``, puts it on
+the CPU). ``SERVE_MAX_BATCH``, ``SERVE_MAX_SEQ``, ``SERVE_CHUNK`` and
+``SERVE_SEED`` shape the engine; ``SWARMDB_PAGED=1`` picks the paged one.
+An agent becomes LLM-backed with ``POST /admin/llm_backend`` naming the
+backend ``gpu-0`` (its id is also in ``GET /health``).
+
+A pod (tensor parallelism over processes, as the JAX server's multi-host
+mode): start one process per rank with ``SWARMDB_COORDINATOR`` (rank 0's
+``host:port``), ``SWARMDB_NUM_PROCESSES`` and ``SWARMDB_PROCESS_ID``.
+Every rank builds the dense engine's share of the model over the model
+axis (``parallel.serving.build_serving_engine``; NCCL on the cards, rank
+r on ``cuda:r`` of its host unless ``SERVE_DEVICE`` says otherwise; gloo
+with ``SERVE_DEVICE=cpu``). Rank 0 serves: broker, HTTP, queue and
+tokenizer, publishing every device call; the others run
+``Engine.worker_loop`` with no broker and no HTTP. The ``SERVE_*`` knobs
+must be equal on every rank. ``API_MAX_REQUESTS`` is ignored on the
+coordinator (a recycled coordinator would strand its workers).
 
 High availability, two modes as in the JAX server:
 
@@ -33,15 +45,17 @@ High availability, two modes as in the JAX server:
 - ``SWARMDB_HA_CLUSTER`` alone: a client of an external cluster (the
   runtime binds a ``ClusterBroker``, ``core/runtime.py``).
 
-Not ported yet, and refused with ``NotImplementedError``: multi-process
-serving (``SWARMDB_COORDINATOR`` / ``SWARMDB_NUM_PROCESSES`` > 1),
-ROADMAP.md queue 1 item 11.
+Not ported yet, and refused with ``NotImplementedError``: a paged pod
+(``SWARMDB_PAGED=1`` with ``SWARMDB_NUM_PROCESSES`` > 1), ROADMAP.md
+queue 1 item 11b.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 
+import torch
 from aiohttp import web
 
 from ..core.messages import BrokerConfig
@@ -52,12 +66,24 @@ from .app import ApiConfig, create_app
 
 def refuse_unported() -> None:
     """Raise for the deployment modes of the JAX server that the port
-    does not have yet."""
-    if (os.environ.get("SWARMDB_COORDINATOR")
-            or int(os.environ.get("SWARMDB_NUM_PROCESSES", "1")) > 1):
+    does not have yet: a paged pod (its mirrored page calls)."""
+    pod = (os.environ.get("SWARMDB_COORDINATOR")
+           or int(os.environ.get("SWARMDB_NUM_PROCESSES", "1")) > 1)
+    if pod and os.environ.get("SWARMDB_PAGED", "0") == "1":
         raise NotImplementedError(
-            "multi-process serving is not ported yet (ROADMAP.md, queue 1 "
-            "item 11)")
+            "a paged pod (SWARMDB_PAGED=1 over several processes) is not "
+            "ported yet (ROADMAP.md, queue 1 item 11b)")
+
+
+def serve_device(rank: int = 0) -> DeviceLike:
+    """The serving backend's device: ``SERVE_DEVICE`` if set, else the
+    card, rank r of a pod on ``cuda:r`` of its host (modulo its cards)."""
+    dev = os.environ.get("SERVE_DEVICE")
+    if dev:
+        return dev
+    if rank and torch.cuda.is_available():
+        return f"cuda:{rank % torch.cuda.device_count()}"
+    return None
 
 
 def build_ha_node():
@@ -129,29 +155,73 @@ def build_db(ha_node=None) -> SwarmDB:
     )
 
 
-def build_serving(db: SwarmDB, device: DeviceLike = None, ha_node=None):
+def _serve_knobs() -> dict:
+    """The engine's shape: equal on every rank of a pod (the workers
+    replay the coordinator's calls shape for shape)."""
+    return {
+        "max_batch": int(os.environ.get("SERVE_MAX_BATCH", "8")),
+        "max_seq": int(os.environ.get("SERVE_MAX_SEQ", "1024")),
+        "decode_chunk": int(os.environ.get("SERVE_CHUNK", "8")),
+        "seed": int(os.environ.get("SERVE_SEED", "0")),
+    }
+
+
+def _build_pod_engine(model_name: str, device: DeviceLike = None):
+    """This rank's dense engine over the model axis, built alike on every
+    rank so that the state starts identical."""
+    from ..backend.tokenizer import default_tokenizer
+    from ..parallel.serving import build_serving_engine
+
+    path = os.environ.get("SERVE_TOKENIZER") or None
+    engine, sm = build_serving_engine(model_name, [device],
+                                      tokenizer_path=path, **_serve_knobs())
+    return engine, default_tokenizer(sm.cfg.vocab_size, path)
+
+
+def build_serving(db: SwarmDB, device: DeviceLike = None, ha_node=None,
+                  distributed: bool = False):
     """The ``SERVE_MODEL`` backend, or None without one. ``device``
     (default the card) lets a caller ask for the CPU. With ``ha_node``
     its conversations ride partition leadership (lane pins follow the
-    partition leaders and re-pin on rebalance)."""
+    partition leaders and re-pin on rebalance). ``distributed``: this
+    process is a pod's coordinator (rank 0): its engine is its share of
+    the single program and publishes its device calls."""
     model_name = os.environ.get("SERVE_MODEL")
     if not model_name:
         return None
     from ..backend.service import ServingService
 
-    serving = ServingService.from_model_name(
-        db, model_name,
-        max_batch=int(os.environ.get("SERVE_MAX_BATCH", "8")),
-        max_seq=int(os.environ.get("SERVE_MAX_SEQ", "1024")),
-        decode_chunk=int(os.environ.get("SERVE_CHUNK", "8")),
-        seed=int(os.environ.get("SERVE_SEED", "0")),
-        tokenizer_path=os.environ.get("SERVE_TOKENIZER") or None,
-        device=device)
+    if distributed:
+        engine, tokenizer = _build_pod_engine(model_name, device)
+        engine.enable_multihost()
+        serving = ServingService(db, engine, tokenizer)
+    else:
+        knobs = _serve_knobs()
+        serving = ServingService.from_model_name(
+            db, model_name, max_batch=knobs["max_batch"],
+            max_seq=knobs["max_seq"], decode_chunk=knobs["decode_chunk"],
+            seed=knobs["seed"],
+            tokenizer_path=os.environ.get("SERVE_TOKENIZER") or None,
+            device=device)
     serving.bind_partition_leadership(ha_node)
     if db.token_counter is None:
         # the backend's tokenizer fills Message.token_count
         db.token_counter = serving.tokenizer.count
     return serving
+
+
+def run_worker(device: DeviceLike = None) -> None:
+    """A pod rank other than the coordinator: build the same engine and
+    replay the coordinator's device calls until it publishes stop. No
+    broker, no HTTP."""
+    model_name = os.environ.get("SERVE_MODEL")
+    if not model_name:
+        raise SystemExit("a pod worker needs SERVE_MODEL to build its "
+                         "share of the engine")
+    engine, _tok = _build_pod_engine(model_name, device)
+    logging.getLogger(__name__).info("worker joined the pod's decode "
+                                     "program")
+    engine.worker_loop()
 
 
 def build_ssl_context():
@@ -171,10 +241,27 @@ def main() -> None:
 
     configure_logging()
     refuse_unported()
+    from ..parallel.distributed import init_distributed, is_coordinator
+
+    rank = int(os.environ.get("SWARMDB_PROCESS_ID", "0"))
+    device = serve_device(rank)
+    distributed = init_distributed(device=device)
+    if distributed and not is_coordinator():
+        run_worker(device)
+        return
     ha_node = build_ha_node()
     db = build_db(ha_node)
-    serving = build_serving(db, ha_node=ha_node)
+    serving = build_serving(db, device=device, ha_node=ha_node,
+                            distributed=distributed)
     cfg = ApiConfig.from_env()
+    if distributed and cfg.max_requests > 0:
+        # a recycled coordinator would strand every worker in its loop:
+        # a pod is recycled by restarting all of its processes
+        import dataclasses
+
+        logging.getLogger(__name__).warning(
+            "API_MAX_REQUESTS ignored on a pod coordinator")
+        cfg = dataclasses.replace(cfg, max_requests=0)
 
     def _recycle() -> None:
         # SIGTERM ourselves: aiohttp drains in-flight requests within

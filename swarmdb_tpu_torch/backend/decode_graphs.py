@@ -17,8 +17,10 @@ fed tokens, and every row's position advanced by K.
   sampling, 2 = greedy, the JAX engine's three decode variants), at the
   variant's first use or in ``capture_all`` (``Engine.warmup``), all in
   one memory pool (``torch.cuda.graph_pool_handle()``), and replays it:
-  one host call per chunk. There is no eager path on the card: a capture
-  or a replay that fails raises. The host's inputs reach the static
+  one host call per chunk. A capture or a replay that fails raises; no
+  chunk falls back to eager. A runner built with ``graphs=False`` runs
+  every chunk eagerly on the card instead: a tensor-parallel engine whose
+  collectives cannot be captured (gloo) asks for it when it is built. The host's inputs reach the static
   buffers through pinned memory (``copy_(..., non_blocking=True)``), and
   the block comes back through an async copy into a pinned ring slot and
   an event, which ``ChunkOut.host`` waits on.
@@ -243,11 +245,14 @@ class ChunkRunner:
 
     def __init__(self, body: Callable[[int], None], io: ChunkIO,
                  ring: int,
-                 stream: Optional[torch.cuda.Stream] = None) -> None:
+                 stream: Optional[torch.cuda.Stream] = None,
+                 graphs: bool = True) -> None:
         self._body = weakref.WeakMethod(body)
         self.io = io
         self.device = io.tokens.device
         self.cuda = self.device.type == "cuda"
+        #: chunks replay as CUDA graphs (on the card, unless built eager)
+        self.use_graphs = self.cuda and graphs
         self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
         #: each graph's kernel launches per replay, recorded at capture
         self.graph_launches: Dict[int, Dict[str, int]] = {}
@@ -335,7 +340,7 @@ class ChunkRunner:
                                "flight: read one (ChunkOut.host) first")
         self._next = (self._next + 1) % len(self._ring)
         slot.busy = True
-        if self.cuda and variant not in self.graphs:
+        if self.use_graphs and variant not in self.graphs:
             self.capture(variant)
         slot.timed, slot.timed_ns = timed, None
         t0 = time.monotonic_ns() if timed and not self.cuda else 0
@@ -345,12 +350,12 @@ class ChunkRunner:
             for stage, buf, a in zip(slot.inputs, self.io.inputs(), inputs):
                 stage.copy_(torch.from_numpy(np.ascontiguousarray(a)))
                 buf.copy_(stage, non_blocking=self.cuda)
-        if self.cuda:
+        if self.use_graphs:
             self.graphs[variant].replay()
             attention_cuda.count_launches(self.graph_launches[variant])
         else:
             self.body(variant)
-            if timed:
+            if timed and not self.cuda:
                 slot.timed_ns = time.monotonic_ns() - t0
         self.chunks += 1
         slot.block.copy_(self.io.block, non_blocking=self.cuda)
@@ -362,7 +367,9 @@ class ChunkRunner:
     def stats(self) -> Dict[str, object]:
         """Graphs captured, their launches per replay, the pool's bytes,
         capture seconds and chunks run."""
-        return {"graphs": sorted(self.graphs),
+        return {"mode": "graphs" if self.use_graphs
+                else "eager",
+                "graphs": sorted(self.graphs),
                 "launches_per_replay": {str(v): d for v, d in
                                         sorted(self.graph_launches.items())},
                 "pool_bytes": self.pool_bytes,

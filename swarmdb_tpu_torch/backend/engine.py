@@ -115,6 +115,15 @@ other's work, and a copy that another lane reads is published only after
 an event on this stream has passed. The worker thread sets the device as
 its current CUDA device.
 
+Pod mode (``parallel/multihost.py``, the JAX engine's multi-host mode):
+a tensor-parallel pod's rank 0 engine (``enable_multihost``) publishes
+each device call -- the bucketed prefill and the decode chunk -- before
+issuing it, and beats while idle; every other rank's engine replays them
+(``worker_loop``). Its chunks run as graph replays when the process
+group's collectives can be captured (NCCL) and eagerly otherwise
+(``decode_graphs=False``, gloo). A failed step stops the pod; restart,
+rolling keep and resume are refused there.
+
 Lane hooks (``parallel/lanes.py``, ``parallel/fleet.py``), inert on a
 lone engine: ``GenRequest.shard_hint`` routes a request to a lane;
 ``flight_shard`` stamps the engine's events with its lane;
@@ -324,6 +333,7 @@ class Engine:
         flight_dir: Optional[str] = None,
         pipeline_depth: int = 2,
         model_config: Any = None,
+        decode_graphs: bool = True,
     ) -> None:
         """``paged`` selects the paged pool (``prefix_cache`` then turns
         its prefix cache on); None the dense slot cache, which needs
@@ -365,7 +375,13 @@ class Engine:
 
         ``model_config`` (a ``models.configs.ModelConfig``) prices the
         variants for the device-time profiler at ``warmup``; without it
-        the harvest registers the variants unpriced (no MFU)."""
+        the harvest registers the variants unpriced (no MFU).
+
+        ``decode_graphs`` (the card only): replay each decode chunk as a
+        CUDA graph (the default), or run it eagerly -- a tensor-parallel
+        engine whose collectives cannot be captured (gloo) says False
+        (``parallel/serving.py`` decides from the process group's
+        backend)."""
         self.device = resolve_device(device)
         # the engine's stream on the card (module docstring); it first
         # waits for what the building thread enqueued (the weights)
@@ -422,6 +438,14 @@ class Engine:
             self._chunk_kv = (chunked_fns[1](max_batch, self.decode_chunk)
                               if chunked_fns is not None else None)
             self.pipeline_depth = max(1, int(pipeline_depth))
+            self._graphs = bool(decode_graphs)
+            # pod mode (enable_multihost / worker_loop): the control
+            # plane, why the pod stopped if it did, and an optional log of
+            # every processed chunk's [K+1, B] token block (tests compare
+            # the ranks' blocks)
+            self._mh = None
+            self._pod_failed: Optional[str] = None
+            self.block_log: Optional[List[np.ndarray]] = None
             self._resident = (paged is not None and os.environ.get(
                 "SWARMDB_EMIT_RING", "1") != "0")
             self._aging_s = _env_float("SWARMDB_AGING_S", 5.0)
@@ -655,6 +679,13 @@ class Engine:
             if self._thread is not None:
                 self._thread.join(timeout=60)
                 self._thread = None
+            if self._mh is not None:
+                # release the workers blocked in worker_loop's receive
+                mh, self._mh = self._mh, None
+                try:
+                    mh.publish_stop()
+                except Exception:
+                    logger.exception("pod stop broadcast failed")
 
     def alive(self) -> bool:
         """True while the decode loop thread is running. One read of the
@@ -668,7 +699,16 @@ class Engine:
         (active, admitting and queued) with retryable "engine_restart",
         rebuild the cache or pool, the page tables, the prefix cache, the
         fed tokens and the backpressure state, and start again. A replayed
-        request then starts from nothing a lost one left behind."""
+        request then starts from nothing a lost one left behind.
+
+        Refused in pod mode, as in the JAX package: the workers cannot be
+        told to rebuild their shares, so a local restart would silently
+        desynchronise the pod; a pod recovers by restarting its
+        processes."""
+        if self._mh is not None or self._pod_failed is not None:
+            raise RuntimeError(
+                "a pod engine cannot restart in place; restart the pod's "
+                "processes (worker state cannot be rebuilt remotely)")
         with self._lifecycle:
             self.stop()
             self.metrics.counters["engine_restarts"].inc()
@@ -706,12 +746,92 @@ class Engine:
                 build.build_all()
             if not isinstance(self._prof, NullLane):
                 self.profile_harvest()
-            if self.device.type == "cuda" and self._role_warms_decode():
+            if (self.device.type == "cuda" and self._graphs
+                    and self._role_warms_decode()):
                 with self._on_stream():
                     self._runner.capture_all()
         finally:
             self._prof.resume()
         return time.perf_counter() - t0
+
+    # ------------------------------------------------------------- pod mode
+    # A tensor-parallel pod (parallel/multihost.py): rank 0's engine owns
+    # the queue, the scheduler and the tokenizer and publishes each device
+    # call before issuing it; every other rank's engine replays them in
+    # worker_loop. The dense engine's device calls are the bucketed
+    # prefill (OP_PREFILL) and the decode chunk (OP_DECODE: K single steps,
+    # or the chunk forward and its merge); its slot state is reset only by
+    # a restart, which a pod refuses, so no other call is mirrored.
+
+    def enable_multihost(self) -> None:
+        """Publish every device call to the pod's workers (coordinator
+        side; ``parallel.distributed.init_distributed`` first). The dense
+        engine only: the paged one's mirrored calls are item 11b, and a
+        prefix cache's prefill is not mirrored (the pod engine is built
+        without one, as in the JAX package)."""
+        from ..parallel.multihost import ControlPlane, pod_axis
+
+        if self.paged is not None:
+            raise NotImplementedError(
+                "a paged engine in a pod (its mirrored page calls) is not "
+                "ported yet (ROADMAP.md, queue 1 item 11b)")
+        if self._prefix is not None:
+            raise ValueError("a pod engine has no prefix cache (build it "
+                             "with parallel.serving.build_serving_engine)")
+        self._mh = ControlPlane(self.max_batch, pod_axis(self.device))
+
+    def worker_loop(self) -> None:
+        """Run on every rank but the coordinator: replay its device calls
+        in order until it publishes stop. The state must start identical
+        on every rank (``build_serving_engine`` draws, or restores, the
+        same weights everywhere); each call then leaves it identical. A
+        chunk's block is read back here (the worker's one wait per chunk)
+        and kept in ``block_log`` when that is a list. Raises when a
+        collective fails (the coordinator died, or the group's timeout
+        passed)."""
+        from ..parallel import multihost as mh
+
+        if self._thread is not None:
+            raise RuntimeError("worker_loop runs instead of start()")
+        plane = self._mh or mh.ControlPlane(self.max_batch,
+                                            mh.pod_axis(self.device))
+        self._mh = None   # a worker publishes nothing
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.no_grad(), self._on_stream():
+            while True:
+                op, args = plane.receive()
+                if op == mh.OP_STOP:
+                    return
+                if op == mh.OP_BEAT:
+                    continue
+                if op == mh.OP_DECODE:
+                    out = self._runner.launch(args[0], args[1:])
+                    block, _lps = out.host()
+                    if self.block_log is not None:
+                        self.block_log.append(block)
+                else:   # OP_PREFILL (receive raises on any other op)
+                    self._prefill_dense(*args)
+
+    def _pod_fatal(self, exc: BaseException) -> None:
+        """A failed step in pod mode stops the pod: the workers may have
+        run a call this rank did not finish, so nothing can continue in
+        step. Its requests already failed; later submits raise. The
+        workers are told to stop when they can still hear it (a dead
+        peer makes the broadcast fail too)."""
+        logger.error("pod engine failure is fatal; stopping the pod's "
+                     "decode program")
+        self._pod_failed = f"{type(exc).__name__}: {exc}"
+        self.flight.record_event({"kind": "engine.pod_fatal",
+                                  "error": self._pod_failed})
+        with self._cv:
+            self._stop = True
+        mh, self._mh = self._mh, None
+        try:
+            mh.publish_stop()
+        except Exception:
+            logger.exception("pod stop broadcast failed")
+        self._fail_all("engine_error")
 
     def profile_harvest(self) -> int:
         """Register every dispatchable variant's cost facts (FLOPs, bytes,
@@ -876,7 +996,8 @@ class Engine:
         """The decode chunks' runner over the engine's current tensors
         (its graphs are captured at first use)."""
         return ChunkRunner(self._chunk_body, self._io,
-                           ring=self.pipeline_depth, stream=self.stream)
+                           ring=self.pipeline_depth, stream=self.stream,
+                           graphs=self._graphs)
 
     def _chunk_body(self, variant: int) -> None:
         """The decode chunk over the engine's state: what every graph
@@ -936,7 +1057,10 @@ class Engine:
 
     def supports_rolling(self) -> bool:
         """A paged engine with the pages forward (its prefix cache on),
-        or a dense one with its prefix side pool."""
+        or a dense one with its prefix side pool; never a pod's
+        coordinator (it refuses keep and resume)."""
+        if self._mh is not None:
+            return False
         if self.paged is not None:
             return self._prefix_pages_fwd is not None
         return self._prefix is not None
@@ -969,6 +1093,16 @@ class Engine:
                              f"max_seq {self.max_seq}")
         if not request.prompt:
             raise ValueError("empty prompt")
+        if self._pod_failed is not None:
+            raise RuntimeError(f"the pod's decode program stopped: "
+                               f"{self._pod_failed}")
+        if self._mh is not None and (request.resume_pages is not None
+                                     or request.keep_pages):
+            # as in the JAX package: page custody lives in the serving
+            # layer's registry, which a pod's restart-based recovery would
+            # orphan, and the dense keep extraction is not mirrored
+            raise ValueError("rolling-KV keep_pages and resume are not "
+                             "supported in multi-host (pod) mode")
         if request.resume_pages is not None:
             if not self.supports_rolling():
                 raise ValueError("resume_pages needs the rolling-KV "
@@ -1078,16 +1212,28 @@ class Engine:
             while True:
                 self._in_step = False
                 self._beat()
+                mh = self._mh
                 with self._cv:
                     while (not self._stop and not self._queue
                            and not self._any_active() and not in_flight
-                           and not self._chaos_pending()):
+                           and not self._chaos_pending()
+                           and not (mh is not None and mh.beat_due())):
                         # idle engines beat too, or the supervisor would
                         # read "no work" as "wedged"; an armed chaos fault
                         # leaves the wait to land at the seam below
                         self._beat()
                         self._cv.wait(timeout=0.25)
                     stopping = self._stop
+                if not stopping and mh is not None and mh.beat_due():
+                    # an idle pod coordinator keeps its workers' receive
+                    # inside the process group's timeout
+                    try:
+                        mh.publish_beat()
+                    except Exception as exc:
+                        logger.exception("pod beat failed")
+                        self._pod_fatal(exc)
+                        return
+                    continue
                 if stopping:
                     # drain the chunks in flight so their requests
                     # complete, outside the lock: processing waits on the
@@ -1142,11 +1288,14 @@ class Engine:
                         # spinning through the gate
                         with self._cv:
                             self._cv.wait(timeout=0.01)
-                except Exception:
+                except Exception as exc:
                     in_flight.clear()
                     logger.exception("engine step failed; failing active "
                                      "requests")
                     self.flight.record_event({"kind": "engine.error"})
+                    if self._mh is not None:
+                        self._pod_fatal(exc)
+                        return
                     self._fail_all("engine_error")
                     try:
                         self._reset_state()
@@ -1631,20 +1780,26 @@ class Engine:
         self._topp[slot_id] = s.top_p
         self._set_slot_key(slot_id, s.seed)
 
-    def _sample_into_slots(self, logits: torch.Tensor, gather: np.ndarray,
+    def _rows_sampling(self, gather: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """The sampling params of the slots ``gather`` names, one row each:
+        (keys int64 [R, 2], temperature, top-k, top-p)."""
+        return (self._base_keys_np[gather].astype(np.int64),
+                self._temp[gather], self._topk[gather], self._topp[gather])
+
+    def _sample_into_slots(self, logits: torch.Tensor,
+                           sampling: Tuple[np.ndarray, ...],
                            fold_pos: torch.Tensor, scatter: np.ndarray
                            ) -> None:
         """Sample each wave row's first token from its [R, V] logits with
-        its slot's (``gather``) params and key folded at ``fold_pos`` (the
-        absolute position of its last prompt token, so a cached prefix
-        samples as a full prefill would), then scatter token and logprob
-        into the fed-token vectors at ``scatter`` (``max_batch`` = the
-        sink: rows that do not sample, padding)."""
-        nxt = sample_tokens(
-            logits, self._tensor(self._base_keys_np[gather].astype(np.int64)),
-            fold_pos, self._tensor(self._temp[gather]),
-            self._tensor(self._topk[gather]),
-            self._tensor(self._topp[gather]))
+        its row's ``sampling`` (``_rows_sampling``) and key folded at
+        ``fold_pos`` (the absolute position of its last prompt token, so a
+        cached prefix samples as a full prefill would), then scatter token
+        and logprob into the fed-token vectors at ``scatter``
+        (``max_batch`` = the sink: rows that do not sample, padding)."""
+        keys, temp, topk, topp = sampling
+        nxt = sample_tokens(logits, self._tensor(keys), fold_pos,
+                            self._tensor(temp), self._tensor(topk),
+                            self._tensor(topp))
         lp = token_logprob(logits, nxt)
         scatter_t = self._tensor(scatter.astype(np.int64))
         self._last_tokens.index_copy_(0, scatter_t, nxt)
@@ -1750,6 +1905,12 @@ class Engine:
                             self._admitting.discard(req.request_id)
                             self._cancel_pending.discard(req.request_id)
                         _call(req.on_done, req.request_id, [], "engine_error")
+                    if self._mh is not None:
+                        # pod mode: the workers may have applied a prefill
+                        # this rank did not finish; carrying on would
+                        # desynchronise the pod -- escalate to the loop's
+                        # pod-fatal stop (as the JAX engine does)
+                        raise
 
     def _rows_for(self, n: int) -> int:
         """Rows of a bucketed wave of ``n`` admissions: the smallest row
@@ -1784,27 +1945,55 @@ class Engine:
             gather[row] = scatter[row] = slot_id
             self._set_slot_sampling(slot_id, req.sampling)
         mark = self._wave_begin()
-        positions = torch.arange(bucket, dtype=torch.int32,
-                                 device=self.device).expand(Bp, bucket)
-        last_idx = self._tensor(lengths - 1)
-        last, temp = self._forward_fn(
-            self.params, self._tensor(padded), positions,
-            self._init_cache_fn(Bp, bucket), logits_at=last_idx)
         if self.paged is None:
-            slots = self._tensor(gather[:n])
-            for full, fresh in zip(self.cache, temp):
-                full[:, slots, :bucket] = fresh[:, :n]
+            sampling = self._rows_sampling(gather)
+            if self._mh is not None:
+                self._mh.publish_prefill(padded, lengths, scatter, *sampling)
+            self._prefill_dense(padded, lengths, scatter, *sampling)
         else:
+            last, temp = self._prefill_forward(padded, lengths)
             alloc = self.paged.allocator
             self._insert_pages(temp, [alloc.pages_for(it[0]) for it in batch],
                                Bp)
-        self._sample_into_slots(last, gather, last_idx, scatter)
+            self._sample_into_slots(last, self._rows_sampling(gather),
+                                    self._tensor(lengths - 1), scatter)
         self._count_wave(lengths[:n], padded.size)
         packed = int(lengths[:n].sum())
         self._wave_end(mark, prof_key("prefill.dense" if self.paged is None
                                       else "prefill.paged", padded.shape),
                        "bucketed", bucket, packed, int(padded.size) - packed)
         self._activate([(it[0], it[1]) for it in batch], t0)
+
+    def _prefill_forward(self, padded: np.ndarray, lengths: np.ndarray
+                         ) -> Tuple[torch.Tensor, Any]:
+        """The bucketed wave's forward into a temp cache: (fp32 logits
+        [rows, V] at each row's last token, the temp cache)."""
+        Bp, bucket = padded.shape
+        positions = torch.arange(bucket, dtype=torch.int32,
+                                 device=self.device).expand(Bp, bucket)
+        return self._forward_fn(
+            self.params, self._tensor(padded), positions,
+            self._init_cache_fn(Bp, bucket),
+            logits_at=self._tensor(lengths - 1))
+
+    # swarmlint: hot
+    def _prefill_dense(self, padded: np.ndarray, lengths: np.ndarray,
+                       scatter: np.ndarray, keys: np.ndarray,
+                       temp: np.ndarray, topk: np.ndarray,
+                       topp: np.ndarray) -> None:
+        """The device half of a dense bucketed wave, from host arrays
+        alone (what a pod's workers replay, ``OP_PREFILL``): the forward,
+        each real row's K/V into ``cache[:, slot, :bucket]`` (the rows
+        whose ``scatter`` names a slot come first), and the first samples
+        with the rows' own keys and params into the fed-token vector."""
+        bucket = padded.shape[1]
+        last, fresh_kv = self._prefill_forward(padded, lengths)
+        live = scatter[scatter < self.max_batch]
+        slots = self._tensor(live)
+        for full, fresh in zip(self.cache, fresh_kv):
+            full[:, slots, :bucket] = fresh[:, :len(live)]
+        self._sample_into_slots(last, (keys, temp, topk, topp),
+                                self._tensor(lengths - 1), scatter)
 
     def _insert_pages(self, kv: Tuple[torch.Tensor, torch.Tensor],
                       pages: List[List[int]], Bp: int) -> None:
@@ -1864,8 +2053,8 @@ class Engine:
         alloc = self.paged.allocator
         self._insert_pages((sk, sv), [alloc.pages_for(it[0]) for it in batch],
                            Bp)
-        self._sample_into_slots(logits, gather, plens_t + lengths_t - 1,
-                                scatter)
+        self._sample_into_slots(logits, self._rows_sampling(gather),
+                                plens_t + lengths_t - 1, scatter)
         self._count_wave(lengths[:n], padded.size)
         packed = int(lengths[:n].sum())
         self._wave_end(mark, prof_key("prefill.paged_prefix", padded.shape,
@@ -1939,8 +2128,8 @@ class Engine:
         logits, sk, sv = self._prefix_pages_fwd(
             self.params, self._tensor(padded), self._tensor(table), rlens_t,
             k_pool, v_pool, logits_at=lengths_t - 1)
-        self._sample_into_slots(logits, gather, rlens_t + lengths_t - 1,
-                                scatter)
+        self._sample_into_slots(logits, self._rows_sampling(gather),
+                                rlens_t + lengths_t - 1, scatter)
         tables_t = self._tensor(row_tables)
         dtype = pool_dtype(k_pool)
         for l in range(sk.shape[0]):
@@ -2058,8 +2247,8 @@ class Engine:
                 pages = lane.reshape((lane.shape[0], Bp, lane_pages, ps)
                                      + tuple(lane.shape[3:]))
                 pool[:, idx[2]] = pages[:, idx[0], idx[1]].to(pool.dtype)
-        self._sample_into_slots(logits, gather, plens_t + lengths_t - 1,
-                                scatter)
+        self._sample_into_slots(logits, self._rows_sampling(gather),
+                                plens_t + lengths_t - 1, scatter)
         packed = int(lengths[:n].sum())
         self._wave_end(mark, prof_key("prefill.dense_prefix", padded.shape,
                                       ppb),
@@ -2193,8 +2382,8 @@ class Engine:
                 tables_t, self._tensor(starts), lens_t, plens_t,
                 k_pool, v_pool)
             self._sample_into_slots(
-                logits, gather, torch.clamp(plens_t + lens_t - 1, min=0),
-                scatter)
+                logits, self._rows_sampling(gather),
+                torch.clamp(plens_t + lens_t - 1, min=0), scatter)
             self._write_ragged(k_pool, v_pool, sk, sv, tok_row_t, tok_pos_t,
                                tables_t)
             # the dispatch profile's (ragged, width) row: tiny flush waves
@@ -2328,8 +2517,10 @@ class Engine:
                               [i for i, _, _ in snapshot])
         key = PROF_DECODE_KEYS[variant] if self._prof.enabled else None
         t_ns = time.monotonic_ns()
-        out = self._runner.launch(variant, self._chunk_inputs(positions),
-                                  timed=key is not None)
+        inputs = self._chunk_inputs(positions)
+        if self._mh is not None:
+            self._mh.publish_decode(variant, *inputs)
+        out = self._runner.launch(variant, inputs, timed=key is not None)
         self.metrics.counters["engine_decode_chunks"].inc()
         return out, snapshot, t_ns, key
 
@@ -2340,6 +2531,8 @@ class Engine:
         """Wait for one dispatched chunk's block (the host's one wait on
         it), attribute its device time and emit its tokens."""
         block, lps = self._host_wait(out.host)
+        if self.block_log is not None:
+            self.block_log.append(block)
         if key is not None:
             self._prof.dispatch(key, t_dispatch_ns, out.device_ns())
         self._process_host_block(block, lps, snapshot, t_dispatch_ns)
@@ -2768,6 +2961,8 @@ class Engine:
             "decode_loop": ("resident" if self._resident
                             else f"pipeline {self.pipeline_depth}"),
             "decode_chunks": self._runner.stats(),
+            "pod": ("failed" if self._pod_failed is not None
+                    else "coordinator" if self._mh is not None else None),
             "max_step_s": round(self.max_step_s, 4),
             "beat_age_s": round(self.beat_age_s(), 4),
         }

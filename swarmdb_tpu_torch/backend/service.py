@@ -58,7 +58,10 @@ An engine that cannot roll logs it and serves without; a lane group
 refuses rolling with the JAX package's warning. The runtime's SLO
 sentinel is bound to the engine (its flight rings, the tracer and the
 flight directory for an alert's dumps), and the engine's loop drives its
-windows. ``bind_partition_leadership(ha_node)`` makes a lane group's
+windows. Over a pod's coordinator engine (``Engine.enable_multihost``)
+every turn is served plain and no tier manager is built, as in the JAX
+package: such an engine cannot roll (``Engine.supports_rolling``).
+``bind_partition_leadership(ha_node)`` makes a lane group's
 conversation pins follow their log partition's leader
 (``backend/locality.py``) and re-pin when leadership moves.
 """

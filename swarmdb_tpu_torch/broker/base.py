@@ -30,11 +30,15 @@ Key semantic choices (deliberate departures from the reference):
 from __future__ import annotations
 
 import abc
+import logging
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
 from ..utils.sync import make_lock
+
+logger = logging.getLogger("swarmdb_tpu_torch.broker")
 
 
 @dataclass(frozen=True)
@@ -450,6 +454,19 @@ class Consumer:
                 if recs:
                     cur.buffer.extend(recs)
                     return self._take(cur)
+                # A failover may seat a copy of the log shorter than the
+                # offset this cursor reached: the records past its end are
+                # gone, and new ones land at those offsets. Re-read from
+                # the new end (the JAX package rewinds only past a trim,
+                # and its cursor waits past the end forever).
+                end = self._broker.end_offset(cur.topic, cur.partition)
+                if cur.next_offset > end:
+                    logger.warning(
+                        "%s[%d]: cursor %d past the log's end %d (a "
+                        "failover seated a shorter copy); re-reading from "
+                        "the end", cur.topic, cur.partition,
+                        cur.next_offset, end)
+                    cur.next_offset = end
             remaining = deadline - time.time()
             if remaining <= 0:
                 return None

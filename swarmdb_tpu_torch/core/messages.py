@@ -23,6 +23,8 @@ from typing import Any, Dict, List, Optional, Union
 
 from pydantic import BaseModel, Field, field_validator
 
+from ..obs.tracer import TRACER
+
 
 class MessageType(str, enum.Enum):
     """Kinds of inter-agent traffic (reference ` main.py:23-32`)."""
@@ -104,10 +106,14 @@ class Message(BaseModel):
         """Record a per-stage timestamp in metadata (tracing hook).
 
         Stages used by the serving path: ``enqueued``, ``admitted``,
-        ``first_token``, ``done``. (The span tracer the JAX package also
-        feeds from here is not ported yet.)
+        ``first_token``, ``done``. Each stamp also lands in the span
+        tracer as an instant ``stage.<stage>`` keyed by the message id, so
+        the stage marks sit on the exported timeline beside the engine's
+        spans (as in the JAX package); ``metadata["stages"]`` stays for
+        the wire API's clients.
         """
         self.metadata.setdefault("stages", {})[stage] = time.time()
+        TRACER.instant(f"stage.{stage}", cat="stage", rid=self.id)
 
 
 @dataclass

@@ -416,7 +416,16 @@ class SwarmDB:
                 if retryable:
                     # mid-failover (LeaderChangedError): the caller's retry
                     # or resend_failed_messages lands it on the new leader
+                    # as a new message, so this one leaves the conversation
+                    # (kept, a prompt's history would hold it twice)
                     msg.metadata["retryable"] = True
+                    if receiver_id is not None:
+                        convo = self._conversations.get(
+                            self._pair(sender_id, receiver_id), [])
+                        for i in range(len(convo) - 1, -1, -1):
+                            if convo[i] is msg:
+                                del convo[i]
+                                break
             if not retryable:
                 # (a retryable failure skips the error-topic copy: it would
                 # go through the same dead leader)

@@ -730,6 +730,7 @@ class HANode:
                 # candidate views: per-partition ends of every LIVE node
                 views: Dict[str, Dict[str, Dict[str, int]]] = {
                     self.node_id: self._local_partition_ends()}
+                missing = []
                 for nid, info in nodes.items():
                     if nid == self.node_id:
                         continue
@@ -739,6 +740,18 @@ class HANode:
                     view = probe_ends(addr, max(0.05, self.suspect_s / 2))
                     if view is not None:
                         views[nid] = view.get("ends", {})
+                    else:
+                        missing.append(nid)
+                if (missing and time.monotonic() - t0
+                        < self.dead_s + self.suspect_s):
+                    # a registered peer whose probe did not answer (a slow
+                    # one, under load) may hold the longest copy: ranking
+                    # without it can seat a shorter one, whose readers sit
+                    # past its end. A dead peer is deregistered within
+                    # dead_s; until then, or until it answers, probe again
+                    # (the JAX package ranks whoever answered)
+                    self._stop.wait(max(0.05, self.suspect_s / 2))
+                    continue
                 claimed = 0
                 for key, a in orphans:
                     topic, part = parse_tp_key(key)

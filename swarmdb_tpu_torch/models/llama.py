@@ -13,6 +13,12 @@ The paged engine's row-bucketed prefill (``SWARMDB_RAGGED_PREFILL=0``, or
 a model without a ragged forward) runs ``forward`` over a temp cache and
 its paged prefix prefill ``forward_prefix_pages`` over the main pool.
 
+The dense engine's forwards (``forward``, ``forward_chunked``; the merge
+needs nothing) also run tensor-parallel: with ``tp`` (a
+``parallel.collectives.Axis``) on one rank's share of the weights
+(``param_plan``) and of the slot cache (``cache_plan``), meeting the other
+ranks in the collectives of the section comment above ``_heads``.
+
 Every forward but the ragged one takes the layer's feed-forward as
 ``ffn`` (SwiGLU by default): ``models.mixtral`` runs these same layer
 bodies with its routed MoE block, as the JAX package's Mixtral forwards
@@ -69,13 +75,21 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device: DeviceLike = None,
-                dtype: torch.dtype = torch.bfloat16) -> Params:
+                dtype: torch.dtype = torch.bfloat16,
+                keep: Optional[Callable[[str, torch.Tensor],
+                                        torch.Tensor]] = None) -> Params:
     """Random init from ``seed`` with a ``torch.Generator`` on the target
     device: normal / sqrt(fan_in), norms at one. Same shapes and keys as
     the JAX package (its values differ: the two frameworks' generators
     differ; tests carry JAX weights over with ``utils.convert``). Stacked
     weights are filled one layer at a time, so the fp32 draw never needs
-    more than one layer of scratch."""
+    more than one layer of scratch.
+
+    ``keep(key, tensor)`` (a dotted key, ``"layers.wq"``) is applied to
+    each leaf as soon as it is drawn, and its result is kept: a tensor-
+    parallel rank keeps its slice (``parallel.mesh.shard_leaf``), so the
+    peak is one whole leaf, and every rank draws the very weights a single
+    process draws."""
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name!r} is a MoE config: use models.mixtral")
@@ -84,28 +98,71 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     gen.manual_seed(int(seed))
     L, D, F = cfg.n_layers, cfg.dim, cfg.ffn_dim
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kept = keep or (lambda _key, t: t)
 
-    def dense(shape, fan_in, stacked=True):
-        return random_weight(gen, shape, fan_in, dtype, dev, stacked)
+    def dense(key, shape, fan_in, stacked=True):
+        return kept(key, random_weight(gen, shape, fan_in, dtype, dev,
+                                       stacked))
 
+    def ones(key, shape):
+        return kept(key, torch.ones(shape, dtype=dtype, device=dev))
+
+    # drawn in this order whatever ``keep`` does: the generator's stream
+    # is the same in every process
     params: Params = {
-        "embed": dense((cfg.vocab_size, D), D, stacked=False),
+        "embed": dense("embed", (cfg.vocab_size, D), D, stacked=False),
         "layers": {
-            "attn_norm": torch.ones((L, D), dtype=dtype, device=dev),
-            "wq": dense((L, D, Hq * hd), D),
-            "wk": dense((L, D, Hkv * hd), D),
-            "wv": dense((L, D, Hkv * hd), D),
-            "wo": dense((L, Hq * hd, D), Hq * hd),
-            "mlp_norm": torch.ones((L, D), dtype=dtype, device=dev),
-            "w_gate": dense((L, D, F), D),
-            "w_up": dense((L, D, F), D),
-            "w_down": dense((L, F, D), F),
+            "attn_norm": ones("layers.attn_norm", (L, D)),
+            "wq": dense("layers.wq", (L, D, Hq * hd), D),
+            "wk": dense("layers.wk", (L, D, Hkv * hd), D),
+            "wv": dense("layers.wv", (L, D, Hkv * hd), D),
+            "wo": dense("layers.wo", (L, Hq * hd, D), Hq * hd),
+            "mlp_norm": ones("layers.mlp_norm", (L, D)),
+            "w_gate": dense("layers.w_gate", (L, D, F), D),
+            "w_up": dense("layers.w_up", (L, D, F), D),
+            "w_down": dense("layers.w_down", (L, F, D), F),
         },
-        "final_norm": torch.ones((D,), dtype=dtype, device=dev),
+        "final_norm": ones("final_norm", (D,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((D, cfg.vocab_size), D, stacked=False)
+        params["lm_head"] = dense("lm_head", (D, cfg.vocab_size), D,
+                                  stacked=False)
     return params
+
+
+def param_plan(cfg: ModelConfig, model_axis: str = "model") -> Params:
+    """The shard plan for tensor parallelism over ``model_axis`` (the
+    counterpart of the JAX package's ``param_specs``): each leaf's
+    (dim, axis), or None (held whole). Megatron-style: Q/K/V, gate and up
+    split their output features (columns), O and down their input
+    features (rows), so each block needs one sum over the axis; the
+    embedding and the head split the vocab."""
+    m = model_axis
+    plan: Params = {
+        "embed": (0, m),
+        "layers": {
+            "attn_norm": None,
+            "wq": (2, m),
+            "wk": (2, m),
+            "wv": (2, m),
+            "wo": (1, m),
+            "mlp_norm": None,
+            "w_gate": (2, m),
+            "w_up": (2, m),
+            "w_down": (1, m),
+        },
+        "final_norm": None,
+    }
+    if not cfg.tie_embeddings:
+        plan["lm_head"] = (1, m)
+    return plan
+
+
+def cache_plan(model_axis: str = "model") -> Tuple[Any, Any]:
+    """The dense slot cache's plan (and the chunk buffer's: both are
+    [L, B, S, Hkv, D]): K and V split their KV heads over ``model_axis``
+    (the JAX package's ``cache_specs``; its data axis is item 11b)."""
+    return (3, model_axis), (3, model_axis)
 
 
 def random_weight(gen: torch.Generator, shape: Tuple[int, ...],
@@ -127,10 +184,13 @@ def random_weight(gen: torch.Generator, shape: Tuple[int, ...],
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: DeviceLike = None) -> KVCache:
+                  device: DeviceLike = None,
+                  kv_heads: Optional[int] = None) -> KVCache:
     """The dense engine's slot cache: zeros (k, v), each [L, batch,
-    max_seq, Hkv, D], bf16 by default as in the JAX package."""
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    max_seq, Hkv, D], bf16 by default as in the JAX package. ``kv_heads``
+    (default the config's) is a tensor-parallel rank's share."""
+    shape = (cfg.n_layers, batch, max_seq, kv_heads or cfg.n_kv_heads,
+             cfg.head_dim)
     dev = resolve_device(device)
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
@@ -162,12 +222,15 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_chunk_kv(cfg: ModelConfig, batch: int, chunk: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: DeviceLike = None
+                  device: DeviceLike = None,
+                  kv_heads: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-chunk K/V buffer of the two-segment decode: zeros
     [L, B, Kc, Hkv, D] each, bf16 by default as in the JAX package (an f32
-    pool then sees this chunk's K/V rounded to bf16 until the merge)."""
-    shape = (cfg.n_layers, batch, chunk, cfg.n_kv_heads, cfg.head_dim)
+    pool then sees this chunk's K/V rounded to bf16 until the merge).
+    ``kv_heads`` as in ``init_kv_cache``."""
+    shape = (cfg.n_layers, batch, chunk, kv_heads or cfg.n_kv_heads,
+             cfg.head_dim)
     dev = resolve_device(device)
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
@@ -380,16 +443,52 @@ def merge_paged_chunk(cache: Dict[str, Any],
 # -------------------------------------------------------------- dense engine
 
 
+# Tensor parallelism (``tp``, a ``parallel.collectives.Axis``; None on one
+# process): the dense engine's forwards run on one rank's share of the
+# weights (``param_plan``) and of the slot cache (``cache_plan``), read
+# their head counts off the weights (Hq / m and Hkv / m; the group size G
+# is unchanged, so the decode kernels run as they are on the rank's
+# heads), and meet the other ranks in four places: the embedding (a
+# masked lookup into the vocab share, summed), after ``wo`` and after
+# ``w_down`` (each a sum of the row-split products), and the logits (the
+# vocab shares gathered). Every rank then holds the same logits.
+
+
+def _heads(cfg: ModelConfig, lp: Dict[str, torch.Tensor]) -> Tuple[int, int]:
+    """(Hq, Hkv) of the weights at hand: the config's, or a tensor-
+    parallel rank's share."""
+    hd = cfg.head_dim
+    return lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd
+
+
+def _embed(params: Params, tokens: torch.Tensor, tp) -> torch.Tensor:
+    if tp is None:
+        return params["embed"][tokens.long()]
+    return tp.embed(params["embed"], tokens)
+
+
+def _reduce(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-split product summed over the model axis (itself on one
+    process)."""
+    return y if tp is None else tp.all_reduce(y)
+
+
+def _vocab(logits: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's vocab share of the logits gathered whole."""
+    return logits if tp is None else tp.gather_last(logits)
+
+
 def _final_logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                  logits_at: Optional[torch.Tensor]) -> torch.Tensor:
+                  logits_at: Optional[torch.Tensor], tp=None) -> torch.Tensor:
     """fp32 logits [B, T, V] of the final hidden states, or [B, V] at each
     row's ``logits_at`` index (the LM head only where it is sampled)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_at is not None:
         rows = torch.arange(x.shape[0], device=x.device)
-        return _logits(x[rows, logits_at.long()], _head(params))
+        return _vocab(_logits(x[rows, logits_at.long()], _head(params)), tp)
     B, T = x.shape[0], x.shape[1]
-    return _logits(x.reshape(B * T, -1), _head(params)).reshape(B, T, -1)
+    logits = _vocab(_logits(x.reshape(B * T, -1), _head(params)), tp)
+    return logits.reshape(B, T, -1)
 
 
 def forward(
@@ -401,6 +500,7 @@ def forward(
     logits_at: Optional[torch.Tensor] = None,  # [B] row indices into T
     *,
     ffn: Optional[FFN] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One forward pass over the dense slot cache, for mixed prefill and
     decode rows: each row's positions are its own absolute offsets and
@@ -409,27 +509,29 @@ def forward(
     K/V go into the cache first, in place (with T == S, a prefill over
     its whole temp cache, the cache simply takes them). Returns (fp32
     logits [B, T, V], or [B, V] at each row's ``logits_at`` index, the
-    cache)."""
+    cache). ``tp``: one rank's share of a tensor-parallel forward (the
+    section comment above)."""
     ffn = _ffn_of(cfg, ffn)
     ck, cv = cache
     B, T = tokens.shape
     full = T == ck.shape[2]
-    x = params["embed"][tokens.long()]                   # [B, T, dim]
+    x = _embed(params, tokens, tp)                       # [B, T, dim]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     lp = params["layers"]
+    Hq, Hkv = _heads(cfg, lp)
     for l in range(ck.shape[0]):
         h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
-        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, cos, sin)
+        q, k, v = qkv_proj(h, lp, l, Hq, Hkv, cfg.head_dim, cos, sin)
         kl, vl = write_kv_cache(ck[l], cv[l], k, v, positions)
         if full:  # the write handed back the fresh K/V: keep them
             ck[l].copy_(kl)
             cv[l].copy_(vl)
         attn = gqa_attention(q, kl, vl, positions, window=cfg.sliding_window)
-        x = x + torch.matmul(attn.reshape(B, T, -1), lp["wo"][l])
+        x = x + _reduce(torch.matmul(attn.reshape(B, T, -1), lp["wo"][l]),
+                        tp)
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + ffn(h2, lp, l)
-    return _final_logits(params, cfg, x, logits_at), cache
+        x = x + _reduce(ffn(h2, lp, l), tp)
+    return _final_logits(params, cfg, x, logits_at, tp), cache
 
 
 def forward_chunked(
@@ -442,41 +544,45 @@ def forward_chunked(
     step: int,
     *,
     ffn: Optional[FFN] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step of the dense engine's chunked decode: the slot
     cache stays frozen for the chunk's K steps, this step's K/V goes into
     the chunk buffer at index ``step`` (in place), and attention spans
     each slot's lane below its chunk start plus the chunk buffer under
     one softmax (``layers.gqa_attention_chunked``, the dense two-segment
-    kernel on the card). Returns (fp32 logits [B, 1, V], chunk_kv)."""
+    kernel on the card). Returns (fp32 logits [B, 1, V], chunk_kv).
+    ``tp`` as in ``forward``."""
     ffn = _ffn_of(cfg, ffn)
     ck, cv = cache
     hk, hv = chunk_kv
-    x = params["embed"][tokens.long()]                   # [B, 1, dim]
+    x = _embed(params, tokens, tp)                       # [B, 1, dim]
     B = x.shape[0]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     lp = params["layers"]
+    Hq, Hkv = _heads(cfg, lp)
     for l in range(ck.shape[0]):
         h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
-        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, cos, sin)
+        q, k, v = qkv_proj(h, lp, l, Hq, Hkv, cfg.head_dim, cos, sin)
         hk[l][:, step] = k[:, 0].to(hk.dtype)
         hv[l][:, step] = v[:, 0].to(hv.dtype)
         attn = gqa_attention_chunked(q, ck[l], cv[l], hk[l], hv[l],
                                      positions, step,
                                      window=cfg.sliding_window)
-        x = x + torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l])
+        x = x + _reduce(torch.matmul(attn.reshape(B, 1, -1), lp["wo"][l]),
+                        tp)
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + ffn(h2, lp, l)
+        x = x + _reduce(ffn(h2, lp, l), tp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(x[:, 0], _head(params))[:, None]
+    logits = _vocab(_logits(x[:, 0], _head(params)), tp)[:, None]
     return logits, (hk, hv)
 
 
 def merge_chunk(cache: KVCache, chunk_kv: Tuple[torch.Tensor, torch.Tensor],
                 start_positions: torch.Tensor) -> KVCache:
     """Fold a finished chunk's K/V into the slot cache, in place, once per
-    chunk (``layers.merge_chunk_kv``; columns past the lane dropped)."""
+    chunk (``layers.merge_chunk_kv``; columns past the lane dropped). A
+    tensor-parallel rank merges its own KV heads: no collective."""
     ck, cv = cache
     hk, hv = chunk_kv
     merge_chunk_kv(ck, cv, hk, hv, start_positions)

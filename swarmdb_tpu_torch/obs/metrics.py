@@ -35,10 +35,11 @@ listed with export links at ``GET /admin/slo``. ``SWARMDB_EXEMPLARS=0``
 keeps the counts and drops the exemplars.
 
 Six histograms are registered, as in the JAX package, so ``/metrics``
-renders the same blocks: ``dataplane_rtt_seconds`` and
-``replication_commit_seconds`` are observed by the data plane and the
-replicated broker, which are not ported yet (ROADMAP.md, queue 1 item
-12); their blocks stay at zero until then.
+renders the same blocks: ``dataplane_rtt_seconds`` is observed by the HA
+data plane's client (``ha/dataplane.py``) and
+``replication_commit_seconds`` by the replicated broker
+(``broker/replica.py``); in a process with neither, their blocks stay at
+zero.
 """
 
 from __future__ import annotations

@@ -1,16 +1,22 @@
-"""Data-parallel serving: lane groups and the fleet.
+"""Multi-device serving: lane groups and the fleet (data parallelism in
+one process), and the single program over a model axis of
+``torch.distributed`` ranks (tensor parallelism: ``distributed.py``,
+``mesh.py``, ``collectives.py``, ``multihost.py`` and ``serving.py``).
 
-The counterpart of the lane and fleet parts of ``swarmdb_tpu/parallel``
-(``lanes.py``, ``fleet.py`` and the lane branch of ``serving.py``). The
-mesh, the sharded (GSPMD) engine and multi-host serving are ROADMAP.md
-queue 1 item 11.
+The counterpart of ``swarmdb_tpu/parallel``. The sharded paged engine,
+the data and expert axes of the single program and pipeline / sequence
+parallelism are ROADMAP.md queue 1 items 11b and 11c.
 """
 
+from .distributed import init_distributed, is_coordinator
 from .fleet import FleetManager, build_fleet, parse_fleet_spec, \
     parse_tier_weights
 from .lanes import LaneGroupInfo, ShardLaneGroup, build_lane_group
-from .serving import build_serving_engine
+from .mesh import Mesh, make_mesh, plan_mesh_shape, shard_params
+from .serving import ShardedModel, build_serving_engine, build_sharded_model
 
-__all__ = ["FleetManager", "LaneGroupInfo", "ShardLaneGroup",
-           "build_fleet", "build_lane_group", "build_serving_engine",
-           "parse_fleet_spec", "parse_tier_weights"]
+__all__ = ["FleetManager", "LaneGroupInfo", "Mesh", "ShardLaneGroup",
+           "ShardedModel", "build_fleet", "build_lane_group",
+           "build_serving_engine", "build_sharded_model", "init_distributed",
+           "is_coordinator", "make_mesh", "parse_fleet_spec",
+           "parse_tier_weights", "plan_mesh_shape", "shard_params"]

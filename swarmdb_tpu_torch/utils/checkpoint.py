@@ -7,8 +7,10 @@ keeps, with PyTorch in place of orbax and ``transformers``:
   of tensors, weights stacked ``[L, ...]``) through ``torch.save`` /
   ``torch.load(weights_only=True)``, restored straight onto a device.
   With ``target`` every key, shape and dtype is checked against it.
-  Restoring onto a mesh (the JAX package's ``shardings=``) waits for the
-  port's multi-GPU slice.
+  With ``shardings`` (a shard plan and a mesh, ``parallel/mesh.py``; the
+  JAX package's tree of ``NamedSharding``) a tensor-parallel rank reads
+  only its own slice of each leaf: the file is memory-mapped and each
+  slice copied to the device on its own.
 - ``import_hf_llama`` / ``import_hf_mixtral``: a ``transformers``
   ``LlamaForCausalLM`` / ``MixtralForCausalLM`` (any object with its
   module tree) into the stacked layout, as the JAX package's do: HF
@@ -62,17 +64,38 @@ def save_params(params: Params, path: str) -> str:
 
 
 def restore_params(path: str, target: Optional[Params] = None,
-                   device: DeviceLike = None) -> Params:
+                   device: DeviceLike = None,
+                   shardings: Optional[Tuple[Any, Any]] = None) -> Params:
     """Load a tree written by ``save_params`` onto ``device`` (default the
     card), tensors only (``weights_only``). With ``target`` (a tree of
     tensors giving the expected structure) a missing or extra key, or a
-    shape or dtype that differs, raises ``ValueError`` naming the key."""
+    shape or dtype that differs, raises ``ValueError`` naming the key.
+
+    ``shardings`` = (plan, mesh): keep only this rank's slice of each leaf
+    (``parallel.mesh.shard_leaf``), read from the memory-mapped file leaf
+    by leaf; ``target`` is then the rank's shares."""
     dev = resolve_device(device)
-    params = torch.load(os.path.abspath(path), map_location=dev,
-                        weights_only=True)
+    if shardings is None:
+        params = torch.load(os.path.abspath(path), map_location=dev,
+                            weights_only=True)
+    else:
+        from ..parallel.mesh import shard_params
+
+        plan, mesh = shardings
+        whole = torch.load(os.path.abspath(path), map_location="cpu",
+                           weights_only=True, mmap=True)
+        params = _to_device(shard_params(whole, plan, mesh), dev)
+        del whole
     if target is not None:
         _check_like(params, target, "")
     return params
+
+
+def _to_device(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    # a leaf held whole is still a view of the mapped file: copy it out
+    return tree.to(dev, copy=True)
 
 
 def _check_like(got: Any, want: Any, key: str) -> None:

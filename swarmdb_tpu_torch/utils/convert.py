@@ -15,7 +15,7 @@ x)``) and hands it here.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,17 +35,36 @@ def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Dict[str, Any],
-                      device: DeviceLike = None) -> Dict[str, Any]:
+                      device: DeviceLike = None,
+                      shardings: Optional[Tuple[Any, Any]] = None
+                      ) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> the same nested dict of tensors on
-    ``device``, each leaf at its own precision (bf16 leaves stay bf16)."""
+    ``device``, each leaf at its own precision (bf16 leaves stay bf16).
+    ``shardings`` = (plan, mesh) keeps this tensor-parallel rank's slice
+    of each leaf (``parallel.mesh.shard_leaf``), cut before the copy to
+    the device, so every rank computes from the same weights a single
+    process holds."""
     dev = resolve_device(device)
+    if shardings is not None:
+        from ..parallel.mesh import shard_leaf
 
-    def conv(node):
+        plan, mesh = shardings
+
+    def conv(node, leaf_plan):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _to_tensor(node, dev)
+            return {k: conv(v, None if leaf_plan is None else leaf_plan[k])
+                    for k, v in node.items()}
+        if shardings is None:
+            return _to_tensor(node, dev)
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+            return shard_leaf(torch.from_numpy(arr), leaf_plan,
+                              mesh).to(torch.bfloat16).to(dev)
+        return shard_leaf(torch.from_numpy(np.array(arr, copy=True)),
+                          leaf_plan, mesh).to(dev)
 
-    return conv(tree)
+    return conv(tree, None if shardings is None else plan)
 
 
 def pool_from_numpy(pool: Any, device: DeviceLike = None

@@ -1,9 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of
 the JAX package, and its entry points run on the card unless the caller
 asks for the CPU -- without CUDA they raise instead of falling back.
-What is not ported yet says so: it raises, or (an HTTP route) answers 501
-naming its ROADMAP.md item. An installed wheel carries every folder of
-the port.
+What is not ported yet says so: it raises naming its ROADMAP.md item.
+An installed wheel carries every folder of the port.
 """
 
 import ast
@@ -173,6 +172,21 @@ def test_serving_a_request_loads_no_jax():
         " SamplingParams(max_new_tokens=3))\n"
         "g.stop()\n"
         "assert why in ('length', 'eos'), why\n"
+        # the pod path: a one-rank gloo process group, the dense engine
+        # over its model axis, the control plane
+        "import tempfile\n"
+        "from swarmdb_tpu_torch.parallel.distributed import"
+        " init_distributed\n"
+        "assert init_distributed('file://' + tempfile.mktemp(), 1, 0,"
+        " device='cpu')\n"
+        "eng, sm = build_serving_engine('tiny-debug', ['cpu'], max_seq=64,"
+        " paged=False)\n"
+        "eng.enable_multihost()\n"
+        "eng.start()\n"
+        "toks, why = eng.generate_sync([1, 2, 3],"
+        " SamplingParams(max_new_tokens=3))\n"
+        "eng.stop()\n"
+        "assert why in ('length', 'eos') and sm.mesh.shape['model'] == 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'swarmdb_tpu')]\n"
         "assert not bad, bad\n"
@@ -238,9 +252,11 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
         assert eng.params["layers"]["router"].device.type == "cpu"
         assert (eng.paged is None) == (paged is None)
         assert paged is None or eng.paged.prefill_ragged is None
-    # lanes are ported (item 9); the single-program sharded engine, a
-    # model / expert / pipeline axis and the dense engine over several
-    # devices are multi-GPU serving (item 11)
+    # lanes are ported (item 9) and the dense single program over a model
+    # axis (item 11a: tests/test_torch_tp.py, test_torch_multihost.py);
+    # the sharded paged engine (admit_overlap=False, the paged engine over
+    # a model axis), an expert or pipeline axis and the dense engine over
+    # several devices of one process still raise naming item 11
     for kwargs in ({"admit_overlap": False}, {"model": 2}, {"expert": 2},
                    {"pipe": 2}, {"paged": False}):
         with pytest.raises(NotImplementedError, match="item 11"):
@@ -250,11 +266,31 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
         m.setenv("SWARMDB_ADMIT_OVERLAP", "0")
         with pytest.raises(NotImplementedError, match="item 11"):
             build_serving_engine("tiny-debug", ["cpu"], max_seq=64)
-    for env, item in ((("SWARMDB_NUM_PROCESSES", "2"), 11),
-                      (("SWARMDB_COORDINATOR", "h:1"), 11)):
+    # a model axis without a process group says how to get one
+    with pytest.raises(ValueError, match="init_distributed"):
+        build_serving_engine("tiny-debug", ["cpu"], max_seq=64, model=2,
+                             paged=False)
+    # a data axis above 1 on the single program, and the engine's own pod
+    # mode over a paged engine, are item 11b
+    from swarmdb_tpu_torch.parallel.mesh import make_mesh
+    from swarmdb_tpu_torch.parallel.serving import build_sharded_model
+
+    mesh = make_mesh(device="cpu")
+    mesh.shape = dict(mesh.shape, data=2)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        build_sharded_model("tiny-debug", mesh)
+    paged_eng, _ = build_backend_engine("tiny-debug", max_seq=64, paged=True,
+                                        device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        paged_eng.enable_multihost()
+    # a pod of the dense engine is ported; a paged pod is item 11b
+    for env in (("SWARMDB_NUM_PROCESSES", "2"),
+                ("SWARMDB_COORDINATOR", "h:1")):
         with monkeypatch.context() as m:
             m.setenv(*env)
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
+            refuse_unported()
+            m.setenv("SWARMDB_PAGED", "1")
+            with pytest.raises(NotImplementedError, match="item 11b"):
                 refuse_unported()
     refuse_unported()   # a single node: nothing to refuse
     # item 12 is ported: each of its modes builds
@@ -346,18 +382,17 @@ def test_find_packages_lists_every_port_folder():
 
 
 @pytest.mark.parametrize("path", ["/admin/ha"])
-def test_unported_routes_answer_501(path, tmp_path):
-    """Every route of the JAX package's server exists in the port's; one
-    whose subsystem is not ported answers 501 (admin only) with a body
-    that names its ROADMAP.md item. None is left: ``/admin/ha``, the
-    last, is served now, and answers 503 in a process without an HA node
-    (the JAX server's answer there)."""
+def test_admin_ha_answers_503_without_a_node_and_403_to_a_user(path,
+                                                               tmp_path):
+    """Every route of the JAX package's server is served by the port's:
+    ``/admin/ha``, the last to be ported, answers 503 in a process without
+    an HA node (the JAX server's answer there) and 403 to a user who is
+    not the admin."""
     import asyncio
 
     from aiohttp.test_utils import TestClient, TestServer
 
-    from swarmdb_tpu_torch.api.app import (UNPORTED_ROUTES, ApiConfig,
-                                           create_app)
+    from swarmdb_tpu_torch.api.app import ApiConfig, create_app
     from swarmdb_tpu_torch.core.runtime import SwarmDB
 
     async def drive():
@@ -379,7 +414,6 @@ def test_unported_routes_answer_501(path, tmp_path):
             await client.close()
 
     (user_st, _), (admin_st, detail) = asyncio.run(drive())
-    assert UNPORTED_ROUTES == {}
     assert user_st == 403
     assert admin_st == 503
     assert "without an HA node" in detail
@@ -396,11 +430,8 @@ def test_served_admin_routes_answer(path, tmp_path):
 
     from aiohttp.test_utils import TestClient, TestServer
 
-    from swarmdb_tpu_torch.api.app import (UNPORTED_ROUTES, ApiConfig,
-                                           create_app)
+    from swarmdb_tpu_torch.api.app import ApiConfig, create_app
     from swarmdb_tpu_torch.core.runtime import SwarmDB
-
-    assert path not in UNPORTED_ROUTES
 
     async def drive():
         db = SwarmDB(save_dir=str(tmp_path))
@@ -463,11 +494,8 @@ def test_profile_and_mem_routes_answer(path, env, kind, switch, tmp_path,
 
     from aiohttp.test_utils import TestClient, TestServer
 
-    from swarmdb_tpu_torch.api.app import (UNPORTED_ROUTES, ApiConfig,
-                                           create_app)
+    from swarmdb_tpu_torch.api.app import ApiConfig, create_app
     from swarmdb_tpu_torch.core.runtime import SwarmDB
-
-    assert path not in UNPORTED_ROUTES
     monkeypatch.setenv(env, "1" if switch == "on" else "0")
 
     async def drive():
@@ -519,11 +547,8 @@ def test_sanitizer_routes_answer(path, env, keys, switch, tmp_path,
 
     from aiohttp.test_utils import TestClient, TestServer
 
-    from swarmdb_tpu_torch.api.app import (UNPORTED_ROUTES, ApiConfig,
-                                           create_app)
+    from swarmdb_tpu_torch.api.app import ApiConfig, create_app
     from swarmdb_tpu_torch.core.runtime import SwarmDB
-
-    assert path not in UNPORTED_ROUTES
     monkeypatch.setenv(env, "1" if switch == "on" else "0")
     metric = {"SWARMDB_LOCKCHECK": "swarmdb_lock_inversion_cycles",
               "SWARMDB_PAGECHECK": "swarmdb_page_violations_total",

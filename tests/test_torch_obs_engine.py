@@ -257,3 +257,50 @@ def test_lane_steps_carry_shard_and_the_sentinel_reaches_every_lane(
             svc.supervisor.stop()
     finally:
         db.close()
+
+
+def test_runtime_spans_cover_send_and_receive(tmp_path):
+    """The port's copy of ``tests/test_obs.py``'s test of the same name:
+    a send and a receive leave ``runtime.send``, ``broker.publish``,
+    ``runtime.receive`` and the ``stage.enqueued`` instant, all keyed by
+    the message id; and a message served by the backend carries the
+    ``stage.done`` instant on its timeline (``Message.stage_stamp`` feeds
+    the tracer, as in the JAX package)."""
+    from swarmdb_tpu_torch.backend.service import ServingService
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    TTRACER.reset()
+    db = SwarmDB(broker=LocalBroker(), save_dir=str(tmp_path / "h"))
+    try:
+        mid = db.send_message("a", "b", "hello")
+        got = db.receive_messages("b", max_messages=1, timeout=2.0)
+        assert got and got[0].id == mid
+        names = {e["name"] for e in TTRACER.snapshot()}
+        assert {"runtime.send", "broker.publish", "runtime.receive",
+                "stage.enqueued"} <= names
+        rids = {e["name"] for e in TTRACER.events_for(mid)}
+        assert {"runtime.send", "broker.publish", "runtime.receive",
+                "stage.enqueued"} <= rids
+        eng, tok = tsvc.build_backend_engine(
+            "tiny-debug", max_batch=2, max_seq=64, device="cpu")
+        svc = ServingService(db, eng, tok)
+        for agent in ("user", "bot"):
+            db.register_agent(agent)
+        db.assign_llm_backend("bot", svc.backend_id)
+        svc.start()
+        try:
+            served = db.send_message(
+                "user", "bot", "hi", metadata={"generation": {
+                    "max_new_tokens": 3}})
+            deadline = time.time() + 60
+            reply = []
+            while not reply and time.time() < deadline:
+                reply = db.receive_messages("user", timeout=1.0)
+            assert reply
+        finally:
+            svc.stop()
+        stages = {e["name"] for e in TTRACER.events_for(served)}
+        assert {"stage.enqueued", "stage.admitted", "stage.done"} <= stages
+    finally:
+        db.close()

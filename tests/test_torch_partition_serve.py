@@ -588,3 +588,131 @@ def test_a_reply_outlasts_its_partition_promotion(monkeypatch):
     assert metrics.counters["reply_retries"].value == attempts - 1
     landed, attempts = _reply_loop_outcome(JService, JMetrics(), fail_s)
     assert not landed and attempts == 4
+
+
+def test_consumer_rereads_from_the_end_of_a_shorter_copy():
+    """A failover that seats a copy of a partition's log shorter than the
+    offset a consumer reached (the seated copy holds 2 records, the
+    consumer read 4 from the old leader): the next record appended to the
+    new leader, at offset 2, still reaches the consumer. The JAX
+    package's consumer rewinds only past a trim and waits at offset 4
+    forever: the port's re-reads from the new end."""
+    from swarmdb_tpu_torch.broker.base import Consumer
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+
+    old, new = LocalBroker(), LocalBroker()
+    for b in (old, new):
+        b.create_topic("t", 1)
+    for i in range(4):
+        old.append("t", 0, f"m{i}".encode())
+        if i < 2:
+            new.append("t", 0, f"m{i}".encode())
+
+    class Failover:
+        """Reads go to whichever broker leads the partition now."""
+
+        leader = old
+
+        def __getattr__(self, name):
+            return getattr(self.leader, name)
+
+    routed = Failover()
+    consumer = Consumer(routed, "g", auto_commit=False)
+    consumer.assign([("t", 0)])
+    got = [consumer.poll(timeout=0.5).value for _ in range(4)]
+    assert got == [b"m0", b"m1", b"m2", b"m3"]
+    routed.leader = new
+    assert consumer.poll(timeout=0.2) is None
+    new.append("t", 0, b"after the failover")
+    rec = consumer.poll(timeout=1.0)
+    assert rec is not None and rec.offset == 2
+    assert rec.value == b"after the failover"
+
+
+def test_orphan_sweep_waits_for_a_registered_peer_whose_probe_missed(
+        monkeypatch):
+    """The orphan sweep of a survivor (n0, holding 2 records of the
+    orphaned partition) whose probe of the other survivor (n2, holding 4)
+    goes unanswered twice: it probes again instead of ranking itself
+    alone, finds n2 ahead and leaves the partition to n2 -- it never
+    seats its own, shorter copy. The JAX package ranks whoever answered
+    and seats n0's copy at once."""
+    import types
+
+    from swarmdb_tpu_torch.ha import node as hn
+
+    n = object.__new__(hn.HANode)
+    n.node_id, n.suspect_s, n.dead_s = "n0", 0.02, 0.2
+    n._stop, n._sweeping = threading.Event(), threading.Event()
+    n._sync_index = lambda: None
+    n._local_partition_ends = lambda: {"t": {"0": 2}}
+    passes = []
+
+    class Index:
+        def nodes(self):
+            return {"n0": {"liveness_addr": "127.0.0.1:1"},
+                    "n2": {"liveness_addr": "127.0.0.1:2"}}
+
+        def orphans(self):
+            passes.append(1)
+            if len(passes) > 4:
+                return []
+            return [("t:0", {"leader": "n1", "epoch": 3})]
+
+    n._index = Index()
+    seated = []
+    n.cluster = types.SimpleNamespace(
+        try_promote_partition=lambda *a, **k: seated.append(a) or True)
+    answers = iter([None, None])
+    monkeypatch.setattr(hn, "probe_ends", lambda addr, timeout: next(
+        answers, {"ends": {"t": {"0": 4}}}))
+    n._sweeping.set()
+    n._orphan_sweep_loop()
+    assert seated == []
+    assert len(passes) == 5 and not n._sweeping.is_set()
+
+
+def test_a_send_retried_across_a_failover_is_once_in_its_conversation(
+        tmp_path):
+    """A send whose produce fails over (a retryable LeaderChangedError)
+    leaves the conversation: the caller's retry, a new message, is the
+    one copy a prompt's history holds. The JAX package keeps the failed
+    copy there too, so a lane group's reply after a failover parted from
+    its fault-free reference (the lane-group case above)."""
+    from swarmdb_tpu_torch.backend.service import build_prompt
+    from swarmdb_tpu_torch.backend.tokenizer import default_tokenizer
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+
+    class FailsOver(LocalBroker):
+        fail = 0
+
+        def append(self, topic, partition, value, key=None, timestamp=None):
+            if self.fail and topic == "swarm_messages":
+                self.fail -= 1
+                raise LeaderChangedError("injected: failover in progress")
+            return super().append(topic, partition, value, key, timestamp)
+
+    broker = FailsOver()
+    db = SwarmDB(broker=broker, save_dir=str(tmp_path))
+    try:
+        for a in ("u", "bot"):
+            db.register_agent(a)
+        db.send_message("u", "bot", "turn 1")
+        db.send_message("bot", "u", "reply 1")
+        broker.fail = 1
+        with pytest.raises(LeaderChangedError):
+            db.send_message("u", "bot", "turn 2")
+        mid = _send_retry(db, "u", "bot", "turn 2")
+        failed = [m for m in db.messages.values()
+                  if m.status.value == "failed"]
+        assert len(failed) == 1 and failed[0].metadata["retryable"]
+        convo = db.get_conversation("u", "bot")
+        assert [m.content for m in convo] == ["turn 1", "reply 1", "turn 2"]
+        assert convo[-1].id == mid
+        window = db.get_conversation_window("u", "bot", 64)
+        assert [m.id for m in window] == [m.id for m in convo]
+        tok = default_tokenizer(512)
+        text = tok.decode(build_prompt(db, db.get_message(mid), tok))
+        assert text.count("turn 2") == 1, text
+    finally:
+        db.close()
