@@ -55,7 +55,11 @@ and exits non-zero at the first failure:
                dequantization excluded); the prefill kernels once more on
                a 1024-token turn-1 wave, held against their plain
                versions within 2e-2 and timed (its own ``kernels``
-               line).
+               line); the chunked and single-step paged decode (2, 3)
+               also on a data rank's view of a 2-shard pool
+               (``localized_case``: its slots, its sub-pool, its table
+               rows localized, a retired row and entries past each
+               slot's pages on local page 0).
 4. parity   -- tiny-debug in f32 with the same weights, served on the card
                (kernels) and on the CPU (plain versions): the paged engine
                chunked and single-step over an f32 pool (logits within
@@ -335,19 +339,45 @@ and exits non-zero at the first failure:
                tokens equal to (a)'s, kernel 7 launched. (c) World size 2
                on ``cuda:0`` over gloo (NCCL refuses two ranks on one
                card): two ``--tp-child`` processes, each drawing
-               Llama-3-8B from seed 0 a tensor at a time and keeping its
-               half (Hq 16, Hkv 4), its chunks eager; rank 0 serves the
-               same requests on the dense engine chunked (kernel 7) and
-               single-step (kernel 8) and rank 1 replays them: each mode's
-               tokens equal to (b)'s or parting at a near tie, held to a
-               plain bf16 forward over (a)'s tokens: ``tol`` is (a)'s own
-               largest |log-probability difference| of its chosen tokens
-               from that forward (no path under test), and (c)'s chosen
-               tokens' log-probabilities must lie within twice ``tol`` of
-               it at every step up to the parting, where both tokens must
-               lie within twice ``tol`` of its top logit. Prints init seconds
+               Llama-3-8B at full width and ``TP_WS2_LAYERS`` (8) of its
+               32 layers from seed 0 a tensor at a time and keeping its
+               half (Hq 16, Hkv 4), its chunks eager (the depth is cut:
+               gloo stages each collective through host memory); rank 0
+               serves the same requests on the dense engine chunked
+               (kernel 7) and single-step (kernel 8) and rank 1 replays
+               them: each mode's tokens equal to those of (a)'s engine at
+               the same depth (served here first) or parting at a near
+               tie, held to a plain bf16 forward over that reference's
+               tokens: ``tol`` is the reference's own largest
+               |log-probability difference| of its chosen tokens from that
+               forward (no path under test), and (c)'s chosen tokens'
+               log-probabilities must lie within twice ``tol`` of it at
+               every step up to the parting, where both tokens must lie
+               within twice ``tol`` of its top logit. Prints init seconds
                per rank, TTFT and tokens/s per world size, the
                collectives per decode step and each one's ms alone.
+               (d) The dp step, on (c)'s two ranks and process group once
+               their model-axis engines are freed: the single program over
+               a data axis of two (``build_serving_engine(data=2)``), each
+               rank drawing Llama-3-8B whole from seed 0 and holding 2 of
+               the 4 slots, rank 0 serving the same requests and rank 1
+               replaying: the sharded paged engine (bf16 pool, 97 pages of
+               16 a shard, prefix cache on) chunked (kernel 2) and
+               single-step (kernel 3) under ``SWARMDB_KERNCHECK=1`` (the
+               bounds-checked build), then the dense engine chunked
+               (kernel 7) (``DP_SERVES``), each with its greedy chunk's
+               graph captured before traffic. References, served in this
+               process before the ranks start: the single paged engine
+               chunked and single-step, and (a), at full depth. Each
+               serve's tokens equal
+               its reference's or part at a near tie under (c)'s rule
+               (``tol`` now the reference's own), every reply length /
+               eos, each rank launched the serve's kernel on its own two
+               slots, zero kernel violations, ``paged_shards`` 2 in a
+               paged serve's flight meta. Prints each rank's slots and
+               pool pages, TTFT and tokens/s per serve, whether its chunks
+               replayed as graphs, the per-chunk gather's ms alone, init
+               seconds and peak memory per rank.
 7d. sanitize -- the three runtime sanitizers, in a child process
                (``--sanitize-child``) run with ``SWARMDB_LOCKCHECK=1
                SWARMDB_PAGECHECK=1 SWARMDB_KERNCHECK=1`` and a temporary
@@ -399,8 +429,9 @@ and exits non-zero at the first failure:
                directory deleted before the next step.
 8. mixtral -- Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128,
                8 experts of FFN 14336, top-2, vocab 32000, rope theta 1e6)
-               and 16 of its 32 layers (``reduced``: all 32 do not fit one
-               80 GB card), bf16 weights from seed 0, after Llama-3-8B's
+               and 8 of its 32 layers (``reduced``: all 32 do not fit one
+               80 GB card; 8 keep the script in its time limit), bf16
+               weights from seed 0, after Llama-3-8B's
                are freed. Layer 0's MoE block timed at a decode step and
                an 8 x 256 prefill wave, whole and its expert products alone,
                with the kernels each launches. Then six serves through
@@ -431,8 +462,8 @@ and exits non-zero at the first failure:
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
 serves, the api, obs, prof, rolling, lanes and ha phases, the sanitize
 phase's five sanitizers-on serves, the ckpt phase's serves of the loaded
-weights, the tp phase's world-size-1 serve and both ranks' serves, and
-the seven Mixtral serves, each
+weights, the tp phase's world-size-1 serve and both ranks' serves (its dp step's
+too), and the seven Mixtral serves, each
 counted from zero
 just before it and read just after; a graph replay adds the launches its
 capture recorded; ``checked_ms`` is the bounds-checked build's time;
@@ -461,8 +492,15 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_BF16_FLOPS = 989e12        # dense tensor cores, same data sheet
 
 
+#: when this process started: every phase line carries the seconds since
+#: (``t_s``), so a run's lines say where its time went
+T_START = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase,
+                      "t_s": round(time.monotonic() - T_START, 1),
+                      **fields}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -593,6 +631,33 @@ def single_case(qdt, pdt, dev, window=None):
                 lengths=torch.tensor([s + 6 for s in STARTS],
                                      dtype=torch.int32).to(dev),
                 window=window)
+
+
+def localized_case(c):
+    """Decode case ``c`` as rank 1 of a data axis of two sees it: its
+    pool is shard 1 of a 2-shard pool of 2 x 769 pages (global ids
+    [769, 1538), 769 its trash page), its slots are 4-7, and their global
+    table rows -- one of them a retired slot's, zeroed, and every row's
+    entries past its pages zeroed too -- are localized as the engine
+    localizes them (``Engine._localize``: clip(table - 769, 0, 768)), so
+    each retired or zeroed entry reads local page 0."""
+    import torch
+
+    pl, rows = NPAGES, slice(4, 8)
+    out = {k: (v[rows] if torch.is_tensor(v) and v.dim() and k not in (
+        "k_pages", "k_scale", "v_pages", "v_scale") else v)
+           for k, v in c.items()}
+    table = c["page_table"][rows].long() + pl             # global ids
+    ends = out.get("starts", out.get("lengths")).long() + 8
+    cover = -(-ends // PS)
+    past = torch.arange(MAXP, device=table.device)[None] >= cover[:, None]
+    table = torch.where(past, torch.zeros_like(table), table)
+    table[1] = 0                                         # a retired slot
+    local = torch.clamp(table - pl, 0, pl - 1).to(torch.int32)
+    if int(local.max()) >= pl or int((local == 0).sum()) < MAXP:
+        fail("localized table: a foreign id or no retired row")
+    out["page_table"] = local
+    return out
 
 
 def prefill_case(qdt, pdt, dev, window=None):
@@ -1201,6 +1266,14 @@ def run_kernels(dev):
                 key = f"hq16_hkv4_q{str(qdt)[6:]}_p{str(pdt)[6:]}"
                 errs[key] = check_kernel(
                     name, sp, sp["case"](qdt, pdt, dev, heads=(16, 4)),
+                    tol, key)
+        if sp["case"] in (decode_case, single_case) and not sp["quant"]:
+            # a data rank's view: its slots over its sub-pool of a
+            # 2-shard pool, the table localized
+            for qdt, pdt, tol in checks:
+                key = f"dp_localized_q{str(qdt)[6:]}_p{str(pdt)[6:]}"
+                errs[key] = check_kernel(
+                    name, sp, localized_case(sp["case"](qdt, pdt, dev)),
                     tol, key)
         prefill = sp["case"] is prefill_case
         if prefill:
@@ -5870,15 +5943,15 @@ def serve_contexts(name, out) -> dict:
     return ctx
 
 
-def plain_step_logits(params, ctx, toks):
+def plain_step_logits(params, ctx, toks, cfg=None):
     """The plain bf16 forward (``llama.forward``, one sequence, a dense
     cache) over ``ctx`` and ``toks``: the f32 logits that pick each of
-    ``toks``, one row per step."""
+    ``toks``, one row per step (``cfg``: Llama-3-8B unless given)."""
     import torch
 
     from swarmdb_tpu_torch.models import llama
 
-    cfg = get_llama_cfg()
+    cfg = cfg or get_llama_cfg()
     seq = list(ctx) + list(toks)
     T0, T, dev = len(ctx), len(seq), params["embed"].device
     logits, _ = llama.forward(
@@ -6359,10 +6432,11 @@ def sanitize_endpoints() -> None:
 # ----------------------------------------------------------------- mixtral
 
 
-#: Mixtral-8x7B at full width, 16 of its 32 layers: all 32 (~87 GiB of
+#: Mixtral-8x7B at full width, 8 of its 32 layers: all 32 (~87 GiB of
 #: bf16 layers by their shapes) do not fit one 80 GB card (ROADMAP.md
-#: queue 1 item 11).
-MIXTRAL_LAYERS = 16
+#: queue 1 item 11), and 8 (16 before) keep the script inside its time
+#: limit on a slow host.
+MIXTRAL_LAYERS = 8
 
 #: (name, cache dtype, chunked, turns, paged, profiled): the six Mixtral
 #: serves, in order. ``paged=None`` builds the default (dense) engine.
@@ -7158,6 +7232,11 @@ TP_SEQ = 512
 TP_NEW = 32
 TP_PROMPT_LENS = (380, 400, 410, 420)
 TP_COLLECTIVE_ITERS = 20
+#: world size 2's depth: gloo stages each of a step's 2L + 2 collectives
+#: through host memory (1.1-5.4 ms each, by host), so the two-rank model
+#: axis runs 8 of Llama-3-8B's 32 layers, against a reference of the same
+#: depth, to keep the script inside its time limit on a slow host
+TP_WS2_LAYERS = 8
 TP_CHILD = [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-child"]
 
 
@@ -7244,25 +7323,28 @@ def tp_collective_ms(sm, batch: int) -> dict:
     return out
 
 
-def tp_engine(params, chunked: bool, model=None):
+def tp_engine(params, chunked: bool, model=None, layers=None):
     """This process's share of the dense single program (TP_BATCH slots,
-    max_seq TP_SEQ, chunk 8): (engine, ShardedModel)."""
+    max_seq TP_SEQ, chunk 8; Llama-3-8B at ``layers`` layers, default
+    all): (engine, ShardedModel)."""
     import torch
 
+    from swarmdb_tpu_torch.models.configs import get_config
     from swarmdb_tpu_torch.parallel.serving import build_serving_engine
 
+    cfg = get_config(TP_MODEL, **({"n_layers": layers} if layers else {}))
     with engine_env(chunked):
         return build_serving_engine(
-            TP_MODEL, [torch.device(TP_DEVICE)], model=model,
+            cfg, [torch.device(TP_DEVICE)], model=model,
             max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8, params=params)
 
 
 def tp_child(rank: int, store: str, result_path: str) -> int:
     """One rank of the two-rank pod on cuda:0 over gloo: Llama-3-8B at
-    full width and depth drawn from seed 0, each tensor whole then this
-    rank's half kept; the dense engine chunked (kernel 7) and single-step
-    (kernel 8), rank 0 serving and rank 1 replaying; then the collectives
-    timed alone."""
+    full width and ``TP_WS2_LAYERS`` layers drawn from seed 0, each tensor
+    whole then this rank's half kept; the dense engine chunked (kernel 7)
+    and single-step (kernel 8), rank 0 serving and rank 1 replaying; then
+    the collectives timed alone; then the dp step (``dp_child``)."""
     import gc
 
     import torch
@@ -7279,7 +7361,7 @@ def tp_child(rank: int, store: str, result_path: str) -> int:
     init_distributed(f"file://{store}", 2, rank, backend="gloo", device=dev)
     out = {"rank": rank}
     with torch.no_grad():
-        eng, sm = tp_engine(None, True, model=2)
+        eng, sm = tp_engine(None, True, model=2, layers=TP_WS2_LAYERS)
         torch.cuda.synchronize()
         out["init_s"] = time.perf_counter() - t0
         lp = sm.params["layers"]
@@ -7292,7 +7374,8 @@ def tp_child(rank: int, store: str, result_path: str) -> int:
             if not chunked:
                 del eng
                 gc.collect()
-                eng, sm = tp_engine(sm.params, False, model=2)
+                eng, sm = tp_engine(sm.params, False, model=2,
+                                    layers=TP_WS2_LAYERS)
             tp = sm.model_axis
             calls0 = tp.calls
             ac.reset_launches()
@@ -7310,10 +7393,106 @@ def tp_child(rank: int, store: str, result_path: str) -> int:
             out["chunked" if chunked else "single"] = res
         out.update(tp_collective_ms(sm, TP_BATCH))
         out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # the dp step, on the same two ranks and process group: the
+        # model-axis engine and its weights go first
+        del eng, sm, lp
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["dp"] = dp_child(rank, dev)
     with open(result_path, "w", encoding="utf-8") as f:
         json.dump(out, f)
     dist.destroy_process_group()
     return 0
+
+
+#: The tp phase's dp step: the single program over a data axis of two on
+#: the tp phase's ranks, each holding Llama-3-8B whole and 2 of the 4
+#: slots -- (serve, paged, chunked, under SWARMDB_KERNCHECK=1 (the
+#: kernels' bounds-checked build and the checked dispatcher), the decode
+#: kernel its ranks must launch). The paged serves run over the sharded
+#: pool (97 pages of 16 a shard at max_seq 512, prefix cache on).
+DP_SERVES = (("paged_chunked", True, True, False, "paged_decode_chunked"),
+             ("paged_single_kerncheck", True, False, True, "paged_decode"),
+             ("dense_chunked", False, True, False, "dense_decode_chunked"))
+DP_GATHER_ITERS = 20
+
+
+def dp_child(rank: int, dev) -> dict:
+    """One rank's dp step: Llama-3-8B drawn whole from seed 0 (data 2,
+    model 1), then each of ``DP_SERVES`` on the tp phase's prompts, rank 0
+    serving and rank 1 replaying; per serve this rank's slots, pool pages,
+    launches, kernel-sanitizer violations, flight meta and chunk runner;
+    then the per-chunk block gather timed alone."""
+    import gc
+
+    import torch
+
+    from swarmdb_tpu_torch.obs import kerncheck
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.parallel.serving import build_serving_engine
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts, params, out = tp_prompts(), None, {}
+    t0 = time.perf_counter()
+    for name, paged, chunked, checked, kernel in DP_SERVES:
+        with engine_env(chunked, SWARMDB_KERNCHECK="1" if checked else None):
+            eng, sm = build_serving_engine(
+                TP_MODEL, [dev], data=2, paged=paged, max_batch=TP_BATCH,
+                max_seq=TP_SEQ, decode_chunk=8, params=params)
+            if params is None:
+                torch.cuda.synchronize()
+                out["init_s"] = time.perf_counter() - t0
+            params = sm.params
+            # the greedy chunk's graph captured before traffic (no
+            # collective inside on a data axis), on each rank alone
+            t_cap = time.perf_counter()
+            eng._runner.capture(2)
+            res = {"capture_s": time.perf_counter() - t_cap}
+            kerncheck.registry().reset()
+            ac.reset_launches()
+            if rank == 0:
+                eng.enable_multihost()
+                res.update(tp_serve(eng, prompts))
+            else:
+                eng.worker_loop()
+            torch.cuda.synchronize()
+            ac.kerncheck_poll(dev)
+        res.update(
+            kernel=kernel, checked=checked,
+            launches={k: n for k, n in ac.LAUNCHES.items() if n},
+            kernel_violations=len(kerncheck.registry().violations()),
+            slots=[eng._lo, eng._lo + eng._rows],
+            pool_pages=eng.cache["k"].shape[1] if paged else None,
+            paged_shards=eng.flight.meta["paged_shards"],
+            graphs=eng.flight.meta["graphs"],
+            chunks=eng.stats()["decode_chunks"])
+        out[name] = res
+        if name == "dense_chunked":
+            out["gather_ms"] = dp_gather_ms(eng, dev)
+        del eng
+        gc.collect()
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def dp_gather_ms(eng, dev) -> float:
+    """One chunk's block gather over the data axis timed alone: a [9, 2]
+    token and logprob block per rank joined into [9, 4], median of
+    DP_GATHER_ITERS, both ranks in step (host clock around a synchronised
+    call: gloo's collectives are host calls)."""
+    import torch
+
+    block = torch.zeros((9, eng._rows), dtype=torch.int32, device=dev)
+    lps = torch.zeros((9, eng._rows), dtype=torch.float32, device=dev)
+    times = []
+    for i in range(DP_GATHER_ITERS + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._gather_block(block, lps)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 #: world size 2 against the plain forward is held to this many times the
@@ -7362,6 +7541,8 @@ def run_tp(card, params):
     import torch.distributed as dist
 
     from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.models.configs import get_config
     from swarmdb_tpu_torch.ops import attention_cuda as ac
     from swarmdb_tpu_torch.parallel.distributed import init_distributed
 
@@ -7378,6 +7559,17 @@ def run_tp(card, params):
     ref_eng.warmup()
     ref = tp_serve(ref_eng, prompts)
     del ref_eng
+    # the dp step's paged references: the single paged engine (bf16 pool,
+    # prefix cache on), chunked and single-step
+    dp_refs = {"dense_chunked": ref}
+    for mode, chunked in (("paged_chunked", True),
+                          ("paged_single_kerncheck", False)):
+        with engine_env(chunked):
+            ref_eng, _ = build_backend_engine(
+                TP_MODEL, seed=0, device=dev, params=params, paged=True,
+                max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8)
+        dp_refs[mode] = tp_serve(ref_eng, prompts)
+        del ref_eng
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7418,6 +7610,25 @@ def run_tp(card, params):
                                       for r in ws1["reasons"]),
     }
 
+    # world size 2's reference: the same dense engine at TP_WS2_LAYERS
+    # layers, its weights drawn from seed 0 as the ranks draw theirs, and
+    # the plain forward over its tokens; served before the ranks start
+    cfg_ws2 = get_config(TP_MODEL, n_layers=TP_WS2_LAYERS)
+    params_ws2 = llama.init_params(cfg_ws2, seed=0, device=dev)
+    with engine_env(True, SWARMDB_PREFIX="0"):
+        ref_eng, _ = build_backend_engine(
+            cfg_ws2, seed=0, device=dev, params=params_ws2, paged=None,
+            max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8)
+    ref_ws2 = tp_serve(ref_eng, prompts)
+    del ref_eng
+    plain_ws2 = [plain_step_logits(params_ws2, p, t, cfg_ws2)
+                 for p, t in zip(prompts, ref_ws2["tokens"])]
+    del params_ws2
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol_ws2 = ref_logprob_tol(plain_ws2, ref_ws2)
+    bound_ws2 = TP_WS2_TOL_FACTOR * tol_ws2
+
     # world size 2 on cuda:0 over gloo: two child processes
     work = tempfile.mkdtemp(prefix="swarm_tp_")
     store = os.path.join(work, "store")
@@ -7446,24 +7657,20 @@ def run_tp(card, params):
             ranks.append(json.load(f))
     # the tolerance comes only from paths outside the runs under test:
     # the largest |log-probability difference| of the chosen token
-    # between the reference serve (a) and a plain bf16 forward over its
-    # tokens, over every step of every request; (b)'s tokens are held
-    # equal to (a)'s above, so (c) is compared with both at once
+    # between a reference serve and a plain bf16 forward over its tokens,
+    # over every step of every request; (c) is held to its reference at
+    # its depth, the dp step to the full-depth references
     plain = [plain_step_logits(params, p, t)
              for p, t in zip(prompts, ref["tokens"])]
-    diffs = []
-    for z, toks, lps in zip(plain, ref["tokens"], ref["logprobs"]):
-        lp = torch.log_softmax(z, -1)
-        off = len(toks) - len(lps)
-        diffs += [abs(float(lp[s, toks[s]]) - lps[s - off])
-                  for s in range(off, len(toks))]
-    if not diffs:
-        fail("tp: the reference serve returned no logprobs")
-    tol = max(diffs)
-    bound = TP_WS2_TOL_FACTOR * tol
-    holds = {mode: [tp_hold(z, a, b, lps, bound) for z, a, b, lps in zip(
-        plain, ref["tokens"], ranks[0][mode]["tokens"],
-        ranks[0][mode]["logprobs"])] for mode in ("chunked", "single")}
+    tol = ref_logprob_tol(plain, ref)
+    holds = {mode: [tp_hold(z, a, b, lps, bound_ws2)
+                    for z, a, b, lps in zip(
+                        plain_ws2, ref_ws2["tokens"],
+                        ranks[0][mode]["tokens"],
+                        ranks[0][mode]["logprobs"])]
+             for mode in ("chunked", "single")}
+    del plain_ws2
+    dp = dp_checks(params, prompts, dp_refs, plain, tol, ranks, checks)
     del plain
     for r, rank in enumerate(ranks):
         checks[f"rank {r} runs Hq 16, Hkv 4"] = rank["heads"] == [16, 4]
@@ -7476,35 +7683,112 @@ def run_tp(card, params):
     for mode, hs in holds.items():
         checks[f"ws2 {mode} logprobs within {TP_WS2_TOL_FACTOR:g} x tol "
                "of the plain forward"] = all(h["held"] for h in hs)
-        checks[f"ws2 {mode} tokens == ws1, or part at a near tie"] = all(
+        checks[f"ws2 {mode} tokens == the {TP_WS2_LAYERS}-layer "
+               "reference's, or part at a near tie"] = all(
             h["step"] is None or h["near_tie"] for h in hs)
         checks[f"ws2 {mode} reasons length/eos"] = all(
             r in ("length", "eos") for r in ranks[0][mode]["reasons"])
     bad = [k for k, ok in checks.items() if not ok]
     summary = {k: v for k, v in ws1.items()
                if k not in ("tokens", "logprobs")}
-    from swarmdb_tpu_torch.models.configs import get_config
-
     emit("tp", card=card, model=TP_MODEL,
          layers=get_config(TP_MODEL).n_layers, batch=TP_BATCH,
          prompt_tokens=list(TP_PROMPT_LENS), new_tokens=TP_NEW,
          ref=dict(ttft_s=ref["ttft_s"], tokens_per_s=ref["tokens_per_s"]),
          ws1=summary, ws1_launches={k: n for k, n in launches.items() if n},
          ws2={f"rank{r['rank']}": {k: v for k, v in r.items()
-                                   if k not in ("rank",)}
+                                   if k not in ("rank", "dp")}
               | {m: {k: v for k, v in r[m].items()
                      if k not in ("tokens", "logprobs")}
                  for m in ("chunked", "single")} for r in ranks},
-         ws2_wall_s=ws2_s, logprob_tol=tol, ws2_bound=bound, holds=holds,
+         dp=dp,
+         ws2_layers=TP_WS2_LAYERS,
+         ws2_ref=dict(ttft_s=ref_ws2["ttft_s"],
+                      tokens_per_s=ref_ws2["tokens_per_s"]),
+         ws2_wall_s=ws2_s, logprob_tol=tol, ws2_logprob_tol=tol_ws2,
+         ws2_bound=bound_ws2, holds=holds,
          phase_s=time.perf_counter() - t_phase, checks=checks)
     if bad:
         fail(f"tp checks failed: {bad}")
     total = dict(launches)
     for rank in ranks:
-        for mode in ("chunked", "single"):
-            for k, n in rank[mode]["launches"].items():
-                total[k] = total.get(k, 0) + n
+        for runs in (rank, rank["dp"]):
+            for mode, res in runs.items():
+                if isinstance(res, dict) and "launches" in res:
+                    for k, n in res["launches"].items():
+                        total[k] = total.get(k, 0) + n
     return total
+
+
+def ref_logprob_tol(plain, ref) -> float:
+    """The largest |log-probability difference| of a reference serve's
+    chosen tokens from the plain bf16 forward over them (``plain``), over
+    every step of every request: the tp phase's ``tol``."""
+    import torch
+
+    diffs = []
+    for z, toks, lps in zip(plain, ref["tokens"], ref["logprobs"]):
+        lp = torch.log_softmax(z, -1)
+        off = len(toks) - len(lps)
+        diffs += [abs(float(lp[s, toks[s]]) - lps[s - off])
+                  for s in range(off, len(toks))]
+    if not diffs:
+        fail("tp: a reference serve returned no logprobs")
+    return max(diffs)
+
+
+def dp_checks(params, prompts, refs, dense_plain, dense_tol, ranks,
+              checks) -> dict:
+    """The dp step's checks, added to ``checks``: per serve, rank 0's
+    tokens against its single-engine reference (equal, or parting at a
+    near tie by ``tp_hold`` with twice the reference's own ``tol``), every
+    reply length / eos, each rank's decode kernel launched on its two
+    slots, zero kernel-sanitizer violations, ``paged_shards`` 2 on a
+    paged serve. Returns the step's summary for the ``tp`` line."""
+    plains = {"dense_chunked": (dense_plain, dense_tol)}
+    for mode in ("paged_chunked", "paged_single_kerncheck"):
+        z = [plain_step_logits(params, p, t)
+             for p, t in zip(prompts, refs[mode]["tokens"])]
+        plains[mode] = (z, ref_logprob_tol(z, refs[mode]))
+    out = {"refs": {m: dict(ttft_s=r["ttft_s"],
+                            tokens_per_s=r["tokens_per_s"])
+                    for m, r in refs.items()}}
+    for name, paged, _chunked, checked, kernel in DP_SERVES:
+        z, tol = plains[name]
+        bound = TP_WS2_TOL_FACTOR * tol
+        got = ranks[0]["dp"][name]
+        holds = [tp_hold(zz, a, b, lps, bound) for zz, a, b, lps in zip(
+            z, refs[name]["tokens"], got["tokens"], got["logprobs"])]
+        checks[f"dp {name} logprobs within {TP_WS2_TOL_FACTOR:g} x tol "
+               "of the plain forward"] = all(h["held"] for h in holds)
+        checks[f"dp {name} tokens == the single engine's, or part at a "
+               "near tie"] = all(h["step"] is None or h["near_tie"]
+                                 for h in holds)
+        checks[f"dp {name} reasons length/eos"] = all(
+            r in ("length", "eos") for r in got["reasons"])
+        for r, rank in enumerate(ranks):
+            res = rank["dp"][name]
+            checks[f"dp {name} rank {r} kernel {kernel} on slots "
+                   f"{2 * r}-{2 * r + 1}"] = (
+                res["launches"].get(kernel, 0) > 0
+                and res["slots"] == [2 * r, 2 * r + 2])
+            checks[f"dp {name} rank {r} kernel violations 0"] = (
+                res["kernel_violations"] == 0)
+            if paged:
+                checks[f"dp {name} rank {r} paged_shards 2"] = (
+                    res["paged_shards"] == 2)
+        out[name] = dict(
+            tol=tol, holds=holds, checked=checked,
+            ttft_s=got["ttft_s"], tokens_per_s=got["tokens_per_s"],
+            ranks=[{k: v for k, v in rank["dp"][name].items()
+                    if k not in ("tokens", "logprobs", "reasons", "ttft_s",
+                                 "tokens_per_s", "wall_s")}
+                   for rank in ranks])
+    out["gather_ms"] = [rank["dp"]["gather_ms"] for rank in ranks]
+    out["init_s"] = [rank["dp"]["init_s"] for rank in ranks]
+    out["peak_memory_gib"] = [rank["dp"]["peak_memory_gib"]
+                              for rank in ranks]
+    return out
 
 
 def main() -> int:

@@ -18,13 +18,16 @@ the CPU). ``SERVE_MAX_BATCH``, ``SERVE_MAX_SEQ``, ``SERVE_CHUNK`` and
 An agent becomes LLM-backed with ``POST /admin/llm_backend`` naming the
 backend ``gpu-0`` (its id is also in ``GET /health``).
 
-A pod (tensor parallelism over processes, as the JAX server's multi-host
-mode): start one process per rank with ``SWARMDB_COORDINATOR`` (rank 0's
-``host:port``), ``SWARMDB_NUM_PROCESSES`` and ``SWARMDB_PROCESS_ID``.
-Every rank builds the dense engine's share of the model over the model
-axis (``parallel.serving.build_serving_engine``; NCCL on the cards, rank
-r on ``cuda:r`` of its host unless ``SERVE_DEVICE`` says otherwise; gloo
-with ``SERVE_DEVICE=cpu``). Rank 0 serves: broker, HTTP, queue and
+A pod (the JAX server's multi-host mode): start one process per rank
+with ``SWARMDB_COORDINATOR`` (rank 0's ``host:port``),
+``SWARMDB_NUM_PROCESSES`` and ``SWARMDB_PROCESS_ID``. Every rank builds
+its share of the single program over the default mesh, every rank on the
+model axis (``parallel.serving.build_serving_engine``; NCCL on the cards,
+rank r on ``cuda:r`` of its host unless ``SERVE_DEVICE`` says otherwise;
+gloo with ``SERVE_DEVICE=cpu``): the dense engine, or with
+``SWARMDB_PAGED=1`` the sharded paged engine, which needs a pure-DP mesh
+and so raises the JAX server's ``ValueError`` on every rank there, as the
+JAX server does (neither server has a knob for the mesh). Rank 0 serves: broker, HTTP, queue and
 tokenizer, publishing every device call; the others run
 ``Engine.worker_loop`` with no broker and no HTTP. The ``SERVE_*`` knobs
 must be equal on every rank. ``API_MAX_REQUESTS`` is ignored on the
@@ -44,10 +47,6 @@ High availability, two modes as in the JAX server:
   ``BROKER_LOG_DIR`` (``ha_broker_log``) shape it.
 - ``SWARMDB_HA_CLUSTER`` alone: a client of an external cluster (the
   runtime binds a ``ClusterBroker``, ``core/runtime.py``).
-
-Not ported yet, and refused with ``NotImplementedError``: a paged pod
-(``SWARMDB_PAGED=1`` with ``SWARMDB_NUM_PROCESSES`` > 1), ROADMAP.md
-queue 1 item 11b.
 """
 
 from __future__ import annotations
@@ -62,17 +61,6 @@ from ..core.messages import BrokerConfig
 from ..core.runtime import SwarmDB
 from ..utils.device import DeviceLike
 from .app import ApiConfig, create_app
-
-
-def refuse_unported() -> None:
-    """Raise for the deployment modes of the JAX server that the port
-    does not have yet: a paged pod (its mirrored page calls)."""
-    pod = (os.environ.get("SWARMDB_COORDINATOR")
-           or int(os.environ.get("SWARMDB_NUM_PROCESSES", "1")) > 1)
-    if pod and os.environ.get("SWARMDB_PAGED", "0") == "1":
-        raise NotImplementedError(
-            "a paged pod (SWARMDB_PAGED=1 over several processes) is not "
-            "ported yet (ROADMAP.md, queue 1 item 11b)")
 
 
 def serve_device(rank: int = 0) -> DeviceLike:
@@ -167,8 +155,9 @@ def _serve_knobs() -> dict:
 
 
 def _build_pod_engine(model_name: str, device: DeviceLike = None):
-    """This rank's dense engine over the model axis, built alike on every
-    rank so that the state starts identical."""
+    """This rank's share of the single program (``SWARMDB_PAGED`` picks
+    the engine), built alike on every rank so that the state starts
+    identical."""
     from ..backend.tokenizer import default_tokenizer
     from ..parallel.serving import build_serving_engine
 
@@ -240,7 +229,6 @@ def main() -> None:
     from ..utils.logsink import configure_logging
 
     configure_logging()
-    refuse_unported()
     from ..parallel.distributed import init_distributed, is_coordinator
 
     rank = int(os.environ.get("SWARMDB_PROCESS_ID", "0"))

@@ -24,6 +24,10 @@ fed tokens, and every row's position advanced by K.
   buffers through pinned memory (``copy_(..., non_blocking=True)``), and
   the block comes back through an async copy into a pinned ring slot and
   an event, which ``ChunkOut.host`` waits on.
+- On a data axis (``parallel/serving.py``) a rank's chunk covers only its
+  own slots; the runner's ``gather`` then joins every rank's block into
+  the [K+1, B] block of all slots, after the chunk and outside any graph,
+  before the block leaves for the host.
 - The graphs read the engine's own tensors in place (the pool or dense
   cache, the page table, the chunk K/V buffer, the fed-token vectors), so
   whatever rebuilds one of them must drop the runner (``Engine``'s
@@ -216,12 +220,13 @@ class _RingSlot:
     pinned memory on the card, the event that follows the block's copy
     and, for a timed launch, the timing event before its inputs."""
 
-    def __init__(self, io: ChunkIO, cuda: bool) -> None:
-        host = lambda t: torch.empty(t.shape, dtype=t.dtype, device="cpu",
-                                     pin_memory=cuda)
+    def __init__(self, io: ChunkIO, cuda: bool, width: int) -> None:
+        host = lambda t, shape=None: torch.empty(
+            shape or t.shape, dtype=t.dtype, device="cpu", pin_memory=cuda)
         self.inputs = tuple(host(t) for t in io.inputs())
-        self.block = host(io.block)
-        self.block_lps = host(io.block_lps)
+        shape = (io.block.shape[0], width)
+        self.block = host(io.block, shape)
+        self.block_lps = host(io.block_lps, shape)
         self.event = torch.cuda.Event(enable_timing=True) if cuda else None
         self.start = torch.cuda.Event(enable_timing=True) if cuda else None
         self.timed = False
@@ -241,13 +246,24 @@ class ChunkRunner:
     engine and its runner then form no reference cycle, so a dropped
     engine frees its graphs at once, never from a garbage collection
     that another engine's capture happens to trigger (destroying a graph
-    inside a capture invalidates the capture)."""
+    inside a capture invalidates the capture).
+
+    ``gather`` (a data axis): (block, block_lps) of this rank's slots ->
+    the same of every slot, [K+1, ``width``], called after each chunk."""
 
     def __init__(self, body: Callable[[int], None], io: ChunkIO,
                  ring: int,
                  stream: Optional[torch.cuda.Stream] = None,
-                 graphs: bool = True) -> None:
+                 graphs: bool = True,
+                 gather: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                           Tuple[torch.Tensor,
+                                                 torch.Tensor]]] = None,
+                 width: Optional[int] = None) -> None:
         self._body = weakref.WeakMethod(body)
+        self._gather = gather
+        #: host seconds spent in ``gather`` calls, and their number
+        self.gather_s = 0.0
+        self.gathers = 0
         self.io = io
         self.device = io.tokens.device
         self.cuda = self.device.type == "cuda"
@@ -268,7 +284,9 @@ class ChunkRunner:
         self._stream = stream
         if self.cuda and stream is None:
             raise ValueError("a runner on the card needs its owner's stream")
-        self._ring = [_RingSlot(io, self.cuda) for _ in range(max(2, ring))]
+        width = width or io.block.shape[1]
+        self._ring = [_RingSlot(io, self.cuda, width)
+                      for _ in range(max(2, ring))]
         self._next = 0
 
     def capture(self, variant: int) -> None:
@@ -358,8 +376,14 @@ class ChunkRunner:
             if timed and not self.cuda:
                 slot.timed_ns = time.monotonic_ns() - t0
         self.chunks += 1
-        slot.block.copy_(self.io.block, non_blocking=self.cuda)
-        slot.block_lps.copy_(self.io.block_lps, non_blocking=self.cuda)
+        block, block_lps = self.io.block, self.io.block_lps
+        if self._gather is not None:
+            t_g = time.perf_counter()
+            block, block_lps = self._gather(block, block_lps)
+            self.gather_s += time.perf_counter() - t_g
+            self.gathers += 1
+        slot.block.copy_(block, non_blocking=self.cuda)
+        slot.block_lps.copy_(block_lps, non_blocking=self.cuda)
         if slot.event is not None:
             slot.event.record()
         return ChunkOut(slot)
@@ -374,4 +398,6 @@ class ChunkRunner:
                                         sorted(self.graph_launches.items())},
                 "pool_bytes": self.pool_bytes,
                 "capture_s": round(self.capture_s, 4),
-                "chunks": self.chunks}
+                "chunks": self.chunks,
+                "gathers": self.gathers,
+                "gather_s": round(self.gather_s, 4)}

@@ -116,13 +116,29 @@ an event on this stream has passed. The worker thread sets the device as
 its current CUDA device.
 
 Pod mode (``parallel/multihost.py``, the JAX engine's multi-host mode):
-a tensor-parallel pod's rank 0 engine (``enable_multihost``) publishes
-each device call -- the bucketed prefill and the decode chunk -- before
-issuing it, and beats while idle; every other rank's engine replays them
-(``worker_loop``). Its chunks run as graph replays when the process
-group's collectives can be captured (NCCL) and eagerly otherwise
-(``decode_graphs=False``, gloo). A failed step stops the pod; restart,
-rolling keep and resume are refused there.
+rank 0's engine (``enable_multihost``) publishes each device call before
+issuing it -- the dense bucketed prefill and the decode chunk, and the
+paged engine's mirrored calls (``_mirrored``: page-table rows, bucketed,
+packed and prefix prefill waves) -- and beats while idle; every other
+rank's engine replays them (``worker_loop``). Its chunks run as graph
+replays unless the model axis's collectives cannot be captured (gloo:
+``decode_graphs=False``). A failed step stops the pod; restart, rolling
+keep and resume are refused there.
+
+A data axis (``data_axis``, ``parallel/serving.py``): the host schedules
+all ``max_batch`` slots on every rank, but a rank's device state holds
+only its own block of them (slots ``[d * B/dp, (d + 1) * B/dp)``: the
+fed tokens, the chunk buffer, the dense slot cache, or on a sharded pool
+its own sub-pool and its rows of the page table, localized). A chunk's
+inputs are cut to the rank's block; after it, the ranks gather their
+blocks over the axis (``ChunkRunner``'s ``gather``, outside any graph),
+so every rank reads all B slots' tokens. A prefill wave is published
+whole and each rank runs its own rows: the dense engine's rows of its
+slots, a sharded pool's packed block (``_pack_wave``), or a prefix
+wave's rows of its shard. On a sharded pool admission interleaves the
+shards and honours a request's shard hint (``_free_slot_ids``), and the
+resident loop, row buckets, ragged prefill and rolling are off, as in
+the JAX engine.
 
 Lane hooks (``parallel/lanes.py``, ``parallel/fleet.py``), inert on a
 lone engine: ``GenRequest.shard_hint`` routes a request to a lane;
@@ -144,6 +160,7 @@ import os
 import threading
 import time
 import uuid
+import zlib
 from dataclasses import dataclass, field
 from typing import (Any, Callable, ContextManager, Dict, List, Optional,
                     Tuple)
@@ -334,6 +351,7 @@ class Engine:
         pipeline_depth: int = 2,
         model_config: Any = None,
         decode_graphs: bool = True,
+        data_axis: Any = None,
     ) -> None:
         """``paged`` selects the paged pool (``prefix_cache`` then turns
         its prefix cache on); None the dense slot cache, which needs
@@ -381,7 +399,13 @@ class Engine:
         CUDA graph (the default), or run it eagerly -- a tensor-parallel
         engine whose collectives cannot be captured (gloo) says False
         (``parallel/serving.py`` decides from the process group's
-        backend)."""
+        backend).
+
+        ``data_axis`` (a ``parallel.collectives.Axis`` of more than one
+        rank): this rank's device state covers its own block of the slots
+        (module docstring); a paged engine then takes a pool sharded over
+        the axis (``ShardedPageAllocator``, ``paged.init_pool`` building
+        the rank's sub-pool and table rows)."""
         self.device = resolve_device(device)
         # the engine's stream on the card (module docstring); it first
         # waits for what the building thread enqueued (the weights)
@@ -390,8 +414,26 @@ class Engine:
             self.stream = torch.cuda.Stream(self.device)
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with self._on_stream():
+            # the data axis: this rank's slots [_lo, _lo + _rows)
+            self._data_axis = (data_axis if data_axis is not None
+                               and data_axis.size > 1 else None)
+            dp = self._data_axis.size if self._data_axis else 1
+            if max_batch % dp:
+                raise ValueError(f"max_batch {max_batch} must divide the "
+                                 f"data axis {dp} (slot->shard affinity)")
+            self._rows = max_batch // dp
+            self._lo = self._data_axis.index * self._rows if dp > 1 else 0
+            n_shards = (getattr(paged.allocator, "n_shards", 1)
+                        if paged is not None else 1)
+            if paged is not None and n_shards != dp:
+                raise ValueError(f"a paged engine over a data axis of {dp} "
+                                 f"needs a pool of {dp} shards, not "
+                                 f"{n_shards}")
+            self._sharded = n_shards > 1
+            self._admit_rr = 0   # rotates the shards' admission interleave
             self._ragged = (paged is not None
                             and paged.prefill_ragged is not None
+                            and not self._sharded
                             and os.environ.get("SWARMDB_RAGGED_PREFILL",
                                                "auto") != "0")
             if not self._ragged and None in (forward_fn, init_cache_fn):
@@ -420,7 +462,8 @@ class Engine:
             # rows of a bucketed wave: prefill_batch, or a power-of-two ladder
             # for small paged waves (the JAX package's row-bucketed default)
             self._row_buckets = [self.prefill_batch]
-            if paged is not None and self.prefill_batch <= 4:
+            if (paged is not None and not self._sharded
+                    and self.prefill_batch <= 4):
                 self._row_buckets = [1]
                 while self._row_buckets[-1] < self.prefill_batch:
                     self._row_buckets.append(min(self.prefill_batch,
@@ -435,7 +478,7 @@ class Engine:
                 # accountant's warm-tier re-admission
                 memprof().set_page_bytes(pool_page_bytes(self.cache["k"])
                                          + pool_page_bytes(self.cache["v"]))
-            self._chunk_kv = (chunked_fns[1](max_batch, self.decode_chunk)
+            self._chunk_kv = (chunked_fns[1](self._rows, self.decode_chunk)
                               if chunked_fns is not None else None)
             self.pipeline_depth = max(1, int(pipeline_depth))
             self._graphs = bool(decode_graphs)
@@ -446,8 +489,9 @@ class Engine:
             self._mh = None
             self._pod_failed: Optional[str] = None
             self.block_log: Optional[List[np.ndarray]] = None
-            self._resident = (paged is not None and os.environ.get(
-                "SWARMDB_EMIT_RING", "1") != "0")
+            self._resident = (paged is not None and not self._sharded
+                              and os.environ.get("SWARMDB_EMIT_RING",
+                                                 "1") != "0")
             self._aging_s = _env_float("SWARMDB_AGING_S", 5.0)
 
             # random keys: [B, 2] uint32 words per slot, host-side; a request
@@ -459,17 +503,19 @@ class Engine:
             self._topp = np.ones(max_batch, np.float32)
             self.slots = [_Slot() for _ in range(max_batch)]
             # device-resident fed tokens (+ their raw logprobs): slot i's next
-            # input token lives here between chunks. Entry max_batch is a
+            # input token lives here between chunks (a data axis: this
+            # rank's slots only, at i - _lo). The entry past them is a
             # write sink for prefill rows whose sample is discarded, so the
             # scatter needs no mask (and no host sync)
-            self._last_tokens = torch.zeros(max_batch + 1, dtype=torch.int32,
+            self._last_tokens = torch.zeros(self._rows + 1,
+                                            dtype=torch.int32,
                                             device=self.device)
-            self._last_lps = torch.zeros(max_batch + 1, dtype=torch.float32,
+            self._last_lps = torch.zeros(self._rows + 1, dtype=torch.float32,
                                          device=self.device)
             # the decode chunks' static buffers and their runner (the card's
             # graphs); the monotonic stamp of the last processed chunk
-            self._io = ChunkIO.new(self._last_tokens[:max_batch],
-                                   self._last_lps[:max_batch],
+            self._io = ChunkIO.new(self._last_tokens[:self._rows],
+                                   self._last_lps[:self._rows],
                                    self.decode_chunk)
             self._runner = self._new_runner()
             self._last_chunk_ns = 0
@@ -755,29 +801,30 @@ class Engine:
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------- pod mode
-    # A tensor-parallel pod (parallel/multihost.py): rank 0's engine owns
-    # the queue, the scheduler and the tokenizer and publishes each device
+    # A pod (parallel/multihost.py): rank 0's engine owns the queue, the
+    # scheduler, the allocator and the tokenizer and publishes each device
     # call before issuing it; every other rank's engine replays them in
-    # worker_loop. The dense engine's device calls are the bucketed
-    # prefill (OP_PREFILL) and the decode chunk (OP_DECODE: K single steps,
-    # or the chunk forward and its merge); its slot state is reset only by
-    # a restart, which a pod refuses, so no other call is mirrored.
+    # worker_loop. The decode chunk (OP_DECODE: K single steps, or the
+    # chunk forward and its merge) and the dense bucketed prefill
+    # (OP_PREFILL) have records of their own; the paged engine's device
+    # calls go through _mirrored (OP_CALL). Slot state is reset only by a
+    # restart, which a pod refuses, so no other call is mirrored.
 
     def enable_multihost(self) -> None:
         """Publish every device call to the pod's workers (coordinator
-        side; ``parallel.distributed.init_distributed`` first). The dense
-        engine only: the paged one's mirrored calls are item 11b, and a
-        prefix cache's prefill is not mirrored (the pod engine is built
-        without one, as in the JAX package)."""
+        side; ``parallel.distributed.init_distributed`` first). A dense
+        engine's prefix lane and a paged engine's ragged waves are not
+        mirrored: a pod engine has neither (``parallel.serving.
+        build_serving_engine`` builds it so)."""
         from ..parallel.multihost import ControlPlane, pod_axis
 
-        if self.paged is not None:
-            raise NotImplementedError(
-                "a paged engine in a pod (its mirrored page calls) is not "
-                "ported yet (ROADMAP.md, queue 1 item 11b)")
-        if self._prefix is not None:
-            raise ValueError("a pod engine has no prefix cache (build it "
-                             "with parallel.serving.build_serving_engine)")
+        if self.paged is None and self._prefix is not None:
+            raise ValueError("a dense pod engine has no prefix cache (build "
+                             "it with parallel.serving.build_serving_engine)")
+        if self._ragged:
+            raise ValueError("a paged pod engine prefills in bucketed and "
+                             "prefix waves: its ragged waves are not "
+                             "mirrored (SWARMDB_RAGGED_PREFILL=0)")
         self._mh = ControlPlane(self.max_batch, pod_axis(self.device))
 
     def worker_loop(self) -> None:
@@ -806,12 +853,115 @@ class Engine:
                 if op == mh.OP_BEAT:
                     continue
                 if op == mh.OP_DECODE:
-                    out = self._runner.launch(args[0], args[1:])
+                    out = self._launch(args[0], args[1:])
                     block, _lps = out.host()
                     if self.block_log is not None:
                         self.block_log.append(block)
+                elif op == mh.OP_CALL:
+                    self._replay_call(args[0], args[1:])
                 else:   # OP_PREFILL (receive raises on any other op)
                     self._prefill_dense(*args)
+
+    # The paged engine's mirrored device calls, with the JAX engine's ids.
+    # Each handler takes host arrays alone (global slot and page ids) and
+    # the rank's device state, never the coordinator's allocator or prefix
+    # table, so a worker replaying it reproduces its rank's share of the
+    # coordinator's state. Ids 2 (a rolling resume), 4 (the dense prefix
+    # lane) and 6 (a ragged wave) have no handler: no pod engine makes
+    # them.
+    CALL_PAGED_PREFILL = 0
+    CALL_PAGED_PREFIX_PREFILL = 1
+    CALL_SET_PT_ROWS = 3
+    CALL_PAGED_PREFILL_PACKED = 5
+    _UNMIRRORED = {
+        2: "the rolling resume prefill (rolling is off in a pod)",
+        4: "the dense prefix prefill (a pod engine has no dense prefix "
+           "lane)",
+        6: "the ragged prefill (off in a pod and on a sharded pool)",
+    }
+
+    # swarmlint: borrows[page]: args
+    # swarmlint: hot
+    def _mirrored(self, call_id: int, *args) -> None:
+        """Publish (pod mode) then run one mirrored device call. Publish
+        first, as the decode and the dense prefill do: if the local call
+        raises, the pod is already failing through the loop's pod-fatal
+        stop."""
+        if self._mh is not None:
+            self._mh.publish_call(call_id, args)
+        self._MH_CALLS[call_id](self, *args)
+
+    def _replay_call(self, call_id: int, args: List[np.ndarray]) -> None:
+        """A worker's side of ``_mirrored``."""
+        fn = self._MH_CALLS.get(call_id)
+        if fn is None:
+            why = self._UNMIRRORED.get(call_id, "an unknown call")
+            raise ValueError(f"mirrored call {call_id}, {why}, cannot "
+                             "arise on a pod engine")
+        fn(self, *args)
+
+    # swarmlint: hot
+    def _call_paged_prefill(self, tokens, lengths, target, scatter, keys,
+                            temp, topk, topp) -> None:
+        """A bucketed paged wave: the forward into a temp cache, its whole
+        pages into ``target`` (a row's page per chunk, trash 0 past its
+        pages), the first samples into the fed tokens."""
+        last, kv = self._prefill_forward(tokens, lengths)
+        self._insert_target(kv, target)
+        self._sample_into_slots(last, (keys, temp, topk, topp),
+                                self._tensor(lengths - 1), scatter)
+
+    # swarmlint: hot
+    def _call_paged_prefill_packed(self, tokens, lengths, target, scatter,
+                                   keys, temp, topk, topp) -> None:
+        """A packed wave over a sharded pool (``_pack_wave``): this rank
+        runs its own block of rows as a bucketed wave on its sub-pool."""
+        per = tokens.shape[0] // self._data_axis.size
+        mine = slice(self._data_axis.index * per,
+                     (self._data_axis.index + 1) * per)
+        self._call_paged_prefill(*(a[mine] for a in (
+            tokens, lengths, target, scatter, keys, temp, topk, topp)))
+
+    # swarmlint: hot
+    def _call_paged_prefix_prefill(self, tokens, lengths, plens, table,
+                                   target, scatter, keys, temp, topk,
+                                   topp) -> None:
+        """The paged prefix wave: the suffix forward reads the hit pages
+        (``table``) in place, its whole pages go into ``target``, the
+        first samples into the fed tokens. On a sharded pool a rank runs
+        the rows of its own slots (their hits are its shard's pages)."""
+        if self._sharded:
+            rows = self._own_rows(scatter)
+            if not rows.size:
+                return
+            tokens, lengths, plens, table, target, scatter, keys, temp, \
+                topk, topp = (a[rows] for a in (
+                    tokens, lengths, plens, table, target, scatter, keys,
+                    temp, topk, topp))
+        lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
+        logits, sk, sv = self._prefix_pages_fwd(
+            self.params, self._tensor(tokens),
+            self._tensor(self._localize(table)), plens_t, self.cache["k"],
+            self.cache["v"], logits_at=lengths_t - 1)
+        self._insert_target((sk, sv), target)
+        self._sample_into_slots(logits, (keys, temp, topk, topp),
+                                plens_t + lengths_t - 1, scatter)
+
+    # swarmlint: hot
+    def _call_set_pt_rows(self, rows, vals) -> None:
+        """Page-table rows by slot (admission assigns, retirement zeroes):
+        a sharded rank writes its own slots' rows, localized."""
+        own = self._own_rows(rows)
+        set_page_table_rows(self.cache["page_table"],
+                            self._local_slots(np.asarray(rows)[own]),
+                            self._localize(np.asarray(vals)[own]))
+
+    _MH_CALLS = {
+        CALL_PAGED_PREFILL: _call_paged_prefill,
+        CALL_PAGED_PREFIX_PREFILL: _call_paged_prefix_prefill,
+        CALL_SET_PT_ROWS: _call_set_pt_rows,
+        CALL_PAGED_PREFILL_PACKED: _call_paged_prefill_packed,
+    }
 
     def _pod_fatal(self, exc: BaseException) -> None:
         """A failed step in pod mode stops the pod: the workers may have
@@ -904,6 +1054,13 @@ class Engine:
                 plan.append((prof_key("prefill.dense", (Bp, bucket)),
                              fwd(rows=Bp, tokens=bucket, head_rows=Bp),
                              dict(meta)))
+            elif self._sharded:
+                # the rows one rank runs of a packed wave
+                per = self._packed_rows()
+                plan.append((prof_key("prefill.packed",
+                                      (per * self._data_axis.size, bucket)),
+                             fwd(rows=per, tokens=bucket, head_rows=per),
+                             dict(meta)))
             elif not self._ragged:
                 for rb in self._row_buckets:
                     plan.append((prof_key("prefill.paged", (rb, bucket)),
@@ -990,14 +1147,62 @@ class Engine:
     def _new_cache(self):
         if self.paged is not None:
             return self.paged.init_pool()
-        return self._init_cache_fn(self.max_batch, self.max_seq)
+        return self._init_cache_fn(self._rows, self.max_seq)
 
     def _new_runner(self) -> ChunkRunner:
         """The decode chunks' runner over the engine's current tensors
-        (its graphs are captured at first use)."""
+        (its graphs are captured at first use); on a data axis it gathers
+        every rank's block after each chunk."""
         return ChunkRunner(self._chunk_body, self._io,
                            ring=self.pipeline_depth, stream=self.stream,
-                           graphs=self._graphs)
+                           graphs=self._graphs,
+                           gather=(self._gather_block if self._data_axis
+                                   else None), width=self.max_batch)
+
+    def _gather_block(self, block: torch.Tensor, lps: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every data rank's [K+1, B/dp] block as the [K+1, B] block of all
+        slots, in slot order: one all-gather of the tokens (their int32
+        bits carried as float32) stacked with the logprobs."""
+        both = torch.stack((block.view(torch.float32), lps))
+        full = self._data_axis.gather_last(both)
+        return full[0].contiguous().view(torch.int32), full[1]
+
+    # ----------------------------------------------- the rank's own slots
+
+    def _local_slots(self, slots: np.ndarray) -> np.ndarray:
+        """Global slot ids as indices into this rank's device state; slots
+        of other ranks and the discard sentinel (``max_batch``) map to
+        the sink past them."""
+        local = np.asarray(slots, np.int64) - self._lo
+        return np.where((local >= 0) & (local < self._rows), local,
+                        self._rows)
+
+    def _own_rows(self, slots: np.ndarray) -> np.ndarray:
+        """Indices of the wave rows whose slot is this rank's."""
+        local = np.asarray(slots, np.int64) - self._lo
+        return np.nonzero((local >= 0) & (local < self._rows))[0]
+
+    def _localize(self, table: np.ndarray) -> np.ndarray:
+        """Global page ids as this rank's sub-pool ids, the JAX package's
+        ``clip(table - d * Pl, 0, Pl - 1)``: its own ids to [1, Pl),
+        trash and zeroed entries to its trash page 0. Identity on one
+        pool."""
+        table = np.asarray(table, np.int32)
+        if not self._sharded:
+            return table
+        pl = self.paged.allocator.pages_per_shard
+        return np.clip(table - self._data_axis.index * pl, 0, pl - 1)
+
+    def _own_pages(self, pages: List[int]) -> List[int]:
+        """This rank's sub-pool ids of the pages of its shard in
+        ``pages`` (all of them on one pool)."""
+        if not self._sharded:
+            return list(pages)
+        alloc = self.paged.allocator
+        mine = [p for p in pages
+                if alloc.shard_of_page(p) == self._data_axis.index]
+        return self._localize(np.asarray(mine, np.int32)).tolist()
 
     def _chunk_body(self, variant: int) -> None:
         """The decode chunk over the engine's state: what every graph
@@ -1058,11 +1263,12 @@ class Engine:
     def supports_rolling(self) -> bool:
         """A paged engine with the pages forward (its prefix cache on),
         or a dense one with its prefix side pool; never a pod's
-        coordinator (it refuses keep and resume)."""
+        coordinator (it refuses keep and resume) nor a sharded pool (a
+        kept conversation's pages would pin it to one shard)."""
         if self._mh is not None:
             return False
         if self.paged is not None:
-            return self._prefix_pages_fwd is not None
+            return self._prefix_pages_fwd is not None and not self._sharded
         return self._prefix is not None
 
     def rolling_page_size(self) -> int:
@@ -1365,6 +1571,14 @@ class Engine:
             ps = self._prefix.stats()
             rec["prefix_hit_tokens"] = ps["hit_tokens"]
             rec["prefix_miss_tokens"] = ps["miss_tokens"]
+        if self._sharded:
+            # per-shard occupancy: one starved or crowded shard shows here
+            shard_of = self.paged.allocator.shard_of
+            by_shard: Dict[int, int] = {}
+            for i, s in enumerate(self.slots):
+                if s.active:
+                    by_shard[shard_of(i)] = by_shard.get(shard_of(i), 0) + 1
+            rec["active_by_shard"] = by_shard
         self.flight.record_step(rec)
 
     # ------------------------------------------------- supervision signals
@@ -1539,9 +1753,10 @@ class Engine:
                 for sid in pending:
                     freed_pages.extend(alloc.pages_for(sid))
             try:
-                set_page_table_rows(self.cache["page_table"], pending,
-                                    np.zeros((len(pending), alloc.maxp),
-                                             np.int32))
+                self._mirrored(self.CALL_SET_PT_ROWS,
+                               np.asarray(pending, np.int32),
+                               np.zeros((len(pending), alloc.maxp),
+                                        np.int32))
             except Exception:
                 alloc.requeue_pending(pending)
                 raise
@@ -1566,7 +1781,7 @@ class Engine:
             stale: List[GenRequest] = []
             pressure_need = 0
             with self._cv:
-                free = [i for i, s in enumerate(self.slots) if not s.active]
+                free = self._free_slot_ids()
                 take = min(len(free), len(self._queue), self.prefill_batch)
                 if take == 0:
                     return
@@ -1580,7 +1795,7 @@ class Engine:
                         heapq.heappop(self._queue)
                         stale.append(req)
                         continue
-                    slot_id = free[0]
+                    slot_id, hinted = self._slot_for(req, free)
                     hits: List[int] = []
                     chains: Optional[List[bytes]] = None
                     if req.resume_pages is not None:
@@ -1605,20 +1820,38 @@ class Engine:
                         # prefix cache both ways: a hit would reference
                         # cache pages retirement cannot hand over, and
                         # registration would take the slot's own pages
-                        if (self._prefix is not None
-                                and len(req.prompt) >= self._prefix_ps
-                                and not req.keep_pages):
-                            hits, chains = self._prefix_plan(req.prompt,
-                                                             pin=True)
-                        row = self._paged_allocate(slot_id, hits,
-                                                   max(0, need - len(hits)))
-                        if row is None:
+                        for attempt in range(2):
+                            hits, chains = [], None
+                            if (self._prefix is not None
+                                    and len(req.prompt) >= self._prefix_ps
+                                    and not req.keep_pages):
+                                hits, chains = self._prefix_plan(req.prompt,
+                                                                 pin=True)
+                                # a sharded pool: a slot references only
+                                # its own shard's pages
+                                keep = alloc.usable_prefix(slot_id, hits)
+                                if keep < len(hits):
+                                    self._prefix.unpin(hits[keep:])
+                                    hits = hits[:keep]
+                            row = self._paged_allocate(
+                                slot_id, hits, max(0, need - len(hits)))
+                            if row is not None:
+                                break
                             if hits:
                                 self._prefix.unpin(hits)
+                            # a shard hint is advisory: a shard that cannot
+                            # cover the request must not block the queue,
+                            # so retry once on the free slot of the most
+                            # free pages (the JAX engine's fallback)
+                            others = [i for i in free if i != slot_id]
+                            if attempt or not hinted or not others:
+                                break
+                            slot_id = max(others, key=alloc.free_count)
+                        if row is None:
                             pressure_need = max(0, need - len(hits))
                             break  # pool exhausted; retry after retirements
                     heapq.heappop(self._queue)
-                    free.pop(0)
+                    free.remove(slot_id)
                     self._admitting.add(req.request_id)
                     popped.append(req)
                     rows.append((slot_id, row))
@@ -1648,9 +1881,9 @@ class Engine:
                 # between free and re-allocation
                 for (sid, _row), req in zip(rows, popped):
                     self._pagecheck_admit(sid, req)
-            set_page_table_rows(self.cache["page_table"],
-                                [r[0] for r in rows],
-                                np.stack([r[1] for r in rows]))
+            self._mirrored(self.CALL_SET_PT_ROWS,
+                           np.asarray([r[0] for r in rows], np.int32),
+                           np.stack([r[1] for r in rows]))
             for req in popped:
                 if req.promote_payload is not None:
                     self._promote_insert(req)
@@ -1682,6 +1915,54 @@ class Engine:
                             self._prefix.unpin(pins)
                         _call(req.on_done, req.request_id, [],
                               "engine_error")
+                    if self._mh is not None:
+                        # pod mode: the workers may have applied a call
+                        # this rank did not finish -- the loop's pod-fatal
+                        # stop, as on the dense path
+                        raise
+
+    # swarmlint: hot
+    def _free_slot_ids(self) -> List[int]:
+        """The free slots in admission order: id order on one pool; on a
+        sharded pool interleaved across the shards, rotated by an
+        admission counter, so that light or serial traffic spreads over
+        the sub-pools instead of piling onto shard 0's."""
+        free = [i for i, s in enumerate(self.slots) if not s.active]
+        if not free or not self._sharded:
+            return free
+        alloc = self.paged.allocator
+        by_shard: Dict[int, List[int]] = {}
+        for i in free:
+            by_shard.setdefault(alloc.shard_of(i), []).append(i)
+        lanes = list(by_shard.values())
+        rot = self._admit_rr % len(lanes)
+        self._admit_rr += 1
+        lanes = lanes[rot:] + lanes[:rot]
+        return [lane[k] for k in range(max(map(len, lanes)))
+                for lane in lanes if k < len(lane)]
+
+    def _slot_for(self, req: GenRequest, free: List[int]
+                  ) -> Tuple[int, bool]:
+        """(the free slot a request takes, whether a hint chose its
+        shard): on a sharded pool a slot of the shard its hint names
+        (``shard_hint``, or for a prompt the prefix cache may match, a
+        stable hash of its first page, so identical prefixes meet on one
+        shard), when that shard has one free; else the first free
+        slot."""
+        if not self._sharded:
+            return free[0], False
+        hint = req.shard_hint
+        if (hint is None and self._prefix is not None
+                and len(req.prompt) >= self._prefix_ps
+                and not req.keep_pages):
+            hint = zlib.crc32(np.asarray(req.prompt[:self._prefix_ps],
+                                         np.int32).tobytes())
+        if hint is None:
+            return free[0], False
+        alloc = self.paged.allocator
+        want = hint % alloc.n_shards
+        return next((sid for sid in free if alloc.shard_of(sid) == want),
+                    free[0]), True
 
     def _paged_groups(self, batch: List[Tuple]) -> List[Tuple[Any, List]]:
         """A paged round's prefill waves, as the JAX engine's ``_admit``
@@ -1753,9 +2034,12 @@ class Engine:
         short. None if still uncoverable."""
         alloc = self.paged.allocator
         if self._prefix is not None:
-            shortfall = n_fresh - alloc.free_count()
+            # a sharded pool: only the slot's shard's free pages count, and
+            # only its cached pages are worth evicting
+            shortfall = n_fresh - alloc.free_count(slot_id)
             if shortfall > 0:
-                evicted = self._prefix.evict_lru(shortfall)
+                evicted = self._prefix.evict_lru(
+                    shortfall, want=alloc.evictable(slot_id))
                 if evicted:
                     alloc.add_free(evicted)
         return alloc.allocate_with_prefix(slot_id, hits, n_fresh)
@@ -1795,13 +2079,14 @@ class Engine:
         ``fold_pos`` (the absolute position of its last prompt token, so a
         cached prefix samples as a full prefill would), then scatter token
         and logprob into the fed-token vectors at ``scatter``
-        (``max_batch`` = the sink: rows that do not sample, padding)."""
+        (``max_batch`` = the sink: rows that do not sample, padding; on a
+        data axis, rows of other ranks' slots too)."""
         keys, temp, topk, topp = sampling
         nxt = sample_tokens(logits, self._tensor(keys), fold_pos,
                             self._tensor(temp), self._tensor(topk),
                             self._tensor(topp))
         lp = token_logprob(logits, nxt)
-        scatter_t = self._tensor(scatter.astype(np.int64))
+        scatter_t = self._tensor(self._local_slots(scatter))
         self._last_tokens.index_copy_(0, scatter_t, nxt)
         self._last_lps.index_copy_(0, scatter_t, lp)
 
@@ -1945,24 +2230,63 @@ class Engine:
             gather[row] = scatter[row] = slot_id
             self._set_slot_sampling(slot_id, req.sampling)
         mark = self._wave_begin()
+        sampling = self._rows_sampling(gather)
+        real = lengths[:n].copy()
+        family = "prefill.dense"
         if self.paged is None:
-            sampling = self._rows_sampling(gather)
             if self._mh is not None:
                 self._mh.publish_prefill(padded, lengths, scatter, *sampling)
             self._prefill_dense(padded, lengths, scatter, *sampling)
         else:
-            last, temp = self._prefill_forward(padded, lengths)
             alloc = self.paged.allocator
-            self._insert_pages(temp, [alloc.pages_for(it[0]) for it in batch],
-                               Bp)
-            self._sample_into_slots(last, self._rows_sampling(gather),
-                                    self._tensor(lengths - 1), scatter)
-        self._count_wave(lengths[:n], padded.size)
-        packed = int(lengths[:n].sum())
-        self._wave_end(mark, prof_key("prefill.dense" if self.paged is None
-                                      else "prefill.paged", padded.shape),
-                       "bucketed", bucket, packed, int(padded.size) - packed)
+            target = self._page_targets(
+                [alloc.pages_for(it[0]) for it in batch], Bp, bucket)
+            call, family = self.CALL_PAGED_PREFILL, "prefill.paged"
+            if self._sharded:
+                padded, lengths, target, scatter, sampling = \
+                    self._pack_wave(padded, lengths, target, scatter,
+                                    sampling)
+                call, family = (self.CALL_PAGED_PREFILL_PACKED,
+                                "prefill.packed")
+            self._mirrored(call, padded, lengths, target, scatter,
+                           *sampling)
+        self._count_wave(real, padded.size)
+        packed = int(real.sum())
+        self._wave_end(mark, prof_key(family, padded.shape), "bucketed",
+                       bucket, packed, int(padded.size) - packed)
         self._activate([(it[0], it[1]) for it in batch], t0)
+
+    def _packed_rows(self) -> int:
+        """Rows of one shard's block of a packed wave: the most distinct
+        slots of one shard a wave can hold."""
+        return max(1, min(self.prefill_batch, self._rows))
+
+    def _pack_wave(self, padded: np.ndarray, lengths: np.ndarray,
+                   target: np.ndarray, scatter: np.ndarray,
+                   sampling: Tuple[np.ndarray, ...]) -> Tuple[Any, ...]:
+        """A bucketed wave over a sharded pool laid out as per-shard row
+        blocks (the JAX engine's packed wave): block d holds shard d's
+        rows, so each rank runs its own block on its own sub-pool. A
+        block has min(prefill_batch, B/dp) rows, the most one wave can
+        give a shard; padding rows (length 1, trash pages, the discard
+        slot) fill the rest."""
+        n_sh, per = self.paged.allocator.n_shards, self._packed_rows()
+        R, bucket = n_sh * per, padded.shape[1]
+        p_tokens = np.full((R, bucket), self.pad_id, np.int32)
+        p_lengths = np.ones(R, np.int32)
+        p_target = np.zeros((R, target.shape[1]), np.int32)
+        p_scatter = np.full(R, self.max_batch, np.int64)
+        p_sampling = [np.repeat(a[:1], R, axis=0) for a in sampling]
+        fill = [0] * n_sh
+        for row in np.nonzero(scatter < self.max_batch)[0]:
+            sh = self.paged.allocator.shard_of(int(scatter[row]))
+            r = sh * per + fill[sh]
+            fill[sh] += 1
+            p_tokens[r], p_lengths[r] = padded[row], lengths[row]
+            p_target[r], p_scatter[r] = target[row], scatter[row]
+            for dst, src in zip(p_sampling, sampling):
+                dst[r] = src[row]
+        return p_tokens, p_lengths, p_target, p_scatter, tuple(p_sampling)
 
     def _prefill_forward(self, padded: np.ndarray, lengths: np.ndarray
                          ) -> Tuple[torch.Tensor, Any]:
@@ -1986,30 +2310,48 @@ class Engine:
         each real row's K/V into ``cache[:, slot, :bucket]`` (the rows
         whose ``scatter`` names a slot come first), and the first samples
         with the rows' own keys and params into the fed-token vector."""
+        if self._data_axis is not None:
+            # this rank's slots' rows only (ranks of one model group run
+            # the same ones, so their collectives meet)
+            rows = self._own_rows(scatter)
+            if not rows.size:
+                return
+            padded, lengths, scatter, keys, temp, topk, topp = (
+                a[rows] for a in (padded, lengths, scatter, keys, temp,
+                                  topk, topp))
         bucket = padded.shape[1]
         last, fresh_kv = self._prefill_forward(padded, lengths)
-        live = scatter[scatter < self.max_batch]
+        local = self._local_slots(scatter)
+        live = local[local < self._rows]
         slots = self._tensor(live)
         for full, fresh in zip(self.cache, fresh_kv):
             full[:, slots, :bucket] = fresh[:, :len(live)]
         self._sample_into_slots(last, (keys, temp, topk, topp),
                                 self._tensor(lengths - 1), scatter)
 
-    def _insert_pages(self, kv: Tuple[torch.Tensor, torch.Tensor],
-                      pages: List[List[int]], Bp: int) -> None:
-        """Whole-page insert of a bucketed wave's K/V ``kv`` (each [L, Bp,
-        T, Hkv, D]) into the pool: row r's chunk c (positions c * ps ..)
-        goes to ``pages[r][c]``; chunks past a row's pages, and rows past
-        ``len(pages)``, go to trash page 0. T is padded up to whole pages
-        (the pad is prompt padding, never read)."""
-        ps = self.paged.page_size
-        T = kv[0].shape[2]
-        chunks = -(-T // ps)
-        target = np.zeros((Bp, chunks), np.int32)
+    def _page_targets(self, pages: List[List[int]], rows: int,
+                      width: int) -> np.ndarray:
+        """A wave's page targets [rows, chunks] for K/V ``width`` tokens
+        wide: row r's chunk c (positions c * ps ..) goes to
+        ``pages[r][c]``; chunks past a row's pages, and rows past
+        ``len(pages)``, to trash page 0."""
+        chunks = -(-width // self.paged.page_size)
+        target = np.zeros((rows, chunks), np.int32)
         for r, row_pages in enumerate(pages):
             m = min(len(row_pages), chunks)
             target[r, :m] = row_pages[:m]
-        flat = self._tensor(target.reshape(-1))
+        return target
+
+    def _insert_target(self, kv: Tuple[torch.Tensor, torch.Tensor],
+                       target: np.ndarray) -> None:
+        """Whole-page insert of a wave's K/V ``kv`` (each [L, rows, T,
+        Hkv, D]) into the pages ``target`` names (``_page_targets``,
+        localized to this rank's sub-pool). T is padded up to whole pages
+        (the pad is prompt padding, never read)."""
+        ps = self.paged.page_size
+        T = kv[0].shape[2]
+        Bp, chunks = target.shape
+        flat = self._tensor(self._localize(target).reshape(-1))
         for pool, fresh in zip((self.cache["k"], self.cache["v"]), kv):
             if chunks * ps != T:
                 fresh = torch.nn.functional.pad(
@@ -2045,16 +2387,12 @@ class Engine:
             table[r, :len(hits)] = hits
             gather[r] = scatter[r] = slot_id
             self._set_slot_sampling(slot_id, req.sampling)
-        mark = self._wave_begin()
-        lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
-        logits, sk, sv = self._prefix_pages_fwd(
-            self.params, self._tensor(padded), self._tensor(table), plens_t,
-            self.cache["k"], self.cache["v"], logits_at=lengths_t - 1)
         alloc = self.paged.allocator
-        self._insert_pages((sk, sv), [alloc.pages_for(it[0]) for it in batch],
-                           Bp)
-        self._sample_into_slots(logits, self._rows_sampling(gather),
-                                plens_t + lengths_t - 1, scatter)
+        target = self._page_targets([alloc.pages_for(it[0]) for it in batch],
+                                    Bp, bucket)
+        mark = self._wave_begin()
+        self._mirrored(self.CALL_PAGED_PREFIX_PREFILL, padded, lengths, plens,
+                       table, target, scatter, *self._rows_sampling(gather))
         self._count_wave(lengths[:n], padded.size)
         packed = int(lengths[:n].sum())
         self._wave_end(mark, prof_key("prefill.paged_prefix", padded.shape,
@@ -2520,9 +2858,19 @@ class Engine:
         inputs = self._chunk_inputs(positions)
         if self._mh is not None:
             self._mh.publish_decode(variant, *inputs)
-        out = self._runner.launch(variant, inputs, timed=key is not None)
+        out = self._launch(variant, inputs, timed=key is not None)
         self.metrics.counters["engine_decode_chunks"].inc()
         return out, snapshot, t_ns, key
+
+    # swarmlint: hot
+    def _launch(self, variant: int,
+                inputs: Optional[Tuple[np.ndarray, ...]],
+                timed: bool = False) -> ChunkOut:
+        """One chunk on the runner, the host's [B] inputs cut to this
+        rank's slots on a data axis (the block comes back whole)."""
+        if inputs is not None and self._data_axis is not None:
+            inputs = tuple(a[self._lo:self._lo + self._rows] for a in inputs)
+        return self._runner.launch(variant, inputs, timed=timed)
 
     # swarmlint: hot
     def _process_block(self, out: ChunkOut,
@@ -2546,8 +2894,10 @@ class Engine:
     def _pagecheck_poison(self, pages: List[int]) -> None:
         """Stamp freed pages' K/V with the canary, in place on the
         engine's stream: after every gather already enqueued there that
-        reads them (a tier demotion, the fleet's stage-1 gather)."""
-        canary_fill(self.cache["k"], self.cache["v"], pages)
+        reads them (a tier demotion, the fleet's stage-1 gather). On a
+        sharded pool the coordinator stamps and checks the pages of its
+        own sub-pool (the others are its workers')."""
+        canary_fill(self.cache["k"], self.cache["v"], self._own_pages(pages))
         self._pagecheck.mark_poisoned(pages)
 
     def _pagecheck_admit(self, slot_id: int, req: GenRequest) -> None:
@@ -2560,7 +2910,12 @@ class Engine:
         poisoned = pc.poisoned_pages(self.paged.allocator.pages_for(slot_id))
         if not poisoned:
             return
-        bad = canary_check(self.cache["k"], self.cache["v"], poisoned)
+        local = self._own_pages(poisoned)
+        bad = canary_check(self.cache["k"], self.cache["v"], local)
+        if bad and self._sharded:
+            # the sub-pool ids back to the global ids the reports name
+            pl = self.paged.allocator.pages_per_shard
+            bad = [p + self._data_axis.index * pl for p in bad]
         if bad:
             pc.canary_violation(bad,
                                 detail=f"at admission of {req.request_id}")
@@ -2705,8 +3060,7 @@ class Engine:
         try:
             while n < max_chunks and cont and not done.all():
                 t_launch = time.monotonic_ns()
-                out = self._runner.launch(variant, inputs,
-                                          timed=key is not None)
+                out = self._launch(variant, inputs, timed=key is not None)
                 block, lps = self._host_wait(out.host)
                 if key is not None:
                     self._prof.dispatch(key, t_launch, out.device_ns())

@@ -158,11 +158,19 @@ def param_plan(cfg: ModelConfig, model_axis: str = "model") -> Params:
     return plan
 
 
-def cache_plan(model_axis: str = "model") -> Tuple[Any, Any]:
+def cache_plan(model_axis: str = "model",
+               data_axis: Optional[str] = None) -> Tuple[Any, Any]:
     """The dense slot cache's plan (and the chunk buffer's: both are
-    [L, B, S, Hkv, D]): K and V split their KV heads over ``model_axis``
-    (the JAX package's ``cache_specs``; its data axis is item 11b)."""
-    return (3, model_axis), (3, model_axis)
+    [L, B, S, Hkv, D]): K and V split their KV heads over ``model_axis``,
+    and with ``data_axis`` their slots over it too, each leaf then
+    ``((1, data_axis), (3, model_axis))``: the JAX package's
+    ``cache_specs``. A data rank's engine builds its block of slots
+    itself (``Engine(data_axis=)``); a paged pool splits its pages the
+    same way (``ops.paged_kv.ShardedPageAllocator``)."""
+    leaf = (3, model_axis)
+    if data_axis is not None:
+        leaf = ((1, data_axis), leaf)
+    return leaf, leaf
 
 
 def random_weight(gen: torch.Generator, shape: Tuple[int, ...],

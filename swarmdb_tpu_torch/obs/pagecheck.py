@@ -23,12 +23,14 @@ a thin checked subclass that keeps **shadow state per page**:
   (``ops.paged_kv.canary_fill`` / ``canary_check``), catching writes-
   after-free that no host-side bookkeeping can see.
 
-The port's :class:`~swarmdb_tpu_torch.ops.paged_kv.PageAllocator` has no
-``_take(slot, n)`` / ``_give`` choke points: its custody moves inside
-``allocate_with_prefix``, ``add_free``, ``reserve``, ``release_taken``,
-``transfer_to_cache`` and ``reset``, so the checked subclass mirrors
-those methods. The same sequence of calls gives the same violations as
-the JAX package's ``CheckedPageAllocator`` (tests/test_torch_pagecheck.py).
+The checked allocators mirror the custody moves of
+:class:`~swarmdb_tpu_torch.ops.paged_kv.PageAllocator` at its public
+methods (``allocate_with_prefix``, ``add_free``, ``reserve``,
+``release_taken``, ``transfer_to_cache`` and ``reset``);
+``CheckedShardedPageAllocator`` does the same over the slot-affine pool
+of a data axis, with every shard's trash page registered as trash. The
+same sequence of calls gives the same violations as the JAX package's
+checked allocators (tests/test_torch_pagecheck.py).
 
 Violations are recorded once, written to attached flight recorders as
 ``pagecheck.violation`` instants, dumped immediately to
@@ -59,7 +61,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 logger = logging.getLogger("swarmdb_tpu_torch.obs")
 
 __all__ = ["enabled", "registry", "PageCheckRegistry", "PoolHandle",
-           "CheckedPageAllocator", "CheckedPrefixLRU"]
+           "CheckedPageAllocator", "CheckedPrefixLRU",
+           "CheckedShardedPageAllocator"]
 
 
 def enabled() -> bool:
@@ -678,10 +681,8 @@ class PoolHandle:
 
 # ------------------------------------------------------ checked classes
 
-def _checked_allocator() -> type:
-    from ..ops.paged_kv import PageAllocator
-
-    class CheckedPageAllocator(PageAllocator):
+def _checked_allocator(base: type) -> type:
+    class CheckedPageAllocator(base):  # type: ignore[misc, valid-type]
         """Checked page allocator: every custody transition of the base
         class is mirrored into the registry, in the order the JAX
         package's ``_take`` / ``_give`` / ``_check_prefix`` hooks see
@@ -691,8 +692,11 @@ def _checked_allocator() -> type:
                      **kwargs: Any) -> None:
             self.pagecheck: Optional[PoolHandle] = None
             super().__init__(*args, **kwargs)
+            # page 0, or every shard's first page on a sharded pool
+            trash = [k * self.num_pages // self.n_shards
+                     for k in range(self.n_shards)]
             self.pagecheck = registry().register_pool(
-                self.num_pages, [0], label=label)
+                self.num_pages, trash, label=label)
 
         # ``allocate`` goes through here in the port
         # swarmlint: borrows[page]: prefix_pages
@@ -801,8 +805,11 @@ def _checked_prefix_lru() -> type:
 
 
 def __getattr__(name: str) -> Any:  # lazy class construction
-    if name == "CheckedPageAllocator":
-        cls = _checked_allocator()
+    if name in ("CheckedPageAllocator", "CheckedShardedPageAllocator"):
+        from ..ops import paged_kv
+
+        cls = _checked_allocator(getattr(paged_kv, name[len("Checked"):]))
+        cls.__name__ = cls.__qualname__ = name
     elif name == "CheckedPrefixLRU":
         cls = _checked_prefix_lru()
     else:

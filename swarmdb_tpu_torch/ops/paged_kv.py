@@ -165,6 +165,22 @@ def make_page_allocator(num_pages: int, page_size: int, max_seq: int,
     return PageAllocator(num_pages, page_size, max_seq, batch)
 
 
+def make_sharded_page_allocator(pages_per_shard: int, n_shards: int,
+                                page_size: int, max_seq: int, batch: int,
+                                label: Optional[str] = None) -> Any:
+    """The slot-affine allocator of a pool sharded over a data axis:
+    :class:`ShardedPageAllocator`, or under ``SWARMDB_PAGECHECK=1`` its
+    checked subclass (every shard's trash page registered as trash)."""
+    if pagecheck_enabled():
+        from ..obs import pagecheck
+
+        return pagecheck.CheckedShardedPageAllocator(
+            pages_per_shard, n_shards, page_size, max_seq, batch,
+            label=label)
+    return ShardedPageAllocator(pages_per_shard, n_shards, page_size,
+                                max_seq, batch)
+
+
 #: canary stamped into freed pages' K/V under the page sanitizer: exactly
 #: representable in bf16 and f32, far outside any K/V value
 CANARY_VALUE = -16384.0
@@ -584,6 +600,9 @@ class PageAllocator:
     external probes safe. Page 0 (trash) is never handed out.
     """
 
+    #: data shards of the pool (``ShardedPageAllocator``: more than one)
+    n_shards = 1
+
     def __init__(self, num_pages: int, page_size: int, max_seq: int,
                  batch: int) -> None:
         if num_pages < 2:
@@ -601,7 +620,7 @@ class PageAllocator:
         # bumped by every reset(): page ids held outside the allocator are
         # only valid within the generation they were handed out in
         self.generation = 0
-        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._rebuild_free()
         # the memory accountant's residency ledger: page alloc / free
         # stamps written inside this allocator's critical sections (the
         # shared null pool under SWARMDB_MEMPROF=0)
@@ -622,11 +641,41 @@ class PageAllocator:
         with self._lock:
             return len(self._free) >= n
 
+    # -- free-list geometry (the pieces the sharded subclass swaps) ---------
+
     # swarmlint: holds[self._lock]
-    def _take(self, n: int) -> Optional[List[int]]:
+    def _rebuild_free(self) -> None:
+        self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
+
+    # swarmlint: holds[self._lock]
+    def _take(self, slot_id: int, n: int) -> Optional[List[int]]:
+        """Pop ``n`` pages ``slot_id`` may use; None if uncoverable."""
         if len(self._free) < n:
             return None
         return [self._free.pop() for _ in range(n)]
+
+    # swarmlint: holds[self._lock]
+    def _give(self, page_ids: List[int]) -> None:
+        self._free.extend(page_ids)
+
+    def _check_prefix(self, slot_id: int, prefix_pages: List[int]) -> None:
+        """Referenced (not owned) pages must be addressable by the slot:
+        no constraint on one pool."""
+
+    # -- data-axis hooks (trivial on one pool) -------------------------------
+
+    def shard_of(self, slot_id: int) -> int:
+        return 0
+
+    def usable_prefix(self, slot_id: int, hits: List[int]) -> int:
+        """How many of ``hits`` (a prefix chain, in order) the slot may
+        reference: all of them on one pool."""
+        return len(hits)
+
+    def evictable(self, slot_id: int) -> Optional[Callable[[int], bool]]:
+        """Which cached pages an eviction on behalf of ``slot_id`` should
+        take (None: any)."""
+        return None
 
     def allocate(self, slot_id: int, n: int) -> Optional[np.ndarray]:
         """Take n pages for a slot; None if the pool can't cover it.
@@ -642,7 +691,8 @@ class PageAllocator:
         with self._lock:
             if slot_id in self._by_slot:
                 raise RuntimeError(f"slot {slot_id} already holds pages")
-            fresh = self._take(n_fresh)
+            self._check_prefix(slot_id, prefix_pages)
+            fresh = self._take(slot_id, n_fresh)
             if fresh is None:
                 return None
             self.pages_allocated_total += len(fresh)
@@ -666,7 +716,7 @@ class PageAllocator:
         """Return cache-evicted pages to the pool."""
         with self._lock:
             self.pages_freed_total += len(page_ids)
-            self._free.extend(page_ids)
+            self._give(page_ids)
             self.mem.page_free(page_ids)
 
     def reserve(self, n: int) -> List[int]:
@@ -714,7 +764,7 @@ class PageAllocator:
                 sp = self._by_slot.pop(slot_id, None)
                 if sp is not None:
                     self.pages_freed_total += len(sp.pages)
-                    self._free.extend(reversed(sp.pages))
+                    self._give(list(reversed(sp.pages)))
                     self.mem.page_free(sp.pages)
 
     def requeue_pending(self, pending: List[int]) -> None:
@@ -737,7 +787,124 @@ class PageAllocator:
     def reset(self) -> None:
         with self._lock:
             self.generation += 1
-            self._free = list(range(self.num_pages - 1, 0, -1))
+            self._rebuild_free()
             self._by_slot.clear()
             self._pending_free.clear()
             self.mem.pool_reset()
+
+
+class ShardedPageAllocator(PageAllocator):
+    """The slot-affine page pool of the paged engine over a data axis
+    (``parallel/serving.py``), the JAX package's allocator of that name.
+
+    Global page ids are striped per data shard: shard ``k`` owns ``[k *
+    Pl, (k + 1) * Pl)`` (``Pl = pages_per_shard``) and slot ``s`` belongs
+    to shard ``s // (batch / n_shards)``, so every page a slot's table row
+    names lives in its shard's sub-pool, which the shard's rank holds.
+    Id ``k * Pl`` is shard k's trash page, never handed out: a rank
+    localizes its rows as ``clip(table - k * Pl, 0, Pl - 1)``, mapping its
+    own ids to ``[1, Pl)`` and trash or zeroed entries to its local trash
+    page 0. A foreign id would localize to a wrong page, so none may enter
+    a row: ``usable_prefix`` trims prefix hits at the first foreign page
+    and ``allocate_with_prefix`` raises on one."""
+
+    def __init__(self, pages_per_shard: int, n_shards: int, page_size: int,
+                 max_seq: int, batch: int) -> None:
+        if n_shards < 1 or batch % n_shards:
+            raise ValueError(
+                f"batch {batch} must divide over n_shards {n_shards}")
+        if pages_per_shard < 2:
+            raise ValueError("need >= 2 pages per shard (one is trash)")
+        # the geometry first: the base's __init__ calls _rebuild_free
+        self.n_shards = n_shards
+        self.pages_per_shard = pages_per_shard
+        self.slots_per_shard = batch // n_shards
+        super().__init__(pages_per_shard * n_shards, page_size, max_seq,
+                         batch)
+
+    # swarmlint: holds[self._lock]
+    def _rebuild_free(self) -> None:
+        pl = self.pages_per_shard
+        self._free_by_shard: List[List[int]] = [
+            list(range((k + 1) * pl - 1, k * pl, -1))
+            for k in range(self.n_shards)]
+
+    # swarmlint: holds[self._lock]
+    def _take(self, slot_id: int, n: int) -> Optional[List[int]]:
+        free = self._free_by_shard[self.shard_of(slot_id)]
+        if len(free) < n:
+            return None
+        return [free.pop() for _ in range(n)]
+
+    # swarmlint: holds[self._lock]
+    def _give(self, page_ids: List[int]) -> None:
+        for p in page_ids:
+            self._free_by_shard[self.shard_of_page(p)].append(p)
+
+    def _check_prefix(self, slot_id: int, prefix_pages: List[int]) -> None:
+        shard = self.shard_of(slot_id)
+        if any(self.shard_of_page(p) != shard for p in prefix_pages):
+            # an engine bug: usable_prefix must have trimmed these
+            raise RuntimeError(
+                f"slot {slot_id} (shard {shard}) referencing foreign-"
+                f"shard prefix pages {prefix_pages}")
+
+    def shard_of(self, slot_id: int) -> int:
+        return min(self.n_shards - 1, slot_id // self.slots_per_shard)
+
+    def shard_of_page(self, page_id: int) -> int:
+        return min(self.n_shards - 1, page_id // self.pages_per_shard)
+
+    def slot_capacity(self) -> int:
+        # a slot draws from its own shard's sub-pool only
+        return self.pages_per_shard - 1
+
+    def evictable(self, slot_id: int) -> Optional[Callable[[int], bool]]:
+        # only same-shard cache pages can cover this slot's shortfall
+        shard = self.shard_of(slot_id)
+        return lambda p: self.shard_of_page(p) == shard
+
+    def usable_prefix(self, slot_id: int, hits: List[int]) -> int:
+        """Trim a prefix match at the first page outside the slot's shard
+        (its rank cannot address it)."""
+        shard = self.shard_of(slot_id)
+        n = 0
+        for p in hits:
+            if self.shard_of_page(p) != shard:
+                break
+            n += 1
+        return n
+
+    def can_allocate(self, n: int) -> bool:
+        with self._lock:
+            return any(len(f) >= n for f in self._free_by_shard)
+
+    def free_count(self, slot_id: Optional[int] = None) -> int:
+        with self._lock:
+            if slot_id is None:
+                return sum(len(f) for f in self._free_by_shard)
+            return len(self._free_by_shard[self.shard_of(slot_id)])
+
+    def reserve(self, n: int) -> List[int]:
+        """As the base's, taking from each shard in turn."""
+        with self._lock:
+            out: List[int] = []
+            while len(out) < n and any(self._free_by_shard):
+                for free in self._free_by_shard:
+                    if free and len(out) < n:
+                        out.append(free.pop())
+            self.mem.page_alloc(out)
+            return out
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "num_pages": self.num_pages,
+                "free_pages": sum(len(f) for f in self._free_by_shard),
+                "free_by_shard": [len(f) for f in self._free_by_shard],
+                "live_slots": len(self._by_slot),
+                "page_size": self.page_size,
+                "n_shards": self.n_shards,
+                "pages_allocated_total": self.pages_allocated_total,
+                "pages_freed_total": self.pages_freed_total,
+            }

@@ -1,11 +1,12 @@
 """Multi-device serving: lane groups and the fleet (data parallelism in
-one process), and the single program over a model axis of
-``torch.distributed`` ranks (tensor parallelism: ``distributed.py``,
-``mesh.py``, ``collectives.py``, ``multihost.py`` and ``serving.py``).
+one process), and the single program over ``torch.distributed`` ranks
+(``distributed.py``, ``mesh.py``, ``collectives.py``, ``multihost.py``
+and ``serving.py``): the dense engine over a data and a model axis, the
+sharded paged engine over a data axis.
 
-The counterpart of ``swarmdb_tpu/parallel``. The sharded paged engine,
-the data and expert axes of the single program and pipeline / sequence
-parallelism are ROADMAP.md queue 1 items 11b and 11c.
+The counterpart of ``swarmdb_tpu/parallel``. The expert axis and
+pipeline / sequence parallelism are ROADMAP.md queue 1 items 11b (its
+expert half) and 11c.
 """
 
 from .distributed import init_distributed, is_coordinator
@@ -13,10 +14,12 @@ from .fleet import FleetManager, build_fleet, parse_fleet_spec, \
     parse_tier_weights
 from .lanes import LaneGroupInfo, ShardLaneGroup, build_lane_group
 from .mesh import Mesh, make_mesh, plan_mesh_shape, shard_params
-from .serving import ShardedModel, build_serving_engine, build_sharded_model
+from .serving import (ShardedModel, build_serving_engine,
+                      build_sharded_model, build_sharded_paged)
 
 __all__ = ["FleetManager", "LaneGroupInfo", "Mesh", "ShardLaneGroup",
            "ShardedModel", "build_fleet", "build_lane_group",
-           "build_serving_engine", "build_sharded_model", "init_distributed",
+           "build_serving_engine", "build_sharded_model",
+           "build_sharded_paged", "init_distributed",
            "is_coordinator", "make_mesh", "parse_fleet_spec",
            "parse_tier_weights", "plan_mesh_shape", "shard_params"]

@@ -26,6 +26,7 @@ that share one card, which NCCL refuses.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import logging
 import os
@@ -87,7 +88,19 @@ def init_distributed(coordinator_address: Optional[str] = None,
         timeout=datetime.timedelta(seconds=pg_timeout_s()), **kwargs)
     logger.info("distributed init: rank %d of %d over %s on %s",
                 process_id, num_processes, backend, dev)
+    # a group still alive at interpreter shutdown is torn down by the
+    # finalizer racing its peers' closing sockets, which can abort the
+    # process (std::terminate) after a clean run: destroy it first
+    atexit.register(_destroy_at_exit)
     return True
+
+
+def _destroy_at_exit() -> None:
+    if dist.is_initialized():
+        try:
+            dist.destroy_process_group()
+        except Exception:
+            logger.exception("process group teardown at exit failed")
 
 
 def is_coordinator() -> bool:

@@ -16,7 +16,7 @@ its device list: rank = ((d * model + m) * expert + e) * pipe + p.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -26,8 +26,9 @@ from .collectives import Axis
 
 MESH_AXES = ("data", "model", "expert", "pipe")
 
-#: One leaf's plan: (dim, axis) it splits on, or None (held whole).
-LeafPlan = Optional[Tuple[int, str]]
+#: One leaf's plan: (dim, axis) it splits on, a tuple of those (one per
+#: split dim), or None (held whole).
+LeafPlan = Optional[Union[Tuple[int, str], Tuple[Tuple[int, str], ...]]]
 
 __all__ = ["MESH_AXES", "Mesh", "make_mesh", "plan_mesh_shape",
            "shard_leaf", "shard_params"]
@@ -167,6 +168,10 @@ def shard_leaf(t: torch.Tensor, plan: LeafPlan, mesh: Mesh) -> torch.Tensor:
     """This rank's slice of ``t`` under ``plan`` (a contiguous copy; ``t``
     itself when the leaf is held whole or its axis has one rank)."""
     if plan is None:
+        return t
+    if isinstance(plan[0], tuple):
+        for one in plan:
+            t = shard_leaf(t, one, mesh)
         return t
     dim, axis = plan
     n = mesh.shape[axis]

@@ -26,6 +26,13 @@ engine's configuration fix the payload's layout:
   lengths int32 [rows], scatter int64 [rows] (the slot each row's first
   token goes to; ``max_batch`` = discard), then the rows' keys, temperature,
   top-k and top-p as for decode;
+- ``OP_CALL`` (a = the engine's call id, b = the argument count): a
+  mirrored device call of the paged engine (``Engine._mirrored``: its
+  page-table rows, its prefill waves), whose argument shapes vary per
+  call. The payload opens with a fixed-width descriptor matrix, int64 [b,
+  2 + ``MAX_NDIM``] of (dtype code, ndim, dims...) per argument, from
+  which the workers read the arrays packed after it (the JAX package's
+  ``publish_call``, whose descriptor matrix is a broadcast of its own);
 - ``OP_STOP``: no payload; the workers leave their loop;
 - ``OP_BEAT``: no payload, nothing to do. A worker waits for the next
   record inside a collective, which fails after the process group's
@@ -59,11 +66,17 @@ OP_STOP = 0
 OP_DECODE = 1
 OP_PREFILL = 2
 OP_BEAT = 3
+OP_CALL = 4
 
 _HEADER_LEN = 4  # [op, a, b, nbytes]
 
-__all__ = ["ControlPlane", "OP_BEAT", "OP_DECODE", "OP_PREFILL", "OP_STOP",
-           "pod_axis"]
+# OP_CALL's argument dtypes, by wire code (the JAX package's four)
+MAX_NDIM = 4
+_DTYPE_BY_CODE = [np.int32, np.int64, np.float32, np.uint32]
+_CODE_BY_DTYPE = {np.dtype(d): i for i, d in enumerate(_DTYPE_BY_CODE)}
+
+__all__ = ["ControlPlane", "MAX_NDIM", "OP_BEAT", "OP_CALL", "OP_DECODE",
+           "OP_PREFILL", "OP_STOP", "pod_axis"]
 
 
 def pod_axis(device: torch.device) -> Axis:
@@ -146,6 +159,23 @@ class ControlPlane:
             temp.astype(np.float32), topk.astype(np.int32),
             topp.astype(np.float32)])
 
+    def publish_call(self, call_id: int, args: Sequence[np.ndarray]) -> None:
+        """One mirrored device call: the workers apply ``call_id`` of
+        their engine's call table to ``args`` (numpy arrays of the wire
+        dtypes, at most ``MAX_NDIM`` dims each)."""
+        arrs = [np.asarray(a) for a in args]
+        desc = np.zeros((len(arrs), 2 + MAX_NDIM), np.int64)
+        for i, a in enumerate(arrs):
+            if a.ndim > MAX_NDIM:
+                raise ValueError(f"mirrored call arg ndim {a.ndim} > "
+                                 f"{MAX_NDIM}")
+            if a.dtype not in _CODE_BY_DTYPE:
+                raise ValueError(f"mirrored call arg dtype {a.dtype} "
+                                 "not wire-encodable")
+            desc[i, :2] = _CODE_BY_DTYPE[a.dtype], a.ndim
+            desc[i, 2:2 + a.ndim] = a.shape
+        self._publish(OP_CALL, call_id, len(arrs), [desc] + arrs)
+
     def publish_stop(self) -> None:
         self._publish(OP_STOP, 0, 0, [])
 
@@ -161,12 +191,15 @@ class ControlPlane:
     def receive(self) -> Tuple[int, Optional[list]]:
         """Blocking receive of one record: (op, arguments). Decode gives
         [variant, positions, keys, temp, topk, topp]; prefill [tokens,
-        lengths, scatter, keys, temp, topk, topp]; stop and beat None."""
+        lengths, scatter, keys, temp, topk, topp]; a call [call id, its
+        arrays...]; stop and beat None."""
         op, a, b, nbytes = (int(x) for x in self._recv((_HEADER_LEN,),
                                                        torch.int64))
         if op in (OP_STOP, OP_BEAT):
             return op, None
-        buf = self._recv((nbytes,), torch.uint8)
+        # a record without payload sends none (an OP_CALL of no arguments)
+        buf = (self._recv((nbytes,), torch.uint8) if nbytes
+               else np.zeros(0, np.uint8))
         B = self.max_batch
         if op == OP_DECODE:
             args = _unpack(buf, [((B,), np.int32)] + _sampling_specs(B))
@@ -177,4 +210,10 @@ class ControlPlane:
                                  ((rows,), np.int32), ((rows,), np.int64)]
                            + _sampling_specs(rows))
             return op, args
+        if op == OP_CALL:
+            desc = buf[:b * (2 + MAX_NDIM) * 8].view(np.int64).reshape(
+                b, 2 + MAX_NDIM)
+            specs = [(tuple(int(x) for x in d[2:2 + int(d[1])]),
+                      _DTYPE_BY_CODE[int(d[0])]) for d in desc]
+            return op, [a, *_unpack(buf[desc.nbytes:], specs)]
         raise ValueError(f"unknown control op {op}")

@@ -6,30 +6,50 @@ The counterpart of ``swarmdb_tpu/parallel/serving.py``. Two shapes:
   one device is a ``ShardLaneGroup``, one paged engine per device
   (``parallel/lanes.py``); one device gets the single engine of
   ``backend.service.build_backend_engine``.
-- The single program over a model axis (tensor parallelism): the JAX
-  package's sharded dense engine, one GSPMD program over a mesh. In the
-  port each rank of a ``torch.distributed`` process group is one process
-  with one device (``parallel/distributed.py``); ``build_sharded_model``
-  gives every rank its share of the weights (``models.llama.param_plan``:
-  each rank draws every tensor whole from the seed and keeps its slice,
-  so the pod computes with the weights one process would draw) and the
-  forwards that meet the other ranks in collectives
-  (``parallel/collectives.py``), and ``build_serving_engine`` wraps them
-  in the dense engine. Rank 0 then serves (``Engine.enable_multihost``)
-  and the other ranks replay its device calls (``Engine.worker_loop``).
-  Whether decode chunks replay as CUDA graphs follows the group's
+- The single program over a ``data`` x ``model`` mesh: the JAX package's
+  sharded engines, one GSPMD program over a mesh. In the port each rank
+  of a ``torch.distributed`` process group is one process with one device
+  (``parallel/distributed.py``); rank 0 serves
+  (``Engine.enable_multihost``: it owns the queue, the scheduler, the
+  allocator and the tokenizer) and the other ranks replay its device
+  calls (``Engine.worker_loop``).
+
+  - The model axis (tensor parallelism): ``build_sharded_model`` gives
+    every rank its share of the weights (``models.llama.param_plan``:
+    each rank draws every tensor whole from the seed and keeps its slice,
+    so the pod computes with the weights one process would draw) and the
+    forwards that meet the other ranks of its model group in collectives
+    (``parallel/collectives.py``).
+  - The data axis: each data group holds the slots ``[d * B/dp, (d + 1) *
+    B/dp)`` of the engine's ``max_batch`` (the engine's ``data_axis``),
+    decodes them with no collective inside the chunk, and gathers every
+    group's sampled block after it.
+  - The dense engine runs over ``data`` x ``model``, as the JAX package's
+    ``build_sharded_model`` does (its slot cache splits slots over data and
+    KV heads over model); as there, it has no prefix cache.
+  - The paged engine (``build_sharded_paged``) needs a pure-DP mesh: its
+    pool's pages and its table's slots split over ``data``
+    (``ops.paged_kv.ShardedPageAllocator``: slot s on shard s // (B/dp),
+    page ids striped per shard), each rank holding its sub-pool and
+    running kernels 2 or 3 on its own slots over its localized table
+    rows. Its plain prefill waves run packed per shard, its prefix waves
+    on global page ids, each rank taking its shard's rows; ragged prefill,
+    the resident loop and rolling are off, as in the JAX package, which
+    also refuses int8 pools and a model, expert or pipe axis there (the
+    port copies both refusals and their words).
+
+  Whether decode chunks replay as CUDA graphs follows the model axis's
   backend: NCCL collectives can be captured, gloo ones cannot (then the
-  chunks run eagerly); the flight recorder's meta names the mesh, the
-  backend and the choice. As in the JAX package, this engine has no
-  prefix cache.
+  chunks run eagerly); a data axis alone puts no collective in the chunk.
+  The flight recorder's meta names the mesh, the backend, the choice and
+  the pool's shards (``paged_shards``).
 
 Not ported yet, and raising ``NotImplementedError`` naming ROADMAP.md
 queue 1 item 11: an ``expert`` or ``pipe`` axis (11c keeps pipeline and
-sequence parallelism), a ``data`` axis above 1 on the single program, the
-paged engine over a model axis or in a pod and ``admit_overlap=False``
-(the sharded paged engine: 11b), a Mixtral over a model axis, and the
-dense engine over several devices of one process (the port runs it as
-one rank per device).
+sequence parallelism), a Mixtral on the single program (11b's expert
+half), and the single program over several devices of one process (a
+data axis there, ``admit_overlap=False``, the dense engine over several
+devices): the port runs it as one rank per device (``init_distributed``).
 """
 
 from __future__ import annotations
@@ -43,13 +63,16 @@ import torch.distributed as dist
 
 from ..models import llama
 from ..models.configs import ModelConfig, get_config
+from ..ops.layers import attention_dispatchers
+from ..ops.paged_kv import (KV_DTYPES, kv_dtype_name,
+                             make_sharded_page_allocator, pages_per_slot)
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
 from .lanes import LaneGroupInfo, build_lane_group
 from .mesh import Mesh, make_mesh, plan_leaf, shard_leaf
 
 __all__ = ["ShardedModel", "build_serving_engine", "build_sharded_model",
-           "param_shardings_for"]
+           "build_sharded_paged", "param_shardings_for"]
 
 
 def _unported(why: str, item: str = "11") -> NotImplementedError:
@@ -76,13 +99,17 @@ class ShardedModel:
     def model_axis(self):
         return self.mesh.axis("model")
 
+    @property
+    def data_size(self) -> int:
+        return self.mesh.shape["data"]
+
 
 def param_shardings_for(cfg: ModelConfig, mesh: Mesh) -> Any:
     """The shard plan of ``cfg``'s parameters over ``mesh`` (Llama's
     ``param_plan`` over the model axis)."""
     if cfg.is_moe:
-        raise _unported(f"{cfg.name!r} (a MoE model) over a model axis",
-                        "11b")
+        raise _unported(f"{cfg.name!r} (a MoE model) on the single program "
+                        "over a model or expert axis", "11b")
     return llama.param_plan(cfg, model_axis="model")
 
 
@@ -90,9 +117,6 @@ def _check_mesh(cfg: ModelConfig, mesh: Mesh) -> None:
     for axis, item in (("expert", "11"), ("pipe", "11c")):
         if mesh.shape[axis] > 1:
             raise _unported(f"a {axis} axis of {mesh.shape[axis]}", item)
-    if mesh.shape["data"] > 1:
-        raise _unported(f"a data axis of {mesh.shape['data']} on the "
-                        "single program", "11b")
     m = mesh.shape["model"]
     for what, n in (("KV heads", cfg.n_kv_heads), ("vocab", cfg.vocab_size),
                     ("FFN width", cfg.ffn_dim)):
@@ -112,7 +136,9 @@ def build_sharded_model(
 ) -> ShardedModel:
     """This rank's share of a model over ``mesh`` (default: every rank of
     the process group on the model axis, this process's card) and its
-    engine-ready functions. Weights are drawn from ``seed`` in ``dtype``,
+    engine-ready functions. The data axis splits no weight: a rank's
+    caches are built for its own slots by the engine
+    (``init_cache_fn(B / dp, max_seq)``). Weights are drawn from ``seed`` in ``dtype``,
     each tensor whole then sliced (``llama.init_params(keep=)``), unless
     ``params`` (already this rank's shares: ``shard_params``,
     ``restore_params(shardings=)`` or ``params_from_numpy(shardings=)``)
@@ -156,6 +182,82 @@ def build_sharded_model(
                         param_shardings=plan, chunked_fns=chunked_fns)
 
 
+def _refuse_sharded_paged(mesh_shape: Dict[str, int],
+                          kv_dtype: Optional[torch.dtype]) -> None:
+    """The JAX package's two refusals of the sharded paged engine, in its
+    order and words: an int8 pool, then any axis but ``data``."""
+    if (kv_dtype or KV_DTYPES[kv_dtype_name()]) == torch.int8:
+        raise NotImplementedError(
+            "SWARMDB_KV_DTYPE=int8 is single-chip only: the sharded paged "
+            "pool's PartitionSpecs do not cover QuantPool scale planes. "
+            "Unset SWARMDB_KV_DTYPE (or use f32/bf16) for sharded serving.")
+    if any(mesh_shape.get(ax, 1) > 1 for ax in ("model", "expert", "pipe")):
+        raise ValueError(
+            "sharded paged serving requires a pure-DP mesh (model/expert/"
+            "pipe axes of size 1); TP/EP shard KV heads across devices, "
+            "which the slot-affine page pool does not support")
+
+
+def build_sharded_paged(sm: ShardedModel, *, max_batch: int, max_seq: int,
+                        page_size: int = 16,
+                        kv_pool_tokens: Optional[int] = None,
+                        prefix: bool = True,
+                        kv_dtype: Optional[torch.dtype] = None):
+    """The paged engine's wiring over ``sm``'s pure-DP mesh: (PagedKV,
+    prefix_fns or None, chunked_fns), the JAX package's function of that
+    name. The pool covers every slot's window plus, with ``prefix``, the
+    prefix cache's budget (``SWARMDB_PREFIX_TOKENS``, default max_batch *
+    max_seq / 2) unless ``kv_pool_tokens`` bounds it, split into ``dp``
+    shards of ``1 + ceil(tokens / (page_size * dp))`` pages (one of them
+    the shard's trash page). ``init_pool`` builds this rank's shard: its
+    sub-pool in ``kv_dtype`` (None resolves ``SWARMDB_KV_DTYPE``) and the
+    table rows of its B/dp slots. The forwards are the single engine's
+    (kernel 2 chunked, kernel 3 single-step), run by each rank on its own
+    slots over its localized table rows."""
+    cfg, mesh = sm.cfg, sm.mesh
+    _refuse_sharded_paged(mesh.shape, kv_dtype)
+    from ..backend.engine import PagedKV
+
+    dp = mesh.shape["data"]
+    if max_batch % dp:
+        raise ValueError(f"max_batch {max_batch} must divide the data "
+                         f"axis {dp} (slot->shard affinity)")
+    if max_seq % page_size:
+        raise ValueError("max_seq must be a page-size multiple")
+    if kv_pool_tokens is None:
+        kv_pool_tokens = max_batch * pages_per_slot(max_seq, page_size) \
+            * page_size
+        if prefix:
+            kv_pool_tokens += int(os.environ.get("SWARMDB_PREFIX_TOKENS",
+                                                 max_batch * max_seq // 2))
+    per_shard = 1 + -(-kv_pool_tokens // (page_size * dp))
+    allocator = make_sharded_page_allocator(per_shard, dp, page_size,
+                                            max_seq, max_batch)
+    dev, rows = mesh.device, max_batch // dp
+    pool_dtype = kv_dtype or KV_DTYPES[kv_dtype_name()]
+    _ragged_attn, decode_attn = attention_dispatchers()
+    spec = PagedKV(
+        init_pool=lambda: llama.init_paged_cache(
+            cfg, rows, max_seq, per_shard, page_size, dtype=pool_dtype,
+            device=dev),
+        page_size=page_size,
+        num_pages=per_shard * dp,
+        allocator=allocator,
+        decode_forward=lambda p, t, pos, c: llama.forward_paged(
+            p, cfg, t, pos, c, attention=decode_attn))
+    chunked_fns = (
+        lambda p, t, pos, c, hkv, s: llama.forward_paged_chunked(
+            p, cfg, t, pos, c, hkv, s),
+        lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev),
+        llama.merge_paged_chunk)
+    prefix_fns = None
+    if prefix:
+        prefix_fns = (lambda p, t, tab, pl, pk, pv, logits_at=None:
+                      llama.forward_prefix_pages(p, cfg, t, tab, pl, pk, pv,
+                                                 logits_at=logits_at), None)
+    return spec, prefix_fns, chunked_fns
+
+
 def build_serving_engine(
     model_name_or_cfg: Any,
     devices: Optional[Sequence[DeviceLike]] = None,
@@ -185,16 +287,23 @@ def build_serving_engine(
     reads ``SWARMDB_PAGED`` and ``admit_overlap=None``
     ``SWARMDB_ADMIT_OVERLAP`` (default on).
 
-    In a process group (``init_distributed``), or with ``model`` above 1,
-    it builds the dense single program over a model axis of ``model``
-    ranks (default: the group's size), one device per rank (``devices``
-    names this rank's one): (Engine, ShardedModel). The coordinator then
-    calls ``engine.enable_multihost()`` and the other ranks
-    ``engine.worker_loop()``. Otherwise a lone engine or a lane group:
-    (engine, LaneGroupInfo). ``expert`` / ``pipe`` above 1,
-    ``admit_overlap=False``, ``data`` above 1 on the single program and a
-    paged one raise naming item 11. ``tokenizer_path`` gives the single
-    program's engine its tokenizer's EOS and pad ids."""
+    In a process group (``init_distributed``) it builds the single
+    program over a mesh of ``data`` x ``model`` ranks (``model`` defaults
+    to the group's size over ``data``), one device per rank (``devices``
+    names this rank's one): (Engine, ShardedModel). Paged, it is the
+    sharded paged engine (``build_sharded_paged``: a pure-DP mesh, the
+    prefix cache on unless ``SWARMDB_PREFIX=0``); else the dense engine,
+    without a prefix cache. Decode is chunked unless ``SWARMDB_CHUNKED=0``.
+    The coordinator then calls ``engine.enable_multihost()`` and the
+    other ranks ``engine.worker_loop()``. Otherwise a lone engine or a
+    lane group: (engine, LaneGroupInfo). A paged engine over a model axis
+    raises the JAX package's pure-DP ``ValueError`` (and an int8 pool its
+    ``NotImplementedError``); ``expert`` / ``pipe`` above 1, and a data or
+    model axis, ``admit_overlap=False`` or the dense engine over several
+    devices of one process, raise naming item 11 (the last three: the port
+    runs the single program as one rank per device, ``init_distributed``).
+    ``tokenizer_path`` gives the single program's engine its tokenizer's
+    EOS and pad ids."""
     if devices is None:
         # a rank of a pod holds the device it bound; else every card
         devices = ([None] if dist.is_initialized() else
@@ -208,32 +317,35 @@ def build_serving_engine(
     for axis, size, item in (("expert", expert, "11"), ("pipe", pipe, "11c")):
         if size > 1:
             raise _unported(f"a {axis} axis of {size}", item)
-    if not admit_overlap:
-        raise _unported("the sharded paged engine (admit_overlap=False, "
-                        "SWARMDB_ADMIT_OVERLAP=0)", "11b")
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
            else get_config(model_name_or_cfg))
-    if dist.is_initialized() or (model or 1) > 1:
-        if paged:
-            raise _unported("the paged engine over a model axis or in a "
-                            "pod", "11b")
-        if data > 1:
-            raise _unported(f"a data axis of {data} on the single program",
-                            "11b")
+    if paged and (model or 1) > 1:
+        _refuse_sharded_paged({"model": model}, kv_dtype)
+    one_rank = ("the port runs the single program as one rank per device: "
+                "init_distributed")
+    if dist.is_initialized() or (model or 1) > 1 or data > 1:
         if len(devs) != 1:
             raise ValueError("a rank of the single program holds one "
                              f"device, not {len(devs)}")
         if not dist.is_initialized():
+            if data > 1:
+                raise _unported(f"a data axis of {data} over the devices of "
+                                f"one process ({one_rank})")
             raise ValueError(f"a model axis of {model} needs {model} ranks: "
                              "call parallel.distributed.init_distributed "
                              "in each first")
-        return _single_program(cfg, devs[0], model=model,
-                               max_batch=max_batch or 8, max_seq=max_seq,
-                               seed=seed, metrics=metrics,
-                               decode_chunk=decode_chunk,
+        return _single_program(cfg, devs[0], data=data, model=model,
+                               paged=paged, max_batch=max_batch or 8 * data,
+                               max_seq=max_seq, seed=seed, page_size=page_size,
+                               kv_pool_tokens=kv_pool_tokens,
+                               metrics=metrics, decode_chunk=decode_chunk,
                                prefill_batch=prefill_batch,
                                flight_dir=flight_dir, kv_dtype=kv_dtype,
                                params=params, tokenizer_path=tokenizer_path)
+    if not admit_overlap:
+        raise _unported("the single program (admit_overlap=False, "
+                        "SWARMDB_ADMIT_OVERLAP=0) over the devices of one "
+                        f"process ({one_rank})")
     n = len(devs)
     if max_batch is None:
         max_batch = 8 * n
@@ -249,8 +361,7 @@ def build_serving_engine(
         return engine, LaneGroupInfo(cfg=cfg, devices=devs, data_size=1)
     if not paged:
         raise _unported("the dense engine over several devices of one "
-                        "process (the port runs the single program as one "
-                        "rank per device: init_distributed)")
+                        f"process ({one_rank})")
     group = build_lane_group(
         cfg, devs, max_batch=max_batch, max_seq=max_seq, seed=seed,
         page_size=page_size, kv_pool_tokens=kv_pool_tokens, metrics=metrics,
@@ -259,40 +370,59 @@ def build_serving_engine(
     return group, group.info
 
 
-def _single_program(cfg: ModelConfig, device: torch.device, *,
-                    model: Optional[int], max_batch: int, max_seq: int,
-                    seed: int, metrics, decode_chunk: int,
-                    prefill_batch: Optional[int], flight_dir: Optional[str],
+def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
+                    model: Optional[int], paged: bool, max_batch: int,
+                    max_seq: int, seed: int, page_size: int,
+                    kv_pool_tokens: Optional[int], metrics,
+                    decode_chunk: int, prefill_batch: Optional[int],
+                    flight_dir: Optional[str],
                     kv_dtype: Optional[torch.dtype],
                     params: Optional[Dict[str, Any]],
                     tokenizer_path: Optional[str]):
-    """The dense engine over this rank's share of the model axis."""
+    """This rank's engine: the dense one over its share of ``data`` x
+    ``model``, or the paged one over its shard of a pure-DP pool."""
     from ..backend.engine import Engine
     from ..backend.service import _pipeline_depth
     from ..backend.tokenizer import default_tokenizer
 
-    mesh = make_mesh(data=1, model=model or dist.get_world_size(),
-                     expert=1, device=device)
+    world = dist.get_world_size()
+    if world % data:
+        raise ValueError(f"a data axis of {data} does not divide {world} "
+                         "ranks")
+    mesh = make_mesh(data=data, model=model or world // data, expert=1,
+                     device=device)
+    if paged:
+        _refuse_sharded_paged(mesh.shape, kv_dtype)
     sm = build_sharded_model(cfg, mesh, seed=seed, params=params,
                              kv_dtype=kv_dtype)
     tp = sm.model_axis
     tok = default_tokenizer(cfg.vocab_size, tokenizer_path)
     chunked = os.environ.get("SWARMDB_CHUNKED", "1") != "0"
+    kw: Dict[str, Any] = {"chunked_fns": sm.chunked_fns if chunked else None}
+    if paged:
+        prefix = (os.environ.get("SWARMDB_PREFIX", "1") != "0"
+                  and max_seq % page_size == 0)
+        spec, prefix_fns, paged_chunked = build_sharded_paged(
+            sm, max_batch=max_batch, max_seq=max_seq, page_size=page_size,
+            kv_pool_tokens=kv_pool_tokens, prefix=prefix, kv_dtype=kv_dtype)
+        kw = dict(paged=spec, prefix_fns=prefix_fns,
+                  prefix_cache=prefix_fns is not None,
+                  chunked_fns=paged_chunked if chunked else None)
     engine = Engine(
         sm.params, forward_fn=sm.forward_fn, init_cache_fn=sm.init_cache_fn,
-        chunked_fns=sm.chunked_fns if chunked else None,
         max_batch=max_batch, max_seq=max_seq, eos_id=tok.eos_id,
         pad_id=tok.pad_id, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch,
         device=mesh.device, flight_dir=flight_dir,
         pipeline_depth=_pipeline_depth(), model_config=cfg,
-        decode_graphs=tp.capturable)
+        decode_graphs=tp.capturable, data_axis=mesh.axis("data"), **kw)
     # flight-recorder identity: what the ranks are and how chunks run
     engine.flight.meta.update({
         "mesh": dict(mesh.shape),
         "rank": dist.get_rank(),
-        "backend": tp.backend,
+        "backend": dist.get_backend(),
         "graphs": bool(engine._runner.use_graphs),
+        "paged_shards": (engine.paged.allocator.n_shards if paged else 1),
         "max_batch": max_batch,
         "max_seq": max_seq,
     })

@@ -187,6 +187,17 @@ def test_serving_a_request_loads_no_jax():
         " SamplingParams(max_new_tokens=3))\n"
         "eng.stop()\n"
         "assert why in ('length', 'eos') and sm.mesh.shape['model'] == 1\n"
+        # the paged engine of the same one-rank pod: its page calls go
+        # over the control plane's mirrored-call record
+        "eng, sm = build_serving_engine('tiny-debug', ['cpu'], max_seq=64,"
+        " paged=True, page_size=16)\n"
+        "eng.enable_multihost()\n"
+        "eng.start()\n"
+        "toks, why = eng.generate_sync(list(range(3, 40)),"
+        " SamplingParams(max_new_tokens=3))\n"
+        "eng.stop()\n"
+        "assert why in ('length', 'eos')\n"
+        "assert eng.flight.meta['paged_shards'] == 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'swarmdb_tpu')]\n"
         "assert not bad, bad\n"
@@ -237,8 +248,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 def test_unported_paths_say_so(monkeypatch, tmp_path):
+    from swarmdb_tpu_torch.api import server
     from swarmdb_tpu_torch.api.app import create_app
-    from swarmdb_tpu_torch.api.server import refuse_unported
     from swarmdb_tpu_torch.backend.service import build_backend_engine
     from swarmdb_tpu_torch.core.messages import BrokerConfig
     from swarmdb_tpu_torch.core.runtime import SwarmDB
@@ -252,47 +263,55 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
         assert eng.params["layers"]["router"].device.type == "cpu"
         assert (eng.paged is None) == (paged is None)
         assert paged is None or eng.paged.prefill_ragged is None
-    # lanes are ported (item 9) and the dense single program over a model
-    # axis (item 11a: tests/test_torch_tp.py, test_torch_multihost.py);
-    # the sharded paged engine (admit_overlap=False, the paged engine over
-    # a model axis), an expert or pipeline axis and the dense engine over
-    # several devices of one process still raise naming item 11
-    for kwargs in ({"admit_overlap": False}, {"model": 2}, {"expert": 2},
-                   {"pipe": 2}, {"paged": False}):
+    # lanes are ported (item 9), the single program over a model axis
+    # (item 11a: tests/test_torch_tp.py, test_torch_multihost.py) and over
+    # a data axis (11b's data half: tests/test_torch_dp.py,
+    # test_torch_sharded_paged.py). An expert or pipeline axis, and the
+    # single program over several devices of one process (the sharded
+    # engine's admit_overlap=False, a data axis, the dense engine over
+    # several devices) still raise naming item 11, the last ones saying
+    # how to run one rank per device
+    for kwargs in ({"admit_overlap": False}, {"expert": 2}, {"pipe": 2},
+                   {"paged": False}):
         with pytest.raises(NotImplementedError, match="item 11"):
             build_serving_engine("tiny-debug", ["cpu", "cpu"], max_seq=64,
                                  **{"paged": True, **kwargs})
+    for kwargs in ({"data": 2}, {"data": 2, "paged": True}):
+        with pytest.raises(NotImplementedError,
+                           match="init_distributed.*item 11"):
+            build_serving_engine("tiny-debug", ["cpu"], max_seq=64, **kwargs)
     with monkeypatch.context() as m:
         m.setenv("SWARMDB_ADMIT_OVERLAP", "0")
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError,
+                           match="init_distributed.*item 11"):
             build_serving_engine("tiny-debug", ["cpu"], max_seq=64)
+    # the paged engine over a model axis is the JAX package's refusal
+    with pytest.raises(ValueError, match="pure-DP mesh"):
+        build_serving_engine("tiny-debug", ["cpu", "cpu"], max_seq=64,
+                             paged=True, model=2)
     # a model axis without a process group says how to get one
     with pytest.raises(ValueError, match="init_distributed"):
         build_serving_engine("tiny-debug", ["cpu"], max_seq=64, model=2,
                              paged=False)
-    # a data axis above 1 on the single program, and the engine's own pod
-    # mode over a paged engine, are item 11b
+    # a data axis builds (its caches follow the engine's slots); a MoE
+    # model on the single program is item 11b's expert half
     from swarmdb_tpu_torch.parallel.mesh import make_mesh
     from swarmdb_tpu_torch.parallel.serving import build_sharded_model
 
     mesh = make_mesh(device="cpu")
     mesh.shape = dict(mesh.shape, data=2)
+    assert build_sharded_model("tiny-debug", mesh).data_size == 2
     with pytest.raises(NotImplementedError, match="item 11b"):
-        build_sharded_model("tiny-debug", mesh)
+        build_sharded_model("tiny-moe", mesh)
+    # a paged engine's pod mode is ported; its ragged waves are not
+    # mirrored, so an engine built to prefill with them says so
     paged_eng, _ = build_backend_engine("tiny-debug", max_seq=64, paged=True,
                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(ValueError, match="ragged waves are not mirrored"):
         paged_eng.enable_multihost()
-    # a pod of the dense engine is ported; a paged pod is item 11b
-    for env in (("SWARMDB_NUM_PROCESSES", "2"),
-                ("SWARMDB_COORDINATOR", "h:1")):
-        with monkeypatch.context() as m:
-            m.setenv(*env)
-            refuse_unported()
-            m.setenv("SWARMDB_PAGED", "1")
-            with pytest.raises(NotImplementedError, match="item 11b"):
-                refuse_unported()
-    refuse_unported()   # a single node: nothing to refuse
+    # the server refuses no pod (a paged one raises the pure-DP error on
+    # its default mesh: tests/test_torch_sharded_paged.py)
+    assert not hasattr(server, "refuse_unported")
     # item 12 is ported: each of its modes builds
     _item_12_modes_build(monkeypatch, tmp_path, create_app, BrokerConfig,
                          SwarmDB)
@@ -320,7 +339,6 @@ def _item_12_modes_build(monkeypatch, tmp_path, create_app, BrokerConfig,
                          ("SWARMDB_HA_DATA", "127.0.0.1:0"),
                          ("BROKER_LOG_DIR", str(tmp_path / "halog"))):
             m.setenv(key, val)
-        server.refuse_unported()
         node = server.build_ha_node()
         try:
             assert node.partition_leadership       # cluster mode's default
@@ -340,7 +358,6 @@ def _item_12_modes_build(monkeypatch, tmp_path, create_app, BrokerConfig,
     with monkeypatch.context() as m:
         m.setenv("BROKER_IMPL", "native")
         m.setenv("SAVE_DIR", str(tmp_path / "native"))
-        server.refuse_unported()
         db = server.build_db()
         assert isinstance(db.broker, NativeBroker)
         db.close()

@@ -43,7 +43,8 @@ from swarmdb_tpu.models import llama as jl
 from swarmdb_tpu.models.configs import get_config
 from swarmdb_tpu_torch.backend import service as tsvc
 from swarmdb_tpu_torch.backend.sampling import SamplingParams as TSP
-from swarmdb_tpu_torch.parallel.multihost import (OP_BEAT, OP_DECODE,
+from swarmdb_tpu_torch.parallel.multihost import (MAX_NDIM, OP_BEAT,
+                                                  OP_CALL, OP_DECODE,
                                                   OP_PREFILL, OP_STOP,
                                                   ControlPlane)
 from swarmdb_tpu_torch.utils.convert import params_from_numpy
@@ -207,6 +208,45 @@ def test_control_plane_wire_format():
     assert plane.receive() == (OP_STOP, None)
     with pytest.raises(ValueError, match="unknown control op 9"):
         plane.receive()
+
+
+def test_mirrored_call_wire_format():
+    """OP_CALL: arguments of varying shapes, dtypes and ranks (an empty
+    one included) come back exactly from the descriptor matrix and the
+    packed payload; a call of no arguments sends no payload; an argument
+    the wire cannot carry raises at publish (one process: a loopback)."""
+    plane = ControlPlane(3, axis=None)
+    records = []
+    plane._send = lambda arr: records.append(np.array(arr, copy=True))
+    rng = np.random.default_rng(1)
+    calls = [
+        (3, [np.asarray([0, 2], np.int32),
+             rng.integers(0, 99, (2, 5)).astype(np.int32)]),
+        (5, [rng.integers(0, 500, (4, 16)).astype(np.int32),
+             np.ones(4, np.int32), np.zeros((4, 0), np.int32),
+             np.full(4, 3, np.int64),
+             rng.integers(0, 2**32, (4, 2)).astype(np.int64),
+             rng.random(4).astype(np.float32),
+             np.arange(24, dtype=np.uint32).reshape(1, 2, 3, 4)]),
+        (1, []),
+    ]
+    for call_id, args in calls:
+        plane.publish_call(call_id, args)
+    # the no-argument call is a header alone
+    assert records[-1].tolist() == [OP_CALL, 1, 0, 0]
+    for bad in (np.zeros((1,) * (MAX_NDIM + 1), np.int32),
+                np.zeros(2, np.float64)):
+        with pytest.raises(ValueError):
+            plane.publish_call(0, [bad])
+    replay = iter(records)
+    plane._recv = lambda shape, dtype: next(replay)
+    for call_id, args in calls:
+        op, got = plane.receive()
+        assert op == OP_CALL and got[0] == call_id
+        assert len(got) == 1 + len(args)
+        for want, have in zip(args, got[1:]):
+            assert have.dtype == want.dtype and have.shape == want.shape
+            np.testing.assert_array_equal(want, have)
 
 
 def _free_port() -> int:
