@@ -457,13 +457,70 @@ and exits non-zero at the first failure:
                and paged bf16 chunked), its step beside the byte bound. A
                seventh serve repeats the paged bf16 chunked one with
                ``SWARMDB_ROLLING_KV=1``; the tokens each turn prefilled are
-               printed beside the non-rolling serve's.
+               printed beside the non-rolling serve's. Last, the ep
+               phase's reference on the same weights (``ep_reference``):
+               the dense engine (max_batch 4, max_seq 512, chunk 8, no
+               prefix cache, chunks run eagerly as the pods' do) serving
+               the ep prompts (4 x 380-420 seeded ids, 32 new tokens,
+               queued before it starts so that they share every wave and
+               step), and the plain bf16 forward over its tokens batched
+               as the engine batches them (``moe_plain_steps``); ``tol``
+               is the serve's own largest |log-probability difference|
+               from it, ``router_tol`` its router logits' largest distance
+               from those of the plain forward that follows its expert
+               choices (``routing``).
+9. ep     -- the single program over Mixtral's axes, and pipeline and
+               sequence parallelism, on two ``--ep-child`` processes on
+               ``cuda:0`` over gloo (one spawn, after the mixtral phase
+               freed its weights). (a) Mixtral-8x7B at full width and the
+               mixtral phase's 8 of 32 layers, each rank drawing every
+               tensor from seed 0 and keeping its share, over an expert
+               axis of 2 (4 experts a rank), a model axis of 2 (the JAX
+               server pod's default mesh: heads, F and vocab halved) and a
+               data axis of 2 (2 slots a rank, the MoE block counting the
+               whole decode step and prefill wave), each the dense engine
+               chunked serving the reference's prompts queued (rank 0;
+               rank 1 replays): up to the batch's first parting from the
+               reference serve, logprobs within twice its ``tol`` of the
+               plain forward over the reference's tokens, and a near tie
+               where they part (``batch_hold``; capacity couples a batch's
+               rows, so later partings follow from the first). Then the
+               ranks run the plain forward over their shares on the
+               serve's own tokens, following the serve's expert choices on
+               the expert and model axes (``routing``: bf16 sums split
+               over a model axis tip near-tied routings, and a tipped
+               routing moves every later step): every step's logprob and
+               greedy pick of every request within twice ``tol`` of it
+               (``forced_hold``), the router logits within twice
+               ``router_tol`` of its own, the ranks' choices equal, and
+               the choices the plain router would not make counted
+               (``routing_stats``); every
+               reply length / eos, kernel 7 on each rank,
+               eager chunks (gloo), the scatter dispatch, and the
+               collectives of one decode step per axis
+               (``EP_STEP_COLLECTIVES``: 8 expert combines, Llama's 18,
+               or 8 exchanges of expert choices). Prints per serve TTFT,
+               tokens/s, init seconds, weights and peak memory per rank,
+               one collective's ms alone (``ep_combine_ms``). (b)
+               Llama-3-8B at full width and ``PP_LAYERS`` (8) layers:
+               ``forward_pipelined`` over a pipe axis of 2 (4 layers a
+               stage, the tp prompts as one [4, 420] batch, 2
+               microbatches), ``forward_seq_parallel`` over a data axis of
+               2 on one ``SP_TOKENS`` (4096)-token prompt, and
+               ``ring_attention`` alone at Hq 32, Hkv 8, D 128 over that
+               length; each against one rank's plain path (``forward``
+               over the whole model and prompt; for ring attention the
+               dense engine's prefill attention ``gqa_attention`` over the
+               whole sequence), held within twice the plain bf16 path's
+               own largest distance from the same path in f32, logits and
+               K/V apart.
 
 Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
 serves, the api, obs, prof, rolling, lanes and ha phases, the sanitize
 phase's five sanitizers-on serves, the ckpt phase's serves of the loaded
 weights, the tp phase's world-size-1 serve and both ranks' serves (its dp step's
-too), and the seven Mixtral serves, each
+too), the seven Mixtral serves and the ep phase's three
+serves on both ranks, each
 counted from zero
 just before it and read just after; a graph replay adds the launches its
 capture recorded; ``checked_ms`` is the bounds-checked build's time;
@@ -6535,6 +6592,7 @@ def run_mixtral(card: str):
                  k: MOE_PREFILL_PER_TURN[k] for k in (
                      "paged_bf16_chunked", "paged_bf16_chunked_rolling")})
         run_decode_loop(card, cfg, params, LOOP_MIXTRAL)
+        EP_REF.update(ep_reference(cfg, params))
     finally:
         del params
         gc.collect()
@@ -7251,11 +7309,14 @@ def tp_prompts() -> list:
     return [rng.integers(3, vocab, n).tolist() for n in TP_PROMPT_LENS]
 
 
-def tp_serve(eng, prompts) -> dict:
-    """The prompts submitted together on a started engine, greedy, TP_NEW
-    new tokens each; the engine is stopped after (a pod coordinator's
-    stop releases its workers). Returns tokens, their logprobs, finish
-    reasons, TTFT per request and the wall time."""
+def tp_serve(eng, prompts, queued: bool = False) -> dict:
+    """The prompts submitted together on a started engine (``queued``:
+    submitted before it starts, so that they share one prefill wave and
+    every decode step, as a MoE model's capacity needs for a reply that
+    does not hang on timing), greedy, TP_NEW new tokens each; the engine
+    is stopped after (a pod coordinator's stop releases its workers).
+    Returns tokens, their logprobs, finish reasons, TTFT per request and
+    the wall time."""
     import threading
 
     from swarmdb_tpu_torch.backend.engine import GenRequest
@@ -7275,9 +7336,10 @@ def tp_serve(eng, prompts) -> dict:
     reqs = [GenRequest(prompt=list(p),
                        sampling=SamplingParams(max_new_tokens=TP_NEW),
                        on_token=on_token, on_done=on_done) for p in prompts]
+    rids = [eng.submit(r) for r in reqs] if queued else None
     eng.start()
     try:
-        rids = [eng.submit(r) for r in reqs]
+        rids = rids or [eng.submit(r) for r in reqs]
         if not done.wait(300):
             fail(f"tp: {len(out)} of {len(prompts)} requests finished")
         wall = time.perf_counter() - t0
@@ -7591,10 +7653,13 @@ def run_tp(card, params):
         ws1 = tp_serve(eng, prompts)
         launches = dict(ac.LAUNCHES)
         ws1.update(tp_collective_ms(sm, TP_BATCH))
+        # the ring step on a one-rank NCCL axis is the identity
+        probe = torch.arange(8, device=dev)
         ws1.update(init_s=init_s, backend=tp.backend,
                    graphs=eng.flight.meta["graphs"],
                    collectives_captured_per_step=captured / (3 * 8),
-                   chunks=eng.stats()["decode_chunks"])
+                   chunks=eng.stats()["decode_chunks"],
+                   shift_identity=tp.shift(probe) is probe)
         del eng, sm
     finally:
         dist.destroy_process_group()
@@ -7606,6 +7671,7 @@ def run_tp(card, params):
         "ws1 replays graphs": ws1["graphs"] is True
             and ws1["chunks"]["mode"] == "graphs",
         "ws1 kernel 7 launched": launches.get("dense_decode_chunked", 0) > 0,
+        "ws1 Axis.shift is the identity": ws1["shift_identity"],
         "ws1 reasons length/eos": all(r in ("length", "eos")
                                       for r in ws1["reasons"]),
     }
@@ -7731,7 +7797,7 @@ def ref_logprob_tol(plain, ref) -> float:
         lp = torch.log_softmax(z, -1)
         off = len(toks) - len(lps)
         diffs += [abs(float(lp[s, toks[s]]) - lps[s - off])
-                  for s in range(off, len(toks))]
+                  for s in range(off, min(len(toks), lp.shape[0]))]
     if not diffs:
         fail("tp: a reference serve returned no logprobs")
     return max(diffs)
@@ -7782,13 +7848,726 @@ def dp_checks(params, prompts, refs, dense_plain, dense_tol, ranks,
             ttft_s=got["ttft_s"], tokens_per_s=got["tokens_per_s"],
             ranks=[{k: v for k, v in rank["dp"][name].items()
                     if k not in ("tokens", "logprobs", "reasons", "ttft_s",
-                                 "tokens_per_s", "wall_s")}
+                                 "tokens_per_s", "wall_s", "forced_errs",
+                                 "routing")}
                    for rank in ranks])
     out["gather_ms"] = [rank["dp"]["gather_ms"] for rank in ranks]
     out["init_s"] = [rank["dp"]["init_s"] for rank in ranks]
     out["peak_memory_gib"] = [rank["dp"]["peak_memory_gib"]
                               for rank in ranks]
     return out
+
+
+# ------------------------------------------------------------- ep phase
+
+#: The ep phase's two ranks on cuda:0 over gloo: Mixtral-8x7B at the
+#: mixtral phase's depth served over an expert, a model and a data axis of
+#: two (the dense engine, chunked; ``EP_SERVES``: step, mesh), then the
+#: Llama-3-8B library steps (pipeline, sequence parallelism, ring
+#: attention)
+EP_SERVES = (("expert", {"expert": 2}), ("model", {"model": 2}),
+             ("data", {"data": 2}))
+EP_CHILD = [sys.executable, str(ROOT / "chip_smoke.py"), "--ep-child"]
+EP_COMBINE_ITERS = 20
+#: expected collectives of one decode step on each axis (8 MoE layers):
+#: one expert all-reduce a layer; Llama's 2L + 2 on the model axis; one
+#: exchange of expert choices a layer on the data axis
+EP_STEP_COLLECTIVES = {
+    "expert": {"data": 0, "model": 0, "expert": MIXTRAL_LAYERS},
+    "model": {"data": 0, "model": 2 * MIXTRAL_LAYERS + 2, "expert": 0},
+    "data": {"data": MIXTRAL_LAYERS, "model": 0, "expert": 0}}
+#: the Llama-3-8B steps' depth (8 of 32 layers, as the tp phase's world
+#: size 2), the seq-parallel prompt and the ring-attention shape
+PP_LAYERS = 8
+PP_MICRO = 2
+SP_TOKENS = 4096
+RING_HEADS = (32, 8, 128)
+#: the parent's Mixtral reference for the ep phase (``ep_reference``),
+#: filled by the mixtral phase before it frees its weights
+EP_REF: dict = {}
+
+
+def ep_prompts() -> list:
+    """Four seeded prompts of 380-420 Mixtral token ids (numpy seed 16):
+    the tp phase's lengths over Mixtral's vocab."""
+    import numpy as np
+
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    rng = np.random.default_rng(16)
+    vocab = get_config("mixtral-8x7b").vocab_size
+    return [rng.integers(3, vocab, n).tolist() for n in TP_PROMPT_LENS]
+
+
+def ep_engine(cfg, dev, params=None, **axes):
+    """The ep phase's dense engine (TP_BATCH slots, max_seq TP_SEQ, chunk
+    8, chunked, no prefix cache): on one process over ``dev`` without
+    ``axes``, else this rank's share of the single program over them."""
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.parallel.serving import build_serving_engine
+
+    kw = dict(max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8)
+    with engine_env(True, SWARMDB_PREFIX="0"):
+        if not axes:
+            return build_backend_engine(cfg, seed=0, device=dev,
+                                        params=params, paged=None, **kw)
+        return build_serving_engine(cfg, [dev], params=params, **axes, **kw)
+
+
+def moe_plain_steps(params, cfg, prompts, tokens, pad_id, bucket,
+                    **axes) -> list:
+    """The plain bf16 forward over a serve's tokens, batched as the engine
+    batches them (a MoE block's capacity counts the call's rows): the
+    four prompts as one [4, bucket] prefill wave padded with ``pad_id``
+    (the head at each row's last token), then one [4, 1] step a token
+    over the slot cache, each fed the serve's own tokens; over a rank's
+    shares with ``axes`` (``tp``, ``ep``: ``mixtral.forward``'s). Returns
+    per request the f32 logits that pick each token, one row a step."""
+    import torch
+
+    from swarmdb_tpu_torch.models import mixtral
+
+    dev = params["embed"].device
+    B, n = len(prompts), min(len(t) for t in tokens)
+    lengths = torch.tensor([len(p) for p in prompts], device=dev)
+    padded = torch.full((B, bucket), pad_id, dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = torch.tensor(p, dtype=torch.int32, device=dev)
+    pos = torch.arange(bucket, dtype=torch.int32, device=dev).expand(B, -1)
+    # a model axis's rank holds its share of the KV heads
+    tp = axes.get("tp")
+    kv = cfg.n_kv_heads // (tp.size if tp is not None else 1)
+    temp = mixtral.init_kv_cache(cfg, B, bucket, device=dev, kv_heads=kv)
+    logits, temp = mixtral.forward(params, cfg, padded, pos, temp,
+                                   logits_at=lengths - 1, **axes)
+    cache = mixtral.init_kv_cache(cfg, B, TP_SEQ, device=dev, kv_heads=kv)
+    for full, fresh in zip(cache, temp):
+        full[:, :, :bucket] = fresh
+    steps = [logits.float()]
+    for s in range(n - 1):
+        tok = torch.tensor([[t[s]] for t in tokens], dtype=torch.int32,
+                           device=dev)
+        lg, _ = mixtral.forward(params, cfg, tok,
+                                (lengths + s)[:, None].to(torch.int32),
+                                cache, **axes)
+        steps.append(lg[:, 0].float())
+    z = torch.stack(steps)                          # [n, B, V]
+    return [z[:, i] for i in range(B)]
+
+
+@contextlib.contextmanager
+def routing(forced=None):
+    """``mixtral.moe_block`` wrapped while open: each call's router logits
+    [N, E] (f32, from the block's own inputs and arithmetic) appended to
+    the yielded list, call after call (call j is layer j % L of forward
+    j // L). With ``forced`` (such a list, from another run over the same
+    tokens) call j routes each token to the top-k experts of forced[j]
+    instead of its own, gated by its own router logits there: a plain
+    forward that follows a serve's expert choices."""
+    import torch
+
+    from swarmdb_tpu_torch.models import mixtral
+
+    inner, topk, calls = mixtral.moe_block, torch.topk, []
+
+    def wrapped(x, router_w, *args, top_k, **kw):
+        logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(),
+                              router_w.float())
+        j = len(calls)
+        calls.append(logits)
+        if forced is None:
+            return inner(x, router_w, *args, top_k=top_k, **kw)
+        if j >= len(forced) or forced[j].shape != logits.shape:
+            fail(f"ep: MoE call {j} {tuple(logits.shape)} has no forced "
+                 "routing of its shape")
+        ids = topk(forced[j], top_k, dim=-1).indices
+
+        def pinned(t, k, dim=-1, sorted=True):
+            vals = t.gather(-1, ids)
+            order = vals.argsort(-1, descending=True)
+            return vals.gather(-1, order), ids.gather(-1, order)
+
+        torch.topk = pinned
+        try:
+            return inner(x, router_w, *args, top_k=top_k, **kw)
+        finally:
+            torch.topk = topk
+
+    mixtral.moe_block = wrapped
+    try:
+        yield calls
+    finally:
+        mixtral.moe_block = inner
+
+
+def routing_stats(served, plain, top_k: int) -> dict:
+    """A serve's router logits (``served``, ``routing``) against those of
+    the plain forward that followed its choices (``plain``), call by call:
+    ``router_err`` the largest |difference|; the tokens whose served
+    experts are not the plain router's own top-k (``differing``), and
+    ``max_gap``, how far the served choice lies below the plain router's
+    k-th logit at worst (greedy on logits within ``router_err`` of the
+    plain ones lies at most twice that below)."""
+    import torch
+
+    err, differing, gap, tokens = 0.0, 0, 0.0, 0
+    for a, b in zip(served, plain):
+        err = max(err, float((a - b).abs().max()))
+        mine = torch.topk(a, top_k, dim=-1).indices.sort(-1).values
+        top = torch.topk(b, top_k, dim=-1)
+        own = top.indices.sort(-1).values
+        differ = (mine != own).any(-1)
+        tokens += a.shape[0]
+        if bool(differ.any()):
+            differing += int(differ.sum())
+            below = top.values[:, -1] - b.gather(-1, mine).min(-1).values
+            gap = max(gap, float(below[differ].max()))
+    return dict(calls=len(plain), tokens=tokens, router_err=err,
+                differing=differing, max_gap=gap)
+
+
+def forced_errors(forced, got) -> list:
+    """Per request of a serve, at every step that ``forced`` (per request
+    the f32 logits that pick each token, ``moe_plain_steps``) covers: the
+    |log-probability difference| of the served token from them and how
+    far its logit lies below their top (greedy picks the top of logits
+    that agree with these)."""
+    import torch
+
+    out = []
+    for z, g, lps in zip(forced, got["tokens"], got["logprobs"]):
+        lp = torch.log_softmax(z.float(), -1)
+        top = z.max(-1).values
+        n = min(len(g), z.shape[0])
+        off = len(g) - len(lps)
+        out.append(dict(
+            logprob_err=[abs(float(lp[s, g[s]]) - lps[s - off])
+                         for s in range(max(off, 0), n)],
+            below_top=[float(top[s] - z[s, g[s]]) for s in range(n)]))
+    return out
+
+
+def ep_reference(cfg, params) -> dict:
+    """The ep phase's reference, on the mixtral phase's weights: the
+    single dense engine (``ep_engine``, its chunks run eagerly as the
+    pods' do, so that its routing is seen) serving the four prompts
+    queued together; the plain batched forward over its tokens
+    (``moe_plain_steps``) and ``tol``, the serve's own largest
+    |log-probability difference| from it; and ``router_tol``, the
+    serve's router logits' largest distance from those of the plain
+    forward that follows its expert choices (``routing_stats``)."""
+    import gc
+
+    import torch
+
+    dev = params["embed"].device
+    prompts = ep_prompts()
+    eng, _ = ep_engine(cfg, dev, params)
+    eng._runner.use_graphs = False
+    eng.warmup()
+    with routing() as served:
+        ref = tp_serve(eng, prompts, queued=True)
+    bucket = eng._bucket_for(max(len(p) for p in prompts))
+    plain = moe_plain_steps(params, cfg, prompts, ref["tokens"], eng.pad_id,
+                            bucket)
+    with routing(forced=served) as followed:
+        moe_plain_steps(params, cfg, prompts, ref["tokens"], eng.pad_id,
+                        bucket)
+    routes = routing_stats(served, followed, cfg.experts_per_token)
+    del eng, served, followed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ref=ref, plain=plain, tol=ref_logprob_tol(plain, ref),
+                bucket=bucket, routes=routes,
+                router_tol=routes["router_err"])
+
+
+def batch_hold(plain, ref, got, bound) -> dict:
+    """A pod's serve against the reference serve of the same batch, under
+    the tp phase's rule (``tp_hold``), up to the batch's first parting:
+    the plain forward over the whole weights on the reference's tokens
+    (``plain``) is every row's context until then; after it, every row's
+    context differs (a MoE block couples a batch's rows through
+    capacity), and the serve's own forced steps hold it
+    (``forced_errors``)."""
+    toks = got["tokens"]
+    parts = [next((k for k, (a, b) in enumerate(zip(r, g)) if a != b), None)
+             for r, g in zip(ref["tokens"], toks)]
+    first = min((k for k in parts if k is not None), default=None)
+    holds = []
+    for z, r, g, lps in zip(plain, ref["tokens"], toks, got["logprobs"]):
+        # the plain steps stop at the batch's shortest reply
+        end = min(len(g) if first is None else first + 1, z.shape[0])
+        off = len(g) - len(lps)
+        holds.append(tp_hold(z, r[:end], g[:end], lps[:max(0, end - off)],
+                             bound))
+    return dict(first_parting=first, holds=holds,
+                held=all(h["held"] for h in holds),
+                near_ties=all(h["step"] is None or h["near_tie"]
+                              for h in holds))
+
+
+def forced_hold(errs, bound) -> dict:
+    """A serve's ``forced_errors`` held: at every step of every request,
+    the served token's |log-probability difference| and how far it lies
+    below the top, each within ``bound``."""
+    holds = [dict(steps=len(e["below_top"]),
+                  logprob_err=max(e["logprob_err"], default=float("inf")),
+                  below_top=max(e["below_top"], default=float("inf")))
+             for e in errs]
+    return dict(holds=holds, held=all(
+        h["logprob_err"] <= bound and h["below_top"] <= bound
+        for h in holds))
+
+
+def ep_axes(sm) -> dict:
+    return {a: sm.mesh.axis(a) for a in ("data", "model", "expert")}
+
+
+def ep_step_collectives(eng, sm) -> dict:
+    """One decode step of the engine's chunk forward on dummy inputs
+    (every rank in step): the collectives it issues, per axis."""
+    import torch
+
+    axes = ep_axes(sm)
+    before = {a: ax.calls for a, ax in axes.items()}
+    tok = torch.zeros((eng._rows, 1), dtype=torch.int32, device=eng.device)
+    eng._chunked_fns[0](eng.params, tok, tok + 1, eng.cache, eng._chunk_kv,
+                        0)
+    torch.cuda.synchronize()
+    return {a: ax.calls - before[a] for a, ax in axes.items()}
+
+
+def ep_combine_ms(sm, step: str) -> float:
+    """One decode step's MoE collective on its axis timed alone, median of
+    EP_COMBINE_ITERS, every rank in step (host clock around a synchronised
+    call: gloo's collectives are host calls): the expert axis's combine
+    and the model axis's all-reduce of a [4, 1, dim] bf16 output, the
+    data axis's exchange of the step's [5, 2] int32 expert choices."""
+    import torch
+
+    dev, dim = sm.mesh.device, sm.cfg.dim
+    if step == "data":
+        ax = sm.mesh.axis("data")
+        x = torch.ones((TP_BATCH + 1, 2), dtype=torch.int32, device=dev)
+    else:
+        ax = sm.mesh.axis(step)
+        x = torch.ones((TP_BATCH, 1, dim), dtype=torch.bfloat16, device=dev)
+    times = []
+    for i in range(EP_COMBINE_ITERS + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ax.all_reduce(x)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def ep_f32_tol(fn, params) -> list:
+    """For each output of ``fn(params)``, its largest |difference| from
+    the same output of ``fn`` on an f32 copy of the weights: the bf16
+    path's own rounding, the steps' ``tol``."""
+    import torch
+
+    f32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    a, b = fn(params), fn(f32)
+    del f32
+    return [float((x.float() - y.float()).abs().max()) for x, y in zip(a, b)]
+
+
+def pp_step(rank, dev, full) -> dict:
+    """``forward_pipelined`` over a pipe axis of the two ranks: Llama-3-8B
+    at PP_LAYERS layers, this stage's half drawn from seed 0
+    (``param_plan_pp``), the four tp prompts padded to one [4, 420]
+    batch in PP_MICRO microbatches; against one rank's ``forward`` over
+    the whole model (``full``), held within twice the bf16 forward's own
+    distance from an f32 one (logits and K/V apart)."""
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.parallel.mesh import make_mesh, plan_leaf, \
+        shard_leaf
+
+    cfg = full["cfg"]
+    mesh = make_mesh(data=1, model=1, expert=1, pipe=2, device=dev)
+    plan = llama.param_plan_pp(cfg)
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, seed=0, device=dev,
+        keep=lambda key, t: shard_leaf(t, plan_leaf(plan, key), mesh))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = tp_prompts()
+    T = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), T), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(
+        len(prompts), T)
+    axis = mesh.axis("pipe")
+    calls0 = axis.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, (ks, vs) = llama.forward_pipelined(params, cfg, tokens, pos,
+                                               axis, microbatches=PP_MICRO)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = axis.calls - calls0
+    del params
+
+    def ref(p):
+        lg, (k, v) = llama.forward(p, cfg, tokens, pos,
+                                   llama.init_kv_cache(
+                                       cfg, len(prompts), T,
+                                       dtype=p["embed"].dtype, device=dev))
+        return lg, k, v
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref(full["params"])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    tols = ep_f32_tol(ref, full["params"])
+    per = cfg.n_layers // 2
+    rows = slice(rank * per, (rank + 1) * per)
+    errs = [float((logits - want[0]).abs().max()),
+            float((ks.float() - want[1][rows].float()).abs().max()),
+            float((vs.float() - want[2][rows].float()).abs().max())]
+    return dict(layers=cfg.n_layers, stage_layers=int(ks.shape[0]),
+                batch=list(tokens.shape), micro=PP_MICRO, init_s=init_s,
+                ms=wall * 1e3, forward_ms=ref_s * 1e3, collectives=calls,
+                err={"logits": errs[0], "k": errs[1], "v": errs[2]},
+                tol={"logits": tols[0], "k": tols[1], "v": tols[2]},
+                held=all(e <= 2 * t for e, t in zip(errs, tols)))
+
+
+def sp_step(rank, dev, full) -> dict:
+    """``forward_seq_parallel`` over a data axis of the two ranks: one
+    SP_TOKENS-token prompt of seeded ids, each rank's half of it, ring
+    attention in every layer; against one rank's ``forward`` over the
+    whole prompt (its rows of the logits and of the slot cache), held
+    within twice the bf16 forward's own distance from an f32 one."""
+    import numpy as np
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = full["cfg"]
+    mesh = make_mesh(data=2, model=1, expert=1, device=dev)
+    rng = np.random.default_rng(17)
+    ids = rng.integers(3, cfg.vocab_size, SP_TOKENS)
+    tokens = torch.tensor(ids[None], dtype=torch.int32, device=dev)
+    pos = torch.arange(SP_TOKENS, dtype=torch.int32, device=dev)[None]
+    half = SP_TOKENS // 2
+    mine = slice(rank * half, (rank + 1) * half)
+    axis = mesh.axis("data")
+    calls0 = axis.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, (ks, vs) = llama.forward_seq_parallel(
+        full["params"], cfg, tokens[:, mine], pos[:, mine], axis)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = axis.calls - calls0
+
+    def ref(p):
+        lg, (k, v) = llama.forward(p, cfg, tokens, pos, llama.init_kv_cache(
+            cfg, 1, SP_TOKENS, dtype=p["embed"].dtype, device=dev))
+        return lg[:, mine], k[:, :, mine], v[:, :, mine]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref(full["params"])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    tols = ep_f32_tol(ref, full["params"])
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip((logits, ks, vs), want)]
+    return dict(layers=cfg.n_layers, tokens=SP_TOKENS, block=half,
+                ms=wall * 1e3, forward_ms=ref_s * 1e3, collectives=calls,
+                err={"logits": errs[0], "k": errs[1], "v": errs[2]},
+                tol={"logits": tols[0], "k": tols[1], "v": tols[2]},
+                held=all(e <= 2 * t for e, t in zip(errs, tols)))
+
+
+def ring_step(rank, dev) -> dict:
+    """``ops.ring_attention`` alone over a data axis of the two ranks at
+    Hq 32, Hkv 8, D 128 on one SP_TOKENS-token sequence of seeded bf16
+    q / k / v (each rank its half), against the port's plain attention
+    over the whole sequence on one rank (``ops.layers.gqa_attention``,
+    the prefill attention ``forward_pipelined`` runs: other code than the
+    ring's blocks and merge), held within twice that plain bf16 path's
+    own distance from the same path in f32; ms of each (host clock
+    around synchronised calls, median of 5: the ring's shifts are gloo
+    host calls)."""
+    import torch
+
+    from swarmdb_tpu_torch.ops.layers import gqa_attention
+    from swarmdb_tpu_torch.ops.ring_attention import ring_attention
+    from swarmdb_tpu_torch.parallel.mesh import make_mesh
+
+    hq, hkv, d = RING_HEADS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    q, k, v = (torch.randn((1, SP_TOKENS, h, d), generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    pos = torch.arange(SP_TOKENS, dtype=torch.int32, device=dev)[None]
+    half = SP_TOKENS // 2
+    mine = slice(rank * half, (rank + 1) * half)
+    axis = make_mesh(data=2, model=1, expert=1, device=dev).axis("data")
+
+    def timed(fn):
+        times, out = [], None
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    got, ms = timed(lambda: ring_attention(
+        q[:, mine], k[:, mine], v[:, mine], pos[:, mine], pos[:, mine],
+        axis))
+    plain, plain_ms = timed(lambda: gqa_attention(q, k, v, pos))
+    plain32 = gqa_attention(q.float(), k.float(), v.float(), pos)
+    tol = float((plain.float() - plain32).abs().max())
+    err = float((got.float() - plain[:, mine].float()).abs().max())
+    return dict(shape=[1, SP_TOKENS, hq, hkv, d], ms=ms, plain_ms=plain_ms,
+                err=err, tol=tol, held=err <= 2 * tol)
+
+
+def ep_child(rank: int, store: str, result_path: str) -> int:
+    """One rank of the ep phase's two-rank pod on cuda:0 over gloo: each
+    of ``EP_SERVES`` (Mixtral-8x7B at MIXTRAL_LAYERS layers, this rank's
+    share drawn from seed 0; rank 0 serving the ep prompts queued
+    together, rank 1 replaying), then the Llama-3-8B steps (``pp_step``,
+    ``sp_step``, ``ring_step``)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from swarmdb_tpu_torch.models import llama
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.ops import build
+    from swarmdb_tpu_torch.parallel.distributed import init_distributed
+
+    dev = torch.device(TP_DEVICE)
+    torch.cuda.set_device(dev)
+    build.build_all()
+    init_distributed(f"file://{store}", 2, rank, backend="gloo", device=dev)
+    out = {"rank": rank}
+    prompts = ep_prompts()
+    cfg = get_config("mixtral-8x7b", n_layers=MIXTRAL_LAYERS)
+    with torch.no_grad():
+        for step, axes in EP_SERVES:
+            t_step = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats(dev)
+            eng, sm = ep_engine(cfg, dev, **axes)
+            torch.cuda.synchronize()
+            res = {"init_s": time.perf_counter() - t_step,
+                   "weights_gib": sum(_nbytes(t) for t in (
+                       list(sm.params["layers"].values())
+                       + [sm.params["embed"], sm.params["lm_head"]]))
+                   / 2**30,
+                   "graphs": eng.flight.meta["graphs"],
+                   "moe_dispatch": eng.flight.meta["moe_dispatch"],
+                   "backend": eng.flight.meta["backend"],
+                   "w_gate_share": list(sm.params["layers"]["w_gate"].shape),
+                   "slots": [eng._lo, eng._lo + eng._rows]}
+            axs = ep_axes(sm)
+            calls0 = {a: ax.calls for a, ax in axs.items()}
+            ac.reset_launches()
+            # a data rank sees its own rows of a call only: the data
+            # serve's routing is not recorded
+            with routing() as served:
+                if rank == 0:
+                    eng.enable_multihost()
+                    res.update(tp_serve(eng, prompts, queued=True))
+                else:
+                    eng.worker_loop()
+            torch.cuda.synchronize()
+            res.update(
+                launches={k: n for k, n in ac.LAUNCHES.items() if n},
+                collectives={a: ax.calls - calls0[a]
+                             for a, ax in axs.items()},
+                chunks=eng.stats()["decode_chunks"],
+                peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            res["collectives_per_step"] = ep_step_collectives(eng, sm)
+            res["combine_ms"] = ep_combine_ms(sm, step)
+            # the plain forward over this rank's shares on the serve's
+            # tokens (rank 0's, sent to rank 1), following the serve's
+            # expert choices where a rank saw every row of each call
+            t0 = time.perf_counter()
+            sent = [res.get("tokens")]
+            dist.broadcast_object_list(sent, src=0)
+            follow = served if step != "data" else None
+            with routing(forced=follow) as followed:
+                z = moe_plain_steps(
+                    sm.params, cfg, prompts, sent[0], eng.pad_id,
+                    eng._bucket_for(max(len(p) for p in prompts)),
+                    tp=sm.model_axis, ep=sm.mesh.axis("expert"))
+            if follow is not None:
+                # the ranks' choices: equal, as they route from the same
+                # bits
+                mine = [torch.topk(c, cfg.experts_per_token).indices.sort(
+                    -1).values.cpu() for c in served]
+                both = [None, None]
+                dist.all_gather_object(both, mine)
+                res["ranks_routed_alike"] = all(
+                    torch.equal(a, b) for a, b in zip(*both))
+                res["routing"] = routing_stats(served, followed,
+                                               cfg.experts_per_token)
+            if rank == 0:
+                res["forced_errs"] = forced_errors(z, res)
+            del z, served, followed
+            res["forced_s"] = time.perf_counter() - t0
+            res["t_s"] = time.perf_counter() - t_step
+            out[step] = res
+            del eng, sm, axs
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the Llama-3-8B steps, on the same ranks
+        t_step = time.perf_counter()
+        lcfg = get_config(TP_MODEL, n_layers=PP_LAYERS)
+        full = {"cfg": lcfg,
+                "params": llama.init_params(lcfg, seed=0, device=dev)}
+        torch.cuda.reset_peak_memory_stats(dev)
+        out["pipeline"] = pp_step(rank, dev, full)
+        out["pipeline"]["t_s"] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+        out["seq_parallel"] = sp_step(rank, dev, full)
+        out["seq_parallel"]["t_s"] = time.perf_counter() - t_step
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_step = time.perf_counter()
+        out["ring"] = ring_step(rank, dev)
+        out["ring"]["t_s"] = time.perf_counter() - t_step
+        out["llama_peak_memory_gib"] = (torch.cuda.max_memory_allocated(dev)
+                                        / 2**30)
+    with open(result_path, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ep(card) -> dict:
+    """The ep phase (see the module docstring). Returns the launches of
+    both ranks' serves."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    if not EP_REF:
+        fail("ep: the mixtral phase left no reference")
+    ref, plain, tol = EP_REF["ref"], EP_REF["plain"], EP_REF["tol"]
+    router_tol = EP_REF["router_tol"]
+    bound = TP_WS2_TOL_FACTOR * tol
+    work = tempfile.mkdtemp(prefix="swarm_ep_")
+    store = os.path.join(work, "store")
+    results = [os.path.join(work, f"rank{r}.json") for r in range(2)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), SWARMDB_PG_TIMEOUT_S="300")
+    for k in ("SWARMDB_PAGED", "SWARMDB_CHUNKED", "SWARMDB_PREFIX",
+              "SWARMDB_MOE_DISPATCH"):
+        env.pop(k, None)
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        EP_CHILD + [str(r), store, results[r]], cwd=str(ROOT), env=env)
+        for r in range(2)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    if codes != [0, 0] or not all(os.path.exists(r) for r in results):
+        fail(f"ep: the two ranks exited with {codes}")
+    ranks = []
+    for r in results:
+        with open(r, encoding="utf-8") as f:
+            ranks.append(json.load(f))
+    checks, serves = {}, {}
+    for step, _axes in EP_SERVES:
+        got = ranks[0][step]
+        hold = batch_hold(plain, ref, got, bound)
+        forced = forced_hold(got["forced_errs"], bound)
+        checks[f"ep {step} logprobs within {TP_WS2_TOL_FACTOR:g} x tol of "
+               "the plain forward up to the batch's first parting"] = hold[
+                   "held"]
+        checks[f"ep {step} tokens == the single engine's, or part first at "
+               "a near tie"] = hold["near_ties"]
+        checks[f"ep {step} every step's logprob and greedy pick within "
+               f"{TP_WS2_TOL_FACTOR:g} x tol of the plain forward over the "
+               "pod's shares on its own tokens"] = forced["held"]
+        if step != "data":
+            routes = got["routing"]
+            checks[f"ep {step} the ranks' expert choices equal"] = all(
+                rank[step]["ranks_routed_alike"] for rank in ranks)
+            checks[f"ep {step} router logits within {TP_WS2_TOL_FACTOR:g} "
+                   "x the single engine's distance from the plain forward "
+                   "that follows its choices"] = (
+                routes["router_err"] <= TP_WS2_TOL_FACTOR * router_tol)
+        checks[f"ep {step} reasons length/eos"] = all(
+            r in ("length", "eos") for r in got["reasons"])
+        for r, rank in enumerate(ranks):
+            res = rank[step]
+            checks[f"ep {step} rank {r} kernel 7 launched"] = res[
+                "launches"].get("dense_decode_chunked", 0) > 0
+            checks[f"ep {step} rank {r} eager chunks over gloo, scatter "
+                   "dispatch"] = (res["graphs"] is False
+                                  and res["backend"] == "gloo"
+                                  and res["moe_dispatch"] == "scatter")
+            checks[f"ep {step} rank {r} collectives per decode step"] = (
+                res["collectives_per_step"] == EP_STEP_COLLECTIVES[step])
+        serves[step] = dict(
+            hold=hold, forced=forced, routing=got.get("routing"),
+            ttft_s=got["ttft_s"], tokens_per_s=got["tokens_per_s"],
+            ranks=[{k: v for k, v in rank[step].items()
+                    if k not in ("tokens", "logprobs", "reasons", "ttft_s",
+                                 "tokens_per_s", "wall_s", "forced_errs",
+                                 "routing")}
+                   for rank in ranks])
+    for r, rank in enumerate(ranks):
+        for step in ("pipeline", "seq_parallel", "ring"):
+            checks[f"{step} rank {r} within 2 x tol"] = rank[step]["held"]
+        checks[f"pipeline rank {r} holds {PP_LAYERS // 2} layers"] = (
+            rank["pipeline"]["stage_layers"] == PP_LAYERS // 2)
+    bad = [k for k, ok in checks.items() if not ok]
+    emit("ep", card=card, model="mixtral-8x7b", layers=MIXTRAL_LAYERS,
+         reduced=f"depth {MIXTRAL_LAYERS} of 32 layers; two ranks on one "
+                 "card over gloo",
+         batch=TP_BATCH, prompt_tokens=list(TP_PROMPT_LENS),
+         new_tokens=TP_NEW, ref=dict(ttft_s=ref["ttft_s"],
+                                     tokens_per_s=ref["tokens_per_s"]),
+         logprob_tol=tol, bound=bound, router_tol=router_tol,
+         ref_routing=EP_REF["routes"], serves=serves,
+         llama={step: [rank[step] for rank in ranks]
+                for step in ("pipeline", "seq_parallel", "ring")},
+         llama_layers=PP_LAYERS,
+         llama_peak_memory_gib=[rank["llama_peak_memory_gib"]
+                                for rank in ranks],
+         ranks_s=ranks_s, phase_s=time.perf_counter() - t_phase,
+         checks=checks)
+    if bad:
+        fail(f"ep checks failed: {bad}")
+    total = {}
+    for rank in ranks:
+        for step, _axes in EP_SERVES:
+            for k, n in rank[step]["launches"].items():
+                total[k] = total.get(k, 0) + n
+    return total
+
+
 
 
 def main() -> int:
@@ -7812,6 +8591,8 @@ def main() -> int:
         return sanitize_child(sys.argv[2])
     if len(sys.argv) == 5 and sys.argv[1] == "--tp-child":
         return tp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if len(sys.argv) == 5 and sys.argv[1] == "--ep-child":
+        return ep_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     name = torch.cuda.get_device_name(0)
@@ -7868,6 +8649,8 @@ def main() -> int:
         for k, n in run_ckpt(card).items():
             launches[k] = launches.get(k, 0) + n
         for k, n in run_mixtral(card).items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in run_ep(card).items():
             launches[k] = launches.get(k, 0) + n
     for k, n in launches.items():
         rows[k]["launches"] = n

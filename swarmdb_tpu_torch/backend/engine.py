@@ -153,6 +153,7 @@ retires admission-only requests straight off the prefill sample
 from __future__ import annotations
 
 import contextlib
+import functools
 import heapq
 import itertools
 import logging
@@ -352,6 +353,7 @@ class Engine:
         model_config: Any = None,
         decode_graphs: bool = True,
         data_axis: Any = None,
+        count_rows: bool = False,
     ) -> None:
         """``paged`` selects the paged pool (``prefix_cache`` then turns
         its prefix cache on); None the dense slot cache, which needs
@@ -405,7 +407,15 @@ class Engine:
         rank): this rank's device state covers its own block of the slots
         (module docstring); a paged engine then takes a pool sharded over
         the axis (``ShardedPageAllocator``, ``paged.init_pool`` building
-        the rank's sub-pool and table rows)."""
+        the rank's sub-pool and table rows).
+
+        ``count_rows`` (with ``data_axis``): the forwards' rows meet (a
+        MoE block's capacity counts every row of a call;
+        ``ShardedModel.counts_call``), so a call whose JAX counterpart is
+        one GSPMD program over the data ranks (the dense engine's waves
+        and decode steps, a sharded pool's prefix waves) passes them
+        ``rows=(ids, n)``: this rank's rows' ids in the global call and
+        the call's rows."""
         self.device = resolve_device(device)
         # the engine's stream on the card (module docstring); it first
         # waits for what the building thread enqueued (the weights)
@@ -443,6 +453,18 @@ class Engine:
             self._forward_fn = forward_fn
             self._decode_forward = (paged.decode_forward if paged is not None
                                     else forward_fn)
+            # the forwards count every row of a global call (docstring); a
+            # decode step's rows are this rank's slot block
+            self._count_rows = self._data_axis is not None and count_rows
+            if self._count_rows and paged is None:
+                block = (torch.arange(self._lo, self._lo + self._rows,
+                                      device=self.device), max_batch)
+                self._decode_forward = functools.partial(forward_fn,
+                                                         rows=block)
+                if chunked_fns is not None:
+                    chunked_fns = (functools.partial(chunked_fns[0],
+                                                     rows=block),
+                                   *chunked_fns[1:])
             if chunked_fns is None and self._decode_forward is None:
                 raise ValueError("an engine without chunked_fns needs "
                                  "paged.decode_forward")
@@ -929,20 +951,32 @@ class Engine:
         """The paged prefix wave: the suffix forward reads the hit pages
         (``table``) in place, its whole pages go into ``target``, the
         first samples into the fed tokens. On a sharded pool a rank runs
-        the rows of its own slots (their hits are its shard's pages)."""
+        the rows of its own slots (their hits are its shard's pages), and
+        with a MoE model its share of the wave (``_wave_rows``)."""
+        kw = {}
         if self._sharded:
-            rows = self._own_rows(scatter)
+            n = len(scatter)
+            rows, ids = self._wave_rows(scatter)
             if not rows.size:
                 return
             tokens, lengths, plens, table, target, scatter, keys, temp, \
                 topk, topp = (a[rows] for a in (
                     tokens, lengths, plens, table, target, scatter, keys,
                     temp, topk, topp))
+            if ids is not None:
+                # an uncounted row reads and writes trash, samples to the
+                # sink
+                idle = ids < 0
+                scatter = np.where(idle, self.max_batch, scatter)
+                plens = np.where(idle, 0, plens)
+                table = np.where(idle[:, None], 0, table)
+                target = np.where(idle[:, None], 0, target)
+                kw["rows"] = (self._tensor(ids), n)
         lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
         logits, sk, sv = self._prefix_pages_fwd(
             self.params, self._tensor(tokens),
             self._tensor(self._localize(table)), plens_t, self.cache["k"],
-            self.cache["v"], logits_at=lengths_t - 1)
+            self.cache["v"], logits_at=lengths_t - 1, **kw)
         self._insert_target((sk, sv), target)
         self._sample_into_slots(logits, (keys, temp, topk, topp),
                                 plens_t + lengths_t - 1, scatter)
@@ -1182,6 +1216,26 @@ class Engine:
         """Indices of the wave rows whose slot is this rank's."""
         local = np.asarray(slots, np.int64) - self._lo
         return np.nonzero((local >= 0) & (local < self._rows))[0]
+
+    def _wave_rows(self, scatter: np.ndarray
+                   ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """This data rank's rows of a global wave, and (``_count_rows``)
+        their ids in the wave for the forward's ``rows``, else None. Its
+        own slots' rows; when the forward counts the wave, also its share
+        of the padding rows (the discard slot's, dealt round the data
+        ranks), so that each row of the wave is run and counted by exactly
+        one rank, and, on a rank left with none, one uncounted row (id -1,
+        to be pointed at the sink and trash) so that it meets the wave's
+        collectives."""
+        rows = self._own_rows(scatter)
+        if not self._count_rows:
+            return rows, None
+        ax = self._data_axis
+        pad = np.nonzero(np.asarray(scatter) >= self.max_batch)[0]
+        rows = np.sort(np.concatenate([rows, pad[ax.index::ax.size]]))
+        if not rows.size:
+            return np.zeros(1, np.int64), np.full(1, -1, np.int64)
+        return rows, rows.astype(np.int64)
 
     def _localize(self, table: np.ndarray) -> np.ndarray:
         """Global page ids as this rank's sub-pool ids, the JAX package's
@@ -2288,17 +2342,21 @@ class Engine:
                 dst[r] = src[row]
         return p_tokens, p_lengths, p_target, p_scatter, tuple(p_sampling)
 
-    def _prefill_forward(self, padded: np.ndarray, lengths: np.ndarray
+    def _prefill_forward(self, padded: np.ndarray, lengths: np.ndarray,
+                         rows: Optional[Tuple[torch.Tensor, int]] = None
                          ) -> Tuple[torch.Tensor, Any]:
         """The bucketed wave's forward into a temp cache: (fp32 logits
-        [rows, V] at each row's last token, the temp cache)."""
+        [rows, V] at each row's last token, the temp cache). ``rows``:
+        these rows' ids in the global wave, for a forward that counts it
+        (``_wave_rows``)."""
         Bp, bucket = padded.shape
         positions = torch.arange(bucket, dtype=torch.int32,
                                  device=self.device).expand(Bp, bucket)
+        kw = {} if rows is None else {"rows": rows}
         return self._forward_fn(
             self.params, self._tensor(padded), positions,
             self._init_cache_fn(Bp, bucket),
-            logits_at=self._tensor(lengths - 1))
+            logits_at=self._tensor(lengths - 1), **kw)
 
     # swarmlint: hot
     def _prefill_dense(self, padded: np.ndarray, lengths: np.ndarray,
@@ -2307,25 +2365,31 @@ class Engine:
                        topp: np.ndarray) -> None:
         """The device half of a dense bucketed wave, from host arrays
         alone (what a pod's workers replay, ``OP_PREFILL``): the forward,
-        each real row's K/V into ``cache[:, slot, :bucket]`` (the rows
-        whose ``scatter`` names a slot come first), and the first samples
-        with the rows' own keys and params into the fed-token vector."""
+        each real row's K/V into ``cache[:, slot, :bucket]``, and the
+        first samples with the rows' own keys and params into the
+        fed-token vector."""
+        count = None
         if self._data_axis is not None:
-            # this rank's slots' rows only (ranks of one model group run
-            # the same ones, so their collectives meet)
-            rows = self._own_rows(scatter)
+            # this rank's slots' rows (ranks of one model group run the
+            # same ones, so their collectives meet), and its share of the
+            # wave when a MoE forward counts all of it (``_wave_rows``)
+            n = len(scatter)
+            rows, ids = self._wave_rows(scatter)
             if not rows.size:
                 return
             padded, lengths, scatter, keys, temp, topk, topp = (
                 a[rows] for a in (padded, lengths, scatter, keys, temp,
                                   topk, topp))
+            if ids is not None:
+                scatter = np.where(ids < 0, self.max_batch, scatter)
+                count = (self._tensor(ids), n)
         bucket = padded.shape[1]
-        last, fresh_kv = self._prefill_forward(padded, lengths)
+        last, fresh_kv = self._prefill_forward(padded, lengths, count)
         local = self._local_slots(scatter)
-        live = local[local < self._rows]
-        slots = self._tensor(live)
+        live = np.nonzero(local < self._rows)[0]
+        slots, src = self._tensor(local[live]), self._tensor(live)
         for full, fresh in zip(self.cache, fresh_kv):
-            full[:, slots, :bucket] = fresh[:, :len(live)]
+            full[:, slots, :bucket] = fresh[:, src]
         self._sample_into_slots(last, (keys, temp, topk, topp),
                                 self._tensor(lengths - 1), scatter)
 

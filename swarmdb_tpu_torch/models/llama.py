@@ -672,3 +672,153 @@ def forward_prefix_lane(
                                          prefix_lens, sfx_k, sfx_v,
                                          lane_pages)
     return logits, lane_k, lane_v
+
+
+# ----------------------------------------------------- pipeline parallelism
+
+
+_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+               "w_up", "w_down")
+
+
+def param_plan_pp(cfg: ModelConfig, pipe_axis: str = "pipe") -> Params:
+    """The shard plan of pipeline parallelism (the JAX package's
+    ``param_specs_pp``): the stacked [L, ...] layer weights split their
+    layer dim over ``pipe_axis`` (each stage holds L / pipe consecutive
+    layers); the embedding, the norms and the head whole."""
+    plan: Params = {
+        "embed": None,
+        "layers": {k: (0, pipe_axis) for k in _LAYER_KEYS},
+        "final_norm": None,
+    }
+    if not cfg.tie_embeddings:
+        plan["lm_head"] = None
+    return plan
+
+
+def _prefill_layers(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
+                    x: torch.Tensor, positions: torch.Tensor,
+                    attend: Callable) -> Tuple[torch.Tensor, list, list]:
+    """The stacked layers ``lp`` over a prefill without a cache: each
+    layer's attention is ``attend(q, k, v)`` over the call's own K/V.
+    Returns (x, [K per layer], [V per layer])."""
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    B, T = x.shape[0], x.shape[1]
+    ks, vs = [], []
+    for l in range(lp["attn_norm"].shape[0]):
+        h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
+        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cos, sin)
+        attn = attend(q, k, v)
+        x = x + torch.matmul(attn.reshape(B, T, -1), lp["wo"][l])
+        h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
+        x = x + swiglu_ffn(h2, lp, l)
+        ks.append(k)
+        vs.append(v)
+    return x, ks, vs
+
+
+def forward_pipelined(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,      # [B, T], the same on every stage
+    positions: torch.Tensor,   # [B, T]
+    axis,                      # parallel.collectives.Axis: the pipe axis
+    *,
+    microbatches: Optional[int] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Pipeline-parallel prefill, GPipe style (the JAX package's
+    ``forward_pipelined``): this rank is stage ``axis.index`` and holds
+    its L / P layers (``param_plan_pp``); the batch splits into M
+    microbatches that flow through the stage ring over M + P - 1 steps,
+    each step one hand-off to the next stage (``axis.shift``). Stage 0
+    embeds; at steady state every stage computes a different microbatch,
+    and a stage skips the edge steps where it holds none (the JAX
+    program computes masked garbage there; nothing of it is kept). The
+    last stage's post-norm activations are summed over the axis (zeros
+    elsewhere), then every rank applies the head.
+
+    Returns fp32 logits [B, T, V] (the same on every rank) and this
+    stage's prompt K/V [L / P, B, T, Hkv, D]. Raises the JAX package's
+    ``ValueError`` for a MoE config, n_layers % P and B % M. The prefill
+    path only: decode keeps the model and data axes."""
+    if cfg.is_moe:
+        raise ValueError(f"{cfg.name!r} is MoE; PP is dense-only for now")
+    n_stages = axis.size
+    if cfg.n_layers % n_stages:
+        raise ValueError(
+            f"n_layers {cfg.n_layers} not divisible by pipe={n_stages}")
+    B, T = tokens.shape
+    M = microbatches or min(B, max(2, n_stages))
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by microbatches {M}")
+    Bm, stage = B // M, axis.index
+    lp = params["layers"]
+    dtype, dev = params["embed"].dtype, params["embed"].device
+    mb_tok = tokens.reshape(M, Bm, T)
+    mb_pos = positions.reshape(M, Bm, T)
+    state = torch.zeros((Bm, T, cfg.dim), dtype=dtype, device=dev)
+    act = torch.zeros((M, Bm, T, cfg.dim), dtype=dtype, device=dev)
+    ks_all: list = [None] * M
+    vs_all: list = [None] * M
+
+    def attend(q, k, v, pos):
+        return gqa_attention(q, k, v, pos, window=cfg.sliding_window)
+
+    for t in range(M + n_stages - 1):
+        m = t - stage                     # the microbatch here now
+        if 0 <= m < M:
+            x = (params["embed"][mb_tok[m].long()] if stage == 0
+                 else state)
+            x, ks, vs = _prefill_layers(
+                cfg, lp, x, mb_pos[m],
+                lambda q, k, v, pos=mb_pos[m]: attend(q, k, v, pos))
+            ks_all[m], vs_all[m] = torch.stack(ks), torch.stack(vs)
+            if stage == n_stages - 1:
+                act[m] = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        else:
+            x = state
+        state = axis.shift(x)
+    # the activations live on the last stage only (zeros elsewhere): one
+    # sum over the axis gives them to every stage, which applies the head
+    axis.all_reduce(act)
+    logits = _logits(act.reshape(B * T, cfg.dim), _head(params))
+    ks_out = torch.stack(ks_all, 1).reshape(-1, B, T, cfg.n_kv_heads,
+                                            cfg.head_dim)
+    vs_out = torch.stack(vs_all, 1).reshape(-1, B, T, cfg.n_kv_heads,
+                                            cfg.head_dim)
+    return logits.reshape(B, T, -1), (ks_out, vs_out)
+
+
+# ------------------------------------------- sequence-parallel long prefill
+
+
+def forward_seq_parallel(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,      # [B, T / n] this rank's block of the prompt
+    positions: torch.Tensor,   # [B, T / n] its absolute positions
+    axis,                      # parallel.collectives.Axis: the ring
+) -> Tuple[torch.Tensor, KVCache]:
+    """Long-prompt prefill with the sequence split over ``axis`` (the JAX
+    package's ``forward_seq_parallel``, whose default ring is the data
+    axis): each rank holds its block of T / n tokens, and every layer's
+    attention is ``ops.ring_attention`` over the ring, so a rank's peak
+    memory is O(T / n) and no [T, T] scores exist. Every rank of the axis
+    calls it together, each with its own block.
+
+    Returns this rank's block of the fp32 logits [B, T / n, V] and of the
+    prompt K/V [L, B, T / n, Hkv, D] (its rows of the slot cache a dense
+    forward over the whole prompt writes)."""
+    from ..ops.ring_attention import ring_attention
+
+    if cfg.is_moe:
+        raise ValueError(f"{cfg.name!r} is MoE; the sequence-parallel "
+                         "prefill is dense-only")
+    x = params["embed"][tokens.long()]
+    x, ks, vs = _prefill_layers(
+        cfg, params["layers"], x, positions,
+        lambda q, k, v: ring_attention(q, k, v, positions, positions, axis,
+                                       window=cfg.sliding_window))
+    logits = _final_logits(params, cfg, x, None)
+    return logits, (torch.stack(ks), torch.stack(vs))

@@ -1,12 +1,13 @@
 """Multi-device serving: lane groups and the fleet (data parallelism in
 one process), and the single program over ``torch.distributed`` ranks
 (``distributed.py``, ``mesh.py``, ``collectives.py``, ``multihost.py``
-and ``serving.py``): the dense engine over a data and a model axis, the
-sharded paged engine over a data axis.
+and ``serving.py``): the dense engine over data, model, expert and pipe
+axes (Llama and Mixtral), the sharded paged engine over a data axis.
 
-The counterpart of ``swarmdb_tpu/parallel``. The expert axis and
-pipeline / sequence parallelism are ROADMAP.md queue 1 items 11b (its
-expert half) and 11c.
+The counterpart of ``swarmdb_tpu/parallel``. Pipeline and sequence
+parallelism are library entry points, as in the JAX package:
+``models.llama.forward_pipelined`` / ``forward_seq_parallel`` and
+``ops.ring_attention`` over an ``Axis``.
 """
 
 from .distributed import init_distributed, is_coordinator

@@ -13,7 +13,10 @@ broadcasts through them (``parallel/multihost.py``):
 - ``embed``: the lookup into a vocab-split table, each rank's rows masked
   to its own ids, then summed (one rank contributes each row, the others
   exact zeros, so the sum is the full table's row bit for bit);
-- ``broadcast``: rank 0's tensor to every rank.
+- ``broadcast``: rank 0's tensor to every rank;
+- ``shift``: the ring step (``lax.ppermute`` with the perm ``[(i, i + 1
+  mod n)]``): each rank's tensor to the next index, the previous index's
+  received (ring attention's K/V rotation, the pipeline's stage hand-off).
 
 Backends, as the card's machine has them:
 
@@ -25,6 +28,19 @@ Backends, as the card's machine has them:
   tensors, which gloo copies through host memory itself. A gloo
   collective cannot be captured: the engine runs its chunks eagerly. The
   control plane's payload lives on the CPU under gloo (``wire_device``).
+  gloo's point-to-point sends take CPU tensors only: ``shift`` stages a
+  CUDA tensor through host memory itself there.
+
+At exit (``parallel/distributed.py``), the process group must end
+before the interpreter finalizes: a gloo worker thread drops its
+references to a collective's tensors just after the collective
+completes, and a tensor whose Python object is gone then takes the
+interpreter lock to be freed; once the interpreter finalizes, Python ends
+that thread inside C++ and the process aborts ("terminate called without
+an active exception", about 2% of one-rank pods exiting 8 at once). The
+group's destructor joins those threads, and it runs only once nothing
+references the group, this module's axes included: ``release_groups``
+lets go of theirs.
 
 An axis of one rank inside a process group still issues its collectives
 (the identity), so a one-card pod runs the path a pod of many cards runs.
@@ -34,12 +50,24 @@ issues each once; its replays issue none from Python).
 
 from __future__ import annotations
 
+import weakref
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["Axis"]
+__all__ = ["Axis", "release_groups"]
+
+#: every axis made, so that exit can release their groups
+_AXES: "weakref.WeakSet[Axis]" = weakref.WeakSet()
+
+
+def release_groups() -> None:
+    """Drop every axis's reference to its process group (at exit, after
+    ``destroy_process_group``): the group's destructor then joins its
+    worker threads. The axes' collectives are the identity after."""
+    for axis in list(_AXES):
+        axis.group = None
 
 
 class Axis:
@@ -57,6 +85,7 @@ class Axis:
         self.backend = (dist.get_backend(group) if group is not None
                         else None)
         self.calls = 0
+        _AXES.add(self)
 
     # ---------------------------------------------------------- properties
 
@@ -119,6 +148,26 @@ class Axis:
             self.calls += 1
             dist.broadcast(x, group=self.group, group_src=src)
         return x
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """The ring step: ``x`` to the rank at index + 1 and, from the
+        rank at index - 1, its ``x`` returned (a new tensor of ``x``'s
+        shape, dtype and device); both as one ``batch_isend_irecv`` so no
+        rank waits on a send before its receive. An axis of one rank
+        returns ``x`` itself (the ring is the identity)."""
+        if self.group is None or self.size == 1:
+            return x
+        self.calls += 1
+        staged = self.backend == "gloo" and x.device.type != "cpu"
+        src = (x.cpu() if staged else x).contiguous()
+        out = torch.empty_like(src)
+        peer = [dist.get_global_rank(self.group, (self.index + d) % self.size)
+                for d in (1, -1)]
+        ops = [dist.P2POp(dist.isend, src, peer[0], group=self.group),
+               dist.P2POp(dist.irecv, out, peer[1], group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out.to(x.device) if staged else out
 
     def __repr__(self) -> str:
         return (f"Axis({self.name!r}, size={self.size}, index={self.index}, "

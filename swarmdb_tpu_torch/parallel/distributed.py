@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import atexit
 import datetime
+import gc
 import logging
 import os
 from typing import Optional
@@ -36,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.device import DeviceLike, resolve_device
+from .collectives import release_groups
 
 logger = logging.getLogger("swarmdb_tpu_torch.distributed")
 
@@ -88,9 +90,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
         timeout=datetime.timedelta(seconds=pg_timeout_s()), **kwargs)
     logger.info("distributed init: rank %d of %d over %s on %s",
                 process_id, num_processes, backend, dev)
-    # a group still alive at interpreter shutdown is torn down by the
-    # finalizer racing its peers' closing sockets, which can abort the
-    # process (std::terminate) after a clean run: destroy it first
+    # a group still alive when the interpreter finalizes can abort the
+    # process after a clean run (``collectives`` module docstring): end
+    # it first
     atexit.register(_destroy_at_exit)
     return True
 
@@ -101,6 +103,10 @@ def _destroy_at_exit() -> None:
             dist.destroy_process_group()
         except Exception:
             logger.exception("process group teardown at exit failed")
+    # the group ends (its worker threads joined) only once nothing holds
+    # it: the mesh's axes let go, and a cycle that holds one is collected
+    release_groups()
+    gc.collect()
 
 
 def is_coordinator() -> bool:

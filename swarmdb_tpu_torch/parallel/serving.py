@@ -6,27 +6,36 @@ The counterpart of ``swarmdb_tpu/parallel/serving.py``. Two shapes:
   one device is a ``ShardLaneGroup``, one paged engine per device
   (``parallel/lanes.py``); one device gets the single engine of
   ``backend.service.build_backend_engine``.
-- The single program over a ``data`` x ``model`` mesh: the JAX package's
-  sharded engines, one GSPMD program over a mesh. In the port each rank
-  of a ``torch.distributed`` process group is one process with one device
-  (``parallel/distributed.py``); rank 0 serves
+- The single program over a ``data`` x ``model`` x ``expert`` x ``pipe``
+  mesh: the JAX package's sharded engines, one GSPMD program over a mesh.
+  In the port each rank of a ``torch.distributed`` process group is one
+  process with one device (``parallel/distributed.py``); rank 0 serves
   (``Engine.enable_multihost``: it owns the queue, the scheduler, the
   allocator and the tokenizer) and the other ranks replay its device
   calls (``Engine.worker_loop``).
 
-  - The model axis (tensor parallelism): ``build_sharded_model`` gives
-    every rank its share of the weights (``models.llama.param_plan``:
-    each rank draws every tensor whole from the seed and keeps its slice,
-    so the pod computes with the weights one process would draw) and the
-    forwards that meet the other ranks of its model group in collectives
-    (``parallel/collectives.py``).
+  - The model axis (tensor parallelism) and, for Mixtral, the expert
+    axis: ``build_sharded_model`` gives every rank its share of the
+    weights (the family's ``param_plan``: each rank draws every tensor
+    whole from the seed and keeps its slice, so the pod computes with the
+    weights one process would draw) and the forwards that meet the other
+    ranks of its groups in collectives (``parallel/collectives.py``):
+    Llama's over the model axis, and Mixtral's MoE block over the expert
+    axis too (``models/mixtral.py``: each rank runs its own experts' F
+    slice; one all-reduce over the expert axis combines them).
   - The data axis: each data group holds the slots ``[d * B/dp, (d + 1) *
     B/dp)`` of the engine's ``max_batch`` (the engine's ``data_axis``),
-    decodes them with no collective inside the chunk, and gathers every
-    group's sampled block after it.
-  - The dense engine runs over ``data`` x ``model``, as the JAX package's
+    decodes them and gathers every group's sampled block after each chunk.
+    Llama's rows are independent, so its chunk has no collective over the
+    axis; a MoE model's capacity counts every row of the JAX call
+    (``mixtral.Rows``): the engine names its rows of each global call and
+    the block exchanges expert choices over the axis.
+  - The dense engine runs over every axis, as the JAX package's
     ``build_sharded_model`` does (its slot cache splits slots over data and
-    KV heads over model); as there, it has no prefix cache.
+    KV heads over model); as there, it has no prefix cache. A pipe axis
+    holds no weight share in serving (the JAX ``param_specs`` name no
+    ``pipe``): its ranks replicate the engine. Pipeline parallelism proper
+    is the prefill-only ``models.llama.forward_pipelined``.
   - The paged engine (``build_sharded_paged``) needs a pure-DP mesh: its
     pool's pages and its table's slots split over ``data``
     (``ops.paged_kv.ShardedPageAllocator``: slot s on shard s // (B/dp),
@@ -38,18 +47,18 @@ The counterpart of ``swarmdb_tpu/parallel/serving.py``. Two shapes:
     also refuses int8 pools and a model, expert or pipe axis there (the
     port copies both refusals and their words).
 
-  Whether decode chunks replay as CUDA graphs follows the model axis's
-  backend: NCCL collectives can be captured, gloo ones cannot (then the
-  chunks run eagerly); a data axis alone puts no collective in the chunk.
-  The flight recorder's meta names the mesh, the backend, the choice and
-  the pool's shards (``paged_shards``).
+  Whether decode chunks replay as CUDA graphs follows the backends of the
+  axes whose collectives run inside the chunk: NCCL collectives can be
+  captured, gloo ones cannot (then the chunks run eagerly). The model
+  axis always has some; the expert axis and, on the dense engine, the
+  data axis have some for a MoE model. The flight recorder's meta names
+  the mesh, the backend, the choice, the MoE dispatch form and the
+  pool's shards (``paged_shards``).
 
-Not ported yet, and raising ``NotImplementedError`` naming ROADMAP.md
-queue 1 item 11: an ``expert`` or ``pipe`` axis (11c keeps pipeline and
-sequence parallelism), a Mixtral on the single program (11b's expert
-half), and the single program over several devices of one process (a
-data axis there, ``admit_overlap=False``, the dense engine over several
-devices): the port runs it as one rank per device (``init_distributed``).
+The single program over several devices of one process (a data axis
+there, ``admit_overlap=False``, the dense engine over several devices)
+raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 11: the
+port runs it as one rank per device (``init_distributed``).
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..models import llama
+from ..models import llama, mixtral
 from ..models.configs import ModelConfig, get_config
 from ..ops.layers import attention_dispatchers
 from ..ops.paged_kv import (KV_DTYPES, kv_dtype_name,
@@ -96,6 +105,14 @@ class ShardedModel:
     chunked_fns: Any = None
 
     @property
+    def counts_call(self) -> bool:
+        """Whether its forwards' rows meet (Mixtral: a MoE block's capacity
+        counts every row of a call), so that a data rank tells them its
+        rows of a global call (``rows=``, ``_call_rows``); Llama's rows
+        never meet."""
+        return self.cfg.is_moe
+
+    @property
     def model_axis(self):
         return self.mesh.axis("model")
 
@@ -104,25 +121,40 @@ class ShardedModel:
         return self.mesh.shape["data"]
 
 
+def _family(cfg: ModelConfig):
+    return mixtral if cfg.is_moe else llama
+
+
+def _call_rows(mesh: Mesh, rows) -> Dict[str, Any]:
+    """The engine's ``rows`` (a data rank's rows of a global call: the ids
+    tensor, the call's rows) as the MoE block's ``rows=`` keyword
+    (``mixtral.Rows`` over the data axis); none without them."""
+    if rows is None:
+        return {}
+    return {"rows": mixtral.Rows(mesh.axis("data"), *rows)}
+
+
 def param_shardings_for(cfg: ModelConfig, mesh: Mesh) -> Any:
-    """The shard plan of ``cfg``'s parameters over ``mesh`` (Llama's
-    ``param_plan`` over the model axis)."""
+    """The shard plan of ``cfg``'s parameters over ``mesh``: the family's
+    ``param_plan`` over the model axis (and, for Mixtral, the expert
+    axis)."""
     if cfg.is_moe:
-        raise _unported(f"{cfg.name!r} (a MoE model) on the single program "
-                        "over a model or expert axis", "11b")
+        return mixtral.param_plan(cfg, model_axis="model",
+                                  expert_axis="expert")
     return llama.param_plan(cfg, model_axis="model")
 
 
 def _check_mesh(cfg: ModelConfig, mesh: Mesh) -> None:
-    for axis, item in (("expert", "11"), ("pipe", "11c")):
-        if mesh.shape[axis] > 1:
-            raise _unported(f"a {axis} axis of {mesh.shape[axis]}", item)
     m = mesh.shape["model"]
     for what, n in (("KV heads", cfg.n_kv_heads), ("vocab", cfg.vocab_size),
                     ("FFN width", cfg.ffn_dim)):
         if n % m:
             raise ValueError(f"{cfg.name}: {what} {n} do not split over a "
                              f"model axis of {m}")
+    e = mesh.shape["expert"]
+    if cfg.is_moe and cfg.n_experts % e:
+        raise ValueError(f"{cfg.name}: experts {cfg.n_experts} do not split "
+                         f"over an expert axis of {e}")
 
 
 def build_sharded_model(
@@ -136,22 +168,30 @@ def build_sharded_model(
 ) -> ShardedModel:
     """This rank's share of a model over ``mesh`` (default: every rank of
     the process group on the model axis, this process's card) and its
-    engine-ready functions. The data axis splits no weight: a rank's
-    caches are built for its own slots by the engine
-    (``init_cache_fn(B / dp, max_seq)``). Weights are drawn from ``seed`` in ``dtype``,
-    each tensor whole then sliced (``llama.init_params(keep=)``), unless
-    ``params`` (already this rank's shares: ``shard_params``,
-    ``restore_params(shardings=)`` or ``params_from_numpy(shardings=)``)
-    are given. The slot cache and the chunk buffer hold the rank's KV
-    heads, in ``kv_dtype`` (bf16 by default, as the dense engine's)."""
+    engine-ready functions. The data and pipe axes split no weight: a
+    rank's caches are built for its own slots by the engine
+    (``init_cache_fn(B / dp, max_seq)``). Weights are drawn from ``seed``
+    in ``dtype``, each tensor whole then sliced (the family's
+    ``init_params(keep=)``), unless ``params`` (already this rank's
+    shares: ``shard_params``, ``restore_params(shardings=)`` or
+    ``params_from_numpy(shardings=)``) are given. The slot cache and the
+    chunk buffer hold the rank's KV heads, in ``kv_dtype`` (bf16 by
+    default, as the dense engine's).
+
+    The forwards: ``forward_fn(p, tokens, positions, cache, logits_at=,
+    rows=)`` and the chunked triple's forward ``(p, t, pos, c, hkv, s,
+    rows=)``. ``rows`` (``counts_call`` only: a data rank's rows of a
+    global call, as ``(ids tensor, rows of the call)``) makes the MoE
+    block count the whole call; without it a call counts its own rows."""
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
            else get_config(model_name_or_cfg))
     mesh = mesh or make_mesh()
     _check_mesh(cfg, mesh)
+    fam = _family(cfg)
     plan = param_shardings_for(cfg, mesh)
     dev = mesh.device
     if params is None:
-        params = llama.init_params(
+        params = fam.init_params(
             cfg, seed=seed, device=dev, dtype=dtype,
             keep=lambda key, t: shard_leaf(t, plan_leaf(plan, key), mesh))
     tp = mesh.axis("model")
@@ -161,18 +201,24 @@ def build_sharded_model(
         raise ValueError(f"params hold wq {tuple(params['layers']['wq'].shape)}"
                          f", this rank's share is [..., {want}]")
     cache_dtype = kv_dtype or torch.bfloat16
+    # Mixtral's MoE block also meets the expert axis
+    axes = {"tp": tp, **({"ep": mesh.axis("expert")} if cfg.is_moe else {})}
 
-    def forward_fn(p, tokens, positions, cache, logits_at=None):
-        return llama.forward(p, cfg, tokens, positions, cache,
-                             logits_at=logits_at, tp=tp)
+    def forward_fn(p, tokens, positions, cache, logits_at=None, rows=None):
+        return fam.forward(p, cfg, tokens, positions, cache,
+                           logits_at=logits_at, **axes,
+                           **_call_rows(mesh, rows))
+
+    def chunk_forward(p, t, pos, c, hkv, s, rows=None):
+        return fam.forward_chunked(p, cfg, t, pos, c, hkv, s, **axes,
+                                   **_call_rows(mesh, rows))
 
     def init_cache_fn(batch: int, max_seq: int):
         return llama.init_kv_cache(cfg, batch, max_seq, dtype=cache_dtype,
                                    device=dev, kv_heads=kv_heads)
 
     chunked_fns = (
-        lambda p, t, pos, c, hkv, s: llama.forward_chunked(
-            p, cfg, t, pos, c, hkv, s, tp=tp),
+        chunk_forward,
         lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev,
                                          kv_heads=kv_heads),
         llama.merge_chunk,
@@ -211,10 +257,14 @@ def build_sharded_paged(sm: ShardedModel, *, max_batch: int, max_seq: int,
     shards of ``1 + ceil(tokens / (page_size * dp))`` pages (one of them
     the shard's trash page). ``init_pool`` builds this rank's shard: its
     sub-pool in ``kv_dtype`` (None resolves ``SWARMDB_KV_DTYPE``) and the
-    table rows of its B/dp slots. The forwards are the single engine's
-    (kernel 2 chunked, kernel 3 single-step), run by each rank on its own
-    slots over its localized table rows."""
+    table rows of its B/dp slots. The forwards are the single engine's,
+    the family's (kernel 2 chunked, kernel 3 single-step), run by each
+    rank on its own slots over its localized table rows: as in the JAX
+    package's ``shard_map`` bodies, a rank's rows are the whole call
+    there. The prefix forward is the JAX package's GSPMD program over the
+    whole wave: it takes ``rows`` as ``ShardedModel.forward_fn`` does."""
     cfg, mesh = sm.cfg, sm.mesh
+    fam = _family(cfg)
     _refuse_sharded_paged(mesh.shape, kv_dtype)
     from ..backend.engine import PagedKV
 
@@ -243,18 +293,20 @@ def build_sharded_paged(sm: ShardedModel, *, max_batch: int, max_seq: int,
         page_size=page_size,
         num_pages=per_shard * dp,
         allocator=allocator,
-        decode_forward=lambda p, t, pos, c: llama.forward_paged(
+        decode_forward=lambda p, t, pos, c: fam.forward_paged(
             p, cfg, t, pos, c, attention=decode_attn))
     chunked_fns = (
-        lambda p, t, pos, c, hkv, s: llama.forward_paged_chunked(
+        lambda p, t, pos, c, hkv, s: fam.forward_paged_chunked(
             p, cfg, t, pos, c, hkv, s),
         lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev),
         llama.merge_paged_chunk)
     prefix_fns = None
     if prefix:
-        prefix_fns = (lambda p, t, tab, pl, pk, pv, logits_at=None:
-                      llama.forward_prefix_pages(p, cfg, t, tab, pl, pk, pv,
-                                                 logits_at=logits_at), None)
+        prefix_fns = (lambda p, t, tab, pl, pk, pv, logits_at=None, rows=None:
+                      fam.forward_prefix_pages(p, cfg, t, tab, pl, pk, pv,
+                                               logits_at=logits_at,
+                                               **_call_rows(mesh, rows)),
+                      None)
     return spec, prefix_fns, chunked_fns
 
 
@@ -290,18 +342,21 @@ def build_serving_engine(
     In a process group (``init_distributed``) it builds the single
     program over a mesh of ``data`` x ``model`` ranks (``model`` defaults
     to the group's size over ``data``), one device per rank (``devices``
-    names this rank's one): (Engine, ShardedModel). Paged, it is the
+    names this rank's one): (Engine, ShardedModel), over a mesh of
+    ``data`` x ``model`` x ``expert`` x ``pipe`` ranks (``model``
+    defaults to the group's size over the others). Paged, it is the
     sharded paged engine (``build_sharded_paged``: a pure-DP mesh, the
     prefix cache on unless ``SWARMDB_PREFIX=0``); else the dense engine,
     without a prefix cache. Decode is chunked unless ``SWARMDB_CHUNKED=0``.
     The coordinator then calls ``engine.enable_multihost()`` and the
     other ranks ``engine.worker_loop()``. Otherwise a lone engine or a
-    lane group: (engine, LaneGroupInfo). A paged engine over a model axis
-    raises the JAX package's pure-DP ``ValueError`` (and an int8 pool its
-    ``NotImplementedError``); ``expert`` / ``pipe`` above 1, and a data or
-    model axis, ``admit_overlap=False`` or the dense engine over several
-    devices of one process, raise naming item 11 (the last three: the port
-    runs the single program as one rank per device, ``init_distributed``).
+    lane group: (engine, LaneGroupInfo). A paged engine over a model,
+    expert or pipe axis raises the JAX package's pure-DP ``ValueError``
+    (and an int8 pool its ``NotImplementedError``); a model, expert or
+    pipe axis outside a process group says to call ``init_distributed``;
+    a data axis, ``admit_overlap=False`` or the dense engine over several
+    devices of one process raise naming item 11 (the port runs the single
+    program as one rank per device, ``init_distributed``).
     ``tokenizer_path`` gives the single program's engine its tokenizer's
     EOS and pad ids."""
     if devices is None:
@@ -314,16 +369,15 @@ def build_serving_engine(
         paged = os.environ.get("SWARMDB_PAGED", "0") == "1"
     if admit_overlap is None:
         admit_overlap = os.environ.get("SWARMDB_ADMIT_OVERLAP", "1") != "0"
-    for axis, size, item in (("expert", expert, "11"), ("pipe", pipe, "11c")):
-        if size > 1:
-            raise _unported(f"a {axis} axis of {size}", item)
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
            else get_config(model_name_or_cfg))
-    if paged and (model or 1) > 1:
-        _refuse_sharded_paged({"model": model}, kv_dtype)
+    split = {"model": model or 1, "expert": expert, "pipe": pipe}
+    if paged and any(n > 1 for n in split.values()):
+        _refuse_sharded_paged(split, kv_dtype)
     one_rank = ("the port runs the single program as one rank per device: "
                 "init_distributed")
-    if dist.is_initialized() or (model or 1) > 1 or data > 1:
+    if dist.is_initialized() or data > 1 or any(
+            n > 1 for n in split.values()):
         if len(devs) != 1:
             raise ValueError("a rank of the single program holds one "
                              f"device, not {len(devs)}")
@@ -331,10 +385,12 @@ def build_serving_engine(
             if data > 1:
                 raise _unported(f"a data axis of {data} over the devices of "
                                 f"one process ({one_rank})")
-            raise ValueError(f"a model axis of {model} needs {model} ranks: "
+            axis, n = next((a, n) for a, n in split.items() if n > 1)
+            raise ValueError(f"a {axis} axis of {n} needs {n} ranks: "
                              "call parallel.distributed.init_distributed "
                              "in each first")
         return _single_program(cfg, devs[0], data=data, model=model,
+                               expert=expert, pipe=pipe,
                                paged=paged, max_batch=max_batch or 8 * data,
                                max_seq=max_seq, seed=seed, page_size=page_size,
                                kv_pool_tokens=kv_pool_tokens,
@@ -371,7 +427,8 @@ def build_serving_engine(
 
 
 def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
-                    model: Optional[int], paged: bool, max_batch: int,
+                    model: Optional[int], expert: int, pipe: int,
+                    paged: bool, max_batch: int,
                     max_seq: int, seed: int, page_size: int,
                     kv_pool_tokens: Optional[int], metrics,
                     decode_chunk: int, prefill_batch: Optional[int],
@@ -379,23 +436,31 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
                     kv_dtype: Optional[torch.dtype],
                     params: Optional[Dict[str, Any]],
                     tokenizer_path: Optional[str]):
-    """This rank's engine: the dense one over its share of ``data`` x
-    ``model``, or the paged one over its shard of a pure-DP pool."""
+    """This rank's engine: the dense one over its share of the mesh, or
+    the paged one over its shard of a pure-DP pool."""
     from ..backend.engine import Engine
     from ..backend.service import _pipeline_depth
     from ..backend.tokenizer import default_tokenizer
 
     world = dist.get_world_size()
-    if world % data:
-        raise ValueError(f"a data axis of {data} does not divide {world} "
-                         "ranks")
-    mesh = make_mesh(data=data, model=model or world // data, expert=1,
-                     device=device)
+    rest = data * expert * pipe
+    if world % rest:
+        raise ValueError(f"data x expert x pipe axes of {rest} do not "
+                         f"divide {world} ranks")
+    mesh = make_mesh(data=data, model=model or world // rest, expert=expert,
+                     pipe=pipe, device=device)
     if paged:
         _refuse_sharded_paged(mesh.shape, kv_dtype)
     sm = build_sharded_model(cfg, mesh, seed=seed, params=params,
                              kv_dtype=kv_dtype)
-    tp = sm.model_axis
+    # the axes whose collectives run inside a decode chunk: the model
+    # axis's; a MoE block's over the expert axis, and on the dense engine
+    # over the data axis (its rows count the whole decode step)
+    chunk_axes = [sm.model_axis]
+    if cfg.is_moe:
+        chunk_axes.append(mesh.axis("expert"))
+    if sm.counts_call and not paged:
+        chunk_axes.append(mesh.axis("data"))
     tok = default_tokenizer(cfg.vocab_size, tokenizer_path)
     chunked = os.environ.get("SWARMDB_CHUNKED", "1") != "0"
     kw: Dict[str, Any] = {"chunked_fns": sm.chunked_fns if chunked else None}
@@ -415,7 +480,8 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch,
         device=mesh.device, flight_dir=flight_dir,
         pipeline_depth=_pipeline_depth(), model_config=cfg,
-        decode_graphs=tp.capturable, data_axis=mesh.axis("data"), **kw)
+        decode_graphs=all(a.capturable for a in chunk_axes),
+        data_axis=mesh.axis("data"), count_rows=sm.counts_call, **kw)
     # flight-recorder identity: what the ranks are and how chunks run
     engine.flight.meta.update({
         "mesh": dict(mesh.shape),
@@ -423,6 +489,9 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
         "backend": dist.get_backend(),
         "graphs": bool(engine._runner.use_graphs),
         "paged_shards": (engine.paged.allocator.n_shards if paged else 1),
+        # the MoE block's form (its expert axis combines by all-reduce)
+        "moe_dispatch": (mixtral._default_dispatch() if cfg.is_moe
+                         else None),
         "max_batch": max_batch,
         "max_seq": max_seq,
     })

@@ -264,18 +264,28 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
         assert (eng.paged is None) == (paged is None)
         assert paged is None or eng.paged.prefill_ragged is None
     # lanes are ported (item 9), the single program over a model axis
-    # (item 11a: tests/test_torch_tp.py, test_torch_multihost.py) and over
-    # a data axis (11b's data half: tests/test_torch_dp.py,
-    # test_torch_sharded_paged.py). An expert or pipeline axis, and the
-    # single program over several devices of one process (the sharded
-    # engine's admit_overlap=False, a data axis, the dense engine over
-    # several devices) still raise naming item 11, the last ones saying
-    # how to run one rank per device
-    for kwargs in ({"admit_overlap": False}, {"expert": 2}, {"pipe": 2},
-                   {"paged": False}):
+    # (item 11a: tests/test_torch_tp.py, test_torch_multihost.py), over a
+    # data axis (11b's data half: tests/test_torch_dp.py,
+    # test_torch_sharded_paged.py) and over an expert axis, with Mixtral on
+    # every axis (11b's expert half: tests/test_torch_ep.py). The single
+    # program over several devices of one process (the sharded engine's
+    # admit_overlap=False, a data axis, the dense engine over several
+    # devices) still raises naming item 11 and how to run one rank per
+    # device; a paged engine over an expert or pipe axis raises the JAX
+    # package's pure-DP refusal, and outside a process group an expert or
+    # pipe axis, as a model axis, says how to get one
+    for kwargs in ({"admit_overlap": False}, {"paged": False}):
         with pytest.raises(NotImplementedError, match="item 11"):
             build_serving_engine("tiny-debug", ["cpu", "cpu"], max_seq=64,
                                  **{"paged": True, **kwargs})
+    for kwargs in ({"expert": 2}, {"pipe": 2}):
+        with pytest.raises(ValueError, match="pure-DP mesh"):
+            build_serving_engine("tiny-debug", ["cpu", "cpu"], max_seq=64,
+                                 paged=True, **kwargs)
+        with pytest.raises(ValueError, match="needs 2 ranks.*"
+                           "init_distributed"):
+            build_serving_engine("tiny-moe", ["cpu"], max_seq=64,
+                                 paged=False, **kwargs)
     for kwargs in ({"data": 2}, {"data": 2, "paged": True}):
         with pytest.raises(NotImplementedError,
                            match="init_distributed.*item 11"):
@@ -293,16 +303,19 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="init_distributed"):
         build_serving_engine("tiny-debug", ["cpu"], max_seq=64, model=2,
                              paged=False)
-    # a data axis builds (its caches follow the engine's slots); a MoE
-    # model on the single program is item 11b's expert half
+    # a data, expert and pipe axis build (the caches follow the engine's
+    # slots), Mixtral's too: each rank keeps its experts
     from swarmdb_tpu_torch.parallel.mesh import make_mesh
     from swarmdb_tpu_torch.parallel.serving import build_sharded_model
 
     mesh = make_mesh(device="cpu")
     mesh.shape = dict(mesh.shape, data=2)
     assert build_sharded_model("tiny-debug", mesh).data_size == 2
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        build_sharded_model("tiny-moe", mesh)
+    mesh.shape = dict(mesh.shape, data=1, expert=2, pipe=2)
+    assert build_sharded_model("tiny-debug", mesh).params["layers"][
+        "w_gate"].shape[0] == 2          # a pipe axis splits no layer
+    sm = build_sharded_model("tiny-moe", mesh)
+    assert sm.params["layers"]["w_gate"].shape[1] == 2   # 4 experts / 2
     # a paged engine's pod mode is ported; its ragged waves are not
     # mirrored, so an engine built to prefill with them says so
     paged_eng, _ = build_backend_engine("tiny-debug", max_seq=64, paged=True,
