@@ -378,6 +378,32 @@ and exits non-zero at the first failure:
                pool pages, TTFT and tokens/s per serve, whether its chunks
                replayed as graphs, the per-chunk gather's ms alone, init
                seconds and peak memory per rank.
+               (e) The local step, once (c)'s ranks have exited: the same
+               programs built by this process over two devices of it
+               (``build_serving_engine(cfg, ["cuda:0", "cuda:0"])`` with
+               no process group: it spawns the second rank itself and
+               this process serves as rank 0, over gloo; ``LOCAL_SERVES``)
+               -- the dense engine over a model axis of two at (c)'s depth
+               (kernel 7), then the sharded paged engine
+               (``admit_overlap=False``) over a data axis of two at full
+               depth (kernel 2), both chunked, each rank drawing its
+               weights from seed 0. Each serve's tokens equal the pod
+               serve's of its program ((c)'s chunked serve, (d)'s paged
+               chunked serve) or, where they part, are held to that
+               serve's reference under (c)'s rule; rank 0 launched the
+               kernel. The paged program, whose chunks replay as graphs
+               (captured by its first serve), serves once more, warm (its
+               prompts now hit the prefix cache): held as the first
+               serve. On the model axis the worker is then SIGKILLed at
+               a serve's first token: every request must end
+               "engine_error" within the process group's timeout
+               (``LOCAL_PG_TIMEOUT_S``) and a minute; ``restart()`` spawns
+               a new worker and the prompts are served again with the
+               same tokens. Each ``stop()`` must leave its worker exited 0
+               and no process group. Prints its own ``tp_local`` line:
+               spawn, init and build seconds, TTFT, tokens/s, the kill's
+               seconds and the restart's, with the card's name and power
+               limit.
 7d. sanitize -- the three runtime sanitizers, in a child process
                (``--sanitize-child``) run with ``SWARMDB_LOCKCHECK=1
                SWARMDB_PAGECHECK=1 SWARMDB_KERNCHECK=1`` and a temporary
@@ -519,7 +545,7 @@ Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
 serves, the api, obs, prof, rolling, lanes and ha phases, the sanitize
 phase's five sanitizers-on serves, the ckpt phase's serves of the loaded
 weights, the tp phase's world-size-1 serve and both ranks' serves (its dp step's
-too), the seven Mixtral serves and the ep phase's three
+too, and its local step's rank 0), the seven Mixtral serves and the ep phase's three
 serves on both ranks, each
 counted from zero
 just before it and read just after; a graph replay adds the launches its
@@ -7309,12 +7335,13 @@ def tp_prompts() -> list:
     return [rng.integers(3, vocab, n).tolist() for n in TP_PROMPT_LENS]
 
 
-def tp_serve(eng, prompts, queued: bool = False) -> dict:
+def tp_serve(eng, prompts, queued: bool = False, stop: bool = True) -> dict:
     """The prompts submitted together on a started engine (``queued``:
     submitted before it starts, so that they share one prefill wave and
     every decode step, as a MoE model's capacity needs for a reply that
     does not hang on timing), greedy, TP_NEW new tokens each; the engine
-    is stopped after (a pod coordinator's stop releases its workers).
+    is stopped after unless ``stop`` is False (a pod coordinator's stop
+    releases its workers).
     Returns tokens, their logprobs, finish reasons, TTFT per request and
     the wall time."""
     import threading
@@ -7344,7 +7371,8 @@ def tp_serve(eng, prompts, queued: bool = False) -> dict:
             fail(f"tp: {len(out)} of {len(prompts)} requests finished")
         wall = time.perf_counter() - t0
     finally:
-        eng.stop()
+        if stop:
+            eng.stop()
     return dict(tokens=[out[r][0] for r in rids],
                 logprobs=[list(r.metadata.get("logprobs") or [])
                           for r in reqs],
@@ -7557,6 +7585,175 @@ def dp_gather_ms(eng, dev) -> float:
     return statistics.median(times)
 
 
+#: The tp phase's local step: the single program over two devices of this
+#: process (``cuda:0`` twice, so gloo), this process rank 0 and one
+#: spawned worker -- (serve, ``build_serving_engine``'s keywords, depth
+#: (None: all 32 layers), the decode kernel rank 0 must launch). The model
+#: axis runs at (c)'s depth and the sharded paged engine at the dp step's,
+#: the depths of the pod serves they are held to.
+LOCAL_SERVES = (
+    ("model", {"paged": False}, TP_WS2_LAYERS, "dense_decode_chunked"),
+    ("data_paged", {"paged": True, "admit_overlap": False}, None,
+     "paged_decode_chunked"))
+LOCAL_DEVICES = ("cuda:0", "cuda:0")
+#: the local program's SWARMDB_PG_TIMEOUT_S: bounds the kill's wait
+LOCAL_PG_TIMEOUT_S = 30
+
+
+def local_kill(eng, prompts) -> dict:
+    """The tp prompts submitted together, the worker SIGKILLed at the first
+    token: each request's finish reason, whether all finished within the
+    process group's timeout and a minute, the seconds from the kill to the
+    last, and the engine's pod state after."""
+    import signal
+
+    from swarmdb_tpu_torch.backend.engine import GenRequest
+    from swarmdb_tpu_torch.backend.sampling import SamplingParams
+
+    done, out, t_kill = threading.Event(), {}, []
+
+    def on_token(rid, tok):
+        if not t_kill:
+            t_kill.append(time.perf_counter())
+            os.kill(eng._owner.pids()[0], signal.SIGKILL)
+
+    def on_done(rid, toks, why):
+        out[rid] = why
+        if len(out) == len(prompts):
+            done.set()
+
+    for p in prompts:
+        eng.submit(GenRequest(prompt=list(p),
+                              sampling=SamplingParams(max_new_tokens=TP_NEW),
+                              on_token=on_token, on_done=on_done))
+    finished = done.wait(LOCAL_PG_TIMEOUT_S + 60)
+    return dict(reasons=list(out.values()), finished=finished,
+                seconds=(time.perf_counter() - t_kill[0]) if t_kill else None,
+                pod=eng.stats()["pod"])
+
+
+def tp_local(prompts) -> dict:
+    """The tp phase's local step: for each of ``LOCAL_SERVES`` the program
+    built by this process (its spawn, init and build seconds), the tp
+    prompts served (TTFT, tokens/s, tokens and logprobs, rank 0's
+    launches), and once more if its chunks replay as graphs (the first
+    serve captured them); on the model axis then a serve whose worker is
+    killed (``local_kill``), ``restart()`` (its seconds) and the prompts
+    served again. After each ``stop()``: the workers' exit codes and
+    whether a process group is left. ``launches`` adds up every serve's,
+    ``step_s`` the step's seconds."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from swarmdb_tpu_torch.models.configs import get_config
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+    from swarmdb_tpu_torch.parallel.serving import build_serving_engine
+
+    out, total, t_step = {}, {}, time.perf_counter()
+    for name, kw, layers, kernel in LOCAL_SERVES:
+        cfg = get_config(TP_MODEL, **({"n_layers": layers} if layers else {}))
+        t0 = time.perf_counter()
+        with engine_env(True, SWARMDB_PG_TIMEOUT_S=str(LOCAL_PG_TIMEOUT_S)):
+            eng, sm = build_serving_engine(
+                cfg, list(LOCAL_DEVICES), max_batch=TP_BATCH, max_seq=TP_SEQ,
+                decode_chunk=8, **kw)
+        owner = eng._owner
+        res = dict(owner.timings, build_s=time.perf_counter() - t0,
+                   layers=cfg.n_layers, backend=owner.backend,
+                   mesh=dict(sm.mesh.shape), graphs=eng.flight.meta["graphs"],
+                   paged_shards=eng.flight.meta["paged_shards"],
+                   kernel=kernel)
+        ac.reset_launches()
+        res.update(tp_serve(eng, prompts, stop=False))
+        torch.cuda.synchronize()
+        res["launches"] = {k: n for k, n in ac.LAUNCHES.items() if n}
+        if eng.flight.meta["graphs"]:
+            # the first serve captured each rank's chunk graphs (the dp
+            # step's pod captured them before traffic): once more, warm
+            res["warm"] = tp_serve(eng, prompts, stop=False)
+        if name == "model":
+            res["kill"] = local_kill(eng, prompts)
+            t0 = time.perf_counter()
+            eng.restart()
+            res["restart_s"] = time.perf_counter() - t0
+            res["respawn"] = dict(owner.timings)
+            res["again"] = tp_serve(eng, prompts, stop=False)
+            torch.cuda.synchronize()
+        for k, n in ac.LAUNCHES.items():
+            total[k] = total.get(k, 0) + n
+        procs = list(owner.procs)
+        eng.stop()
+        res["left"] = dict(worker_codes=[p.returncode for p in procs],
+                           group=dist.is_initialized())
+        out[name] = res
+        del eng, sm, owner
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = total
+    out["step_s"] = time.perf_counter() - t_step
+    return out
+
+
+def local_checks(local, pods, holds, checks) -> dict:
+    """The local step's checks, added to ``checks``: per serve, its tokens
+    equal to the pod serve's (``pods``), or, where they part, held to the
+    pod's reference by ``holds(name, i, tokens, logprobs)`` (``tp_hold``:
+    equal to it or parting at a near tie); reasons length / eos; rank 0
+    launched its kernel; the kill ended every request "engine_error" in
+    time and ``restart()`` served the same tokens again; each ``stop()``
+    left every worker exited 0 and no process group. Returns the step's
+    summary for its line."""
+    summary = {}
+    for name, _kw, _layers, kernel in LOCAL_SERVES:
+        res = local[name]
+        parted = [i for i, (a, b) in enumerate(zip(res["tokens"],
+                                                   pods[name])) if a != b]
+        held = {i: holds(name, i, res["tokens"][i], res["logprobs"][i])
+                for i in parted}
+        checks[f"local {name} tokens == the pod's, or part at a near "
+               "tie"] = all(h["step"] is None or h["near_tie"]
+                            for h in held.values())
+        checks[f"local {name} reasons length/eos"] = all(
+            r in ("length", "eos") for r in res["reasons"])
+        checks[f"local {name} rank 0 launched {kernel}"] = res[
+            "launches"].get(kernel, 0) > 0
+        checks[f"local {name} stop left no worker and no group"] = (
+            res["left"]["worker_codes"] == [0]
+            and not res["left"]["group"])
+        summary[name] = {k: v for k, v in res.items()
+                         if k not in ("tokens", "logprobs", "again", "warm")}
+        summary[name]["parted"] = {str(i): h for i, h in held.items()}
+        if "warm" in res:
+            # its prompts hit the prefix cache the first serve filled, so
+            # it prefills other waves: held as the first serve is
+            warm = res["warm"]
+            warm_held = {
+                i: holds(name, i, warm["tokens"][i], warm["logprobs"][i])
+                for i, (a, b) in enumerate(zip(warm["tokens"], pods[name]))
+                if a != b}
+            checks[f"local {name} warm serve: the pod's tokens, or part at "
+                   "a near tie"] = all(h["step"] is None or h["near_tie"]
+                                       for h in warm_held.values())
+            checks[f"local {name} warm serve reasons length/eos"] = all(
+                r in ("length", "eos") for r in warm["reasons"])
+            summary[name]["warm"] = {k: warm[k] for k in (
+                "ttft_s", "tokens_per_s", "wall_s", "reasons")}
+            summary[name]["warm"]["parted"] = {
+                str(i): h for i, h in warm_held.items()}
+        if "kill" in res:
+            kill, again = res["kill"], res["again"]
+            checks[f"local {name} killed worker: every request "
+                   "engine_error"] = (kill["finished"] and kill["reasons"]
+                                      == ["engine_error"] * len(pods[name]))
+            checks[f"local {name} restart serves the same tokens"] = (
+                again["tokens"] == res["tokens"])
+            summary[name]["again"] = {k: again[k] for k in (
+                "ttft_s", "tokens_per_s", "wall_s", "reasons")}
+    return summary
+
+
 #: world size 2 against the plain forward is held to this many times the
 #: reference serve's own distance from it (``tol``): its logits carry the
 #: same engine path's rounding plus one more bf16 rounding of each split
@@ -7721,6 +7918,8 @@ def run_tp(card, params):
     for r in results:
         with open(r, encoding="utf-8") as f:
             ranks.append(json.load(f))
+    # (e) the same programs, built by this process over two devices of it
+    local = tp_local(prompts)
     # the tolerance comes only from paths outside the runs under test:
     # the largest |log-probability difference| of the chosen token
     # between a reference serve and a plain bf16 forward over its tokens,
@@ -7735,7 +7934,25 @@ def run_tp(card, params):
                         ranks[0][mode]["tokens"],
                         ranks[0][mode]["logprobs"])]
              for mode in ("chunked", "single")}
-    del plain_ws2
+    paged_plain = []
+
+    def local_hold(name, i, got, lps):
+        if name == "model":
+            return tp_hold(plain_ws2[i], ref_ws2["tokens"][i], got, lps,
+                           bound_ws2)
+        ref_p = dp_refs["paged_chunked"]
+        if not paged_plain:     # a parting on the paged serve: its plain
+            paged_plain.extend(plain_step_logits(params, p, t) for p, t in
+                               zip(prompts, ref_p["tokens"]))
+        return tp_hold(paged_plain[i], ref_p["tokens"][i], got, lps,
+                       TP_WS2_TOL_FACTOR * ref_logprob_tol(paged_plain,
+                                                           ref_p))
+
+    local_sum = local_checks(local, {
+        "model": ranks[0]["chunked"]["tokens"],
+        "data_paged": ranks[0]["dp"]["paged_chunked"]["tokens"]},
+        local_hold, checks)
+    del plain_ws2, paged_plain
     dp = dp_checks(params, prompts, dp_refs, plain, tol, ranks, checks)
     del plain
     for r, rank in enumerate(ranks):
@@ -7755,6 +7972,10 @@ def run_tp(card, params):
         checks[f"ws2 {mode} reasons length/eos"] = all(
             r in ("length", "eos") for r in ranks[0][mode]["reasons"])
     bad = [k for k, ok in checks.items() if not ok]
+    emit("tp_local", card=card, model=TP_MODEL, devices=list(LOCAL_DEVICES),
+         pg_timeout_s=LOCAL_PG_TIMEOUT_S, step_s=local["step_s"],
+         serves=local_sum,
+         checks={k: v for k, v in checks.items() if k.startswith("local ")})
     summary = {k: v for k, v in ws1.items()
                if k not in ("tokens", "logprobs")}
     emit("tp", card=card, model=TP_MODEL,
@@ -7777,6 +7998,8 @@ def run_tp(card, params):
     if bad:
         fail(f"tp checks failed: {bad}")
     total = dict(launches)
+    for k, n in local["launches"].items():
+        total[k] = total.get(k, 0) + n
     for rank in ranks:
         for runs in (rank, rank["dp"]):
             for mode, res in runs.items():

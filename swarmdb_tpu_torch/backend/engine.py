@@ -122,8 +122,11 @@ paged engine's mirrored calls (``_mirrored``: page-table rows, bucketed,
 packed and prefix prefill waves) -- and beats while idle; every other
 rank's engine replays them (``worker_loop``). Its chunks run as graph
 replays unless the model axis's collectives cannot be captured (gloo:
-``decode_graphs=False``). A failed step stops the pod; restart, rolling
-keep and resume are refused there.
+``decode_graphs=False``). A failed step stops the pod, its requests
+ending "engine_error"; rolling keep and resume are refused there. A
+restart is refused in a pod launched from outside; the single program
+over several devices of one process (``parallel/local.py``) owns its
+workers (``_owner``): its stop ends them, its restart replaces them.
 
 A data axis (``data_axis``, ``parallel/serving.py``): the host schedules
 all ``max_batch`` slots on every rank, but a rank's device state holds
@@ -511,6 +514,10 @@ class Engine:
             self._mh = None
             self._pod_failed: Optional[str] = None
             self.block_log: Optional[List[np.ndarray]] = None
+            # the workers this coordinator spawned, if it did
+            # (parallel/local.py's LocalProgram): start, stop and restart
+            # drive them
+            self._owner = None
             self._resident = (paged is not None and not self._sharded
                               and os.environ.get("SWARMDB_EMIT_RING",
                                                  "1") != "0")
@@ -724,10 +731,22 @@ class Engine:
         with self._lifecycle:
             if self._thread is not None:
                 return
+            if self._owner is not None and not self._owner.running:
+                # a stopped program's workers are gone and new ones start
+                # from nothing: so does this rank (its queue stays)
+                with self._on_stream():
+                    for i, slot in enumerate(self.slots):
+                        if slot.active:
+                            self._retire(i, "engine_restart")
+                self._reset_state()
+                self._pod_failed = None
+                self._owner.respawn(self)
             if self.device.type == "cuda":
                 from ..ops import build
 
                 build.build_all()
+            if self._owner is not None:
+                self._owner.go()
             with self._cv:
                 self._stop = False
             # the CPU intra-op thread count is per thread: the worker takes
@@ -747,9 +766,12 @@ class Engine:
             if self._thread is not None:
                 self._thread.join(timeout=60)
                 self._thread = None
-            if self._mh is not None:
-                # release the workers blocked in worker_loop's receive
-                mh, self._mh = self._mh, None
+            # release the workers blocked in worker_loop's receive
+            mh, self._mh = self._mh, None
+            if self._owner is not None:
+                # and end them and the process group: they were ours
+                self._owner.close(mh)
+            elif mh is not None:
                 try:
                     mh.publish_stop()
                 except Exception:
@@ -769,11 +791,16 @@ class Engine:
         fed tokens and the backpressure state, and start again. A replayed
         request then starts from nothing a lost one left behind.
 
-        Refused in pod mode, as in the JAX package: the workers cannot be
-        told to rebuild their shares, so a local restart would silently
-        desynchronise the pod; a pod recovers by restarting its
-        processes."""
-        if self._mh is not None or self._pod_failed is not None:
+        A single program that spawned its workers (``parallel/local.py``)
+        restarts as the JAX package's one-process engine does: its
+        workers are ended and new ones spawned on a new process group
+        (``start`` after ``stop`` does it), this rank's state rebuilt.
+        Refused in a pod launched from outside, as in the JAX package's
+        multi-host mode: the workers cannot be told to rebuild their
+        shares, so a local restart would silently desynchronise the pod;
+        such a pod recovers by restarting its processes."""
+        if self._owner is None and (self._mh is not None
+                                    or self._pod_failed is not None):
             raise RuntimeError(
                 "a pod engine cannot restart in place; restart the pod's "
                 "processes (worker state cannot be rebuilt remotely)")
@@ -787,7 +814,9 @@ class Engine:
                 # retirement callbacks (a kept request's pages) may copy
                 # from the pool: on this engine's stream, as in the loop
                 self._fail_all("engine_restart")
-            self._reset_state()
+            if self._owner is None:
+                # (an owned program's start rebuilds it with its workers)
+                self._reset_state()
             self.start()
 
     def warmup(self) -> float:
@@ -830,14 +859,19 @@ class Engine:
     # chunk forward and its merge) and the dense bucketed prefill
     # (OP_PREFILL) have records of their own; the paged engine's device
     # calls go through _mirrored (OP_CALL). Slot state is reset only by a
-    # restart, which a pod refuses, so no other call is mirrored.
+    # restart, so no other call is mirrored: a pod launched from outside
+    # refuses one, and a program that spawned its workers
+    # (parallel/local.py) replaces them instead, new workers starting
+    # from the state this rank's reset rebuilds.
 
     def enable_multihost(self) -> None:
         """Publish every device call to the pod's workers (coordinator
-        side; ``parallel.distributed.init_distributed`` first). A dense
-        engine's prefix lane and a paged engine's ragged waves are not
-        mirrored: a pod engine has neither (``parallel.serving.
-        build_serving_engine`` builds it so)."""
+        side, in a process group: ``init_distributed``, or the one a
+        single program over several devices of one process made for its
+        workers, whose build calls this). A dense engine's prefix lane
+        and a paged engine's ragged waves are not mirrored: a pod engine
+        has neither (``parallel.serving.build_serving_engine`` builds it
+        so)."""
         from ..parallel.multihost import ControlPlane, pod_axis
 
         if self.paged is None and self._prefix is not None:

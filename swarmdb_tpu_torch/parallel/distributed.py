@@ -22,6 +22,13 @@ Environment, as in the JAX package (all optional on one process):
 The backend follows the device: NCCL on ``cuda`` (one card per rank),
 gloo on ``cpu``. ``backend="gloo"`` with a ``cuda`` device is for ranks
 that share one card, which NCCL refuses.
+
+A program that spawns its own ranks (``parallel/local.py``) joins its
+group through a store it owns (``store=``) and ends it with
+``destroy_distributed`` when it stops, so that the process is no rank of
+any group after (``dist.is_initialized()`` is what makes
+``build_serving_engine`` take a process for a pod rank) and can build
+another program.
 """
 
 from __future__ import annotations
@@ -41,7 +48,11 @@ from .collectives import release_groups
 
 logger = logging.getLogger("swarmdb_tpu_torch.distributed")
 
-__all__ = ["init_distributed", "is_coordinator", "pg_timeout_s"]
+__all__ = ["destroy_distributed", "init_distributed", "is_coordinator",
+           "pg_timeout_s"]
+
+#: whether the exit hook is registered (once for the process)
+_AT_EXIT = False
 
 
 def pg_timeout_s() -> float:
@@ -53,14 +64,17 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None, *,
                      backend: Optional[str] = None,
-                     device: DeviceLike = None) -> bool:
+                     device: DeviceLike = None,
+                     store: Optional[dist.Store] = None) -> bool:
     """Join the process group when a coordinator is configured (the
-    argument or ``SWARMDB_COORDINATOR``); idempotent. Returns True when
-    this process is one rank of a group (now or already), False for a
-    single process without one (nothing done).
+    argument or ``SWARMDB_COORDINATOR``) or a ``store`` is given;
+    idempotent. Returns True when this process is one rank of a group
+    (now or already), False for a single process without one (nothing
+    done).
 
     ``coordinator_address`` is ``host:port`` (a TCP store on rank 0), or a
-    full ``tcp://`` / ``file://`` init method. ``device`` (default the
+    full ``tcp://`` / ``file://`` init method; ``store`` is a store the
+    caller made (``parallel/local.py``'s). ``device`` (default the
     card) picks NCCL on ``cuda`` and gloo on ``cpu``; ``backend``
     overrides it. On ``cuda`` the rank binds its device and, under NCCL,
     creates its communicator at once (``device_id``), so the first
@@ -73,36 +87,45 @@ def init_distributed(coordinator_address: Optional[str] = None,
         num_processes = int(os.environ.get("SWARMDB_NUM_PROCESSES", "1"))
     if process_id is None:
         process_id = int(os.environ.get("SWARMDB_PROCESS_ID", "0"))
-    if coordinator_address is None:
+    if coordinator_address is None and store is None:
         return False
     dev = resolve_device(device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    method = (coordinator_address if "://" in coordinator_address
-              else f"tcp://{coordinator_address}")
-    kwargs = {}
+    if store is not None:
+        kwargs = {"store": store}
+    else:
+        kwargs = {"init_method": (
+            coordinator_address if "://" in coordinator_address
+            else f"tcp://{coordinator_address}")}
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         if backend == "nccl":
             kwargs["device_id"] = dev
     dist.init_process_group(
-        backend, init_method=method, world_size=num_processes,
-        rank=process_id,
+        backend, world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(seconds=pg_timeout_s()), **kwargs)
     logger.info("distributed init: rank %d of %d over %s on %s",
                 process_id, num_processes, backend, dev)
     # a group still alive when the interpreter finalizes can abort the
     # process after a clean run (``collectives`` module docstring): end
     # it first
-    atexit.register(_destroy_at_exit)
+    global _AT_EXIT
+    if not _AT_EXIT:
+        _AT_EXIT = True
+        atexit.register(destroy_distributed)
     return True
 
 
-def _destroy_at_exit() -> None:
+def destroy_distributed() -> None:
+    """Leave the process group, if any: destroy it and every subgroup,
+    and let every mesh axis go of its group. Afterwards the axes'
+    collectives are the identity and ``dist.is_initialized()`` is False.
+    Also the exit hook of ``init_distributed``."""
     if dist.is_initialized():
         try:
             dist.destroy_process_group()
         except Exception:
-            logger.exception("process group teardown at exit failed")
+            logger.exception("process group teardown failed")
     # the group ends (its worker threads joined) only once nothing holds
     # it: the mesh's axes let go, and a cycle that holds one is collected
     release_groups()

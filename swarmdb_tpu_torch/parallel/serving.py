@@ -55,10 +55,13 @@ The counterpart of ``swarmdb_tpu/parallel/serving.py``. Two shapes:
   the mesh, the backend, the choice, the MoE dispatch form and the
   pool's shards (``paged_shards``).
 
-The single program over several devices of one process (a data axis
-there, ``admit_overlap=False``, the dense engine over several devices)
-raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 11: the
-port runs it as one rank per device (``init_distributed``).
+The single program over several devices of one process (the dense
+engine over several devices, a data axis there, ``admit_overlap=False``)
+is the same program: ``build_serving_engine`` spawns a rank per device
+but the first, this process being rank 0 (``parallel/local.py``), and
+the engine it returns owns them: its ``stop`` ends them and its
+``restart`` replaces them, as the JAX package's one-process engine
+restarts in place.
 """
 
 from __future__ import annotations
@@ -82,12 +85,6 @@ from .mesh import Mesh, make_mesh, plan_leaf, shard_leaf
 
 __all__ = ["ShardedModel", "build_serving_engine", "build_sharded_model",
            "build_sharded_paged", "param_shardings_for"]
-
-
-def _unported(why: str, item: str = "11") -> NotImplementedError:
-    return NotImplementedError(
-        f"{why} is multi-GPU serving not ported yet (ROADMAP.md, queue 1 "
-        f"item {item})")
 
 
 @dataclass
@@ -144,14 +141,14 @@ def param_shardings_for(cfg: ModelConfig, mesh: Mesh) -> Any:
     return llama.param_plan(cfg, model_axis="model")
 
 
-def _check_mesh(cfg: ModelConfig, mesh: Mesh) -> None:
-    m = mesh.shape["model"]
+def _check_mesh(cfg: ModelConfig, shape: Dict[str, int]) -> None:
+    m = shape["model"]
     for what, n in (("KV heads", cfg.n_kv_heads), ("vocab", cfg.vocab_size),
                     ("FFN width", cfg.ffn_dim)):
         if n % m:
             raise ValueError(f"{cfg.name}: {what} {n} do not split over a "
                              f"model axis of {m}")
-    e = mesh.shape["expert"]
+    e = shape["expert"]
     if cfg.is_moe and cfg.n_experts % e:
         raise ValueError(f"{cfg.name}: experts {cfg.n_experts} do not split "
                          f"over an expert axis of {e}")
@@ -186,7 +183,7 @@ def build_sharded_model(
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
            else get_config(model_name_or_cfg))
     mesh = mesh or make_mesh()
-    _check_mesh(cfg, mesh)
+    _check_mesh(cfg, mesh.shape)
     fam = _family(cfg)
     plan = param_shardings_for(cfg, mesh)
     dev = mesh.device
@@ -335,28 +332,39 @@ def build_serving_engine(
 ) -> Tuple[Any, Any]:
     """(engine, info). ``devices`` defaults to every visible card (the
     counterpart of a mesh over ``jax.devices()``) and may repeat one;
-    ``max_batch`` to 8 slots per device (per data shard); ``paged=None``
-    reads ``SWARMDB_PAGED`` and ``admit_overlap=None``
-    ``SWARMDB_ADMIT_OVERLAP`` (default on).
+    ``max_batch`` to 8 slots per data shard; ``paged=None`` reads
+    ``SWARMDB_PAGED`` and ``admit_overlap=None`` ``SWARMDB_ADMIT_OVERLAP``
+    (default on).
 
-    In a process group (``init_distributed``) it builds the single
-    program over a mesh of ``data`` x ``model`` ranks (``model`` defaults
-    to the group's size over ``data``), one device per rank (``devices``
-    names this rank's one): (Engine, ShardedModel), over a mesh of
-    ``data`` x ``model`` x ``expert`` x ``pipe`` ranks (``model``
-    defaults to the group's size over the others). Paged, it is the
-    sharded paged engine (``build_sharded_paged``: a pure-DP mesh, the
-    prefix cache on unless ``SWARMDB_PREFIX=0``); else the dense engine,
-    without a prefix cache. Decode is chunked unless ``SWARMDB_CHUNKED=0``.
-    The coordinator then calls ``engine.enable_multihost()`` and the
-    other ranks ``engine.worker_loop()``. Otherwise a lone engine or a
-    lane group: (engine, LaneGroupInfo). A paged engine over a model,
-    expert or pipe axis raises the JAX package's pure-DP ``ValueError``
-    (and an int8 pool its ``NotImplementedError``); a model, expert or
-    pipe axis outside a process group says to call ``init_distributed``;
-    a data axis, ``admit_overlap=False`` or the dense engine over several
-    devices of one process raise naming item 11 (the port runs the single
-    program as one rank per device, ``init_distributed``).
+    The single program, (Engine, ShardedModel), over a mesh of ``data`` x
+    ``model`` x ``expert`` x ``pipe`` ranks, one device each (``model``
+    defaults to what the other axes leave: every rank of a dense program
+    with no axis given is on ``model``, as the JAX package's
+    ``plan_mesh_shape`` puts them). Paged, it is the sharded paged engine
+    (``build_sharded_paged``: a pure-DP mesh, the prefix cache on unless
+    ``SWARMDB_PREFIX=0``); else the dense engine, without a prefix cache.
+    Decode is chunked unless ``SWARMDB_CHUNKED=0``. Its ranks are either
+
+    - a process group the caller made (``init_distributed`` in each
+      process): ``devices`` names this rank's one device and ``params``
+      are its shares; the coordinator then calls
+      ``engine.enable_multihost()`` and the other ranks
+      ``engine.worker_loop()``. Such a pod cannot restart in place; or
+    - several ``devices`` of a process that is no rank of a group: the
+      call spawns a rank for each device but the first and returns rank
+      0's engine, serving (``parallel/local.py``: NCCL when every device
+      is a card of its own, else gloo); ``params`` are the whole weights.
+      Its ``stop`` ends the workers and the process group, its
+      ``restart`` replaces them. This is the dense engine (every axis),
+      and the paged one with ``admit_overlap=False`` (over ``data`` =
+      every device).
+
+    Otherwise, outside a group, a lone engine (one device) or, paged over
+    several devices, a lane group: (engine, LaneGroupInfo). A paged
+    engine over a model, expert or pipe axis raises the JAX package's
+    pure-DP ``ValueError`` (and an int8 pool on the single program its
+    ``NotImplementedError``); an axis larger than the devices of a
+    process without a group says how to get its ranks.
     ``tokenizer_path`` gives the single program's engine its tokenizer's
     EOS and pad ids."""
     if devices is None:
@@ -374,56 +382,63 @@ def build_serving_engine(
     split = {"model": model or 1, "expert": expert, "pipe": pipe}
     if paged and any(n > 1 for n in split.values()):
         _refuse_sharded_paged(split, kv_dtype)
-    one_rank = ("the port runs the single program as one rank per device: "
-                "init_distributed")
-    if dist.is_initialized() or data > 1 or any(
-            n > 1 for n in split.values()):
+    program = dict(paged=paged, max_seq=max_seq, seed=seed,
+                   page_size=page_size, kv_pool_tokens=kv_pool_tokens,
+                   metrics=metrics, decode_chunk=decode_chunk,
+                   prefill_batch=prefill_batch, flight_dir=flight_dir,
+                   kv_dtype=kv_dtype, tokenizer_path=tokenizer_path)
+    if dist.is_initialized():
         if len(devs) != 1:
             raise ValueError("a rank of the single program holds one "
                              f"device, not {len(devs)}")
-        if not dist.is_initialized():
-            if data > 1:
-                raise _unported(f"a data axis of {data} over the devices of "
-                                f"one process ({one_rank})")
-            axis, n = next((a, n) for a, n in split.items() if n > 1)
-            raise ValueError(f"a {axis} axis of {n} needs {n} ranks: "
-                             "call parallel.distributed.init_distributed "
-                             "in each first")
         return _single_program(cfg, devs[0], data=data, model=model,
                                expert=expert, pipe=pipe,
-                               paged=paged, max_batch=max_batch or 8 * data,
-                               max_seq=max_seq, seed=seed, page_size=page_size,
-                               kv_pool_tokens=kv_pool_tokens,
-                               metrics=metrics, decode_chunk=decode_chunk,
-                               prefill_batch=prefill_batch,
-                               flight_dir=flight_dir, kv_dtype=kv_dtype,
-                               params=params, tokenizer_path=tokenizer_path)
-    if not admit_overlap:
-        raise _unported("the single program (admit_overlap=False, "
-                        "SWARMDB_ADMIT_OVERLAP=0) over the devices of one "
-                        f"process ({one_rank})")
+                               max_batch=max_batch or 8 * data,
+                               params=params, **program)
     n = len(devs)
-    if max_batch is None:
-        max_batch = 8 * n
     if n == 1:
+        axis, size = next(((a, k) for a, k in
+                           {"data": data, **split}.items() if k > 1),
+                          (None, 1))
+        if axis is not None:
+            raise ValueError(
+                f"a {axis} axis of {size} needs {size} ranks: call "
+                "parallel.distributed.init_distributed in each first, or "
+                f"give build_serving_engine {size} devices")
         from ..backend.service import build_backend_engine
 
         engine, _tok = build_backend_engine(
-            cfg, max_batch=max_batch, max_seq=max_seq, seed=seed,
+            cfg, max_batch=max_batch or 8, max_seq=max_seq, seed=seed,
             decode_chunk=decode_chunk, paged=paged, page_size=page_size,
             kv_pool_tokens=kv_pool_tokens, prefill_batch=prefill_batch,
             metrics=metrics, device=devs[0], kv_dtype=kv_dtype,
             params=params, flight_dir=flight_dir)
         return engine, LaneGroupInfo(cfg=cfg, devices=devs, data_size=1)
-    if not paged:
-        raise _unported("the dense engine over several devices of one "
-                        f"process ({one_rank})")
-    group = build_lane_group(
-        cfg, devs, max_batch=max_batch, max_seq=max_seq, seed=seed,
-        page_size=page_size, kv_pool_tokens=kv_pool_tokens, metrics=metrics,
-        decode_chunk=decode_chunk, prefill_batch=prefill_batch,
-        flight_dir=flight_dir, kv_dtype=kv_dtype, params=params)
-    return group, group.info
+    rest = data * expert * pipe
+    if paged and rest == 1 and model is None:
+        data = rest = n     # a paged program is pure DP over its devices
+    if n % rest or (model and rest * model != n):
+        raise ValueError(f"axes data {data} x model {model or '?'} x "
+                         f"expert {expert} x pipe {pipe} do not make "
+                         f"{n} devices")
+    model = n // rest
+    if paged and (model > 1 or not admit_overlap):
+        _refuse_sharded_paged({"model": model, "expert": expert,
+                               "pipe": pipe}, kv_dtype)
+    if paged and admit_overlap:
+        group = build_lane_group(
+            cfg, devs, max_batch=max_batch or 8 * n, max_seq=max_seq,
+            seed=seed, page_size=page_size, kv_pool_tokens=kv_pool_tokens,
+            metrics=metrics, decode_chunk=decode_chunk,
+            prefill_batch=prefill_batch, flight_dir=flight_dir,
+            kv_dtype=kv_dtype, params=params)
+        return group, group.info
+    from .local import build_local_program
+
+    _check_mesh(cfg, {"model": model, "expert": expert})
+    return build_local_program(cfg, devs, dict(
+        program, data=data, model=model, expert=expert, pipe=pipe,
+        max_batch=max_batch or 8 * data), params=params)
 
 
 def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
@@ -434,10 +449,13 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
                     decode_chunk: int, prefill_batch: Optional[int],
                     flight_dir: Optional[str],
                     kv_dtype: Optional[torch.dtype],
-                    params: Optional[Dict[str, Any]],
-                    tokenizer_path: Optional[str]):
+                    tokenizer_path: Optional[str],
+                    params: Optional[Dict[str, Any]] = None,
+                    load: Optional[Callable] = None):
     """This rank's engine: the dense one over its share of the mesh, or
-    the paged one over its shard of a pure-DP pool."""
+    the paged one over its shard of a pure-DP pool. Its weights are
+    ``params`` (its shares), or ``load(plan, mesh)``'s, or drawn from
+    ``seed``."""
     from ..backend.engine import Engine
     from ..backend.service import _pipeline_depth
     from ..backend.tokenizer import default_tokenizer
@@ -451,6 +469,8 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
                      pipe=pipe, device=device)
     if paged:
         _refuse_sharded_paged(mesh.shape, kv_dtype)
+    if load is not None:
+        params = load(param_shardings_for(cfg, mesh), mesh)
     sm = build_sharded_model(cfg, mesh, seed=seed, params=params,
                              kv_dtype=kv_dtype)
     # the axes whose collectives run inside a decode chunk: the model

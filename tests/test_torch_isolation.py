@@ -148,7 +148,16 @@ def test_cli_runs_without_jax(cli, tmp_path):
     assert "FORBIDDEN" not in err, err[-2000:]
 
 
-def test_serving_a_request_loads_no_jax():
+def test_serving_a_request_loads_no_jax(tmp_path):
+    """Serving through each engine, a lane group, a one-rank pod and the
+    single program over two devices of this process loads neither JAX nor
+    the JAX package -- in the worker that program spawns either
+    (``python -m swarmdb_tpu_torch.parallel.local``), where the import hook
+    of ``_CLI_RUNNER`` refuses them (a ``sitecustomize`` on the path every
+    process here inherits): a refused import fails the worker's build, and
+    so the program's."""
+    (tmp_path / "sitecustomize.py").write_text(
+        _CLI_RUNNER.split("sys.argv")[0])
     code = (
         "import sys\n"
         "import swarmdb_tpu_torch.api.server\n"
@@ -198,16 +207,32 @@ def test_serving_a_request_loads_no_jax():
         "eng.stop()\n"
         "assert why in ('length', 'eos')\n"
         "assert eng.flight.meta['paged_shards'] == 1\n"
+        # the single program over two devices of this process: its worker
+        # is a new interpreter with the hook
+        "from swarmdb_tpu_torch.parallel.distributed import"
+        " destroy_distributed\n"
+        "destroy_distributed()\n"
+        "eng, sm = build_serving_engine('tiny-debug', ['cpu', 'cpu'],"
+        " max_seq=64, paged=False)\n"
+        "eng.start()\n"
+        "toks, why = eng.generate_sync([1, 2, 3],"
+        " SamplingParams(max_new_tokens=3))\n"
+        "procs = list(eng._owner.procs)\n"
+        "eng.stop()\n"
+        "assert why in ('length', 'eos') and sm.mesh.shape['model'] == 2\n"
+        "assert [p.returncode for p in procs] == [0], procs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'swarmdb_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), str(ROOT)]), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+    assert "FORBIDDEN" not in out.stderr, out.stderr[-2000:]
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
@@ -267,17 +292,15 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
     # (item 11a: tests/test_torch_tp.py, test_torch_multihost.py), over a
     # data axis (11b's data half: tests/test_torch_dp.py,
     # test_torch_sharded_paged.py) and over an expert axis, with Mixtral on
-    # every axis (11b's expert half: tests/test_torch_ep.py). The single
-    # program over several devices of one process (the sharded engine's
-    # admit_overlap=False, a data axis, the dense engine over several
-    # devices) still raises naming item 11 and how to run one rank per
-    # device; a paged engine over an expert or pipe axis raises the JAX
-    # package's pure-DP refusal, and outside a process group an expert or
-    # pipe axis, as a model axis, says how to get one
-    for kwargs in ({"admit_overlap": False}, {"paged": False}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            build_serving_engine("tiny-debug", ["cpu", "cpu"], max_seq=64,
-                                 **{"paged": True, **kwargs})
+    # every axis (11b's expert half: tests/test_torch_ep.py), and over the
+    # devices of one process (item 11's last part:
+    # tests/test_torch_local_program.py). No port module keeps a refusal
+    # naming an unported item. A paged engine over an expert or pipe axis
+    # raises the JAX package's pure-DP refusal, and an expert or pipe
+    # axis, as a model axis, larger than the devices of a process without
+    # a group says how to get its ranks
+    for path in PORT.rglob("*.py"):
+        assert "_unported" not in path.read_text(), path
     for kwargs in ({"expert": 2}, {"pipe": 2}):
         with pytest.raises(ValueError, match="pure-DP mesh"):
             build_serving_engine("tiny-debug", ["cpu", "cpu"], max_seq=64,
@@ -286,15 +309,6 @@ def test_unported_paths_say_so(monkeypatch, tmp_path):
                            "init_distributed"):
             build_serving_engine("tiny-moe", ["cpu"], max_seq=64,
                                  paged=False, **kwargs)
-    for kwargs in ({"data": 2}, {"data": 2, "paged": True}):
-        with pytest.raises(NotImplementedError,
-                           match="init_distributed.*item 11"):
-            build_serving_engine("tiny-debug", ["cpu"], max_seq=64, **kwargs)
-    with monkeypatch.context() as m:
-        m.setenv("SWARMDB_ADMIT_OVERLAP", "0")
-        with pytest.raises(NotImplementedError,
-                           match="init_distributed.*item 11"):
-            build_serving_engine("tiny-debug", ["cpu"], max_seq=64)
     # the paged engine over a model axis is the JAX package's refusal
     with pytest.raises(ValueError, match="pure-DP mesh"):
         build_serving_engine("tiny-debug", ["cpu", "cpu"], max_seq=64,

@@ -263,7 +263,7 @@ def test_exit_hook_ends_the_group_while_a_mesh_holds_it(tmp_path):
     code = (
         "import os, torch\n"
         "from swarmdb_tpu_torch.parallel.distributed import"
-        " init_distributed, _destroy_at_exit\n"
+        " destroy_distributed, init_distributed\n"
         "from swarmdb_tpu_torch.parallel.mesh import make_mesh\n"
         "n0 = len(os.listdir('/proc/self/task'))\n"
         f"init_distributed('file://{tmp_path / 'store'}', 1, 0,"
@@ -271,7 +271,7 @@ def test_exit_hook_ends_the_group_while_a_mesh_holds_it(tmp_path):
         "mesh = make_mesh(device='cpu')\n"
         "mesh.axis('model').all_reduce(torch.ones(8))\n"
         "n1 = len(os.listdir('/proc/self/task'))\n"
-        "_destroy_at_exit()\n"
+        "destroy_distributed()\n"
         "n2 = len(os.listdir('/proc/self/task'))\n"
         "assert n1 > n0 and n2 <= n0, (n0, n1, n2)\n"
         "assert mesh.axis('model').all_reduce(torch.ones(2)).sum() == 2\n"

@@ -106,8 +106,12 @@ def _pod(params, tmp_path, chunked: bool, scenario="serial",
                   scenario=scenario, **extra,
                   **{f"prompt{i}": np.asarray(p, np.int32)
                      for i, p in enumerate(prompts)})
+    # the prefix budget pinned to its default: the pool sizes checked
+    # below assume it, and a test that ran before in this process may
+    # have left it set (bench.py's setdefault)
     env = {"SWARMDB_KV_DTYPE": "f32",
-           "SWARMDB_CHUNKED": "1" if chunked else "0"}
+           "SWARMDB_CHUNKED": "1" if chunked else "0",
+           "SWARMDB_PREFIX_TOKENS": str(max_batch * SEQ // 2)}
     got, codes, logs = run_pod("dp", tmp_path, inputs, env=env)
     assert codes == [0, 0], logs
     return got
