@@ -404,6 +404,28 @@ and exits non-zero at the first failure:
                spawn, init and build seconds, TTFT, tokens/s, the kill's
                seconds and the restart's, with the card's name and power
                limit.
+               (f) The prefix step: the dense engine chunked with its
+               prefix lane over a side pool of ``TP_PREFIX_PAGES`` (129)
+               pages of 16 (``build_serving_engine(prefix_pages=)``) on
+               (b)'s world size 1 (full depth, graphs captured before
+               traffic), on (c)'s two ranks (8 layers, the model axis: its
+               worker replays each prefix wave, the JAX engine's mirrored
+               call 4) and on (d)'s (the data axis: every rank runs each
+               prefix wave whole) over the weights each already holds;
+               rank 0 serves the tp prompts queued together (``cold``:
+               full misses registering their pages), then each prompt
+               followed by its reply (``hit``: a second turn reading turn
+               1's pages). References, served in this process before:
+               the single dense engine with its lane over the same pool
+               at full depth and at (c)'s. Per program and turn the
+               tokens equal the reference's at its depth or part at a
+               near tie under (c)'s rule, ``prefix_reused_tokens`` equal
+               the reference's (above 0 on the hit turn), every reply
+               length / eos, kernel 7 launched on every rank. Prints its
+               own ``tp_prefix`` line: reused tokens, TTFT of each turn
+               and the hit turn's median over the cold one's, tokens/s,
+               launches and collectives per rank, with the card's name
+               and power limit.
 7d. sanitize -- the three runtime sanitizers, in a child process
                (``--sanitize-child``) run with ``SWARMDB_LOCKCHECK=1
                SWARMDB_PAGECHECK=1 SWARMDB_KERNCHECK=1`` and a temporary
@@ -545,7 +567,8 @@ Then one ``{"kernels": [...]}`` line (launches summed over the six Llama
 serves, the api, obs, prof, rolling, lanes and ha phases, the sanitize
 phase's five sanitizers-on serves, the ckpt phase's serves of the loaded
 weights, the tp phase's world-size-1 serve and both ranks' serves (its dp step's
-too, and its local step's rank 0), the seven Mixtral serves and the ep phase's three
+too, its local step's rank 0, and its prefix step's on every rank), the
+seven Mixtral serves and the ep phase's three
 serves on both ranks, each
 counted from zero
 just before it and read just after; a graph replay adds the launches its
@@ -7322,6 +7345,11 @@ TP_COLLECTIVE_ITERS = 20
 #: depth, to keep the script inside its time limit on a slow host
 TP_WS2_LAYERS = 8
 TP_CHILD = [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-child"]
+#: the prefix step's side pool (``prefix_pages``, pages of 16): every page
+#: the tp prompts and their second turns register (the 4 slots' windows of
+#: TP_SEQ tokens) and the trash page, so that no page is evicted and every
+#: program's hits are the single engine's
+TP_PREFIX_PAGES = 1 + TP_BATCH * TP_SEQ // 16
 
 
 def tp_prompts() -> list:
@@ -7413,10 +7441,12 @@ def tp_collective_ms(sm, batch: int) -> dict:
     return out
 
 
-def tp_engine(params, chunked: bool, model=None, layers=None):
+def tp_engine(params, chunked: bool, model=None, layers=None,
+              prefix_pages: int = 0):
     """This process's share of the dense single program (TP_BATCH slots,
     max_seq TP_SEQ, chunk 8; Llama-3-8B at ``layers`` layers, default
-    all): (engine, ShardedModel)."""
+    all; with ``prefix_pages`` its prefix lane over a side pool of that
+    many pages of 16): (engine, ShardedModel)."""
     import torch
 
     from swarmdb_tpu_torch.models.configs import get_config
@@ -7426,7 +7456,76 @@ def tp_engine(params, chunked: bool, model=None, layers=None):
     with engine_env(chunked):
         return build_serving_engine(
             cfg, [torch.device(TP_DEVICE)], model=model,
-            max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8, params=params)
+            max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8, params=params,
+            prefix_pages=prefix_pages)
+
+
+def tp_prefix_serve(eng, prompts, stop: bool = True) -> dict:
+    """The prefix step's two turns on an engine with the dense prefix
+    lane: the tp prompts queued before it starts (``cold``: one prefix
+    wave of full misses registering their full pages), then each prompt
+    followed by its reply (``hit``: a conversation's second turn, reading
+    turn 1's pages); per turn ``tp_serve``'s fields and the
+    ``prefix_reused_tokens`` it added (``reused``). The engine is stopped
+    after unless ``stop`` is False."""
+    c = eng.metrics.counters["prefix_reused_tokens"]
+    out = {}
+    for turn in ("cold", "hit"):
+        batch = prompts if turn == "cold" else [
+            list(p) + t for p, t in zip(prompts, out["cold"]["tokens"])]
+        before = c.value
+        out[turn] = tp_serve(eng, batch, queued=turn == "cold",
+                             stop=stop and turn == "hit")
+        out[turn]["reused"] = c.value - before
+    return out
+
+
+def tp_prefix_ref(cfg, params, dev) -> dict:
+    """The prefix step's reference: the single dense engine, chunked, with
+    its prefix lane over a side pool of TP_PREFIX_PAGES pages, over
+    ``params`` (Llama-3-8B at ``cfg``'s depth), its graphs captured before
+    traffic: ``tp_prefix_serve``."""
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+
+    with engine_env(True, SWARMDB_PREFIX="1",
+                    SWARMDB_PREFIX_TOKENS=str(TP_BATCH * TP_SEQ)):
+        eng, _ = build_backend_engine(
+            cfg, seed=0, device=dev, params=params, paged=None,
+            max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8)
+    if eng._prefix_num_pages != TP_PREFIX_PAGES:
+        fail(f"tp prefix: the reference's side pool has "
+             f"{eng._prefix_num_pages} pages, not {TP_PREFIX_PAGES}")
+    eng.warmup()
+    return tp_prefix_serve(eng, prompts=tp_prompts())
+
+
+def prefix_rank(eng, axis, rank: int, prompts, warm: bool = False) -> dict:
+    """One rank's prefix step on a single-program engine with the lane:
+    rank 0 publishes (``enable_multihost``; ``warm``: captures its chunk
+    graphs then) and serves the two turns (``tp_prefix_serve``), the
+    others replay its calls, call 4 among them; this rank's launches, its
+    ``axis``'s collectives over the step, and its side pool's pages and KV
+    heads."""
+    import torch
+
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    calls0 = axis.calls
+    ac.reset_launches()
+    if rank == 0:
+        eng.enable_multihost()
+        if warm:
+            eng.warmup()
+        res = tp_prefix_serve(eng, prompts)
+    else:
+        eng.worker_loop()
+        res = {}
+    torch.cuda.synchronize()
+    res.update(launches={k: n for k, n in ac.LAUNCHES.items() if n},
+               collectives=axis.calls - calls0,
+               pool=[eng._prefix_pool[0].shape[1],
+                     eng._prefix_pool[0].shape[3]])
+    return res
 
 
 def tp_child(rank: int, store: str, result_path: str) -> int:
@@ -7434,7 +7533,9 @@ def tp_child(rank: int, store: str, result_path: str) -> int:
     full width and ``TP_WS2_LAYERS`` layers drawn from seed 0, each tensor
     whole then this rank's half kept; the dense engine chunked (kernel 7)
     and single-step (kernel 8), rank 0 serving and rank 1 replaying; then
-    the collectives timed alone; then the dp step (``dp_child``)."""
+    the prefix step's chunked engine with its prefix lane
+    (``prefix_rank``); then the collectives timed alone; then the dp step
+    (``dp_child``)."""
     import gc
 
     import torch
@@ -7481,6 +7582,13 @@ def tp_child(rank: int, store: str, result_path: str) -> int:
             res["chunks"] = eng.metrics.counters[
                 "engine_decode_chunks"].value
             out["chunked" if chunked else "single"] = res
+        # the prefix step: the chunked engine with its prefix lane over the
+        # same weights (rank 1 replays call 4)
+        del eng
+        gc.collect()
+        eng, sm = tp_engine(sm.params, True, model=2, layers=TP_WS2_LAYERS,
+                            prefix_pages=TP_PREFIX_PAGES)
+        out["prefix"] = prefix_rank(eng, sm.model_axis, rank, prompts)
         out.update(tp_collective_ms(sm, TP_BATCH))
         out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
         # the dp step, on the same two ranks and process group: the
@@ -7512,7 +7620,9 @@ def dp_child(rank: int, dev) -> dict:
     model 1), then each of ``DP_SERVES`` on the tp phase's prompts, rank 0
     serving and rank 1 replaying; per serve this rank's slots, pool pages,
     launches, kernel-sanitizer violations, flight meta and chunk runner;
-    then the per-chunk block gather timed alone."""
+    then the per-chunk block gather timed alone; then the prefix step's
+    dense engine with its prefix lane over the data axis (each rank runs
+    every prefix wave whole, ``prefix_rank``)."""
     import gc
 
     import torch
@@ -7561,6 +7671,16 @@ def dp_child(rank: int, dev) -> dict:
             out["gather_ms"] = dp_gather_ms(eng, dev)
         del eng
         gc.collect()
+    with engine_env(True):
+        eng, sm = build_serving_engine(
+            TP_MODEL, [dev], data=2, paged=False, max_batch=TP_BATCH,
+            max_seq=TP_SEQ, decode_chunk=8, params=params,
+            prefix_pages=TP_PREFIX_PAGES)
+    eng._runner.capture(2)
+    out["dense_prefix"] = prefix_rank(eng, sm.mesh.axis("data"), rank,
+                                      prompts)
+    del eng, sm
+    gc.collect()
     out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     return out
 
@@ -7829,6 +7949,9 @@ def run_tp(card, params):
                 max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8)
         dp_refs[mode] = tp_serve(ref_eng, prompts)
         del ref_eng
+    # the prefix step's reference at full depth: the single dense engine
+    # with its prefix lane, two turns
+    prefix_ref = tp_prefix_ref(get_config(TP_MODEL), params, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7858,6 +7981,11 @@ def run_tp(card, params):
                    chunks=eng.stats()["decode_chunks"],
                    shift_identity=tp.shift(probe) is probe)
         del eng, sm
+        # the prefix step on world size 1: the pod engine with its lane,
+        # its chunk graphs captured before traffic
+        eng, sm = tp_engine(params, True, prefix_pages=TP_PREFIX_PAGES)
+        ws1_prefix = prefix_rank(eng, sm.model_axis, 0, prompts, warm=True)
+        del eng, sm
     finally:
         dist.destroy_process_group()
     gc.collect()
@@ -7884,6 +8012,7 @@ def run_tp(card, params):
             max_batch=TP_BATCH, max_seq=TP_SEQ, decode_chunk=8)
     ref_ws2 = tp_serve(ref_eng, prompts)
     del ref_eng
+    prefix_ref_ws2 = tp_prefix_ref(cfg_ws2, params_ws2, dev)
     plain_ws2 = [plain_step_logits(params_ws2, p, t, cfg_ws2)
                  for p, t in zip(prompts, ref_ws2["tokens"])]
     del params_ws2
@@ -7955,6 +8084,22 @@ def run_tp(card, params):
     del plain_ws2, paged_plain
     dp = dp_checks(params, prompts, dp_refs, plain, tol, ranks, checks)
     del plain
+    prefix = tp_prefix_checks(params, cfg_ws2, prompts, {
+        "ws1": (ws1_prefix, prefix_ref, TP_WS2_TOL_FACTOR * tol),
+        "ws2": (ranks[0]["prefix"], prefix_ref_ws2, bound_ws2),
+        "dp": (ranks[0]["dp"]["dense_prefix"], prefix_ref,
+               TP_WS2_TOL_FACTOR * tol)}, checks)
+    for r, rank in enumerate(ranks):
+        for name, res in (("ws2", rank["prefix"]),
+                          ("dp", rank["dp"]["dense_prefix"])):
+            checks[f"prefix {name} rank {r} kernel 7 launched"] = res[
+                "launches"].get("dense_decode_chunked", 0) > 0
+            prefix[name][f"rank{r}"] = {k: res[k] for k in (
+                "launches", "collectives", "pool")}
+    checks["prefix ws1 kernel 7 launched"] = ws1_prefix["launches"].get(
+        "dense_decode_chunked", 0) > 0
+    prefix["ws1"]["rank0"] = {k: ws1_prefix[k] for k in (
+        "launches", "collectives", "pool")}
     for r, rank in enumerate(ranks):
         checks[f"rank {r} runs Hq 16, Hkv 4"] = rank["heads"] == [16, 4]
         checks[f"rank {r} eager chunks over gloo"] = (
@@ -7972,6 +8117,13 @@ def run_tp(card, params):
         checks[f"ws2 {mode} reasons length/eos"] = all(
             r in ("length", "eos") for r in ranks[0][mode]["reasons"])
     bad = [k for k, ok in checks.items() if not ok]
+    emit("tp_prefix", card=card, model=TP_MODEL, pool_pages=TP_PREFIX_PAGES,
+         ws2_layers=TP_WS2_LAYERS, programs=prefix,
+         refs={name: {turn: prefix_turn_summary(r[turn])
+                      for turn in ("cold", "hit")}
+               for name, r in (("full", prefix_ref),
+                               ("ws2_layers", prefix_ref_ws2))},
+         checks={k: v for k, v in checks.items() if k.startswith("prefix ")})
     emit("tp_local", card=card, model=TP_MODEL, devices=list(LOCAL_DEVICES),
          pg_timeout_s=LOCAL_PG_TIMEOUT_S, step_s=local["step_s"],
          serves=local_sum,
@@ -7984,7 +8136,7 @@ def run_tp(card, params):
          ref=dict(ttft_s=ref["ttft_s"], tokens_per_s=ref["tokens_per_s"]),
          ws1=summary, ws1_launches={k: n for k, n in launches.items() if n},
          ws2={f"rank{r['rank']}": {k: v for k, v in r.items()
-                                   if k not in ("rank", "dp")}
+                                   if k not in ("rank", "dp", "prefix")}
               | {m: {k: v for k, v in r[m].items()
                      if k not in ("tokens", "logprobs")}
                  for m in ("chunked", "single")} for r in ranks},
@@ -7998,7 +8150,8 @@ def run_tp(card, params):
     if bad:
         fail(f"tp checks failed: {bad}")
     total = dict(launches)
-    for k, n in local["launches"].items():
+    for k, n in (list(local["launches"].items())
+                 + list(ws1_prefix["launches"].items())):
         total[k] = total.get(k, 0) + n
     for rank in ranks:
         for runs in (rank, rank["dp"]):
@@ -8007,6 +8160,76 @@ def run_tp(card, params):
                     for k, n in res["launches"].items():
                         total[k] = total.get(k, 0) + n
     return total
+
+
+def prefix_turn_summary(res) -> dict:
+    """A prefix-step turn's numbers for its line: TTFT (each request's and
+    the median), tokens/s, wall seconds, reused tokens, reasons."""
+    return dict(ttft_s=res["ttft_s"],
+                ttft_median_s=statistics.median(res["ttft_s"]),
+                tokens_per_s=res["tokens_per_s"], wall_s=res["wall_s"],
+                reused=res["reused"], reasons=res["reasons"])
+
+
+def tp_prefix_checks(params, cfg_ws2, prompts, programs, checks) -> dict:
+    """The prefix step's checks, added to ``checks``: for each program
+    (name: (its rank 0's ``tp_prefix_serve``, the reference's, the bound))
+    and turn, its tokens equal the single dense engine's with its lane at
+    the same depth, or part at a near tie held by ``tp_hold`` against the
+    plain bf16 forward over the reference's context and tokens (drawn
+    only for a parting; a second turn whose first parted has another
+    context, so is not compared); its reused tokens equal the reference's,
+    the hit turn's above 0; every reply length / eos. Returns the step's
+    summary: per program and turn TTFT, tokens/s, reused tokens and
+    partings, and the hit turn's median TTFT over the cold one's."""
+    import gc
+
+    import torch
+
+    from swarmdb_tpu_torch.models import llama
+
+    small = []      # the reference weights at the pod's depth, once drawn
+
+    def plain_of(name, ref, turn, i):
+        ctx = list(prompts[i]) + ([] if turn == "cold"
+                                  else ref["cold"]["tokens"][i])
+        if name != "ws2":
+            return plain_step_logits(params, ctx, ref[turn]["tokens"][i])
+        if not small:
+            small.append(llama.init_params(cfg_ws2, seed=0,
+                                           device=TP_DEVICE))
+        return plain_step_logits(small[0], ctx, ref[turn]["tokens"][i],
+                                 cfg_ws2)
+
+    out = {}
+    for name, (got, ref, bound) in programs.items():
+        out[name] = {"bound": bound}
+        skip = set()
+        for turn in ("cold", "hit"):
+            g, r = got[turn], ref[turn]
+            held = {i: tp_hold(plain_of(name, ref, turn, i), a, b,
+                               g["logprobs"][i], bound)
+                    for i, (a, b) in enumerate(zip(r["tokens"], g["tokens"]))
+                    if a != b and i not in skip}
+            checks[f"prefix {name} {turn} tokens == the single engine's, "
+                   "or part at a near tie"] = all(
+                h["step"] is None or h["near_tie"] for h in held.values())
+            checks[f"prefix {name} {turn} reused == the single "
+                   "engine's"] = g["reused"] == r["reused"]
+            checks[f"prefix {name} {turn} reasons length/eos"] = all(
+                x in ("length", "eos") for x in g["reasons"])
+            out[name][turn] = dict(prefix_turn_summary(g),
+                                   parted={str(i): h for i, h in held.items()},
+                                   not_compared=sorted(skip))
+            skip |= set(held)
+        checks[f"prefix {name} hit turn reused > 0"] = got["hit"]["reused"] > 0
+        turns = out[name]
+        turns["hit_over_cold_ttft"] = (turns["hit"]["ttft_median_s"]
+                                       / turns["cold"]["ttft_median_s"])
+    small.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def ref_logprob_tol(plain, ref) -> float:

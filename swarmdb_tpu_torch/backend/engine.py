@@ -118,8 +118,9 @@ its current CUDA device.
 Pod mode (``parallel/multihost.py``, the JAX engine's multi-host mode):
 rank 0's engine (``enable_multihost``) publishes each device call before
 issuing it -- the dense bucketed prefill and the decode chunk, and the
-paged engine's mirrored calls (``_mirrored``: page-table rows, bucketed,
-packed and prefix prefill waves) -- and beats while idle; every other
+mirrored calls (``_mirrored``: the paged engine's page-table rows,
+bucketed, packed and prefix prefill waves, and the dense engine's prefix
+lane waves over its side pool) -- and beats while idle; every other
 rank's engine replays them (``worker_loop``). Its chunks run as graph
 replays unless the model axis's collectives cannot be captured (gloo:
 ``decode_graphs=False``). A failed step stops the pod, its requests
@@ -138,10 +139,12 @@ blocks over the axis (``ChunkRunner``'s ``gather``, outside any graph),
 so every rank reads all B slots' tokens. A prefill wave is published
 whole and each rank runs its own rows: the dense engine's rows of its
 slots, a sharded pool's packed block (``_pack_wave``), or a prefix
-wave's rows of its shard. On a sharded pool admission interleaves the
-shards and honours a request's shard hint (``_free_slot_ids``), and the
-resident loop, row buckets, ragged prefill and rolling are off, as in
-the JAX engine.
+wave's rows of its shard; only a dense prefix lane wave runs whole on
+every rank, so that each rank's side pool holds every registered page
+(``_call_dense_prefix_prefill``). On a sharded pool admission
+interleaves the shards and honours a request's shard hint
+(``_free_slot_ids``), and the resident loop, row buckets, ragged prefill
+and rolling are off, as in the JAX engine.
 
 Lane hooks (``parallel/lanes.py``, ``parallel/fleet.py``), inert on a
 lone engine: ``GenRequest.shard_hint`` routes a request to a lane;
@@ -167,7 +170,7 @@ import uuid
 import zlib
 from dataclasses import dataclass, field
 from typing import (Any, Callable, ContextManager, Dict, List, Optional,
-                    Tuple)
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -357,6 +360,7 @@ class Engine:
         decode_graphs: bool = True,
         data_axis: Any = None,
         count_rows: bool = False,
+        prefill_buckets: Optional[Sequence[int]] = None,
     ) -> None:
         """``paged`` selects the paged pool (``prefix_cache`` then turns
         its prefix cache on); None the dense slot cache, which needs
@@ -369,8 +373,10 @@ class Engine:
         table, prefix_lens, pool_k, pool_v, lane_pages, logits_at=) ->
         (logits, lane_k, lane_v), init_pool(num_pages, page_size) ->
         (pool_k, pool_v)) for a prefix cache over a side pool of
-        ``prefix_pages`` pages. Its prefill buckets are a x4 ladder from 64
-        at max_seq >= 512, else 16..256, topped by max_seq.
+        ``prefix_pages`` pages. Its prefill buckets are ``prefill_buckets``
+        (sorted), by default a x4 ladder from 64 at max_seq >= 512, else
+        16..256; either way topped by max_seq unless the largest holds a
+        prompt of max_seq - 1 tokens (the JAX engine's argument and rule).
 
         A paged engine prefills in ragged waves when ``paged.prefill_ragged``
         is set and ``SWARMDB_RAGGED_PREFILL`` is not "0" (read here);
@@ -573,12 +579,15 @@ class Engine:
                                         min(demote, self._bp_high)))
             self._tier_demoting = False
 
-            # dense prefill buckets: one wave shape per bucket (x4 growth in
-            # long context, where padding is bounded by the prefix cache)
+            # dense prefill buckets: one wave shape per bucket (by default
+            # x4 growth in long context, where padding is bounded by the
+            # prefix cache)
             self._long_context = max_seq >= 512
-            ladder = ((64, 256, 1024, 4096) if self._long_context
-                      else (16, 32, 64, 128, 256))
-            self.prefill_buckets = [b for b in ladder if b <= max_seq]
+            if prefill_buckets is None:
+                ladder = ((64, 256, 1024, 4096) if self._long_context
+                          else (16, 32, 64, 128, 256))
+                prefill_buckets = [b for b in ladder if b <= max_seq]
+            self.prefill_buckets = sorted(prefill_buckets)
             # the top bucket holds the longest admissible prompt (max_seq - 1)
             if (not self.prefill_buckets
                     or self.prefill_buckets[-1] < max_seq - 1):
@@ -858,25 +867,22 @@ class Engine:
     # worker_loop. The decode chunk (OP_DECODE: K single steps, or the
     # chunk forward and its merge) and the dense bucketed prefill
     # (OP_PREFILL) have records of their own; the paged engine's device
-    # calls go through _mirrored (OP_CALL). Slot state is reset only by a
-    # restart, so no other call is mirrored: a pod launched from outside
-    # refuses one, and a program that spawned its workers
-    # (parallel/local.py) replaces them instead, new workers starting
-    # from the state this rank's reset rebuilds.
+    # calls and the dense prefix lane go through _mirrored (OP_CALL).
+    # Slot state is reset only by a restart, so no other call is
+    # mirrored: a pod launched from outside refuses one, and a program
+    # that spawned its workers (parallel/local.py) replaces them instead,
+    # new workers starting from the state this rank's reset rebuilds.
 
     def enable_multihost(self) -> None:
         """Publish every device call to the pod's workers (coordinator
         side, in a process group: ``init_distributed``, or the one a
         single program over several devices of one process made for its
-        workers, whose build calls this). A dense engine's prefix lane
-        and a paged engine's ragged waves are not mirrored: a pod engine
-        has neither (``parallel.serving.build_serving_engine`` builds it
-        so)."""
+        workers, whose build calls this). A dense engine's prefix lane is
+        mirrored (call 4, its side pool on every rank); a paged engine's
+        ragged waves are not: a pod engine prefills without them
+        (``parallel.serving.build_serving_engine`` builds it so)."""
         from ..parallel.multihost import ControlPlane, pod_axis
 
-        if self.paged is None and self._prefix is not None:
-            raise ValueError("a dense pod engine has no prefix cache (build "
-                             "it with parallel.serving.build_serving_engine)")
         if self._ragged:
             raise ValueError("a paged pod engine prefills in bucketed and "
                              "prefix waves: its ragged waves are not "
@@ -918,21 +924,20 @@ class Engine:
                 else:   # OP_PREFILL (receive raises on any other op)
                     self._prefill_dense(*args)
 
-    # The paged engine's mirrored device calls, with the JAX engine's ids.
-    # Each handler takes host arrays alone (global slot and page ids) and
-    # the rank's device state, never the coordinator's allocator or prefix
-    # table, so a worker replaying it reproduces its rank's share of the
-    # coordinator's state. Ids 2 (a rolling resume), 4 (the dense prefix
-    # lane) and 6 (a ragged wave) have no handler: no pod engine makes
-    # them.
+    # The mirrored device calls (the paged engine's and the dense prefix
+    # lane's), with the JAX engine's ids. Each handler takes host arrays
+    # alone (global slot and page ids) and the rank's device state, never
+    # the coordinator's allocator or prefix table, so a worker replaying it
+    # reproduces its rank's share of the coordinator's state. Ids 2 (a
+    # rolling resume) and 6 (a ragged wave) have no handler: no pod engine
+    # makes them.
     CALL_PAGED_PREFILL = 0
     CALL_PAGED_PREFIX_PREFILL = 1
     CALL_SET_PT_ROWS = 3
+    CALL_DENSE_PREFIX_PREFILL = 4
     CALL_PAGED_PREFILL_PACKED = 5
     _UNMIRRORED = {
         2: "the rolling resume prefill (rolling is off in a pod)",
-        4: "the dense prefix prefill (a pod engine has no dense prefix "
-           "lane)",
         6: "the ragged prefill (off in a pod and on a sharded pool)",
     }
 
@@ -1024,10 +1029,56 @@ class Engine:
                             self._local_slots(np.asarray(rows)[own]),
                             self._localize(np.asarray(vals)[own]))
 
+    # swarmlint: hot
+    def _call_dense_prefix_prefill(self, tokens, lengths, plens, table,
+                                   reg_rows, reg_cols, reg_pages, scatter,
+                                   keys, temp, topk, topp) -> None:
+        """The dense prefix wave's device half (``_prefix_fused_dispatch``
+        plans it): the suffix forward over the hit pages ``table`` of the
+        side pool, each own slot's composed lane into ``cache[:, slot,
+        :lane]``, lane page ``reg_cols[i]`` of wave row ``reg_rows[i]``
+        copied into pool page ``reg_pages[i]``, and the first samples.
+        The pool is read (by the forward) before the registered pages are
+        written, so a hit page evicted and re-acquired in this wave is
+        read before it is rewritten, on every rank alike.
+
+        On a data axis every rank runs every row of the wave, keeping its
+        own slots' lanes, so that every rank's pool takes every registered
+        page: the JAX package's pool is replicated and the coordinator's
+        one prefix table may hand a page registered from one data rank's
+        slot to a request on another. A MoE forward then counts the whole
+        wave on each rank, as the JAX call does, with no exchange."""
+        ps = self._prefix_ps
+        Bp, bucket = tokens.shape
+        lane_pages = min(table.shape[1] + -(-bucket // ps),
+                         self.max_seq // ps)
+        pool_k, pool_v = self._prefix_pool
+        lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
+        logits, lane_k, lane_v = self._prefix_lane_fwd(
+            self.params, self._tensor(tokens), self._tensor(table), plens_t,
+            pool_k, pool_v, lane_pages, logits_at=lengths_t - 1)
+        local = self._local_slots(scatter)
+        live = np.nonzero(local < self._rows)[0]
+        if live.size:
+            slots, src = self._tensor(local[live]), self._tensor(live)
+            lane_t = lane_pages * ps
+            for full, lane in zip(self.cache, (lane_k, lane_v)):
+                full[:, slots, :lane_t] = lane[:, src]
+        if reg_pages.size:
+            rows, cols, pages = (self._tensor(np.asarray(a, np.int64))
+                                 for a in (reg_rows, reg_cols, reg_pages))
+            for pool, lane in ((pool_k, lane_k), (pool_v, lane_v)):
+                by_page = lane.reshape((lane.shape[0], Bp, lane_pages, ps)
+                                       + tuple(lane.shape[3:]))
+                pool[:, pages] = by_page[:, rows, cols].to(pool.dtype)
+        self._sample_into_slots(logits, (keys, temp, topk, topp),
+                                plens_t + lengths_t - 1, scatter)
+
     _MH_CALLS = {
         CALL_PAGED_PREFILL: _call_paged_prefill,
         CALL_PAGED_PREFIX_PREFILL: _call_paged_prefix_prefill,
         CALL_SET_PT_ROWS: _call_set_pt_rows,
+        CALL_DENSE_PREFIX_PREFILL: _call_dense_prefix_prefill,
         CALL_PAGED_PREFILL_PACKED: _call_paged_prefill_packed,
     }
 
@@ -2641,14 +2692,11 @@ class Engine:
                                ppb: int, t0: float) -> None:
         """The dense prefix prefill of ``rows`` (slot_id, req,
         suffix_tokens, prefix_len, hit_pages, [(lane_page, pool_page)] to
-        register): the suffix forward over the gathered hits at [Bp,
-        bucket] with a ``ppb``-page prefix table, the first samples, each
-        real row's composed lane into ``cache[:, slot, :lane]``, and the
-        registered pages copied out of the lanes into the side pool --
-        after the forward read the pool, so a hit page evicted and
-        re-acquired in this round is read before it is rewritten."""
+        register), planned on the host: the wave's arrays at [Bp, bucket]
+        with a ``ppb``-page prefix table, then its device half
+        (``_call_dense_prefix_prefill``, mirrored to a pod's workers as
+        call 4), then the counters and the slots' activation."""
         ps, Bp, n = self._prefix_ps, self.prefill_batch, len(rows)
-        lane_pages = min(ppb + -(-bucket // ps), self.max_seq // ps)
         padded = np.full((Bp, bucket), self.pad_id, np.int32)
         lengths = np.ones(Bp, np.int32)
         plens = np.zeros(Bp, np.int32)
@@ -2666,25 +2714,12 @@ class Engine:
                 reg_rows.append(r)
                 reg_cols.append(lane_page)
                 reg_pages.append(pid)
-        pool_k, pool_v = self._prefix_pool
         mark = self._wave_begin()
-        lengths_t, plens_t = self._tensor(lengths), self._tensor(plens)
-        logits, lane_k, lane_v = self._prefix_lane_fwd(
-            self.params, self._tensor(padded), self._tensor(table), plens_t,
-            pool_k, pool_v, lane_pages, logits_at=lengths_t - 1)
-        slots = self._tensor(gather[:n])
-        lane_t = lane_pages * ps
-        for full, lane in zip(self.cache, (lane_k, lane_v)):
-            full[:, slots, :lane_t] = lane[:, :n]
-        if reg_pages:
-            idx = [self._tensor(np.asarray(a, np.int64))
-                   for a in (reg_rows, reg_cols, reg_pages)]
-            for pool, lane in ((pool_k, lane_k), (pool_v, lane_v)):
-                pages = lane.reshape((lane.shape[0], Bp, lane_pages, ps)
-                                     + tuple(lane.shape[3:]))
-                pool[:, idx[2]] = pages[:, idx[0], idx[1]].to(pool.dtype)
-        self._sample_into_slots(logits, self._rows_sampling(gather),
-                                plens_t + lengths_t - 1, scatter)
+        self._mirrored(self.CALL_DENSE_PREFIX_PREFILL, padded, lengths,
+                       plens, table,
+                       *(np.asarray(a, np.int64)
+                         for a in (reg_rows, reg_cols, reg_pages)),
+                       scatter, *self._rows_sampling(gather))
         packed = int(lengths[:n].sum())
         self._wave_end(mark, prof_key("prefill.dense_prefix", padded.shape,
                                       ppb),

@@ -13,11 +13,13 @@ The paged engine's row-bucketed prefill (``SWARMDB_RAGGED_PREFILL=0``, or
 a model without a ragged forward) runs ``forward`` over a temp cache and
 its paged prefix prefill ``forward_prefix_pages`` over the main pool.
 
-The dense engine's forwards (``forward``, ``forward_chunked``; the merge
-needs nothing) also run tensor-parallel: with ``tp`` (a
+The dense engine's forwards (``forward``, ``forward_chunked`` and the
+prefix lane's ``forward_prefix_pages`` / ``forward_prefix_lane``; the
+merge needs nothing) also run tensor-parallel: with ``tp`` (a
 ``parallel.collectives.Axis``) on one rank's share of the weights
-(``param_plan``) and of the slot cache (``cache_plan``), meeting the other
-ranks in the collectives of the section comment above ``_heads``.
+(``param_plan``), of the slot cache (``cache_plan``) and of the side pool
+(its KV heads), meeting the other ranks in the collectives of the section
+comment above ``_heads``.
 
 Every forward but the ragged one takes the layer's feed-forward as
 ``ffn`` (SwiGLU by default): ``models.mixtral`` runs these same layer
@@ -206,10 +208,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_prefix_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device: DeviceLike = None) -> KVCache:
+                     device: DeviceLike = None,
+                     kv_heads: Optional[int] = None) -> KVCache:
     """The dense engine's side page pool for the prefix cache: zeros (k,
-    v), each [L, num_pages, page_size, Hkv, D] (page 0 = trash)."""
-    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
+    v), each [L, num_pages, page_size, Hkv, D] (page 0 = trash).
+    ``kv_heads`` as in ``init_kv_cache``: a tensor-parallel rank's pool
+    holds its share of every page."""
+    shape = (cfg.n_layers, num_pages, page_size, kv_heads or cfg.n_kv_heads,
              cfg.head_dim)
     dev = resolve_device(device)
     return (torch.zeros(shape, dtype=dtype, device=dev),
@@ -613,37 +618,41 @@ def forward_prefix_pages(
     logits_at: Optional[torch.Tensor] = None,  # [Bp] row indices into T
     *,
     ffn: Optional[FFN] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefix-cache suffix prefill core: compute only the suffix tokens,
     each row attending its reused prefix pages (gathered per layer;
     dequantized for an int8 pool) plus the suffix causally
     (``layers.gqa_attention_prefix``). The pool is only read. Returns
     (fp32 logits [Bp, T, V], or [Bp, V] with ``logits_at``, sfx_k, sfx_v
-    [L, Bp, T, Hkv, D] in the gathered pages' dtype)."""
+    [L, Bp, T, Hkv, D] in the gathered pages' dtype). ``tp`` as in
+    ``forward``: the pool then holds the rank's KV heads, and so do the
+    suffix K/V."""
     ffn = _ffn_of(cfg, ffn)
     Bp, T = tokens.shape
     L = pool_data(pool_k).shape[0]
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     positions = (prefix_lens.long()[:, None]
                  + torch.arange(T, device=x.device)[None])
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     lp = params["layers"]
+    Hq, Hkv = _heads(cfg, lp)
     sfx_k, sfx_v = [], []
     for l in range(L):
         kp, vp = paged_gather_kv(pool_layer(pool_k, l), pool_layer(pool_v, l),
                                  prefix_table)
         h = rms_norm(x, lp["attn_norm"][l], cfg.norm_eps)
-        q, k, v = qkv_proj(h, lp, l, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, cos, sin)
+        q, k, v = qkv_proj(h, lp, l, Hq, Hkv, cfg.head_dim, cos, sin)
         ks, vs = k.to(kp.dtype), v.to(vp.dtype)
         attn = gqa_attention_prefix(q, kp, vp, ks, vs, prefix_lens,
                                     window=cfg.sliding_window)
-        x = x + torch.matmul(attn.reshape(Bp, T, -1), lp["wo"][l])
+        x = x + _reduce(torch.matmul(attn.reshape(Bp, T, -1), lp["wo"][l]),
+                        tp)
         h2 = rms_norm(x, lp["mlp_norm"][l], cfg.norm_eps)
-        x = x + ffn(h2, lp, l)
+        x = x + _reduce(ffn(h2, lp, l), tp)
         sfx_k.append(ks)
         sfx_v.append(vs)
-    logits = _final_logits(params, cfg, x, logits_at)
+    logits = _final_logits(params, cfg, x, logits_at, tp)
     return logits, torch.stack(sfx_k), torch.stack(sfx_v)
 
 
@@ -659,15 +668,17 @@ def forward_prefix_lane(
     logits_at: Optional[torch.Tensor] = None,
     *,
     ffn: Optional[FFN] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense-cache prefix prefill: ``forward_prefix_pages`` plus each
     row's lane image (``layers.compose_prefix_lane``: prefix pages, then
     the suffix at its positions), ready for one slot-cache insert.
     Returns (fp32 logits, lane_k, lane_v [L, Bp, lane_pages * ps, Hkv,
-    D])."""
+    D]). ``tp`` as in ``forward``: pool and lanes hold the rank's KV
+    heads (the composition needs no collective)."""
     logits, sfx_k, sfx_v = forward_prefix_pages(
         params, cfg, tokens, prefix_table, prefix_lens, pool_k, pool_v,
-        logits_at=logits_at, ffn=ffn)
+        logits_at=logits_at, ffn=ffn, tp=tp)
     lane_k, lane_v = compose_prefix_lane(pool_k, pool_v, prefix_table,
                                          prefix_lens, sfx_k, sfx_v,
                                          lane_pages)

@@ -373,14 +373,18 @@ def forward_prefix_lane(params: Params, cfg: ModelConfig,
                         tokens: torch.Tensor, prefix_table: torch.Tensor,
                         prefix_lens: torch.Tensor, pool_k: torch.Tensor,
                         pool_v: torch.Tensor, lane_pages: int,
-                        logits_at: Optional[torch.Tensor] = None
+                        logits_at: Optional[torch.Tensor] = None, *,
+                        tp=None, ep=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense-cache prefix prefill (``llama.forward_prefix_lane``) with the
-    MoE block. Returns (fp32 logits, lane_k, lane_v)."""
+    MoE block; ``tp`` and ``ep`` as in ``forward``. Its rows are the whole
+    call (a data rank runs a prefix wave whole), so it takes no ``rows``.
+    Returns (fp32 logits, lane_k, lane_v)."""
     _check_moe(cfg)
     return llama.forward_prefix_lane(
         params, cfg, tokens, prefix_table, prefix_lens, pool_k, pool_v,
-        lane_pages, logits_at=logits_at, ffn=_moe_ffn(cfg, None))
+        lane_pages, logits_at=logits_at, ffn=_moe_ffn(cfg, None, ep),
+        tp=tp)
 
 
 def forward_paged_chunked(params: Params, cfg: ModelConfig,

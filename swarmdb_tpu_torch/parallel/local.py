@@ -30,9 +30,9 @@ rank does (``serving._single_program``); the workers then run
   its traceback if the build raised), then ``cmd``: ``go`` when the
   coordinator's engine starts (the workers enter ``worker_loop``) or
   ``stop``. The coordinator's waits are bounded by ``SWARMDB_PG_TIMEOUT_S``
-  and by the workers' processes: a worker that dies or fails makes the
-  build raise with the tail of its log. There is no fallback to fewer
-  devices.
+  (at least ``START_S``: a worker's start is no collective) and by the
+  workers' processes: a worker that dies or fails makes the build raise
+  with the tail of its log. There is no fallback to fewer devices.
 - Lifecycle (``Engine.start`` / ``stop`` / ``restart`` call ``go``,
   ``close`` and ``respawn``): ``close`` tells the workers to stop, joins
   them within ``JOIN_S``, kills any left, and ends the process group and
@@ -69,10 +69,16 @@ from .mesh import MESH_AXES, make_mesh, shard_params
 
 logger = logging.getLogger("swarmdb_tpu_torch.local")
 
-__all__ = ["JOIN_S", "LocalProgram", "backend_for", "build_local_program"]
+__all__ = ["JOIN_S", "LocalProgram", "START_S", "backend_for",
+           "build_local_program"]
 
 #: seconds a stopped worker has to exit before it is killed
 JOIN_S = 30.0
+#: the least seconds a spawned worker has to join and to build its
+#: engine: an interpreter's start and imports are no collective, so a
+#: short ``SWARMDB_PG_TIMEOUT_S`` (which bounds the collectives) must not
+#: fail a spawn on a loaded host; a worker that dies still fails it at once
+START_S = 60.0
 #: the log tail an error carries
 _TAIL = 4000
 _POLL_S = 0.02
@@ -210,9 +216,10 @@ class LocalProgram:
 
     def _await(self, key: str) -> None:
         """Wait until every worker set ``key/r``: bounded by the process
-        group's timeout, and failing at once on a worker that failed or
-        exited."""
-        deadline = time.monotonic() + pg_timeout_s()
+        group's timeout or ``START_S``, whichever is longer, and failing at
+        once on a worker that failed or exited."""
+        wait_s = max(pg_timeout_s(), START_S)
+        deadline = time.monotonic() + wait_s
         pending = set(range(1, self.world))
         while pending:
             for rank in sorted(pending):
@@ -232,7 +239,7 @@ class LocalProgram:
             if pending and time.monotonic() > deadline:
                 raise TimeoutError(
                     f"ranks {sorted(pending)} of the single program not "
-                    f"'{key}' within {pg_timeout_s():g} s:\n"
+                    f"'{key}' within {wait_s:g} s:\n"
                     + "\n".join(self._tail(r) for r in sorted(pending)))
             if pending:
                 time.sleep(_POLL_S)

@@ -32,7 +32,11 @@ The counterpart of ``swarmdb_tpu/parallel/serving.py``. Two shapes:
     the block exchanges expert choices over the axis.
   - The dense engine runs over every axis, as the JAX package's
     ``build_sharded_model`` does (its slot cache splits slots over data and
-    KV heads over model); as there, it has no prefix cache. A pipe axis
+    KV heads over model). With ``prefix_pages`` it has the JAX engine's
+    prefix cache over a side pool (``ShardedModel.prefix_fns``): each rank
+    holds its KV heads of every page, and a prefix wave runs whole on
+    every data rank, so that every rank's pool holds every registered
+    page as the JAX package's replicated pool does. A pipe axis
     holds no weight share in serving (the JAX ``param_specs`` name no
     ``pipe``): its ranks replicate the engine. Pipeline parallelism proper
     is the prefill-only ``models.llama.forward_pipelined``.
@@ -100,6 +104,8 @@ class ShardedModel:
     param_shardings: Any   # the shard plan
     # (chunk_forward, init_chunk, merge) of the dense chunked decode
     chunked_fns: Any = None
+    # (lane_forward, init_pool) of the dense prefix lane over a side pool
+    prefix_fns: Any = None
 
     @property
     def counts_call(self) -> bool:
@@ -176,8 +182,13 @@ def build_sharded_model(
     default, as the dense engine's).
 
     The forwards: ``forward_fn(p, tokens, positions, cache, logits_at=,
-    rows=)`` and the chunked triple's forward ``(p, t, pos, c, hkv, s,
-    rows=)``. ``rows`` (``counts_call`` only: a data rank's rows of a
+    rows=)``, the chunked triple's forward ``(p, t, pos, c, hkv, s,
+    rows=)`` and the prefix lane's pair ``prefix_fns``: ``lane_forward(p,
+    tokens, table, prefix_lens, pool_k, pool_v, lane_pages, logits_at=)``
+    over the rank's heads and ``init_pool(num_pages, page_size)``, the
+    rank's KV heads of a side pool in the slot cache's dtype (the lane
+    forward counts its own rows: a data rank runs a prefix wave whole).
+    ``rows`` (``counts_call`` only: a data rank's rows of a
     global call, as ``(ids tensor, rows of the call)``) makes the MoE
     block count the whole call; without it a call counts its own rows."""
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
@@ -214,6 +225,16 @@ def build_sharded_model(
         return llama.init_kv_cache(cfg, batch, max_seq, dtype=cache_dtype,
                                    device=dev, kv_heads=kv_heads)
 
+    def lane_forward(p, t, tab, pl, pk, pv, lane_pages, logits_at=None):
+        return fam.forward_prefix_lane(p, cfg, t, tab, pl, pk, pv,
+                                       lane_pages, logits_at=logits_at,
+                                       **axes)
+
+    def init_pool(num_pages: int, page_size: int):
+        return llama.init_prefix_pool(cfg, num_pages, page_size,
+                                      dtype=cache_dtype, device=dev,
+                                      kv_heads=kv_heads)
+
     chunked_fns = (
         chunk_forward,
         lambda b, k: llama.init_chunk_kv(cfg, b, k, device=dev,
@@ -222,7 +243,8 @@ def build_sharded_model(
     )
     return ShardedModel(cfg=cfg, mesh=mesh, params=params,
                         forward_fn=forward_fn, init_cache_fn=init_cache_fn,
-                        param_shardings=plan, chunked_fns=chunked_fns)
+                        param_shardings=plan, chunked_fns=chunked_fns,
+                        prefix_fns=(lane_forward, init_pool))
 
 
 def _refuse_sharded_paged(mesh_shape: Dict[str, int],
@@ -329,6 +351,9 @@ def build_serving_engine(
     kv_dtype: Optional[torch.dtype] = None,
     params: Optional[Dict[str, Any]] = None,
     tokenizer_path: Optional[str] = None,
+    prefix_pages: int = 0,
+    prefix_page_size: int = 16,
+    prefill_buckets: Optional[Sequence[int]] = None,
 ) -> Tuple[Any, Any]:
     """(engine, info). ``devices`` defaults to every visible card (the
     counterpart of a mesh over ``jax.devices()``) and may repeat one;
@@ -342,8 +367,14 @@ def build_serving_engine(
     with no axis given is on ``model``, as the JAX package's
     ``plan_mesh_shape`` puts them). Paged, it is the sharded paged engine
     (``build_sharded_paged``: a pure-DP mesh, the prefix cache on unless
-    ``SWARMDB_PREFIX=0``); else the dense engine, without a prefix cache.
-    Decode is chunked unless ``SWARMDB_CHUNKED=0``. Its ranks are either
+    ``SWARMDB_PREFIX=0``); else the dense engine, with a prefix cache over
+    a side pool of ``prefix_pages`` pages of ``prefix_page_size`` tokens
+    when ``prefix_pages`` > 0 (the JAX call's ``prefix_fns``,
+    ``prefix_pages`` and ``prefix_page_size``; off by default, as the JAX
+    call without ``prefix_fns``; a paged program ignores both, its prefix
+    cache being its pool's). ``prefill_buckets`` are the engine's (the
+    JAX ``Engine`` argument). Decode is chunked unless
+    ``SWARMDB_CHUNKED=0``. Its ranks are either
 
     - a process group the caller made (``init_distributed`` in each
       process): ``devices`` names this rank's one device and ``params``
@@ -366,7 +397,10 @@ def build_serving_engine(
     ``NotImplementedError``); an axis larger than the devices of a
     process without a group says how to get its ranks.
     ``tokenizer_path`` gives the single program's engine its tokenizer's
-    EOS and pad ids."""
+    EOS and pad ids. ``prefix_pages``, ``prefix_page_size`` and
+    ``prefill_buckets`` shape the single program's engine; a lone engine
+    and a lane group are ``build_backend_engine``'s (``SWARMDB_PREFIX``,
+    ``SWARMDB_PREFIX_TOKENS``)."""
     if devices is None:
         # a rank of a pod holds the device it bound; else every card
         devices = ([None] if dist.is_initialized() else
@@ -386,7 +420,10 @@ def build_serving_engine(
                    page_size=page_size, kv_pool_tokens=kv_pool_tokens,
                    metrics=metrics, decode_chunk=decode_chunk,
                    prefill_batch=prefill_batch, flight_dir=flight_dir,
-                   kv_dtype=kv_dtype, tokenizer_path=tokenizer_path)
+                   kv_dtype=kv_dtype, tokenizer_path=tokenizer_path,
+                   prefix_pages=prefix_pages,
+                   prefix_page_size=prefix_page_size,
+                   prefill_buckets=prefill_buckets)
     if dist.is_initialized():
         if len(devs) != 1:
             raise ValueError("a rank of the single program holds one "
@@ -450,10 +487,14 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
                     flight_dir: Optional[str],
                     kv_dtype: Optional[torch.dtype],
                     tokenizer_path: Optional[str],
+                    prefix_pages: int = 0, prefix_page_size: int = 16,
+                    prefill_buckets: Optional[Sequence[int]] = None,
                     params: Optional[Dict[str, Any]] = None,
                     load: Optional[Callable] = None):
-    """This rank's engine: the dense one over its share of the mesh, or
-    the paged one over its shard of a pure-DP pool. Its weights are
+    """This rank's engine: the dense one over its share of the mesh (its
+    prefix lane over a side pool of ``prefix_pages`` pages, when > 0,
+    built from this rank's mesh: ``ShardedModel.prefix_fns``), or the
+    paged one over its shard of a pure-DP pool. Its weights are
     ``params`` (its shares), or ``load(plan, mesh)``'s, or drawn from
     ``seed``."""
     from ..backend.engine import Engine
@@ -484,6 +525,9 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
     tok = default_tokenizer(cfg.vocab_size, tokenizer_path)
     chunked = os.environ.get("SWARMDB_CHUNKED", "1") != "0"
     kw: Dict[str, Any] = {"chunked_fns": sm.chunked_fns if chunked else None}
+    if prefix_pages > 0 and not paged:
+        kw.update(prefix_fns=sm.prefix_fns, prefix_pages=prefix_pages,
+                  prefix_page_size=prefix_page_size)
     if paged:
         prefix = (os.environ.get("SWARMDB_PREFIX", "1") != "0"
                   and max_seq % page_size == 0)
@@ -501,7 +545,8 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
         device=mesh.device, flight_dir=flight_dir,
         pipeline_depth=_pipeline_depth(), model_config=cfg,
         decode_graphs=all(a.capturable for a in chunk_axes),
-        data_axis=mesh.axis("data"), count_rows=sm.counts_call, **kw)
+        data_axis=mesh.axis("data"), count_rows=sm.counts_call,
+        prefill_buckets=prefill_buckets, **kw)
     # flight-recorder identity: what the ranks are and how chunks run
     engine.flight.meta.update({
         "mesh": dict(mesh.shape),

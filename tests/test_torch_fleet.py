@@ -161,8 +161,14 @@ def test_handoff_tokens_equal_colocated_and_jax(fleet):
             assert reason == "length" and toks == r, (pkg, p, toks, r)
             assert streamed == toks
         st = g.fleet.stats()
-        assert st["handoffs"] - ho0 == len(prompts)
-        assert c["fleet_handoff_fallbacks"].value == fb0
+        # which package missed which handoff, and where the request went
+        # instead (a colocated route, a fallback) with the lanes' states
+        why = (pkg, {k: v for k, v in st.items()
+                     if not k.startswith("transit")},
+               {"handoffs_before": ho0, "fallbacks_before": fb0},
+               [lane["state"] for lane in sup.status()["lanes"]])
+        assert st["handoffs"] - ho0 == len(prompts), why
+        assert c["fleet_handoff_fallbacks"].value == fb0, why
         assert st["transit_store"]["entries"] == 0
         assert st["transit_store"]["bytes"] == 0
         assert st["handoff_ms_p95"] >= st["handoff_ms_p50"] > 0

@@ -6,8 +6,8 @@ Rank 0's engine (``enable_multihost``) owns the queue and publishes each
 device call; rank 1 replays them (``worker_loop``), each on its share of
 the JAX package's float32 tiny weights. Greedy ``generate_sync`` on the
 pod gives the same tokens as the port's single-process dense engine and
-as the JAX package's single-device dense engine (no prefix cache, as the
-pod engine has none), exactly; both ranks decode the same token block in
+as the JAX package's single-device dense engine (no prefix cache: the
+pod engine is built without one), exactly; both ranks decode the same token block in
 every chunk (their fed tokens agree); stop releases the worker; restart,
 ``keep_pages`` and resume are refused. A worker killed mid-request ends
 the coordinator's request with "engine_error" well inside its timeout,
@@ -218,6 +218,28 @@ def test_mirrored_call_wire_format():
              rng.integers(0, 2**32, (4, 2)).astype(np.int64),
              rng.random(4).astype(np.float32),
              np.arange(24, dtype=np.uint32).reshape(1, 2, 3, 4)]),
+        # the dense prefix lane's wave (call 4): tokens, lengths, prefix
+        # lengths, the hit table, the registered pages' rows, lane columns
+        # and pool ids (the first wave registers none), the scatter and
+        # the rows' sampling
+        (4, [rng.integers(0, 500, (4, 32)).astype(np.int32),
+             np.asarray([5, 3, 1, 1], np.int32),
+             np.asarray([16, 0, 0, 0], np.int32),
+             np.asarray([[3, 7], [0, 0], [0, 0], [0, 0]], np.int32),
+             np.zeros(0, np.int64), np.zeros(0, np.int64),
+             np.zeros(0, np.int64),
+             np.asarray([0, 2, 4, 4], np.int64),
+             rng.integers(0, 2**32, (4, 2)).astype(np.int64),
+             np.zeros(4, np.float32), np.zeros(4, np.int32),
+             np.ones(4, np.float32)]),
+        (4, [rng.integers(0, 500, (2, 16)).astype(np.int32),
+             np.asarray([16, 9], np.int32), np.zeros(2, np.int32),
+             np.zeros((2, 1), np.int32),
+             np.asarray([0, 0, 1], np.int64), np.asarray([0, 1, 0], np.int64),
+             np.asarray([5, 6, 9], np.int64), np.asarray([1, 3], np.int64),
+             rng.integers(0, 2**32, (2, 2)).astype(np.int64),
+             rng.random(2).astype(np.float32), np.asarray([0, 3], np.int32),
+             rng.random(2).astype(np.float32)]),
         (1, []),
     ]
     for call_id, args in calls:

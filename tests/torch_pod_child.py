@@ -2,8 +2,9 @@
 
 Run by ``tests/test_torch_tp.py``, ``test_torch_multihost.py``,
 ``test_torch_dp.py``, ``test_torch_sharded_paged.py``, ``test_torch_ep.py``,
-``test_torch_pipeline.py`` and ``test_torch_ring_attention.py``
-(``run_pod`` there), never collected by pytest itself:
+``test_torch_pipeline.py``, ``test_torch_ring_attention.py`` and
+``test_torch_dense_prefix_program.py`` (``run_pod`` there), never
+collected by pytest itself:
 
     python tests/torch_pod_child.py JOB RANK WORLD STORE IN OUT
 
@@ -32,10 +33,17 @@ those axes of the mesh. Jobs:
 - ``dp``: the single program over the mesh (``build_serving_engine`` with
   ``data``; ``paged`` picks the sharded paged engine): rank 0 runs the
   ``scenario`` -- ``serial`` (greedy requests one after another),
-  ``spread`` (requests at once: which shards held them) or ``hint``
-  (one prompt's turns with a shard hint: its prefix-cache hits) -- and
+  ``spread`` (requests at once: which shards held them), ``hint``
+  (one prompt's turns with a shard hint: its prefix-cache hits) or
+  ``prefix`` (``prefix_turns`` over the prompts and ``later``, a JSON
+  list: the dense prefix lane's turns, with ``prefix_pages``,
+  ``prefix_page_size`` and ``buckets`` given to the build) -- and
   stops; the other ranks run ``worker_loop``. Every rank logs every
   chunk's gathered token block.
+- ``lane``: the dense prefix lane's forward (``ShardedModel.prefix_fns``)
+  on this rank's share of the weights and of the side pool's KV heads
+  (``pool_k`` / ``pool_v`` whole in the inputs) over ``tokens``,
+  ``table``, ``plens``, ``lane_pages`` and ``logits_at``.
 - ``pipe``: ``llama.forward_pipelined`` on this stage's layers
   (``param_plan_pp``) over the pipe axis.
 - ``ring``: ``ops.ring_attention`` on this rank's chunk of ``q``/``k``/
@@ -259,18 +267,60 @@ def job_kill(rank: int, inp, mesh) -> dict:
     return out
 
 
+def prefix_turns(eng, turn1, later, new, gen_request, sampling,
+                 timeout=60.0):
+    """The dense prefix lane's scenario on an engine not yet started:
+    ``turn1``'s prompts queued together (one admission round: slots 0, 1,
+    ... in order), then each prompt of ``later`` alone; greedy, ``new``
+    tokens each. A prompt of ``later`` given as an int ``i`` is turn 1's
+    prompt ``i`` followed by its reply (a conversation's second turn).
+    ``gen_request`` and ``sampling`` are the package's request and
+    sampling classes (the tests run the JAX engine through it too).
+    Returns [(tokens, reason)] in order."""
+    done = [threading.Event() for _ in turn1]
+    out = [None] * len(turn1)
+
+    def finish(i):
+        def on_done(rid, toks, why):
+            out[i] = (list(toks), why)
+            done[i].set()
+        return on_done
+
+    for i, prompt in enumerate(turn1):
+        eng.submit(gen_request(prompt=list(prompt),
+                               sampling=sampling(max_new_tokens=new),
+                               on_done=finish(i)))
+    eng.start()
+    for ev in done:
+        if not ev.wait(timeout):
+            raise TimeoutError("a first-turn request never finished")
+    for prompt in later:
+        if isinstance(prompt, int):
+            prompt = list(turn1[prompt]) + out[prompt][0]
+        toks, why = eng.generate_sync(list(prompt),
+                                      sampling(max_new_tokens=new),
+                                      timeout=timeout)
+        out.append((list(toks), why))
+    return out
+
+
 def job_dp(rank: int, inp, mesh) -> dict:
     from swarmdb_tpu_torch.backend.engine import GenRequest
     from swarmdb_tpu_torch.backend.sampling import SamplingParams
     from swarmdb_tpu_torch.parallel.serving import build_serving_engine
 
     cfg = _cfg(inp)
+    lane = ({k: int(inp[k]) for k in ("prefix_pages", "prefix_page_size")}
+            if "prefix_pages" in inp.files else {})
+    if "buckets" in inp.files:
+        lane["prefill_buckets"] = inp["buckets"].tolist()
     eng, _sm = build_serving_engine(
         cfg, ["cpu"], data=mesh.shape["data"], model=mesh.shape["model"],
         expert=mesh.shape["expert"], paged=bool(inp["paged"]),
         params=_shares(inp, mesh, cfg),
         max_batch=int(inp["max_batch"]), max_seq=int(inp["max_seq"]),
-        decode_chunk=int(inp["chunk"]), page_size=int(inp["page_size"]))
+        decode_chunk=int(inp["chunk"]), page_size=int(inp["page_size"]),
+        **lane)
     eng.block_log = []
     out = {"graphs_meta": np.asarray(eng.flight.meta["graphs"]),
            "moe_dispatch": np.asarray(str(eng.flight.meta["moe_dispatch"])),
@@ -283,13 +333,20 @@ def job_dp(rank: int, inp, mesh) -> dict:
         out["blocks"] = np.stack(eng.block_log)
         return out
     eng.enable_multihost()
-    eng.start()
     prompts = [inp[f"prompt{i}"].tolist()
                for i in range(int(inp["n_prompts"]))]
     new = int(inp["new"])
     scenario = str(inp["scenario"])
+    if scenario != "prefix":
+        eng.start()
     try:
-        if scenario == "serial":
+        if scenario == "prefix":
+            turns = prefix_turns(eng, prompts, json.loads(str(inp["later"])),
+                                 new, GenRequest, SamplingParams)
+            for i, (toks, why) in enumerate(turns):
+                out[f"tokens{i}"] = np.asarray(toks)
+                out[f"reason{i}"] = np.asarray(why)
+        elif scenario == "serial":
             for i, prompt in enumerate(prompts):
                 toks, why = eng.generate_sync(
                     prompt, SamplingParams(max_new_tokens=new), timeout=60)
@@ -332,6 +389,27 @@ def job_dp(rank: int, inp, mesh) -> dict:
         eng.stop()
     out["blocks"] = np.stack(eng.block_log)
     return out
+
+
+def job_lane(rank: int, inp, mesh) -> dict:
+    from swarmdb_tpu_torch.parallel.serving import build_sharded_model
+
+    sm = build_sharded_model(CFG, mesh, params=_shares(inp, mesh),
+                             kv_dtype=torch.float32)
+    h = CFG.n_kv_heads // mesh.shape["model"]
+    heads = slice(mesh.coords["model"] * h, (mesh.coords["model"] + 1) * h)
+    pool = [torch.from_numpy(inp[k][:, :, :, heads].copy())
+            for k in ("pool_k", "pool_v")]
+    lane_forward, _init_pool = sm.prefix_fns
+    with torch.no_grad():
+        logits, lane_k, lane_v = lane_forward(
+            sm.params, torch.from_numpy(inp["tokens"]),
+            torch.from_numpy(inp["table"]), torch.from_numpy(inp["plens"]),
+            *pool, int(inp["lane_pages"]),
+            logits_at=torch.from_numpy(inp["logits_at"]))
+    return {"logits": logits.numpy(), "lane_k": lane_k.numpy(),
+            "lane_v": lane_v.numpy(), "pool_shape": np.asarray(
+                _init_pool(4, 8)[0].shape)}
 
 
 def job_pipe(rank: int, inp, mesh) -> dict:
@@ -545,7 +623,7 @@ def main() -> int:
                      expert=expert, pipe=pipe, device="cpu")
     out = {"forward": job_forward, "engine": job_engine,
            "kill": job_kill, "dp": job_dp, "pipe": job_pipe,
-           "ring": job_ring}[job](rank, inp, mesh)
+           "ring": job_ring, "lane": job_lane}[job](rank, inp, mesh)
     np.savez(out_path, **out)
     return 0
 
