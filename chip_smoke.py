@@ -10,12 +10,13 @@ and exits non-zero at the first failure:
 
 1. device   -- the card's name and power limit (``nvidia-smi``).
 2. build    -- compiles the eight CUDA kernels from
-               ``swarmdb_tpu_torch/csrc`` and their bounds-checked variants
-               (``-DSWARM_KERNCHECK``, the sanitize phase's): one ``nvcc``
-               per source and variant, all started together.
+               ``swarmdb_tpu_torch/csrc``, one ``nvcc`` per source, all
+               started together; then their bounds-checked variants
+               (``-DSWARM_KERNCHECK``, the sanitize phase's) the same way,
+               left building through phase 4 (the line comes after it).
 2b. lint    -- ``python -m swarmdb_tpu_torch.analysis`` (the port's
-               swarmlint against its own baseline) must exit 0 under this
-               machine's Python.
+               swarmlint against its own baseline), run beside the build,
+               must exit 0 under this machine's Python.
 2c. smem    -- for each of the eight entry points at Hq 32, Hkv 8, D 128,
                every dtype the engines launch it with (and the prefill at
                a 64- and a 4096-token wave: two thread groups a block, and
@@ -223,14 +224,16 @@ and exits non-zero at the first failure:
                time alone and its fixed cost.
 
 7b. rolling -- rolling KV and the three conversation tiers on Llama-3-8B
-               at full width (the serve phase's weights and settings:
-               max_batch 8, max_seq 1024, chunk 8, pages of 16, graphs
-               captured at start): ``bench.py``'s ``bench_swarm1M`` cut to
+               at full width, 16 of its 32 layers (the serve phase's
+               weights, its first 16 layers, and settings: max_batch 8,
+               max_seq 1024, chunk 8, pages of 16, graphs captured at
+               start): ``bench.py``'s ``bench_swarm1M`` cut to
                one card -- 12 users x 4 assistants, one ~600-token context
-               turn each, then three rounds of 48 ~40-token deltas drawn
+               turn each, then two rounds of 48 ~40-token deltas drawn
                Zipf(1.1) (numpy seed 0), 32 new tokens, at most 10 in
                flight -- on the paged engine over bf16 and int8 pools (769
-               pages; ``SWARMDB_TIER_WARM_MB=1024``, min idle 0.05 s) and
+               pages; ``SWARMDB_TIER_WARM_MB=512``, the pages 1024 held
+               at full depth; min idle 0.05 s) and
                the dense engine (rolling and eviction only). Prints turns
                and prefill tokens by origin (hot / warm / cold / fresh /
                keep / plain), TTFT by origin, restarts, evictions, tier
@@ -269,7 +272,8 @@ and exits non-zero at the first failure:
                turn (device busy as the union of both streams' kernel
                intervals, beside their sum); each lane's duty cycle from
                the device-time profiler. (2) 4 greedy streams on lane
-               1, ``ServingChaos.kill_lane(1)`` at the 8th token: they
+               1, lane 1 killed at the 8th token (``ServingChaos.run_script``
+               with one ``kill_lane``): they
                migrate to lane 0 and end "length" with the undisturbed
                tokens, lane 1 is restarted, probed and re-admitted,
                custody balances on both lanes. (3)
@@ -387,7 +391,10 @@ and exits non-zero at the first failure:
                (kernel 7), then the sharded paged engine
                (``admit_overlap=False``) over a data axis of two at full
                depth (kernel 2), both chunked, each rank drawing its
-               weights from seed 0. Each serve's tokens equal the pod
+               weights from seed 0; the model axis's program takes
+               ``LOCAL_KNOBS`` (``pipeline_depth`` 1, ``aging_s`` 30)
+               through ``build_serving_engine``, which its coordinator
+               must hold before and after ``restart()``. Each serve's tokens equal the pod
                serve's of its program ((c)'s chunked serve, (d)'s paged
                chunked serve) or, where they part, are held to that
                serve's reference under (c)'s rule; rank 0 launched the
@@ -516,7 +523,19 @@ and exits non-zero at the first failure:
                is the serve's own largest |log-probability difference|
                from it, ``router_tol`` its router logits' largest distance
                from those of the plain forward that follows its expert
-               choices (``routing``).
+               choices (``routing``). Then the rows step
+               (``run_moe_rows``): the paged bf16 chunked engine, prefix
+               cache off, serves the tool-use workload's first turn (4
+               prompts as the service renders them, queued, 32 greedy
+               tokens, chunks eager) at ``prefill_batch`` 2 under
+               ``SWARMDB_PREFILL_ROWS=0`` (rows [2]) and at 8 under "1"
+               (the ladder 1, 2, 4, 8); its ``rows`` line gives per
+               setting the row buckets, each wave's rows, TTFT, decode
+               tokens/s and kernel 2's launches. Each serve is held as
+               the ep pods are: every step's logprob and greedy pick
+               within twice the reference's ``tol`` of the plain forward
+               that replays its waves and steps following its expert
+               choices (``moe_plain_steps(waves=)``).
 9. ep     -- the single program over Mixtral's axes, and pipeline and
                sequence parallelism, on two ``--ep-child`` processes on
                ``cuda:0`` over gloo (one spawn, after the mixtral phase
@@ -603,10 +622,17 @@ PEAK_BF16_FLOPS = 989e12        # dense tensor cores, same data sheet
 T_START = time.monotonic()
 
 
+#: the phase of the last line printed: a new one is also named on
+#: standard error, so that the end of that stream says how far a run came
+_PHASE = [None]
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase,
-                      "t_s": round(time.monotonic() - T_START, 1),
-                      **fields}), flush=True)
+    t_s = round(time.monotonic() - T_START, 1)
+    if phase != _PHASE[0]:
+        _PHASE[0] = phase
+        print(f"chip_smoke: {phase} at {t_s} s", file=sys.stderr, flush=True)
+    print(json.dumps({"phase": phase, "t_s": t_s, **fields}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -638,11 +664,12 @@ def time_graph(fn, reps: int = 10, iters: int = 30) -> float:
     return _median_events(graph.replay, iters) / reps
 
 
-def time_events(fn, iters: int = 30) -> float:
-    """Median ms of one eager ``fn()`` call between CUDA events."""
+def time_events(fn, iters: int = 30, warm: int = 3) -> float:
+    """Median ms of one eager ``fn()`` call between CUDA events, after
+    ``warm`` calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     return _median_events(fn, iters)
@@ -2198,9 +2225,17 @@ def run_rolling_parity(dev):
 #: 12 users x 4 assistants, one ~600-token context turn per conversation,
 #: then ROLL_ROUNDS rounds of 48 ~40-token deltas drawn Zipf(1.1) from
 #: numpy seed 0, 32 new tokens each, at most ROLL_OUTSTANDING in flight
-ROLL_USERS, ROLL_ASSISTANTS, ROLL_ROUNDS = 12, 4, 3
+ROLL_USERS, ROLL_ASSISTANTS, ROLL_ROUNDS = 12, 4, 2
 ROLL_OUTSTANDING = 10
-ROLL_WARM_MB = 1024
+#: the rolling engines run the first ROLL_LAYERS of Llama-3-8B's 32 layers
+#: (views of the serve phase's weights: the script's time limit); the
+#: warm store is cut with them, so it holds the pages 1024 MiB held at
+#: full depth and the tiers see the same pressure
+ROLL_LAYERS = 16
+ROLL_WARM_MB = 1024 * ROLL_LAYERS // 32
+#: how long a stopped scenario may take to settle every claim before its
+#: custody is read
+ROLL_SETTLE_S = 5.0
 #: (name, cache dtype, paged): the three engines of the rolling phase
 #: Page-locked bytes a stopped rolling engine may leave behind.
 ROLL_PINNED_SLACK = 64 << 20
@@ -2222,12 +2257,19 @@ def zipf_indices(k: int, exponent: float, count: int, seed: int):
 
 
 def run_rolling(card: str, params):
-    """The rolling phase on Llama-3-8B at full width (``ROLL_MODES``).
-    Returns the launches summed over its engines."""
+    """The rolling phase on Llama-3-8B at full width, ``ROLL_LAYERS``
+    deep (``ROLL_MODES``). Returns the launches summed over its
+    engines."""
+    from swarmdb_tpu_torch.models.configs import get_config
+
+    cfg = get_config("llama3-8b", n_layers=ROLL_LAYERS)
+    params = dict(params, layers={k: v[:ROLL_LAYERS]
+                                  for k, v in params["layers"].items()})
     total = {}
     for name, kind, paged in ROLL_MODES:
         before = host_pinned_bytes()
-        for k, n in rolling_serve(card, params, name, kind, paged).items():
+        for k, n in rolling_serve(card, cfg, params, name, kind,
+                                  paged).items():
             total[k] = total.get(k, 0) + n
         # the stopped engine's warm store must not stay page-locked: the
         # next engine's would sit beside it
@@ -2249,7 +2291,7 @@ def _summary(xs):
             if xs else {"n": 0})
 
 
-def rolling_serve(card, params, name, kind, paged):
+def rolling_serve(card, cfg, params, name, kind, paged):
     """One engine of the rolling phase: build it with rolling KV (and,
     paged, the tier manager with a ``ROLL_WARM_MB`` warm store), capture
     its graphs, serve the scenario, check and print. Paged: then the
@@ -2266,6 +2308,7 @@ def rolling_serve(card, params, name, kind, paged):
     from swarmdb_tpu_torch.obs.memprof import ReuseSampler, memprof
     from swarmdb_tpu_torch.ops import attention_cuda as ac
 
+    t_build = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # the accountant from zero for this engine, every prefix access
@@ -2282,7 +2325,7 @@ def rolling_serve(card, params, name, kind, paged):
                    SWARMDB_TIER_MIN_IDLE_S="0.05", SWARMDB_CHUNKED="1",
                    SWARMDB_PAGED=None):
         eng, tok = build_backend_engine(
-            "llama3-8b", seed=0, device="cuda", params=params, paged=paged,
+            cfg, seed=0, device="cuda", params=params, paged=paged,
             kv_dtype=getattr(torch, kind) if paged else None,
             metrics=db.metrics)
         svc = ServingService(db, eng, tok, backend_id=backend)
@@ -2315,6 +2358,7 @@ def rolling_serve(card, params, name, kind, paged):
         for a in assistants:
             db.assign_llm_backend(a, backend)
         svc.start(warmup=True)
+        start_s = time.perf_counter() - t_build
         ac.reset_launches()
         sent = 0
         draws = zipf_indices(len(convs), 1.1, ROLL_ROUNDS * len(convs), 0)
@@ -2338,18 +2382,24 @@ def rolling_serve(card, params, name, kind, paged):
             replies.extend(db.receive_messages(u, max_messages=10 ** 4,
                                                timeout=0.5))
         reasons = [m.metadata.get("finish_reason") for m in replies]
-        # idle: every claim settled
-        deadline = time.time() + 30
+        # idle: every claim settled (a claim settles within milliseconds
+        # of its reply, which was read above)
+        t_settle = time.perf_counter()
+        deadline = time.time() + ROLL_SETTLE_S
         while time.time() < deadline and (eng._any_active() or any(
                 st.get("in_flight") for st in list(svc._rolling.values()))):
             time.sleep(0.01)
+        settle_s = time.perf_counter() - t_settle
+        unsettled = sum(1 for st in list(svc._rolling.values())
+                        if st.get("in_flight"))
         c = db.metrics.counters
         lat = db.metrics.latencies
         by_origin = trace.by_origin()
         origins = {k: len(v) for k, v in by_origin.items()}
         custody = rolling_custody(svc)
         record = dict(
-            serve=name, model="llama3-8b", cache=kind,
+            serve=name, model="llama3-8b", layers=cfg.n_layers,
+            reduced=f"depth {cfg.n_layers} of 32 layers", cache=kind,
             engine="paged" if paged else "dense (default)",
             conversations=len(convs), turns=sent, replies=len(replies),
             finish_reasons={r: reasons.count(r) for r in set(reasons)},
@@ -2359,7 +2409,8 @@ def rolling_serve(card, params, name, kind, paged):
             rolling_resumes=c["rolling_resumes"].value,
             rolling_restarts=c["rolling_restarts"].value,
             rolling_evictions=c["rolling_evictions"].value,
-            custody=custody, serve_wall_s=serve_s,
+            custody=custody, build_and_start_s=start_s, serve_wall_s=serve_s,
+            settle_s=settle_s, claims_in_flight_after_settle=unsettled,
             ttft_all_s=_summary(lat["send_to_first_token_s"].values()),
             launches={k: n for k, n in launches.items() if n},
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -2827,13 +2878,7 @@ def profile_turn(db, users, text):
     if len(got) < len(users):
         fail(f"profiled turn: {len(got)} of {len(users)} replies")
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", 0)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    kernels = [(e.key, dev_us(e) / 1e3, e.count)
-               for e in prof.key_averages() if dev_us(e) > 0]
-    kernels.sort(key=lambda k: -k[1])
+    kernels = _kernel_times(prof)
     busy_ms = sum(k[1] for k in kernels)
     attn = {"ragged_prefill": PREFILL_BODIES, **DECODE_BODIES}
     attn.update({f"ragged_prefill_{body}": (pat,)
@@ -2962,7 +3007,8 @@ def graph_vs_eager(model, params, paged, kind, chunked, card) -> dict:
             eng._chunk_body(variant)
 
         graph_ms = time_events(replay, iters=20)
-        eager_ms = time_events(eager, iters=20)
+        # an eager chunk takes up to a third of a second: five of them
+        eager_ms = time_events(eager, iters=5, warm=1)
         rec = dict(
             live_slots=len(live), variant=variant, greedy_equal=equal,
             logprob_max_abs_err=lp_err, logprob_bound=LOOP_LP_TOL,
@@ -4150,23 +4196,10 @@ def prof_turn_union(db, users, text, lane):
     wall_ms = (time.perf_counter() - t0) * 1e3
     if len(got) < len(users):
         fail(f"prof: profiled turn: {len(got)} of {len(users)} replies")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
-    union_us, cur = 0.0, None
-    for s, e in spans:
-        if cur is None or s > cur[1]:
-            if cur is not None:
-                union_us += cur[1] - cur[0]
-            cur = [s, e]
-        else:
-            cur[1] = max(cur[1], e)
-    if cur is not None:
-        union_us += cur[1] - cur[0]
+    spans = [(s, e) for _, s, e in _device_events(prof) if e > s]
     if not spans:
         fail("prof: the profiled turn shows no device interval")
-    return dict(wall_ms=wall_ms, union_ms=union_us / 1e3,
+    return dict(wall_ms=wall_ms, union_ms=_union_us(spans) / 1e3,
                 profiler_busy_ms=(lane.busy_ns - busy0) / 1e6,
                 kernel_intervals=len(spans))
 
@@ -4684,27 +4717,11 @@ def profile_lanes_turn(db, users, text):
     wall_ms = (time.perf_counter() - t0) * 1e3
     if len(got) < len(users):
         fail(f"lanes: profiled turn: {len(got)} of {len(users)} replies")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
-    union_us, cur = 0.0, None
-    for s, e in spans:
-        if cur is None or s > cur[1]:
-            if cur is not None:
-                union_us += cur[1] - cur[0]
-            cur = [s, e]
-        else:
-            cur[1] = max(cur[1], e)
-    if cur is not None:
-        union_us += cur[1] - cur[0]
-    sum_ms = sum(t for t in (
-        (getattr(e, "self_device_time_total", 0)
-         or getattr(e, "self_cuda_time_total", 0)) / 1e3
-        for e in prof.key_averages()) if t > 0)
+    spans = [(s, e) for _, s, e in _device_events(prof) if e > s]
+    sum_ms = sum(t for _, t, _ in _kernel_times(prof))
     if not spans:
         fail("lanes: the profiled turn shows no device interval")
-    return dict(wall_ms=wall_ms, device_busy_union_ms=union_us / 1e3,
+    return dict(wall_ms=wall_ms, device_busy_union_ms=_union_us(spans) / 1e3,
                 device_kernel_sum_ms=sum_ms, kernel_intervals=len(spans))
 
 
@@ -4824,8 +4841,9 @@ def lanes_colocated(card, params, tok):
 
 
 def lanes_chaos(card, params, tok, g, svc):
-    """(2) four greedy streams hinted to lane 1, lane 1 killed mid-stream:
-    the requests migrate to lane 0 and end "length" with the undisturbed
+    """(2) four greedy streams hinted to lane 1, lane 1 killed mid-stream
+    (``ServingChaos.run_script``, at the 8th token): the requests migrate
+    to lane 0 and end "length" with the undisturbed
     run's tokens (or part at a checked near tie), lane 1 is restarted,
     probed and re-admitted, and custody balances on both lanes."""
     from swarmdb_tpu_torch.backend.chaos import ServingChaos, wait_until
@@ -4843,7 +4861,8 @@ def lanes_chaos(card, params, tok, g, svc):
     def kill_at_8(i, streamed):
         if len(streamed) == 8 and not killed:
             killed.append(time.perf_counter())
-            chaos.kill_lane(1)
+            # the scenario through the scripted entry point: one kill, now
+            chaos.run_script([(0.0, "kill_lane", (1,))])
 
     try:
         got = lane_run(g, prompts, hints=[1] * 4, on_token=kill_at_8)
@@ -6599,7 +6618,8 @@ def free_weights(params) -> None:
 def run_mixtral(card: str):
     """The mixtral phase: Mixtral-8x7B (``MIXTRAL_LAYERS`` layers, bf16
     weights from seed 0, built once) served six times through SwarmDB +
-    ServingService on ``function_call`` messages. Returns the launches
+    ServingService on ``function_call`` messages, then the ep phase's
+    reference and the rows step (``run_moe_rows``). Returns the launches
     summed over the serves."""
     import gc
 
@@ -6642,6 +6662,8 @@ def run_mixtral(card: str):
                      "paged_bf16_chunked", "paged_bf16_chunked_rolling")})
         run_decode_loop(card, cfg, params, LOOP_MIXTRAL)
         EP_REF.update(ep_reference(cfg, params))
+        for k, n in run_moe_rows(card, cfg, params, EP_REF["tol"]).items():
+            total[k] = total.get(k, 0) + n
     finally:
         del params
         gc.collect()
@@ -6847,6 +6869,160 @@ def time_moe_step(eng, live: int, ctx: int = 300) -> float:
         return _median_events(step, 5)
 
 
+#: the mixtral phase's rows step: (setting, prefill_batch (None: the
+#: serve's usual, 8), SWARMDB_PREFILL_ROWS, the row buckets it must give)
+ROWS_SETTINGS = (("rows_off_pb2", 2, "0", [2]),
+                 ("ladder_pb8", None, "1", [1, 2, 4, 8]))
+
+
+def tool_prompts(tok) -> list:
+    """The tool-use workload's first turn as the service renders it: the
+    four users' ``function_call`` messages (``send_tool_call``) to the
+    assistant, each through ``build_prompt`` on a fresh SwarmDB, in user
+    order."""
+    import tempfile
+
+    from swarmdb_tpu_torch.backend.service import build_prompt
+    from swarmdb_tpu_torch.broker.local import LocalBroker
+    from swarmdb_tpu_torch.core.runtime import SwarmDB
+
+    db = SwarmDB(broker=LocalBroker(),
+                 save_dir=tempfile.mkdtemp(prefix="swarm_rows_"))
+    try:
+        users = [f"user{i}" for i in range(4)]
+        for a in users + ["assistant"]:
+            db.register_agent(a)
+        for i, u in enumerate(users):
+            send_tool_call(db, u, 0, i)
+        msgs = {}
+        deadline = time.time() + 60
+        while len(msgs) < len(users) and time.time() < deadline:
+            for m in db.receive_messages("assistant", timeout=0.1):
+                msgs[m.sender_id] = m
+        if len(msgs) < len(users):
+            fail(f"rows: {len(msgs)} of {len(users)} tool calls arrived")
+        return [build_prompt(db, msgs[u], tok) for u in users]
+    finally:
+        db.close()
+
+
+def record_waves(eng) -> list:
+    """Wrap a paged engine's row-bucketed waves: per wave, in the order
+    they ran, its real rows' request ids and slots, and its padded ids
+    [rows, bucket] and lengths [rows] (1 on a padding row), as
+    ``moe_plain_steps(waves=)`` replays them."""
+    waves = []
+    batch_fn, forward = eng._prefill_batch, eng._prefill_forward
+
+    def prefill_batch(batch):
+        waves.append(dict(rids=[it[1].request_id for it in batch],
+                          slots=[it[0] for it in batch]))
+        return batch_fn(batch)
+
+    def prefill_forward(padded, lengths, rows=None):
+        waves[-1].update(padded=padded.copy(), lengths=lengths.copy())
+        return forward(padded, lengths, rows)
+
+    eng._prefill_batch, eng._prefill_forward = prefill_batch, prefill_forward
+    return waves
+
+
+def run_moe_rows(card, cfg, params, tol) -> dict:
+    """The rows step: ``SWARMDB_PREFILL_ROWS`` on the paged bf16 chunked
+    engine (max_batch 8, max_seq 1024, chunk 8; its prefix cache off, so
+    every prompt prefills in a row-bucketed wave) over the phase's
+    weights. For each of ``ROWS_SETTINGS``: the tool-use workload's first
+    turn (``tool_prompts``) queued before the engine starts (one
+    admission round), TP_NEW greedy tokens each, the chunks eager so that
+    ``routing`` sees every MoE call. Checks the row buckets, every wave's
+    rows a bucket, kernel 2 launched and no prefill kernel, every reply
+    length / eos, and holds the serve as the ep phase holds its pods:
+    every step's logprob and greedy pick within 2 x ``tol`` (the ep
+    reference's) of the plain forward that replays the serve's waves and
+    steps following its expert choices (``moe_plain_steps(waves=)``,
+    ``forced_hold``). Prints the ``rows`` line; returns the launches of
+    both serves."""
+    import gc
+
+    import torch
+
+    from swarmdb_tpu_torch.backend.service import build_backend_engine
+    from swarmdb_tpu_torch.backend.tokenizer import default_tokenizer
+    from swarmdb_tpu_torch.ops import attention_cuda as ac
+
+    t_step = time.perf_counter()
+    decode_k = path_kernels("bfloat16", True, True, ragged=False)[-1]
+    prompts = tool_prompts(default_tokenizer(cfg.vocab_size))
+    bound = TP_WS2_TOL_FACTOR * tol
+    total, out, checks = {}, {}, {}
+    for name, pb, env, buckets in ROWS_SETTINGS:
+        with engine_env(True, SWARMDB_PREFILL_ROWS=env, SWARMDB_PREFIX="0"):
+            eng, _ = build_backend_engine(
+                cfg, seed=0, device="cuda", params=params, paged=True,
+                kv_dtype=torch.bfloat16, prefill_batch=pb)
+        eng._runner.use_graphs = False
+        waves = record_waves(eng)
+        c = eng.metrics.counters
+        ac.reset_launches()
+        with routing() as served:
+            got = tp_serve(eng, prompts, queued=True)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in ac.LAUNCHES.items() if n}
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        index = {rid: i for i, rid in enumerate(got["rids"])}
+        for w in waves:
+            w["requests"] = [index[r] for r in w["rids"]]
+        with routing(forced=served):
+            plain = moe_plain_steps(params, cfg, prompts, got["tokens"],
+                                    eng.pad_id, None, waves=waves,
+                                    rows=eng.max_batch)
+        hold = forced_hold(forced_errors(plain, got), bound)
+        rows = [int(w["padded"].shape[0]) for w in waves]
+        dec_s = c["phase_us_decode"].value / 1e6
+        out[name] = dict(
+            prefill_batch=eng.prefill_batch, env=env,
+            row_buckets=list(eng._row_buckets), wave_rows=rows,
+            wave_real_rows=[len(w["slots"]) for w in waves],
+            wave_buckets=[int(w["padded"].shape[1]) for w in waves],
+            prompt_tokens=[len(p) for p in prompts],
+            ttft_s=got["ttft_s"], ttft_p50_s=statistics.median(
+                got["ttft_s"]),
+            decode_tokens_per_s=(c["tokens_generated"].value / dec_s
+                                 if dec_s else None),
+            tokens_per_s=got["tokens_per_s"], reasons=got["reasons"],
+            launches=launches, graphs=False, hold=hold,
+            tokens=got["tokens"])
+        checks.update({
+            f"rows {name}: buckets {buckets}": eng._row_buckets == buckets,
+            f"rows {name}: every wave's rows a bucket": bool(rows) and all(
+                r in buckets for r in rows),
+            f"rows {name}: {decode_k} launched, no prefill kernel": (
+                launches.get(decode_k, 0) > 0
+                and set(launches) == {decode_k}),
+            f"rows {name}: replies length/eos": all(
+                r in ("length", "eos") for r in got["reasons"]),
+            f"rows {name}: every step within {TP_WS2_TOL_FACTOR:g} x tol "
+            "of the plain forward following its routing": hold["held"]})
+        del eng, served, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    checks["rows: the ladder pads the round to fewer rows than "
+           "prefill_batch"] = max(out["ladder_pb8"]["wave_rows"]) < 8
+    # whether the padding rows moved a token (a MoE block's capacity
+    # counts them): a measurement, not a check
+    tokens = [out[name].pop("tokens") for name, *_ in ROWS_SETTINGS]
+    emit("mixtral", step="rows", card=card, model=cfg.name,
+         layers=cfg.n_layers, engine="paged bf16 chunked, prefix cache off",
+         new_tokens=TP_NEW, tol=tol, bound=bound, settings=out,
+         same_tokens_across_settings=[a == b for a, b in zip(*tokens)],
+         checks=checks, seconds=time.perf_counter() - t_step)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"mixtral rows checks failed: {bad}")
+    return total
+
+
 def profile_moe_turn(db, users, send, decode_k, expert_gemms):
     """One more turn under ``torch.profiler`` (device only; the engine's
     host ops run on its own thread, which the profiler does not follow):
@@ -6898,15 +7074,43 @@ INDEX_NAMES = ("index", "Index", "scatter", "gather")
 ROUTE_NAMES = ("scan", "TopK", "topk", "Sort", "sort")
 
 
+def _device_events(prof) -> list:
+    """[(name, start us, end us)] of a finished profile's device events
+    (kernels, copies, sets), read from its raw results: ``key_averages()``
+    and ``events()`` first build every event into a Python tree, seconds
+    for one profiled turn."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def _kernel_times(prof):
     """[(kernel name, device ms, calls)] of a profile, longest first."""
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", 0)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    out = [(e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages()
-           if dev_us(e) > 0]
+    ms, calls = {}, {}
+    for name, s, e in _device_events(prof):
+        ms[name] = ms.get(name, 0.0) + (e - s) / 1e3
+        calls[name] = calls.get(name, 0) + 1
+    out = [(n, t, calls[n]) for n, t in ms.items() if t > 0]
     return sorted(out, key=lambda k: -k[1])
+
+
+def _union_us(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    union, cur = 0.0, None
+    for s, e in sorted(spans):
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                union += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        union += cur[1] - cur[0]
+    return union
 
 
 def moe_layer_breakdown(params, cfg, card):
@@ -7072,19 +7276,31 @@ def run_smem(dev) -> dict:
     return summary
 
 
-def run_lint() -> None:
-    """The lint step: ``python -m swarmdb_tpu_torch.analysis`` (the port
-    against its own baseline) must exit 0 under this machine's Python."""
+def start_lint():
+    """The lint step, started beside the build: ``python -m
+    swarmdb_tpu_torch.analysis`` (the port against its own baseline) must
+    exit 0 under this machine's Python. Returns the function that waits
+    for it and checks it."""
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "swarmdb_tpu_torch.analysis"],
-                         cwd=str(ROOT), capture_output=True, text=True,
-                         timeout=300)
-    tail = (out.stdout.strip().splitlines() or [""])[-1]
-    emit("lint", rc=out.returncode, result=tail, python=sys.version.split()[0],
-         seconds=time.perf_counter() - t0)
-    if out.returncode != 0:
-        fail(f"lint: python -m swarmdb_tpu_torch.analysis exited "
-             f"{out.returncode}: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "swarmdb_tpu_torch.analysis"], cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish() -> None:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail("lint: python -m swarmdb_tpu_torch.analysis ran over 300 s")
+        tail = (stdout.strip().splitlines() or [""])[-1]
+        emit("lint", rc=proc.returncode, result=tail,
+             python=sys.version.split()[0], seconds=time.perf_counter() - t0)
+        if proc.returncode != 0:
+            fail(f"lint: python -m swarmdb_tpu_torch.analysis exited "
+                 f"{proc.returncode}: {stdout[-2000:]}{stderr[-2000:]}")
+
+    return finish
 
 
 # ------------------------------------------------------------------ ckpt
@@ -7370,8 +7586,8 @@ def tp_serve(eng, prompts, queued: bool = False, stop: bool = True) -> dict:
     does not hang on timing), greedy, TP_NEW new tokens each; the engine
     is stopped after unless ``stop`` is False (a pod coordinator's stop
     releases its workers).
-    Returns tokens, their logprobs, finish reasons, TTFT per request and
-    the wall time."""
+    Returns the request ids, tokens, their logprobs, finish reasons, TTFT
+    per request and the wall time."""
     import threading
 
     from swarmdb_tpu_torch.backend.engine import GenRequest
@@ -7401,7 +7617,7 @@ def tp_serve(eng, prompts, queued: bool = False, stop: bool = True) -> dict:
     finally:
         if stop:
             eng.stop()
-    return dict(tokens=[out[r][0] for r in rids],
+    return dict(rids=rids, tokens=[out[r][0] for r in rids],
                 logprobs=[list(r.metadata.get("logprobs") or [])
                           for r in reqs],
                 reasons=[out[r][1] for r in rids],
@@ -7705,6 +7921,11 @@ def dp_gather_ms(eng, dev) -> float:
     return statistics.median(times)
 
 
+#: engine keywords the model-axis program takes through
+#: ``build_serving_engine`` (neither is a default, neither changes tokens):
+#: its coordinator must hold them, before and after ``restart()``
+LOCAL_KNOBS = {"pipeline_depth": 1, "aging_s": 30.0}
+
 #: The tp phase's local step: the single program over two devices of this
 #: process (``cuda:0`` twice, so gloo), this process rank 0 and one
 #: spawned worker -- (serve, ``build_serving_engine``'s keywords, depth
@@ -7712,7 +7933,8 @@ def dp_gather_ms(eng, dev) -> float:
 #: axis runs at (c)'s depth and the sharded paged engine at the dp step's,
 #: the depths of the pod serves they are held to.
 LOCAL_SERVES = (
-    ("model", {"paged": False}, TP_WS2_LAYERS, "dense_decode_chunked"),
+    ("model", {"paged": False, **LOCAL_KNOBS}, TP_WS2_LAYERS,
+     "dense_decode_chunked"),
     ("data_paged", {"paged": True, "admit_overlap": False}, None,
      "paged_decode_chunked"))
 LOCAL_DEVICES = ("cuda:0", "cuda:0")
@@ -7750,6 +7972,11 @@ def local_kill(eng, prompts) -> dict:
     return dict(reasons=list(out.values()), finished=finished,
                 seconds=(time.perf_counter() - t_kill[0]) if t_kill else None,
                 pod=eng.stats()["pod"])
+
+
+def local_knobs(eng) -> dict:
+    """The coordinator engine's values of ``LOCAL_KNOBS``."""
+    return {"pipeline_depth": eng.pipeline_depth, "aging_s": eng._aging_s}
 
 
 def tp_local(prompts) -> dict:
@@ -7794,12 +8021,14 @@ def tp_local(prompts) -> dict:
             # step's pod captured them before traffic): once more, warm
             res["warm"] = tp_serve(eng, prompts, stop=False)
         if name == "model":
+            res["knobs"] = local_knobs(eng)
             res["kill"] = local_kill(eng, prompts)
             t0 = time.perf_counter()
             eng.restart()
             res["restart_s"] = time.perf_counter() - t0
             res["respawn"] = dict(owner.timings)
             res["again"] = tp_serve(eng, prompts, stop=False)
+            res["knobs_after_restart"] = local_knobs(eng)
             torch.cuda.synchronize()
         for k, n in ac.LAUNCHES.items():
             total[k] = total.get(k, 0) + n
@@ -7869,6 +8098,10 @@ def local_checks(local, pods, holds, checks) -> dict:
                                       == ["engine_error"] * len(pods[name]))
             checks[f"local {name} restart serves the same tokens"] = (
                 again["tokens"] == res["tokens"])
+            checks[f"local {name} coordinator holds {LOCAL_KNOBS}, before "
+                   "and after restart"] = (
+                res["knobs"] == LOCAL_KNOBS
+                and res["knobs_after_restart"] == LOCAL_KNOBS)
             summary[name]["again"] = {k: again[k] for k in (
                 "ttft_s", "tokens_per_s", "wall_s", "reasons")}
     return summary
@@ -8361,42 +8594,63 @@ def ep_engine(cfg, dev, params=None, **axes):
 
 
 def moe_plain_steps(params, cfg, prompts, tokens, pad_id, bucket,
-                    **axes) -> list:
+                    waves=None, rows=None, **axes) -> list:
     """The plain bf16 forward over a serve's tokens, batched as the engine
     batches them (a MoE block's capacity counts the call's rows): the
     four prompts as one [4, bucket] prefill wave padded with ``pad_id``
     (the head at each row's last token), then one [4, 1] step a token
     over the slot cache, each fed the serve's own tokens; over a rank's
-    shares with ``axes`` (``tp``, ``ep``: ``mixtral.forward``'s). Returns
-    per request the f32 logits that pick each token, one row a step."""
+    shares with ``axes`` (``tp``, ``ep``: ``mixtral.forward``'s). With
+    ``waves`` (``record_waves``: a paged engine's row-bucketed waves as
+    they ran, each its padded ids, lengths and the slots of its real
+    rows) those waves instead, in order, then steps of ``rows`` rows, a
+    request's row its slot and an idle slot fed ``pad_id`` at position 0.
+    Returns per request the f32 logits that pick each token, one row a
+    step."""
+    import numpy as np
     import torch
 
     from swarmdb_tpu_torch.models import mixtral
 
     dev = params["embed"].device
     B, n = len(prompts), min(len(t) for t in tokens)
-    lengths = torch.tensor([len(p) for p in prompts], device=dev)
-    padded = torch.full((B, bucket), pad_id, dtype=torch.int32, device=dev)
-    for i, p in enumerate(prompts):
-        padded[i, :len(p)] = torch.tensor(p, dtype=torch.int32, device=dev)
-    pos = torch.arange(bucket, dtype=torch.int32, device=dev).expand(B, -1)
+    if waves is None:
+        padded = np.full((B, bucket), pad_id, np.int32)
+        for i, p in enumerate(prompts):
+            padded[i, :len(p)] = p
+        waves = [dict(padded=padded, lengths=np.array([len(p) for p in
+                                                       prompts]),
+                      slots=list(range(B)), requests=list(range(B)))]
+        rows = B
     # a model axis's rank holds its share of the KV heads
     tp = axes.get("tp")
     kv = cfg.n_kv_heads // (tp.size if tp is not None else 1)
-    temp = mixtral.init_kv_cache(cfg, B, bucket, device=dev, kv_heads=kv)
-    logits, temp = mixtral.forward(params, cfg, padded, pos, temp,
-                                   logits_at=lengths - 1, **axes)
-    cache = mixtral.init_kv_cache(cfg, B, TP_SEQ, device=dev, kv_heads=kv)
-    for full, fresh in zip(cache, temp):
-        full[:, :, :bucket] = fresh
-    steps = [logits.float()]
+    lengths = [len(p) for p in prompts]
+    seq = max([TP_SEQ, max(lengths) + n]
+              + [w["padded"].shape[1] for w in waves])
+    cache = mixtral.init_kv_cache(cfg, rows, seq, device=dev, kv_heads=kv)
+    slot_of, first = [None] * B, [None] * B
+    for w in waves:
+        Bp, width = w["padded"].shape
+        pos = torch.arange(width, dtype=torch.int32, device=dev).expand(Bp,
+                                                                        -1)
+        temp = mixtral.init_kv_cache(cfg, Bp, width, device=dev,
+                                     kv_heads=kv)
+        logits, temp = mixtral.forward(
+            params, cfg, torch.tensor(w["padded"], device=dev), pos, temp,
+            logits_at=torch.tensor(w["lengths"] - 1, device=dev), **axes)
+        for r, (slot, i) in enumerate(zip(w["slots"], w["requests"])):
+            for full, fresh in zip(cache, temp):
+                full[:, slot, :width] = fresh[:, r]
+            slot_of[i], first[i] = slot, logits[r].float()
+    steps = [torch.stack(first)]
     for s in range(n - 1):
-        tok = torch.tensor([[t[s]] for t in tokens], dtype=torch.int32,
-                           device=dev)
-        lg, _ = mixtral.forward(params, cfg, tok,
-                                (lengths + s)[:, None].to(torch.int32),
-                                cache, **axes)
-        steps.append(lg[:, 0].float())
+        tok = torch.full((rows, 1), pad_id, dtype=torch.int32, device=dev)
+        pos = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
+        for i, t in enumerate(tokens):
+            tok[slot_of[i], 0], pos[slot_of[i], 0] = t[s], lengths[i] + s
+        lg, _ = mixtral.forward(params, cfg, tok, pos, cache, **axes)
+        steps.append(lg[slot_of, 0].float())
     z = torch.stack(steps)                          # [n, B, V]
     return [z[:, i] for i in range(B)]
 
@@ -9056,19 +9310,31 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    # both variants of every kernel, plain and bounds-checked (the
-    # sanitize phase's), one nvcc each, all started together
-    logs = build.build_all(checked=True)
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: [f"{r['instance']}: {r['regs']} registers, spills "
-                    f"{r['spill_stores']}/{r['spill_loads']}"
-                    for r in build.parse_ptxas(v)] for k, v in logs.items()})
-    run_lint()
+    lint = start_lint()
+    # the plain variant of every kernel, one nvcc each, all started
+    # together; then the bounds-checked ones (the sanitize phase's) the
+    # same way, left to build while the parity phase runs (after the
+    # kernels phase, whose eager plain versions the compilers would slow)
+    try:
+        logs = build.build_all(checked=False)
+    finally:
+        lint()     # waited for on a failure too: it leaves no process
+    plain_s = time.perf_counter() - t0
 
     with torch.no_grad():
         smem = run_smem(dev)
         rows = run_kernels(dev)
-        run_parity(dev)
+        checked_build = build.start_all(checked=True)
+        try:
+            run_parity(dev)
+        finally:
+            logs.update(checked_build())
+        emit("build", plain_seconds=plain_s,
+             seconds=time.perf_counter() - t0,
+             ptxas={k: [f"{r['instance']}: {r['regs']} registers, spills "
+                        f"{r['spill_stores']}/{r['spill_loads']}"
+                        for r in build.parse_ptxas(v)]
+                    for k, v in logs.items()})
         launches, params = run_serves(card)
         for k, n in run_api(card, params).items():
             launches[k] = launches.get(k, 0) + n

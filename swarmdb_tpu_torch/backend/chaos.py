@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..obs.flight import FlightRecorder
 from ..utils.sync import make_lock
@@ -193,6 +193,11 @@ class ServingChaos:
         t.start()
         self._timers.append(t)
         return t
+
+    def run_script(self, script: Sequence[Tuple[float, str, tuple]]) -> None:
+        """[(at_s, action, args), ...] -- a whole scenario at once."""
+        for at_s, action, args in script:
+            self.schedule(at_s, action, *args)
 
     # -------------------------------------------------------------- teardown
 

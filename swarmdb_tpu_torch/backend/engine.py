@@ -186,9 +186,9 @@ from ..ops.attention_cuda import (decode_kernel_name, kerncheck_poll,
                                   kerncheck_record)
 from ..ops.layers import kerncheck_enabled
 from ..ops.paged_kv import (KV_DTYPES, PageAllocator, QuantPool,
-                             canary_check, canary_fill, paged_write_chunk,
-                             paged_write_ragged, pool_data, pool_dtype,
-                             pool_insert_pages, pool_insert_raw, pool_layer,
+                             canary_check, canary_fill, paged_insert_prefill,
+                             paged_write_chunk, paged_write_ragged, pool_data,
+                             pool_dtype, pool_insert_raw, pool_layer,
                              pool_page_bytes, set_page_table_rows)
 from ..ops.prefix_cache import PrefixLRU, make_prefix_lru, page_chains
 from ..utils.device import DeviceLike, resolve_device
@@ -361,6 +361,7 @@ class Engine:
         data_axis: Any = None,
         count_rows: bool = False,
         prefill_buckets: Optional[Sequence[int]] = None,
+        aging_s: Optional[float] = None,
     ) -> None:
         """``paged`` selects the paged pool (``prefix_cache`` then turns
         its prefix cache on); None the dense slot cache, which needs
@@ -386,9 +387,11 @@ class Engine:
         ``prefix_fns`` = (pages_forward(params, tokens, table, prefix_lens,
         k_pool, v_pool, logits_at=) -> (logits, sfx_k, sfx_v), None) for
         the suffix forward over hit pages in place. Their rows are
-        ``prefill_batch``, or with ``prefill_batch <= 4`` the smallest
-        power of two covering the wave, as the JAX package's paged engine
-        pads them by default.
+        ``prefill_batch``, or the smallest power of two covering the wave:
+        by default (``SWARMDB_PREFILL_ROWS`` unset or "auto", read here)
+        when ``prefill_batch <= 4``; "0" never; any other value always.
+        A sharded pool never takes the ladder (the JAX paged engine's
+        rule).
 
         ``chunked_fns`` = (chunk_forward(params, tokens[B,1],
         positions[B,1], cache, chunk_kv, step) -> (logits, chunk_kv),
@@ -424,7 +427,12 @@ class Engine:
         one GSPMD program over the data ranks (the dense engine's waves
         and decode steps, a sharded pool's prefix waves) passes them
         ``rows=(ids, n)``: this rank's rows' ids in the global call and
-        the call's rows."""
+        the call's rows.
+
+        ``aging_s``: seconds a queued request waits per priority-class
+        bump (``_age_queue``); None reads ``SWARMDB_AGING_S`` (default 5.0,
+        a value that is not a float warns and gives 5.0), and <= 0 keeps
+        strict priority (the JAX engine's rule)."""
         self.device = resolve_device(device)
         # the engine's stream on the card (module docstring); it first
         # waits for what the building thread enqueued (the weights)
@@ -491,10 +499,12 @@ class Engine:
             self.decode_chunk = max(1, int(decode_chunk))
             self.prefill_batch = max(1, min(prefill_batch or 8, max_batch))
             # rows of a bucketed wave: prefill_batch, or a power-of-two ladder
-            # for small paged waves (the JAX package's row-bucketed default)
+            # for small paged waves (docstring; SWARMDB_PREFILL_ROWS)
             self._row_buckets = [self.prefill_batch]
+            rows_env = os.environ.get("SWARMDB_PREFILL_ROWS", "auto")
             if (paged is not None and not self._sharded
-                    and self.prefill_batch <= 4):
+                    and (self.prefill_batch <= 4 if rows_env == "auto"
+                         else rows_env != "0")):
                 self._row_buckets = [1]
                 while self._row_buckets[-1] < self.prefill_batch:
                     self._row_buckets.append(min(self.prefill_batch,
@@ -527,7 +537,8 @@ class Engine:
             self._resident = (paged is not None and not self._sharded
                               and os.environ.get("SWARMDB_EMIT_RING",
                                                  "1") != "0")
-            self._aging_s = _env_float("SWARMDB_AGING_S", 5.0)
+            self._aging_s = (_env_float("SWARMDB_AGING_S", 5.0)
+                             if aging_s is None else aging_s)
 
             # random keys: [B, 2] uint32 words per slot, host-side; a request
             # with an explicit seed rewrites its slot's row for its lifetime
@@ -2353,7 +2364,7 @@ class Engine:
         real row's K/V into ``cache[:, slot, :bucket]``; stale entries a
         previous occupant left past the bucket are never read (decode
         attends only positions it has written). Paged: the temp cache's
-        whole pages into the slot's pages (``pool_insert_pages``; chunks
+        whole pages into the slot's pages (``paged_insert_prefill``; chunks
         past a slot's pages, and padding rows, go to trash page 0).
         ``batch`` rows start (slot_id, req)."""
         t0 = time.time()
@@ -2497,17 +2508,12 @@ class Engine:
         Hkv, D]) into the pages ``target`` names (``_page_targets``,
         localized to this rank's sub-pool). T is padded up to whole pages
         (the pad is prompt padding, never read)."""
-        ps = self.paged.page_size
-        T = kv[0].shape[2]
-        Bp, chunks = target.shape
-        flat = self._tensor(self._localize(target).reshape(-1))
-        for pool, fresh in zip((self.cache["k"], self.cache["v"]), kv):
-            if chunks * ps != T:
-                fresh = torch.nn.functional.pad(
-                    fresh, (0, 0, 0, 0, 0, chunks * ps - T))
-            L = fresh.shape[0]
-            pool_insert_pages(pool, flat, fresh.reshape(
-                (L, Bp * chunks, ps) + tuple(fresh.shape[3:])))
+        pad = target.shape[1] * self.paged.page_size - kv[0].shape[2]
+        if pad:
+            kv = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                       for t in kv)
+        paged_insert_prefill(self.cache["k"], self.cache["v"], *kv,
+                             self._tensor(self._localize(target)))
 
     # swarmlint: hot
     def _prefill_paged_prefix_batch(self, batch: List[Tuple], bucket: int,

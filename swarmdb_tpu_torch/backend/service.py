@@ -188,6 +188,10 @@ def build_backend_engine(
     kv_dtype: Optional[torch.dtype] = None,
     params: Optional[Dict[str, Any]] = None,
     flight_dir: Optional[str] = None,
+    eos_id: Optional[int] = None,
+    pad_id: Optional[int] = None,
+    pipeline_depth: Optional[int] = None,
+    aging_s: Optional[float] = None,
 ) -> Tuple[Engine, Tokenizer]:
     """One Engine for a registry config (Llama or Mixtral), on ``device``
     (the card by default). Weights are random bf16 from ``seed`` unless
@@ -214,7 +218,11 @@ def build_backend_engine(
       ``SWARMDB_RAGGED_PREFILL=0`` in row-bucketed waves over a temp
       cache in the pool's logical dtype (bf16 for int8 pages; the JAX
       package's temp cache is bf16 whatever the pool) and prefix waves
-      over the pool's pages."""
+      over the pool's pages.
+
+    ``eos_id`` and ``pad_id`` default to the tokenizer's, ``pipeline_depth``
+    to ``SWARMDB_PIPELINE`` (2 when unset), and ``aging_s=None`` leaves
+    the engine to read ``SWARMDB_AGING_S`` (``engine_knobs``)."""
     cfg = (model_name_or_cfg if isinstance(model_name_or_cfg, ModelConfig)
            else get_config(model_name_or_cfg))
     mod = mixtral if cfg.is_moe else llama
@@ -230,15 +238,18 @@ def build_backend_engine(
     if params is None:
         params = mod.init_params(cfg, seed=seed, device=dev)
     tokenizer = default_tokenizer(cfg.vocab_size, tokenizer_path)
+    knobs = engine_knobs(tokenizer, eos_id=eos_id, pad_id=pad_id,
+                         pipeline_depth=pipeline_depth, aging_s=aging_s)
     forward_fn = lambda p, t, pos, c, logits_at=None: mod.forward(
         p, cfg, t, pos, c, logits_at=logits_at)
     if not paged:
-        engine = _dense_engine(cfg, mod, params, dev, tokenizer, kv_dtype,
+        engine = _dense_engine(cfg, mod, params, dev, kv_dtype,
                                prefix_enabled, forward_fn,
                                max_batch=max_batch, max_seq=seq, seed=seed,
                                metrics=metrics, decode_chunk=decode_chunk,
                                prefill_batch=prefill_batch,
-                               page_size=page_size, flight_dir=flight_dir)
+                               page_size=page_size, flight_dir=flight_dir,
+                               **knobs)
         return engine, tokenizer
     maxp = pages_per_slot(seq, page_size)
     if kv_pool_tokens is None and "SWARMDB_KV_POOL_TOKENS" in os.environ:
@@ -297,26 +308,39 @@ def build_backend_engine(
         init_cache_fn=lambda b, s: mod.init_kv_cache(
             cfg, b, s, dtype=temp_dtype, device=dev),
         prefix_fns=prefix_fns,
-        max_batch=max_batch, max_seq=seq, eos_id=tokenizer.eos_id,
-        pad_id=tokenizer.pad_id, seed=seed, metrics=metrics,
+        max_batch=max_batch, max_seq=seq, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch,
         prefix_cache=prefix_enabled, device=dev, flight_dir=flight_dir,
-        pipeline_depth=_pipeline_depth(), model_config=cfg)
+        model_config=cfg, **knobs)
     return engine, tokenizer
 
 
-def _pipeline_depth() -> int:
-    """Decode chunks in flight, ``SWARMDB_PIPELINE`` (default 2), read as
-    the JAX package's ``build_backend_engine`` reads it."""
-    return int(os.environ.get("SWARMDB_PIPELINE", "2"))
+def engine_knobs(tokenizer: Tokenizer, *, eos_id: Optional[int] = None,
+                 pad_id: Optional[int] = None,
+                 pipeline_depth: Optional[int] = None,
+                 aging_s: Optional[float] = None) -> Dict[str, Any]:
+    """The engine keywords ``build_backend_engine`` and the single
+    program's ranks take as plain values (the JAX
+    ``build_serving_engine``'s ``engine_kwargs``): each one given wins;
+    else ``eos_id`` / ``pad_id`` are the tokenizer's, ``pipeline_depth``
+    is ``SWARMDB_PIPELINE`` (default 2, read as the JAX package's
+    ``build_backend_engine`` reads it), and ``aging_s`` stays None for
+    the engine to read ``SWARMDB_AGING_S``."""
+    return dict(
+        eos_id=tokenizer.eos_id if eos_id is None else eos_id,
+        pad_id=tokenizer.pad_id if pad_id is None else pad_id,
+        pipeline_depth=(int(os.environ.get("SWARMDB_PIPELINE", "2"))
+                        if pipeline_depth is None else pipeline_depth),
+        aging_s=aging_s)
 
 
 def _dense_engine(cfg: ModelConfig, mod, params: Dict[str, Any],
-                  dev: torch.device, tokenizer: Tokenizer,
+                  dev: torch.device,
                   kv_dtype: Optional[torch.dtype], prefix_enabled: bool,
                   forward_fn, *, max_batch: int, max_seq: int, seed: int,
                   metrics, decode_chunk: int, prefill_batch: Optional[int],
-                  page_size: int, flight_dir: Optional[str]) -> Engine:
+                  page_size: int, flight_dir: Optional[str],
+                  **knobs: Any) -> Engine:
     """The dense engine's wiring (``swarmdb_tpu/backend/service.py``'s
     dense branch of ``build_backend_engine``) over model module ``mod``."""
     dtype = kv_dtype or torch.bfloat16
@@ -350,11 +374,9 @@ def _dense_engine(cfg: ModelConfig, mod, params: Dict[str, Any],
                                                      device=dev),
         chunked_fns=chunked_fns, prefix_fns=prefix_fns,
         prefix_pages=prefix_pages, prefix_page_size=page_size,
-        max_batch=max_batch, max_seq=max_seq, eos_id=tokenizer.eos_id,
-        pad_id=tokenizer.pad_id, seed=seed, metrics=metrics,
+        max_batch=max_batch, max_seq=max_seq, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch, device=dev,
-        flight_dir=flight_dir, pipeline_depth=_pipeline_depth(),
-        model_config=cfg)
+        flight_dir=flight_dir, model_config=cfg, **knobs)
 
 
 class _Claim:

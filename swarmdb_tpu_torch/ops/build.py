@@ -19,7 +19,8 @@ and ``ptxas_info`` parses it: registers, spill stores and loads, stack and
 static shared memory of every kernel instance (the shared-memory view's
 compile-time half; ``analysis/kernelcheck.py`` mirrors the dynamic half). Builds happen at
 first use (or up front through ``build_all``, which starts one ``nvcc``
-per source and variant at once) into ``swarmdb_tpu_torch/_build/`` inside
+per source and variant at once, or ``start_all``, which leaves them
+running) into ``swarmdb_tpu_torch/_build/`` inside
 the checkout. Nothing here runs at import time: the CPU tests import
 every module on a machine with no ``nvcc``.
 """
@@ -33,7 +34,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..utils.sync import make_lock
 
@@ -125,9 +126,19 @@ def build_all(names=KERNELS, checked: Optional[bool] = None
         checked = _kerncheck_enabled()
     variants = (False, True) if checked else (False,)
     with _lock:
-        procs = {(n, c): _start_build(n, c) for c in variants for n in names}
-        return {n + ("-kc" if c else ""): _finish_build(n, p)
-                for (n, c), p in procs.items()}
+        waits = [start_all(names, c) for c in variants]
+        return {k: log for wait in waits for k, log in wait().items()}
+
+
+def start_all(names=KERNELS, checked: bool = False
+              ) -> Callable[[], Dict[str, str]]:
+    """Start ``build_all``'s ``nvcc`` processes for one variant and return
+    without waiting: the returned function waits for them and returns
+    their logs as ``build_all`` does. Nothing may load these libraries
+    before it has returned."""
+    procs = {n: _start_build(n, checked) for n in names}
+    suffix = "-kc" if checked else ""
+    return lambda: {n + suffix: _finish_build(n, p) for n, p in procs.items()}
 
 
 def load(name: str, checked: bool = False) -> ctypes.CDLL:

@@ -75,6 +75,12 @@ def kv_dtype_name() -> str:
     return name
 
 
+def kv_quantized(name: Optional[str] = None) -> bool:
+    """Whether ``name`` (default: ``SWARMDB_KV_DTYPE``) is the int8
+    pool."""
+    return (name or kv_dtype_name()) == "int8"
+
+
 def is_quantized(pool: Any) -> bool:
     return isinstance(pool, QuantPool)
 
@@ -515,6 +521,26 @@ def pool_insert_pages(pool: Any, flat_ids: torch.Tensor,
         return pool
     pool[:, idx] = dense_pages.to(pool.dtype)
     return pool
+
+
+def paged_insert_prefill(k_pages: Any, v_pages: Any, dense_k: torch.Tensor,
+                         dense_v: torch.Tensor, target_pages: torch.Tensor
+                         ) -> Tuple[Any, Any]:
+    """Scatter the first n rows of a dense bucket prefill cache
+    (``dense_k`` / ``dense_v`` [L, Bp, bucket, Hkv, D]) into the pages
+    ``target_pages`` [n, bucket / ps] names, in place, through
+    :func:`pool_insert_pages` (the row-bucketed and prefix waves' insert).
+    ``bucket`` must be a whole number of pages."""
+    L, ps = pool_data(k_pages).shape[0], pool_data(k_pages).shape[2]
+    n, chunks = target_pages.shape
+    if dense_k.shape[2] != chunks * ps:
+        raise ValueError(f"a bucket of {dense_k.shape[2]} is not {chunks} "
+                         f"pages of {ps}")
+    flat = target_pages.reshape(-1)
+    for pool, dense in ((k_pages, dense_k), (v_pages, dense_v)):
+        pool_insert_pages(pool, flat, dense[:, :n].reshape(
+            (L, n * chunks, ps) + tuple(dense.shape[3:])))
+    return k_pages, v_pages
 
 
 def pool_gather_pages(pool: Any, ids, host: Optional[Callable] = None

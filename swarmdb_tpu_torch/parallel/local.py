@@ -384,6 +384,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except BaseException:
         store.set(f"failed/{rank}", traceback.format_exc()[-_TAIL:])
         raise
+    # what this rank's engine took of the program's keywords
+    logger.info("rank %d engine: eos_id %d pad_id %d pipeline_depth %d "
+                "aging_s %s", rank, engine.eos_id, engine.pad_id,
+                engine.pipeline_depth, engine._aging_s)
     store.set(f"ready/{rank}", "1")
     if _wait_cmd(store, parent) == "go":
         engine.worker_loop()

@@ -80,7 +80,7 @@ import torch.distributed as dist
 from ..models import llama, mixtral
 from ..models.configs import ModelConfig, get_config
 from ..ops.layers import attention_dispatchers
-from ..ops.paged_kv import (KV_DTYPES, kv_dtype_name,
+from ..ops.paged_kv import (KV_DTYPES, kv_dtype_name, kv_quantized,
                              make_sharded_page_allocator, pages_per_slot)
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import MetricsRegistry
@@ -251,7 +251,8 @@ def _refuse_sharded_paged(mesh_shape: Dict[str, int],
                           kv_dtype: Optional[torch.dtype]) -> None:
     """The JAX package's two refusals of the sharded paged engine, in its
     order and words: an int8 pool, then any axis but ``data``."""
-    if (kv_dtype or KV_DTYPES[kv_dtype_name()]) == torch.int8:
+    if (kv_dtype == torch.int8 if kv_dtype is not None
+            else kv_quantized()):
         raise NotImplementedError(
             "SWARMDB_KV_DTYPE=int8 is single-chip only: the sharded paged "
             "pool's PartitionSpecs do not cover QuantPool scale planes. "
@@ -354,6 +355,10 @@ def build_serving_engine(
     prefix_pages: int = 0,
     prefix_page_size: int = 16,
     prefill_buckets: Optional[Sequence[int]] = None,
+    eos_id: Optional[int] = None,
+    pad_id: Optional[int] = None,
+    pipeline_depth: Optional[int] = None,
+    aging_s: Optional[float] = None,
 ) -> Tuple[Any, Any]:
     """(engine, info). ``devices`` defaults to every visible card (the
     counterpart of a mesh over ``jax.devices()``) and may repeat one;
@@ -400,7 +405,14 @@ def build_serving_engine(
     EOS and pad ids. ``prefix_pages``, ``prefix_page_size`` and
     ``prefill_buckets`` shape the single program's engine; a lone engine
     and a lane group are ``build_backend_engine``'s (``SWARMDB_PREFIX``,
-    ``SWARMDB_PREFIX_TOKENS``)."""
+    ``SWARMDB_PREFIX_TOKENS``).
+
+    ``eos_id``, ``pad_id``, ``pipeline_depth`` and ``aging_s`` are the
+    engine's (the JAX call's ``engine_kwargs``; defaults: the tokenizer's
+    ids, ``SWARMDB_PIPELINE`` or 2, and ``SWARMDB_AGING_S`` read by the
+    engine). They reach a lone engine and every rank of the single
+    program, a restarted one's too. A lane group drops them, as the JAX
+    call's lane-group branch drops its ``engine_kwargs``."""
     if devices is None:
         # a rank of a pod holds the device it bound; else every card
         devices = ([None] if dist.is_initialized() else
@@ -423,7 +435,9 @@ def build_serving_engine(
                    kv_dtype=kv_dtype, tokenizer_path=tokenizer_path,
                    prefix_pages=prefix_pages,
                    prefix_page_size=prefix_page_size,
-                   prefill_buckets=prefill_buckets)
+                   prefill_buckets=prefill_buckets, eos_id=eos_id,
+                   pad_id=pad_id, pipeline_depth=pipeline_depth,
+                   aging_s=aging_s)
     if dist.is_initialized():
         if len(devs) != 1:
             raise ValueError("a rank of the single program holds one "
@@ -449,7 +463,8 @@ def build_serving_engine(
             decode_chunk=decode_chunk, paged=paged, page_size=page_size,
             kv_pool_tokens=kv_pool_tokens, prefill_batch=prefill_batch,
             metrics=metrics, device=devs[0], kv_dtype=kv_dtype,
-            params=params, flight_dir=flight_dir)
+            params=params, flight_dir=flight_dir, eos_id=eos_id,
+            pad_id=pad_id, pipeline_depth=pipeline_depth, aging_s=aging_s)
         return engine, LaneGroupInfo(cfg=cfg, devices=devs, data_size=1)
     rest = data * expert * pipe
     if paged and rest == 1 and model is None:
@@ -489,6 +504,10 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
                     tokenizer_path: Optional[str],
                     prefix_pages: int = 0, prefix_page_size: int = 16,
                     prefill_buckets: Optional[Sequence[int]] = None,
+                    eos_id: Optional[int] = None,
+                    pad_id: Optional[int] = None,
+                    pipeline_depth: Optional[int] = None,
+                    aging_s: Optional[float] = None,
                     params: Optional[Dict[str, Any]] = None,
                     load: Optional[Callable] = None):
     """This rank's engine: the dense one over its share of the mesh (its
@@ -496,9 +515,10 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
     built from this rank's mesh: ``ShardedModel.prefix_fns``), or the
     paged one over its shard of a pure-DP pool. Its weights are
     ``params`` (its shares), or ``load(plan, mesh)``'s, or drawn from
-    ``seed``."""
+    ``seed``; ``eos_id``, ``pad_id``, ``pipeline_depth`` and ``aging_s``
+    are ``service.engine_knobs``'."""
     from ..backend.engine import Engine
-    from ..backend.service import _pipeline_depth
+    from ..backend.service import engine_knobs
     from ..backend.tokenizer import default_tokenizer
 
     world = dist.get_world_size()
@@ -539,14 +559,15 @@ def _single_program(cfg: ModelConfig, device: torch.device, *, data: int,
                   chunked_fns=paged_chunked if chunked else None)
     engine = Engine(
         sm.params, forward_fn=sm.forward_fn, init_cache_fn=sm.init_cache_fn,
-        max_batch=max_batch, max_seq=max_seq, eos_id=tok.eos_id,
-        pad_id=tok.pad_id, seed=seed, metrics=metrics,
+        max_batch=max_batch, max_seq=max_seq, seed=seed, metrics=metrics,
         decode_chunk=decode_chunk, prefill_batch=prefill_batch,
-        device=mesh.device, flight_dir=flight_dir,
-        pipeline_depth=_pipeline_depth(), model_config=cfg,
+        device=mesh.device, flight_dir=flight_dir, model_config=cfg,
         decode_graphs=all(a.capturable for a in chunk_axes),
         data_axis=mesh.axis("data"), count_rows=sm.counts_call,
-        prefill_buckets=prefill_buckets, **kw)
+        prefill_buckets=prefill_buckets,
+        **engine_knobs(tok, eos_id=eos_id, pad_id=pad_id,
+                       pipeline_depth=pipeline_depth, aging_s=aging_s),
+        **kw)
     # flight-recorder identity: what the ranks are and how chunks run
     engine.flight.meta.update({
         "mesh": dict(mesh.shape),

@@ -14,6 +14,8 @@ pools; the JAX group on the conftest's virtual CPU devices).
   a deadline ends a request no lane can serve;
 - a retry storm leaves one "retry.storm" flight event; the migration
   budget and the storm threshold come from the environment;
+- a scenario scheduled by ``run_script`` (slow, heal, kill) gives the
+  same chaos events in both packages;
 - the group's stats and the supervisor's status have the JAX package's
   per-lane shape.
 """
@@ -241,6 +243,34 @@ def test_retry_storm_leaves_one_flight_event(stack, monkeypatch):
         ev = [e for e in g.flight.events() if e.get("kind") == "retry.storm"]
         assert len(ev) == storms + 1
         assert ev[-1]["retries_in_window"] == 5
+
+
+#: a scripted scenario: slow lane 1, heal it, kill lane 0
+SCRIPT = [(0.0, "slow", (1, 0.02)), (0.15, "heal", (1,)),
+          (0.3, "kill_lane", (0,))]
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_run_script_gives_the_same_chaos_events(stack, pkg):
+    """``run_script`` schedules a whole scenario in one call: the chaos
+    events (action and lane; timestamps aside) are the same in both
+    packages, the kill fires, and the lane is re-admitted."""
+    g, sup, chaos = stack[pkg]
+    wait_until(lambda: _healthy(sup), 60.0, what=f"{pkg} lanes healthy")
+    n0 = len(chaos.dump()["chaos_events"])
+    chaos.run_script(SCRIPT)
+
+    def seen():
+        return [(e["action"], e["lane"])
+                for e in chaos.dump()["chaos_events"][n0:]]
+
+    wait_until(lambda: ("kill_fired", 0) in seen(), 30.0,
+               what=f"{pkg} scripted kill fired")
+    assert seen() == [("slow", 1), ("heal", 1), ("kill_lane", 0),
+                      ("kill_fired", 0)]
+    wait_until(lambda: _healthy(sup), 60.0,
+               what=f"{pkg} killed lane re-admitted")
+    assert seen()[-1] == ("kill_fired", 0)
 
 
 def test_group_stats_and_admin_surface(stack):

@@ -148,3 +148,54 @@ def test_pool_init_and_int8_structure(monkeypatch):
     with pytest.raises(ValueError, match="SWARMDB_KV_DTYPE"):
         tp.init_paged_kv_cache(2, 5, 4, 2, 8, batch=3, max_seq=16,
                                device="cpu")
+
+
+@pytest.mark.parametrize("env,name", [(None, None), ("int8", None),
+                                      ("f32", None), ("bf16", "int8"),
+                                      ("int8", "f32")])
+def test_kv_quantized_equals_jax(monkeypatch, env, name):
+    if env is None:
+        monkeypatch.delenv("SWARMDB_KV_DTYPE", raising=False)
+    else:
+        monkeypatch.setenv("SWARMDB_KV_DTYPE", env)
+    assert tp.kv_quantized(name) == jp.kv_quantized(name)
+    assert tp.kv_quantized(name) == ((name or env) == "int8")
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_paged_insert_prefill_matches_jax(kind):
+    """The JAX package's case (tests/test_paged_kv.py): two of three rows
+    of an 8-token bucket into pages of 4, one chunk to trash page 0; live
+    pages equal, payload and scales for an int8 pool."""
+    Bp, bucket, npages = 3, 8, 6
+    rng = np.random.default_rng(5)
+    dk = rng.standard_normal((L, Bp, bucket, HKV, D)).astype(np.float32)
+    dv = rng.standard_normal((L, Bp, bucket, HKV, D)).astype(np.float32)
+    target = np.array([[1, 2], [3, 0]], np.int32)
+    shape = (L, npages, PS, HKV, D)
+    if kind == "int8":
+        jpools = [jp.QuantPool(jnp.zeros(shape, jnp.int8),
+                               jnp.zeros(shape[:2] + (HKV,), jnp.float32))
+                  for _ in range(2)]
+        tpools = [tp.QuantPool(torch.zeros(shape, dtype=torch.int8),
+                               torch.zeros(shape[:2] + (HKV,)))
+                  for _ in range(2)]
+    else:
+        jpools = [jnp.zeros(shape, jnp.float32) for _ in range(2)]
+        tpools = [torch.zeros(shape) for _ in range(2)]
+    jk, jv = jp.paged_insert_prefill(*jpools, jnp.asarray(dk),
+                                     jnp.asarray(dv), jnp.asarray(target))
+    tk, tv = tp.paged_insert_prefill(*tpools, torch.from_numpy(dk),
+                                     torch.from_numpy(dv),
+                                     torch.from_numpy(target))
+    for j, t in ((jk, tk), (jv, tv)):
+        if kind == "int8":
+            for field in ("data", "scale"):
+                _same_live(getattr(j, field), getattr(t, field))
+        else:
+            _same_live(j, t)
+    assert tp.pool_data(tk)[:, 1:4].any()   # the live pages were written
+    with pytest.raises(ValueError, match="pages of"):
+        tp.paged_insert_prefill(*tpools, torch.from_numpy(dk[:, :, :6]),
+                                torch.from_numpy(dv[:, :, :6]),
+                                torch.from_numpy(target))
