@@ -2420,6 +2420,10 @@ def rolling_serve(card, cfg, params, name, kind, paged):
                 r in ("length", "eos") for r in reasons),
             "custody balances": custody["balanced"],
             "resumed turns": c["rolling_resumes"].value > 0,
+            # no claim outlives the settle: a demotion the tier worker
+            # planned after the last admission round runs on the idle
+            # engine, not at the next submit
+            "claims_in_flight_after_settle 0": unsettled == 0,
         }
         if paged:
             tier = svc._tier

@@ -661,11 +661,14 @@ class Engine:
             # idle conversations; on_tier_pressure(need) from the gate's
             # demote band: the tier worker plans demotions (no device work);
             # on_tier_drain() at the start of each paged admission round,
-            # after the pending-free flush: the planned demotions run here,
-            # on the engine thread. All three run on the engine thread
+            # after the pending-free flush, and on an idle loop's wake by
+            # request_tier_drain: the planned demotions run here, on the
+            # engine thread. All three run on the engine thread
             self.on_pool_pressure: Optional[Callable[[int], None]] = None
             self.on_tier_pressure: Optional[Callable[[int], None]] = None
             self.on_tier_drain: Optional[Callable[[], None]] = None
+            # set under _cv by request_tier_drain, taken by the loop
+            self._tier_due = False
             # promotion copies in flight: (event, pinned source) kept alive
             # until the event has passed
             self._promote_sources: List[Tuple[Any, Any]] = []
@@ -1573,13 +1576,25 @@ class Engine:
                     while (not self._stop and not self._queue
                            and not self._any_active() and not in_flight
                            and not self._chaos_pending()
-                           and not (mh is not None and mh.beat_due())):
+                           and not (mh is not None and mh.beat_due())
+                           and not self._tier_due):
                         # idle engines beat too, or the supervisor would
                         # read "no work" as "wedged"; an armed chaos fault
                         # leaves the wait to land at the seam below
                         self._beat()
                         self._cv.wait(timeout=0.25)
                     stopping = self._stop
+                    tier_due, self._tier_due = self._tier_due, False
+                if tier_due and not stopping:
+                    # demotions the tier worker queued: an idle engine
+                    # reaches no admission round to run them, and their
+                    # claims would hold the conversations until the next
+                    # submit. Outside _cv: the drain takes the registry
+                    # lock. The wait's test then sends the loop on to any
+                    # other work
+                    self._in_step = True
+                    self._drain_tier()
+                    continue
                 if not stopping and mh is not None and mh.beat_due():
                     # an idle pod coordinator keeps its workers' receive
                     # inside the process group's timeout
@@ -1885,6 +1900,22 @@ class Engine:
         else:
             self._admit_paged()
 
+    def request_tier_drain(self) -> None:
+        """Tier worker, after it queued demote orders: have the loop run
+        them now, woken from its idle wait if need be."""
+        with self._cv:
+            self._tier_due = True
+            self._cv.notify_all()
+
+    def _drain_tier(self) -> None:
+        """Engine thread, no lock held: the tier worker's planned
+        demotions."""
+        if self.on_tier_drain is not None:
+            try:
+                self.on_tier_drain()
+            except Exception:
+                logger.exception("tier drain failed")
+
     # swarmlint: hot
     def _admit_paged(self) -> None:
         """Paged admission rounds. A request whose pages the pool cannot
@@ -1915,12 +1946,7 @@ class Engine:
                 self._pagecheck_poison(freed_pages)
         self._promote_sources = [(ev, src) for ev, src
                                  in self._promote_sources if not ev.query()]
-        if self.on_tier_drain is not None:
-            # the tier worker's planned demotions, on this thread
-            try:
-                self.on_tier_drain()
-            except Exception:
-                logger.exception("tier drain failed")
+        self._drain_tier()
         if not self._backpressure_gate():
             return
         pressure_called = False

@@ -705,6 +705,12 @@ class ServingService:
           claim (a keep here would leak the pages a later store
           displaces).
 
+        A claim the tier worker holds for a demotion the engine has not
+        run yet (``tier_demote``) is taken back: the turn resumes hot and
+        ``TierManager.drain_engine`` skips the order. A conversation being
+        touched is no longer the coldest; the gate signals again while
+        pressure remains.
+
         ``pre_count`` is the conversation's length read before the prompt
         window was fetched: a message that lands in between renders next
         turn instead of being counted as rendered."""
@@ -719,7 +725,9 @@ class ServingService:
                 self._rolling.pop(key, None)
                 st = None
             if st is not None and st.get("in_flight"):
-                return "plain", None, None
+                if not st.pop("tier_demote", None):
+                    return "plain", None, None
+                st["in_flight"] = False
             # await_store: cleared by _rolling_store; still set at
             # finalize, the turn's K/V was never adopted (a dense
             # extraction came up short) and the state restarts

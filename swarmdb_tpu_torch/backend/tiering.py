@@ -20,16 +20,22 @@ The counterpart of ``swarmdb_tpu/backend/tiering.py``, on the card:
           from the broker log (the supervisor's replay path proved that
           replay gives the same tokens)
 
-Threading, as in the JAX package:
+Threading, as in the JAX package but for the last two points of the
+first list below (the JAX package's idle engine leaves a planned
+demotion, and its claim, to the next submit):
 
 - the tier WORKER thread only plans (victim selection over the rolling
   registry, under the service's registry lock) and queues demote orders;
 - all device work runs on the ENGINE thread, on its stream, in program
   order with the decode graphs and the admission writes: orders drain at
   the start of each paged admission round (``Engine._admit_paged`` calls
-  ``on_tier_drain`` right after the pending-free flush), promotion
-  payloads ride the resumed ``GenRequest`` into admission
-  (``Engine._promote_insert``);
+  ``on_tier_drain`` right after the pending-free flush), and the worker
+  wakes an idle engine to drain them (``Engine.request_tier_drain``), so
+  no claim waits for the next submit; promotion payloads ride the resumed
+  ``GenRequest`` into admission (``Engine._promote_insert``);
+- a turn that arrives while its conversation's demotion is planned but
+  not yet run takes the claim back (``ServingService._rolling_plan``
+  clears ``tier_demote``; the drain skips the order) and resumes hot;
 - ``demote_now`` runs when paged admission failed to allocate
   (``ServingService._on_pool_pressure``: engine thread, registry lock
   held), spilling idle conversations before any is evicted to nothing.
@@ -210,7 +216,8 @@ class TierManager:
     def _plan(self, need: int) -> None:
         """Worker thread: pick victims under the registry lock, claim them
         (``tier_demote`` + ``in_flight``, so no plan or eviction races the
-        order) and queue them for the engine's next admission round."""
+        order), queue them and have the engine thread run them, idle or
+        not."""
         svc = self.service
         if svc._rolling is None:
             return
@@ -224,12 +231,17 @@ class TierManager:
                 st["in_flight"] = True
                 st["tier_demote"] = True
                 self._orders.append(k)
+        if victims:
+            # after the registry lock: the engine's _cv is never taken
+            # under it
+            self.engine.request_tier_drain()
 
     # ------------------------------------------------- engine-thread work
 
     def drain_engine(self) -> None:
-        """Engine thread, start of a paged admission round: run the
-        worker's planned demotions."""
+        """Engine thread, at the start of a paged admission round or woken
+        idle: run the worker's planned demotions. An order whose claim a
+        turn took back (``tier_demote`` cleared) is skipped."""
         if not self._orders:
             return
         svc = self.service
@@ -285,6 +297,7 @@ class TierManager:
             evicted.extend(out)
             return t
 
+        gather_s = 0.0
         try:
             k_pay = pool_gather_pages(eng.cache["k"], pages, host)
             v_pay = (pool_gather_pages(eng.cache["v"], pages, host)
@@ -295,14 +308,18 @@ class TierManager:
                 done = torch.cuda.Event()
                 done.record()
                 done.synchronize()
+            gather_s = time.perf_counter() - t0
+            if v_pay is not None:
+                # inside the guard too: a store that fails (its codec,
+                # say) must not leave the entry claimed with its pages
+                evicted += self.store.put(key, k_pay, v_pay, len(pages),
+                                          st["len"])
         except Exception:
-            logger.exception("tier demote gather failed for %r", key)
+            logger.exception("tier demote failed for %r", key)
             k_pay = v_pay = None
         if v_pay is not None:
-            self.demote_s += time.perf_counter() - t0
+            self.demote_s += gather_s
             self.demoted_pages += len(pages)
-            evicted += self.store.put(key, k_pay, v_pay, len(pages),
-                                      st["len"])
         for ek in evicted:
             if ek != key:
                 # an older warm entry fell out to make room: cold now

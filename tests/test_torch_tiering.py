@@ -16,7 +16,14 @@ cases, each run through both packages where both can run it):
 - a warm entry evicted by a newer demotion goes cold (counters equal the
   JAX package's) and its conversation is still served;
 - ``status()`` has the JAX package's keys, ``health()["tier"]`` carries
-  it, and ``SWARMDB_TIER=0`` attaches no tier manager.
+  it, and ``SWARMDB_TIER=0`` attaches no tier manager;
+- the tier claim's lifecycle, where the port departs from the JAX
+  package: a demotion planned while the engine is idle runs within 2 s
+  (the JAX package's claim waits for the next submit, whose turn then
+  goes plain: the control case shows it), a turn that meets a planned
+  demotion takes the claim back and resumes hot, and a warm store that
+  fails degrades the demotion to cold instead of leaving the claim. The
+  replies equal a never-demoted serve's.
 
 Tolerances: none (tokens, bytes and counters are compared exactly).
 """
@@ -424,3 +431,183 @@ def test_a_stopped_service_releases_its_warm_store(monkeypatch, tmp_path):
     del svc, tier
     gc.collect()
     assert store() is None
+
+
+# ------------------------------------------------------ the claim's lifecycle
+
+CLAIM_WAIT_S = 2.0
+
+
+def wait_for(pred, timeout=CLAIM_WAIT_S):
+    """Poll ``pred`` until it holds or ``timeout`` seconds have passed;
+    its last value."""
+    import time
+
+    deadline = time.time() + timeout
+    while not pred() and time.time() < deadline:
+        time.sleep(0.02)
+    return pred()
+
+
+def entry(svc, key):
+    """The registry entry's claim and residence: (in_flight, tier_demote,
+    device pages, host)."""
+    with svc._rolling_lock:
+        st = svc._rolling.get(key)
+        return None if st is None else (
+            bool(st["in_flight"]), bool(st.get("tier_demote")),
+            bool(st.get("pages")), bool(st.get("host")))
+
+
+def traced_plans(svc):
+    """Each rolling plan's (mode, tier origin), in order."""
+    seen = []
+    plan = svc._rolling_plan
+
+    def traced(key, msg, sampling, pre_count=0):
+        out = plan(key, msg, sampling, pre_count)
+        seen.append((out[0], msg.metadata.get("tier_origin")))
+        return out
+
+    svc._rolling_plan = traced
+    return seen
+
+
+def never_demoted(monkeypatch, tmp_path, n=3):
+    """The port's replies to ``turns(..., n)`` with no demotion."""
+    js, ts = tier_pair(monkeypatch, tmp_path / "hot")
+    js.db.close()
+    return serve(ts, lambda s: turns(s, "u", n))
+
+
+def test_idle_engine_drains_a_planned_demotion(monkeypatch, tmp_path):
+    """A demotion the worker plans after the last admission round, the
+    engine idle: the engine thread runs it within 2 s (not in flight,
+    host-resident, no device pages, no order left), and the next turn is
+    a warm resume whose replies equal a never-demoted serve's."""
+    js, ts = tier_pair(monkeypatch, tmp_path / "tier")
+    js.db.close()
+    key = ("u", "bot")
+    plans = traced_plans(ts)
+
+    def drive(svc):
+        out = turns(svc, "u", 1)
+        wait_parked(svc, key)
+        before = counters(svc)["rolling_resumes"]
+        svc._tier._plan(10 ** 6)
+        assert wait_for(lambda: entry(svc, key) == (False, False, False,
+                                                    True)), entry(svc, key)
+        assert svc._tier.status()["pending_orders"] == 0
+        assert svc._tier.demotions == 1
+        out.append(chat(svc, "u", "turn 1 from u"))
+        assert counters(svc)["rolling_resumes"] == before + 1
+        assert plans[-1] == ("resume", "warm")
+        assert svc._tier.promotions == 1
+        out.append(chat(svc, "u", "turn 2 from u"))
+        return out
+
+    replies = serve(ts, drive)
+    assert replies == never_demoted(monkeypatch, tmp_path)
+
+
+def test_turn_takes_back_a_pending_demotion(monkeypatch, tmp_path):
+    """The drain kept from running: a planned demotion holds the claim
+    when the conversation's next turn arrives. The turn takes the claim
+    back and resumes hot (no demotion, no plain prefill); the order it
+    left behind is skipped by a drain run after the turn's finalize, and
+    the replies equal a never-demoted serve's."""
+    js, ts = tier_pair(monkeypatch, tmp_path / "tier")
+    js.db.close()
+    key = ("u", "bot")
+    plans = traced_plans(ts)
+
+    def drive(svc):
+        eng, tier = svc.engine, svc._tier
+        out = turns(svc, "u", 1)
+        wait_parked(svc, key)
+        eng.on_tier_drain = lambda: None
+        try:
+            tier._plan(10 ** 6)
+            assert entry(svc, key) == (True, True, True, False)
+            before = counters(svc)["rolling_resumes"]
+            out.append(chat(svc, "u", "turn 1 from u"))
+            assert plans[-1] == ("resume", "hot")
+            assert counters(svc)["rolling_resumes"] == before + 1
+            wait_parked(svc, key)
+            # the claim is gone; its order waits for a drain
+            assert entry(svc, key) == (False, False, True, False)
+            assert tier.demotions == 0
+            assert tier.status()["pending_orders"] == 1
+        finally:
+            eng.on_tier_drain = tier.drain_engine
+        eng.request_tier_drain()
+        assert wait_for(lambda: tier.status()["pending_orders"] == 0)
+        assert entry(svc, key) == (False, False, True, False)
+        assert tier.demotions == 0
+        out.append(chat(svc, "u", "turn 2 from u"))
+        assert plans[-1] == ("resume", "hot")
+        return out
+
+    replies = serve(ts, drive)
+    assert replies == never_demoted(monkeypatch, tmp_path)
+
+
+def test_jax_reference_holds_the_idle_claim(monkeypatch, tmp_path):
+    """The control: the same idle plan on the JAX package leaves the
+    claim in flight (its idle engine never drains), and the next turn is
+    served plain (no resume) while its admission round runs the
+    demotion. This is the ordering the two cases above repair."""
+    import time
+
+    js, ts = tier_pair(monkeypatch, tmp_path / "tier")
+    ts.db.close()
+    key = ("u", "bot")
+    plans = traced_plans(js)
+
+    def drive(svc):
+        turns(svc, "u", 1)
+        wait_parked(svc, key)
+        before = counters(svc)["rolling_resumes"]
+        svc._tier._plan(10 ** 6)
+        time.sleep(1.0)
+        held = entry(svc, key)
+        chat(svc, "u", "turn 1 from u")
+        return (held, plans[-1][0],
+                counters(svc)["rolling_resumes"] - before,
+                svc._tier.status()["counters"]["demotions"])
+
+    assert serve(js, drive) == ((True, True, True, False), "plain", 0, 1)
+
+
+def test_failed_warm_store_demotes_cold(monkeypatch, tmp_path):
+    """A warm store that raises while it takes a demoted payload (its
+    codec, say) degrades the demotion to a cold eviction: the entry and
+    its device pages go, no claim is left, and the next turn is a cold
+    resume that is served."""
+    js, ts = tier_pair(monkeypatch, tmp_path / "tier")
+    js.db.close()
+    key = ("u", "bot")
+    plans = traced_plans(ts)
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("store failed")
+
+    def drive(svc):
+        turns(svc, "u", 1)
+        wait_parked(svc, key)
+        free = svc.engine.rolling_free_count()
+        svc._tier.store.put = boom
+        try:
+            svc._tier._plan(10 ** 6)
+            assert wait_for(lambda: entry(svc, key) is None), entry(svc,
+                                                                    key)
+        finally:
+            del svc._tier.store.put
+        assert svc._tier.demotions == 0
+        assert svc.engine.rolling_free_count() > free
+        reply = chat(svc, "u", "turn 1 from u")
+        assert plans[-1] == ("keep", "cold")
+        assert svc._tier.cold_resumes == 1
+        return reply
+
+    assert serve(ts, drive)[1] in ("length", "eos")
